@@ -1,0 +1,179 @@
+"""Model assembly for serving: init, the paged KV pool's layout, and the
+unified ragged mixed step.
+
+Counterpart of ``repro.models.model.Model`` for attention-only causal
+stacks (the serving path). Parameters are a plain dict of tensors with
+``params["layers"]`` a list of per-layer dicts in layer order (the bridge
+unpacks the reference's grouped ``(R, U, ...)`` stacking; eager PyTorch
+gains nothing from stacked leaves). The paged KV pool is ``{"k", "v"}`` of
+shape ``(L, num_blocks, block_size, kvh, hd)``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+@dataclass(frozen=True)
+class ModelOptions:
+    compute_dtype: torch.dtype = torch.float32
+    param_dtype: torch.dtype = torch.float32
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is a backbone the port can serve."""
+    bad = []
+    if set(cfg.layer_kinds) != {BLOCK_ATTN}:
+        bad.append(f"block kinds {sorted(set(cfg.layer_kinds))}")
+    if not cfg.causal or cfg.prefix_lm_len:
+        bad.append("non-causal attention")
+    if cfg.attn_kind != "full":
+        bad.append(f"attention {cfg.attn_kind!r}")
+    if cfg.moe is not None or cfg.frontend:
+        bad.append("moe / frontend")
+    if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu":
+        bad.append(f"{cfg.norm_type} / {cfg.mlp_type}")
+    if cfg.pos_type != "rope" or cfg.embed_scale or cfg.post_ln:
+        bad.append("positions / embedding scale / post-LN")
+    if cfg.qkv_bias or cfg.qk_norm or cfg.logit_softcap:
+        bad.append("qkv bias / qk norm / softcap")
+    if not cfg.tie_embeddings or cfg.d_ff <= 0:
+        bad.append("untied embeddings / no MLP")
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {'; '.join(bad)}")
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
+                 device="cuda"):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.opts = opts
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> Dict[str, Any]:
+        """Random parameters from a ``torch.Generator`` on the device, with
+        the reference's distributions: embeddings truncated-normal std 0.02,
+        dense weights truncated-normal std 1/sqrt(fan_in), norm scales 1.
+        Norm scales stay float32; matrices are stored in ``param_dtype``."""
+        cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+        dense = lambda *shape: L.dense_init(shape, gen, dev, pdt)
+        ones = lambda n: {"scale": torch.ones(n, dtype=torch.float32,
+                                              device=dev)}
+
+        def layer():
+            return {"ln1": ones(d),
+                    "attn": {"wq": dense(d, h * hd), "wk": dense(d, kvh * hd),
+                             "wv": dense(d, kvh * hd), "wo": dense(h * hd, d)},
+                    "ln2": ones(d),
+                    "mlp": {"wg": dense(d, f), "wu": dense(d, f),
+                            "wd": dense(f, d)}}
+
+        return {
+            "embed": {"tok": L.embed_init((cfg.vocab_size, d), gen, dev, pdt)},
+            "layers": [layer() for _ in range(n)],
+            "final_norm": ones(d),
+        }
+
+    @staticmethod
+    def param_count(params) -> int:
+        def count(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.numel()
+            items = tree.values() if isinstance(tree, dict) else tree
+            return sum(count(v) for v in items)
+        return count(params)
+
+    # ------------------------------------------------------------------
+    def paged_cache_specs(self, num_blocks: int, block_size: int):
+        """Shape and dtype of each paged pool leaf: a global
+        (L, num_blocks, block_size, kvh, hd) K and V page pool shared by
+        every request."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"k": (shape, self.opts.compute_dtype),
+                "v": (shape, self.opts.compute_dtype)}
+
+    def init_paged_cache(self, num_blocks: int, block_size: int):
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name, (shape, dt) in
+                self.paged_cache_specs(num_blocks, block_size).items()}
+
+    def unembed(self, params, h):
+        """Tied unembedding: h @ E^T in the compute dtype."""
+        dt = self.opts.compute_dtype
+        return h.to(dt) @ params["embed"]["tok"].to(dt).T
+
+    # ------------------------------------------------------------------
+    def mixed_step(self, params, tokens, token_rows, token_pos, cache,
+                   peft=None, block_tables=None, logit_idx=None):
+        """One unified ragged prefill + decode step against the paged pool:
+        the serving tick's model call.
+
+        tokens: (T, 1) int — the tick's packed token list (each decode row
+        one fed-back token, every in-flight prefill its next chunk);
+        token_rows: (T,) int32 each token's pool slot; token_pos: (T,) int32
+        its absolute position, -1 marking a dead padding token (its output
+        is zeros and its KV lands on scratch page 0); cache: the paged pool
+        (``init_paged_cache``); peft: None, or ``{"method": "aot", "tables":
+        (L, tasks, V, d), "task_ids": (T,) int32}`` for fused multi-task AoT;
+        block_tables: (num_slots, npages) int32; logit_idx: (num_slots,)
+        per-slot index into the packed axis whose logits to report.
+
+        The KV pool is updated IN PLACE (the reference returns a new cache
+        from ``.at[].set``): every token's K/V is written into its slot's
+        mapped page before attention, so chunk tokens see their
+        lower-positioned chunk-mates and never another slot's chunk. Dead
+        tokens all write page 0, offset 0; CUDA leaves the order of those
+        duplicate writes undefined, which is harmless only because page 0
+        is never read unmasked. Returns (logits (num_slots, V), cache)."""
+        cfg = self.cfg
+        dt = self.opts.compute_dtype
+        assert block_tables is not None, "mixed_step serves paged pools only"
+        aot = peft is not None and peft["method"] == "aot"
+        if peft is not None and not aot:
+            raise NotImplementedError(f"peft {peft['method']!r} is not ported")
+        ids = tokens[:, 0].to(torch.int32)
+        h = params["embed"]["tok"][ids.long()].to(dt)[:, None]   # (T, 1, d)
+        pos = token_pos.clamp(min=0).long()
+        sincos = L.rope_sincos(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        bs_page = cache["k"].shape[2]
+        page = torch.where(token_pos >= 0,
+                           block_tables.long()[token_rows.long(),
+                                               pos // bs_page], 0)
+        row = page * bs_page + pos % bs_page      # pool row of each token
+        kvh, hd = cfg.num_kv_heads, cfg.head_dim
+        for i, lp in enumerate(params["layers"]):
+            if aot:                                   # the paper's Eq. 1
+                h = ops.aot_gather_add_multitask(
+                    h[:, 0], peft["tables"][i], peft["task_ids"], ids)[:, None]
+            q, k, v = L.attn_project_qkv(cfg, lp["attn"],
+                                         L.apply_norm(cfg, lp["ln1"], h),
+                                         None, dt, sincos=sincos)
+            kc, vc = cache["k"][i], cache["v"][i]
+            kc.view(-1, kvh, hd).index_copy_(0, row, k[:, 0].to(kc.dtype))
+            vc.view(-1, kvh, hd).index_copy_(0, row, v[:, 0].to(vc.dtype))
+            o = ops.ragged_paged_attention(q[:, 0], kc, vc, block_tables,
+                                           token_rows, token_pos)
+            h = h + L.attn_output(cfg, lp["attn"], o[:, None], dt)
+            h = h + L.apply_mlp(cfg, lp["mlp"],
+                                L.apply_norm(cfg, lp["ln2"], h), dt)
+        h = L.apply_norm(cfg, params["final_norm"], h)
+        if logit_idx is None:
+            logit_idx = torch.arange(h.shape[0], device=h.device)
+        h_sel = h[:, 0][logit_idx.long()]                         # (slots, d)
+        return self.unembed(params, h_sel), cache

@@ -1,0 +1,186 @@
+"""Paged KV pool for continuous batching: a global pool of
+``block_size``-token pages plus per-slot block tables.
+
+Counterpart of the core of ``repro.serve.kv_pool.PagedKVPool``. Memory is
+claimed page by page as requests deepen, so capacity is bounded by tokens
+in flight, not ``num_slots * max_len``. Page 0 is a reserved scratch page:
+dead padding tokens of the mixed step write their KV there and unmapped
+block-table entries point at it (they are only ever read masked).
+
+Bookkeeping (slots, pages, refcounts, lengths, task ids, block tables) is
+host-side numpy, mutated between device steps; the device holds only the
+page pool itself, which the model's mixed step writes in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set
+
+import numpy as np
+
+
+class PagedKVPool:
+    """``num_blocks`` counts physical pages including scratch page 0, so
+    usable capacity is ``(num_blocks - 1) * block_size`` tokens.
+    ``num_slots`` bounds the batch width. Pages carry refcounts (holders
+    per page); in this port every mapped page has exactly one holder, as
+    page sharing (fork, prefix cache) is not ported yet."""
+
+    def __init__(self, model, num_slots: int, max_len: int,
+                 block_size: int = 16, num_blocks: Optional[int] = None):
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.block_size = block_size
+        self.max_pages = -(-max_len // block_size)
+        if num_blocks is None:      # capacity parity with a contiguous pool
+            num_blocks = num_slots * self.max_pages + 1
+        assert num_blocks >= self.max_pages + 1, (
+            f"num_blocks {num_blocks} cannot hold even one max_len request "
+            f"({self.max_pages} pages + scratch)")
+        self.num_blocks = num_blocks
+        self.cache = model.init_paged_cache(num_blocks, block_size)
+        self.block_tables = np.zeros((num_slots, self.max_pages), np.int32)
+        self.cur_len = np.zeros(num_slots, np.int32)
+        self.task_id = np.zeros(num_slots, np.int32)
+        self._free_slots: List[int] = list(range(num_slots - 1, -1, -1))
+        self._used_slots: Set[int] = set()
+        self._free_blocks: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._pages: Dict[int, List[int]] = {}
+        self._refs = np.zeros(num_blocks, np.int32)  # holders per page
+        self.peak_pages = 0                 # high-water blocks_in_use
+
+    # ------------------------------------------------------------------
+    # capacity queries
+    # ------------------------------------------------------------------
+    def has_free(self) -> bool:
+        return bool(self._free_slots)
+
+    def blocks_in_use(self) -> int:
+        return self.num_blocks - 1 - len(self._free_blocks)
+
+    def pages_needed(self, tokens: int) -> int:
+        return -(-tokens // self.block_size)
+
+    def can_claim(self, npages: int, reserve: int = 0) -> bool:
+        """True when ``npages`` pages can be claimed while leaving at least
+        ``reserve`` free (chunked admission reserves one append page per
+        running decode row, so a prompt's claim never starves decode)."""
+        return len(self._free_blocks) >= npages + reserve
+
+    # ------------------------------------------------------------------
+    # slot and page lifecycle
+    # ------------------------------------------------------------------
+    def _note_peak(self) -> None:
+        self.peak_pages = max(self.peak_pages, self.blocks_in_use())
+
+    def alloc(self, task_id: int = 0, npages: int = 0) -> Optional[int]:
+        """Claim a slot plus ``npages`` pages (None if either is short)."""
+        assert npages <= self.max_pages, (
+            f"{npages} pages exceeds max_len ({self.max_pages} pages)")
+        if not self._free_slots or len(self._free_blocks) < npages:
+            return None
+        slot = self._free_slots.pop()
+        self._used_slots.add(slot)
+        self.task_id[slot] = task_id
+        self.cur_len[slot] = 0
+        pages = [self._free_blocks.pop() for _ in range(npages)]
+        self._pages[slot] = pages
+        self._refs[pages] = 1
+        self.block_tables[slot, :npages] = pages
+        self._note_peak()
+        return slot
+
+    def ensure_append_page(self, slot: int) -> bool:
+        """Map the page holding depth ``cur_len[slot]``, the next decode
+        append. Returns False when the pool is out of pages: the caller
+        must preempt someone."""
+        need = int(self.cur_len[slot]) // self.block_size
+        pages = self._pages[slot]
+        if need < len(pages):
+            return True
+        assert need == len(pages), "append skipped a page"
+        if not self._free_blocks:
+            return False
+        page = self._free_blocks.pop()
+        self._refs[page] = 1
+        pages.append(page)
+        self.block_tables[slot, need] = page
+        self._note_peak()
+        return True
+
+    def free(self, slot: int) -> None:
+        if slot not in self._used_slots:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._used_slots.remove(slot)
+        for page in reversed(self._pages.pop(slot)):
+            self._refs[page] -= 1
+            if self._refs[page] == 0:
+                self._free_blocks.append(page)
+        self.block_tables[slot] = 0
+        self.cur_len[slot] = 0
+        self.task_id[slot] = 0
+        self._free_slots.append(slot)
+
+    def commit_prefill(self, slot: int, length: int) -> None:
+        """Publish a prefill whose KV the mixed step already wrote into
+        this slot's mapped pages: bookkeeping only."""
+        if length > self.max_len:
+            raise ValueError(f"prompt length {length} exceeds pool max_len "
+                             f"{self.max_len}")
+        assert len(self._pages[slot]) >= self.pages_needed(length), (
+            f"slot {slot}: {len(self._pages[slot])} pages mapped, prefill "
+            f"wrote {length} tokens")
+        self.cur_len[slot] = length
+
+    def advance(self, slots) -> None:
+        """Record one decode append for each slot in ``slots``."""
+        for s in slots:
+            self.cur_len[s] += 1
+
+    # ------------------------------------------------------------------
+    def leak_report(self) -> List[str]:
+        """Invariant sweep: slots partition into free and used; each page's
+        refcount equals the number of slots mapping it; pages partition
+        into free and mapped (scratch page 0 excluded). Returns findings
+        (empty = clean)."""
+        bad: List[str] = []
+        free = set(self._free_slots)
+        if len(self._free_slots) != len(free):
+            bad.append("duplicate slots on free list")
+        both = free & self._used_slots
+        if both:
+            bad.append(f"slots both free and used: {sorted(both)}")
+        lost = set(range(self.num_slots)) - (free | self._used_slots)
+        if lost:
+            bad.append(f"lost slots (neither free nor used): {sorted(lost)}")
+        deep = [s for s in sorted(free) if self.cur_len[s] != 0]
+        if deep:
+            bad.append(f"freed slots with nonzero length: {deep}")
+        if set(self._pages) != self._used_slots:
+            bad.append("page map out of sync with used slots: "
+                       f"{sorted(set(self._pages) ^ self._used_slots)}")
+        fb = set(self._free_blocks)
+        if len(self._free_blocks) != len(fb):
+            bad.append("duplicate pages on free list")
+        if 0 in fb:
+            bad.append("scratch page 0 leaked onto the free list")
+        refs = np.zeros(self.num_blocks, np.int32)
+        for slot, pages in self._pages.items():
+            ps = set(pages)
+            if len(pages) != len(ps):
+                bad.append(f"slot {slot} double-mapped a page")
+            if 0 in ps:
+                bad.append(f"slot {slot} mapped the scratch page")
+            if len(pages) < self.pages_needed(int(self.cur_len[slot])):
+                bad.append(f"slot {slot} is deeper than its mapped pages")
+            refs[pages] += 1
+        if not np.array_equal(refs, self._refs):
+            off = np.nonzero(refs != self._refs)[0]
+            bad.append(f"page refcounts out of sync at pages {off.tolist()}")
+        mapped = {p for pages in self._pages.values() for p in pages}
+        if fb & mapped:
+            bad.append(f"pages both free and mapped: {sorted(fb & mapped)}")
+        leaked = set(range(1, self.num_blocks)) - (fb | mapped)
+        if leaked:
+            bad.append(f"leaked pages (neither free nor mapped): "
+                       f"{sorted(leaked)}")
+        return bad
