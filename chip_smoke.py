@@ -6,32 +6,49 @@
 Phases, each printing one line of results; any failure exits non-zero:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: both CUDA kernels compiled by nvcc for sm_90a from
-   src/repro_torch/kernels/csrc, in parallel;
+2. build: every CUDA source under src/repro_torch/kernels/csrc compiled by
+   nvcc for sm_90a, one nvcc each, in parallel;
 3. parity: each kernel's public wrapper against its plain PyTorch version
-   on the card at smollm-360m's shapes (gather-add bitwise; ragged
-   attention within 2e-5 in float32 and 2e-2 in bfloat16), for both the
-   16-byte-load and the one-element-load build of each kernel;
-4. kernel times at the serving tick's shapes (device time from
-   torch.profiler), beside the plain version's and the least time the card
-   could take (bytes at 3.35 TB/s, operations at the published peak);
-5. the main path: full-width 32-layer smollm-360m in bfloat16 with 4 fused
-   tasks serving a Poisson stream through the launcher's own code
-   (repro_torch.launch.serve), greedy, then 4 requests sampled at
-   temperature 0.8 / top-p 0.9; every request must finish, the pool must
-   drain clean, and each kernel must launch 32 times per dispatched tick
-   (launch counts zeroed just before each stream; ``launches`` in the
-   kernels line is the greedy stream's, ``launches_sampled`` the other's);
-6. cross-check at full width with 2 layers: one mixed tick through the
-   kernels and through the plain versions must agree (bf16 tolerance,
-   same greedy tokens); preempt-and-recompute parity is reported.
+   on the card at smollm-360m's shapes (gather-add bitwise; attention
+   within 2e-5 in float32 and 2e-2 in bfloat16), for both the
+   16-byte-load and the one-element-load build where a kernel has both:
+   ragged paged attention; flash attention (causal, full, window; sq = skv
+   in {1, 37, 512}, sq != skv, hd 60, a strided q); contiguous decode
+   (scalar and per-row lengths with 0, 1 and ragged depths, S = 1024);
+   paged decode (length 0, lengths that straddle pages, depth 1024);
+4. kernel times at the serving paths' shapes (device time from
+   torch.profiler), beside the plain version's, one PyTorch library call's
+   where there is one, and the least time the card could take (bytes at
+   3.35 TB/s, operations at the published peak);
+5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
+   fused tasks serving a Poisson stream through the launcher's own code
+   (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
+   sampled at temperature 0.8 / top-p 0.9;
+5b. the same greedy stream admitted whole: --layout slots (flash prefill,
+   contiguous decode) and --layout paged --prefill-chunk 0 (flash prefill,
+   ragged ticks);
+5c. the static batch (ServeEngine.generate, the paper's Fig. 3 setting):
+   16 prompts of 512 tokens with mixed tasks, 64 new tokens; the same
+   prompts as per-task batches; the mixed batch over a paged pool
+   (Model.decode_step(block_tables=)). Generated tokens/s of each;
+   in 5-5c every request must finish, every pool must drain clean, and
+   each kernel must launch exactly 32 times per call that runs it (counts
+   zeroed just before each run);
+6. cross-checks at full width with 2 layers: one mixed tick, and a prefill
+   plus three decode steps, through the kernels and through the plain
+   versions (bf16 tolerance, same greedy tokens); paged against contiguous
+   decode steps from one prefill (same tokens); preempt-and-recompute
+   parity is reported.
 
-The last two lines are a JSON line of per-kernel numbers and
-``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
+The last two lines are a JSON line of per-kernel numbers (``launches``:
+the count on the path each kernel serves; ``launches_by_path``: every
+path's) and ``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -51,6 +68,9 @@ SLOTS, MAX_LEN = 8, 1024
 NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
 DEV = "cuda"
+ROTATE = 32                        # layers of inputs a timing cycles through
+KERNEL_SOURCES = sorted(p.stem for p in (
+    ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"))
 
 
 def log(phase: str, **kv) -> None:
@@ -164,9 +184,15 @@ def ragged_bound(rows, pos, dtype):
     kv = sum(depth.values()) * KVH * HD * es * 2
     nbytes = 2 * T * H * HD * es + kv + 2 * T * 4 + SLOTS * NPAGES * 4
     flops = sum(p + 1 for p in pos if p >= 0) * H * HD * 4
+    return bound(nbytes, flops, dtype)
+
+
+def bound(nbytes, flops, dtype):
+    """(least ms, "bytes" or "operations") for one call."""
     peak = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def gather_inputs(gen, T, h_dtype, tables, sets=1):
@@ -258,8 +284,8 @@ def phase_parity(gen, report):
         dead = torch.tensor(pos, device=DEV) < 0
         return err, ok and bool((out[dead] == 0).all())
 
-    variants = {"vec": (HD, False), "scalar_hd60": (60, False),
-                "scalar_misaligned": (HD, True)}
+    variants = {"vec": (HD, False), "vec_hd128": (128, False),
+                "scalar_hd60": (60, False), "scalar_misaligned": (HD, True)}
     for variant, (hd, shift) in variants.items():
         rcases = []
         for name, (rows, pos) in packings().items():
@@ -274,6 +300,143 @@ def phase_parity(gen, report):
         log("3 parity", kernel="ragged_paged_attention", variant=variant,
             shapes=f"h15 kvh5 hd{hd} bs16 depth<=1024",
             max_abs_err=",".join(rcases))
+    parity_flash(gen, report)
+    parity_decode(gen, report)
+
+
+def check_close(what, out, plain, dtype, report, zero_rows=None):
+    """Hold a kernel's output to its plain version's at TOL[dtype]; rows
+    flagged in ``zero_rows`` must be exact zeros. Returns the max abs
+    error."""
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    report["parity"][what] = err
+    tol = TOL[dtype]
+    ok = torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
+    if zero_rows is not None:
+        ok = ok and bool((out[zero_rows] == 0).all())
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err} over tol {tol} "
+                             "(or a row that must be zero is not)")
+    return err
+
+
+# flash parity cases: name -> (b, sq, skv, hd, causal, window, strided,
+# heads); smollm's heads (15 over 5) unless a case names others
+FLASH_CASES = {
+    "causal_1": (2, 1, 1, HD, True, 0, False),
+    "causal_37": (2, 37, 37, HD, True, 0, False),
+    "causal_512": (2, 512, 512, HD, True, 0, False),
+    "full_37": (2, 37, 37, HD, False, 0, False),
+    "full_512": (1, 512, 512, HD, False, 0, False),
+    "window64_512": (2, 512, 512, HD, True, 64, False),
+    "causal_sq37_skv100": (2, 37, 100, HD, True, 0, False),
+    "causal_sq100_skv37": (2, 100, 37, HD, True, 0, False),
+    "full_sq37_skv100": (2, 37, 100, HD, False, 0, False),
+    "causal_hd60": (2, 37, 37, 60, True, 0, False),
+    "causal_strided_q": (2, 100, 100, HD, True, 0, True),
+    "causal_hd128": (2, 100, 100, 128, True, 0, False),    # 4 channels/lane
+    "window16_g8": (2, 100, 100, HD, True, 16, False, (8, 1)),
+}
+
+
+def flash_inputs(gen, b, sq, skv, hd, dtype, strided=False,
+                 heads=(H, KVH)):
+    """q (b, sq, h, hd), k and v (b, skv, kvh, hd); ``strided`` gives q as
+    a view with wider head and sequence strides (the kernel reads
+    strides)."""
+    h, kvh = heads
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device=DEV).to(dtype)
+    q = rnd(b, sq, h, 2 * hd)[..., :hd] if strided else rnd(b, sq, h, hd)
+    return q, rnd(b, skv, kvh, hd), rnd(b, skv, kvh, hd)
+
+
+def parity_flash(gen, report):
+    from repro_torch.kernels import flash_attention, ops
+    cases = []
+    for name, (b, sq, skv, hd, causal, window, *shape) in \
+            FLASH_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(gen, b, sq, skv, hd, dtype, *shape)
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            plain = flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, window=window)
+            err = check_close(f"flash/{name}/{dtype}", out, plain, dtype,
+                              report)
+            cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
+    log("3 parity", kernel="flash_attention",
+        shapes="h15 kvh5 hd64|60|128, h8 kvh1 hd64",
+        max_abs_err=",".join(cases))
+
+
+DECODE_LENS = [0, 1, 33, 255, 256, 577, 1000, 1024]   # per row, S = 1024
+PAGED_LENS = [0, 1, 15, 16, 17, 300, 1000, 1024]      # 8 slots, pages of 16
+
+
+def decode_inputs(gen, lens, dtype, hd=HD, layers=1, S=MAX_LEN,
+                  heads=(H, KVH)):
+    b, (h, kvh) = len(lens), heads
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device=DEV).to(dtype)
+    q = rnd(b, h, hd)
+    k, v = rnd(layers, b, S, kvh, hd), rnd(layers, b, S, kvh, hd)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=DEV)
+
+
+def parity_decode(gen, report):
+    """The contiguous and the paged decode kernel, each through its 16-byte
+    load build (hd 64 or 128, aligned) and its one-element build (hd 60, or
+    data one element off a 16-byte boundary), at smollm's heads and at the
+    kernels' most query heads per KV head (8)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    smollm = (H, KVH)
+    variants = {"vec": (HD, False, smollm),
+                "scalar_hd60": (60, False, smollm),
+                "scalar_misaligned": (HD, True, smollm),
+                "vec_hd128": (128, False, smollm),
+                "vec_g8": (HD, False, (8, 1))}
+    for variant, (hd, shift, heads) in variants.items():
+        cases = []
+        kvh = heads[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, lens = decode_inputs(gen, DECODE_LENS, dtype, hd,
+                                          heads=heads)
+            k, v = k[0], v[0]
+            if shift:
+                k, v = misaligned(k), misaligned(v)
+            for cur in ("per_row", 577, 0):
+                arg = lens if cur == "per_row" else cur
+                out = ops.decode_attention(q, k, v, arg)
+                plain = da.decode_attention_plain(q, k, v, arg)
+                zero = (lens <= 0) if cur == "per_row" else None
+                if cur == 0:
+                    zero = torch.ones(len(lens), dtype=torch.bool, device=DEV)
+                err = check_close(f"decode/{variant}/{cur}/{dtype}", out,
+                                  plain, dtype, report, zero)
+                cases.append(f"decode/{cur}/{str(dtype)[6:]}:{err:.2e}")
+            # paged: scrambled pages of 16 over 8 slots of 1024 tokens
+            qp = q
+            kp = torch.randn(NUM_BLOCKS, BS, kvh, hd, generator=gen,
+                             device=DEV).to(dtype)
+            vp = torch.randn(NUM_BLOCKS, BS, kvh, hd, generator=gen,
+                             device=DEV).to(dtype)
+            if shift:
+                kp, vp = misaligned(kp), misaligned(vp)
+            perm = torch.randperm(NUM_BLOCKS - 1, generator=gen,
+                                  device=DEV) + 1
+            bt = perm.view(SLOTS, NPAGES).to(torch.int32)
+            plens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=DEV)
+            out = ops.paged_decode_attention(qp, kp, vp, bt, plens)
+            plain = da.paged_decode_attention_plain(qp, kp, vp, bt, plens)
+            err = check_close(f"paged_decode/{variant}/{dtype}", out, plain,
+                              dtype, report, plens <= 0)
+            cases.append(f"paged/{str(dtype)[6:]}:{err:.2e}")
+        log("3 parity", kernel="decode_attention+paged_decode_attention",
+            variant=variant,
+            shapes=f"b8 h{heads[0]} kvh{kvh} hd{hd} S1024 bs16",
+            max_abs_err=",".join(cases))
 
 
 def timed(kern, plain, iters, plain_iters, tol):
@@ -352,7 +515,7 @@ def phase_times(gen, report):
     a = res["chunk256_decode"]
     rows_out.append({
         "name": "ragged_paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ragged_paged_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:286",
         "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
@@ -361,30 +524,143 @@ def phase_times(gen, report):
         **{n: fmt_times(r) + f"[{r['bound_by']}, T{r['T']}]"
            for n, r in res.items()})
     report["times"]["ragged_paged_attention"] = res
+    rows_out += times_prefill_decode(gen, report)
     return rows_out
 
 
-def phase_main_path(report):
+def times_prefill_decode(gen, report):
+    """The three kernels of the whole-prompt and decode paths at those
+    paths' shapes, bf16: flash at the static batch's prefill (16 prompts of
+    512, causal), contiguous decode at its steps (16 rows at depths
+    512-575 of S = 1024), paged decode over 8 slots of depths up to 1024.
+    Inputs rotate over ROTATE layers so L2 cannot serve repeated launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es, rows_out = torch.bfloat16, 2, []
+    # ---- flash attention: (16, 512, 15, 64) causal, 8 layers of inputs
+    b, s = 16, 512
+    qs = [flash_inputs(gen, b, s, s, HD, dt) for _ in range(8)]
+    kern = lambda i: ops.flash_attention(*qs[i % 8], causal=True)
+    plain = lambda i: fa.flash_attention_plain(*qs[i % 8], causal=True)
+    res = timed(kern, plain, 32, 8, tol=TOL[dt])
+    sdpa = lambda i: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in qs[i % 8]), is_causal=True,
+        enable_gqa=True)
+    res["library_ms"] = device_ms(sdpa, 32)      # yardstick only
+    pairs = b * H * s * (s + 1) // 2               # visible (head, q, kv)
+    res["bound_ms"], res["bound_by"] = bound(
+        b * s * (2 * H + 2 * KVH) * HD * es, 4 * HD * pairs, dt)
+    rows_out.append(dict(name="flash_attention",
+                         source="src/repro_torch/kernels/csrc/"
+                                "flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:73",
+                         res=res))
+    del qs
+    # ---- contiguous decode: 16 rows at depths 512..575 of S = 1024
+    lens = list(range(512, 576, 4))
+    q, k, v, cur = decode_inputs(gen, lens, dt, layers=ROTATE)
+    layer = lambda i: (k[i % ROTATE], v[i % ROTATE])
+    kern = lambda i: ops.decode_attention(q, *layer(i), cur)
+    plain = lambda i: da.decode_attention_plain(q, *layer(i), cur)
+    res = timed(kern, plain, 64, 16, tol=TOL[dt])
+    mask = (torch.arange(MAX_LEN, device=DEV)[None, :]
+            < cur[:, None])[:, None, None, :]   # (b, 1, 1, S): visible
+    sdpa = lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *(x.transpose(1, 2) for x in layer(i)),
+        attn_mask=mask, enable_gqa=True)
+    res["library_ms"] = device_ms(sdpa, 64)      # yardstick only
+    n_kv = sum(lens)
+    res["bound_ms"], res["bound_by"] = bound(
+        2 * len(lens) * H * HD * es + 2 * n_kv * KVH * HD * es
+        + 4 * len(lens), 4 * HD * H * n_kv, dt)
+    rows_out.append(dict(name="decode_attention",
+                         source="src/repro_torch/kernels/csrc/"
+                                "decode_attention.cu",
+                         replaces="src/repro/kernels/decode_attention.py:97",
+                         res=res))
+    del q, k, v
+    # ---- paged decode: 8 slots of depths up to 1024, scrambled pages
+    plens = [1024, 1000, 777, 576, 512, 300, 129, 17]
+    q = torch.randn(SLOTS, H, HD, generator=gen, device=DEV).to(dt)
+    kp = torch.randn(ROTATE, NUM_BLOCKS, BS, KVH, HD, generator=gen,
+                     device=DEV).to(dt)
+    vp = torch.randn(ROTATE, NUM_BLOCKS, BS, KVH, HD, generator=gen,
+                     device=DEV).to(dt)
+    perm = torch.randperm(NUM_BLOCKS - 1, generator=gen, device=DEV) + 1
+    bt = perm.view(SLOTS, NPAGES).to(torch.int32)
+    cur = torch.tensor(plens, dtype=torch.int32, device=DEV)
+    layer = lambda i: (kp[i % ROTATE], vp[i % ROTATE])
+    kern = lambda i: ops.paged_decode_attention(q, *layer(i), bt, cur)
+    plain = lambda i: da.paged_decode_attention_plain(q, *layer(i), bt, cur)
+    res = timed(kern, plain, 64, 16, tol=TOL[dt])
+    res["library_ms"] = None        # no one PyTorch call reads block tables
+    n_kv = sum(plens)
+    pages_read = sum(-(-n // BS) for n in plens)
+    res["bound_ms"], res["bound_by"] = bound(
+        2 * SLOTS * H * HD * es + 2 * n_kv * KVH * HD * es
+        + 4 * (SLOTS + pages_read), 4 * HD * H * n_kv, dt)
+    rows_out.append(dict(name="paged_decode_attention",
+                         source="src/repro_torch/kernels/csrc/"
+                                "decode_attention.cu",
+                         replaces="src/repro/kernels/decode_attention.py:186",
+                         res=res))
+    del kp, vp
+    out = []
+    for row in rows_out:
+        r = row.pop("res")
+        report["times"][row["name"]] = r
+        lib = r["library_ms"]
+        log("4 times", kernel=row["name"], times=fmt_times(r) + (
+            f"[{r['bound_by']}; library {lib:.5f}]" if lib is not None
+            else f"[{r['bound_by']}; library none]"))
+        out.append({"name": row["name"], "route": "cuda",
+                    "source": row["source"], "replaces": row["replaces"],
+                    "max_abs_err": r["err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": lib})
+    return out
+
+
+# the launcher's flags of every served stream: full-width smollm-360m in
+# bf16, 4 fused tasks, a Poisson stream of prompts of 4-512 tokens
+BASE = ["--arch", "smollm-360m", "--demo", "--tasks", "4",
+        "--rate", "0.5", "--slots", str(SLOTS), "--block-size", str(BS),
+        "--max-len", str(MAX_LEN), "--prefill-chunk", "256",
+        "--max-prefills", "4", "--prompt", "512", "--steps", "48",
+        "--dtype", "bfloat16", "--quiet"]
+GREEDY = ["--requests", "16"]
+# the path run whose count is each kernel's ``launches``
+MAIN_PATH = {"aot_gather_add_multitask": "paged_greedy",
+             "ragged_paged_attention": "paged_greedy",
+             "flash_attention": "static_mixed",
+             "decode_attention": "static_mixed",
+             "paged_decode_attention": "static_paged"}
+
+
+def build_engine():
+    """The launcher's engine for BASE (random weights, seed 0), and the
+    seconds it took."""
+    from repro_torch.launch import serve as launcher
+    t0 = time.perf_counter()
+    engine = launcher.build_engine(launcher.parser().parse_args(BASE))
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t0
+
+
+def phase_main_path(report, engine, setup_s):
+    """The paged streams (chunked prefill): greedy, then sampled."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
-    base = ["--arch", "smollm-360m", "--demo", "--tasks", "4",
-            "--rate", "0.5", "--slots", str(SLOTS), "--block-size", str(BS),
-            "--max-len", str(MAX_LEN), "--prefill-chunk", "256",
-            "--max-prefills", "4", "--prompt", "512", "--steps", "48",
-            "--dtype", "bfloat16", "--quiet"]
-    runs = {"greedy": ["--requests", "16"],
+    runs = {"greedy": GREEDY,
             "sampled": ["--requests", "4", "--temperature", "0.8",
                         "--top-p", "0.9", "--seed", "100"]}
-    t0 = time.perf_counter()
-    args = launcher.parser().parse_args(base + runs["greedy"])
-    engine = launcher.build_engine(args)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     layers = engine.model.cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     total, launches = {}, {}
     for label, extra in runs.items():
-        args = launcher.parser().parse_args(base + extra)
+        args = launcher.parser().parse_args(BASE + extra)
         arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
                                           args.tasks)
         d0 = engine.dispatches
@@ -409,10 +685,9 @@ def phase_main_path(report):
             launches=counts, finite="all reported rows")
         if len(sched.finished) != len(arrivals) or findings:
             raise AssertionError(f"{label}: unfinished requests or leaks")
-        for name, c in counts.items():
-            if c != layers * dispatched:
-                raise AssertionError(f"{label}: {name} launched {c} times, "
-                                     f"expected {layers} x {dispatched}")
+        check_launches(label, counts, {
+            "aot_gather_add_multitask": layers * dispatched,
+            "ragged_paged_attention": layers * dispatched})
         total[label] = dict(requests=len(sched.finished),
                             tokens=sched.tokens_emitted,
                             prompt_tokens=prompt_toks, ticks=sched.ticks,
@@ -427,15 +702,210 @@ def phase_main_path(report):
                                setup_s=setup_s)
     # where the time goes: the sampled stream once more under the profiler
     # (its tracing slows the host, so the busy share is a lower bound)
-    from torch.profiler import ProfilerActivity, profile
-    args = launcher.parser().parse_args(base + runs["sampled"])
+    args = launcher.parser().parse_args(BASE + runs["sampled"])
     arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
                                       args.tasks)
+    report["profile"] = profile_run(
+        "5 profile", lambda: launcher.serve(engine, args, arrivals),
+        steps=total["sampled"]["ticks"])    # a tick is one step
+    return {f"paged_{label}": counts for label, counts in launches.items()}
+
+
+def check_launches(label, counts, want):
+    """Each kernel's launches in one path's run must be exactly ``want``
+    (kernels not named there: 0)."""
+    for name, c in counts.items():
+        if c != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {c} times, "
+                                 f"expected {want.get(name, 0)}")
+
+
+def phase_whole_prompt(report, engine):
+    """Phase 5's greedy stream with whole-prompt admission: through the
+    slotted layout (flash prefill per request, then one contiguous decode
+    call per tick) and through the paged layout with --prefill-chunk 0
+    (flash prefill scattered into pages, then one ragged tick per tick)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    layers = engine.model.cfg.num_layers
+    runs = {"slots_greedy": ["--layout", "slots", "--prefill-chunk", "0"],
+            "paged_whole_greedy": ["--layout", "paged", "--prefill-chunk",
+                                   "0"]}
+    out = {}
+    prefill = engine.prefill_request
+    for label, extra in runs.items():
+        args = launcher.parser().parse_args(BASE + GREEDY + extra)
+        arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
+                                          args.tasks)
+        n_pf = [0]
+
+        def counted(*a, **kw):
+            n_pf[0] += 1
+            return prefill(*a, **kw)
+        engine.prefill_request = counted        # counts whole prefills
+        d0 = engine.dispatches
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        try:
+            sched = launcher.serve(engine, args, arrivals)
+            torch.cuda.synchronize()
+        finally:
+            del engine.prefill_request
+        sec = time.perf_counter() - t1
+        counts = out[label] = dict(ops.launches())
+        steps = engine.dispatches - d0 - n_pf[0]   # decode / serve_step calls
+        attn = "decode_attention" if args.layout == "slots" \
+            else "ragged_paged_attention"
+        findings = sched.drain_check()
+        prompt_toks = sum(len(r.prompt) for _, r in arrivals)
+        log(f"5b whole-prompt/{label}", requests=f"{len(sched.finished)}/"
+            f"{len(arrivals)}", tokens=sched.tokens_emitted,
+            prompt_tokens=prompt_toks, ticks=sched.ticks, prefills=n_pf[0],
+            decode_calls=steps, preemptions=sched.preemptions,
+            seconds=f"{sec:.3f}",
+            tokens_per_s=f"{sched.tokens_emitted / sec:.1f}",
+            all_tokens_per_s=f"{(sched.tokens_emitted + prompt_toks) / sec:.1f}",
+            drain="clean" if not findings else findings, launches=counts)
+        if len(sched.finished) != len(arrivals) or findings:
+            raise AssertionError(f"{label}: unfinished requests or leaks")
+        check_launches(label, counts, {
+            "flash_attention": layers * n_pf[0], attn: layers * steps,
+            "aot_gather_add_multitask": layers * (n_pf[0] + steps)})
+        report.setdefault("whole_prompt", {})[label] = dict(
+            requests=len(sched.finished), tokens=sched.tokens_emitted,
+            prompt_tokens=prompt_toks, ticks=sched.ticks, prefills=n_pf[0],
+            decode_calls=steps, seconds=sec,
+            tokens_per_s=sched.tokens_emitted / sec,
+            preemptions=sched.preemptions, launches=counts)
+    return out
+
+
+def paged_generate(engine, prompts, steps, task_ids):
+    """The static batch over a paged pool, through the port's entry points:
+    ``Model.prefill``, ``PagedKVPool.write_prefill`` of each row into its
+    own pages, then greedy ``Model.decode_step(block_tables=)`` steps.
+    Returns (b, steps) tokens as ``ServeEngine.generate`` does."""
+    from repro_torch.serve.kv_pool import PagedKVPool
+    model, dev = engine.model, engine.device
+    b, s = prompts.shape
+    pool = PagedKVPool(model, b, engine.cfg.max_len, block_size=BS)
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    peft = engine._peft(torch.as_tensor(task_ids, dtype=torch.int32,
+                                        device=dev))
+    logits, cache, pos = model.prefill(engine.params, toks, peft,
+                                       max_len=engine.cache_len)
+    for r in range(b):
+        slot = pool.alloc(int(task_ids[r]), pool.pages_needed(s + steps))
+        pool.write_prefill(slot, {n: c[:, r:r + 1] for n, c in cache.items()},
+                           s)
+    del cache
+    bt = torch.as_tensor(pool.block_tables, device=dev)
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    out = []
+    for i in range(steps):
+        out.append(tok)
+        logits, pool.cache = model.decode_step(
+            engine.params, tok, torch.full((b,), pos + i, dtype=torch.int32,
+                                           device=dev),
+            pool.cache, peft, block_tables=bt)
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    for r in range(b):
+        pool.free(r)
+    if pool.leak_report():
+        raise AssertionError(f"paged static pool: {pool.leak_report()}")
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
+def phase_static(report, engine):
+    """The paper's Fig. 3 setting at full width: one static batch of 16
+    prompts of 512 tokens with mixed task ids, 64 greedy tokens each,
+    through ``ServeEngine.generate`` (flash prefill, contiguous decode);
+    the same prompts as per-task batches, each on an engine holding that
+    task's table alone (benchmarks/multitask_throughput.py's sequential
+    baseline); and the mixed batch over a paged pool (paged decode)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    layers = engine.model.cfg.num_layers
+    n_tasks = engine.num_tasks
+    b, s, steps = 16, 512, 64
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, engine.model.cfg.vocab_size,
+                           (b, s)).astype(np.int32)
+    task_ids = rng.integers(0, n_tasks, b).astype(np.int32)
+    engine.generate(prompts[:2], 2, task_ids[:2])        # warm-up
+    res, counts = {}, {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts[label] = dict(ops.launches())
+        res[label] = dict(seconds=sec, tokens_per_s=b * steps / sec)
+        return out
+
+    mixed = run("static_mixed", lambda: engine.generate(prompts, steps,
+                                                        task_ids))
+    check_launches("static_mixed", counts["static_mixed"], {
+        "flash_attention": layers, "decode_attention": layers * steps,
+        "aot_gather_add_multitask": layers * (1 + steps)})
+
+    def per_task():
+        outs = np.zeros_like(mixed)
+        for t in range(n_tasks):
+            idx = np.where(task_ids == t)[0]
+            if len(idx) == 0:
+                continue
+            one = ServeEngine(engine.model, engine.params, engine.cfg,
+                              fused_tasks={"table": engine.tables[
+                                  :, t:t + 1].contiguous()})
+            outs[idx] = one.generate(prompts[idx], steps,
+                                     np.zeros(len(idx), np.int32))
+            del one
+        return outs
+    n_runs = len(set(task_ids.tolist()))
+    seq = run("static_per_task", per_task)
+    check_launches("static_per_task", counts["static_per_task"], {
+        "flash_attention": layers * n_runs,
+        "decode_attention": layers * steps * n_runs,
+        "aot_gather_add_multitask": layers * (1 + steps) * n_runs})
+    paged = run("static_paged", lambda: paged_generate(engine, prompts,
+                                                       steps, task_ids))
+    check_launches("static_paged", counts["static_paged"], {
+        "flash_attention": layers, "paged_decode_attention": layers * steps,
+        "aot_gather_add_multitask": layers * (1 + steps)})
+    same_seq = int((seq == mixed).all(axis=1).sum())
+    same_paged = int((paged == mixed).all(axis=1).sum())
+    log("5c static batch", b=b, prompt=s, steps=steps,
+        tasks=np.bincount(task_ids, minlength=n_tasks).tolist(),
+        mixed_tokens_per_s=f"{res['static_mixed']['tokens_per_s']:.1f}",
+        per_task_tokens_per_s=f"{res['static_per_task']['tokens_per_s']:.1f}",
+        per_task_runs=n_runs,
+        paged_tokens_per_s=f"{res['static_paged']['tokens_per_s']:.1f}",
+        rows_equal_per_task=f"{same_seq}/{b}",
+        rows_equal_paged=f"{same_paged}/{b}", launches=counts)
+    report["static"] = dict(res, rows_equal_per_task=same_seq,
+                            rows_equal_paged=same_paged, launches=counts)
+    # where the time goes: the mixed batch with 16 steps under the profiler
+    # (its tracing slows the host, so the busy share is a lower bound)
+    report["static"]["profile"] = profile_run(
+        "5c profile", lambda: engine.generate(prompts, 16, task_ids),
+        steps=16)
+    return counts
+
+
+def profile_run(phase, fn, steps):
+    """Device busy share, kernels per step and the top kernels and host
+    ops of ``fn()`` under torch.profiler (CPU + CUDA)."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sched = launcher.serve(engine, args, arrivals)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t1) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
@@ -445,27 +915,109 @@ def phase_main_path(report):
     host = sorted(((e.self_cpu_time_total / 1e3, e.key) for e in avgs
                    if e.device_type != cuda), reverse=True)
     busy_ms = sum(t for t, _ in kern)
-    per_tick = sum(e.count for e in avgs
-                   if e.device_type == cuda) / max(sched.ticks, 1)
+    per_step = sum(e.count for e in avgs
+                   if e.device_type == cuda) / max(steps, 1)
     top = lambda rows: ";".join(f"{k[:40]}:{t:.0f}ms" for t, k in rows[:5])
-    log("5 profile", ticks=sched.ticks, wall_ms=f"{wall_ms:.0f}",
+    log(phase, steps=steps, wall_ms=f"{wall_ms:.0f}",
         device_busy_ms=f"{busy_ms:.0f}",
         busy_share=f"{busy_ms / wall_ms:.3f}",
-        kernels_per_tick=f"{per_tick:.0f}", top_kernels=top(kern),
+        kernels_per_step=f"{per_step:.0f}", top_kernels=top(kern),
         top_host_ops=top(host))
-    report["profile"] = dict(ticks=sched.ticks, wall_ms=wall_ms,
-                             device_busy_ms=busy_ms,
-                             kernels_per_tick=per_tick,
-                             kernels=kern[:15], host_ops=host[:25])
-    del engine
-    torch.cuda.empty_cache()
-    return launches
+    return dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                kernels_per_step=per_step, kernels=kern[:15],
+                host_ops=host[:25])
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Every kernel wrapper the model calls replaced by its plain version
+    (the same tensors on the card, no kernel launched)."""
+    from repro_torch.kernels import aot_bias, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    plain = {"aot_gather_add_multitask": aot_bias.aot_gather_add_multitask_plain,
+             "ragged_paged_attention": da.ragged_paged_attention_plain,
+             "flash_attention": fa.flash_attention_plain,
+             "decode_attention": da.decode_attention_plain,
+             "paged_decode_attention": da.paged_decode_attention_plain}
+    saved = {name: getattr(ops, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def cross_check_static(gen, report, model, params, tables):
+    """At full width with 2 layers: a whole-prompt prefill plus three
+    decode steps through the kernels against the plain versions (bf16
+    tolerance, same greedy tokens); then decode steps over a paged pool
+    filled from that prefill (scrambled pages) against the contiguous
+    decode steps on the same cache (same tokens)."""
+    from repro_torch.serve.kv_pool import PagedKVPool
+    b, s, steps = 4, 300, 3
+    dev = torch.device(DEV)
+    toks = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    peft = {"method": "aot", "tables": tables,
+            "task_ids": torch.arange(b, dtype=torch.int32, device=dev) % 4}
+
+    def decode(logits, cache, block_tables=None):
+        """``steps`` greedy decode steps after ``logits``: per-step logits
+        (steps + 1, b, V) float32 and the tokens (b, steps)."""
+        lgs, tokens = [logits[:, -1].float()], []
+        for i in range(steps):
+            tok = lgs[-1].argmax(-1).to(torch.int32)[:, None]
+            tokens.append(tok)
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            logits, cache = model.decode_step(params, tok, pos, cache, peft,
+                                              block_tables=block_tables)
+            lgs.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+        return torch.stack(lgs), torch.cat(tokens, 1)
+
+    def prefill_and_decode():
+        logits, cache, _ = model.prefill(params, toks, peft, max_len=MAX_LEN)
+        return decode(logits, cache)
+
+    lg_k, tok_k = prefill_and_decode()
+    with plain_ops():
+        lg_p, tok_p = prefill_and_decode()
+    err = (lg_k - lg_p).abs().max().item()
+    same = torch.equal(tok_k, tok_p)
+    ok = torch.allclose(lg_k, lg_p, atol=2e-2, rtol=2e-2) and same
+    first, cache, _ = model.prefill(params, toks, peft, max_len=MAX_LEN)
+    # the paged pool, pages handed out in a scrambled order
+    pool = PagedKVPool(model, b, MAX_LEN, block_size=BS)
+    pool._free_blocks = [int(p) for p in np.random.default_rng(1).permutation(
+        pool._free_blocks)]
+    for r in range(b):
+        slot = pool.alloc(0, pool.pages_needed(s + steps))
+        pool.write_prefill(slot, {n: c[:, r:r + 1] for n, c in cache.items()},
+                           s)
+    bt = torch.as_tensor(pool.block_tables, device=dev)
+    lg_c, tok_c = decode(first, cache)
+    lg_g, tok_g = decode(first, pool.cache, bt)
+    paged_err = (lg_g - lg_c).abs().max().item()
+    paged_same = torch.equal(tok_g, tok_c)
+    log("6 cross-check static", layers=2, b=b, prompt=s, steps=steps,
+        logits_max_abs_err=f"{err:.3e}",
+        greedy_tokens="identical" if same else "DIFFER",
+        paged_vs_contiguous_max_abs_err=f"{paged_err:.3e}",
+        paged_tokens="identical" if paged_same else "DIFFER")
+    report["cross_check_static"] = dict(
+        logits_max_abs_err=err, same_tokens=same,
+        paged_vs_contiguous_max_abs_err=paged_err, paged_same=paged_same)
+    if not (ok and paged_same and paged_err <= 2e-2):
+        raise AssertionError("static path: kernel and plain, or paged and "
+                             "contiguous decode, disagree")
 
 
 def phase_cross_check(gen, report):
     from repro_torch import configs
     from repro_torch.core import aot as aot_mod
-    from repro_torch.kernels import aot_bias, decode_attention
     from repro_torch.models import model as model_mod
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
@@ -505,14 +1057,8 @@ def phase_cross_check(gen, report):
         return logits[live].float(), cache
 
     lg_k, cache_k = tick()
-    ops = model_mod.ops
-    saved = ops.aot_gather_add_multitask, ops.ragged_paged_attention
-    ops.aot_gather_add_multitask = aot_bias.aot_gather_add_multitask_plain
-    ops.ragged_paged_attention = decode_attention.ragged_paged_attention_plain
-    try:
+    with plain_ops():
         lg_p, cache_p = tick()
-    finally:
-        ops.aot_gather_add_multitask, ops.ragged_paged_attention = saved
     err = (lg_k - lg_p).abs().max().item()
     same_tokens = torch.equal(lg_k.argmax(-1), lg_p.argmax(-1))
     kv_err = max((cache_k[n].float() - cache_p[n].float()).abs().max().item()
@@ -525,6 +1071,7 @@ def phase_cross_check(gen, report):
                                  same_tokens=same_tokens, kv_max_abs_err=kv_err)
     if not ok:
         raise AssertionError("kernel and plain ticks disagree")
+    cross_check_static(gen, report, model, params, tables)
     # preempt-and-recompute parity through the scheduler (reported only:
     # cuBLAS may round a row differently at another packed width)
     engine = ServeEngine(model, params, ServeConfig(max_len=256),
@@ -572,18 +1119,27 @@ def main() -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
     report = {"card": card, "parity": {}, "times": {}}
-    report["build_s"], _ = phase_build(["aot_gather_add",
-                                        "ragged_paged_attention"])
+    report["build_s"], _ = phase_build(KERNEL_SOURCES)
     gen = torch.Generator(device=DEV).manual_seed(0)
     phase_parity(gen, report)
     if args.quick:
         print("[quick] stopped after parity; no result")
         return 0
     kernels = phase_times(gen, report)
-    launches = phase_main_path(report)
-    for row in kernels:       # the greedy stream is the main path's run
-        row["launches"] = launches["greedy"][row["name"]]
-        row["launches_sampled"] = launches["sampled"][row["name"]]
+    engine, setup_s = build_engine()
+    launches = phase_main_path(report, engine, setup_s)
+    launches.update(phase_whole_prompt(report, engine))
+    launches.update(phase_static(report, engine))
+    del engine
+    torch.cuda.empty_cache()
+    for row in kernels:     # each kernel's count on the path it serves
+        row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
+        row["launches_sampled"] = launches["paged_sampled"][row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in launches.items()}
+        if row["launches"] < 1:
+            raise AssertionError(f"{row['name']} never launched on "
+                                 f"{MAIN_PATH[row['name']]}")
     phase_cross_check(gen, report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -1,4 +1,5 @@
-"""Carry the JAX reference's parameters and task tables into the port.
+"""Carry the JAX reference's parameters, task tables and KV caches into the
+port.
 
 The input is the reference's pytree as nested dicts / lists of numpy arrays
 (a caller holding JAX arrays turns them into numpy first, for instance with
@@ -74,3 +75,24 @@ def tables_from_jax(fused_list: Sequence[Dict[str, Any]], device="cuda",
               for f in fused_list]
     return {"table": torch.stack(tables, dim=1).to(
         device=dev, dtype=dtype or tables[0].dtype)}
+
+
+def cache_from_jax(cfg, cache: Sequence[Dict[str, Any]], device="cuda",
+                   dtype: torch.dtype = None) -> Dict[str, torch.Tensor]:
+    """The reference's grouped contiguous cache ``[{"b{u}": {"k": (R, b, S,
+    kvh, hd), "v": ...}}, ...]`` (``Model.init_cache`` / ``prefill``) ->
+    the port's ``{"k": (L, b, S, kvh, hd), "v": ...}`` in global layer
+    order on ``device``."""
+    dev = resolve_device(device)
+    out = {}
+    for name in ("k", "v"):
+        per_layer: List[Any] = [None] * cfg.num_layers
+        for gi, (start, repeats, ulen) in enumerate(_layer_groups(cfg)):
+            for u in range(ulen):
+                leaf = np.asarray(cache[gi][f"b{u}"][name])
+                for r in range(repeats):
+                    per_layer[start + r * ulen + u] = torch.from_numpy(
+                        np.array(leaf[r]))
+        stacked = torch.stack(per_layer)
+        out[name] = stacked.to(device=dev, dtype=dtype or stacked.dtype)
+    return out

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Each kernel is one ``.cu`` file under ``csrc/`` with a plain C interface.
-``nvcc`` compiles it for ``sm_90a`` into a shared library under
-``build/kernels/`` at the repository root, named by a hash of the source
-and the flags, on first use; a library already there is reused. No PyTorch
-headers are involved, so a build takes seconds. ``build`` starts one
+Each kernel is one ``.cu`` file under ``csrc/`` with a plain C interface
+(device helpers they share live in ``csrc/*.cuh``). ``nvcc`` compiles it
+for ``sm_90a`` into a shared library under ``build/kernels/`` at the
+repository root, named by a hash of the source, the headers and the flags,
+on first use; a library already there is reused. No PyTorch headers are
+involved, so a build takes seconds. ``build`` starts one
 ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
@@ -43,8 +44,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, keyed by that source, the shared
+    headers it may include and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 

@@ -84,7 +84,7 @@ def aot_gather_add_multitask_kernel(h, tables, task_ids, ids):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     out = torch.empty_like(h)
-    if T == 0:
+    if out.numel() == 0:
         return out
     vec = d % 8 == 0 and all(x.data_ptr() % 16 == 0
                              for x in (h, tables, out))

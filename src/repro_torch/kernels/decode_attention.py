@@ -1,13 +1,23 @@
-"""Ragged paged attention: one packed token list over a paged KV pool.
+"""Decode attention over a KV cache: contiguous, paged, and ragged paged.
 
-Counterpart of ``repro.kernels.decode_attention.ragged_paged_attention_kernel``.
-Token t belongs to slot ``token_rows[t]`` at absolute position
-``token_pos[t]``; its query heads attend causally (kv position <= its own)
-over that slot's pages, read through ``block_tables``; ``token_pos < 0``
-marks a dead padding token, whose output is exact zeros. The CUDA kernel is
-``csrc/ragged_paged_attention.cu``; the plain version below gathers each
-token's pages and applies a masked fp32 softmax, as the reference's XLA
-path (``layers.ragged_paged_attention_decode``) does.
+Counterparts of ``decode_attention_kernel``, ``paged_decode_attention_kernel``
+and ``ragged_paged_attention_kernel`` of ``repro.kernels.decode_attention``.
+
+- Contiguous decode: row b's query heads attend over kv positions
+  ``0 .. cur_len[b] - 1`` of its ``(S, kvh, hd)`` cache row.
+- Paged decode: the same over a paged pool, row b's positions read through
+  ``block_tables[b]``.
+- Ragged paged: one packed token list; token t belongs to slot
+  ``token_rows[t]`` at absolute position ``token_pos[t]`` and attends
+  causally (kv position <= its own) over that slot's pages;
+  ``token_pos < 0`` marks a dead padding token.
+
+In all three a row with nothing to see (``cur_len <= 0``, a dead token)
+gives exact zeros, as the reference kernels do. The CUDA kernels are the
+three C entry points of ``csrc/decode_attention.cu``, one device walk
+each; the plain versions below gather each row's pages and apply a masked
+fp32 softmax, as the reference's XLA path (``layers.attention_decode``)
+does.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+MAX_G = 8            # query heads per KV head the decode kernels hold
 
 
 def round_kv_len(n: int, block_k: int = 256) -> int:
@@ -35,97 +46,207 @@ def round_kv_len(n: int, block_k: int = 256) -> int:
     return -(-n // block_k) * block_k
 
 
+def _lengths(cur_len, b: int, device) -> torch.Tensor:
+    """A scalar or (b,) ``cur_len`` as a (b,) int32 tensor on ``device``. A
+    host number is filled in on the device: no upload, so no wait on the
+    stream."""
+    if not isinstance(cur_len, torch.Tensor):
+        cur_len = torch.as_tensor(cur_len)
+        if cur_len.dim() == 0:
+            return torch.full((b,), int(cur_len), dtype=torch.int32,
+                              device=device)
+    return cur_len.to(device=device, dtype=torch.int32).expand(b).contiguous()
+
+
+def decode_attention_plain(q, k_cache, v_cache, cur_len):
+    """q: (b, h, hd); caches: (b, S, kvh, hd); cur_len: scalar or (b,).
+    Returns (b, h, hd) in q's dtype, computed in float32."""
+    b, h, hd = q.shape
+    S, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    lens = _lengths(cur_len, b, q.device).long()
+    q4 = q.reshape(b, kvh, g, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", q4, k_cache.float()) / math.sqrt(hd)
+    ok = torch.arange(S, device=q.device)[None, :] < lens[:, None]
+    s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()).reshape(b, h, hd)
+    o = o.masked_fill((lens <= 0)[:, None, None], 0.0)
+    return o.to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, cur_len):
+    """q: (b, h, hd); pages: (num_blocks, block_size, kvh, hd);
+    block_tables: (b, npages); cur_len: (b,). Each row's pages gathered
+    into a contiguous cache, then :func:`decode_attention_plain`."""
+    b = q.shape[0]
+    kvh, hd = k_pages.shape[2], k_pages.shape[3]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, -1, kvh, hd)
+    v = v_pages[bt].reshape(b, -1, kvh, hd)
+    return decode_attention_plain(q, k, v, cur_len)
+
+
 def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
                                  token_rows, token_pos):
     """q: (T, h, hd); k_pages / v_pages: (num_blocks, block_size, kvh, hd);
     block_tables: (num_slots, npages); token_rows / token_pos: (T,).
-    Returns (T, h, hd) in q's dtype, computed in float32."""
-    T, h, hd = q.shape
-    kvh = k_pages.shape[2]
-    g = h // kvh
-    bt = block_tables.long()[token_rows.long()]               # (T, npages)
-    k = k_pages[bt].reshape(T, -1, kvh, hd).float()           # (T, S, kvh, hd)
-    v = v_pages[bt].reshape(T, -1, kvh, hd).float()
-    q4 = q.reshape(T, kvh, g, hd).float()
-    s = torch.einsum("tkgh,tskh->tkgs", q4, k) / math.sqrt(hd)
-    pos = token_pos.long()
-    ok = torch.arange(k.shape[1], device=q.device)[None, :] < (pos + 1)[:, None]
-    s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("tkgs,tskh->tkgh", p, v).reshape(T, h, hd)
-    o = o.masked_fill((pos < 0)[:, None, None], 0.0)
-    return o.to(q.dtype)
+    Paged decode of each token over its slot's table with ``token_pos + 1``
+    visible positions. Returns (T, h, hd) in q's dtype."""
+    return paged_decode_attention_plain(
+        q, k_pages, v_pages, block_tables.long()[token_rows.long()],
+        token_pos.long() + 1)
 
 
-_FN = None
+_FNS = {}
+_ARGTYPES = {
+    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _I, _P],
+    "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, ctypes.c_float, _I, _I, _P],
+    "ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_float, _I, _I, _P],
+}
 
 
-def _lib():
-    """The kernel's C entry point, built and loaded on first use."""
-    global _FN
-    if _FN is None:
-        fn = _build.load("ragged_paged_attention").ragged_paged_attention
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _I, _I, _P]
+def _lib(name: str):
+    """C entry point ``name`` of ``csrc/decode_attention.cu``, built and
+    loaded on first use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("decode_attention"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = _I
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
-def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
-                                  token_rows, token_pos):
-    """Launch the CUDA kernel on CUDA tensors (same device, contiguous; q
-    and the pages both float32 or both bfloat16; indices int32; hd <= 128;
-    h a multiple of kvh). Raises on anything the kernel does not take;
-    never falls back."""
+def _check(q, k, v, ints):
+    """The checks the three kernels share: same devices, types, q (n, h,
+    hd) against K/V (..., kvh, hd) with at most ``MAX_G`` query heads per
+    KV head, int32 index tensors, contiguity (the caller checks last that
+    the device is a CUDA one). Returns (n, h, hd, kvh)."""
     dev = q.device
-    args = (("k_pages", k_pages), ("v_pages", v_pages),
-            ("block_tables", block_tables), ("token_rows", token_rows),
-            ("token_pos", token_pos))
-    for name, x in args:
+    for name, x in (("k", k), ("v", v)) + ints:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q {q.dtype}: the kernel takes float32 or bfloat16")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"pages {k_pages.dtype}/{v_pages.dtype} must match "
-                        f"q {q.dtype}")
-    for name, x in args[2:]:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k {k.dtype} / v {v.dtype} must match q {q.dtype}")
+    for name, x in ints:
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
-    if q.dim() != 3 or k_pages.dim() != 4 or block_tables.dim() != 2:
-        raise ValueError("q must be (T, h, hd), pages (num_blocks, "
-                         "block_size, kvh, hd), block_tables (slots, npages)")
-    T, h, hd = q.shape
-    _, block_size, kvh, hd_k = k_pages.shape
-    npages = block_tables.shape[1]
-    if v_pages.shape != k_pages.shape or hd_k != hd:
-        raise ValueError(f"q {tuple(q.shape)}, k_pages "
-                         f"{tuple(k_pages.shape)}, v_pages "
-                         f"{tuple(v_pages.shape)} disagree")
-    if h % kvh or not 0 < hd <= 128 or npages < 1:
-        raise ValueError(f"unsupported h {h} / kvh {kvh} / hd {hd} / "
-                         f"npages {npages}")
-    if token_rows.shape != (T,) or token_pos.shape != (T,):
-        raise ValueError("token_rows and token_pos must be (T,)")
-    for name, x in (("q", q),) + args:
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape or \
+            k.shape[3] != q.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} must be (n, h, hd) and k, v "
+                         f"(..., kvh, hd): k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} disagree")
+    n, h, hd = q.shape
+    kvh = k.shape[2]
+    if h % kvh or h // kvh > MAX_G or not 0 < hd <= 128:
+        raise ValueError(f"unsupported h {h} / kvh {kvh} / hd {hd}")
+    for name, x in (("q", q), ("k", k), ("v", v)) + ints:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return n, h, hd, kvh
+
+
+def _require_cuda(dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+
+
+def _vec(hd, *xs) -> int:
+    """1 when the kernel may take 16-byte loads of ``xs``' rows."""
+    return int(hd % 8 == 0 and all(x.data_ptr() % 16 == 0 for x in xs))
+
+
+def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
+                                  token_rows, token_pos):
+    """Launch the ragged kernel on CUDA tensors (same device, contiguous; q
+    and the pages both float32 or both bfloat16; indices int32; hd <= 128;
+    h a multiple of kvh, at most 8 query heads per KV head). Raises on
+    anything the kernel does not take; never falls back."""
+    ints = (("block_tables", block_tables), ("token_rows", token_rows),
+            ("token_pos", token_pos))
+    T, h, hd, kvh = _check(q, k_pages, v_pages, ints)
+    if block_tables.dim() != 2 or block_tables.shape[1] < 1:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} must be "
+                         "(slots, npages >= 1)")
+    if token_rows.shape != (T,) or token_pos.shape != (T,):
+        raise ValueError("token_rows and token_pos must be (T,)")
+    _require_cuda(q.device)
+    dev = q.device
     out = torch.empty_like(q)
-    if T == 0:
+    if out.numel() == 0:
         return out
-    vec = hd % 8 == 0 and all(x.data_ptr() % 16 == 0
-                              for x in (k_pages, v_pages))
     with _on_device(dev):
-        err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     block_tables.data_ptr(), token_rows.data_ptr(),
-                     token_pos.data_ptr(), out.data_ptr(), T, kvh, h // kvh,
-                     hd, block_size, npages, 1.0 / math.sqrt(hd),
-                     int(q.dtype == torch.bfloat16), int(vec),
-                     torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib("ragged_paged_attention")(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), token_rows.data_ptr(),
+            token_pos.data_ptr(), out.data_ptr(), T, kvh, h // kvh, hd,
+            k_pages.shape[1], block_tables.shape[1], 1.0 / math.sqrt(hd),
+            int(q.dtype == torch.bfloat16), _vec(hd, k_pages, v_pages),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def decode_attention_kernel(q, k_cache, v_cache, cur_len):
+    """Launch the contiguous decode kernel on CUDA tensors: q (b, h, hd),
+    caches (b, S, kvh, hd), all contiguous, float32 or bfloat16; cur_len a
+    scalar or (b,), made a (b,) int32 tensor on the device here. Raises on
+    anything the kernel does not take; never falls back."""
+    lens = _lengths(cur_len, q.shape[0], q.device)
+    b, h, hd, kvh = _check(q, k_cache, v_cache, (("cur_len", lens),))
+    if k_cache.shape[0] != b:
+        raise ValueError(f"caches {tuple(k_cache.shape)} hold another batch "
+                         f"than q {tuple(q.shape)}")
+    _require_cuda(q.device)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with _on_device(q.device):
+        err = _lib("decode_attention")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, k_cache.shape[1], kvh,
+            h // kvh, hd, 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+            _vec(hd, k_cache, v_cache),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
+    return out
+
+
+def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
+                                  cur_len):
+    """Launch the paged decode kernel on CUDA tensors: q (b, h, hd), pages
+    (num_blocks, block_size, kvh, hd), block_tables (b, npages) and
+    cur_len (b,) int32, all contiguous. Raises on anything the kernel does
+    not take; never falls back."""
+    ints = (("block_tables", block_tables), ("cur_len", cur_len))
+    b, h, hd, kvh = _check(q, k_pages, v_pages, ints)
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or \
+            block_tables.shape[1] < 1 or cur_len.shape != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} must be "
+                         f"(b, npages >= 1) and cur_len {tuple(cur_len.shape)}"
+                         f" (b,) for b = {b}")
+    _require_cuda(q.device)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with _on_device(q.device):
+        err = _lib("paged_decode_attention")(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), cur_len.data_ptr(), out.data_ptr(), b,
+            kvh, h // kvh, hd, k_pages.shape[1], block_tables.shape[1],
+            1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+            _vec(hd, k_pages, v_pages),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
     return out

@@ -11,6 +11,27 @@ import math
 import torch
 
 
+def flash_attention_ref(q, k, v, *, causal=True, window=0, sm_scale=None):
+    """q: (b, sq, h, hd); k / v: (b, skv, kvh, hd). GQA by head grouping."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    q5 = q.reshape(b, sq, kvh, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    s = torch.where(ok, s, torch.tensor(-1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return o.reshape(b, sq, h, hd)
+
+
 def decode_attention_ref(q, k_cache, v_cache, cur_len):
     """q: (b, h, hd); caches (b, S, kvh, hd); cur_len: scalar or (b,)."""
     b, h, hd = q.shape
@@ -25,6 +46,18 @@ def decode_attention_ref(q, k_cache, v_cache, cur_len):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
     return o.reshape(b, h, hd)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, cur_len):
+    """q: (b, h, hd); pages: (num_blocks, block_size, kvh, hd);
+    block_tables: (b, npages); cur_len: (b,). Each row's pages gathered
+    into a contiguous view, then the contiguous decode oracle."""
+    b = q.shape[0]
+    kvh, hd = k_pages.shape[2], k_pages.shape[3]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, -1, kvh, hd)
+    v = v_pages[bt].reshape(b, -1, kvh, hd)
+    return decode_attention_ref(q, k, v, cur_len)
 
 
 def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables, token_rows,

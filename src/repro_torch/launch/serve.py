@@ -3,12 +3,21 @@
 Fabricates fused AoT task tables (``--demo``) and serves a continuous
 Poisson stream of mixed-task requests from one frozen backbone: requests
 arrive on the scheduler's tick clock, pick a task at random, and stream
-their tokens through a callback as they decode. Runs on the card unless
+their tokens through a callback as they decode. ``--layout`` picks the
+paged KV pool (chunked prefill, or whole prompts with ``--prefill-chunk
+0``) or contiguous slots (whole prompts); ``--static`` serves one static
+batch of equal-length prompts instead (greedy). Runs on the card unless
 ``--device cpu`` is given. Exits non-zero if the KV pool leaks.
 
     # on a GPU: full-width smollm-360m in bf16, four tasks
     PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \\
         --dtype bfloat16 --slots 8 --max-len 1024 --prefill-chunk 256
+    # ... the slotted layout, or one static batch
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \\
+        --dtype bfloat16 --slots 8 --max-len 1024 --layout slots
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \\
+        --dtype bfloat16 --static --requests 16 --prompt 512 --steps 64 \\
+        --max-len 1024
 
     # on the CPU, reduced widths
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -55,14 +64,18 @@ def parser() -> argparse.ArgumentParser:
                     help="mean arrivals per tick (Poisson stream)")
     ap.add_argument("--slots", type=int, default=4,
                     help="KV-pool slots (continuous batch width)")
+    ap.add_argument("--layout", choices=("paged", "slots"), default="paged",
+                    help="KV layout: paged pool, or contiguous per-slot "
+                         "caches (whole-prompt prefills)")
     ap.add_argument("--block-size", type=int, default=16,
-                    help="KV page size in tokens")
+                    help="KV page size in tokens (--layout paged)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="physical KV pages incl. the scratch page "
                          "(0 = slots * max-len / block-size + 1)")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="per-tick prefill token budget, split across the "
-                         "prompts chunking concurrently")
+                         "prompts chunking concurrently (--layout paged; "
+                         "0 = whole-prompt prefills)")
     ap.add_argument("--max-prefills", type=int, default=4,
                     help="prompts allowed to chunk concurrently")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -81,6 +94,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--quiet", action="store_true",
                     help="suppress per-token streaming output")
+    ap.add_argument("--static", action="store_true",
+                    help="one static batch: --requests prompts of --prompt "
+                         "tokens, --steps greedy tokens each")
     return ap
 
 
@@ -133,14 +149,27 @@ def make_arrivals(args, vocab_size: int, n_tasks: int,
 def serve(engine: ServeEngine, args, arrivals) -> ContinuousScheduler:
     """Serve the stream to the end on a fresh scheduler."""
     sched = ContinuousScheduler(engine, SchedulerConfig(
-        num_slots=args.slots, block_size=args.block_size,
-        num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk,
-        max_prefills=args.max_prefills))
+        num_slots=args.slots, kv_layout=args.layout,
+        block_size=args.block_size, num_blocks=args.num_blocks,
+        prefill_chunk=args.prefill_chunk, max_prefills=args.max_prefills))
     sched.run_stream(arrivals)
     return sched
 
 
-def main(argv: Optional[List[str]] = None) -> ContinuousScheduler:
+def static_batch(args, vocab_size: int, n_tasks: int):
+    """The ``--static`` batch, drawn from ``default_rng(0)`` as the
+    reference launcher draws it: (requests, prompt) prompts and their
+    task ids."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, vocab_size,
+                           (args.requests, args.prompt)).astype(np.int32)
+    task_ids = rng.integers(0, n_tasks, args.requests).astype(np.int32)
+    return prompts, task_ids
+
+
+def main(argv: Optional[List[str]] = None):
+    """Serve as the flags say. Returns the scheduler that served the
+    stream, or with ``--static`` the (requests, steps) generated tokens."""
     ap = parser()
     args = ap.parse_args(argv)
     if not args.demo:
@@ -156,6 +185,16 @@ def main(argv: Optional[List[str]] = None) -> ContinuousScheduler:
     print(f"serving {args.tasks} tasks on {engine.device}; fused tables "
           f"{mb:.1f} MB")
 
+    if args.static:
+        if args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0:
+            print("warning: --static is greedy only; ignoring --temperature"
+                  "/--top-k/--top-p/--seed")
+        prompts, task_ids = static_batch(args, cfg.vocab_size, args.tasks)
+        out = engine.generate(prompts, args.steps, task_ids)
+        for i in range(args.requests):
+            print(f"req {i} task={task_ids[i]}: {out[i].tolist()}")
+        return out
+
     def on_token(req, tok):
         if not args.quiet:
             print(f"  [stream] req {req.rid} task={req.task_id} "
@@ -165,6 +204,10 @@ def main(argv: Optional[List[str]] = None) -> ContinuousScheduler:
         print(f"sampling: temp={args.temperature} top_k={args.top_k} "
               f"top_p={args.top_p} (seeded per request)")
     arrivals = make_arrivals(args, cfg.vocab_size, args.tasks, on_token)
+    if args.prefill_chunk > 0 and args.layout != "paged":
+        print("warning: chunked prefill rides the unified paged serve step; "
+              "--layout slots falls back to whole-prompt prefills")
+        args.prefill_chunk = 0
     sched = serve(engine, args, arrivals)
     pool = sched.pool
     print(f"\nserved {len(sched.finished)} requests in {sched.ticks} real "
@@ -172,10 +215,15 @@ def main(argv: Optional[List[str]] = None) -> ContinuousScheduler:
           f"{sched.steps_decoded} decode steps, {sched.prefill_chunks_run} "
           f"prefill chunks, {sched.tokens_emitted} tokens, "
           f"{engine.dispatches} dispatches, {args.slots} slots")
-    print(f"paged pool: {pool.num_blocks - 1} usable pages x "
-          f"{pool.block_size} tokens, peak pages {pool.peak_pages}, peak "
-          f"concurrency {sched.peak_running}, peak concurrent prefills "
-          f"{sched.peak_prefills}, {sched.preemptions} preemptions")
+    if sched.paged:
+        print(f"paged pool: {pool.num_blocks - 1} usable pages x "
+              f"{pool.block_size} tokens, peak pages {pool.peak_pages}, "
+              f"peak concurrency {sched.peak_running}, peak concurrent "
+              f"prefills {sched.peak_prefills}, {sched.preemptions} "
+              "preemptions")
+    else:
+        print(f"slot pool: {pool.num_slots} slots x {pool.alloc_len} "
+              f"tokens, peak concurrency {sched.peak_running}")
     findings = sched.drain_check()
     if findings:
         print("DRAIN FAILED: KV pool leak findings at exit:", file=sys.stderr)

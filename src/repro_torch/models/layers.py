@@ -1,12 +1,13 @@
 """Transformer building blocks of the serving path: norm, RoPE, SwiGLU,
-attention projections and the plain ragged paged attention.
+attention projections, and the reference's XLA attention paths (whole
+sequence, contiguous decode, paged decode, ragged paged).
 
 Counterparts of the functions of the same names in
 ``repro.models.layers``, with the same tensor layouts: activations
 ``(b, s, d)``, queries ``(b, s, H, hd)``, weights ``(in, out)`` applied as
 ``x @ w``. Matmuls run in the compute dtype; norm statistics and softmax in
 float32. The port covers what smollm-360m uses: RMSNorm, SwiGLU, RoPE, no
-QKV bias, no q/k norm.
+QKV bias, no q/k norm, no softcap, no bidirectional prefix.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention import ragged_paged_attention_plain
+from repro_torch.kernels.decode_attention import (
+    NEG_INF, ragged_paged_attention_plain)
 
 
 def _trunc_normal(shape, std, generator, device, dtype):
@@ -108,6 +110,67 @@ def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None):
 def attn_output(cfg, p, o, dtype):
     b, s, h, hd = o.shape
     return o.reshape(b, s, h * hd).to(dtype) @ p["wo"].to(dtype)
+
+
+def attention_ref(q, k, v, *, causal, window=0):
+    """Oracle attention. q: (b, sq, H, hd); k / v: (b, skv, KV, hd); query
+    position i sees kv position j when ``j <= i`` (``causal``) and ``j > i -
+    window`` (``window > 0``, causal only: the reference's symmetric encoder
+    window is not ported). Scores in the input dtype, softmax in float32,
+    as the reference."""
+    if window and not causal:
+        raise NotImplementedError("a window without causality is not ported")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    q5 = q.reshape(b, sq, kvh, h // kvh, hd)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    s = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() / math.sqrt(hd)
+    p = torch.softmax(s + torch.where(ok, 0.0, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return o.reshape(b, sq, h, hd)
+
+
+def attention_decode(q, k_cache, v_cache, cur_len, *, window=0):
+    """Single-token decode attention against a contiguous cache.
+
+    q: (b, 1, H, hd); caches: (b, S, KV, hd); cur_len: scalar — the number
+    of valid positions, the new token's KV already written at cur_len - 1
+    — or a per-row (b,) vector. A row with cur_len 0 sees nothing and, as
+    in the reference, averages the whole cache."""
+    b, _, h, hd = q.shape
+    S, kvh = k_cache.shape[1], k_cache.shape[2]
+    q5 = q.reshape(b, 1, kvh, h // kvh, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q5, k_cache).float() / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    cl = torch.as_tensor(cur_len, device=q.device).expand(b)
+    ok = pos[None, :] < cl[:, None]
+    if window:
+        ok &= pos[None, :] > (cl - 1 - window)[:, None]
+    mask = ok[:, None, None, None, :]
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def paged_attention_decode(q, k_pages, v_pages, block_tables, cur_len):
+    """Single-token decode attention against a paged KV pool.
+
+    q: (b, 1, H, hd); pages: (num_blocks, block_size, KV, hd);
+    block_tables: (b, npages) (unmapped entries point at page 0 and sit past
+    cur_len); cur_len: (b,). Gathers each row's pages contiguous, then
+    :func:`attention_decode`."""
+    b = q.shape[0]
+    kvh, hd = k_pages.shape[2], k_pages.shape[3]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, -1, kvh, hd)
+    v = v_pages[bt].reshape(b, -1, kvh, hd)
+    return attention_decode(q, k, v, cur_len)
 
 
 def ragged_paged_attention_decode(q, k_pages, v_pages, block_tables,

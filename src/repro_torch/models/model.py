@@ -1,12 +1,13 @@
-"""Model assembly for serving: init, the paged KV pool's layout, and the
-unified ragged mixed step.
+"""Model assembly for serving: init, the KV cache layouts, whole-prompt
+prefill, the decode step and the unified ragged mixed step.
 
 Counterpart of ``repro.models.model.Model`` for attention-only causal
 stacks (the serving path). Parameters are a plain dict of tensors with
 ``params["layers"]`` a list of per-layer dicts in layer order (the bridge
 unpacks the reference's grouped ``(R, U, ...)`` stacking; eager PyTorch
-gains nothing from stacked leaves). The paged KV pool is ``{"k", "v"}`` of
-shape ``(L, num_blocks, block_size, kvh, hd)``.
+gains nothing from stacked leaves). A contiguous cache is ``{"k", "v"}`` of
+shape ``(L, b, S, kvh, hd)``; the paged KV pool is ``{"k", "v"}`` of shape
+``(L, num_blocks, block_size, kvh, hd)``.
 """
 from __future__ import annotations
 
@@ -98,6 +99,25 @@ class Model:
         return count(params)
 
     # ------------------------------------------------------------------
+    def _cache_len(self, max_len: int) -> int:
+        """Rows of a contiguous cache for ``max_len`` tokens (full attention
+        only: ``check_supported`` refuses the reference's SWA ring)."""
+        return max_len
+
+    def cache_specs(self, batch: int, max_len: int):
+        """Shape and dtype of each contiguous cache leaf: per layer a
+        (batch, S, kvh, hd) K and V, stacked (L, batch, S, kvh, hd)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, self._cache_len(max_len),
+                 cfg.num_kv_heads, cfg.head_dim)
+        return {"k": (shape, self.opts.compute_dtype),
+                "v": (shape, self.opts.compute_dtype)}
+
+    def init_cache(self, batch: int, max_len: int):
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name, (shape, dt) in
+                self.cache_specs(batch, max_len).items()}
+
     def paged_cache_specs(self, num_blocks: int, block_size: int):
         """Shape and dtype of each paged pool leaf: a global
         (L, num_blocks, block_size, kvh, hd) K and V page pool shared by
@@ -117,6 +137,126 @@ class Model:
         """Tied unembedding: h @ E^T in the compute dtype."""
         dt = self.opts.compute_dtype
         return h.to(dt) @ params["embed"]["tok"].to(dt).T
+
+    # ------------------------------------------------------------------
+    def _aot(self, peft):
+        """True for fused multi-task AoT, False for the bare backbone."""
+        if peft is None:
+            return False
+        if peft["method"] != "aot":
+            raise NotImplementedError(f"peft {peft['method']!r} is not ported")
+        return True
+
+    def _block(self, lp, h, sincos, attend):
+        """One pre-norm block on h (b, s, d): norm, Q/K/V projection with
+        RoPE (``sincos``), ``attend(q, k, v)`` -> (b, s, H, hd) (which also
+        writes the cache), output projection, norm, SwiGLU."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        q, k, v = L.attn_project_qkv(cfg, lp["attn"],
+                                     L.apply_norm(cfg, lp["ln1"], h), None,
+                                     dt, sincos=sincos)
+        h = h + L.attn_output(cfg, lp["attn"], attend(q, k, v), dt)
+        return h + L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h),
+                               dt)
+
+    def prefill(self, params, tokens, peft=None, *, max_len: int,
+                last_pos=None):
+        """Run whole prompts and build their contiguous cache.
+
+        tokens: (b, s) int; peft: None, or ``{"method": "aot", "tables":
+        (L, tasks, V, d), "task_ids": (b,) int32}`` for fused multi-task
+        AoT; max_len: the cache's length (>= s). Every layer attends
+        through the flash attention kernel (causal) and writes its K/V into
+        rows ``[0, s)`` of a fresh ``init_cache(b, max_len)``. ``last_pos``
+        (an int) picks the position whose logits are returned instead of
+        the last one: the continuous scheduler right-pads prompts to a
+        bucket, and causality keeps positions <= last_pos independent of
+        the padding. Returns (logits (b, 1, V), cache, pos = s)."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        aot = self._aot(peft)
+        b, s = tokens.shape
+        cache = self.init_cache(b, max_len)
+        if s > cache["k"].shape[2]:
+            raise ValueError(f"prompt length {s} exceeds the cache's "
+                             f"{cache['k'].shape[2]} rows")
+        ids = tokens.to(torch.int32)
+        h = params["embed"]["tok"][ids.long()].to(dt)             # (b, s, d)
+        sincos = L.rope_sincos(torch.arange(s, device=h.device),
+                               cfg.head_dim, cfg.rope_theta)
+        if aot:     # each row's task over its s tokens, flattened as h is
+            tids = peft["task_ids"].to(torch.int32).repeat_interleave(s)
+            flat_ids = ids.reshape(-1).contiguous()
+        for i, lp in enumerate(params["layers"]):
+            if aot:                                   # the paper's Eq. 1
+                h = ops.aot_gather_add_multitask(
+                    h.reshape(b * s, -1), peft["tables"][i], tids,
+                    flat_ids).view(b, s, -1)
+
+            def attend(q, k, v, i=i):
+                cache["k"][i, :, :s] = k
+                cache["v"][i, :, :s] = v
+                return ops.flash_attention(q, k, v, causal=True)
+            h = self._block(lp, h, sincos, attend)
+        h = L.apply_norm(cfg, params["final_norm"], h)
+        h_last = h[:, -1:] if last_pos is None else \
+            h[:, int(last_pos):int(last_pos) + 1]
+        return self.unembed(params, h_last), cache, s
+
+    def decode_step(self, params, tokens, pos, cache, peft=None,
+                    block_tables=None):
+        """One decode step. tokens: (b, 1); pos: the cache row of the new
+        token, an int (every row at one depth) or a per-row (b,) vector;
+        cache: a contiguous cache (``init_cache``), or with ``block_tables``
+        (b, npages) int32 the paged pool (``init_paged_cache``), in which
+        case ``pos`` must be per-row. peft as in :meth:`prefill`.
+
+        The new K/V is written into the cache IN PLACE (the reference
+        returns a new cache): contiguous at row ``pos``, paged into the page
+        ``block_tables`` maps for depth ``pos``. Attention then runs the
+        decode kernel (contiguous) or the paged decode kernel over
+        ``pos + 1`` positions. Returns (logits (b, 1, V), cache)."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        aot = self._aot(peft)
+        dev = self.device
+        ids = tokens[:, 0].to(torch.int32)
+        b = ids.shape[0]
+        h = params["embed"]["tok"][ids.long()].to(dt)[:, None]   # (b, 1, d)
+        if getattr(pos, "ndim", 0) == 1:
+            pos_t = torch.as_tensor(pos, device=dev).long()
+            positions = pos_t[:, None]                          # (b, 1)
+            cur = (pos_t + 1).to(torch.int32)
+            where = (torch.arange(b, device=dev), pos_t)     # each row's row
+        else:
+            if block_tables is not None:
+                raise ValueError("a paged decode step needs per-row pos")
+            # filled on the device: a host number uploaded here (or in each
+            # layer's wrapper) would wait on the stream every step
+            positions = torch.full((1,), int(pos), device=dev)  # every row's
+            cur = torch.full((b,), int(pos) + 1, dtype=torch.int32,
+                             device=dev)
+            where = (slice(None), int(pos))
+        sincos = L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
+        if block_tables is not None:        # the page and offset of each row
+            bs = cache["k"].shape[2]
+            where = (block_tables.long()[where[0], pos_t // bs], pos_t % bs)
+        for i, lp in enumerate(params["layers"]):
+            if aot:                                   # the paper's Eq. 1
+                h = ops.aot_gather_add_multitask(
+                    h[:, 0], peft["tables"][i], peft["task_ids"], ids)[:, None]
+            kc, vc = cache["k"][i], cache["v"][i]
+
+            def attend(q, k, v, kc=kc, vc=vc):
+                kc[where] = k[:, 0]
+                vc[where] = v[:, 0]
+                if block_tables is not None:
+                    o = ops.paged_decode_attention(q[:, 0], kc, vc,
+                                                   block_tables, cur)
+                else:
+                    o = ops.decode_attention(q[:, 0], kc, vc, cur)
+                return o[:, None]
+            h = self._block(lp, h, sincos, attend)
+        h = L.apply_norm(cfg, params["final_norm"], h)
+        return self.unembed(params, h), cache
 
     # ------------------------------------------------------------------
     def mixed_step(self, params, tokens, token_rows, token_pos, cache,
@@ -144,9 +284,7 @@ class Model:
         cfg = self.cfg
         dt = self.opts.compute_dtype
         assert block_tables is not None, "mixed_step serves paged pools only"
-        aot = peft is not None and peft["method"] == "aot"
-        if peft is not None and not aot:
-            raise NotImplementedError(f"peft {peft['method']!r} is not ported")
+        aot = self._aot(peft)
         ids = tokens[:, 0].to(torch.int32)
         h = params["embed"]["tok"][ids.long()].to(dt)[:, None]   # (T, 1, d)
         pos = token_pos.clamp(min=0).long()
@@ -161,17 +299,15 @@ class Model:
             if aot:                                   # the paper's Eq. 1
                 h = ops.aot_gather_add_multitask(
                     h[:, 0], peft["tables"][i], peft["task_ids"], ids)[:, None]
-            q, k, v = L.attn_project_qkv(cfg, lp["attn"],
-                                         L.apply_norm(cfg, lp["ln1"], h),
-                                         None, dt, sincos=sincos)
             kc, vc = cache["k"][i], cache["v"][i]
-            kc.view(-1, kvh, hd).index_copy_(0, row, k[:, 0].to(kc.dtype))
-            vc.view(-1, kvh, hd).index_copy_(0, row, v[:, 0].to(vc.dtype))
-            o = ops.ragged_paged_attention(q[:, 0], kc, vc, block_tables,
-                                           token_rows, token_pos)
-            h = h + L.attn_output(cfg, lp["attn"], o[:, None], dt)
-            h = h + L.apply_mlp(cfg, lp["mlp"],
-                                L.apply_norm(cfg, lp["ln2"], h), dt)
+
+            def attend(q, k, v, kc=kc, vc=vc):
+                kc.view(-1, kvh, hd).index_copy_(0, row, k[:, 0].to(kc.dtype))
+                vc.view(-1, kvh, hd).index_copy_(0, row, v[:, 0].to(vc.dtype))
+                return ops.ragged_paged_attention(
+                    q[:, 0], kc, vc, block_tables, token_rows,
+                    token_pos)[:, None]
+            h = self._block(lp, h, sincos, attend)
         h = L.apply_norm(cfg, params["final_norm"], h)
         if logit_idx is None:
             logit_idx = torch.arange(h.shape[0], device=h.device)

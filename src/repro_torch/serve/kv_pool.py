@@ -1,21 +1,111 @@
-"""Paged KV pool for continuous batching: a global pool of
-``block_size``-token pages plus per-slot block tables.
+"""KV pools for continuous batching: contiguous slots and paged blocks.
 
-Counterpart of the core of ``repro.serve.kv_pool.PagedKVPool``. Memory is
-claimed page by page as requests deepen, so capacity is bounded by tokens
-in flight, not ``num_slots * max_len``. Page 0 is a reserved scratch page:
-dead padding tokens of the mixed step write their KV there and unmapped
-block-table entries point at it (they are only ever read masked).
+Counterparts of ``repro.serve.kv_pool.SlotKVPool`` and of the core of
+``repro.serve.kv_pool.PagedKVPool``.
+
+``SlotKVPool`` owns one contiguous model cache ``(L, num_slots, S, kvh,
+hd)`` plus per-slot lengths, task ids and a free list: admitting a request
+copies its prefilled cache into its slot, and decode appends happen in the
+model's decode step, which writes each slot's new KV row at that slot's own
+depth.
+
+``PagedKVPool`` keeps a global pool of ``block_size``-token pages plus
+per-slot block tables. Memory is claimed page by page as requests deepen,
+so capacity is bounded by tokens in flight, not ``num_slots * max_len``.
+Page 0 is a reserved scratch page: dead padding tokens of the mixed step
+write their KV there and unmapped block-table entries point at it (they
+are only ever read masked).
 
 Bookkeeping (slots, pages, refcounts, lengths, task ids, block tables) is
 host-side numpy, mutated between device steps; the device holds only the
-page pool itself, which the model's mixed step writes in place.
+caches, which the model's steps and the prefill installs write in place.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Set
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.decode_attention import round_kv_len
+
+
+def _free_slot_findings(free_list, used, num_slots, cur_len) -> List[str]:
+    """Slots partition into free and used, and free slots are empty."""
+    bad: List[str] = []
+    free = set(free_list)
+    if len(free_list) != len(free):
+        bad.append("duplicate slots on free list")
+    both = free & used
+    if both:
+        bad.append(f"slots both free and used: {sorted(both)}")
+    lost = set(range(num_slots)) - (free | used)
+    if lost:
+        bad.append(f"lost slots (neither free nor used): {sorted(lost)}")
+    deep = [s for s in sorted(free) if cur_len[s] != 0]
+    if deep:
+        bad.append(f"freed slots with nonzero length: {deep}")
+    return bad
+
+
+class SlotKVPool:
+    """Fixed-capacity slotted decode cache shared by all in-flight
+    requests: slot ``s`` owns rows ``[:, s]`` of the contiguous cache."""
+
+    def __init__(self, model, num_slots: int, max_len: int):
+        self.num_slots = num_slots
+        self.max_len = max_len
+        # rounded as the reference rounds; rows past max_len stay masked
+        self.alloc_len = round_kv_len(max_len)
+        self.cache = model.init_cache(num_slots, self.alloc_len)
+        self.cur_len = np.zeros(num_slots, np.int32)
+        self.task_id = np.zeros(num_slots, np.int32)
+        self._free: List[int] = list(range(num_slots - 1, -1, -1))
+        self._used: Set[int] = set()
+
+    def has_free(self) -> bool:
+        return bool(self._free)
+
+    def alloc(self, task_id: int = 0) -> Optional[int]:
+        """Claim a slot (None when full); cur_len is 0 until the prefill."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self._used.add(slot)
+        self.task_id[slot] = task_id
+        self.cur_len[slot] = 0
+        return slot
+
+    def free(self, slot: int) -> None:
+        if slot not in self._used:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._used.remove(slot)
+        self.cur_len[slot] = 0
+        self.task_id[slot] = 0
+        self._free.append(slot)
+
+    def write_prefill(self, slot: int, req_cache, length: int) -> None:
+        """Copy a request's batch-1 prefill cache ``{"k", "v"}: (L, 1, S,
+        kvh, hd)`` into its slot, in place, at rows ``[0, S)``. ``length``
+        real prompt tokens become visible; rows past it (bucket padding)
+        stay masked by ``cur_len`` until decode overwrites them."""
+        if length > self.max_len:
+            raise ValueError(f"prompt length {length} exceeds pool max_len "
+                             f"{self.max_len}")
+        for name, c in req_cache.items():
+            self.cache[name][:, slot, :c.shape[2]] = c[:, 0]
+        self.cur_len[slot] = length
+
+    def advance(self, slots) -> None:
+        """Record one decode append for each slot in ``slots``."""
+        for s in slots:
+            self.cur_len[s] += 1
+
+    def leak_report(self) -> List[str]:
+        """Invariant sweep: every slot exactly one of free / used, free
+        slots empty. Returns findings (empty = clean)."""
+        return _free_slot_findings(self._free, self._used, self.num_slots,
+                                   self.cur_len)
 
 
 class PagedKVPool:
@@ -120,6 +210,32 @@ class PagedKVPool:
         self.task_id[slot] = 0
         self._free_slots.append(slot)
 
+    def write_prefill(self, slot: int, req_cache, length: int) -> None:
+        """Scatter a request's batch-1 contiguous prefill cache ``{"k",
+        "v"}: (L, 1, S, kvh, hd)`` into the slot's mapped pages, in place.
+        ``length`` is the number of real prompt tokens; the slot must
+        already hold ``pages_needed(length)`` pages (admission claims
+        them)."""
+        if length > self.max_len:
+            raise ValueError(f"prompt length {length} exceeds pool max_len "
+                             f"{self.max_len}")
+        npages = self.pages_needed(length)
+        pages = self._pages[slot][:npages]
+        assert len(pages) == npages, (
+            f"slot {slot}: {len(self._pages[slot])} pages mapped, prefill "
+            f"needs {npages}")
+        need = npages * self.block_size
+        for name, c in req_cache.items():
+            pool = self.cache[name]           # (L, num_blocks, bs, kvh, hd)
+            rows = c[:, 0, :need]
+            if rows.shape[1] < need:    # the tail page runs past the cache
+                rows = torch.nn.functional.pad(
+                    rows, (0, 0, 0, 0, 0, need - rows.shape[1]))
+            idx = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
+            pool.index_copy_(1, idx, rows.reshape(
+                (rows.shape[0], npages, self.block_size) + rows.shape[2:]))
+        self.cur_len[slot] = length
+
     def commit_prefill(self, slot: int, length: int) -> None:
         """Publish a prefill whose KV the mixed step already wrote into
         this slot's mapped pages: bookkeeping only."""
@@ -142,19 +258,8 @@ class PagedKVPool:
         refcount equals the number of slots mapping it; pages partition
         into free and mapped (scratch page 0 excluded). Returns findings
         (empty = clean)."""
-        bad: List[str] = []
-        free = set(self._free_slots)
-        if len(self._free_slots) != len(free):
-            bad.append("duplicate slots on free list")
-        both = free & self._used_slots
-        if both:
-            bad.append(f"slots both free and used: {sorted(both)}")
-        lost = set(range(self.num_slots)) - (free | self._used_slots)
-        if lost:
-            bad.append(f"lost slots (neither free nor used): {sorted(lost)}")
-        deep = [s for s in sorted(free) if self.cur_len[s] != 0]
-        if deep:
-            bad.append(f"freed slots with nonzero length: {deep}")
+        bad = _free_slot_findings(self._free_slots, self._used_slots,
+                                  self.num_slots, self.cur_len)
         if set(self._pages) != self._used_slots:
             bad.append("page map out of sync with used slots: "
                        f"{sorted(set(self._pages) ^ self._used_slots)}")

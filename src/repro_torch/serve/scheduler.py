@@ -1,24 +1,30 @@
-"""Continuous-batching scheduler over the paged KV pool: queue -> admit ->
-chunked prefill -> decode -> finish.
+"""Continuous-batching scheduler: queue -> admit -> prefill -> decode ->
+finish, over a paged or a contiguous (slotted) KV pool.
 
-Counterpart of the paged path of ``repro.serve.scheduler``. Each request
-carries its own task, prompt and ``max_new_tokens``; requests join between
-ticks, and every tick is ONE ``ServeEngine.serve_step`` call over a ragged
-packed token list: each decode row contributes its fed-back token, each of
-up to ``max_prefills`` in-flight prefills its next prompt chunk. The
-per-tick chunk budget (``prefill_chunk`` tokens) is split
-shortest-remaining-first, with the oldest prefill guaranteed a
-``budget / max_prefills`` slice so short prompts can never starve it. When
-the pool runs out of pages mid-decode the newest request is preempted
-(freed and requeued) and later recomputed; the counter-based sampling
-streams make the recompute replay the same draws.
+Counterpart of ``repro.serve.scheduler``. Each request carries its own
+task, prompt and ``max_new_tokens``; requests join between ticks.
 
-Not ported yet: whole-prompt admission, priorities and shedding,
-deadlines, ``abort`` and ``shutdown``, the journal, fault injection and
-quarantine, prefix caching, ``n > 1`` samples, observability. A dispatch
-that raises is not retried: the mixed step writes the KV pool in place, so
-a failed tick cannot be replayed against an untouched pool; it raises.
-A reported logits row that is not finite raises too.
+- ``kv_layout="paged"`` (the default): every tick is ONE
+  ``ServeEngine.serve_step`` call over a ragged packed token list, each
+  decode row contributing its fed-back token. With ``prefill_chunk > 0``
+  each of up to ``max_prefills`` in-flight prefills adds its next prompt
+  chunk: the per-tick chunk budget is split shortest-remaining-first, with
+  the oldest prefill guaranteed a ``budget / max_prefills`` slice so short
+  prompts can never starve it. With ``prefill_chunk = 0`` (the default, as
+  in the reference) a prompt is admitted whole: one bucket-padded
+  ``prefill_request`` whose cache is scattered into the slot's pages. When
+  the pool runs out of pages mid-decode the newest request is preempted
+  (freed and requeued) and later recomputed; the counter-based sampling
+  streams make the recompute replay the same draws.
+- ``kv_layout="slots"``: whole-prompt admission into a contiguous slot,
+  then one ``decode_mixed`` call over every slot per tick.
+
+Not ported yet: priorities and shedding, deadlines, ``abort`` and
+``shutdown``, the journal, fault injection and quarantine, prefix caching,
+``n > 1`` samples, observability. A dispatch that raises is not retried:
+the model writes the KV caches in place, so a failed tick cannot be
+replayed against an untouched pool; it raises. A reported logits row of a
+paged tick that is not finite raises too.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.serve.engine import ServeEngine
-from repro_torch.serve.kv_pool import PagedKVPool
+from repro_torch.serve.kv_pool import PagedKVPool, SlotKVPool
 from repro_torch.serve.sampling import SamplingParams, request_base_key
 
 QUEUED, RUNNING, FINISHED = "queued", "running", "finished"
@@ -79,11 +85,14 @@ class Request:
 @dataclass(frozen=True)
 class SchedulerConfig:
     num_slots: int = 8                  # batch width (decode rows)
-    block_size: int = 16                # KV page size in tokens
+    bucket_min: int = 16                # smallest prefill bucket (doubles up)
+    kv_layout: str = "paged"            # "paged" | "slots"
+    block_size: int = 16                # KV page size in tokens (paged)
     num_blocks: int = 0                 # physical pages incl. scratch page 0
                                         # (0 = capacity parity with slots)
-    prefill_chunk: int = 32             # per-tick prefill TOKEN BUDGET, split
-                                        # across in-flight prefills
+    prefill_chunk: int = 0              # per-tick prefill TOKEN BUDGET, split
+                                        # across in-flight prefills (paged
+                                        # only; 0 = whole-prompt admission)
     max_prefills: int = 4               # cap on concurrently chunking prefills
 
 
@@ -103,21 +112,32 @@ class _Prefill:
 
 
 class ContinuousScheduler:
-    """Drives a ServeEngine and a paged KV pool over an online stream."""
+    """Drives a ServeEngine and a KV pool over an online stream."""
 
     def __init__(self, engine: ServeEngine,
                  cfg: Optional[SchedulerConfig] = None):
         cfg = cfg if cfg is not None else SchedulerConfig()
-        for knob, lo in (("num_slots", 1), ("block_size", 1),
-                         ("num_blocks", 0), ("prefill_chunk", 1),
-                         ("max_prefills", 1)):
+        for knob, lo in (("num_slots", 1), ("bucket_min", 1),
+                         ("block_size", 1), ("num_blocks", 0),
+                         ("prefill_chunk", 0), ("max_prefills", 1)):
             _check_count(f"SchedulerConfig.{knob}", getattr(cfg, knob), lo)
+        if cfg.kv_layout not in ("paged", "slots"):
+            raise InvalidConfig(f"SchedulerConfig.kv_layout must be 'paged' "
+                                f"or 'slots' (got {cfg.kv_layout!r})")
+        if cfg.prefill_chunk > 0 and cfg.kv_layout == "slots":
+            raise InvalidConfig(
+                "chunked prefill rides the unified paged serve step; "
+                "kv_layout='slots' serves whole-prompt prefills only")
         self.engine = engine
         self.cfg = cfg
         self.max_len = engine.cfg.max_len
-        self.pool = PagedKVPool(engine.model, cfg.num_slots, self.max_len,
-                                block_size=cfg.block_size,
-                                num_blocks=cfg.num_blocks or None)
+        self.paged = cfg.kv_layout == "paged"
+        if self.paged:
+            self.pool = PagedKVPool(engine.model, cfg.num_slots, self.max_len,
+                                    block_size=cfg.block_size,
+                                    num_blocks=cfg.num_blocks or None)
+        else:
+            self.pool = SlotKVPool(engine.model, cfg.num_slots, self.max_len)
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}        # slot -> request
         self.finished: Dict[int, Request] = {}       # rid -> request
@@ -140,7 +160,8 @@ class ContinuousScheduler:
         self._prefills: List[_Prefill] = []
         self._admit_seq: Dict[int, int] = {}         # slot -> admission order
         self._seq = 0
-        self._qw = cfg.prefill_chunk
+        # static per-tick chunk budget: chunk ticks pack to one width
+        self._qw = max(1, cfg.prefill_chunk)
 
     # ------------------------------------------------------------------
     def _max_new(self, req: Request) -> int:
@@ -185,6 +206,12 @@ class ContinuousScheduler:
                 f"request {req.rid}: prompt {s} + {max_new} new "
                 f"tokens does not fit max_len {self.max_len}")
 
+    def _bucket(self, length: int) -> int:
+        b = self.cfg.bucket_min
+        while b < length:
+            b *= 2
+        return min(b, self.max_len)
+
     def submit(self, req: Request) -> None:
         """Validate and enqueue; raises :class:`InvalidRequest`."""
         self._validate(req)
@@ -213,7 +240,7 @@ class ContinuousScheduler:
         self.finished[req.rid] = req
 
     # ------------------------------------------------------------------
-    # admission (chunked prefill)
+    # admission (bucketed whole-prompt prefill, or chunked across ticks)
     # ------------------------------------------------------------------
     def _prefill_tokens(self, req: Request) -> np.ndarray:
         """The tokens whose KV must be resident before decode: the prompt,
@@ -224,6 +251,19 @@ class ContinuousScheduler:
                                    np.asarray(req.out[:-1], np.int32)])
         return req.prompt
 
+    def _alloc_slot(self, req: Request, length: int) -> Optional[int]:
+        if self.paged:
+            return self.pool.alloc(req.task_id, self.pool.pages_needed(length))
+        return self.pool.alloc(req.task_id)
+
+    def _can_admit(self, req: Request) -> bool:
+        if not self.pool.has_free():
+            return False
+        if self.paged:
+            need = self.pool.pages_needed(len(self._prefill_tokens(req)))
+            return self.pool.can_claim(need)
+        return True
+
     def _can_admit_chunked(self, req: Request) -> bool:
         """Chunked admission holds a prompt's pages for several ticks before
         the request emits anything, so one append page per running decode
@@ -233,11 +273,37 @@ class ContinuousScheduler:
         need = self.pool.pages_needed(len(self._prefill_tokens(req)))
         return self.pool.can_claim(need, reserve=len(self.running))
 
+    def _first_sample_spec(self, req: Request):
+        """Sampling spec of the first-token draw from the prefill logits:
+        None (exact argmax) for greedy requests and for recompute installs,
+        whose pending token was already emitted."""
+        sp = req.sampling
+        if sp is None or req.out or sp.greedy:
+            return None
+        return (np.full(1, sp.temperature, np.float32),
+                np.full(1, sp.top_k, np.int32),
+                np.full(1, sp.top_p, np.float32),
+                request_base_key(sp.seed, 0)[None],
+                np.zeros(1, np.int32))
+
+    def _admit_whole(self, req: Request) -> None:
+        """Whole-prompt path: the entire (bucket-padded) prompt in one
+        prefill call, its cache copied into the pool at install."""
+        toks_full = self._prefill_tokens(req)
+        s = len(toks_full)
+        slot = self._alloc_slot(req, s)
+        assert slot is not None
+        toks = np.zeros((1, self._bucket(s)), np.int32)
+        toks[0, :s] = toks_full
+        first, cache = self.engine.prefill_request(
+            toks, s, req.task_id, sample=self._first_sample_spec(req))
+        self._install(req, slot, s, first[0], cache=cache)
+
     def _start_chunked(self, req: Request) -> None:
         """Claim a slot and the prompt's pages; the chunks ride later ticks'
         serve_step calls as ragged spans of the packed list."""
         toks = self._prefill_tokens(req)
-        slot = self.pool.alloc(req.task_id, self.pool.pages_needed(len(toks)))
+        slot = self._alloc_slot(req, len(toks))
         assert slot is not None
         self.slot_temps[slot] = 0.0     # draws armed on the final chunk only
         self._prefills.append(_Prefill(req=req, slot=slot,
@@ -259,9 +325,16 @@ class ContinuousScheduler:
         self.slot_keys[slot] = self._base_key(req)
         self.slot_steps[slot] = 0
 
-    def _install(self, req: Request, slot: int, length: int, tok: int) -> None:
-        """Publish the prefilled slot and start decoding it."""
-        self.pool.commit_prefill(slot, length)
+    def _install(self, req: Request, slot: int, length: int, tok: int,
+                 cache=None) -> None:
+        """Publish the prefilled slot and start decoding it. ``cache``
+        carries a whole-prompt prefill's contiguous cache to copy into the
+        pool; None means the serve step already wrote the KV into the
+        slot's pages (the chunked path) and only the depth is committed."""
+        if cache is not None:
+            self.pool.write_prefill(slot, cache, length)
+        else:
+            self.pool.commit_prefill(slot, length)
         req.state, req.slot = RUNNING, slot
         self._seq += 1
         self._admit_seq[slot] = self._seq
@@ -282,10 +355,16 @@ class ContinuousScheduler:
                 self._finish(req)
 
     def _admission_tick(self) -> None:
-        while len(self._prefills) < self.cfg.max_prefills and self.queue:
-            if not self._can_admit_chunked(self.queue[0]):
-                break
-            self._start_chunked(self.queue.popleft())
+        if self.cfg.prefill_chunk > 0:
+            # starting a chunked prefill is host bookkeeping only; up to
+            # max_prefills prompts then chunk through the tick's one call
+            while len(self._prefills) < self.cfg.max_prefills and self.queue:
+                if not self._can_admit_chunked(self.queue[0]):
+                    break
+                self._start_chunked(self.queue.popleft())
+            return
+        while self.queue and self._can_admit(self.queue[0]):
+            self._admit_whole(self.queue.popleft())
 
     # ------------------------------------------------------------------
     # page backpressure
@@ -340,9 +419,13 @@ class ContinuousScheduler:
 
     # ------------------------------------------------------------------
     def step(self) -> None:
-        """One scheduler tick: ONE serve_step call over the packed batch of
-        decode tokens and every in-flight prefill's chunk."""
-        self._paged_tick()
+        """One scheduler tick. Paged: ONE serve_step call over the packed
+        batch of decode tokens and every in-flight prefill's chunk. Slots:
+        whole-prompt admission, then one decode_mixed call."""
+        if self.paged:
+            self._paged_tick()
+        else:
+            self._slots_tick()
         self.clock += 1
         self.ticks += 1
 
@@ -440,6 +523,42 @@ class ContinuousScheduler:
             self._install(pf.req, pf.slot, pf.length, int(toks[pf.slot]))
         self._prefills = still
         self.peak_running = max(self.peak_running, len(self.running))
+
+    def _decode_sample_spec(self):
+        """Per-slot sampling vectors for this decode step, or None when
+        every running request is greedy (the exact-argmax path). Step
+        counters come from each request's emitted-token count, so token j
+        is always drawn under fold_in(base, j)."""
+        stochastic = False
+        for slot, req in self.running.items():
+            self.slot_steps[slot] = len(req.out)
+            sp = req.sampling
+            if sp is not None and sp.temperature > 0.0:
+                stochastic = True
+        if not stochastic:
+            return None
+        return (self.slot_temps, self.slot_topk, self.slot_topp,
+                self.slot_keys, self.slot_steps)
+
+    def _slots_tick(self) -> None:
+        """The contiguous-layout tick: bucketed whole-prompt admission,
+        then one decode call over every slot."""
+        self._admission_tick()
+        if not self.running:
+            return
+        toks, cache = self.engine.decode_mixed(
+            self.slot_tokens, self.pool.cur_len, self.pool.cache,
+            self.pool.task_id, sample=self._decode_sample_spec())
+        self.pool.cache = cache
+        active = list(self.running.items())
+        self.peak_running = max(self.peak_running, len(active))
+        self.pool.advance([s for s, _ in active])
+        self.steps_decoded += 1
+        for slot, req in active:
+            tok = int(toks[slot])
+            self.slot_tokens[slot, 0] = tok
+            if self._emit(req, tok):
+                self._finish(req)
 
     # ------------------------------------------------------------------
     def busy(self) -> bool:

@@ -175,6 +175,8 @@ RAGGED_BAD = {
                            _i32(1)), ValueError, "unsupported"),
     "pos_length": ((_Q, _PAGES, _PAGES, _i32(1, 2), _i32(1), _i32(2)),
                    ValueError, r"\(T,\)"),
+    "group_over_8": ((torch.zeros(1, 9, 8), _PAGES, _PAGES, _i32(1, 2),
+                      _i32(1), _i32(1)), ValueError, "unsupported"),
 }
 
 
@@ -189,3 +191,27 @@ def test_ragged_kernel_refuses_bad_arguments(case):
                                        (1000, 256), (48, 16), (50, 16)])
 def test_round_kv_len_matches_reference(n, block_k):
     assert round_kv_len(n, block_k) == jax_round_kv_len(n, block_k)
+
+
+# positional arguments of each wrapper
+WRAPPER_ARGS = {"aot_gather_add_multitask": 4, "ragged_paged_attention": 6,
+                "flash_attention": 3, "decode_attention": 4,
+                "paged_decode_attention": 5}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPER_ARGS))
+def test_wrapper_counts_only_calls_that_launch(monkeypatch, name):
+    """A kernel function returns an empty output without launching; its
+    wrapper then counts nothing. Every other call on the card counts one."""
+    wrapper = getattr(ops, name)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *xs: False)
+    ops.reset_launches()
+    try:
+        for rows in (0, 3, 0):
+            monkeypatch.setattr(
+                ops, f"{name}_kernel",
+                lambda *a, rows=rows, **kw: torch.zeros(rows, 2))
+            wrapper(*[None] * WRAPPER_ARGS[name])
+        assert wrapper.launches == 1
+    finally:
+        ops.reset_launches()
