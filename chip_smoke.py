@@ -9,11 +9,13 @@ Phases, each printing one line of results; any failure exits non-zero:
 2. build: every CUDA source under src/repro_torch/kernels/csrc compiled by
    nvcc for sm_90a, one nvcc each, in parallel;
 3. parity: each kernel's public wrapper against its plain PyTorch version
-   on the card at smollm-360m's shapes (gather-add bitwise; attention
+   on the card at smollm-360m's shapes (both gather-adds bitwise, the
+   single-table one's NaN rows for ids outside [-V, V) included; attention
    within 2e-5 in float32 and 2e-2 in bfloat16), for both the
    16-byte-load and the one-element-load build where a kernel has both:
    ragged paged attention; flash attention (causal, full, window; sq = skv
-   in {1, 37, 512}, sq != skv, hd 60, a strided q); contiguous decode
+   in {1, 37, 512}, sq != skv, hd 60, a strided q; queries from an offset
+   over sq + offset keys, P-Tuning v2's prefill); contiguous decode
    (scalar and per-row lengths with 0, 1 and ragged depths, S = 1024);
    paged decode (length 0, lengths that straddle pages, depth 1024);
 4. kernel times at the serving paths' shapes (device time from
@@ -31,14 +33,22 @@ Phases, each printing one line of results; any failure exits non-zero:
    16 prompts of 512 tokens with mixed tasks, 64 new tokens; the same
    prompts as per-task batches; the mixed batch over a paged pool
    (Model.decode_step(block_tables=)). Generated tokens/s of each;
-   in 5-5c every request must finish, every pool must drain clean, and
+   in 5-5d every request must finish, every pool must drain clean, and
    each kernel must launch exactly 32 times per call that runs it (counts
    zeroed just before each run);
+5d. the paper's Fig. 3 comparison: 5c's prompts through one
+   ServeEngine(peft=...) per method (bare backbone, one task's fused AoT
+   tables through the single-table gather-add, BitFit, LoRA unfused and
+   fused, adapters, P-Tuning v2): generated tokens/s and its ratio to the
+   backbone's, kernels per step and device busy ms from a profiled run;
+   the AoT engine's tokens must equal the multi-task engine's with every
+   task id 0; then Model.logits at benchmarks/speed_overhead.py's grid,
+   time ratios to the backbone's (reported, no limit);
 6. cross-checks at full width with 2 layers: one mixed tick, and a prefill
-   plus three decode steps, through the kernels and through the plain
-   versions (bf16 tolerance, same greedy tokens); paged against contiguous
-   decode steps from one prefill (same tokens); preempt-and-recompute
-   parity is reported.
+   plus three decode steps (for every method of 5d too), through the
+   kernels and through the plain versions (bf16 tolerance, same greedy
+   tokens); paged against contiguous decode steps from one prefill (same
+   tokens); preempt-and-recompute parity is reported.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -54,6 +64,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from statistics import median
 
 import numpy as np
 import torch
@@ -268,6 +279,7 @@ def phase_parity(gen, report):
         cases=f"{cases['vec']} vec + {cases['scalar']} scalar",
         result="bitwise equal", tables="4x49152x960 (vec, misaligned h), "
         "4x4096x962 (d%8!=0)", types="{f32,bf16}^2", T="8,263")
+    parity_single_gather(gen, report)
 
     def check_ragged(rows, pos, dtype, hd, shift):
         q, k, v, bt, r, p = ragged_inputs(gen, rows, pos, dtype, hd=hd)
@@ -321,6 +333,54 @@ def check_close(what, out, plain, dtype, report, zero_rows=None):
     return err
 
 
+def parity_single_gather(gen, report):
+    """The single-table gather-add (one task's fused AoT tables) against
+    its plain version, bitwise with NaN rows equal: ids include -1 and -V
+    (wrap once) and V, V + 5, -V - 1 (NaN rows, jnp.take's fill); the
+    16-byte build at d 960 and the one-element build at d 60 and with h
+    one element off a 16-byte boundary; f32 and bf16 h and tables."""
+    from repro_torch.kernels import aot_bias, ops
+    cases, nan_rows = [], 0
+    for t_dtype in (torch.bfloat16, torch.float32):
+        for vocab, d in ((49152, 960), (4096, 60)):
+            table = (torch.randn(vocab, d, generator=gen, device=DEV)
+                     * 0.03).to(t_dtype)
+            for h_dtype in (torch.bfloat16, torch.float32):
+                for T in (16, 263):
+                    h = torch.randn(T, d, generator=gen,
+                                    device=DEV).to(h_dtype)
+                    ids = torch.randint(0, vocab, (T,), generator=gen,
+                                        device=DEV, dtype=torch.int32)
+                    ids[:6] = torch.tensor([-1, -vocab, vocab, vocab + 5,
+                                            -vocab - 1, vocab - 1])
+                    variants = {"vec" if d % 8 == 0 else "scalar_d60": h}
+                    if d % 8 == 0:
+                        variants["scalar_misaligned"] = misaligned(h)
+                    for variant, hh in variants.items():
+                        out = ops.aot_gather_add(hh, table, ids)
+                        plain = aot_bias.aot_gather_add_plain(hh, table, ids)
+                        torch.cuda.synchronize()
+                        what = (f"single gather-add {variant} h={h_dtype} "
+                                f"table={t_dtype} T={T} d={d}")
+                        if not torch.allclose(out, plain, rtol=0, atol=0,
+                                              equal_nan=True):
+                            raise AssertionError(f"{what}: not bitwise equal")
+                        nan = out.isnan().all(dim=1)
+                        if nan.tolist()[:6] != [False] * 2 + [True] * 3 + [
+                                False] or int(nan.sum()) != 3:
+                            raise AssertionError(f"{what}: NaN rows "
+                                                 f"{nan.nonzero().tolist()}")
+                        nan_rows += 3
+                        cases.append(variant)
+            del table
+    report["parity"]["aot_gather_add"] = dict(cases=len(cases),
+                                              nan_rows=nan_rows)
+    log("3 parity", kernel="aot_gather_add", cases=len(cases),
+        builds=",".join(sorted(set(cases))), result="bitwise equal",
+        nan_rows=f"{nan_rows} (ids V, V+5, -V-1)",
+        tables="49152x960, 4096x60", types="{f32,bf16}^2", T="16,263")
+
+
 # flash parity cases: name -> (b, sq, skv, hd, causal, window, strided,
 # heads); smollm's heads (15 over 5) unless a case names others
 FLASH_CASES = {
@@ -337,6 +397,18 @@ FLASH_CASES = {
     "causal_strided_q": (2, 100, 100, HD, True, 0, True),
     "causal_hd128": (2, 100, 100, 128, True, 0, False),    # 4 channels/lane
     "window16_g8": (2, 100, 100, HD, True, 16, False, (8, 1)),
+}
+
+
+# queries from an offset (P-Tuning v2's prefill: sq prompt queries at
+# positions q_offset.. over the prefix and the prompt, skv = q_offset + sq):
+# name -> (b, sq, q_offset, window)
+FLASH_OFFSET_CASES = {
+    "offset20_37": (2, 37, 20, 0),
+    "offset37_100": (2, 100, 37, 0),
+    "offset20_512": (1, 512, 20, 0),
+    "offset20_window16": (2, 100, 20, 16),
+    "offset37_window64_512": (1, 512, 37, 64),
 }
 
 
@@ -365,8 +437,18 @@ def parity_flash(gen, report):
             err = check_close(f"flash/{name}/{dtype}", out, plain, dtype,
                               report)
             cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
+    for name, (b, sq, off, window) in FLASH_OFFSET_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(gen, b, sq, sq + off, HD, dtype)
+            out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                      q_offset=off)
+            plain = flash_attention.flash_attention_plain(
+                q, k, v, causal=True, window=window, q_offset=off)
+            err = check_close(f"flash/{name}/{dtype}", out, plain, dtype,
+                              report)
+            cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
     log("3 parity", kernel="flash_attention",
-        shapes="h15 kvh5 hd64|60|128, h8 kvh1 hd64",
+        shapes="h15 kvh5 hd64|60|128, h8 kvh1 hd64; q_offset 20|37",
         max_abs_err=",".join(cases))
 
 
@@ -470,7 +552,7 @@ def phase_times(gen, report):
     repeated launches: 8 id sets for the gather-add, 32 pool layers for the
     attention (one per model layer, as the tick walks them)."""
     from repro_torch.kernels import aot_bias, decode_attention, ops
-    rows_out = []
+    rows_out = [times_single_gather(gen, report)]
     dt = torch.bfloat16
     # ---- gather-add
     tables = (torch.randn(4, 49152, 960, generator=gen, device=DEV)
@@ -528,6 +610,71 @@ def phase_times(gen, report):
     return rows_out
 
 
+def times_single_gather(gen, report):
+    """The single-table gather-add at the static batch's shapes, bf16: its
+    prefill (T = 16 x 512) and a decode step (T = 16), one task's table
+    (49152, 960), 8 id sets rotated. Bound: bytes, 3 T d elements of 2
+    bytes and T int32 ids (one addition per element is far below the
+    card's rate). No single PyTorch call gathers and adds."""
+    from repro_torch.kernels import aot_bias, ops
+    dt, d = torch.bfloat16, 960
+    table = (torch.randn(49152, d, generator=gen, device=DEV) * 0.03).to(dt)
+    res = {}
+    for T in (16 * 512, 16):
+        h = torch.randn(T, d, generator=gen, device=DEV).to(dt)
+        ids = [torch.randint(0, 49152, (T,), generator=gen, device=DEV,
+                             dtype=torch.int32) for _ in range(8)]
+        kern = lambda i: ops.aot_gather_add(h, table, ids[i % 8])
+        plain = lambda i: aot_bias.aot_gather_add_plain(h, table, ids[i % 8])
+        res[T] = timed(kern, plain, 200, 50, tol=0)
+        res[T]["bound_ms"] = (3 * T * d * 2 + 4 * T) / HBM_BYTES_PER_S * 1e3
+        res[T]["library_ms"] = None
+    del table
+    report["times"]["aot_gather_add"] = res
+    log("4 times", kernel="aot_gather_add",
+        **{f"T{T}": fmt_times(r) + "[bytes; library none]"
+           for T, r in res.items()})
+    g = res[16 * 512]
+    return {"name": "aot_gather_add", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/aot_gather_add.cu",
+            "replaces": "src/repro/kernels/aot_bias.py:27",
+            "max_abs_err": g["err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+def times_flash_offset(gen, report):
+    """Flash attention at P-Tuning v2's prefill shape, bf16: 16 prompts of
+    512 queries at positions 20.. over 532 keys (the 20-position prefix
+    and the prompt), causal, beside SDPA with the same mask given as an
+    explicit boolean mask (a yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es, b, s, off = torch.bfloat16, 2, 16, 512, 20
+    qs = [flash_inputs(gen, b, s, s + off, HD, dt) for _ in range(8)]
+    kern = lambda i: ops.flash_attention(*qs[i % 8], causal=True,
+                                         q_offset=off)
+    plain = lambda i: fa.flash_attention_plain(*qs[i % 8], causal=True,
+                                               q_offset=off)
+    res = timed(kern, plain, 32, 8, tol=TOL[dt])
+    mask = (torch.arange(s + off, device=DEV)[None, :]
+            <= off + torch.arange(s, device=DEV)[:, None])     # (sq, skv)
+    sdpa = lambda i: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in qs[i % 8]), attn_mask=mask,
+        enable_gqa=True)
+    res["library_ms"] = device_ms(sdpa, 32)      # yardstick only
+    pairs = b * H * (s * off + s * (s + 1) // 2)   # visible (head, q, kv)
+    res["bound_ms"], res["bound_by"] = bound(
+        2 * b * s * H * HD * es + 2 * b * (s + off) * KVH * HD * es,
+        4 * HD * pairs, dt)
+    del qs
+    report["times"]["flash_attention_q_offset"] = res
+    log("4 times", kernel="flash_attention", shape=f"ptv2 b{b} sq{s} "
+        f"skv{s + off} q_offset{off}", times=fmt_times(res)
+        + f"[{res['bound_by']}; library {res['library_ms']:.5f}]")
+
+
 def times_prefill_decode(gen, report):
     """The three kernels of the whole-prompt and decode paths at those
     paths' shapes, bf16: flash at the static batch's prefill (16 prompts of
@@ -558,6 +705,7 @@ def times_prefill_decode(gen, report):
                          replaces="src/repro/kernels/flash_attention.py:73",
                          res=res))
     del qs
+    times_flash_offset(gen, report)
     # ---- contiguous decode: 16 rows at depths 512..575 of S = 1024
     lens = list(range(512, 576, 4))
     q, k, v, cur = decode_inputs(gen, lens, dt, layers=ROTATE)
@@ -632,7 +780,8 @@ BASE = ["--arch", "smollm-360m", "--demo", "--tasks", "4",
         "--dtype", "bfloat16", "--quiet"]
 GREEDY = ["--requests", "16"]
 # the path run whose count is each kernel's ``launches``
-MAIN_PATH = {"aot_gather_add_multitask": "paged_greedy",
+MAIN_PATH = {"aot_gather_add": "peft_aot",
+             "aot_gather_add_multitask": "paged_greedy",
              "ragged_paged_attention": "paged_greedy",
              "flash_attention": "static_mixed",
              "decode_attention": "static_mixed",
@@ -817,6 +966,18 @@ def paged_generate(engine, prompts, steps, task_ids):
     return torch.cat(out, dim=1).cpu().numpy()
 
 
+STATIC_STEPS = 64
+
+
+def static_batch(engine):
+    """The static batch's 16 prompts of 512 tokens and their mixed task
+    ids (seed 0)."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, engine.model.cfg.vocab_size,
+                           (16, 512)).astype(np.int32)
+    return prompts, rng.integers(0, engine.num_tasks, 16).astype(np.int32)
+
+
 def phase_static(report, engine):
     """The paper's Fig. 3 setting at full width: one static batch of 16
     prompts of 512 tokens with mixed task ids, 64 greedy tokens each,
@@ -828,11 +989,8 @@ def phase_static(report, engine):
     from repro_torch.serve.engine import ServeEngine
     layers = engine.model.cfg.num_layers
     n_tasks = engine.num_tasks
-    b, s, steps = 16, 512, 64
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(0, engine.model.cfg.vocab_size,
-                           (b, s)).astype(np.int32)
-    task_ids = rng.integers(0, n_tasks, b).astype(np.int32)
+    prompts, task_ids = static_batch(engine)
+    (b, s), steps = prompts.shape, STATIC_STEPS
     engine.generate(prompts[:2], 2, task_ids[:2])        # warm-up
     res, counts = {}, {}
 
@@ -897,9 +1055,157 @@ def phase_static(report, engine):
     return counts
 
 
+# the paper's Fig. 3 methods (benchmarks/speed_overhead.py), each served by
+# one ServeEngine(peft=...): the backbone, one task's fused AoT tables,
+# BitFit, LoRA (rank 16, alpha 32) unfused and fused into W_q / W_v,
+# adapters (rank 16), P-Tuning v2 (a 20-position prefix)
+PEFT_METHODS = ("none", "aot", "bitfit", "lora", "lora_fused", "adapters",
+                "ptv2")
+LOGITS_GRID = ((1, 64), (8, 64), (1, 384), (8, 384))   # speed_overhead's
+PEFT_ROUNDS = 5     # each method's runs, in turns (the host's speed drifts)
+
+
+def peft_setup(label, model, params, table, gen):
+    """(backbone params, PEFT bundle or None) serving ``label`` of
+    PEFT_METHODS: ``aot`` gets ``table`` (L, V, d); every other method's
+    leaves are drawn as normals x 0.02 (speed_overhead.py:30-32), in the
+    model's compute dtype; ``lora_fused`` folds its LoRA into the backbone
+    (core.peft.fuse_lora_into)."""
+    from repro_torch.core import peft as P
+    method = "lora" if label == "lora_fused" else label
+    if method == "none":
+        return params, None
+    opt = P.PEFTOptions(method=method, aot=P.AoTOptions(mode="fused"),
+                        lora_rank=16, lora_alpha=32.0, adapter_rank=16,
+                        prompt_len=20)
+    if method == "aot":
+        return params, P.make({"aot": {"table": table}}, opt)
+    dt = model.opts.compute_dtype
+
+    def redraw(tree):
+        if isinstance(tree, dict):
+            return {k: redraw(v) for k, v in tree.items()}
+        return (torch.randn(tree.shape, generator=gen, device=DEV)
+                * 0.02).to(dt)
+    pp = redraw(P.init(model.cfg, opt, device=DEV, dtype=dt))
+    if label == "lora_fused":
+        return P.fuse_lora_into(params, pp, model.cfg, opt), None
+    return params, P.make(pp, opt)
+
+
+def phase_peft(report, engine):
+    """The paper's Fig. 3 comparison at full width, bf16: phase 5c's 16
+    prompts of 512 tokens, 64 greedy tokens, through one
+    ``ServeEngine(peft=...)`` per method of PEFT_METHODS (AoT: task 0's
+    tables of the launcher's engine), PEFT_ROUNDS runs each, the methods
+    in turns: median generated tokens/s and its time ratio to the
+    backbone's; kernels per step and device busy ms from one profiled
+    16-step run. Launches are checked exactly in every run; the AoT rows
+    must equal the multi-task engine's with every task id 0, token for
+    token. Then ``Model.logits`` at speed_overhead.py's grid, in turns,
+    each method's median time ratio to the backbone's (reported only)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    model = engine.model
+    layers = model.cfg.num_layers
+    prompts, _ = static_batch(engine)
+    (b, s), steps = prompts.shape, STATIC_STEPS
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    table = engine.tables[:, 0].contiguous()
+    setups = {label: peft_setup(label, model, engine.params, table, gen)
+              for label in PEFT_METHODS}
+    engines = {label: ServeEngine(model, params, engine.cfg, peft=bundle)
+               for label, (params, bundle) in setups.items()}
+    for eng in engines.values():
+        eng.generate(prompts[:2], 2)                     # warm-up
+    want = {"flash_attention": layers, "decode_attention": layers * steps}
+    secs = {label: [] for label in PEFT_METHODS}
+    counts, outs = {}, {}
+    for r in range(PEFT_ROUNDS):        # in turns, the order rotated
+        for label in PEFT_METHODS[r:] + PEFT_METHODS[:r]:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            outs[label] = engines[label].generate(prompts, steps)
+            torch.cuda.synchronize()
+            secs[label].append(time.perf_counter() - t0)
+            counts[f"peft_{label}"] = dict(ops.launches())
+            check_launches(f"peft_{label}", counts[f"peft_{label}"], dict(
+                want, aot_gather_add=layers * (1 + steps) * (label == "aot")))
+    res = {}
+    for label, eng in engines.items():
+        prof = profile_of(lambda: eng.generate(prompts, 16), steps=16)
+        tps = sorted(b * steps / t for t in secs[label])
+        res[label] = dict(seconds=secs[label], tokens_per_s=median(tps),
+                          tokens_per_s_range=(tps[0], tps[-1]),
+                          kernels_per_step=prof["kernels_per_step"],
+                          device_busy_ms=prof["device_busy_ms"],
+                          profiled_wall_ms=prof["wall_ms"],
+                          top_kernels=prof["kernels"][:5])
+    del engines
+    base = res["none"]
+    for label, r in res.items():
+        r["ratio"] = base["tokens_per_s"] / r["tokens_per_s"]   # time / none
+        r["busy_ratio"] = r["device_busy_ms"] / base["device_busy_ms"]
+        log(f"5d peft/{label}", b=b, prompt=s, steps=steps,
+            rounds=PEFT_ROUNDS, tokens_per_s=f"{r['tokens_per_s']:.1f}",
+            tokens_per_s_range="{:.1f}-{:.1f}".format(
+                *r["tokens_per_s_range"]),
+            time_ratio_to_none=f"{r['ratio']:.3f}",
+            kernels_per_step=f"{r['kernels_per_step']:.0f}",
+            device_busy_ms_16_steps=f"{r['device_busy_ms']:.1f}",
+            busy_ratio_to_none=f"{r['busy_ratio']:.3f}",
+            profiled_wall_ms=f"{r['profiled_wall_ms']:.0f}",
+            launches=counts[f"peft_{label}"])
+    multi = engine.generate(prompts, steps, np.zeros(b, np.int32))
+    same = int((multi == outs["aot"]).all(axis=1).sum())
+    log("5d peft/aot vs multi-task", rows_equal=f"{same}/{b}",
+        required=f"{b}/{b}")
+    if same != b:
+        raise AssertionError(f"the single-table AoT engine's tokens equal "
+                             f"the multi-task engine's in {same}/{b} rows")
+    grid = {}
+    rng = np.random.default_rng(1)
+    for gb, gs in LOGITS_GRID:
+        toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size,
+                                            (gb, gs)), dtype=torch.int32,
+                               device=DEV)
+        ms = {label: [] for label in PEFT_METHODS}
+        for r in range(PEFT_ROUNDS):
+            for label in PEFT_METHODS[r:] + PEFT_METHODS[:r]:
+                p, bd = setups[label]
+                ms[label].append(wall_ms(
+                    lambda i: model.logits(p, toks, bd), iters=3,
+                    warmup=2 if r == 0 else 0))
+        ms = {label: median(t) for label, t in ms.items()}
+        grid[f"b{gb}_s{gs}"] = ms
+        log("5d logits", b=gb, s=gs, rounds=PEFT_ROUNDS, **{
+            label: f"{t:.2f}ms({t / ms['none']:.3f}x)"
+            for label, t in ms.items()})
+    report["peft"] = dict(runs=res, launches=counts, aot_rows_equal=same,
+                          logits_ms=grid)
+    del setups, table
+    return counts
+
+
 def profile_run(phase, fn, steps):
     """Device busy share, kernels per step and the top kernels and host
-    ops of ``fn()`` under torch.profiler (CPU + CUDA)."""
+    ops of ``fn()`` under torch.profiler (CPU + CUDA), logged as one line
+    of ``phase``."""
+    r = profile_of(fn, steps)
+    top = lambda rows: ";".join(f"{k[:40]}:{t:.0f}ms" for t, k in rows[:5])
+    log(phase, steps=steps, wall_ms=f"{r['wall_ms']:.0f}",
+        device_busy_ms=f"{r['device_busy_ms']:.0f}",
+        busy_share=f"{r['device_busy_ms'] / r['wall_ms']:.3f}",
+        kernels_per_step=f"{r['kernels_per_step']:.0f}",
+        top_kernels=top(r["kernels"]), top_host_ops=top(r["host_ops"]))
+    return r
+
+
+def profile_of(fn, steps):
+    """``fn()`` under torch.profiler (CPU + CUDA): wall ms, device busy ms
+    (the kernels' summed device time), kernels per step, the top kernels
+    and host ops."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -917,12 +1223,6 @@ def profile_run(phase, fn, steps):
     busy_ms = sum(t for t, _ in kern)
     per_step = sum(e.count for e in avgs
                    if e.device_type == cuda) / max(steps, 1)
-    top = lambda rows: ";".join(f"{k[:40]}:{t:.0f}ms" for t, k in rows[:5])
-    log(phase, steps=steps, wall_ms=f"{wall_ms:.0f}",
-        device_busy_ms=f"{busy_ms:.0f}",
-        busy_share=f"{busy_ms / wall_ms:.3f}",
-        kernels_per_step=f"{per_step:.0f}", top_kernels=top(kern),
-        top_host_ops=top(host))
     return dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 kernels_per_step=per_step, kernels=kern[:15],
                 host_ops=host[:25])
@@ -935,7 +1235,9 @@ def plain_ops():
     from repro_torch.kernels import aot_bias, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    plain = {"aot_gather_add_multitask": aot_bias.aot_gather_add_multitask_plain,
+    plain = {"aot_gather_add": aot_bias.aot_gather_add_plain,
+             "aot_gather_add_multitask":
+                 aot_bias.aot_gather_add_multitask_plain,
              "ragged_paged_attention": da.ragged_paged_attention_plain,
              "flash_attention": fa.flash_attention_plain,
              "decode_attention": da.decode_attention_plain,
@@ -950,6 +1252,48 @@ def plain_ops():
             setattr(ops, name, fn)
 
 
+def tasks_peft(tables, task_ids):
+    """The multi-task fused-AoT bundle (as ServeEngine builds it) for
+    stacked tables (L, tasks, V, d) and per-row ``task_ids``."""
+    from repro_torch.core import peft as P
+    opt = P.PEFTOptions(method="aot", aot=P.AoTOptions(mode="fused"))
+    return dict(P.make({"aot": {"table": tables}}, opt), task_ids=task_ids)
+
+
+def greedy_decode(model, params, logits, cache, pos0, peft, steps,
+                  block_tables=None):
+    """``steps`` greedy decode steps after ``logits``, the first at cache
+    row ``pos0``: per-step logits (steps + 1, b, V) float32 and the tokens
+    (b, steps)."""
+    b = logits.shape[0]
+    lgs, tokens = [logits[:, -1].float()], []
+    for i in range(steps):
+        tok = lgs[-1].argmax(-1).to(torch.int32)[:, None]
+        tokens.append(tok)
+        pos = torch.full((b,), pos0 + i, dtype=torch.int32, device=DEV)
+        logits, cache = model.decode_step(params, tok, pos, cache, peft,
+                                          block_tables=block_tables)
+        lgs.append(logits[:, -1].float())
+    torch.cuda.synchronize()
+    return torch.stack(lgs), torch.cat(tokens, 1)
+
+
+def kernels_vs_plain(model, params, toks, peft, steps):
+    """A whole-prompt prefill plus ``steps`` greedy decode steps through
+    the kernels and through the plain versions: (max abs logits error,
+    same tokens, within the bf16 tolerance)."""
+    def run():
+        logits, cache, pos = model.prefill(params, toks, peft,
+                                           max_len=MAX_LEN)
+        return greedy_decode(model, params, logits, cache, pos, peft, steps)
+    lg_k, tok_k = run()
+    with plain_ops():
+        lg_p, tok_p = run()
+    same = torch.equal(tok_k, tok_p)
+    return ((lg_k - lg_p).abs().max().item(), same,
+            same and torch.allclose(lg_k, lg_p, atol=2e-2, rtol=2e-2))
+
+
 def cross_check_static(gen, report, model, params, tables):
     """At full width with 2 layers: a whole-prompt prefill plus three
     decode steps through the kernels against the plain versions (bf16
@@ -958,36 +1302,11 @@ def cross_check_static(gen, report, model, params, tables):
     decode steps on the same cache (same tokens)."""
     from repro_torch.serve.kv_pool import PagedKVPool
     b, s, steps = 4, 300, 3
-    dev = torch.device(DEV)
     toks = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
                          device=DEV, dtype=torch.int32)
-    peft = {"method": "aot", "tables": tables,
-            "task_ids": torch.arange(b, dtype=torch.int32, device=dev) % 4}
-
-    def decode(logits, cache, block_tables=None):
-        """``steps`` greedy decode steps after ``logits``: per-step logits
-        (steps + 1, b, V) float32 and the tokens (b, steps)."""
-        lgs, tokens = [logits[:, -1].float()], []
-        for i in range(steps):
-            tok = lgs[-1].argmax(-1).to(torch.int32)[:, None]
-            tokens.append(tok)
-            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
-            logits, cache = model.decode_step(params, tok, pos, cache, peft,
-                                              block_tables=block_tables)
-            lgs.append(logits[:, -1].float())
-        torch.cuda.synchronize()
-        return torch.stack(lgs), torch.cat(tokens, 1)
-
-    def prefill_and_decode():
-        logits, cache, _ = model.prefill(params, toks, peft, max_len=MAX_LEN)
-        return decode(logits, cache)
-
-    lg_k, tok_k = prefill_and_decode()
-    with plain_ops():
-        lg_p, tok_p = prefill_and_decode()
-    err = (lg_k - lg_p).abs().max().item()
-    same = torch.equal(tok_k, tok_p)
-    ok = torch.allclose(lg_k, lg_p, atol=2e-2, rtol=2e-2) and same
+    peft = tasks_peft(tables, torch.arange(b, dtype=torch.int32,
+                                           device=DEV) % 4)
+    err, same, ok = kernels_vs_plain(model, params, toks, peft, steps)
     first, cache, _ = model.prefill(params, toks, peft, max_len=MAX_LEN)
     # the paged pool, pages handed out in a scrambled order
     pool = PagedKVPool(model, b, MAX_LEN, block_size=BS)
@@ -997,9 +1316,10 @@ def cross_check_static(gen, report, model, params, tables):
         slot = pool.alloc(0, pool.pages_needed(s + steps))
         pool.write_prefill(slot, {n: c[:, r:r + 1] for n, c in cache.items()},
                            s)
-    bt = torch.as_tensor(pool.block_tables, device=dev)
-    lg_c, tok_c = decode(first, cache)
-    lg_g, tok_g = decode(first, pool.cache, bt)
+    bt = torch.as_tensor(pool.block_tables, device=DEV)
+    lg_c, tok_c = greedy_decode(model, params, first, cache, s, peft, steps)
+    lg_g, tok_g = greedy_decode(model, params, first, pool.cache, s, peft,
+                                steps, bt)
     paged_err = (lg_g - lg_c).abs().max().item()
     paged_same = torch.equal(tok_g, tok_c)
     log("6 cross-check static", layers=2, b=b, prompt=s, steps=steps,
@@ -1013,6 +1333,30 @@ def cross_check_static(gen, report, model, params, tables):
     if not (ok and paged_same and paged_err <= 2e-2):
         raise AssertionError("static path: kernel and plain, or paged and "
                              "contiguous decode, disagree")
+
+
+def cross_check_peft(gen, report, model, params, tables):
+    """At full width with 2 layers, for every method of phase 5d (AoT:
+    task 0's tables): a whole-prompt prefill plus three decode steps
+    through the kernels against the plain versions (bf16 tolerance, same
+    greedy tokens)."""
+    b, s, steps = 4, 300, 3
+    toks = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    table = tables[:, 0].contiguous()
+    res = {}
+    for label in PEFT_METHODS:
+        p, bundle = peft_setup(label, model, params, table, gen)
+        err, same, ok = kernels_vs_plain(model, p, toks, bundle, steps)
+        res[label] = dict(logits_max_abs_err=err, same_tokens=same, ok=ok)
+    log("6 cross-check peft", layers=2, b=b, prompt=s, steps=steps, **{
+        label: f"{r['logits_max_abs_err']:.3e}/"
+               f"{'identical' if r['same_tokens'] else 'DIFFER'}"
+        for label, r in res.items()})
+    report["cross_check_peft"] = res
+    bad = [label for label, r in res.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel and plain runs disagree for {bad}")
 
 
 def phase_cross_check(gen, report):
@@ -1045,8 +1389,7 @@ def phase_cross_check(gen, report):
         if p >= 0:
             lidx[r] = t
     live = sorted({r for r, p in zip(rows, pos) if p >= 0})
-    peft = {"method": "aot", "tables": tables,
-            "task_ids": i32([slot_task[r] for r in rows])}
+    peft = tasks_peft(tables, i32([slot_task[r] for r in rows]))
 
     def tick():
         cache = {n: c.clone() for n, c in cache0.items()}
@@ -1072,6 +1415,7 @@ def phase_cross_check(gen, report):
     if not ok:
         raise AssertionError("kernel and plain ticks disagree")
     cross_check_static(gen, report, model, params, tables)
+    cross_check_peft(gen, report, model, params, tables)
     # preempt-and-recompute parity through the scheduler (reported only:
     # cuBLAS may round a row differently at another packed width)
     engine = ServeEngine(model, params, ServeConfig(max_len=256),
@@ -1130,6 +1474,7 @@ def main() -> int:
     launches = phase_main_path(report, engine, setup_s)
     launches.update(phase_whole_prompt(report, engine))
     launches.update(phase_static(report, engine))
+    launches.update(phase_peft(report, engine))
     del engine
     torch.cuda.empty_cache()
     for row in kernels:     # each kernel's count on the path it serves

@@ -1,5 +1,5 @@
-"""Carry the JAX reference's parameters, task tables and KV caches into the
-port.
+"""Carry the JAX reference's parameters, task tables, PEFT parameters and
+KV caches into the port.
 
 The input is the reference's pytree as nested dicts / lists of numpy arrays
 (a caller holding JAX arrays turns them into numpy first, for instance with
@@ -13,11 +13,14 @@ a list of per-layer dicts in global layer order.
 """
 from __future__ import annotations
 
+from dataclasses import fields
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import peft as peft_mod
+from repro_torch.core.aot import AoTOptions
 from repro_torch.device import resolve_device
 
 
@@ -96,3 +99,24 @@ def cache_from_jax(cfg, cache: Sequence[Dict[str, Any]], device="cuda",
         stacked = torch.stack(per_layer)
         out[name] = stacked.to(device=dev, dtype=dtype or stacked.dtype)
     return out
+
+
+def _options(cls, opt, **override):
+    """A port dataclass ``cls`` with the same-named fields of ``opt`` (the
+    reference's options, read by name, or the port's own)."""
+    kw = {f.name: getattr(opt, f.name) for f in fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def peft_from_jax(tree: Dict[str, Any], opt, device="cuda",
+                  dtype: torch.dtype = None) -> Dict[str, Any]:
+    """The reference's PEFT parameters (``repro.core.peft.init`` layout:
+    numpy leaves stacked ``(L, ...)`` in global layer order, so an AoT
+    ``{"aot": {"table": (L, V, d)}}`` too) and its ``PEFTOptions`` -> the
+    port's bundle (``core.peft.make``) on ``device``, leaves cast to
+    ``dtype`` when given."""
+    port_opt = _options(peft_mod.PEFTOptions, opt,
+                        aot=_options(AoTOptions, opt.aot))
+    return peft_mod.make(_to_torch(tree, resolve_device(device), dtype),
+                         port_opt)

@@ -2,19 +2,40 @@
 
 Each layer i of a task carries a vocabulary-indexed bias table
 ``P^i (V, d)`` added to the hidden states before the layer,
-``H'^i = H^i + P^i[x]`` (the paper's Eq. 1). A frozen backbone serves many
-tasks from the stacked tables ``(L, tasks, V, d)``, one gather-add per
-layer. Counterpart of the inference functions of ``repro.core.aot``;
-training and fusion of real reparametrizations are not ported yet.
+``H'^i = H^i + P^i[x]`` (the paper's Eq. 1). One task is served from its
+tables ``(L, V, d)``; a frozen backbone serves many tasks from the stacked
+tables ``(L, tasks, V, d)``, one gather-add per layer either way.
+Counterpart of the inference functions of ``repro.core.aot``; training and
+fusion of real reparametrizations are not ported yet.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.aot_bias import gather_index
+from repro_torch.kernels.aot_bias import gather_index, take_rows
+
+
+@dataclass(frozen=True)
+class AoTOptions:
+    """The reference's options; the port serves ``mode="fused"`` tables
+    (fc and kron reparametrizations are training-time, not ported)."""
+    mode: str = "fc"            # "fc" | "kron" | "fused"
+    rank: int = 64              # FC mapping rank / Kronecker rank
+    kron_a: int = 0
+    kron_b: int = 0
+    nonlin: str = "gelu"        # f in Eq. 3
+    dropout: float = 0.1
+
+
+def rows_fused(layer_p, ids, dtype=torch.float32):
+    """layer_p: ``{"table": (V, d)}``; ids: any shape -> rows (..., d) in
+    ``dtype``, by ``jnp.take``'s rule as the reference gathers them: a
+    negative id wraps once, an id still outside ``[0, V)`` gives NaN."""
+    return take_rows(layer_p["table"], ids).to(dtype)
 
 
 def rows_fused_multitask(table_layer, task_ids, ids, dtype=torch.float32):

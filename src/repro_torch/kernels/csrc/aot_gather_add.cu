@@ -1,23 +1,32 @@
-// Multi-task AoT gather-add: out[t] = h[t] + tables[task_ids[t], ids[t]]
-// (the paper's Eq. 1 across tasks), for Hopper (sm_90a).
+// AoT gather-add: out[t] = h[t] + P[ids[t]] (the paper's Eq. 1), for one
+// task's table or across tasks, for Hopper (sm_90a).
 //
-// Replaces: aot_gather_add_multitask_kernel in src/repro/kernels/aot_bias.py,
-// which scalar-prefetches the (task, token) pairs so that each TPU grid step
-// DMAs exactly one table row and adds it in VMEM.
+// Replaces, in src/repro/kernels/aot_bias.py, both TPU kernels, which
+// scalar-prefetch the indices so that each TPU grid step DMAs exactly one
+// table row and adds it in VMEM:
+// - aot_gather_add_kernel: one table (V, d), C entry aot_gather_add;
+// - aot_gather_add_multitask_kernel: tables (n_tasks, V, d) indexed by
+//   (task, token), C entry aot_gather_add_multitask.
 //
 // Bound on an H100: bytes. A token reads one row of h and one table row and
 // writes one row, 3 * d elements, and does one addition per element. At the
 // serving tick's few hundred tokens a call moves about a megabyte, so in
 // practice it is bound by the launch, not by the 3.35 TB/s of the card.
 //
-// Design: one block per token row. The block reads its (task, id) pair once,
-// wraps a negative index once and clamps both into range (what the XLA
-// gather it stands in for does), and streams the row with 16-byte loads where
-// d and the pointers allow it, one element per load otherwise. Row offsets
-// are 64-bit. The table element is converted to h's type first and the sum
-// is rounded to h's type, so the result is bitwise that of the plain version
-// (h + table[task, id].to(h.dtype)). Fusing this pass into the RMSNorm that
-// follows it is left for later.
+// Design: one block per token row; both entry points share the device body,
+// templated on whether a task index exists. The block reads its index (or
+// (task, id) pair) once and streams the row with 16-byte loads where d and
+// the pointers allow it, one element per load otherwise. Row offsets are
+// 64-bit. The index rules are those of the reference's XLA gathers:
+// - multi-task (table[task_ids, ids]): a negative index wraps once, then
+//   both clamp into range;
+// - one table (jnp.take(table, ids, axis=0), the model's rows_fused): a
+//   negative id wraps once, and an id still outside [0, V) reads a row of
+//   NaN, which jnp.take fills in for an out-of-range index.
+// The table element is converted to h's type first and the sum is rounded
+// to h's type, so the result is bitwise that of the plain version
+// (h + row.to(h.dtype)). Fusing this pass into the RMSNorm that follows it
+// is left for later.
 //
 // C interface (ctypes): every pointer and the stream are void*; returns
 // cudaGetLastError() after the launch.
@@ -117,36 +126,58 @@ __device__ __forceinline__ int64_t gather_index(int32_t i, int n) {
   return j > n - 1 ? n - 1 : j;
 }
 
-template <typename TH, typename TT, bool VEC>
-__global__ void aot_gather_add_mt_kernel(const TH* __restrict__ h,
-                                         const TT* __restrict__ tables,
-                                         const int32_t* __restrict__ task_ids,
-                                         const int32_t* __restrict__ ids,
-                                         TH* __restrict__ out, int n_tasks,
-                                         int vocab, int d) {
+// jnp.take's rule: a negative index wraps once; -1 when still out of range
+__device__ __forceinline__ int64_t take_index(int32_t i, int n) {
+  const int64_t j =
+      i < 0 ? static_cast<int64_t>(i) + n : static_cast<int64_t>(i);
+  return j < 0 || j >= n ? -1 : j;
+}
+
+// TASK: tables (n_tasks, vocab, d) indexed by (task_ids[t], ids[t]), else
+// one table (vocab, d) indexed by ids[t] (task_ids and n_tasks unused)
+template <typename TH, typename TT, bool VEC, bool TASK>
+__global__ void aot_gather_add_kernel(const TH* __restrict__ h,
+                                      const TT* __restrict__ tables,
+                                      const int32_t* __restrict__ task_ids,
+                                      const int32_t* __restrict__ ids,
+                                      TH* __restrict__ out, int n_tasks,
+                                      int vocab, int d) {
   const int64_t t = blockIdx.x;
-  const int64_t task = gather_index(task_ids[t], n_tasks);
-  const int64_t id = gather_index(ids[t], vocab);
-  const TT* row = tables + (task * vocab + id) * static_cast<int64_t>(d);
+  int64_t r;                      // row of the (rows, d) table, -1: NaN row
+  if constexpr (TASK) {
+    r = gather_index(task_ids[t], n_tasks) * vocab +
+        gather_index(ids[t], vocab);
+  } else {
+    r = take_index(ids[t], vocab);
+  }
+  const bool nan_row = r < 0;
+  const float qnan = __int_as_float(0x7fc00000);  // a quiet NaN
+  const TT* row = tables + (nan_row ? 0 : r) * static_cast<int64_t>(d);
   const TH* hrow = h + t * d;
   TH* orow = out + t * d;
   if constexpr (VEC) {
     for (int c = threadIdx.x * kVec; c < d; c += blockDim.x * kVec) {
       float hv[kVec], pv[kVec];
       load8(hrow + c, hv);
-      load8(row + c, pv);
+      if (nan_row) {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) pv[i] = qnan;
+      } else {
+        load8(row + c, pv);
+      }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) hv[i] = add_in<TH>(hv[i], round_to<TH>(pv[i]));
       store8(orow + c, hv);
     }
   } else {
     for (int c = threadIdx.x; c < d; c += blockDim.x) {
-      store1(orow + c, add_in<TH>(load1(hrow + c), round_to<TH>(load1(row + c))));
+      const float p = nan_row ? qnan : load1(row + c);
+      store1(orow + c, add_in<TH>(load1(hrow + c), round_to<TH>(p)));
     }
   }
 }
 
-template <typename TH, typename TT>
+template <bool TASK, typename TH, typename TT>
 void launch(const void* h, const void* tables, const void* task_ids,
             const void* ids, void* out, int T, int n_tasks, int vocab, int d,
             bool vec, cudaStream_t stream) {
@@ -159,12 +190,35 @@ void launch(const void* h, const void* tables, const void* task_ids,
   const auto* iid = static_cast<const int32_t*>(ids);
   auto* op = static_cast<TH*>(out);
   if (vec) {
-    aot_gather_add_mt_kernel<TH, TT, true><<<T, threads, 0, stream>>>(
+    aot_gather_add_kernel<TH, TT, true, TASK><<<T, threads, 0, stream>>>(
         hp, tp, tid, iid, op, n_tasks, vocab, d);
   } else {
-    aot_gather_add_mt_kernel<TH, TT, false><<<T, threads, 0, stream>>>(
+    aot_gather_add_kernel<TH, TT, false, TASK><<<T, threads, 0, stream>>>(
         hp, tp, tid, iid, op, n_tasks, vocab, d);
   }
+}
+
+// h_bf16 / table_bf16 pick bf16 (1) or float32 (0) for h and the table
+template <bool TASK>
+int dispatch(const void* h, const void* tables, const void* task_ids,
+             const void* ids, void* out, int T, int n_tasks, int vocab,
+             int d, int h_bf16, int table_bf16, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool v = vec != 0;
+  if (h_bf16 && table_bf16) {
+    launch<TASK, __nv_bfloat16, __nv_bfloat16>(h, tables, task_ids, ids, out,
+                                               T, n_tasks, vocab, d, v, s);
+  } else if (h_bf16) {
+    launch<TASK, __nv_bfloat16, float>(h, tables, task_ids, ids, out, T,
+                                       n_tasks, vocab, d, v, s);
+  } else if (table_bf16) {
+    launch<TASK, float, __nv_bfloat16>(h, tables, task_ids, ids, out, T,
+                                       n_tasks, vocab, d, v, s);
+  } else {
+    launch<TASK, float, float>(h, tables, task_ids, ids, out, T, n_tasks,
+                               vocab, d, v, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -178,20 +232,16 @@ extern "C" int aot_gather_add_multitask(const void* h, const void* tables,
                                         int vocab, int d, int h_bf16,
                                         int table_bf16, int vec,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool v = vec != 0;
-  if (h_bf16 && table_bf16) {
-    launch<__nv_bfloat16, __nv_bfloat16>(h, tables, task_ids, ids, out, T,
-                                         n_tasks, vocab, d, v, s);
-  } else if (h_bf16) {
-    launch<__nv_bfloat16, float>(h, tables, task_ids, ids, out, T, n_tasks,
-                                 vocab, d, v, s);
-  } else if (table_bf16) {
-    launch<float, __nv_bfloat16>(h, tables, task_ids, ids, out, T, n_tasks,
-                                 vocab, d, v, s);
-  } else {
-    launch<float, float>(h, tables, task_ids, ids, out, T, n_tasks, vocab, d,
-                         v, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<true>(h, tables, task_ids, ids, out, T, n_tasks, vocab, d,
+                        h_bf16, table_bf16, vec, stream);
+}
+
+// h (T, d), table (vocab, d), ids (T,) int32, out (T, d) of h's type; the
+// other arguments as for aot_gather_add_multitask.
+extern "C" int aot_gather_add(const void* h, const void* table,
+                              const void* ids, void* out, int T, int vocab,
+                              int d, int h_bf16, int table_bf16, int vec,
+                              void* stream) {
+  return dispatch<false>(h, table, nullptr, ids, out, T, 1, vocab, d, h_bf16,
+                         table_bf16, vec, stream);
 }

@@ -3,11 +3,13 @@
 //
 // Replaces: flash_attention_kernel in src/repro/kernels/flash_attention.py.
 // Semantics are the same: q (b, sq, h, hd) against k, v (b, skv, kvh, hd),
-// query head kh * g + i reading KV head kh; query position qpos sees kv
-// position kpos < skv when kpos <= qpos (causal, aligned at the top left:
-// both positions count from 0 whatever sq and skv are) and kpos > qpos -
-// window (window > 0); softmax in fp32 with running max/sum/accumulator;
-// out = acc / max(l, 1e-30) in q's type.
+// query head kh * g + i reading KV head kh; query row i sits at position
+// qpos = q_offset + i and sees kv position kpos < skv when kpos <= qpos
+// (causal, aligned at the top left: kv positions count from 0 and queries
+// from q_offset, whatever sq and skv are) and kpos > qpos - window (window
+// > 0); softmax in fp32 with running max/sum/accumulator; out = acc /
+// max(l, 1e-30) in q's type. q_offset is P-Tuning v2's prefix length: its
+// prefill attends over [prefix | k], which the reference sends to XLA.
 //
 // Bound on an H100: at the prefill's shapes (512-token prompts, hd 64) the
 // work is about 2 * 2 * hd flops per visible (query head, kv) pair against
@@ -75,7 +77,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        Strides qs, Strides ks, Strides vs, int sq, int skv,
                        int h, int kvh, int hd, int causal, int window,
-                       float scale) {
+                       int q_offset, float scale) {
   extern __shared__ float smem[];
   const int hd4 = round4(hd);
   float* q_s = smem;                      // kRows * hd4
@@ -109,10 +111,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     k_t[hd * kKt + i] = 0.0f;             // padding channels stay zero
   }
 
-  // ---- the kv range some row of the tile can see
+  // ---- the kv range some row of the tile can see (positions, not rows)
   const int q_hi = min(q_lo + bq, sq) - 1;
-  const int k_end = causal ? min(skv, q_hi + 1) : skv;
-  const int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_end = causal ? min(skv, q_offset + q_hi + 1) : skv;
+  const int k_beg = window > 0 ? max(0, q_offset + q_lo - window + 1) : 0;
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][C];
 #pragma unroll
@@ -165,8 +167,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp + kWarps * rr;
-      const int qpos = q_lo + r / g;
-      bool ok = lane < n && r < R && qpos < sq;
+      const int qrow = q_lo + r / g;
+      const int qpos = q_offset + qrow;
+      bool ok = lane < n && r < R && qrow < sq;
       if (causal) ok = ok && kpos <= qpos;
       if (window > 0) ok = ok && kpos > qpos - window;
       const float sv = ok ? s[rr] * scale : kNeg;
@@ -231,7 +234,7 @@ template <typename T, int C>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    Strides qs, Strides ks, Strides vs, int b, int sq,
                    int skv, int h, int kvh, int hd, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   auto kernel = flash_attention_kernel<T, C>;
   cudaError_t err = attn::allow_smem(kernel, smem);
@@ -241,7 +244,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, sq, skv, h,
-      kvh, hd, causal, window, scale);
+      kvh, hd, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -250,6 +253,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // q (b, sq, h, hd), k and v (b, skv, kvh, hd), each with the channel stride
 // 1 and the given batch, sequence and head strides (elements); out (b, sq,
 // h, hd) contiguous. bf16 picks bf16 (1) or float32 (0) for all four.
+// q_offset (>= 0): query row i sits at position q_offset + i.
 // Requires h % kvh == 0, h / kvh <= 96 and hd <= 128.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int b, int sq, int skv, int h,
@@ -257,7 +261,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int64_t q_sh, int64_t k_sb, int64_t k_ss,
                                int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                int64_t v_sh, int causal, int window,
-                               float scale, int bf16, void* stream) {
+                               int q_offset, float scale, int bf16,
+                               void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -265,15 +270,17 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (bf16) {
     err = hd <= 64 ? launch<__nv_bfloat16, 2>(q, k, v, out, qs, ks, vs, b, sq,
                                               skv, h, kvh, hd, causal, window,
-                                              scale, s)
+                                              q_offset, scale, s)
                    : launch<__nv_bfloat16, 4>(q, k, v, out, qs, ks, vs, b, sq,
                                               skv, h, kvh, hd, causal, window,
-                                              scale, s);
+                                              q_offset, scale, s);
   } else {
     err = hd <= 64 ? launch<float, 2>(q, k, v, out, qs, ks, vs, b, sq, skv, h,
-                                      kvh, hd, causal, window, scale, s)
+                                      kvh, hd, causal, window, q_offset,
+                                      scale, s)
                    : launch<float, 4>(q, k, v, out, qs, ks, vs, b, sq, skv, h,
-                                      kvh, hd, causal, window, scale, s);
+                                      kvh, hd, causal, window, q_offset,
+                                      scale, s);
   }
   return static_cast<int>(err);
 }

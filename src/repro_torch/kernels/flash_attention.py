@@ -2,10 +2,13 @@
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_kernel``.
 q (b, sq, h, hd) attends over k / v (b, skv, kvh, hd) with GQA (query head
-``kh * g + i`` reads KV head ``kh``); query position ``qpos`` sees kv
-position ``kpos`` when ``kpos <= qpos`` (``causal``; both count from 0, the
+``kh * g + i`` reads KV head ``kh``); query row i sits at position ``qpos
+= q_offset + i`` and sees kv position ``kpos`` when ``kpos <= qpos``
+(``causal``; kv positions count from 0 and queries from ``q_offset``, the
 reference's top-left alignment, whatever sq and skv are) and ``kpos > qpos -
-window`` (``window > 0``). The CUDA kernel is ``csrc/flash_attention.cu``;
+window`` (``window > 0``). P-Tuning v2 attends with ``q_offset`` = its
+prefix length over ``[prefix | k]``. The CUDA kernel is
+``csrc/flash_attention.cu``;
 the plain version below is the reference kernel's masked fp32 softmax in
 one piece.
 """
@@ -27,7 +30,8 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None):
+def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None,
+                          q_offset=0):
     """q: (b, sq, h, hd); k / v: (b, skv, kvh, hd) -> (b, sq, h, hd) in q's
     dtype, computed in float32."""
     b, sq, h, hd = q.shape
@@ -36,7 +40,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None):
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     q5 = q.reshape(b, sq, kvh, g, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", q5, k.float()) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
     if causal:
@@ -58,13 +62,14 @@ def _lib():
         fn = _build.load("flash_attention").flash_attention
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                       _I, _I, ctypes.c_float, _I, _P]
+                       _I, _I, _I, ctypes.c_float, _I, _P]
         fn.restype = _I
         _FN = fn
     return _FN
 
 
-def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None):
+def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
+                           q_offset=0):
     """Launch the CUDA kernel on CUDA tensors (same device; q, k and v all
     float32 or all bfloat16, each with a unit channel stride, any other
     strides; h a multiple of kvh with at most 96 query heads per KV head;
@@ -89,8 +94,9 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None):
                          "disagree")
     if h % kvh or h // kvh > MAX_G or not 0 < hd <= 128:
         raise ValueError(f"unsupported h {h} / kvh {kvh} / hd {hd}")
-    if window < 0:
-        raise ValueError(f"window {window} must be >= 0")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"window {window} and q_offset {q_offset} must be "
+                         ">= 0")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name} needs a unit channel stride")
@@ -104,7 +110,8 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, sq, skv, h, kvh, hd, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], int(causal),
-                     int(window), scale, int(q.dtype == torch.bfloat16),
+                     int(window), int(q_offset), scale,
+                     int(q.dtype == torch.bfloat16),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -14,8 +14,10 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels.aot_bias import (aot_gather_add_multitask_kernel,
-                                          aot_gather_add_multitask_plain)
+from repro_torch.kernels.aot_bias import (aot_gather_add_kernel,
+                                          aot_gather_add_multitask_kernel,
+                                          aot_gather_add_multitask_plain,
+                                          aot_gather_add_plain)
 from repro_torch.kernels.decode_attention import (
     decode_attention_kernel, decode_attention_plain,
     paged_decode_attention_kernel, paged_decode_attention_plain,
@@ -29,6 +31,21 @@ def _on_cpu(*xs) -> bool:
     such as a scalar ``cur_len``, lie nowhere)."""
     return all(x.device.type == "cpu" for x in xs
                if isinstance(x, torch.Tensor))
+
+
+def aot_gather_add(h, table, ids):
+    """h: (T, d) or (b, s, d); table: (V, d); ids: (T,) or (b, s) int32 ->
+    ``h + table[ids]`` in h's dtype (the paper's Eq. 1 for one task; an id
+    outside ``[-V, V)`` gives a NaN row, as ``jnp.take`` does)."""
+    if _on_cpu(h, table, ids):
+        return aot_gather_add_plain(h, table, ids)
+    if h.dim() == 3:
+        b, s, d = h.shape
+        return aot_gather_add(h.reshape(b * s, d), table,
+                              ids.reshape(b * s)).view(b, s, d)
+    out = aot_gather_add_kernel(h, table, ids)
+    aot_gather_add.launches += out.numel() > 0
+    return out
 
 
 def aot_gather_add_multitask(h, tables, task_ids, ids):
@@ -58,16 +75,19 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_rows,
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
                     softcap=0.0, q_offset=0):
     """q: (b, sq, h, hd); k / v: (b, skv, kvh, hd) -> (b, sq, h, hd): the
-    reference's model-facing signature. ``prefix_len``, ``softcap`` and
-    ``q_offset`` go to XLA in the reference; no model the port serves
-    needs them, so they raise here."""
-    if prefix_len or softcap or q_offset:
+    reference's model-facing signature. Query row i sits at position
+    ``q_offset + i``: P-Tuning v2 prepends its prefix to k and v and
+    attends with ``q_offset`` = the prefix length, which the reference
+    sends to XLA. ``prefix_len`` and ``softcap`` also go to XLA there; no
+    model the port serves needs them, so they raise here."""
+    if prefix_len or softcap:
         raise NotImplementedError(
-            "flash_attention: prefix_len, softcap and q_offset are not "
-            "ported")
+            "flash_attention: prefix_len and softcap are not ported")
     if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    out = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
     flash_attention.launches += out.numel() > 0
     return out
 
@@ -95,8 +115,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, cur_len):
     return out
 
 
-WRAPPERS = (aot_gather_add_multitask, ragged_paged_attention,
-            flash_attention, decode_attention, paged_decode_attention)
+WRAPPERS = (aot_gather_add, aot_gather_add_multitask,
+            ragged_paged_attention, flash_attention, decode_attention,
+            paged_decode_attention)
 
 
 def reset_launches() -> None:

@@ -76,6 +76,11 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables, token_rows,
                        torch.zeros((), dtype=o.dtype)).to(q.dtype)
 
 
+def aot_gather_add_ref(h, table, ids):
+    """The paper's Eq. 1: h (T, d) + table (V, d)[ids (T,)], ids in range."""
+    return h + table[ids.long()].to(h.dtype)
+
+
 def aot_gather_add_multitask_ref(h, tables, task_ids, ids):
     """h: (T, d); tables: (n_tasks, V, d); task_ids / ids: (T,) -> (T, d)."""
     return h + tables[task_ids.long(), ids.long()].to(h.dtype)

@@ -92,38 +92,50 @@ def apply_mlp(cfg, p, x, dtype):
 # attention
 # ---------------------------------------------------------------------------
 
-def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None):
+def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None,
+                     peft_qkv=None):
     """x: (b, s, d) -> q (b, s, H, hd), k, v (b, s, KV, hd), RoPE applied at
-    ``positions`` (or with their precomputed ``sincos``)."""
+    ``positions`` (or with their precomputed ``sincos``). ``peft_qkv``:
+    (dq, dk, dv) deltas, each None or (b, s, width), added to the
+    projections before the reshape and RoPE (LoRA's)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = x.to(dtype)
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(dtype)).reshape(b, s, kvh, hd)
-    v = (x @ p["wv"].to(dtype)).reshape(b, s, kvh, hd)
+    q, k, v = (x @ p[w].to(dtype) for w in ("wq", "wk", "wv"))
+    if peft_qkv is not None:
+        q, k, v = (y if dy is None else y + dy.to(dtype)
+                   for y, dy in zip((q, k, v), peft_qkv))
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, sincos)
         k = apply_rope(k, positions, cfg.rope_theta, sincos)
     return q, k, v
 
 
-def attn_output(cfg, p, o, dtype):
+def attn_output(cfg, p, o, dtype, peft_bias=None):
+    """o: (b, s, H, hd) -> (b, s, d); ``peft_bias`` (d,) is added after the
+    output projection (BitFit's)."""
     b, s, h, hd = o.shape
-    return o.reshape(b, s, h * hd).to(dtype) @ p["wo"].to(dtype)
+    out = o.reshape(b, s, h * hd).to(dtype) @ p["wo"].to(dtype)
+    if peft_bias is not None:
+        out = out + peft_bias.to(dtype)
+    return out
 
 
-def attention_ref(q, k, v, *, causal, window=0):
+def attention_ref(q, k, v, *, causal, window=0, q_offset=0):
     """Oracle attention. q: (b, sq, H, hd); k / v: (b, skv, KV, hd); query
-    position i sees kv position j when ``j <= i`` (``causal``) and ``j > i -
-    window`` (``window > 0``, causal only: the reference's symmetric encoder
-    window is not ported). Scores in the input dtype, softmax in float32,
-    as the reference."""
+    row r sits at position ``i = q_offset + r`` and sees kv position j when
+    ``j <= i`` (``causal``) and ``j > i - window`` (``window > 0``, causal
+    only: the reference's symmetric encoder window is not ported). Scores
+    in the input dtype, softmax in float32, as the reference."""
     if window and not causal:
         raise NotImplementedError("a window without causality is not ported")
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     q5 = q.reshape(b, sq, kvh, h // kvh, hd)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
     if causal:

@@ -1,5 +1,7 @@
-"""Model assembly for serving: init, the KV cache layouts, whole-prompt
-prefill, the decode step and the unified ragged mixed step.
+"""Model assembly for serving: init, the KV cache layouts, the whole-
+sequence forward, whole-prompt prefill, the decode step and the unified
+ragged mixed step, each with the PEFT methods of the paper's Fig. 3
+(fused AoT tables, BitFit, LoRA, adapters, P-Tuning v2; ``core.peft``).
 
 Counterpart of ``repro.models.model.Model`` for attention-only causal
 stacks (the serving path). Parameters are a plain dict of tensors with
@@ -15,11 +17,19 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
+from repro_torch.core.peft import lora_scale
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+
+# the PEFT methods the model serves (core.peft)
+SERVED = ("none", "aot", "bitfit", "lora", "adapters", "ptv2")
+_PTV2_PAGED = ("P-Tuning v2's prefix is not held in the paged pool; serve "
+               "ptv2 with static batches over a contiguous cache (the "
+               "reference's paged and ragged steps skip the prefix)")
 
 
 @dataclass(frozen=True)
@@ -139,68 +149,151 @@ class Model:
         return h.to(dt) @ params["embed"]["tok"].to(dt).T
 
     # ------------------------------------------------------------------
-    def _aot(self, peft):
-        """True for fused multi-task AoT, False for the bare backbone."""
-        if peft is None:
-            return False
-        if peft["method"] != "aot":
-            raise NotImplementedError(f"peft {peft['method']!r} is not ported")
-        return True
+    # PEFT: the per-layer hooks of every entry point (the reference's
+    # _aot_bias, _attention and _ffn)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _method(peft) -> str:
+        """The bundle's method ("none" for no bundle); raises for one the
+        port does not serve."""
+        method = peft["method"] if peft else "none"
+        if method not in SERVED or (method == "aot" and
+                                    peft["opt"].aot.mode != "fused"):
+            raise NotImplementedError(f"peft {method!r} is not ported (the "
+                                      f"port serves {', '.join(SERVED)}; "
+                                      "AoT as fused tables)")
+        return method
 
-    def _block(self, lp, h, sincos, attend):
-        """One pre-norm block on h (b, s, d): norm, Q/K/V projection with
-        RoPE (``sincos``), ``attend(q, k, v)`` -> (b, s, H, hd) (which also
-        writes the cache), output projection, norm, SwiGLU."""
+    @staticmethod
+    def _aot_add(peft, i, h, ids, task_ids=None):
+        """h (T, d) plus layer i's AoT rows (the paper's Eq. 1) for token
+        ``ids`` (T,) int32: from one task's table (V, d) through the
+        single-table kernel, or from stacked tasks' tables (tasks, V, d) by
+        ``task_ids`` (T,) through the multi-task one."""
+        table = peft["params"]["aot"]["table"][i]
+        if table.dim() == 3:
+            return ops.aot_gather_add_multitask(h, table, task_ids, ids)
+        return ops.aot_gather_add(h, table, ids)
+
+    def _adapter(self, a, i, out):
+        """A Houlsby adapter of layer i: ``out + gelu(out @ down + b1) @ up
+        + b2`` (tanh-approximate gelu, ``jax.nn.gelu``'s default)."""
+        dt = self.opts.compute_dtype
+        z = F.gelu(out @ a["down"][i].to(dt) + a["b1"][i].to(dt),
+                   approximate="tanh")
+        return out + z @ a["up"][i].to(dt) + a["b2"][i].to(dt)
+
+    def _block(self, lp, h, sincos, attend, peft=None, i=0):
+        """Layer i, one pre-norm block on h (b, s, d): norm, Q/K/V
+        projection with RoPE (``sincos``), ``attend(q, k, v)`` -> (b, s, H,
+        hd) (which also writes the cache), output projection, norm, SwiGLU;
+        with the PEFT hooks of ``peft``'s method: LoRA's deltas on q and v,
+        BitFit's biases after the output projection and after the MLP, an
+        adapter after each. (AoT's bias comes before the block, P-Tuning
+        v2's prefix inside ``attend``.)"""
         cfg, dt = self.cfg, self.opts.compute_dtype
-        q, k, v = L.attn_project_qkv(cfg, lp["attn"],
-                                     L.apply_norm(cfg, lp["ln1"], h), None,
-                                     dt, sincos=sincos)
-        h = h + L.attn_output(cfg, lp["attn"], attend(q, k, v), dt)
-        return h + L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h),
-                               dt)
+        method = peft["method"] if peft else "none"
+        pp = peft["params"] if peft else {}
+        x = L.apply_norm(cfg, lp["ln1"], h)
+        qkv = None
+        if method == "lora":
+            lo, sc = pp["lora"], lora_scale(peft["opt"])
+            xd = x.to(dt)
+            qkv = ((xd @ lo["qa"][i].to(dt)) @ lo["qb"][i].to(dt) * sc, None,
+                   (xd @ lo["va"][i].to(dt)) @ lo["vb"][i].to(dt) * sc)
+        q, k, v = L.attn_project_qkv(cfg, lp["attn"], x, None, dt,
+                                     sincos=sincos, peft_qkv=qkv)
+        bias = pp["bitfit"]["attn_out"][i] if method == "bitfit" else None
+        out = L.attn_output(cfg, lp["attn"], attend(q, k, v), dt, bias)
+        if method == "adapters":
+            out = self._adapter(pp["adapters"]["attn"], i, out)
+        h = h + out
+        out = L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h), dt)
+        if method == "bitfit":
+            out = out + pp["bitfit"]["mlp_out"][i].to(dt)
+        if method == "adapters":
+            out = self._adapter(pp["adapters"]["mlp"], i, out)
+        return h + out
+
+    def _prompt(self, params, tokens, peft, cache=None):
+        """Whole prompts tokens (b, s) through every layer, attending
+        through the flash attention kernel (causal); returns h (b, s, d)
+        after the final norm and the prefix length p (P-Tuning v2's, else
+        0). P-Tuning v2 puts its K/V prefix (no RoPE) before each layer's
+        k and v, and its queries attend from position p. With ``cache``,
+        layer i's ``[prefix | k]`` and ``[prefix | v]`` are written into
+        its rows ``[0, p + s)``."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        method = self._method(peft)
+        b, s = tokens.shape
+        p = peft["opt"].prompt_len if method == "ptv2" else 0
+        if cache is not None and p + s > cache["k"].shape[2]:
+            raise ValueError(f"prompt length {s} (+ prefix {p}) exceeds the "
+                             f"cache's {cache['k'].shape[2]} rows")
+        ids = tokens.to(torch.int32)
+        h = params["embed"]["tok"][ids.long()].to(dt)             # (b, s, d)
+        sincos = L.rope_sincos(torch.arange(s, device=h.device),
+                               cfg.head_dim, cfg.rope_theta)
+        if method == "aot":     # each row's task over its s tokens, flat
+            flat_ids = ids.reshape(-1).contiguous()
+            tids = (peft["task_ids"].to(torch.int32).repeat_interleave(s)
+                    if "task_ids" in peft else None)
+        for i, lp in enumerate(params["layers"]):
+            if method == "aot":                      # the paper's Eq. 1
+                h = self._aot_add(peft, i, h.reshape(b * s, -1), flat_ids,
+                                  tids).view(b, s, -1)
+
+            def attend(q, k, v, i=i):
+                if p:
+                    pre = peft["params"]["ptv2"]
+                    k = torch.cat([pre["pk"][i].to(k.dtype).expand(
+                        b, -1, -1, -1), k], 1)
+                    v = torch.cat([pre["pv"][i].to(v.dtype).expand(
+                        b, -1, -1, -1), v], 1)
+                if cache is not None:
+                    cache["k"][i, :, :p + s] = k
+                    cache["v"][i, :, :p + s] = v
+                return ops.flash_attention(q, k, v, causal=True, q_offset=p)
+            h = self._block(lp, h, sincos, attend, peft, i)
+        return L.apply_norm(cfg, params["final_norm"], h), p
+
+    def forward(self, params, tokens, peft=None):
+        """Whole-sequence causal pass, no cache (the reference's
+        ``forward``; ``benchmarks/speed_overhead.py`` times it per PEFT
+        method). tokens: (b, s) int -> hidden states (b, s, d) after the
+        final norm, plus BitFit's ``final`` bias, which only this entry
+        point adds, as in the reference."""
+        h, _ = self._prompt(params, tokens, peft)
+        if peft and peft["method"] == "bitfit":
+            h = h + peft["params"]["bitfit"]["final"].to(h.dtype)
+        return h
+
+    def logits(self, params, tokens, peft=None):
+        """``unembed(forward(...))``: (b, s, V)."""
+        return self.unembed(params, self.forward(params, tokens, peft))
 
     def prefill(self, params, tokens, peft=None, *, max_len: int,
                 last_pos=None):
         """Run whole prompts and build their contiguous cache.
 
-        tokens: (b, s) int; peft: None, or ``{"method": "aot", "tables":
-        (L, tasks, V, d), "task_ids": (b,) int32}`` for fused multi-task
-        AoT; max_len: the cache's length (>= s). Every layer attends
+        tokens: (b, s) int; peft: None or a bundle (``core.peft.make``):
+        ``aot`` with one task's tables ``{"table": (L, V, d)}``, or with
+        stacked tasks' ``(L, tasks, V, d)`` plus ``"task_ids"`` (b,) int32;
+        ``bitfit``, ``lora``, ``adapters`` or ``ptv2``. max_len: the cache's
+        length (>= s, plus P-Tuning v2's prefix). Every layer attends
         through the flash attention kernel (causal) and writes its K/V into
-        rows ``[0, s)`` of a fresh ``init_cache(b, max_len)``. ``last_pos``
-        (an int) picks the position whose logits are returned instead of
-        the last one: the continuous scheduler right-pads prompts to a
-        bucket, and causality keeps positions <= last_pos independent of
-        the padding. Returns (logits (b, 1, V), cache, pos = s)."""
-        cfg, dt = self.cfg, self.opts.compute_dtype
-        aot = self._aot(peft)
-        b, s = tokens.shape
-        cache = self.init_cache(b, max_len)
-        if s > cache["k"].shape[2]:
-            raise ValueError(f"prompt length {s} exceeds the cache's "
-                             f"{cache['k'].shape[2]} rows")
-        ids = tokens.to(torch.int32)
-        h = params["embed"]["tok"][ids.long()].to(dt)             # (b, s, d)
-        sincos = L.rope_sincos(torch.arange(s, device=h.device),
-                               cfg.head_dim, cfg.rope_theta)
-        if aot:     # each row's task over its s tokens, flattened as h is
-            tids = peft["task_ids"].to(torch.int32).repeat_interleave(s)
-            flat_ids = ids.reshape(-1).contiguous()
-        for i, lp in enumerate(params["layers"]):
-            if aot:                                   # the paper's Eq. 1
-                h = ops.aot_gather_add_multitask(
-                    h.reshape(b * s, -1), peft["tables"][i], tids,
-                    flat_ids).view(b, s, -1)
-
-            def attend(q, k, v, i=i):
-                cache["k"][i, :, :s] = k
-                cache["v"][i, :, :s] = v
-                return ops.flash_attention(q, k, v, causal=True)
-            h = self._block(lp, h, sincos, attend)
-        h = L.apply_norm(cfg, params["final_norm"], h)
+        rows ``[0, p + s)`` of a fresh ``init_cache(b, max_len)`` (p: the
+        P-Tuning v2 prefix, else 0). ``last_pos`` (an int) picks the
+        position whose logits are returned instead of the last one: the
+        continuous scheduler right-pads prompts to a bucket, and causality
+        keeps positions <= last_pos independent of the padding. Returns
+        (logits (b, 1, V), cache, pos = s + p): BitFit's ``final`` bias is
+        not added here, as in the reference."""
+        cache = self.init_cache(tokens.shape[0], max_len)
+        h, p = self._prompt(params, tokens, peft, cache)
         h_last = h[:, -1:] if last_pos is None else \
             h[:, int(last_pos):int(last_pos) + 1]
-        return self.unembed(params, h_last), cache, s
+        return self.unembed(params, h_last), cache, tokens.shape[1] + p
 
     def decode_step(self, params, tokens, pos, cache, peft=None,
                     block_tables=None):
@@ -208,15 +301,22 @@ class Model:
         token, an int (every row at one depth) or a per-row (b,) vector;
         cache: a contiguous cache (``init_cache``), or with ``block_tables``
         (b, npages) int32 the paged pool (``init_paged_cache``), in which
-        case ``pos`` must be per-row. peft as in :meth:`prefill`.
+        case ``pos`` must be per-row. peft as in :meth:`prefill`, with
+        ``"task_ids"`` (b,) for stacked tasks; P-Tuning v2 takes the
+        contiguous cache only.
 
         The new K/V is written into the cache IN PLACE (the reference
         returns a new cache): contiguous at row ``pos``, paged into the page
         ``block_tables`` maps for depth ``pos``. Attention then runs the
         decode kernel (contiguous) or the paged decode kernel over
-        ``pos + 1`` positions. Returns (logits (b, 1, V), cache)."""
+        ``pos + 1`` positions. RoPE takes ``pos`` as the position, as the
+        reference does: after a P-Tuning v2 prefill (pos = s + p) the first
+        decoded token sits p positions past the prompt's last. Returns
+        (logits (b, 1, V), cache)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
-        aot = self._aot(peft)
+        method = self._method(peft)
+        if method == "ptv2" and block_tables is not None:
+            raise NotImplementedError(_PTV2_PAGED)
         dev = self.device
         ids = tokens[:, 0].to(torch.int32)
         b = ids.shape[0]
@@ -240,9 +340,9 @@ class Model:
             bs = cache["k"].shape[2]
             where = (block_tables.long()[where[0], pos_t // bs], pos_t % bs)
         for i, lp in enumerate(params["layers"]):
-            if aot:                                   # the paper's Eq. 1
-                h = ops.aot_gather_add_multitask(
-                    h[:, 0], peft["tables"][i], peft["task_ids"], ids)[:, None]
+            if method == "aot":                      # the paper's Eq. 1
+                h = self._aot_add(peft, i, h[:, 0], ids,
+                                  peft.get("task_ids"))[:, None]
             kc, vc = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, kc=kc, vc=vc):
@@ -254,7 +354,7 @@ class Model:
                 else:
                     o = ops.decode_attention(q[:, 0], kc, vc, cur)
                 return o[:, None]
-            h = self._block(lp, h, sincos, attend)
+            h = self._block(lp, h, sincos, attend, peft, i)
         h = L.apply_norm(cfg, params["final_norm"], h)
         return self.unembed(params, h), cache
 
@@ -269,10 +369,12 @@ class Model:
         token_rows: (T,) int32 each token's pool slot; token_pos: (T,) int32
         its absolute position, -1 marking a dead padding token (its output
         is zeros and its KV lands on scratch page 0); cache: the paged pool
-        (``init_paged_cache``); peft: None, or ``{"method": "aot", "tables":
-        (L, tasks, V, d), "task_ids": (T,) int32}`` for fused multi-task AoT;
-        block_tables: (num_slots, npages) int32; logit_idx: (num_slots,)
-        per-slot index into the packed axis whose logits to report.
+        (``init_paged_cache``); peft: None or a bundle as in
+        :meth:`prefill` (stacked tasks' AoT tables with ``"task_ids"`` (T,)
+        int32, one per token), except P-Tuning v2, whose prefix the paged
+        pool does not hold; block_tables: (num_slots, npages) int32;
+        logit_idx: (num_slots,) per-slot index into the packed axis whose
+        logits to report.
 
         The KV pool is updated IN PLACE (the reference returns a new cache
         from ``.at[].set``): every token's K/V is written into its slot's
@@ -284,7 +386,9 @@ class Model:
         cfg = self.cfg
         dt = self.opts.compute_dtype
         assert block_tables is not None, "mixed_step serves paged pools only"
-        aot = self._aot(peft)
+        method = self._method(peft)
+        if method == "ptv2":
+            raise NotImplementedError(_PTV2_PAGED)
         ids = tokens[:, 0].to(torch.int32)
         h = params["embed"]["tok"][ids.long()].to(dt)[:, None]   # (T, 1, d)
         pos = token_pos.clamp(min=0).long()
@@ -296,9 +400,9 @@ class Model:
         row = page * bs_page + pos % bs_page      # pool row of each token
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
         for i, lp in enumerate(params["layers"]):
-            if aot:                                   # the paper's Eq. 1
-                h = ops.aot_gather_add_multitask(
-                    h[:, 0], peft["tables"][i], peft["task_ids"], ids)[:, None]
+            if method == "aot":                      # the paper's Eq. 1
+                h = self._aot_add(peft, i, h[:, 0], ids,
+                                  peft.get("task_ids"))[:, None]
             kc, vc = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, kc=kc, vc=vc):
@@ -307,7 +411,7 @@ class Model:
                 return ops.ragged_paged_attention(
                     q[:, 0], kc, vc, block_tables, token_rows,
                     token_pos)[:, None]
-            h = self._block(lp, h, sincos, attend)
+            h = self._block(lp, h, sincos, attend, peft, i)
         h = L.apply_norm(cfg, params["final_norm"], h)
         if logit_idx is None:
             logit_idx = torch.arange(h.shape[0], device=h.device)

@@ -1,10 +1,13 @@
 """Multi-task serving engine: one frozen backbone serves many fused AoT
 tasks in the same batch.
 
-Counterpart of ``repro.serve.engine.ServeEngine`` (fused multi-task AoT or
-the bare backbone). Each request carries a task id; the stacked fused
-tables ``(L, tasks, V, d)`` are indexed per (task, token) in every layer at
-the cost of one gather-add. Three ways to serve:
+Counterpart of ``repro.serve.engine.ServeEngine``. Each request carries a
+task id; the stacked fused tables ``(L, tasks, V, d)`` are indexed per
+(task, token) in every layer at the cost of one gather-add. The engine
+also serves one ready PEFT bundle (``core.peft.make``) with no task ids:
+the baselines of the paper's Fig. 3 overhead comparison (one task's fused
+AoT tables, BitFit, LoRA, adapters, P-Tuning v2) and the bare backbone.
+Three ways to serve:
 
 - :meth:`generate`, the static batch (the paper's benchmark setting): every
   prompt arrives together with one length, whole-prompt prefill, then
@@ -22,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import peft as peft_mod
+from repro_torch.core.aot import AoTOptions
 from repro_torch.kernels.decode_attention import round_kv_len
 from repro_torch.serve.sampling import sample_tokens
 
@@ -29,6 +34,15 @@ from repro_torch.serve.sampling import sample_tokens
 @dataclass(frozen=True)
 class ServeConfig:
     max_len: int = 2048
+
+
+def _tensors(tree):
+    """Every tensor in a nested dict."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
 
 
 def _pack_int32(arrays):
@@ -47,24 +61,36 @@ def _pack_int32(arrays):
 
 class ServeEngine:
     def __init__(self, model, params, cfg: ServeConfig = ServeConfig(),
-                 fused_tasks=None):
+                 fused_tasks=None, peft=None):
         """``fused_tasks``: the stacked fused task tables
-        ``{'table': (L, tasks, V, d)}`` (``aot.stack_tasks``) on the model's
-        device; None serves the bare backbone."""
+        ``{'table': (L, tasks, V, d)}`` (``aot.stack_tasks``), served by
+        task id; or ``peft``: one ready bundle (``core.peft.make``), used as
+        given with no task ids (``num_tasks`` stays None, as in the
+        reference). At most one of the two; neither serves the bare
+        backbone. Their tensors must lie on the model's device."""
+        if fused_tasks is not None and peft is not None:
+            raise ValueError("give fused_tasks or peft, not both")
         self.model = model
         self.params = params
         self.cfg = cfg
         self.device = model.device
         self.tables = None
         self.num_tasks: Optional[int] = None
+        self.peft = peft
         if fused_tasks is not None:
             self.tables = fused_tasks["table"]
-            if self.tables.device != self.device:
-                raise ValueError(f"task tables are on {self.tables.device}, "
-                                 f"the model on {self.device}")
+            opt = peft_mod.PEFTOptions(method="aot",
+                                       aot=AoTOptions(mode="fused"))
+            self.peft = peft_mod.make({"aot": {"table": self.tables}}, opt)
             # task-id validity bound: the scheduler rejects task ids the
             # gather would clamp
             self.num_tasks = self.tables.shape[1]
+        if self.peft is not None:
+            model._method(self.peft)            # raises if not served
+            for x in _tensors(self.peft["params"]):
+                if x.device != self.device:
+                    raise ValueError(f"PEFT parameters are on {x.device}, "
+                                     f"the model on {self.device}")
         # KV allocations round up as the reference's do (rows past max_len
         # stay masked by cur_len)
         self.cache_len = round_kv_len(cfg.max_len)
@@ -73,11 +99,12 @@ class ServeEngine:
         self.dispatches = 0
 
     def _peft(self, task_ids: torch.Tensor):
-        """The model's peft argument for rows of ``task_ids`` (None for the
-        bare backbone)."""
+        """The model's peft argument for rows of ``task_ids``: the bundle
+        with them for stacked tasks, the bundle as given otherwise (None for
+        the bare backbone)."""
         if self.tables is None:
-            return None
-        return {"method": "aot", "tables": self.tables, "task_ids": task_ids}
+            return self.peft
+        return dict(self.peft, task_ids=task_ids)
 
     def _upload(self, arrays):
         """Host arrays -> int32 device views, in one copy."""

@@ -128,6 +128,11 @@ class ContinuousScheduler:
             raise InvalidConfig(
                 "chunked prefill rides the unified paged serve step; "
                 "kv_layout='slots' serves whole-prompt prefills only")
+        method = engine.peft["method"] if engine.peft else "none"
+        if method in ("ptv1", "ptv2"):
+            raise InvalidConfig(
+                f"{method}: prompt/prefix tuning changes the cache layout "
+                "per request; serve it with static batches")
         self.engine = engine
         self.cfg = cfg
         self.max_len = engine.cfg.max_len

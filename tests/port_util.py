@@ -11,6 +11,7 @@ import torch
 from repro.core import aot as jax_aot
 from repro.core import peft as jpeft
 from repro_torch import bridge
+from repro_torch.core import peft as port_peft
 
 TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -46,6 +47,14 @@ def jax_peft(tasks, task_ids):
     p = jpeft.make({"aot": jax_aot.stack_tasks(tasks)}, opt)
     p["task_ids"] = task_ids
     return p
+
+
+def port_tasks_peft(tables, task_ids):
+    """The port's multi-task fused-AoT bundle (as its ``ServeEngine`` builds
+    it) for stacked ``tables`` ``{"table": (L, tasks, V, d)}``."""
+    opt = port_peft.PEFTOptions(method="aot",
+                                aot=port_peft.AoTOptions(mode="fused"))
+    return dict(port_peft.make({"aot": tables}, opt), task_ids=task_ids)
 
 
 def port_lm(tiny_lm):

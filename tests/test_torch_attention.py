@@ -5,7 +5,8 @@ On the CPU each wrapper in ``kernels.ops`` runs its kernel's plain PyTorch
 version; these tests hold that version to the reference's Pallas kernel in
 interpret mode (as the reference's own tests run it), within 2e-5 in
 float32 and 2e-2 in bfloat16 (``tests/test_kernels.py``): flash attention
-(causal, full and sliding window; sq equal to skv or not; GQA) and the
+(causal, full and sliding window; sq equal to skv or not; GQA; queries
+from an offset, against the reference's XLA path, which takes that) and the
 contiguous and paged decode kernels (scalar and per-row lengths, lengths
 of 0, lengths that straddle pages). The port's oracles and its XLA-path
 layers are held to the reference's. The CUDA kernels are held to the same
@@ -105,11 +106,48 @@ def test_attention_ref_matches_reference_layer(rng, case):
 
 
 def test_flash_wrapper_refuses_what_the_reference_sends_to_xla(rng):
+    """prefix_len and softcap go to XLA in the reference and no served
+    model needs them; q_offset (P-Tuning v2's prefill) is ported."""
     (_, qt), (_, kt), (_, vt) = _flash_inputs(rng, 1, 4, 4, 2, 1, 8,
                                               jnp.float32)
-    for kw in (dict(prefix_len=2), dict(softcap=30.0), dict(q_offset=1)):
+    for kw in (dict(prefix_len=2), dict(softcap=30.0)):
         with pytest.raises(NotImplementedError):
             ops.flash_attention(qt, kt, vt, causal=True, **kw)
+
+
+# name -> (b, sq, q_offset, h, kvh, hd, window): queries at positions
+# q_offset.. over skv = q_offset + sq keys, P-Tuning v2's prefill (its
+# prefix before the prompt's keys)
+FLASH_OFFSET = {
+    "prefix4": (2, 9, 4, 4, 2, 16, 0),
+    "prefix5_window6": (1, 13, 5, 4, 2, 16, 6),
+    "prefix20_smollm_g3_hd64": (1, 11, 20, 15, 5, 64, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_OFFSET))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_plain_with_q_offset_matches_reference(rng, case, dtype):
+    """The reference sends q_offset to its XLA paths (``kernels.ops``):
+    the plain version against ``attention_chunked`` (small chunks, so the
+    kv walk and its bounds are exercised) and ``attention_ref``."""
+    b, sq, off, h, kvh, hd, window = FLASH_OFFSET[case]
+    (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(rng, b, sq, sq + off, h,
+                                                 kvh, hd, dtype)
+    out = ops.flash_attention(qt, kt, vt, causal=True, window=window,
+                              q_offset=off)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    f32 = lambda x: x.astype(jnp.float32)
+    kw = dict(causal=True, window=window, q_offset=off)
+    chunked = jax_layers.attention_chunked(f32(qj), f32(kj), f32(vj),
+                                           chunk_q=4, chunk_kv=4, **kw)
+    oracle = jax_layers.attention_ref(f32(qj), f32(kj), f32(vj), **kw)
+    _close(out, chunked, dtype, f"{case}: plain vs attention_chunked")
+    _close(out, oracle, dtype, f"{case}: plain vs attention_ref")
+    mine = port_layers.attention_ref(qt.float(), kt.float(), vt.float(),
+                                     **kw)
+    np.testing.assert_allclose(np32(mine), np32(oracle), atol=2e-5,
+                               rtol=2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +266,9 @@ BAD = {
                                         torch.zeros(1, 4, 2, 8),
                                         torch.zeros(1, 4, 2, 8)),
                     ValueError, "unsupported"),
+    "flash_negative_q_offset": (functools.partial(port_flash_kernel,
+                                                  q_offset=-1),
+                                (_Q4, _K4, _K4), ValueError, ">= 0"),
     "flash_channel_stride": (port_flash_kernel,
                              (torch.zeros(1, 4, 8, 2).transpose(2, 3), _K4,
                               _K4), ValueError, "channel stride"),

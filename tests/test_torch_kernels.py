@@ -18,7 +18,8 @@ import torch
 from port_util import both, np32
 from repro.core import aot as jax_aot
 from repro.kernels import ref as jax_ref
-from repro.kernels.aot_bias import aot_gather_add_multitask_kernel
+from repro.kernels.aot_bias import (aot_gather_add_kernel,
+                                    aot_gather_add_multitask_kernel)
 from repro.kernels.decode_attention import (ragged_paged_attention_kernel,
                                             round_kv_len as jax_round_kv_len)
 from repro.models.layers import (ragged_paged_attention_decode as
@@ -26,6 +27,8 @@ from repro.models.layers import (ragged_paged_attention_decode as
 from repro_torch.core import aot as port_aot
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels.aot_bias import aot_gather_add_kernel as \
+    port_single_kernel
 from repro_torch.kernels.aot_bias import aot_gather_add_multitask_kernel as \
     port_gather_kernel
 from repro_torch.kernels.decode_attention import (
@@ -101,6 +104,80 @@ def test_gather_add_kernel_refuses_bad_arguments(case):
     args, err, match = GATHER_BAD[case]
     with pytest.raises(err, match=match):
         port_gather_kernel(*args)
+
+
+# ---------------------------------------------------------------------------
+# single-table gather-add (one task's fused AoT tables)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,V,d", [(16, 50, 32), (7, 13, 8), (64, 100, 128),
+                                   (128, 1000, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_single_gather_add_plain_bitwise_matches_pallas_kernel(rng, T, V, d,
+                                                               dtype):
+    """In-range ids at the reference's own kernel-test shapes, as (T, d)
+    and as (1, T, d)."""
+    hj, ht = both(rng.normal(size=(T, d)), dtype)
+    tj, tt = both(rng.normal(size=(V, d)), dtype)
+    ij, it = both(rng.integers(0, V, (T,)).astype(np.int32))
+    out = ops.aot_gather_add(ht, tt, it)
+    assert out.dtype == ht.dtype and out.shape == (T, d)
+    pallas = aot_gather_add_kernel(hj, tj, ij, interpret=True)
+    np.testing.assert_array_equal(np32(out), np32(pallas))
+    batched = ops.aot_gather_add(ht[None], tt, it[None])
+    np.testing.assert_array_equal(np32(batched[0]), np32(out))
+    np.testing.assert_array_equal(
+        np32(out), np32(port_ref.aot_gather_add_ref(ht, tt, it)))
+
+
+# jnp.take's rule: in range; -1 and -V wrap once; V, V + 27, -V - 1 and
+# -200 are still out of range after the wrap and give NaN rows
+TAKE_IDS = [5, 0, 49, -1, -50, 50, 77, -51, -200]
+NAN_ROWS = [False] * 5 + [True] * 4
+
+
+@pytest.mark.parametrize("h_dtype", DTYPES)
+@pytest.mark.parametrize("table_dtype", DTYPES)
+def test_single_gather_add_plain_follows_rows_fused(rng, h_dtype,
+                                                    table_dtype):
+    """Out-of-range ids: the plain version equals the reference model's
+    ``h + rows_fused(...)`` bitwise, NaN rows in the same places."""
+    T, V, d = len(TAKE_IDS), 50, 16
+    hj, ht = both(rng.normal(size=(T, d)), h_dtype)
+    tj, tt = both(rng.normal(size=(V, d)) * 0.1, table_dtype)
+    ij, it = both(np.asarray(TAKE_IDS, np.int32))
+    out = ops.aot_gather_add(ht, tt, it)
+    assert out.dtype == ht.dtype
+    want = hj + jax_aot.rows_fused({"table": tj}, ij, h_dtype)
+    np.testing.assert_array_equal(np32(out), np32(want))
+    assert np.isnan(np32(out)).all(axis=1).tolist() == NAN_ROWS
+    assert not np.isnan(np32(out)).any(axis=1)[:5].any()
+    rows = port_aot.rows_fused({"table": tt}, it, ht.dtype)
+    np.testing.assert_array_equal(
+        np32(rows), np32(jax_aot.rows_fused({"table": tj}, ij, h_dtype)))
+
+
+SINGLE_BAD = {
+    "cpu": ((torch.zeros(2, 8), torch.zeros(4, 8), _i32(2)), ValueError,
+            "CUDA tensors"),
+    "half": ((torch.zeros(2, 8), torch.zeros(4, 8, dtype=torch.half),
+              _i32(2)), TypeError, "float32 or bfloat16"),
+    "int64_ids": ((torch.zeros(2, 8), torch.zeros(4, 8),
+                   torch.zeros(2, dtype=torch.long)), TypeError, "int32"),
+    "stacked_tables": ((torch.zeros(2, 8), torch.zeros(1, 4, 8), _i32(2)),
+                       ValueError, r"\(V, d\)"),
+    "ids_length": ((torch.zeros(2, 8), torch.zeros(4, 8), _i32(3)),
+                   ValueError, "shapes disagree"),
+    "strided_table": ((torch.zeros(2, 8), torch.zeros(8, 4).T, _i32(2)),
+                      ValueError, "contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_BAD))
+def test_single_gather_add_kernel_refuses_bad_arguments(case):
+    args, err, match = SINGLE_BAD[case]
+    with pytest.raises(err, match=match):
+        port_single_kernel(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +270,14 @@ def test_round_kv_len_matches_reference(n, block_k):
     assert round_kv_len(n, block_k) == jax_round_kv_len(n, block_k)
 
 
-# positional arguments of each wrapper
-WRAPPER_ARGS = {"aot_gather_add_multitask": 4, "ragged_paged_attention": 6,
-                "flash_attention": 3, "decode_attention": 4,
-                "paged_decode_attention": 5}
+# positional arguments of each wrapper, which the stubbed kernels ignore
+# (the single-table gather-add reads h's rank first)
+WRAPPER_ARGS = {"aot_gather_add": (torch.zeros(3, 2), None, None),
+                "aot_gather_add_multitask": (None,) * 4,
+                "ragged_paged_attention": (None,) * 6,
+                "flash_attention": (None,) * 3,
+                "decode_attention": (None,) * 4,
+                "paged_decode_attention": (None,) * 5}
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPER_ARGS))
@@ -211,7 +292,7 @@ def test_wrapper_counts_only_calls_that_launch(monkeypatch, name):
             monkeypatch.setattr(
                 ops, f"{name}_kernel",
                 lambda *a, rows=rows, **kw: torch.zeros(rows, 2))
-            wrapper(*[None] * WRAPPER_ARGS[name])
+            wrapper(*WRAPPER_ARGS[name])
         assert wrapper.launches == 1
     finally:
         ops.reset_launches()

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from port_util import both, jax_peft, jax_tasks, np32, port_lm, port_tables
+from port_util import (both, jax_peft, jax_tasks, np32, port_lm, port_tables,
+                       port_tasks_peft)
 from repro_torch.models.model import Model
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -91,7 +92,7 @@ def test_mixed_step_matches_reference(rng, lm, packing):
     lg_j, cache_j = jmodel.mixed_step(jparams, tokj, rj, pj, jcache,
                                       jax_peft(tasks, tkj), block_tables=btj,
                                       logit_idx=lj)
-    peft = {"method": "aot", "tables": tables["table"], "task_ids": tkt}
+    peft = port_tasks_peft(tables, tkt)
     cache = {"k": kt.clone(), "v": vt.clone()}
     lg, cache = model.mixed_step(params, tokt, rt, pt, cache, peft,
                                  block_tables=btt, logit_idx=lt)
@@ -116,7 +117,7 @@ def test_decode_tokens_equal_reference_decode_step(rng, lm):
     lg_j, _ = jmodel.decode_step(jparams, tokj, dj, [{"b0": {"k": kj, "v": vj}}],
                                  jax_peft(tasks, tj), block_tables=btj)
     rows = torch.arange(3, dtype=torch.int32)
-    peft = {"method": "aot", "tables": tables["table"], "task_ids": tt}
+    peft = port_tasks_peft(tables, tt)
     lg, _ = model.mixed_step(params, tokt, rows, dt, {"k": kt, "v": vt}, peft,
                              block_tables=btt, logit_idx=rows)
     np.testing.assert_array_equal(lg.argmax(-1).numpy(),
