@@ -14,10 +14,11 @@ and ``ragged_paged_attention_kernel`` of ``repro.kernels.decode_attention``.
 
 In all three a row with nothing to see (``cur_len <= 0``, a dead token)
 gives exact zeros, as the reference kernels do. The CUDA kernels are the
-three C entry points of ``csrc/decode_attention.cu``, one device walk
-each; the plain versions below gather each row's pages and apply a masked
-fp32 softmax, as the reference's XLA path (``layers.attention_decode``)
-does.
+three C entry points of ``csrc/decode_attention.cu``: the contiguous one
+splits each (row, KV head) walk over a cluster of ``decode_split(S)``
+blocks, the paged and ragged ones walk in one block each. The plain
+versions below gather each row's pages and apply a masked fp32 softmax, as
+the reference's XLA path (``layers.attention_decode``) does.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_G = 8            # query heads per KV head the decode kernels hold
+SPLIT_POSITIONS = 256   # cache positions per block of a decode cluster
+MAX_SPLIT = 8           # blocks a cluster of the contiguous kernel holds
 
 
 def round_kv_len(n: int, block_k: int = 256) -> int:
@@ -44,6 +47,18 @@ def round_kv_len(n: int, block_k: int = 256) -> int:
     if n <= block_k:
         return n
     return -(-n // block_k) * block_k
+
+
+def decode_split(S: int) -> int:
+    """Blocks of the cluster that shares one (row, KV head) walk of the
+    contiguous decode kernel: one per ``SPLIT_POSITIONS`` cache positions,
+    at least 1 and at most ``MAX_SPLIT``. Sized from the cache length S,
+    which the host knows (the lengths live on the device); block r walks
+    positions ``[r c, (r + 1) c)``, ``c = ceil(S / split)``, cut at its
+    row's length. (At the static batch, S 1024 and depths 512-575 on an
+    H100, 4 blocks of 256 positions beat 8 of 128: 640 blocks do not fit
+    on the card at once.)"""
+    return max(1, min(MAX_SPLIT, -(-S // SPLIT_POSITIONS)))
 
 
 def _lengths(cur_len, b: int, device) -> torch.Tensor:
@@ -100,7 +115,7 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
 
 _FNS = {}
 _ARGTYPES = {
-    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
     "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, ctypes.c_float, _I, _I, _P],
@@ -213,7 +228,8 @@ def decode_attention_kernel(q, k_cache, v_cache, cur_len):
         err = _lib("decode_attention")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(), b, k_cache.shape[1], kvh,
-            h // kvh, hd, 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+            h // kvh, hd, decode_split(k_cache.shape[1]), 1.0 / math.sqrt(hd),
+            int(q.dtype == torch.bfloat16),
             _vec(hd, k_cache, v_cache),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -8,9 +8,10 @@ q (b, sq, h, hd) attends over k / v (b, skv, kvh, hd) with GQA (query head
 reference's top-left alignment, whatever sq and skv are) and ``kpos > qpos -
 window`` (``window > 0``). P-Tuning v2 attends with ``q_offset`` = its
 prefix length over ``[prefix | k]``. The CUDA kernel is
-``csrc/flash_attention.cu``;
-the plain version below is the reference kernel's masked fp32 softmax in
-one piece.
+``csrc/flash_attention.cu``: bf16 on the tensor cores (a cp.async build for
+rows in whole 16-byte units, an element-load build otherwise), float32 on
+the CUDA cores. The plain version below is the reference kernel's masked
+fp32 softmax in one piece.
 """
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None,
 
 
 _FN = None
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _L, _L, _L, _L, _L, _L, _L, _L, _L,
+             _I, _I, _I, ctypes.c_float, _I, _I, _P]
 
 
 def _lib():
@@ -60,12 +64,22 @@ def _lib():
     global _FN
     if _FN is None:
         fn = _build.load("flash_attention").flash_attention
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                       _I, _I, _I, ctypes.c_float, _I, _P]
+        fn.argtypes = _ARGTYPES
         fn.restype = _I
         _FN = fn
     return _FN
+
+
+def _vec(hd, *xs) -> int:
+    """1 when the bf16 kernel may stage ``xs``' rows with 16-byte copies:
+    hd, every pointer and every batch, sequence and head stride in whole
+    16-byte units (8 bf16 elements; a dimension of size 1 is never
+    stepped, so its stride does not count)."""
+    return int(hd % 8 == 0 and all(
+        x.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 or n == 1
+            for st, n in zip(x.stride()[:3], x.shape[:3]))
+        for x in xs))
 
 
 def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
@@ -111,7 +125,7 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
                      b, sq, skv, h, kvh, hd, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], int(causal),
                      int(window), int(q_offset), scale,
-                     int(q.dtype == torch.bfloat16),
+                     int(q.dtype == torch.bfloat16), _vec(hd, q, k, v),
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -49,7 +49,7 @@ def _imports(path: Path):
 
 def test_no_jax_or_reference_import_in_the_source():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_seeds.py"]
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (
