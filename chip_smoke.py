@@ -8,25 +8,37 @@ Phases, each printing one line of results; any failure exits non-zero:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every CUDA source under src/repro_torch/kernels/csrc compiled by
    nvcc for sm_90a, one nvcc each, in parallel; each redesigned kernel
-   instance's registers and spill bytes (none may spill);
+   instance's registers and spill bytes (none may spill): flash_mma_kernel,
+   decode_split_kernel (contiguous and paged), ragged_split_kernel (the
+   split walk and the token tile);
 3. parity: each kernel's public wrapper against its plain PyTorch version
    on the card at smollm-360m's shapes (both gather-adds bitwise, the
    single-table one's NaN rows for ids outside [-V, V) included; attention
    within 2e-5 in float32 and 2e-2 in bfloat16), for both the
    16-byte-load and the one-element-load build where a kernel has both:
-   ragged paged attention; flash attention (causal, full, window; sq = skv
+   ragged paged attention (every packing of packings(), among them runs
+   that the plan puts on the tensor cores: four chunks at unaligned
+   offsets, runs of 1 and 5, a run across pages from position 27, a run
+   ending at 1023, positions past the table, dead padding between runs; at
+   pages of 16, 8 and 32, hd 60 / 64 / 128 and g 8; the decode_only packing
+   bitwise equal to paged decode with cur_len = pos + 1); flash attention
+   (causal, full, window; sq = skv
    in {1, 37, 100, 512, 577}, sq != skv either way, hd 32, 60, 96, 128,
    a strided q, a misaligned q, g 8; queries from an offset over sq +
    offset keys, P-Tuning v2's prefill, with and without a window);
    contiguous decode (scalar and per-row lengths with 0, 1 and ragged
    depths, S = 1024; lengths at and on either side of the cluster's block
    boundaries, 0 and S, at S 300, 1000, 1024, 2048); paged decode (length
-   0, lengths that straddle pages, depth 1024);
+   0, lengths that straddle pages, depth 1024; pages of 16, 8 and 32; and
+   bitwise equal to contiguous decode over the same K/V wherever the
+   capacities match: those lengths and every split case at pages of 4-32
+   that divide S);
 4. kernel times at the serving paths' shapes (device time from
    torch.profiler), beside the plain version's, one PyTorch library call's
    where there is one, and the least time the card could take (bytes at
    3.35 TB/s, operations at the published peak); flash also at one prompt
-   of 512 (a whole-prompt stream's prefill);
+   of 512 (a whole-prompt stream's prefill); the ragged kernel's plan
+   (host microseconds per tick, items);
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -37,7 +49,8 @@ Phases, each printing one line of results; any failure exits non-zero:
 5c. the static batch (ServeEngine.generate, the paper's Fig. 3 setting):
    16 prompts of 512 tokens with mixed tasks, 64 new tokens; the same
    prompts as per-task batches; the mixed batch over a paged pool
-   (Model.decode_step(block_tables=)). Generated tokens/s of each;
+   (Model.decode_step(block_tables=)). Generated tokens/s of each, and
+   16 steps of the mixed batch under the profiler, contiguous and paged;
    in 5-5d every request must finish, every pool must drain clean, and
    each kernel must launch exactly 32 times per call that runs it (counts
    zeroed just before each run);
@@ -89,6 +102,7 @@ NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
 DEV = "cuda"
 ROTATE = 32                        # layers of inputs a timing cycles through
+PROFILE_ATTEMPTS = 3               # traces device_ms takes at most
 KERNEL_SOURCES = sorted(p.stem for p in (
     ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"))
 
@@ -123,19 +137,30 @@ def wall_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_ms(fn, iters: int) -> float:
     """Mean device time of fn(i), summed over every CUDA kernel it launches
-    (torch.profiler, CUPTI); raises when the profiler records no kernel.
-    Unlike wall_ms, host time between launches does not count."""
+    (torch.profiler, CUPTI). Every call launches at least one kernel, so a
+    trace that holds fewer kernels than calls lost records and is taken
+    again, up to ``PROFILE_ATTEMPTS`` traces; raises if none is whole or
+    none holds kernel time. Unlike wall_ms, host time between launches does
+    not count."""
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us += getattr(e, "self_device_time_total", 0.0) or 0.0
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        us, kernels = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us += getattr(e, "self_device_time_total", 0.0) or 0.0
+                kernels += e.count
+        if kernels >= iters:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded {kernels} kernels for "
+                           f"{iters} calls in each of {PROFILE_ATTEMPTS} "
+                           "traces")
     if us <= 0:
         raise RuntimeError("torch.profiler recorded no CUDA kernel time")
     return us / iters / 1e3
@@ -165,6 +190,36 @@ def packings():
     rows = [5] * 256 + [6, 7]
     pos = list(range(768, 1024)) + [1023, 1000]             # depth 1024
     out["deep_1024"] = (rows, pos)
+    # the ragged kernel's plan: runs of one slot at consecutive positions
+    # go onto the tensor cores in tiles of 16, other tokens walk alone.
+    # Four chunks of unequal lengths at token offsets 4, 41, 111, 120
+    # after four decode tokens (the multi-prefill budget split), dead
+    # padding to 263
+    rows, pos = [4, 5, 6, 7], [17, 300, 64, 1021]
+    for slot, lo, n in ((0, 100, 37), (1, 0, 70), (2, 500, 9), (3, 883, 140)):
+        rows += [slot] * n
+        pos += list(range(lo, lo + n))
+    out["four_chunks_unaligned"] = (rows + [0] * (263 - len(rows)),
+                                    pos + [-1] * (263 - len(pos)))
+    # a run of 1 token and a run of 5 between decode tokens
+    out["runs_1_and_5"] = ([0, 1, 2, 2, 2, 2, 2, 3, 4],
+                           [40, 77, 200, 201, 202, 203, 204, 9, 640])
+    # a run that crosses pages, starting at position 27 (not a multiple of
+    # 16) at token offset 3
+    out["run_crosses_page_unaligned"] = ([0, 1, 2] + [3] * 34,
+                                         [5, 16, 700] + list(range(27, 61)))
+    # a run ending at 1023, the table's last position
+    out["run_ends_1023"] = ([1] + [6] * 24, [3] + list(range(1000, 1024)))
+    # positions past the table (1024 of 1024): a run across the end, and a
+    # single token far past it; each sees the whole table
+    out["past_table"] = ([7] * 11 + [2, 0], list(range(1020, 1031))
+                         + [1500, 12])
+    # dead padding between runs, the same slot on either side
+    out["dead_between_runs"] = ([0] * 20 + [0] * 5 + [0] * 10 + [0] * 3
+                                + [1] * 3,
+                                list(range(20)) + [-1] * 5
+                                + list(range(20, 30)) + [-1] * 3
+                                + [50, 51, 52])
     return out
 
 
@@ -178,15 +233,21 @@ def misaligned(x):
     return y
 
 
-def ragged_inputs(gen, rows, pos, dtype, layers=1, hd=HD):
-    dev, T = DEV, len(rows)
-    q = torch.randn(T, H, hd, generator=gen, device=dev).to(dtype)
-    k = torch.randn(layers, NUM_BLOCKS, BS, KVH, hd, generator=gen,
+def ragged_inputs(gen, rows, pos, dtype, layers=1, hd=HD, bs=BS,
+                  heads=(H, KVH)):
+    """q (T, h, hd), K/V pools (layers, blocks, bs, kvh, hd) of SLOTS slots
+    of MAX_LEN positions in pages of bs, scrambled block tables, and the
+    token indices, on the card."""
+    dev, T, (h, kvh) = DEV, len(rows), heads
+    npages = MAX_LEN // bs
+    blocks = SLOTS * npages + 1
+    q = torch.randn(T, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(layers, blocks, bs, kvh, hd, generator=gen,
                     device=dev).to(dtype)
-    v = torch.randn(layers, NUM_BLOCKS, BS, KVH, hd, generator=gen,
+    v = torch.randn(layers, blocks, bs, kvh, hd, generator=gen,
                     device=dev).to(dtype)
-    perm = torch.randperm(NUM_BLOCKS - 1, generator=gen, device=dev) + 1
-    bt = perm.view(SLOTS, NPAGES).to(torch.int32)
+    perm = torch.randperm(blocks - 1, generator=gen, device=dev) + 1
+    bt = perm.view(SLOTS, npages).to(torch.int32)
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
     return q, k, v, bt, i32(rows), i32(pos)
 
@@ -250,10 +311,12 @@ def ptxas_kernels(out):
     return kernels
 
 
-# the tensor-core flash and the cluster decode kernels, by source: phase 2
-# lists each of their instances' registers and spill bytes (none may spill)
+# the tensor-core flash, the cluster decode (contiguous and paged) and the
+# ragged (split walk and token tile) kernels, by source: phase 2 lists each
+# of their instances' registers and spill bytes (none may spill)
 REDESIGNED = {"flash_mma_kernel": "flash_attention",
-              "decode_split_kernel": "decode_attention"}
+              "decode_split_kernel": "decode_attention",
+              "ragged_split_kernel": "decode_attention"}
 
 
 def redesigned(logs):
@@ -291,10 +354,11 @@ def phase_build(names):
                     if found else f"{name}:{out.strip()[:40]}")
     log("2 build", seconds=f"{sec:.1f}", arch="sm_90a",
         sources=",".join(f"{n}.cu" for n in names), ptxas="|".join(regs))
-    for base, inst in sorted(redesigned(logs).items()):
+    found = redesigned(logs)
+    for base, inst in sorted(found.items()):
         log("2 build", redesigned=base, instances=len(inst),
             registers_spill_bytes=",".join(sorted(inst)))
-    return sec, logs
+    return sec, found
 
 
 def phase_parity(gen, report):
@@ -338,39 +402,59 @@ def phase_parity(gen, report):
         "4x4096x962 (d%8!=0)", types="{f32,bf16}^2", T="8,263")
     parity_single_gather(gen, report)
 
-    def check_ragged(rows, pos, dtype, hd, shift):
-        q, k, v, bt, r, p = ragged_inputs(gen, rows, pos, dtype, hd=hd)
-        k, v = k[0], v[0]
-        if shift:
-            k, v = misaligned(k), misaligned(v)
-        out = ops.ragged_paged_attention(q, k, v, bt, r, p)
-        plain = decode_attention.ragged_paged_attention_plain(q, k, v, bt,
-                                                              r, p)
-        torch.cuda.synchronize()
-        err = (out.float() - plain.float()).abs().max().item()
-        tol = TOL[dtype]
-        ok = torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
-        dead = torch.tensor(pos, device=DEV) < 0
-        return err, ok and bool((out[dead] == 0).all())
-
-    variants = {"vec": (HD, False), "vec_hd128": (128, False),
-                "scalar_hd60": (60, False), "scalar_misaligned": (HD, True)}
-    for variant, (hd, shift) in variants.items():
-        rcases = []
-        for name, (rows, pos) in packings().items():
-            for dtype in (torch.float32, torch.bfloat16):
-                err, ok = check_ragged(rows, pos, dtype, hd, shift)
-                rcases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
-                report["parity"][f"ragged/{variant}/{name}/{dtype}"] = err
-                if not ok:
-                    raise AssertionError(
-                        f"ragged attention {variant} {name} {dtype}: max "
-                        f"abs err {err} over tol {TOL[dtype]}")
-        log("3 parity", kernel="ragged_paged_attention", variant=variant,
-            shapes=f"h15 kvh5 hd{hd} bs16 depth<=1024",
-            max_abs_err=",".join(rcases))
+    parity_ragged(gen, report)
     parity_flash(gen, report)
     parity_decode(gen, report)
+
+
+# ragged and paged parity builds: name -> (hd, data one element off a
+# 16-byte boundary, (h, kvh)); each at every page size of PARITY_BS
+PARITY_VARIANTS = {"vec": (HD, False, (H, KVH)),
+                   "vec_hd128": (128, False, (H, KVH)),
+                   "scalar_hd60": (60, False, (H, KVH)),
+                   "scalar_misaligned": (HD, True, (H, KVH)),
+                   "vec_g8": (HD, False, (8, 1))}
+PARITY_BS = (16, 8, 32)
+
+
+def parity_ragged(gen, report):
+    """Ragged attention against its plain version on every packing, in
+    float32 and bf16, at every build of PARITY_VARIANTS and page size of
+    PARITY_BS (the plan built by the wrapper from the indices); dead tokens
+    must be exact zeros; and the decode_only packing bitwise equal to paged
+    decode of the same tokens with cur_len = pos + 1."""
+    from repro_torch.kernels import decode_attention, ops
+    for variant, (hd, shift, heads) in PARITY_VARIANTS.items():
+        for bs in PARITY_BS:
+            rcases, bitwise = [], 0
+            for name, (rows, pos) in packings().items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, bt, r, p = ragged_inputs(gen, rows, pos, dtype,
+                                                      hd=hd, bs=bs,
+                                                      heads=heads)
+                    k, v = k[0], v[0]
+                    if shift:
+                        k, v = misaligned(k), misaligned(v)
+                    out = ops.ragged_paged_attention(q, k, v, bt, r, p)
+                    plain = decode_attention.ragged_paged_attention_plain(
+                        q, k, v, bt, r, p)
+                    what = f"ragged/{variant}/bs{bs}/{name}/{dtype}"
+                    err = check_close(what, out, plain, dtype, report, p < 0)
+                    rcases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
+                    if name == "decode_only":
+                        paged = ops.paged_decode_attention(
+                            q, k, v, bt[r.long()].contiguous(), p + 1)
+                        torch.cuda.synchronize()
+                        if not torch.equal(out, paged):
+                            raise AssertionError(
+                                f"{what}: not bitwise equal to paged decode "
+                                f"with cur_len = pos + 1 (max abs diff "
+                                f"{(out.float() - paged.float()).abs().max()})")
+                        bitwise += 1
+            log("3 parity", kernel="ragged_paged_attention", variant=variant,
+                bs=bs, shapes=f"h{heads[0]} kvh{heads[1]} hd{hd} "
+                f"depth<=1024", bitwise_vs_paged=f"{bitwise}/2",
+                max_abs_err=",".join(rcases))
 
 
 def check_close(what, out, plain, dtype, report, zero_rows=None):
@@ -552,21 +636,62 @@ def decode_inputs(gen, lens, dtype, hd=HD, layers=1, S=MAX_LEN,
     return q, k, v, torch.tensor(lens, dtype=torch.int32, device=DEV)
 
 
+def paged_copy(gen, k, v, bs, shift):
+    """A contiguous cache (b, S, kvh, hd) as a paged pool: pages of bs in a
+    scrambled order after scratch page 0, and the (b, S / bs) tables that
+    map them. ``shift`` puts the pool one element off a 16-byte
+    boundary."""
+    b, S, kvh, hd = k.shape
+    npages = S // bs
+    perm = torch.randperm(b * npages, generator=gen, device=DEV)
+    pools = []
+    for x in (k, v):
+        pool = torch.zeros(b * npages + 1, bs, kvh, hd, dtype=x.dtype,
+                           device=DEV)
+        pool[perm + 1] = x.reshape(b * npages, bs, kvh, hd)
+        pools.append(misaligned(pool) if shift else pool)
+    bt = (perm + 1).view(b, npages).to(torch.int32)
+    return pools[0], pools[1], bt
+
+
+def paged_vs_contiguous(gen, dtype, hd, shift, heads):
+    """Paged decode over the pages of a contiguous cache against contiguous
+    decode of that cache, bitwise: at PAGED_LENS over S 1024 and at every
+    SPLIT_LENS case, at every page size of 4, 8, 16, 32 that divides S (the
+    capacities match, so the split walks see the same ranges and tiles).
+    Returns the number of cases."""
+    from repro_torch.kernels import ops
+    cases = 0
+    for S, lens in [(MAX_LEN, PAGED_LENS)] + list(SPLIT_LENS.items()):
+        q, k, v, cur = decode_inputs(gen, lens, dtype, hd, S=S, heads=heads)
+        k, v = k[0], v[0]
+        kc, vc = (misaligned(k), misaligned(v)) if shift else (k, v)
+        want = ops.decode_attention(q, kc, vc, cur)
+        for bs in (4, 8, 16, 32):
+            if S % bs:
+                continue
+            kp, vp, bt = paged_copy(gen, k, v, bs, shift)
+            got = ops.paged_decode_attention(q, kp, vp, bt, cur)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"paged decode S {S} bs {bs} hd {hd} {dtype} is not "
+                    f"bitwise contiguous decode: max abs diff "
+                    f"{(got.float() - want.float()).abs().max().item()}")
+            cases += 1
+    return cases
+
+
 def parity_decode(gen, report):
     """The contiguous and the paged decode kernel, each through its 16-byte
     load build (hd 64 or 128, aligned) and its one-element build (hd 60, or
     data one element off a 16-byte boundary), at smollm's heads and at the
-    kernels' most query heads per KV head (8)."""
+    kernels' most query heads per KV head (8); paged decode at pages of 16,
+    8 and 32, and bitwise against contiguous decode over the same K/V."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
-    smollm = (H, KVH)
-    variants = {"vec": (HD, False, smollm),
-                "scalar_hd60": (60, False, smollm),
-                "scalar_misaligned": (HD, True, smollm),
-                "vec_hd128": (128, False, smollm),
-                "vec_g8": (HD, False, (8, 1))}
-    for variant, (hd, shift, heads) in variants.items():
-        cases = []
+    for variant, (hd, shift, heads) in PARITY_VARIANTS.items():
+        cases, bitwise = [], 0
         kvh = heads[1]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, lens = decode_inputs(gen, DECODE_LENS, dtype, hd,
@@ -595,26 +720,29 @@ def parity_decode(gen, report):
                 err = check_close(f"decode/{variant}/split_S{S}/{dtype}",
                                   out, plain, dtype, report, scur <= 0)
                 cases.append(f"split_S{S}/{str(dtype)[6:]}:{err:.2e}")
-            # paged: scrambled pages of 16 over 8 slots of 1024 tokens
-            qp = q
-            kp = torch.randn(NUM_BLOCKS, BS, kvh, hd, generator=gen,
-                             device=DEV).to(dtype)
-            vp = torch.randn(NUM_BLOCKS, BS, kvh, hd, generator=gen,
-                             device=DEV).to(dtype)
-            if shift:
-                kp, vp = misaligned(kp), misaligned(vp)
-            perm = torch.randperm(NUM_BLOCKS - 1, generator=gen,
-                                  device=DEV) + 1
-            bt = perm.view(SLOTS, NPAGES).to(torch.int32)
+            # paged: scrambled pages over 8 slots of 1024 tokens
             plens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=DEV)
-            out = ops.paged_decode_attention(qp, kp, vp, bt, plens)
-            plain = da.paged_decode_attention_plain(qp, kp, vp, bt, plens)
-            err = check_close(f"paged_decode/{variant}/{dtype}", out, plain,
-                              dtype, report, plens <= 0)
-            cases.append(f"paged/{str(dtype)[6:]}:{err:.2e}")
+            for bs in PARITY_BS:
+                npages = MAX_LEN // bs
+                kp = torch.randn(SLOTS * npages + 1, bs, kvh, hd,
+                                 generator=gen, device=DEV).to(dtype)
+                vp = torch.randn(SLOTS * npages + 1, bs, kvh, hd,
+                                 generator=gen, device=DEV).to(dtype)
+                if shift:
+                    kp, vp = misaligned(kp), misaligned(vp)
+                perm = torch.randperm(SLOTS * npages, generator=gen,
+                                      device=DEV) + 1
+                bt = perm.view(SLOTS, npages).to(torch.int32)
+                out = ops.paged_decode_attention(q, kp, vp, bt, plens)
+                plain = da.paged_decode_attention_plain(q, kp, vp, bt, plens)
+                err = check_close(f"paged_decode/{variant}/bs{bs}/{dtype}",
+                                  out, plain, dtype, report, plens <= 0)
+                cases.append(f"paged_bs{bs}/{str(dtype)[6:]}:{err:.2e}")
+            bitwise += paged_vs_contiguous(gen, dtype, hd, shift, heads)
         log("3 parity", kernel="decode_attention+paged_decode_attention",
             variant=variant,
-            shapes=f"b8 h{heads[0]} kvh{kvh} hd{hd} S300-2048 bs16",
+            shapes=f"b8 h{heads[0]} kvh{kvh} hd{hd} S300-2048 bs8|16|32",
+            paged_bitwise_contiguous=f"{bitwise} cases",
             max_abs_err=",".join(cases))
 
 
@@ -686,14 +814,24 @@ def phase_times(gen, report):
     for name in ("chunk256_decode", "decode_only"):
         rows, pos = pk[name]
         q, k, v, bt, r, p = ragged_inputs(gen, rows, pos, dt, layers=32)
+        # the plan, as the tick builds it on the host and uploads it
+        rows_np = np.asarray(rows, np.int32)
+        pos_np = np.asarray(pos, np.int32)
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            plan_np = decode_attention.ragged_plan(rows_np, pos_np)
+        plan_us = (time.perf_counter() - t0) * 1e3
+        plan = torch.from_numpy(plan_np).to(DEV)
         kern = lambda i: ops.ragged_paged_attention(q, k[i % 32], v[i % 32],
-                                                    bt, r, p)
+                                                    bt, r, p, plan)
         plain = lambda i: decode_attention.ragged_paged_attention_plain(
             q, k[i % 32], v[i % 32], bt, r, p)
         res[name] = timed(kern, plain, 64, 16, tol=TOL[dt])
         res[name]["bound_ms"], res[name]["bound_by"] = ragged_bound(rows, pos,
                                                                     dt)
         res[name]["T"] = len(rows)
+        res[name]["plan_host_us"] = plan_us
+        res[name]["plan_items"] = int(plan_np.shape[0])
         del q, k, v
     a = res["chunk256_decode"]
     rows_out.append({
@@ -704,8 +842,9 @@ def phase_times(gen, report):
         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
         "library_ms": None})
     log("4 times", kernel="ragged_paged_attention",
-        **{n: fmt_times(r) + f"[{r['bound_by']}, T{r['T']}]"
-           for n, r in res.items()})
+        **{n: fmt_times(r) + f"[{r['bound_by']}, T{r['T']}, "
+           f"{r['plan_items']} plan items, plan host "
+           f"{r['plan_host_us']:.1f}us]" for n, r in res.items()})
     report["times"]["ragged_paged_attention"] = res
     rows_out += times_prefill_decode(gen, report)
     return rows_out
@@ -1180,6 +1319,10 @@ def phase_static(report, engine):
     report["static"]["profile"] = profile_run(
         "5c profile", lambda: engine.generate(prompts, 16, task_ids),
         steps=16)
+    # ... and over the paged pool (paged decode in place of contiguous)
+    report["static"]["profile_paged"] = profile_run(
+        "5c profile paged", lambda: paged_generate(engine, prompts, 16,
+                                                   task_ids), steps=16)
     return counts
 
 
@@ -1359,14 +1502,21 @@ def profile_of(fn, steps):
 @contextlib.contextmanager
 def plain_ops():
     """Every kernel wrapper the model calls replaced by its plain version
-    (the same tensors on the card, no kernel launched)."""
+    (the same tensors on the card, no kernel launched; the ragged kernel's
+    plan, which only the kernel reads, is dropped)."""
     from repro_torch.kernels import aot_bias, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+
+    def ragged(q, k_pages, v_pages, block_tables, token_rows, token_pos,
+               plan=None):
+        return da.ragged_paged_attention_plain(q, k_pages, v_pages,
+                                               block_tables, token_rows,
+                                               token_pos)
     plain = {"aot_gather_add": aot_bias.aot_gather_add_plain,
              "aot_gather_add_multitask":
                  aot_bias.aot_gather_add_multitask_plain,
-             "ragged_paged_attention": da.ragged_paged_attention_plain,
+             "ragged_paged_attention": ragged,
              "flash_attention": fa.flash_attention_plain,
              "decode_attention": da.decode_attention_plain,
              "paged_decode_attention": da.paged_decode_attention_plain}
@@ -1622,7 +1772,7 @@ def main() -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
     report = {"card": card, "parity": {}, "times": {}}
-    report["build_s"], _ = phase_build(KERNEL_SOURCES)
+    report["build_s"], report["redesigned"] = phase_build(KERNEL_SOURCES)
     gen = torch.Generator(device=DEV).manual_seed(0)
     phase_parity(gen, report)
     if args.quick:

@@ -80,8 +80,15 @@
 namespace {
 
 using attn::kNeg;
+using attn::ldsm_x4;
+using attn::ldsm_x4_trans;
 using attn::load1;
+using attn::mma_bf16;
+using attn::quad_max;
+using attn::quad_sum;
+using attn::split3_bf16;
 using attn::store1;
+using attn::store_pair;
 using attn::warp_max;
 using attn::warp_sum;
 
@@ -110,81 +117,6 @@ template <int HDP>
 size_t mma_smem_bytes() {
   return sizeof(bf16) * static_cast<size_t>(HDP + 8) *
          (kBq + 2 * Stages<HDP>::k * kBk);
-}
-
-__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(attn::smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const bf16* p,
-                                              uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(attn::smem_addr(p))
-      : "memory");
-}
-
-// d += a (16 x 16, row major) * b (16 x 8, column major), bf16 in, fp32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two fp32 values as three bf16 pairs whose sum holds them to about 24
-// bits: hi, their rounding to bf16, then mid and lo, the rounding of what
-// is left at each step. So P V taken as hi V + mid V + lo V matches an
-// fp32 P V (V is bf16, exact in both); one bf16 P alone moves the output
-// by up to 2^-9 of itself, enough to take a model's logits outside bf16's
-// tolerance.
-__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& hi,
-                                            uint32_t& mid, uint32_t& lo) {
-  hi = pack_bf16(a, b);
-  a -= __uint_as_float(hi << 16);
-  b -= __uint_as_float(hi & 0xffff0000u);
-  mid = pack_bf16(a, b);
-  lo = pack_bf16(a - __uint_as_float(mid << 16),
-                 b - __uint_as_float(mid & 0xffff0000u));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Channels ch, ch + 1 of one output row (ch even), those below hd. VEC:
-// hd % 8 == 0, so both or neither are, and the pair is 4-byte aligned.
-template <bool VEC>
-__device__ __forceinline__ void store_pair(bf16* o, int ch, int hd, float x,
-                                           float y) {
-  if constexpr (VEC) {
-    if (ch < hd) {
-      *reinterpret_cast<__nv_bfloat162*>(o + ch) =
-          __floats2bfloat162_rn(x, y);
-    }
-  } else {
-    if (ch < hd) o[ch] = __float2bfloat16_rn(x);
-    if (ch + 1 < hd) o[ch + 1] = __float2bfloat16_rn(y);
-  }
 }
 
 template <int HDP, bool VEC>
@@ -226,9 +158,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = k_beg + t * kBk;
     const int st = t % kStages;
     attn::stage_rows<bf16, HDP, kBk, kMmaThreads, VEC>(
-        k_s + st * kBk * kLd, kb + k0 * ks.s, ks.s, k_end - k0, hd, tid);
+        k_s + st * kBk * kLd, attn::StridedRows<bf16>{kb + k0 * ks.s, ks.s},
+        k_end - k0, hd, tid);
     attn::stage_rows<bf16, HDP, kBk, kMmaThreads, VEC>(
-        v_s + st * kBk * kLd, vb + k0 * vs.s, vs.s, k_end - k0, hd, tid);
+        v_s + st * kBk * kLd, attn::StridedRows<bf16>{vb + k0 * vs.s, vs.s},
+        k_end - k0, hd, tid);
   };
 
   // ---- lane roles in the m16n8k16 fragments: rows g and g + 8 of the
@@ -249,8 +183,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   if (n_tiles > 0) {
     attn::stage_rows<bf16, HDP, kBq, kMmaThreads, VEC>(
-        q_s, q + bi * qs.b + q_lo * qs.s + head * qs.h, qs.s, sq - q_lo, hd,
-        tid);
+        q_s,
+        attn::StridedRows<bf16>{q + bi * qs.b + q_lo * qs.s + head * qs.h,
+                                qs.s},
+        sq - q_lo, hd, tid);
     attn::cp_async_commit();
 #pragma unroll
     for (int t = 0; t + 1 < kStages; ++t) {   // one group per tile

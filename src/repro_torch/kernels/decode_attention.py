@@ -14,17 +14,26 @@ and ``ragged_paged_attention_kernel`` of ``repro.kernels.decode_attention``.
 
 In all three a row with nothing to see (``cur_len <= 0``, a dead token)
 gives exact zeros, as the reference kernels do. The CUDA kernels are the
-three C entry points of ``csrc/decode_attention.cu``: the contiguous one
-splits each (row, KV head) walk over a cluster of ``decode_split(S)``
-blocks, the paged and ragged ones walk in one block each. The plain
-versions below gather each row's pages and apply a masked fp32 softmax, as
-the reference's XLA path (``layers.attention_decode``) does.
+three C entry points of ``csrc/decode_attention.cu``. Each single query
+token walks its history split over a thread-block cluster of
+``decode_split(capacity)`` blocks (capacity: S, or ``npages x
+block_size``), the K/V tiles staged row by row through the block table, so
+a paged row is bitwise the contiguous row over the same K/V. The ragged
+kernel follows a per-tick plan (:func:`ragged_plan`, built on the host from
+its own copies of the indices and uploaded with the tick's other arrays):
+a run of a slot's tokens at consecutive positions (a prefill chunk) goes in
+pieces of ``TILE_TOKENS`` onto the tensor cores as one tile that reads the
+slot's pages once; every other token walks alone. The plain versions below
+gather each row's pages and apply a masked fp32 softmax, as the
+reference's XLA path (``layers.attention_decode``) does; they take no
+plan.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -37,7 +46,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_G = 8            # query heads per KV head the decode kernels hold
 SPLIT_POSITIONS = 256   # cache positions per block of a decode cluster
-MAX_SPLIT = 8           # blocks a cluster of the contiguous kernel holds
+MAX_SPLIT = 8           # blocks a cluster holds
+TILE_TOKENS = 16        # tokens of a ragged run per tensor-core tile
 
 
 def round_kv_len(n: int, block_k: int = 256) -> int:
@@ -50,9 +60,10 @@ def round_kv_len(n: int, block_k: int = 256) -> int:
 
 
 def decode_split(S: int) -> int:
-    """Blocks of the cluster that shares one (row, KV head) walk of the
-    contiguous decode kernel: one per ``SPLIT_POSITIONS`` cache positions,
-    at least 1 and at most ``MAX_SPLIT``. Sized from the cache length S,
+    """Blocks of the cluster that shares one (row or token, KV head) walk
+    of the decode kernels: one per ``SPLIT_POSITIONS`` positions of the
+    capacity S (a contiguous cache's length, a paged table's ``npages x
+    block_size``), at least 1 and at most ``MAX_SPLIT``. Sized from S,
     which the host knows (the lengths live on the device); block r walks
     positions ``[r c, (r + 1) c)``, ``c = ceil(S / split)``, cut at its
     row's length. (At the static batch, S 1024 and depths 512-575 on an
@@ -113,14 +124,48 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
         token_pos.long() + 1)
 
 
+def ragged_plan(token_rows, token_pos) -> np.ndarray:
+    """The ragged kernel's plan for one packed list, from host arrays
+    (T,): int32 rows of (first token, count) that cover tokens 0 .. T - 1
+    once each, in order; the kernel reads an item's slot and positions
+    from the indices. A run is tokens consecutive in the list, of one slot,
+    at consecutive positions >= 0 (a prefill chunk builds one); it is cut
+    into items of at most ``TILE_TOKENS``, and an item of count > 1 is one
+    tensor-core tile. A live token in no longer run is an item of its own
+    (count 1). Dead tokens (position < 0) next to each other form one item
+    of any length, whose rows are zeros."""
+    rows = np.asarray(token_rows, np.int64).reshape(-1)
+    pos = np.asarray(token_pos, np.int64).reshape(-1)
+    T = pos.shape[0]
+    live = pos >= 0
+    joins = np.zeros(T, bool)                 # continues the token before it
+    joins[1:] = np.where(live[1:], live[:-1] & (rows[1:] == rows[:-1])
+                         & (pos[1:] == pos[:-1] + 1), ~live[:-1])
+    t = np.arange(T)
+    run_start = np.maximum.accumulate(np.where(joins, 0, t))
+    first = np.flatnonzero(~joins | live & ((t - run_start) % TILE_TOKENS
+                                            == 0))
+    count = np.diff(np.append(first, T))
+    return np.stack([first, count], axis=1).astype(np.int32)
+
+
+def plan_tensor(token_rows, token_pos) -> torch.Tensor:
+    """:func:`ragged_plan` of device indices, built from host copies (a
+    wait on the stream) and uploaded next to them: for calls outside the
+    serving tick, which uploads its plan with its other arrays."""
+    plan = ragged_plan(token_rows.cpu().numpy(), token_pos.cpu().numpy())
+    return torch.from_numpy(plan).to(token_pos.device)
+
+
 _FNS = {}
 _ARGTYPES = {
     "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P],
     "paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, ctypes.c_float, _I, _I, _P],
-    "ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, ctypes.c_float, _I, _I, _P],
+    "ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                               _P],
 }
 
 
@@ -172,17 +217,24 @@ def _require_cuda(dev) -> None:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
 
 
+def _stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, for a launch."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _vec(hd, *xs) -> int:
     """1 when the kernel may take 16-byte loads of ``xs``' rows."""
     return int(hd % 8 == 0 and all(x.data_ptr() % 16 == 0 for x in xs))
 
 
 def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
-                                  token_rows, token_pos):
+                                  token_rows, token_pos, plan=None):
     """Launch the ragged kernel on CUDA tensors (same device, contiguous; q
     and the pages both float32 or both bfloat16; indices int32; hd <= 128;
-    h a multiple of kvh, at most 8 query heads per KV head). Raises on
-    anything the kernel does not take; never falls back."""
+    h a multiple of kvh, at most 8 query heads per KV head). ``plan``: the
+    (n_items, 2) int32 :func:`ragged_plan` of these indices on the device;
+    None builds it from host copies of them (:func:`plan_tensor`). Raises
+    on anything the kernel does not take; never falls back."""
     ints = (("block_tables", block_tables), ("token_rows", token_rows),
             ("token_pos", token_pos))
     T, h, hd, kvh = _check(q, k_pages, v_pages, ints)
@@ -196,14 +248,24 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = plan_tensor(token_rows, token_pos)
+    if plan.device != dev or plan.dtype != torch.int32 or plan.dim() != 2 \
+            or plan.shape[1] != 2 or not 1 <= plan.shape[0] <= T or \
+            not plan.is_contiguous():
+        raise ValueError(f"plan {plan.dtype} {tuple(plan.shape)} on "
+                         f"{plan.device} must be a contiguous (n_items, 2) "
+                         f"int32 tensor on {dev}, 1 <= n_items <= T = {T}")
+    bs, npages = k_pages.shape[1], block_tables.shape[1]
     with _on_device(dev):
         err = _lib("ragged_paged_attention")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), token_rows.data_ptr(),
-            token_pos.data_ptr(), out.data_ptr(), T, kvh, h // kvh, hd,
-            k_pages.shape[1], block_tables.shape[1], 1.0 / math.sqrt(hd),
+            token_pos.data_ptr(), plan.data_ptr(), out.data_ptr(), T,
+            plan.shape[0], kvh, h // kvh, hd, bs, npages,
+            decode_split(npages * bs), 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), _vec(hd, k_pages, v_pages),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
@@ -230,8 +292,7 @@ def decode_attention_kernel(q, k_cache, v_cache, cur_len):
             lens.data_ptr(), out.data_ptr(), b, k_cache.shape[1], kvh,
             h // kvh, hd, decode_split(k_cache.shape[1]), 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16),
-            _vec(hd, k_cache, v_cache),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _vec(hd, k_cache, v_cache), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     return out
@@ -241,8 +302,9 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   cur_len):
     """Launch the paged decode kernel on CUDA tensors: q (b, h, hd), pages
     (num_blocks, block_size, kvh, hd), block_tables (b, npages) and
-    cur_len (b,) int32, all contiguous. Raises on anything the kernel does
-    not take; never falls back."""
+    cur_len (b,) int32, all contiguous. The cluster split is
+    ``decode_split(npages * block_size)``. Raises on anything the kernel
+    does not take; never falls back."""
     ints = (("block_tables", block_tables), ("cur_len", cur_len))
     b, h, hd, kvh = _check(q, k_pages, v_pages, ints)
     if block_tables.dim() != 2 or block_tables.shape[0] != b or \
@@ -254,14 +316,14 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    bs, npages = k_pages.shape[1], block_tables.shape[1]
     with _on_device(q.device):
         err = _lib("paged_decode_attention")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), cur_len.data_ptr(), out.data_ptr(), b,
-            kvh, h // kvh, hd, k_pages.shape[1], block_tables.shape[1],
+            kvh, h // kvh, hd, bs, npages, decode_split(npages * bs),
             1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
-            _vec(hd, k_pages, v_pages),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _vec(hd, k_pages, v_pages), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")

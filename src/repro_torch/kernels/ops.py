@@ -20,7 +20,7 @@ from repro_torch.kernels.aot_bias import (aot_gather_add_kernel,
                                           aot_gather_add_plain)
 from repro_torch.kernels.decode_attention import (
     decode_attention_kernel, decode_attention_plain,
-    paged_decode_attention_kernel, paged_decode_attention_plain,
+    paged_decode_attention_kernel, paged_decode_attention_plain, plan_tensor,
     ragged_paged_attention_kernel, ragged_paged_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
@@ -58,16 +58,30 @@ def aot_gather_add_multitask(h, tables, task_ids, ids):
     return out
 
 
+def ragged_plan(token_rows, token_pos):
+    """The ragged kernel's plan for a packed list on the card (see
+    ``decode_attention.ragged_plan``), built from host copies of the
+    indices: a wait on the stream, for calls outside the serving tick
+    (which uploads its plan with its other arrays). None on the CPU, whose
+    plain version needs no plan."""
+    if _on_cpu(token_rows, token_pos):
+        return None
+    return plan_tensor(token_rows, token_pos)
+
+
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_rows,
-                           token_pos):
+                           token_pos, plan=None):
     """q: (T, h, hd) packed tokens; pages: (num_blocks, block_size, kvh,
     hd) with this step's KV already written; block_tables: (num_slots,
-    npages); token_rows / token_pos: (T,) int32 (pos -1 = dead token)."""
+    npages); token_rows / token_pos: (T,) int32 (pos -1 = dead token);
+    plan: the kernel's (n_items, 2) int32 plan of these indices on the
+    card, or None to build it here (:func:`ragged_plan`); the plain
+    version ignores it."""
     if _on_cpu(q, k_pages, v_pages, block_tables, token_rows, token_pos):
         return ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
                                             token_rows, token_pos)
     out = ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
-                                        token_rows, token_pos)
+                                        token_rows, token_pos, plan)
     ragged_paged_attention.launches += out.numel() > 0
     return out
 

@@ -360,7 +360,7 @@ class Model:
 
     # ------------------------------------------------------------------
     def mixed_step(self, params, tokens, token_rows, token_pos, cache,
-                   peft=None, block_tables=None, logit_idx=None):
+                   peft=None, block_tables=None, logit_idx=None, plan=None):
         """One unified ragged prefill + decode step against the paged pool:
         the serving tick's model call.
 
@@ -374,7 +374,10 @@ class Model:
         int32, one per token), except P-Tuning v2, whose prefix the paged
         pool does not hold; block_tables: (num_slots, npages) int32;
         logit_idx: (num_slots,) per-slot index into the packed axis whose
-        logits to report.
+        logits to report; plan: the ragged attention kernel's plan of
+        token_rows / token_pos (``kernels.decode_attention.ragged_plan``) on
+        the card, which ``ServeEngine.serve_step`` uploads with the tick's
+        other arrays; None builds it here once, from host copies.
 
         The KV pool is updated IN PLACE (the reference returns a new cache
         from ``.at[].set``): every token's K/V is written into its slot's
@@ -399,6 +402,8 @@ class Model:
                                                pos // bs_page], 0)
         row = page * bs_page + pos % bs_page      # pool row of each token
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
+        if plan is None:
+            plan = ops.ragged_plan(token_rows, token_pos)
         for i, lp in enumerate(params["layers"]):
             if method == "aot":                      # the paper's Eq. 1
                 h = self._aot_add(peft, i, h[:, 0], ids,
@@ -409,8 +414,8 @@ class Model:
                 kc.view(-1, kvh, hd).index_copy_(0, row, k[:, 0].to(kc.dtype))
                 vc.view(-1, kvh, hd).index_copy_(0, row, v[:, 0].to(vc.dtype))
                 return ops.ragged_paged_attention(
-                    q[:, 0], kc, vc, block_tables, token_rows,
-                    token_pos)[:, None]
+                    q[:, 0], kc, vc, block_tables, token_rows, token_pos,
+                    plan)[:, None]
             h = self._block(lp, h, sincos, attend, peft, i)
         h = L.apply_norm(cfg, params["final_norm"], h)
         if logit_idx is None:

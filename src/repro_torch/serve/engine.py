@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.aot import AoTOptions
-from repro_torch.kernels.decode_attention import round_kv_len
+from repro_torch.kernels.decode_attention import ragged_plan, round_kv_len
 from repro_torch.serve.sampling import sample_tokens
 
 
@@ -214,8 +214,9 @@ class ServeEngine:
         packed axis whose logits the slot reports; block_tables:
         (num_slots, npages); ``sample``: the per-slot (temps, top_ks, top_ps,
         base_keys, steps) vectors — a batch without a positive temperature
-        takes the exact argmax. The host arrays travel to the card in one
-        copy, and the tokens and finite flags come back in one.
+        takes the exact argmax. The host arrays, with the ragged attention
+        kernel's plan of the packed list (``ragged_plan``), travel to the
+        card in one copy, and the tokens and finite flags come back in one.
         Returns (next token per slot (num_slots,) np, per-slot logits
         (num_slots, V) on the device, the pool cache (updated in place),
         per-slot finite flags (num_slots,) bool np: False means that slot's
@@ -223,17 +224,17 @@ class ServeEngine:
         temps = np.asarray(sample[0], np.float32)
         stochastic = bool(np.any(temps > 0.0))
         arrays = [tokens, token_rows, token_pos, logit_idx, token_tasks,
-                  block_tables]
+                  block_tables, ragged_plan(token_rows, token_pos)]
         if stochastic:
             arrays += [temps, sample[1], sample[2],
                        np.asarray(sample[3], np.uint32), sample[4]]
         t = self._upload(arrays)
-        tok, rows, pos, lidx, tasks, bt = t[:6]
+        tok, rows, pos, lidx, tasks, bt, plan = t[:7]
         logits, cache = self.model.mixed_step(
             self.params, tok, rows, pos, cache, self._peft(tasks),
-            block_tables=bt, logit_idx=lidx)
+            block_tables=bt, logit_idx=lidx, plan=plan)
         if stochastic:
-            tp, tk, pp, keys, steps = t[6:]
+            tp, tk, pp, keys, steps = t[7:]
             toks = sample_tokens(logits, tp.view(torch.float32), tk,
                                  pp.view(torch.float32),
                                  keys.long() & 0xFFFFFFFF, steps)

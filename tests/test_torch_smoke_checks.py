@@ -1,9 +1,12 @@
 """The pure-Python gates of the port's card scripts, on the CPU: phase 2's
-check of the redesigned kernels' ptxas output, phase 6's comparison of
-kernel logits with the plain versions' (near ties). The phases themselves
-need the card (chip_smoke.py)."""
+check of the redesigned kernels' ptxas output (flash_mma_kernel,
+decode_split_kernel, ragged_split_kernel), phase 6's comparison of
+kernel logits with the plain versions' (near ties), and phase 6's swap of
+the kernel wrappers in ``ops`` for the plain versions. The phases
+themselves need the card (chip_smoke.py)."""
 
 import importlib.util
+import inspect
 from pathlib import Path
 
 import pytest
@@ -23,6 +26,8 @@ cs = _load("chip_smoke")
 
 FLASH = "_ZN12_GLOBAL__N_116flash_mma_kernelILi64ELb1EEEvPKT_"
 DECODE = ("_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16Lb1ELi64ELi4E"
+          "Lb1EEEvv")
+RAGGED = ("_ZN12_GLOBAL__N_119ragged_split_kernelI13__nv_bfloat16Lb1ELi64ELi4E"
           "EEvv")
 
 
@@ -35,12 +40,20 @@ def _ptxas(name, regs, spill):
 
 LOGS = {
     "clean": ({"flash_attention": _ptxas(FLASH, 168, 0),
-               "decode_attention": _ptxas(DECODE, 72, 0)}, None),
+               "decode_attention": _ptxas(DECODE, 72, 0)
+               + _ptxas(RAGGED, 168, 0)}, None),
     "spill": ({"flash_attention": _ptxas(FLASH, 255, 40),
-               "decode_attention": _ptxas(DECODE, 72, 0)}, "spill"),
+               "decode_attention": _ptxas(DECODE, 72, 0)
+               + _ptxas(RAGGED, 168, 0)}, "spill"),
+    "spill_ragged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+                      "decode_attention": _ptxas(DECODE, 72, 0)
+                      + _ptxas(RAGGED, 128, 16)}, "spill"),
     "missing": ({"flash_attention": _ptxas(FLASH, 168, 0),
                  "decode_attention": _ptxas("other_kernel", 40, 0)},
                 "missing"),
+    "missing_ragged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+                        "decode_attention": _ptxas(DECODE, 72, 0)},
+                       "missing"),
     "cached": ({"flash_attention": "cached",
                 "decode_attention": "cached"}, None),
 }
@@ -59,7 +72,9 @@ def test_phase2_refuses_spills_of_redesigned_kernels(case):
     else:
         assert new == {"flash_mma_kernel": ["ILi64ELb1EE:168r/0s"],
                        "decode_split_kernel":
-                           ["I13__nv_bfloat16Lb1ELi64ELi4EE:72r/0s"]}
+                           ["I13__nv_bfloat16Lb1ELi64ELi4ELb1EE:72r/0s"],
+                       "ragged_split_kernel":
+                           ["I13__nv_bfloat16Lb1ELi64ELi4EE:168r/0s"]}
 
 
 def _logits(rows=6, vocab=50, seed=0):
@@ -88,3 +103,41 @@ def test_against_plain_counts_a_flip_and_holds_its_gap(gap, ok):
     assert r["near_ties"] == 1
     assert r["tie_gap"] == pytest.approx(gap, abs=1e-5)
     assert r["ok"] is ok
+
+
+PLAIN_OPS = ("aot_gather_add", "aot_gather_add_multitask",
+             "ragged_paged_attention", "flash_attention", "decode_attention",
+             "paged_decode_attention")
+
+
+@pytest.mark.parametrize("name", PLAIN_OPS)
+def test_plain_ops_take_every_positional_argument_of_their_op(name):
+    """The model passes ``ops`` the op's positional parameters (the ragged
+    plan included): phase 6's plain stand-in must take each of them, and
+    the op is restored afterwards."""
+    from repro_torch.kernels import ops
+    op = getattr(ops, name)
+    params = [p for p in inspect.signature(op).parameters.values()
+              if p.kind is p.POSITIONAL_OR_KEYWORD]
+    with cs.plain_ops():
+        stand_in = getattr(ops, name)
+        assert stand_in is not op
+        inspect.signature(stand_in).bind(*range(len(params)))
+    assert getattr(ops, name) is op
+
+
+def test_plain_ops_ragged_drops_the_plan():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(3, 6, 16, generator=g)
+    k = torch.randn(13, 4, 2, 16, generator=g)
+    v = torch.randn(13, 4, 2, 16, generator=g)
+    bt = torch.arange(1, 13, dtype=torch.int32).view(3, 4)
+    rows = torch.tensor([0, 0, 2], dtype=torch.int32)
+    pos = torch.tensor([3, 4, -1], dtype=torch.int32)
+    plan = torch.from_numpy(da.ragged_plan(rows.numpy(), pos.numpy()))
+    with cs.plain_ops():
+        out = ops.ragged_paged_attention(q, k, v, bt, rows, pos, plan)
+    assert torch.equal(out, da.ragged_paged_attention_plain(q, k, v, bt,
+                                                            rows, pos))
