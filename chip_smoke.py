@@ -10,11 +10,15 @@ Phases, each printing one line of results; any failure exits non-zero:
    nvcc for sm_90a, one nvcc each, in parallel; each redesigned kernel
    instance's registers and spill bytes (none may spill): flash_mma_kernel,
    decode_split_kernel (contiguous and paged), ragged_split_kernel (the
-   split walk and the token tile);
+   split walk and the token tile), aot_gather_add_kernel (both gather-adds
+   with and without the fused norm, and the norm alone);
 3. parity: each kernel's public wrapper against its plain PyTorch version
    on the card at smollm-360m's shapes (both gather-adds bitwise, the
-   single-table one's NaN rows for ids outside [-V, V) included; attention
-   within 2e-5 in float32 and 2e-2 in bfloat16), for both the
+   single-table one's NaN rows for ids outside [-V, V) included; fused
+   with the norm, h_out bitwise and x within the tolerance below, the norm
+   alone on the sum bitwise that x, the single-table and multi-task
+   entries bitwise equal on the same rows; attention and norms within 2e-5
+   in float32 and 2e-2 in bfloat16), for both the
    16-byte-load and the one-element-load build where a kernel has both:
    ragged paged attention (every packing of packings(), among them runs
    that the plan puts on the tensor cores: four chunks at unaligned
@@ -36,9 +40,12 @@ Phases, each printing one line of results; any failure exits non-zero:
 4. kernel times at the serving paths' shapes (device time from
    torch.profiler), beside the plain version's, one PyTorch library call's
    where there is one, and the least time the card could take (bytes at
-   3.35 TB/s, operations at the published peak); flash also at one prompt
-   of 512 (a whole-prompt stream's prefill); the ragged kernel's plan
-   (host microseconds per tick, items);
+   3.35 TB/s, operations at the published peak); the fused gather-adds
+   also beside the sequence they replace (the gather-add, then the norm as
+   layers.apply_norm launches it), F.rms_norm alone, and host microseconds
+   per wrapper call; flash also at one prompt of 512 (a whole-prompt
+   stream's prefill); the ragged kernel's plan (host microseconds per
+   tick, items);
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -53,7 +60,8 @@ Phases, each printing one line of results; any failure exits non-zero:
    16 steps of the mixed batch under the profiler, contiguous and paged;
    in 5-5d every request must finish, every pool must drain clean, and
    each kernel must launch exactly 32 times per call that runs it (counts
-   zeroed just before each run);
+   zeroed just before each run): on the AoT paths the fused gather-add +
+   norm, elsewhere the norm alone (rms_norm);
 5d. the paper's Fig. 3 comparison: 5c's prompts through one
    ServeEngine(peft=...) per method (bare backbone, one task's fused AoT
    tables through the single-table gather-add, BitFit, LoRA unfused and
@@ -311,12 +319,14 @@ def ptxas_kernels(out):
     return kernels
 
 
-# the tensor-core flash, the cluster decode (contiguous and paged) and the
-# ragged (split walk and token tile) kernels, by source: phase 2 lists each
+# the tensor-core flash, the cluster decode (contiguous and paged), the
+# ragged (split walk and token tile) and the gather-add (with and without
+# the fused norm, and the norm alone) kernels, by source: phase 2 lists each
 # of their instances' registers and spill bytes (none may spill)
 REDESIGNED = {"flash_mma_kernel": "flash_attention",
               "decode_split_kernel": "decode_attention",
-              "ragged_split_kernel": "decode_attention"}
+              "ragged_split_kernel": "decode_attention",
+              "aot_gather_add_kernel": "aot_gather_add"}
 
 
 def redesigned(logs):
@@ -361,24 +371,78 @@ def phase_build(names):
     return sec, found
 
 
+def norm_scale(gen, d):
+    """A random RMSNorm scale (d,) float32 whose values bf16 holds exactly
+    (so that F.rms_norm with a bf16 weight computes the same function)."""
+    return (1 + 0.1 * torch.randn(d, generator=gen, device=DEV)).to(
+        torch.bfloat16).float()
+
+
+EPS = 1e-6          # smollm-360m's norm_eps
+
+
+def check_norm(what, x, want, dtype, report):
+    """A fused norm's output against the plain norm's at TOL[dtype], NaN
+    rows in the same places. Returns the max abs error over the rest."""
+    torch.cuda.synchronize()
+    a, b = x.float(), want.float()
+    err = (a - b).nan_to_num().abs().max().item()
+    report["parity"][what] = err
+    if not torch.allclose(a, b, atol=TOL[dtype], rtol=TOL[dtype],
+                          equal_nan=True):
+        raise AssertionError(f"{what}: max abs err {err} over tol "
+                             f"{TOL[dtype]} (or NaN rows differ)")
+    return err
+
+
+def check_fused(what, fused, plain_out, h, scale, report):
+    """The fused gather-add + norm's (h_out, x) against the plain sum
+    ``plain_out``: h_out bitwise (NaN rows equal), x within TOL of the
+    plain norm, and the norm alone (ops.rms_norm) on the sum, in the build
+    h took (an input with h's alignment), bitwise that x. Returns x's max
+    abs error."""
+    from repro_torch.kernels import aot_bias, ops
+    h_out, x = fused
+    torch.cuda.synchronize()
+    if not torch.allclose(h_out, plain_out, rtol=0, atol=0, equal_nan=True):
+        raise AssertionError(f"{what}: h_out not bitwise the plain sum")
+    err = check_norm(what, x, aot_bias.rms_norm_plain(plain_out, scale, EPS),
+                     h.dtype, report)
+    same_build = plain_out if h.data_ptr() % 16 == 0 else misaligned(plain_out)
+    alone = ops.rms_norm(same_build, scale, EPS)
+    torch.cuda.synchronize()
+    if not torch.allclose(alone, x, rtol=0, atol=0, equal_nan=True):
+        raise AssertionError(f"{what}: rms_norm of the sum is not bitwise "
+                             "the fused x")
+    return err
+
+
 def phase_parity(gen, report):
     """Each kernel through its public wrapper (kernels.ops) against its
-    plain version. Both kernels have a 16-byte-load build and a
+    plain version. Every kernel has a 16-byte-load build and a
     one-element-load build, picked by width and alignment; the "scalar"
     cases (a width not a multiple of 8, or data one element off a 16-byte
     boundary) hold the second against the plain version too."""
     from repro_torch.kernels import aot_bias, decode_attention, ops
     cases = {"vec": 0, "scalar": 0}
+    norm_err, same_rows = {}, 0
 
     def check_gather(h, tables, task, ids, what):
         out = ops.aot_gather_add_multitask(h, tables, task, ids)
         plain = aot_bias.aot_gather_add_multitask_plain(h, tables, task, ids)
         torch.cuda.synchronize()
+        what = f"gather-add {what} h={h.dtype} table={tables.dtype} " \
+               f"T={h.shape[0]}"
         if not torch.equal(out, plain):
             raise AssertionError(
-                f"gather-add {what} h={h.dtype} table={tables.dtype} "
-                f"T={h.shape[0]} not bitwise equal: max err "
+                f"{what} not bitwise equal: max err "
                 f"{(out.float() - plain.float()).abs().max().item()}")
+        scale = norm_scale(gen, h.shape[1])
+        fused = ops.aot_gather_add_multitask(h, tables, task, ids,
+                                             norm=(scale, EPS))
+        err = check_fused(what + " +norm", fused, plain, h, scale, report)
+        key = str(h.dtype)[6:]
+        norm_err[key] = max(norm_err.get(key, 0.0), err)
 
     for t_dtype in (torch.bfloat16, torch.float32):
         tables = (torch.randn(4, 49152, 960, generator=gen, device=DEV)
@@ -390,6 +454,7 @@ def phase_parity(gen, report):
                 h, tasks, ids = gather_inputs(gen, T, h_dtype, tables)
                 check_gather(h, tables, tasks[0], ids[0], "vec")
                 cases["vec"] += 1
+            same_rows += single_vs_multitask(gen, h, tables, ids[0])
             check_gather(misaligned(h), tables, tasks[0], ids[0],
                          "scalar/misaligned h")
             h, tasks, ids = gather_inputs(gen, 263, h_dtype, odd)
@@ -398,8 +463,13 @@ def phase_parity(gen, report):
         del tables, odd
     log("3 parity", kernel="aot_gather_add_multitask",
         cases=f"{cases['vec']} vec + {cases['scalar']} scalar",
-        result="bitwise equal", tables="4x49152x960 (vec, misaligned h), "
-        "4x4096x962 (d%8!=0)", types="{f32,bf16}^2", T="8,263")
+        result="h_out bitwise equal (with and without the norm)",
+        norm_max_abs_err=",".join(f"{k}:{e:.2e}"
+                                  for k, e in norm_err.items()),
+        rms_norm="bitwise the fused x in every case",
+        single_vs_multitask_norm=f"bitwise in {same_rows} cases",
+        tables="4x49152x960 (vec, misaligned h), 4x4096x962 (d%8!=0)",
+        types="{f32,bf16}^2", T="8,263")
     parity_single_gather(gen, report)
 
     parity_ragged(gen, report)
@@ -474,6 +544,24 @@ def check_close(what, out, plain, dtype, report, zero_rows=None):
     return err
 
 
+def single_vs_multitask(gen, h, tables, ids):
+    """The single-table and the multi-task fused entries on the same rows
+    (task 1's table, in-range ids) give bitwise the same (h_out, x), as
+    phase 5d's token gate needs. Returns the number of cases (1)."""
+    from repro_torch.kernels import ops
+    ids = ids.clamp(0, tables.shape[1] - 1)
+    norm = (norm_scale(gen, h.shape[1]), EPS)
+    single = ops.aot_gather_add(h, tables[1], ids, norm=norm)
+    multi = ops.aot_gather_add_multitask(h, tables, torch.ones_like(ids),
+                                         ids, norm=norm)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(single, multi)):
+        raise AssertionError(f"single-table and multi-task norm modes differ "
+                             f"(h {h.dtype}, table {tables.dtype}, "
+                             f"T {h.shape[0]})")
+    return 1
+
+
 def parity_single_gather(gen, report):
     """The single-table gather-add (one task's fused AoT tables) against
     its plain version, bitwise with NaN rows equal: ids include -1 and -V
@@ -481,7 +569,7 @@ def parity_single_gather(gen, report):
     16-byte build at d 960 and the one-element build at d 60 and with h
     one element off a 16-byte boundary; f32 and bf16 h and tables."""
     from repro_torch.kernels import aot_bias, ops
-    cases, nan_rows = [], 0
+    cases, nan_rows, norm_err = [], 0, {}
     for t_dtype in (torch.bfloat16, torch.float32):
         for vocab, d in ((49152, 960), (4096, 60)):
             table = (torch.randn(vocab, d, generator=gen, device=DEV)
@@ -513,11 +601,26 @@ def parity_single_gather(gen, report):
                                                  f"{nan.nonzero().tolist()}")
                         nan_rows += 3
                         cases.append(variant)
+                        scale = norm_scale(gen, d)
+                        fused = ops.aot_gather_add(hh, table, ids,
+                                                   norm=(scale, EPS))
+                        err = check_fused(what + " +norm", fused, plain, hh,
+                                          scale, report)
+                        if not fused[1].isnan().all(dim=1).equal(nan):
+                            raise AssertionError(f"{what}: x's NaN rows "
+                                                 "are not h_out's")
+                        key = str(h_dtype)[6:]
+                        norm_err[key] = max(norm_err.get(key, 0.0), err)
             del table
     report["parity"]["aot_gather_add"] = dict(cases=len(cases),
-                                              nan_rows=nan_rows)
+                                              nan_rows=nan_rows,
+                                              norm_max_abs_err=norm_err)
     log("3 parity", kernel="aot_gather_add", cases=len(cases),
-        builds=",".join(sorted(set(cases))), result="bitwise equal",
+        builds=",".join(sorted(set(cases))),
+        result="h_out bitwise equal (with and without the norm)",
+        norm_max_abs_err=",".join(f"{k}:{e:.2e}"
+                                  for k, e in norm_err.items()),
+        rms_norm="bitwise the fused x in every case",
         nan_rows=f"{nan_rows} (ids V, V+5, -V-1)",
         tables="49152x960, 4096x60", types="{f32,bf16}^2", T="16,263")
 
@@ -746,18 +849,25 @@ def parity_decode(gen, report):
             max_abs_err=",".join(cases))
 
 
+def flat(res):
+    """A kernel's output, or all its outputs (the fused gather-add's
+    (h_out, x)) end to end, as one float32 vector."""
+    parts = res if isinstance(res, tuple) else (res,)
+    return torch.cat([x.float().flatten() for x in parts])
+
+
 def timed(kern, plain, iters, plain_iters, tol):
     """A kernel's wrapper and its plain version on the same inputs: device
     time per call (``ms``, profiler), wall time per call back to back
     (``wall_ms``, CUDA events, host launch overhead included), their max
-    abs difference, which must be within tol (0: bitwise equal), and the
-    share of output elements that differ at all (``differ``: in bf16, one
-    ulp of rounding apart for most)."""
+    abs difference over every output, which must be within tol (0: bitwise
+    equal), and the share of output elements that differ at all
+    (``differ``: in bf16, one ulp of rounding apart for most)."""
     res = dict(ms=device_ms(kern, iters),
                plain_ms=device_ms(plain, plain_iters),
                wall_ms=wall_ms(kern, iters),
                plain_wall_ms=wall_ms(plain, plain_iters))
-    a, b = kern(0).float(), plain(0).float()
+    a, b = flat(kern(0)), flat(plain(0))
     res["err"] = (a - b).abs().max().item()
     res["differ"] = (a != b).float().mean().item()
     ok = (torch.equal(a, b) if tol == 0
@@ -781,33 +891,28 @@ def phase_times(gen, report):
     repeated launches: 8 id sets for the gather-add, 32 pool layers for the
     attention (one per model layer, as the tick walks them)."""
     from repro_torch.kernels import aot_bias, decode_attention, ops
-    rows_out = [times_single_gather(gen, report)]
+    rows_out = times_single_gather(gen, report)
     dt = torch.bfloat16
-    # ---- gather-add
+    # ---- gather-add fused with the norm: the serving tick (T 263) and a
+    # decode tick (T 8)
     tables = (torch.randn(4, 49152, 960, generator=gen, device=DEV)
               * 0.03).to(dt)
     res = {}
     for T in (263, 8):
         h, tasks, ids = gather_inputs(gen, T, dt, tables, sets=8)
-        kern = lambda i: ops.aot_gather_add_multitask(h, tables, tasks[i % 8],
-                                                      ids[i % 8])
-        plain = lambda i: aot_bias.aot_gather_add_multitask_plain(
-            h, tables, tasks[i % 8], ids[i % 8])
-        res[T] = timed(kern, plain, 200, 200, tol=0)
-        nbytes = 3 * T * 960 * 2 + 2 * T * 4
-        res[T]["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                                 T * 960 / FP32_FLOPS) * 1e3
+        args = lambda i: (h, tables, tasks[i % 8], ids[i % 8])
+        res[T] = times_gather_norm(
+            gen, h, lambda i, **kw: ops.aot_gather_add_multitask(*args(i),
+                                                                 **kw),
+            lambda i, **kw: aot_bias.aot_gather_add_multitask_plain(
+                *args(i), **kw), 200)
     del tables
-    g = res[263]
-    rows_out.append({
-        "name": "aot_gather_add_multitask", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/aot_gather_add.cu",
-        "replaces": "src/repro/kernels/aot_bias.py:56",
-        "max_abs_err": g["err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
-        "bound_ms": g["bound_ms"], "bound_by": "bytes", "library_ms": None})
-    log("4 times", kernel="aot_gather_add_multitask",
-        **{f"T{T}": fmt_times(r) for T, r in res.items()})
     report["times"]["aot_gather_add_multitask"] = res
+    log("4 times", kernel="aot_gather_add_multitask", fused="norm",
+        **{f"T{T}": fmt_gather_norm(r) for T, r in res.items()})
+    rows_out.insert(1, gather_row("aot_gather_add_multitask",
+                                  "src/repro/kernels/aot_bias.py:56",
+                                  res[263]))
     # ---- ragged attention
     pk = packings()
     res = {}
@@ -850,37 +955,143 @@ def phase_times(gen, report):
     return rows_out
 
 
+def times_gather_norm(gen, h, call, plain_call, iters):
+    """The fused gather-add + norm ``call(i, norm=...)`` (the gather-add
+    alone without ``norm``) at h's shape, bf16: device and wall time
+    against its plain version ``plain_call`` (h_out bitwise, x within
+    TOL); the sequence
+    it replaces, the gather-add kernel then the plain norm (what
+    ``layers.apply_norm`` launches), timed beside it; F.rms_norm alone on
+    the summed h (a yardstick for the norm's half); at T <= HOST_T, host
+    microseconds per call by perf_counter (the enqueue, no wait) of the
+    fused wrapper, the gather-add wrapper alone and the replaced sequence
+    (at larger T the device, not the host, would set the pace); the bound:
+    bytes, h and a table row read, h_out and x written, the ids and the
+    scale read once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import aot_bias
+    T, d = h.shape
+    norm = (norm_scale(gen, d), EPS)
+    kern = lambda i: call(i, norm=norm)
+    plain = lambda i: plain_call(i, norm=norm)
+    seq = lambda i: aot_bias.rms_norm_plain(call(i), *norm)
+    res = timed(kern, plain, iters, iters // 4, tol=TOL[h.dtype])
+    if not torch.equal(kern(0)[0], plain(0)[0]):
+        raise AssertionError(f"fused gather-add T {T}: h_out not bitwise "
+                             "the plain sum")
+    res["replaced_ms"] = device_ms(seq, iters)
+    res["replaced_wall_ms"] = wall_ms(seq, iters)
+    summed = call(0)
+    w = norm[0].to(h.dtype)
+    res["library_norm_ms"] = device_ms(      # yardstick only
+        lambda i: F.rms_norm(summed, (d,), w, EPS), iters)
+    res["host_us"] = {name: host_us(fn) for name, fn in (
+        ("fused", kern), ("gather_add_alone", lambda i: call(i)),
+        ("replaced", seq))} if T <= HOST_T else None
+    es = h.element_size()
+    res["bound_ms"] = max((4 * T * d * es + 8 * T + 4 * d) / HBM_BYTES_PER_S,
+                          5 * T * d / FP32_FLOPS) * 1e3
+    return res
+
+
+HOST_T = 263        # the largest T whose calls host_us times
+
+
+def host_us(fn, calls=500):
+    """Host microseconds per call of fn(i), back to back without a wait
+    (at T <= HOST_T each launch's device time is shorter than its host
+    time, so the launch queue never fills)."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def fmt_gather_norm(r) -> str:
+    host = r["host_us"]
+    return fmt_times(r) + (
+        f"[replaced {r['replaced_ms']:.5f}ms (wall "
+        f"{r['replaced_wall_ms']:.4f}); F.rms_norm "
+        f"{r['library_norm_ms']:.5f}" + ("" if host is None else
+                                         f"; host us fused {host['fused']:.1f}"
+                                         f", gather-add alone "
+                                         f"{host['gather_add_alone']:.1f}, "
+                                         f"replaced {host['replaced']:.1f}")
+        + "]")
+
+
+def gather_row(name, replaces, r):
+    """The kernels line's row of a fused gather-add: no one PyTorch call
+    gathers, adds and normalises (F.rms_norm's time for the norm's half
+    rides along as ``library_norm_ms``)."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/aot_gather_add.cu",
+            "replaces": replaces, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "replaced_ms": r["replaced_ms"],
+            "library_norm_ms": r["library_norm_ms"]}
+
+
 def times_single_gather(gen, report):
-    """The single-table gather-add at the static batch's shapes, bf16: its
-    prefill (T = 16 x 512) and a decode step (T = 16), one task's table
-    (49152, 960), 8 id sets rotated. Bound: bytes, 3 T d elements of 2
-    bytes and T int32 ids (one addition per element is far below the
-    card's rate). No single PyTorch call gathers and adds."""
+    """The single-table gather-add fused with the norm, and the norm alone
+    (no table: the input norm of the methods without AoT), at the static
+    batch's shapes, bf16: its prefill (T = 16 x 512) and a decode step (T =
+    16), one task's table (49152, 960), 8 id sets rotated. The norm alone
+    beside F.rms_norm (the same function: the scale's values are bf16's)
+    and its bound (bytes: h read, x written). Returns both kernels' rows of
+    the kernels line."""
+    import torch.nn.functional as F
     from repro_torch.kernels import aot_bias, ops
     dt, d = torch.bfloat16, 960
     table = (torch.randn(49152, d, generator=gen, device=DEV) * 0.03).to(dt)
-    res = {}
+    res, alone = {}, {}
     for T in (16 * 512, 16):
         h = torch.randn(T, d, generator=gen, device=DEV).to(dt)
         ids = [torch.randint(0, 49152, (T,), generator=gen, device=DEV,
                              dtype=torch.int32) for _ in range(8)]
-        kern = lambda i: ops.aot_gather_add(h, table, ids[i % 8])
-        plain = lambda i: aot_bias.aot_gather_add_plain(h, table, ids[i % 8])
-        res[T] = timed(kern, plain, 200, 50, tol=0)
-        res[T]["bound_ms"] = (3 * T * d * 2 + 4 * T) / HBM_BYTES_PER_S * 1e3
-        res[T]["library_ms"] = None
+        res[T] = times_gather_norm(
+            gen, h, lambda i, **kw: ops.aot_gather_add(h, table, ids[i % 8],
+                                                       **kw),
+            lambda i, **kw: aot_bias.aot_gather_add_plain(h, table,
+                                                          ids[i % 8], **kw),
+            200)
+        hs = [torch.randn(T, d, generator=gen, device=DEV).to(dt)
+              for _ in range(8)]
+        scale = norm_scale(gen, d)
+        kern = lambda i: ops.rms_norm(hs[i % 8], scale, EPS)
+        plain = lambda i: aot_bias.rms_norm_plain(hs[i % 8], scale, EPS)
+        r = alone[T] = timed(kern, plain, 200, 50, tol=TOL[dt])
+        w = scale.to(dt)
+        r["library_ms"] = device_ms(       # yardstick only
+            lambda i: F.rms_norm(hs[i % 8], (d,), w, EPS), 200)
+        r["host_us"] = host_us(kern) if T <= HOST_T else None
+        r["bound_ms"] = (2 * T * d * 2 + 4 * d) / HBM_BYTES_PER_S * 1e3
+        del hs
     del table
     report["times"]["aot_gather_add"] = res
-    log("4 times", kernel="aot_gather_add",
-        **{f"T{T}": fmt_times(r) + "[bytes; library none]"
-           for T, r in res.items()})
-    g = res[16 * 512]
-    return {"name": "aot_gather_add", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/aot_gather_add.cu",
-            "replaces": "src/repro/kernels/aot_bias.py:27",
-            "max_abs_err": g["err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
-            "bound_ms": g["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+    report["times"]["rms_norm"] = alone
+    log("4 times", kernel="aot_gather_add", fused="norm",
+        **{f"T{T}": fmt_gather_norm(r) for T, r in res.items()})
+    log("4 times", kernel="rms_norm", **{
+        f"T{T}": fmt_times(r) + f"[bytes; library {r['library_ms']:.5f}"
+        + ("" if r["host_us"] is None else f"; host us {r['host_us']:.1f}")
+        + "]" for T, r in alone.items()})
+    r = alone[16 * 512]
+    return [gather_row("aot_gather_add", "src/repro/kernels/aot_bias.py:27",
+                       res[16 * 512]),
+            {"name": "rms_norm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/aot_gather_add.cu",
+             "replaces": "src/repro/models/layers.py:57",
+             "note": "not a TPU kernel (the reference's norm is XLA's); the "
+                     "gather-add's body with no table",
+             "max_abs_err": r["err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": "bytes", "library_ms": r["library_ms"]}]
 
 
 def times_flash_offset(gen, report):
@@ -1049,6 +1260,7 @@ GREEDY = ["--requests", "16"]
 # the path run whose count is each kernel's ``launches``
 MAIN_PATH = {"aot_gather_add": "peft_aot",
              "aot_gather_add_multitask": "paged_greedy",
+             "rms_norm": "peft_none",
              "ragged_paged_attention": "paged_greedy",
              "flash_attention": "static_mixed",
              "decode_attention": "static_mixed",
@@ -1401,8 +1613,10 @@ def phase_peft(report, engine):
             torch.cuda.synchronize()
             secs[label].append(time.perf_counter() - t0)
             counts[f"peft_{label}"] = dict(ops.launches())
+            per_call = layers * (1 + steps)     # prefill + steps, per layer
             check_launches(f"peft_{label}", counts[f"peft_{label}"], dict(
-                want, aot_gather_add=layers * (1 + steps) * (label == "aot")))
+                want, aot_gather_add=per_call * (label == "aot"),
+                rms_norm=per_call * (label != "aot")))
     res = {}
     for label, eng in engines.items():
         prof = profile_of(lambda: eng.generate(prompts, 16), steps=16)
@@ -1516,6 +1730,7 @@ def plain_ops():
     plain = {"aot_gather_add": aot_bias.aot_gather_add_plain,
              "aot_gather_add_multitask":
                  aot_bias.aot_gather_add_multitask_plain,
+             "rms_norm": aot_bias.rms_norm_plain,
              "ragged_paged_attention": ragged,
              "flash_attention": fa.flash_attention_plain,
              "decode_attention": da.decode_attention_plain,

@@ -17,7 +17,8 @@ import torch
 from repro_torch.kernels.aot_bias import (aot_gather_add_kernel,
                                           aot_gather_add_multitask_kernel,
                                           aot_gather_add_multitask_plain,
-                                          aot_gather_add_plain)
+                                          aot_gather_add_plain,
+                                          rms_norm_kernel, rms_norm_plain)
 from repro_torch.kernels.decode_attention import (
     decode_attention_kernel, decode_attention_plain,
     paged_decode_attention_kernel, paged_decode_attention_plain, plan_tensor,
@@ -33,29 +34,52 @@ def _on_cpu(*xs) -> bool:
                if isinstance(x, torch.Tensor))
 
 
-def aot_gather_add(h, table, ids):
+def _count(wrapper, res):
+    """Add one to ``wrapper.launches`` unless its kernel's output ``res``
+    (a tensor, or the fused gather-add's (h, x) pair) is empty, which
+    launches nothing; returns ``res``."""
+    first = res[0] if isinstance(res, tuple) else res
+    wrapper.launches += first.numel() > 0
+    return res
+
+
+def aot_gather_add(h, table, ids, *, norm=None):
     """h: (T, d) or (b, s, d); table: (V, d); ids: (T,) or (b, s) int32 ->
     ``h + table[ids]`` in h's dtype (the paper's Eq. 1 for one task; an id
-    outside ``[-V, V)`` gives a NaN row, as ``jnp.take`` does)."""
-    if _on_cpu(h, table, ids):
-        return aot_gather_add_plain(h, table, ids)
+    outside ``[-V, V)`` gives a NaN row, as ``jnp.take`` does). With
+    ``norm`` = (scale (d,) float32, eps): the pair (that sum, its RMSNorm),
+    from one launch."""
+    if _on_cpu(h, table, ids, *(norm or ())):
+        return aot_gather_add_plain(h, table, ids, norm=norm)
     if h.dim() == 3:
-        b, s, d = h.shape
-        return aot_gather_add(h.reshape(b * s, d), table,
-                              ids.reshape(b * s)).view(b, s, d)
-    out = aot_gather_add_kernel(h, table, ids)
-    aot_gather_add.launches += out.numel() > 0
-    return out
+        res = aot_gather_add(h.reshape(-1, h.shape[-1]), table,
+                             ids.reshape(-1), norm=norm)
+        return (res.view(h.shape) if norm is None
+                else tuple(r.view(h.shape) for r in res))
+    return _count(aot_gather_add,
+                  aot_gather_add_kernel(h, table, ids, norm=norm))
 
 
-def aot_gather_add_multitask(h, tables, task_ids, ids):
+def aot_gather_add_multitask(h, tables, task_ids, ids, *, norm=None):
     """h: (T, d); tables: (n_tasks, V, d); task_ids / ids: (T,) int32 ->
-    ``h + tables[task_ids, ids]`` in h's dtype (the paper's Eq. 1)."""
-    if _on_cpu(h, tables, task_ids, ids):
-        return aot_gather_add_multitask_plain(h, tables, task_ids, ids)
-    out = aot_gather_add_multitask_kernel(h, tables, task_ids, ids)
-    aot_gather_add_multitask.launches += out.numel() > 0
-    return out
+    ``h + tables[task_ids, ids]`` in h's dtype (the paper's Eq. 1); with
+    ``norm`` as for :func:`aot_gather_add`."""
+    if _on_cpu(h, tables, task_ids, ids, *(norm or ())):
+        return aot_gather_add_multitask_plain(h, tables, task_ids, ids,
+                                              norm=norm)
+    return _count(aot_gather_add_multitask, aot_gather_add_multitask_kernel(
+        h, tables, task_ids, ids, norm=norm))
+
+
+def rms_norm(h, scale, eps):
+    """h: (..., d); scale: (d,) float32 -> h's RMSNorm in h's dtype
+    (``layers.apply_norm``'s arithmetic): the fused gather-add's norm with
+    no table, for a block whose input takes no AoT rows."""
+    if _on_cpu(h, scale):
+        return rms_norm_plain(h, scale, eps)
+    if h.dim() != 2:
+        return rms_norm(h.reshape(-1, h.shape[-1]), scale, eps).view(h.shape)
+    return _count(rms_norm, rms_norm_kernel(h, scale, eps))
 
 
 def ragged_plan(token_rows, token_pos):
@@ -129,7 +153,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, cur_len):
     return out
 
 
-WRAPPERS = (aot_gather_add, aot_gather_add_multitask,
+WRAPPERS = (aot_gather_add, aot_gather_add_multitask, rms_norm,
             ragged_paged_attention, flash_attention, decode_attention,
             paged_decode_attention)
 

@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.aot_bias import rms_norm_plain
 from repro_torch.kernels.decode_attention import (
     NEG_INF, ragged_paged_attention_plain)
 
@@ -43,12 +44,11 @@ def embed_init(shape, generator, device, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 def apply_norm(cfg, p, x):
-    """RMSNorm in float32, result in x's dtype."""
+    """RMSNorm in float32, result in x's dtype (``aot_bias.rms_norm_plain``,
+    the arithmetic the fused gather-add + norm kernel follows)."""
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(f"norm {cfg.norm_type!r} is not ported")
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + cfg.norm_eps) * p["scale"]).to(x.dtype)
+    return rms_norm_plain(x, p["scale"], cfg.norm_eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -16,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,6 +61,23 @@ def check_supported(cfg: ArchConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
+
+
+def check_table_reach(token_rows, token_pos, npages: int,
+                      block_size: int) -> None:
+    """Raise ValueError if a live token (position >= 0) lies past its
+    slot's block table of ``npages`` pages of ``block_size`` positions.
+    ``token_rows`` / ``token_pos``: host arrays (numpy or CPU tensors), so
+    the check costs no wait on the card. The reference clamps the page
+    index there and overwrites a resident row; the port refuses."""
+    pos = np.asarray(token_pos)
+    bad = np.flatnonzero(pos >= npages * block_size)
+    if bad.size:
+        t = int(bad[0])
+        raise ValueError(
+            f"token {t} of slot {int(np.asarray(token_rows)[t])} at position "
+            f"{int(pos[t])} lies past its block table ({npages} pages of "
+            f"{block_size} positions)")
 
 
 class Model:
@@ -164,16 +182,22 @@ class Model:
                                       "AoT as fused tables)")
         return method
 
-    @staticmethod
-    def _aot_add(peft, i, h, ids, task_ids=None):
-        """h (T, d) plus layer i's AoT rows (the paper's Eq. 1) for token
-        ``ids`` (T,) int32: from one task's table (V, d) through the
+    def _aot_add(self, peft, i, lp, h, ids, task_ids=None):
+        """h (b, s, d) plus layer i's AoT rows (the paper's Eq. 1) for the
+        flat token ``ids`` (b s,) int32, and the block's input norm
+        (``lp["ln1"]``) of that sum: (h, x), both (b, s, d), from one
+        launch. The rows come from one task's table (V, d) through the
         single-table kernel, or from stacked tasks' tables (tasks, V, d) by
-        ``task_ids`` (T,) through the multi-task one."""
+        ``task_ids`` (b s,) through the multi-task one."""
         table = peft["params"]["aot"]["table"][i]
+        norm = (lp["ln1"]["scale"], self.cfg.norm_eps)
+        flat = h.reshape(-1, h.shape[-1])
         if table.dim() == 3:
-            return ops.aot_gather_add_multitask(h, table, task_ids, ids)
-        return ops.aot_gather_add(h, table, ids)
+            h_out, x = ops.aot_gather_add_multitask(flat, table, task_ids,
+                                                    ids, norm=norm)
+        else:
+            h_out, x = ops.aot_gather_add(flat, table, ids, norm=norm)
+        return h_out.view(h.shape), x.view(h.shape)
 
     def _adapter(self, a, i, out):
         """A Houlsby adapter of layer i: ``out + gelu(out @ down + b1) @ up
@@ -183,18 +207,23 @@ class Model:
                    approximate="tanh")
         return out + z @ a["up"][i].to(dt) + a["b2"][i].to(dt)
 
-    def _block(self, lp, h, sincos, attend, peft=None, i=0):
+    def _block(self, lp, h, sincos, attend, peft=None, i=0, aot=None):
         """Layer i, one pre-norm block on h (b, s, d): norm, Q/K/V
         projection with RoPE (``sincos``), ``attend(q, k, v)`` -> (b, s, H,
         hd) (which also writes the cache), output projection, norm, SwiGLU;
-        with the PEFT hooks of ``peft``'s method: LoRA's deltas on q and v,
-        BitFit's biases after the output projection and after the MLP, an
-        adapter after each. (AoT's bias comes before the block, P-Tuning
-        v2's prefix inside ``attend``.)"""
+        with the PEFT hooks of ``peft``'s method: AoT's rows added to h for
+        the flat tokens ``aot`` = (ids, task_ids) in the same launch as the
+        input norm (:meth:`_aot_add`), LoRA's deltas on q and v, BitFit's
+        biases after the output projection and after the MLP, an adapter
+        after each. (P-Tuning v2's prefix comes inside ``attend``.) Without
+        AoT the input norm is one launch of its own (``ops.rms_norm``)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
         pp = peft["params"] if peft else {}
-        x = L.apply_norm(cfg, lp["ln1"], h)
+        if method == "aot":                      # the paper's Eq. 1
+            h, x = self._aot_add(peft, i, lp, h, *aot)
+        else:
+            x = ops.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
         qkv = None
         if method == "lora":
             lo, sc = pp["lora"], lora_scale(peft["opt"])
@@ -234,15 +263,12 @@ class Model:
         h = params["embed"]["tok"][ids.long()].to(dt)             # (b, s, d)
         sincos = L.rope_sincos(torch.arange(s, device=h.device),
                                cfg.head_dim, cfg.rope_theta)
+        aot = None
         if method == "aot":     # each row's task over its s tokens, flat
-            flat_ids = ids.reshape(-1).contiguous()
-            tids = (peft["task_ids"].to(torch.int32).repeat_interleave(s)
-                    if "task_ids" in peft else None)
+            aot = (ids.reshape(-1).contiguous(),
+                   peft["task_ids"].to(torch.int32).repeat_interleave(s)
+                   if "task_ids" in peft else None)
         for i, lp in enumerate(params["layers"]):
-            if method == "aot":                      # the paper's Eq. 1
-                h = self._aot_add(peft, i, h.reshape(b * s, -1), flat_ids,
-                                  tids).view(b, s, -1)
-
             def attend(q, k, v, i=i):
                 if p:
                     pre = peft["params"]["ptv2"]
@@ -254,7 +280,7 @@ class Model:
                     cache["k"][i, :, :p + s] = k
                     cache["v"][i, :, :p + s] = v
                 return ops.flash_attention(q, k, v, causal=True, q_offset=p)
-            h = self._block(lp, h, sincos, attend, peft, i)
+            h = self._block(lp, h, sincos, attend, peft, i, aot)
         return L.apply_norm(cfg, params["final_norm"], h), p
 
     def forward(self, params, tokens, peft=None):
@@ -312,7 +338,8 @@ class Model:
         ``pos + 1`` positions. RoPE takes ``pos`` as the position, as the
         reference does: after a P-Tuning v2 prefill (pos = s + p) the first
         decoded token sits p positions past the prompt's last. Returns
-        (logits (b, 1, V), cache)."""
+        (logits (b, 1, V), cache). Paged positions on the CPU are held to
+        the block table first (:func:`check_table_reach`)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = self._method(peft)
         if method == "ptv2" and block_tables is not None:
@@ -338,11 +365,12 @@ class Model:
         sincos = L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
         if block_tables is not None:        # the page and offset of each row
             bs = cache["k"].shape[2]
+            if pos_t.device.type == "cpu":
+                check_table_reach(np.arange(b), pos_t, block_tables.shape[1],
+                                  bs)
             where = (block_tables.long()[where[0], pos_t // bs], pos_t % bs)
+        aot = (ids, peft.get("task_ids")) if method == "aot" else None
         for i, lp in enumerate(params["layers"]):
-            if method == "aot":                      # the paper's Eq. 1
-                h = self._aot_add(peft, i, h[:, 0], ids,
-                                  peft.get("task_ids"))[:, None]
             kc, vc = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, kc=kc, vc=vc):
@@ -354,7 +382,7 @@ class Model:
                 else:
                     o = ops.decode_attention(q[:, 0], kc, vc, cur)
                 return o[:, None]
-            h = self._block(lp, h, sincos, attend, peft, i)
+            h = self._block(lp, h, sincos, attend, peft, i, aot)
         h = L.apply_norm(cfg, params["final_norm"], h)
         return self.unembed(params, h), cache
 
@@ -385,7 +413,11 @@ class Model:
         lower-positioned chunk-mates and never another slot's chunk. Dead
         tokens all write page 0, offset 0; CUDA leaves the order of those
         duplicate writes undefined, which is harmless only because page 0
-        is never read unmasked. Returns (logits (num_slots, V), cache)."""
+        is never read unmasked. Returns (logits (num_slots, V), cache).
+        Indices on the CPU are held to the block table first
+        (:func:`check_table_reach`); on the card that check would wait on
+        the stream, so ``ServeEngine.serve_step`` makes it on its host
+        copies."""
         cfg = self.cfg
         dt = self.opts.compute_dtype
         assert block_tables is not None, "mixed_step serves paged pools only"
@@ -397,6 +429,9 @@ class Model:
         pos = token_pos.clamp(min=0).long()
         sincos = L.rope_sincos(pos[:, None], cfg.head_dim, cfg.rope_theta)
         bs_page = cache["k"].shape[2]
+        if token_pos.device.type == "cpu":
+            check_table_reach(token_rows, token_pos, block_tables.shape[1],
+                              bs_page)
         page = torch.where(token_pos >= 0,
                            block_tables.long()[token_rows.long(),
                                                pos // bs_page], 0)
@@ -404,10 +439,8 @@ class Model:
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
         if plan is None:
             plan = ops.ragged_plan(token_rows, token_pos)
+        aot = (ids, peft.get("task_ids")) if method == "aot" else None
         for i, lp in enumerate(params["layers"]):
-            if method == "aot":                      # the paper's Eq. 1
-                h = self._aot_add(peft, i, h[:, 0], ids,
-                                  peft.get("task_ids"))[:, None]
             kc, vc = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, kc=kc, vc=vc):
@@ -416,7 +449,7 @@ class Model:
                 return ops.ragged_paged_attention(
                     q[:, 0], kc, vc, block_tables, token_rows, token_pos,
                     plan)[:, None]
-            h = self._block(lp, h, sincos, attend, peft, i)
+            h = self._block(lp, h, sincos, attend, peft, i, aot)
         h = L.apply_norm(cfg, params["final_norm"], h)
         if logit_idx is None:
             logit_idx = torch.arange(h.shape[0], device=h.device)

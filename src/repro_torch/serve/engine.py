@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.aot import AoTOptions
 from repro_torch.kernels.decode_attention import ragged_plan, round_kv_len
+from repro_torch.models.model import check_table_reach
 from repro_torch.serve.sampling import sample_tokens
 
 
@@ -220,7 +221,10 @@ class ServeEngine:
         Returns (next token per slot (num_slots,) np, per-slot logits
         (num_slots, V) on the device, the pool cache (updated in place),
         per-slot finite flags (num_slots,) bool np: False means that slot's
-        logits row holds NaN/inf)."""
+        logits row holds NaN/inf). Raises ValueError, before any upload, for
+        a live token whose position lies past its slot's block table."""
+        check_table_reach(token_rows, token_pos, block_tables.shape[1],
+                          cache["k"].shape[2])
         temps = np.asarray(sample[0], np.float32)
         stochastic = bool(np.any(temps > 0.0))
         arrays = [tokens, token_rows, token_pos, logit_idx, token_tasks,

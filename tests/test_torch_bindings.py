@@ -22,6 +22,10 @@ DECLARED = {
     "aot_gather_add": aot_bias._ARGTYPES["aot_gather_add"],
     "aot_gather_add_multitask": aot_bias._ARGTYPES[
         "aot_gather_add_multitask"],
+    "aot_gather_add_norm": aot_bias._ARGTYPES["aot_gather_add_norm"],
+    "aot_gather_add_multitask_norm": aot_bias._ARGTYPES[
+        "aot_gather_add_multitask_norm"],
+    "rms_norm": aot_bias._ARGTYPES["rms_norm"],
     "flash_attention": flash_attention._ARGTYPES,
     "decode_attention": decode_attention._ARGTYPES["decode_attention"],
     "paged_decode_attention": decode_attention._ARGTYPES[

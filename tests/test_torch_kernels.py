@@ -271,9 +271,10 @@ def test_round_kv_len_matches_reference(n, block_k):
 
 
 # positional arguments of each wrapper, which the stubbed kernels ignore
-# (the single-table gather-add reads h's rank first)
+# (the single-table gather-add and the norm read h's rank first)
 WRAPPER_ARGS = {"aot_gather_add": (torch.zeros(3, 2), None, None),
                 "aot_gather_add_multitask": (None,) * 4,
+                "rms_norm": (torch.zeros(3, 2), None, None),
                 "ragged_paged_attention": (None,) * 6,
                 "flash_attention": (None,) * 3,
                 "decode_attention": (None,) * 4,

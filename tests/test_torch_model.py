@@ -3,9 +3,12 @@
 
 ``mixed_step`` must give logits within 2e-5 of the reference's and write the
 same K/V (within 2e-5; page 0, the dead tokens' scratch page, excluded)
-for a decode-only tick, one prefill chunk, and several chunks with decode
-rows and dead padding; its greedy decode tokens must equal the reference's
-``decode_step`` tokens.
+for a decode-only tick, a token at the block table's last position, one
+prefill chunk, and several chunks with decode rows and dead padding; its
+greedy decode tokens must equal the reference's ``decode_step`` tokens. A
+live position past the block table is refused with ValueError by the tick
+(``ServeEngine.serve_step``), ``mixed_step`` and paged ``decode_step``,
+where the reference clamps the page index and overwrites a resident row.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ import torch
 from port_util import (both, jax_peft, jax_tasks, np32, port_lm, port_tables,
                        port_tasks_peft)
 from repro_torch.models.model import Model
+from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 N_TASKS, BS, NB, NPAGES = 3, 4, 24, 4          # pool: 16 tokens per slot
@@ -50,9 +54,11 @@ def test_bridge_carries_every_weight(lm):
 
 
 # (token_rows, token_pos) over 3 slots; slot depths before the tick are
-# 9, 5 and 0 resident tokens (slot 2 is empty)
+# 9, 5 and 0 resident tokens (slot 2 is empty); "table_end" puts a token
+# at the block table's last position (15 of 4 pages of 4)
 PACKINGS = {
     "decode_only": ([0, 1], [9, 5]),
+    "table_end": ([0, 1], [15, 5]),
     "one_chunk": ([2, 2, 2, 2, 2, 2], [0, 1, 2, 3, 4, 5]),
     "chunks_decode_dead": ([0, 1, 1, 1, 2, 2, 2, 0, 0],
                            [9, 5, 6, 7, 0, 1, 2, -1, -1]),
@@ -123,3 +129,38 @@ def test_decode_tokens_equal_reference_decode_step(rng, lm):
     np.testing.assert_array_equal(lg.argmax(-1).numpy(),
                                   np.asarray(jnp.argmax(lg_j[:, -1], -1)))
     np.testing.assert_allclose(np32(lg), np32(lg_j[:, -1]), **TOL)
+
+
+def test_position_past_the_block_table_raises(rng, lm):
+    """ROADMAP C3's smallest input: pages of 4, 4 pages a slot, slot 0's
+    token at position 16. The tick, ``mixed_step`` and paged
+    ``decode_step`` raise ValueError naming the slot and the position
+    (before any write: the pool is unchanged)."""
+    cfg, _, _, _, model, params, tables = lm
+    k, v, bt = _pool(rng, cfg)
+    cache = {"k": torch.from_numpy(k).float(), "v": torch.from_numpy(v).float()}
+    before = {n: c.clone() for n, c in cache.items()}
+    rows, pos = np.asarray([0, 1], np.int32), np.asarray([16, 5], np.int32)
+    tokens = np.asarray([[3], [7]], np.int32)
+    tasks = np.asarray([2, 0], np.int32)
+    lidx = np.asarray([0, 1, 0], np.int32)
+    t = torch.from_numpy
+    match = "slot 0 at position 16 lies past its block table"
+    with pytest.raises(ValueError, match=match):
+        model.mixed_step(params, t(tokens), t(rows), t(pos), cache,
+                         port_tasks_peft(tables, t(tasks)),
+                         block_tables=t(bt), logit_idx=t(lidx))
+    with pytest.raises(ValueError, match=match):
+        model.decode_step(params, t(tokens), t(pos), cache,
+                          port_tasks_peft(tables, t(tasks)),
+                          block_tables=t(bt[:2]))
+    engine = ServeEngine(model, params, ServeConfig(max_len=16),
+                         fused_tasks=tables)
+    zeros = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match=match):
+        engine.serve_step(tokens, rows, pos, lidx, cache, bt, tasks,
+                          (zeros, np.zeros(3, np.int32), zeros + 1,
+                           np.zeros(3, np.uint32), np.zeros(3, np.int32)))
+    assert engine.dispatches == 0
+    for n in ("k", "v"):
+        assert torch.equal(cache[n], before[n])

@@ -1,9 +1,9 @@
 """The pure-Python gates of the port's card scripts, on the CPU: phase 2's
 check of the redesigned kernels' ptxas output (flash_mma_kernel,
-decode_split_kernel, ragged_split_kernel), phase 6's comparison of
-kernel logits with the plain versions' (near ties), and phase 6's swap of
-the kernel wrappers in ``ops`` for the plain versions. The phases
-themselves need the card (chip_smoke.py)."""
+decode_split_kernel, ragged_split_kernel, aot_gather_add_kernel), phase
+6's comparison of kernel logits with the plain versions' (near ties), and
+phase 6's swap of the kernel wrappers in ``ops`` for the plain versions.
+The phases themselves need the card (chip_smoke.py)."""
 
 import importlib.util
 import inspect
@@ -29,6 +29,8 @@ DECODE = ("_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16Lb1ELi64ELi4E"
           "Lb1EEEvv")
 RAGGED = ("_ZN12_GLOBAL__N_119ragged_split_kernelI13__nv_bfloat16Lb1ELi64ELi4E"
           "EEvv")
+GATHER = ("_ZN12_GLOBAL__N_121aot_gather_add_kernelI13__nv_bfloat16S1_Lb1ELb1E"
+          "LNS_4ModeE1EEEvPKT_PKT0_PKiSA_PKfPS2_SE_iiif")
 
 
 def _ptxas(name, regs, spill):
@@ -56,6 +58,17 @@ LOGS = {
                        "missing"),
     "cached": ({"flash_attention": "cached",
                 "decode_attention": "cached"}, None),
+    "gather_norm": ({"flash_attention": "cached",
+                     "decode_attention": "cached",
+                     "aot_gather_add": _ptxas(GATHER, 30, 0)}, None),
+    "spill_gather_norm": ({"flash_attention": "cached",
+                           "decode_attention": "cached",
+                           "aot_gather_add": _ptxas(GATHER, 30, 8)},
+                          "spill"),
+    "missing_gather": ({"flash_attention": "cached",
+                        "decode_attention": "cached",
+                        "aot_gather_add": _ptxas("other_kernel", 30, 0)},
+                       "missing"),
 }
 
 
@@ -69,6 +82,9 @@ def test_phase2_refuses_spills_of_redesigned_kernels(case):
     new = cs.redesigned(logs)
     if case == "cached":
         assert new == {}
+    elif case == "gather_norm":
+        assert new == {"aot_gather_add_kernel":
+                       ["I13__nv_bfloat16S1_Lb1ELb1ELNS_4ModeE1EE:30r/0s"]}
     else:
         assert new == {"flash_mma_kernel": ["ILi64ELb1EE:168r/0s"],
                        "decode_split_kernel":
@@ -105,7 +121,7 @@ def test_against_plain_counts_a_flip_and_holds_its_gap(gap, ok):
     assert r["ok"] is ok
 
 
-PLAIN_OPS = ("aot_gather_add", "aot_gather_add_multitask",
+PLAIN_OPS = ("aot_gather_add", "aot_gather_add_multitask", "rms_norm",
              "ragged_paged_attention", "flash_attention", "decode_attention",
              "paged_decode_attention")
 
@@ -113,16 +129,20 @@ PLAIN_OPS = ("aot_gather_add", "aot_gather_add_multitask",
 @pytest.mark.parametrize("name", PLAIN_OPS)
 def test_plain_ops_take_every_positional_argument_of_their_op(name):
     """The model passes ``ops`` the op's positional parameters (the ragged
-    plan included): phase 6's plain stand-in must take each of them, and
-    the op is restored afterwards."""
+    plan included) and its keyword-only ones (the gather-adds' ``norm``):
+    phase 6's plain stand-in must take each of them, and the op is
+    restored afterwards."""
     from repro_torch.kernels import ops
     op = getattr(ops, name)
-    params = [p for p in inspect.signature(op).parameters.values()
-              if p.kind is p.POSITIONAL_OR_KEYWORD]
+    params = inspect.signature(op).parameters
+    positional = [p for p in params.values()
+                  if p.kind is p.POSITIONAL_OR_KEYWORD]
+    keyword = {"norm": None} if "norm" in params else {}
+    assert bool(keyword) == name.startswith("aot_gather_add")
     with cs.plain_ops():
         stand_in = getattr(ops, name)
         assert stand_in is not op
-        inspect.signature(stand_in).bind(*range(len(params)))
+        inspect.signature(stand_in).bind(*range(len(positional)), **keyword)
     assert getattr(ops, name) is op
 
 
