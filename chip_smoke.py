@@ -36,7 +36,9 @@ Phases, each printing one line of results; any failure exits non-zero:
    0, lengths that straddle pages, depth 1024; pages of 16, 8 and 32; and
    bitwise equal to contiguous decode over the same K/V wherever the
    capacities match: those lengths and every split case at pages of 4-32
-   that divide S);
+   that divide S); and NaN in the K/V that nothing may read (past each
+   row's length, scratch page 0) leaves contiguous, paged and ragged
+   outputs bitwise as zeros there do, kernel and plain version alike;
 4. kernel times at the serving paths' shapes (device time from
    torch.profiler), beside the plain version's, one PyTorch library call's
    where there is one, and the least time the card could take (bytes at
@@ -70,6 +72,17 @@ Phases, each printing one line of results; any failure exits non-zero:
    the AoT engine's tokens must equal the multi-task engine's with every
    task id 0; then Model.logits at benchmarks/speed_overhead.py's grid,
    time ratios to the backbone's (reported, no limit);
+5e. the faulted tick: phase 5's greedy stream fault-free (the twin), then
+   F1 (an injected alloc_failure on one chunk tick and an exception raised
+   after 16 layers of another: every stream bitwise the twin's, 2 faults,
+   2 retries), F2 (NaN on one row of a decode-only tick: exactly that
+   request quarantined, every survivor's tokens through that tick the
+   twin's, shutdown releases the hold clean; whole streams reported),
+   F3 (a seeded FaultPlan with every kind but crash, then shutdown with
+   work live: drained, leak-free, every kind fired, the survivors the
+   twin's requests less the disconnected, quarantined and shed; token
+   equality reported); each run's kernels launch exactly 32 times per
+   dispatch plus the layers a raised attempt reached;
 6. cross-checks at full width with 2 layers, inputs drawn from a
    generator of their own (seed PHASE6_SEED; chip_seeds.py runs this phase
    at other seeds): one mixed tick, and a prefill plus three decode steps
@@ -475,6 +488,7 @@ def phase_parity(gen, report):
     parity_ragged(gen, report)
     parity_flash(gen, report)
     parity_decode(gen, report)
+    parity_stale_nan(gen, report)
 
 
 # ragged and paged parity builds: name -> (hd, data one element off a
@@ -847,6 +861,88 @@ def parity_decode(gen, report):
             shapes=f"b8 h{heads[0]} kvh{kvh} hd{hd} S300-2048 bs8|16|32",
             paged_bitwise_contiguous=f"{bitwise} cases",
             max_abs_err=",".join(cases))
+
+
+def poison_past(pool, bt, depth, bs, fill):
+    """A copy of a paged pool (blocks, bs, kvh, hd) with ``fill`` on
+    scratch page 0 and at every position at or past each row's depth
+    (rows of ``bt``: (rows, npages) tables of distinct pages)."""
+    npages = bt.shape[1]
+    pos = torch.arange(npages * bs, device=DEV).view(npages, bs)
+    past = torch.zeros(pool.shape[:2], dtype=torch.bool, device=DEV)
+    past[0] = True
+    for r in range(bt.shape[0]):
+        past[bt[r].long()] = pos >= int(depth[r])
+    return torch.where(past[:, :, None, None],
+                       torch.full_like(pool, fill), pool)
+
+
+def parity_stale_nan(gen, report):
+    """K/V that nothing may read (past each row's length, scratch page 0)
+    set to NaN give bitwise the output of zeros there, through each
+    kernel and through its plain version (a retried tick and
+    released quarantine pages leave stale rows behind). Contiguous and
+    paged decode at DECODE_LENS / PAGED_LENS, ragged attention on three
+    packings with chunks, decode tokens and dead padding; f32 and bf16."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    nan = float("nan")
+    cases = []
+
+    def same(what, fn):
+        outs = [fn(fill) for fill in (0.0, nan)]
+        torch.cuda.synchronize()
+        for fill, (k_out, p_out) in zip(("0", "nan"), outs):
+            if not (torch.isfinite(k_out).all()
+                    and torch.isfinite(p_out).all()):
+                raise AssertionError(f"{what} fill {fill}: non-finite output")
+        if not (torch.equal(outs[0][0], outs[1][0])
+                and torch.equal(outs[0][1], outs[1][1])):
+            raise AssertionError(f"{what}: NaN past the length changed the "
+                                 "output (kernel or plain)")
+        report["parity"][f"stale_nan/{what}"] = "bitwise"
+        cases.append(what)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, lens = decode_inputs(gen, DECODE_LENS, dtype)
+        k, v = k[0], v[0]
+        past = (torch.arange(MAX_LEN, device=DEV)[None, :]
+                >= lens[:, None])[:, :, None, None]
+
+        def contiguous(fill):
+            kk = torch.where(past, torch.full_like(k, fill), k)
+            vv = torch.where(past, torch.full_like(v, fill), v)
+            return (ops.decode_attention(q, kk, vv, lens),
+                    da.decode_attention_plain(q, kk, vv, lens))
+        same(f"decode/{str(dtype)[6:]}", contiguous)
+        plens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=DEV)
+        kp, vp, bt = paged_copy(gen, k, v, BS, False)
+        bt[0, 1:] = 0                   # unmapped entries point at page 0
+
+        def paged(fill):
+            kk = poison_past(kp, bt, PAGED_LENS, BS, fill)
+            vv = poison_past(vp, bt, PAGED_LENS, BS, fill)
+            return (ops.paged_decode_attention(q, kk, vv, bt, plens),
+                    da.paged_decode_attention_plain(q, kk, vv, bt, plens))
+        same(f"paged_decode/{str(dtype)[6:]}", paged)
+        for name in ("decode_only", "chunks_decode_dead",
+                     "four_chunks_unaligned"):
+            rows, pos = packings()[name]
+            q_r, k_r, v_r, bt_r, r, p = ragged_inputs(gen, rows, pos, dtype)
+            depth = [0] * SLOTS
+            for row, at in zip(rows, pos):
+                depth[row] = max(depth[row], at + 1)
+
+            def ragged(fill):
+                kk = poison_past(k_r[0], bt_r, depth, BS, fill)
+                vv = poison_past(v_r[0], bt_r, depth, BS, fill)
+                return (ops.ragged_paged_attention(q_r, kk, vv, bt_r, r, p),
+                        da.ragged_paged_attention_plain(q_r, kk, vv, bt_r,
+                                                        r, p))
+            same(f"ragged/{name}/{str(dtype)[6:]}", ragged)
+    log("3 parity", kernel="decode+paged_decode+ragged (stale NaN)",
+        result="kernel and plain bitwise unchanged by NaN past each row's "
+        "length and on page 0", cases=len(cases))
 
 
 def flat(res):
@@ -1407,6 +1503,321 @@ def phase_whole_prompt(report, engine):
             tokens_per_s=sched.tokens_emitted / sec,
             preemptions=sched.preemptions, launches=counts)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the faulted tick (tick retries, NaN watchdog, chaos, shutdown)
+# ---------------------------------------------------------------------------
+
+FAULT_LAYER = 16        # F1's raised attempt runs this many layers, raises
+F1_ALLOC_TICK = 4       # F1: alloc_failure on the first chunk tick from here
+F1_RAISE_TICK = 12      # F1: the raise on the first chunk tick from here
+F2_TICK = 45            # F2: NaN on the first decode-only tick from here
+# F3: every kind but crash; the seed is one whose every kind fires on
+# phase 5's stream (tests/test_torch_smoke_checks.py replays it on the CPU)
+F3_PLAN = dict(seed=32, horizon=64, p_exhaust=0.08, exhaust_pages=480,
+               exhaust_ticks=3, p_straggler=0.1, straggler_ms=0.5,
+               p_disconnect=0.05, p_malformed=0.08, p_nan=0.05,
+               p_alloc_failure=0.05)
+F3_KINDS = ("exhaust", "straggler", "disconnect", "malformed", "nan",
+            "alloc_failure")
+F3_SHUTDOWN_CLOCK = 56  # after the last arrival (43), with work still live
+F3_GRACE = 4
+
+
+def stream_ticks(sched, arrivals, before=None, until=None):
+    """Submit and tick as ``run_stream`` does (idle gaps fast-forward),
+    calling ``before(sched)`` before each tick; stop when all is served or
+    ``until(sched)`` is true."""
+    order = sorted(arrivals, key=lambda a: a[0])
+    i = 0
+    while i < len(order) or sched.busy():
+        if until is not None and until(sched):
+            return
+        if not sched.busy() and order[i][0] > sched.clock:
+            sched.clock = order[i][0]
+        while i < len(order) and order[i][0] <= sched.clock:
+            sched.submit(order[i][1])
+            i += 1
+        if before is not None:
+            before(sched)
+        sched.step()
+
+
+def stream_outs(requests):
+    return {r.rid: list(r.out) for r in requests.values()}
+
+
+def survivors_expected(twin_rids, disconnected, quarantined, shed):
+    """F3's survivors: the twin's requests less those a fault or the
+    shutdown took."""
+    return set(twin_rids) - set(disconnected) - set(quarantined) - set(shed)
+
+
+def prefix_mismatches(got, twin, ticks_of, tick):
+    """Requests of ``got`` whose tokens emitted up to and including
+    ``tick`` (``ticks_of[rid]``: the tick of each token) are not the
+    twin's."""
+    bad = []
+    for rid, out in got.items():
+        n = sum(t <= tick for t in ticks_of.get(rid, []))
+        if out[:n] != twin[rid][:n]:
+            bad.append(rid)
+    return sorted(bad)
+
+
+def first_divergence(got, twin, ticks_of):
+    """(rid, tick) of the lowest request whose stream differs from the
+    twin's, at the tick this run emitted its first differing token (or its
+    last, when one stream is a prefix of the other); None if all equal."""
+    for rid in sorted(got):
+        a, b = got[rid], twin[rid]
+        if a != b:
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            ticks = ticks_of.get(rid, [])
+            return rid, ticks[min(j, len(ticks) - 1)] if ticks else None
+    return None
+
+
+def fault_launches(layers, dispatched, reached):
+    """Each main-path kernel's launches in a faulted run: ``layers`` per
+    dispatch that ran the whole model, plus the layers that raised
+    attempts reached (an injected alloc_failure reaches none)."""
+    return layers * dispatched + reached
+
+
+def f1_before(engine, state):
+    """F1's hook: an alloc_failure on the first chunk tick from
+    F1_ALLOC_TICK, then the raise between layers armed for the first chunk
+    tick from F1_RAISE_TICK (the model's layer hook consumes it)."""
+    def before(sched):
+        if not sched._prefills:
+            return
+        if "alloc" not in state and sched.ticks >= F1_ALLOC_TICK:
+            engine.inject_fault("alloc_failure")
+            state["alloc"] = sched.ticks
+        elif "raise" not in state and sched.ticks >= F1_RAISE_TICK:
+            state["raise"], state["armed"] = sched.ticks, True
+    return before
+
+
+def f2_before(engine, state):
+    """F2's hook: NaN on the middle running row of the first tick from
+    F2_TICK that can only be decode-only (nothing chunking or queued)."""
+    def before(sched):
+        if ("tick" in state or sched.ticks < F2_TICK or sched._prefills
+                or sched.queue or len(sched.running) < 3):
+            return
+        slots = sorted(sched.running)
+        slot = slots[len(slots) // 2]
+        state.update(tick=sched.ticks, slot=slot, rid=sched.running[slot].rid)
+        engine.inject_fault("nan", slot)
+    return before
+
+
+def run_f3(sched, arrivals):
+    """F3 on a fresh scheduler: F3_PLAN's faults before every tick until
+    the clock reaches F3_SHUTDOWN_CLOCK, then the seized pages back, then
+    ``shutdown(F3_GRACE)``."""
+    from repro_torch.serve.faults import FaultInjector, FaultPlan
+    inj = FaultInjector(sched, FaultPlan(**F3_PLAN))
+    stream_ticks(sched, arrivals, lambda s: inj.before_tick(),
+                 lambda s: s.clock >= F3_SHUTDOWN_CLOCK)
+    inj.finish()
+    held = sched.pool.num_quarantined()
+    leaks = sched.drain_check()
+    rep = sched.shutdown(grace_ticks=F3_GRACE)
+    return dict(injector=inj, held=held, leaks_before=leaks, report=rep,
+                leaks_after=sched.drain_check())
+
+
+def f3_failures(sched, twin_rids, res, n_arrivals):
+    """F3's required gates, as a list of what failed (empty = passed)."""
+    inj, rep = res["injector"], res["report"]
+    bad = [f"{k} never fired" for k in F3_KINDS if not inj.applied[k]]
+    if not inj.malformed_ok:
+        bad.append("a malformed submission was accepted")
+    if res["leaks_before"] or not rep.clean or res["leaks_after"]:
+        bad.append(f"leaks {res['leaks_before']} / {rep.leak_findings} / "
+                   f"{res['leaks_after']}")
+    if sched.busy():
+        bad.append("not drained")
+    if not rep.shed_rids:
+        bad.append("no work was live at shutdown")
+    seen = (set(sched.finished) | set(sched.aborted)
+            | set(sched.quarantined))
+    if len(seen) != n_arrivals:
+        bad.append(f"{n_arrivals - len(seen)} requests unaccounted for")
+    want = survivors_expected(twin_rids, inj.disconnected,
+                              sched.quarantined, rep.shed_rids)
+    if set(sched.finished) != want:
+        bad.append(f"survivors {sorted(sched.finished)} != {sorted(want)}")
+    reasons = {r.finish_reason for r in sched.aborted.values()}
+    if not reasons <= {"disconnect", "shutdown"}:
+        bad.append(f"abort reasons {sorted(reasons)}")
+    return bad
+
+
+def fault_run(engine, args, drive=None):
+    """Phase 5's greedy stream on a fresh scheduler, through ``drive(sched,
+    arrivals)`` (default: served to the end), recording the tick of every
+    token. Returns the scheduler, ``ticks_of``, seconds, dispatches, the
+    kernels' launches and what ``drive`` returned."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    ticks_of = {}
+    box = {}
+
+    def on_token(req, tok):
+        ticks_of.setdefault(req.rid, []).append(box["sched"].ticks)
+    arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
+                                      args.tasks, on_token)
+    sched = box["sched"] = launcher.make_scheduler(engine, args)
+    d0 = engine.dispatches
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    extra = (drive or stream_ticks)(sched, arrivals)
+    torch.cuda.synchronize()
+    return dict(sched=sched, arrivals=arrivals, ticks_of=ticks_of,
+                seconds=time.perf_counter() - t0,
+                dispatched=engine.dispatches - d0,
+                counts=dict(ops.launches()), extra=extra)
+
+
+def fault_line(label, run, card, **kv):
+    sched = run["sched"]
+    log(f"5e faults/{label}", tokens=sched.tokens_emitted,
+        seconds=f"{run['seconds']:.3f}",
+        tokens_per_s=f"{sched.tokens_emitted / run['seconds']:.1f}",
+        ticks=sched.ticks, dispatched=run["dispatched"],
+        dispatch_faults=sched.dispatch_faults,
+        retries=sched.tick_retries_used, preemptions=sched.preemptions,
+        launches=run["counts"], **kv, card=card)
+    return dict(tokens=sched.tokens_emitted, seconds=run["seconds"],
+                tokens_per_s=sched.tokens_emitted / run["seconds"],
+                ticks=sched.ticks, dispatched=run["dispatched"],
+                dispatch_faults=sched.dispatch_faults,
+                retries=sched.tick_retries_used,
+                preemptions=sched.preemptions, launches=run["counts"],
+                **{k: v for k, v in kv.items()})
+
+
+def phase_faults(report, engine):
+    """Phase 5e: phase 5's greedy stream, fault-free (the twin), then F1
+    (an injected alloc_failure and an exception raised between two layers
+    of another chunk tick: every stream bitwise the twin's), F2 (NaN on one
+    decode row of a decode-only tick: that request quarantined, every
+    survivor's tokens through that tick the twin's, the hold released
+    clean by shutdown), F3 (F3_PLAN's seeded chaos ending in shutdown:
+    drained, leak-free, every kind fired, the survivors as
+    survivors_expected says). Each run's kernels launch exactly
+    fault_launches times."""
+    from repro_torch.launch import serve as launcher
+    layers = engine.model.cfg.num_layers
+    args = launcher.parser().parse_args(BASE + GREEDY)
+    card = smi()
+    kernels = ("aot_gather_add_multitask", "ragged_paged_attention")
+    res, failed = {}, []
+
+    def launches_ok(label, run, reached):
+        want = fault_launches(layers, run["dispatched"], reached)
+        check_launches(label, run["counts"], {k: want for k in kernels})
+
+    twin = fault_run(engine, args)
+    twin_out = stream_outs(twin["sched"].finished)
+    if len(twin_out) != args.requests or twin["sched"].drain_check():
+        raise AssertionError("5e twin: unfinished requests or leaks")
+    launches_ok("5e twin", twin, 0)
+    res["twin"] = fault_line("twin", twin, card)
+
+    # F1: raised dispatches, retried
+    state = {}
+    model = engine.model
+    block = model._block
+
+    def hooked(lp, h, sincos, attend, peft, i, aot):
+        if i == FAULT_LAYER and state.pop("armed", False):
+            raise RuntimeError(f"injected fault after {FAULT_LAYER} layers")
+        return block(lp, h, sincos, attend, peft, i, aot)
+    model._block = hooked
+    try:
+        f1 = fault_run(engine, args, lambda s, a: stream_ticks(
+            s, a, f1_before(engine, state)))
+    finally:
+        del model._block
+    sched = f1["sched"]
+    got = stream_outs(sched.finished)
+    n_same = sum(got.get(r) == o for r, o in twin_out.items())
+    ok = (n_same == len(twin_out) and "alloc" in state and "raise" in state
+          and "armed" not in state and sched.dispatch_faults == 2
+          and sched.tick_retries_used == 2 and not sched.drain_check())
+    res["F1"] = fault_line(
+        "F1", f1, card, alloc_failure_tick=state.get("alloc"),
+        raise_tick=state.get("raise"), raised_after_layers=FAULT_LAYER,
+        streams_equal=f"{n_same}/{len(twin_out)}",
+        required="16/16 bitwise, 2 faults, 2 retries")
+    launches_ok("5e F1", f1, FAULT_LAYER)
+    if not ok:
+        failed.append("F1")
+
+    # F2: the NaN watchdog
+    state = {}
+    held = {}
+
+    def drive_f2(s, a):
+        stream_ticks(s, a, f2_before(engine, state))
+        held["pages"] = s.pool.num_quarantined()
+        return s.shutdown()
+    f2 = fault_run(engine, args, drive_f2)
+    sched, rep = f2["sched"], f2["extra"]
+    got = stream_outs(sched.finished)
+    bad_prefix = prefix_mismatches(got, twin_out, f2["ticks_of"],
+                                   state.get("tick", -1))
+    div = first_divergence(got, twin_out, f2["ticks_of"])
+    ok = ("tick" in state and set(sched.quarantined) == {state["rid"]}
+          and held["pages"] > 0 and rep.clean
+          and rep.quarantined_pages_released > 0
+          and sched.pool.num_quarantined() == 0 and not bad_prefix
+          and set(got) == set(twin_out) - {state["rid"]})
+    n_same = sum(got[r] == twin_out[r] for r in got)
+    res["F2"] = fault_line(
+        "F2", f2, card, nan_tick=state.get("tick"), nan_rid=state.get("rid"),
+        quarantined=sorted(sched.quarantined), held_pages=held["pages"],
+        released=rep.quarantined_pages_released, clean=rep.clean,
+        prefix_mismatches=bad_prefix, streams_equal=f"{n_same}/{len(got)}",
+        first_divergence="none" if div is None
+        else f"rid {div[0]} at tick {div[1]}",
+        required="1 quarantined, survivors' prefixes equal, released clean")
+    launches_ok("5e F2", f2, 0)
+    if not ok:
+        failed.append("F2")
+
+    # F3: seeded chaos, then shutdown with work still live
+    f3 = fault_run(engine, args, run_f3)
+    sched, r3 = f3["sched"], f3["extra"]
+    bad = f3_failures(sched, twin_out, r3, args.requests)
+    got = stream_outs(sched.finished)
+    n_same = sum(got[r] == twin_out[r] for r in got)
+    inj, rep = r3["injector"], r3["report"]
+    res["F3"] = fault_line(
+        "F3", f3, card, applied=inj.applied, disconnected=inj.disconnected,
+        quarantined=sorted(sched.quarantined), shed=rep.shed_rids,
+        grace_ticks=rep.grace_ticks_used, held_pages=r3["held"],
+        released=rep.quarantined_pages_released,
+        leaks=r3["leaks_before"] + rep.leak_findings + r3["leaks_after"],
+        survivors=len(got), streams_equal=f"{n_same}/{len(got)}",
+        failures=bad or "none", required="no failures")
+    launches_ok("5e F3", f3, 0)
+    if bad:
+        failed.append("F3")
+    report["faults"] = res
+    if failed:
+        raise AssertionError(f"phase 5e failed: {failed}")
+    return {f"faults_{label}": run["counts"]
+            for label, run in (("twin", twin), ("F1", f1), ("F2", f2),
+                               ("F3", f3))}
 
 
 def paged_generate(engine, prompts, steps, task_ids):
@@ -1999,6 +2410,7 @@ def main() -> int:
     launches.update(phase_whole_prompt(report, engine))
     launches.update(phase_static(report, engine))
     launches.update(phase_peft(report, engine))
+    launches.update(phase_faults(report, engine))
     del engine
     torch.cuda.empty_cache()
     for row in kernels:     # each kernel's count on the path it serves

@@ -13,7 +13,8 @@ and ``ragged_paged_attention_kernel`` of ``repro.kernels.decode_attention``.
   ``token_pos < 0`` marks a dead padding token.
 
 In all three a row with nothing to see (``cur_len <= 0``, a dead token)
-gives exact zeros, as the reference kernels do. The CUDA kernels are the
+gives exact zeros, as the reference kernels do, and K/V past a row's
+length (stale rows, scratch page 0) never reaches the output, even NaN. The CUDA kernels are the
 three C entry points of ``csrc/decode_attention.cu``. Each single query
 token walks its history split over a thread-block cluster of
 ``decode_split(capacity)`` blocks (capacity: S, or ``npages x
@@ -96,7 +97,10 @@ def decode_attention_plain(q, k_cache, v_cache, cur_len):
     ok = torch.arange(S, device=q.device)[None, :] < lens[:, None]
     s = s.masked_fill(~ok[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float()).reshape(b, h, hd)
+    # unread positions contribute exact zeros, whatever V holds there (a
+    # stale NaN times a masked-out 0 would be NaN), as the kernels stage
+    v = torch.where(ok[:, :, None, None], v_cache.float(), 0.0)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v).reshape(b, h, hd)
     o = o.masked_fill((lens <= 0)[:, None, None], 0.0)
     return o.to(q.dtype)
 

@@ -146,12 +146,17 @@ def make_arrivals(args, vocab_size: int, n_tasks: int,
     return arrivals
 
 
-def serve(engine: ServeEngine, args, arrivals) -> ContinuousScheduler:
-    """Serve the stream to the end on a fresh scheduler."""
-    sched = ContinuousScheduler(engine, SchedulerConfig(
+def make_scheduler(engine: ServeEngine, args) -> ContinuousScheduler:
+    """A fresh scheduler over ``engine`` as the flags configure it."""
+    return ContinuousScheduler(engine, SchedulerConfig(
         num_slots=args.slots, kv_layout=args.layout,
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk, max_prefills=args.max_prefills))
+
+
+def serve(engine: ServeEngine, args, arrivals) -> ContinuousScheduler:
+    """Serve the stream to the end on a fresh scheduler."""
+    sched = make_scheduler(engine, args)
     sched.run_stream(arrivals)
     return sched
 

@@ -166,7 +166,11 @@ def attention_decode(q, k_cache, v_cache, cur_len, *, window=0):
         ok &= pos[None, :] > (cl - 1 - window)[:, None]
     mask = ok[:, None, None, None, :]
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v_cache.dtype), v_cache)
+    # positions past cur_len contribute exact zeros even where V holds NaN
+    # (a row with cur_len 0 still averages the whole cache)
+    read = ok | (cl <= 0)[:, None]
+    v = torch.where(read[:, :, None, None], v_cache, 0.0)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
     return out.reshape(b, 1, h, hd)
 
 

@@ -80,6 +80,22 @@ def check_table_reach(token_rows, token_pos, npages: int,
             f"{block_size} positions)")
 
 
+def check_write_fresh(token_rows, token_pos, committed) -> None:
+    """Raise ValueError if a live token would write K/V below its slot's
+    committed depth ``committed[slot]`` (host arrays): the rows readers
+    already trust, which a retried tick must not have changed (the
+    write-fresh rule of :meth:`Model.mixed_step`)."""
+    pos = np.asarray(token_pos)
+    rows = np.asarray(token_rows)
+    low = np.flatnonzero((pos >= 0) & (pos < np.asarray(committed)[rows]))
+    if low.size:
+        t = int(low[0])
+        raise ValueError(
+            f"token {t} of slot {int(rows[t])} writes position {int(pos[t])} "
+            f"below the slot's committed depth "
+            f"{int(np.asarray(committed)[rows[t]])}")
+
+
 class Model:
     def __init__(self, cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
                  device="cuda"):
@@ -414,6 +430,19 @@ class Model:
         tokens all write page 0, offset 0; CUDA leaves the order of those
         duplicate writes undefined, which is harmless only because page 0
         is never read unmasked. Returns (logits (num_slots, V), cache).
+
+        Write-fresh rule, which makes a failed tick safe to retry without a
+        snapshot (the reference retries against its untouched old cache):
+        a tick writes K/V only at (slot, pos) at or past what the slot has
+        committed (a decode row at ``pos == cur_len``, a prefill chunk at
+        ``pos >= done``; the scheduler holds every tick to it with
+        ``check_write_fresh`` before the dispatch), dead tokens on scratch page 0, and within each layer the
+        scatter runs before attention reads. So a tick that raised part
+        way, or whose logits were poisoned, changed only rows that no
+        reader has trusted yet, and its retry rewrites each of them before
+        reading it: the pool is as good as untouched for every reader.
+        Page sharing (fork, a prefix cache) must keep the rule: a shared
+        page is copied before any write into it.
         Indices on the CPU are held to the block table first
         (:func:`check_table_reach`); on the card that check would wait on
         the stream, so ``ServeEngine.serve_step`` makes it on its host

@@ -16,11 +16,15 @@ Three ways to serve:
   token list through ``Model.mixed_step`` plus the per-slot token draw;
 - the slotted scheduler tick: :meth:`prefill_request` per admitted prompt,
   then one :meth:`decode_mixed` call over every slot of the contiguous pool.
+
+:meth:`inject_fault` arms a one-shot fault for the next :meth:`serve_step`
+(the fault-injection harness, ``serve.faults``): a raised
+:class:`DispatchFault`, or a NaN logits row.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,11 @@ from repro_torch.serve.sampling import sample_tokens
 @dataclass(frozen=True)
 class ServeConfig:
     max_len: int = 2048
+
+
+class DispatchFault(RuntimeError):
+    """A serve_step dispatch that failed before reaching the model (an
+    injected allocation failure); the scheduler's tick loop retries it."""
 
 
 def _tensors(tree):
@@ -98,6 +107,18 @@ class ServeEngine:
         # serve_step, prefill_request, sample_first and decode_mixed calls:
         # the scheduler asserts one per paged tick
         self.dispatches = 0
+        self._pending_fault: Optional[Tuple[str, int]] = None
+
+    def inject_fault(self, kind: str, slot: int = -1) -> None:
+        """Arm a one-shot fault that the next :meth:`serve_step` consumes
+        (fault injection only). ``"alloc_failure"`` raises
+        :class:`DispatchFault` before anything is uploaded; ``"nan"``
+        writes NaN into slot ``slot``'s logits row on the device after the
+        model's call and before the finiteness check, where a real
+        numerical fault would surface."""
+        if kind not in ("nan", "alloc_failure"):
+            raise ValueError(f"unknown injected fault kind: {kind!r}")
+        self._pending_fault = (kind, slot)
 
     def _peft(self, task_ids: torch.Tensor):
         """The model's peft argument for rows of ``task_ids``: the bundle
@@ -222,7 +243,12 @@ class ServeEngine:
         (num_slots, V) on the device, the pool cache (updated in place),
         per-slot finite flags (num_slots,) bool np: False means that slot's
         logits row holds NaN/inf). Raises ValueError, before any upload, for
-        a live token whose position lies past its slot's block table."""
+        a live token whose position lies past its slot's block table. An
+        armed :meth:`inject_fault` is consumed here."""
+        fault, self._pending_fault = self._pending_fault, None
+        if fault is not None and fault[0] == "alloc_failure":
+            raise DispatchFault(
+                "injected allocation failure before dispatch (fault plan)")
         check_table_reach(token_rows, token_pos, block_tables.shape[1],
                           cache["k"].shape[2])
         temps = np.asarray(sample[0], np.float32)
@@ -244,6 +270,8 @@ class ServeEngine:
                                  keys.long() & 0xFFFFFFFF, steps)
         else:
             toks = logits.argmax(dim=-1)
+        if fault is not None:       # "nan": after the model, before the check
+            logits[fault[1]] = float("nan")
         finite = torch.isfinite(logits).all(dim=-1)
         out = torch.stack([toks.int(), finite.int()]).cpu().numpy()
         self.dispatches += 1

@@ -19,6 +19,9 @@ are only ever read masked).
 Bookkeeping (slots, pages, refcounts, lengths, task ids, block tables) is
 host-side numpy, mutated between device steps; the device holds only the
 caches, which the model's steps and the prefill installs write in place.
+Besides free and mapped, a page of the paged pool can be seized (fault
+injection takes it off the free list for a while) or quarantined (a
+poisoned request's pages, held off the free list until released).
 """
 from __future__ import annotations
 
@@ -136,6 +139,8 @@ class PagedKVPool:
         self._free_blocks: List[int] = list(range(num_blocks - 1, 0, -1))
         self._pages: Dict[int, List[int]] = {}
         self._refs = np.zeros(num_blocks, np.int32)  # holders per page
+        self._seized: Set[int] = set()      # pages held by fault injection
+        self._quarantined: Set[int] = set()  # poisoned pages held back
         self.peak_pages = 0                 # high-water blocks_in_use
 
     # ------------------------------------------------------------------
@@ -144,8 +149,19 @@ class PagedKVPool:
     def has_free(self) -> bool:
         return bool(self._free_slots)
 
+    def free_blocks(self) -> int:
+        return len(self._free_blocks)
+
     def blocks_in_use(self) -> int:
         return self.num_blocks - 1 - len(self._free_blocks)
+
+    def num_seized(self) -> int:
+        """Pages currently held by fault injection (:meth:`seize_pages`)."""
+        return len(self._seized)
+
+    def num_quarantined(self) -> int:
+        """Pages in the quarantine hold (:meth:`quarantine_slot`)."""
+        return len(self._quarantined)
 
     def pages_needed(self, tokens: int) -> int:
         return -(-tokens // self.block_size)
@@ -197,18 +213,65 @@ class PagedKVPool:
         self._note_peak()
         return True
 
-    def free(self, slot: int) -> None:
+    def seize_pages(self, n: int) -> List[int]:
+        """Fault injection: pull up to ``n`` pages off the free list, so
+        the pool looks exhausted to the scheduler (admission backpressure,
+        preemption, prefill aborts run for real). Seized pages are never
+        mapped; :meth:`restore_pages` gives them back, and until then
+        :meth:`leak_report` lists them."""
+        take = min(max(n, 0), len(self._free_blocks))
+        pages = [self._free_blocks.pop() for _ in range(take)]
+        self._seized.update(pages)
+        return pages
+
+    def restore_pages(self, pages: List[int]) -> None:
+        """Return pages taken by :meth:`seize_pages` to the free list."""
+        for p in pages:
+            if p not in self._seized:
+                raise ValueError(f"page {p} was not seized")
+            self._seized.remove(p)
+            self._free_blocks.append(p)
+
+    def _release_slot(self, slot: int, hold: Optional[Set[int]]) -> int:
+        """Unmap ``slot``; each page it was the last holder of goes to the
+        free list, or into ``hold`` when given. Returns those pages' count."""
         if slot not in self._used_slots:
             raise ValueError(f"slot {slot} is not allocated")
         self._used_slots.remove(slot)
+        released = 0
         for page in reversed(self._pages.pop(slot)):
             self._refs[page] -= 1
             if self._refs[page] == 0:
-                self._free_blocks.append(page)
+                if hold is None:
+                    self._free_blocks.append(page)
+                else:
+                    hold.add(page)
+                released += 1
         self.block_tables[slot] = 0
         self.cur_len[slot] = 0
         self.task_id[slot] = 0
         self._free_slots.append(slot)
+        return released
+
+    def free(self, slot: int) -> None:
+        self._release_slot(slot, None)
+
+    def quarantine_slot(self, slot: int) -> int:
+        """:meth:`free` for a poisoned request (non-finite logits): the slot
+        returns to the free list, but the pages it held go to a quarantine
+        hold, never handed out again until :meth:`release_quarantined` (the
+        scheduler's shutdown calls it), so the K/V that gave the bad logits
+        stays readable. Returns the number of pages held."""
+        return self._release_slot(slot, self._quarantined)
+
+    def release_quarantined(self) -> int:
+        """Return every quarantined page to the free list; returns how
+        many. Their stale K/V is harmless: a new holder writes each row
+        before any read of it, and reads past a row's length are masked."""
+        n = len(self._quarantined)
+        self._free_blocks.extend(sorted(self._quarantined, reverse=True))
+        self._quarantined.clear()
+        return n
 
     def write_prefill(self, slot: int, req_cache, length: int) -> None:
         """Scatter a request's batch-1 contiguous prefill cache ``{"k",
@@ -256,8 +319,10 @@ class PagedKVPool:
     def leak_report(self) -> List[str]:
         """Invariant sweep: slots partition into free and used; each page's
         refcount equals the number of slots mapping it; pages partition
-        into free and mapped (scratch page 0 excluded). Returns findings
-        (empty = clean)."""
+        into free, mapped, seized and quarantined (scratch page 0
+        excluded). Quarantined pages are accounted, not a finding; pages
+        still seized are one (a fault plan must restore them). Returns
+        findings (empty = clean)."""
         bad = _free_slot_findings(self._free_slots, self._used_slots,
                                   self.num_slots, self.cur_len)
         if set(self._pages) != self._used_slots:
@@ -284,8 +349,18 @@ class PagedKVPool:
         mapped = {p for pages in self._pages.values() for p in pages}
         if fb & mapped:
             bad.append(f"pages both free and mapped: {sorted(fb & mapped)}")
-        leaked = set(range(1, self.num_blocks)) - (fb | mapped)
+        seized, held = self._seized, self._quarantined
+        if seized & (fb | mapped):
+            bad.append(f"seized pages also free or mapped: "
+                       f"{sorted(seized & (fb | mapped))}")
+        if held & (fb | mapped | seized):
+            bad.append(f"quarantined pages also free, mapped or seized: "
+                       f"{sorted(held & (fb | mapped | seized))}")
+        if seized:
+            bad.append(f"pages still seized by fault injection: "
+                       f"{sorted(seized)}")
+        leaked = set(range(1, self.num_blocks)) - (fb | mapped | seized | held)
         if leaked:
-            bad.append(f"leaked pages (neither free nor mapped): "
-                       f"{sorted(leaked)}")
+            bad.append(f"leaked pages (neither free, mapped nor "
+                       f"quarantined): {sorted(leaked)}")
         return bad

@@ -19,12 +19,19 @@ task, prompt and ``max_new_tokens``; requests join between ticks.
 - ``kv_layout="slots"``: whole-prompt admission into a contiguous slot,
   then one ``decode_mixed`` call over every slot per tick.
 
-Not ported yet: priorities and shedding, deadlines, ``abort`` and
-``shutdown``, the journal, fault injection and quarantine, prefix caching,
-``n > 1`` samples, observability. A dispatch that raises is not retried:
-the model writes the KV caches in place, so a failed tick cannot be
-replayed against an untouched pool; it raises. A reported logits row of a
-paged tick that is not finite raises too.
+The paged tick heals itself. A dispatch that raises is repacked and
+retried, up to ``tick_retries`` times, then re-raised; a request whose
+reported logits row is not finite is quarantined (its pages held off the
+free list) and the tick is retried with the survivors. The model writes
+the pool in place, yet the retry is exact: a tick writes only rows that no
+reader trusts yet and rewrites each before reading it (the write-fresh
+rule of ``Model.mixed_step``, checked on the host every tick). ``abort``
+cancels a request in any state, ``deadline_ticks`` aborts one that has
+not finished in time, and ``shutdown`` drains, aborts what is left and
+sweeps the pool. ``serve.faults`` drives all of it from a seeded plan.
+
+Not ported yet: priorities and the bounded queue, the journal (so a crash
+cannot be recovered), prefix caching, ``n > 1`` samples, observability.
 """
 from __future__ import annotations
 
@@ -36,11 +43,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.models.model import check_write_fresh
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kv_pool import PagedKVPool, SlotKVPool
 from repro_torch.serve.sampling import SamplingParams, request_base_key
 
 QUEUED, RUNNING, FINISHED = "queued", "running", "finished"
+ABORTED, SHED, QUARANTINED = "aborted", "shed", "quarantined"
+# every state a request can end in
+TERMINAL_STATES = (FINISHED, SHED, ABORTED, QUARANTINED)
 
 
 class InvalidRequest(ValueError):
@@ -48,7 +59,17 @@ class InvalidRequest(ValueError):
 
 
 class InvalidConfig(ValueError):
-    """A malformed :class:`SchedulerConfig` knob."""
+    """A malformed :class:`SchedulerConfig` knob or scheduler argument."""
+
+
+class ShedError(RuntimeError):
+    """The scheduler refused an admissible request: it is draining
+    (``reason="shutting_down"``)."""
+
+    def __init__(self, rid: int, reason: str):
+        super().__init__(f"request {rid} shed: {reason}")
+        self.rid = rid
+        self.reason = reason
 
 
 def _check_count(name: str, v, minimum: int) -> int:
@@ -74,10 +95,16 @@ class Request:
     eos_id: Optional[int] = None
     on_token: Optional[Callable[["Request", int], None]] = None
     sampling: Optional[SamplingParams] = None
+    deadline_ticks: Optional[int] = None  # aborted unless finished within
+                                          # this many ticks of submission
     # filled in by the scheduler
     out: List[int] = field(default_factory=list)
     state: str = QUEUED
     slot: int = -1
+    finish_reason: str = ""             # "" (completed) | deadline | client |
+                                        # disconnect | shutdown | nan_logits
+                                        # | shutting_down
+    submit_tick: int = 0                # scheduler tick at submit
     t_submit: float = 0.0
     t_done: float = 0.0
 
@@ -94,6 +121,10 @@ class SchedulerConfig:
                                         # across in-flight prefills (paged
                                         # only; 0 = whole-prompt admission)
     max_prefills: int = 4               # cap on concurrently chunking prefills
+    tick_retries: int = 2               # retries of one paged tick after a
+                                        # raised dispatch before the fault
+                                        # is re-raised (a quarantine's
+                                        # retry needs none)
 
 
 @dataclass
@@ -111,6 +142,20 @@ class _Prefill:
         return self.length - self.done
 
 
+@dataclass
+class DrainReport:
+    """What :meth:`ContinuousScheduler.shutdown` did with the work left."""
+    finished: int                       # requests completed overall
+    shed_rids: List[int]                # rids aborted when the grace ended
+    grace_ticks_used: int               # ticks spent draining
+    leak_findings: List[str]            # pool invariant sweep (empty = clean)
+    quarantined_pages_released: int = 0  # the quarantine hold, freed
+
+    @property
+    def clean(self) -> bool:
+        return not self.leak_findings
+
+
 class ContinuousScheduler:
     """Drives a ServeEngine and a KV pool over an online stream."""
 
@@ -119,7 +164,8 @@ class ContinuousScheduler:
         cfg = cfg if cfg is not None else SchedulerConfig()
         for knob, lo in (("num_slots", 1), ("bucket_min", 1),
                          ("block_size", 1), ("num_blocks", 0),
-                         ("prefill_chunk", 0), ("max_prefills", 1)):
+                         ("prefill_chunk", 0), ("max_prefills", 1),
+                         ("tick_retries", 0)):
             _check_count(f"SchedulerConfig.{knob}", getattr(cfg, knob), lo)
         if cfg.kv_layout not in ("paged", "slots"):
             raise InvalidConfig(f"SchedulerConfig.kv_layout must be 'paged' "
@@ -146,6 +192,14 @@ class ContinuousScheduler:
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}        # slot -> request
         self.finished: Dict[int, Request] = {}       # rid -> request
+        self.aborted: Dict[int, Request] = {}        # client, disconnect,
+                                                     # deadline, shutdown
+        self.shed: Dict[int, Request] = {}           # refused at submit
+        self.quarantined: Dict[int, Request] = {}    # non-finite logits
+        self.deadline_misses = 0
+        self.dispatch_faults = 0        # serve_step calls that raised
+        self.tick_retries_used = 0      # retry passes of the tick loop
+        self._draining = False
         self.slot_tokens = np.zeros((cfg.num_slots, 1), np.int32)
         # per-slot sampling vectors, threaded into serve_step
         self.slot_temps = np.zeros(cfg.num_slots, np.float32)
@@ -183,6 +237,10 @@ class ContinuousScheduler:
         prompt = np.asarray(req.prompt)
         if prompt.ndim != 1 or len(prompt) < 1:
             raise InvalidRequest(f"request {req.rid}: empty prompt")
+        if req.deadline_ticks is not None and req.deadline_ticks < 1:
+            raise InvalidRequest(
+                f"request {req.rid}: deadline_ticks must be >= 1 "
+                f"(got {req.deadline_ticks})")
         num_tasks = self.engine.num_tasks
         if num_tasks is not None and not 0 <= req.task_id < num_tasks:
             raise InvalidRequest(
@@ -218,9 +276,17 @@ class ContinuousScheduler:
         return min(b, self.max_len)
 
     def submit(self, req: Request) -> None:
-        """Validate and enqueue; raises :class:`InvalidRequest`."""
+        """Validate and enqueue. Raises :class:`InvalidRequest` for a
+        malformed request and :class:`ShedError` while :meth:`shutdown`
+        drains (the request is then recorded in ``self.shed``)."""
         self._validate(req)
+        if self._draining:
+            req.state, req.finish_reason = SHED, "shutting_down"
+            self.shed[req.rid] = req
+            raise ShedError(req.rid, "shutting_down")
         req.state = QUEUED
+        req.finish_reason = ""
+        req.submit_tick = self.ticks
         req.t_submit = time.perf_counter()
         self.queue.append(req)
 
@@ -356,7 +422,7 @@ class ContinuousScheduler:
             self.slot_tokens[slot, 0] = req.out[-1]
         else:
             self.slot_tokens[slot, 0] = tok
-            if self._emit(req, tok):
+            if self._emit(req, tok) and self.running.get(slot) is req:
                 self._finish(req)
 
     def _admission_tick(self) -> None:
@@ -417,16 +483,129 @@ class ContinuousScheduler:
                 elif slot != oldest:
                     self._preempt(slot)
                     break
+                elif self.pool.num_seized():
+                    # fault injection seized the free list: even the last
+                    # row cannot append, so it waits the fault out as a
+                    # queued recompute
+                    self._preempt(slot)
+                    break
                 else:
                     raise RuntimeError(
                         "paged KV pool cannot hold a single request; raise "
                         "num_blocks (needs >= max_len/block_size + 1)")
 
     # ------------------------------------------------------------------
+    # client aborts, quarantine, deadlines, graceful drain
+    # ------------------------------------------------------------------
+    def _take(self, rid: int, release) -> List[Request]:
+        """Remove every live part of request ``rid`` (queued, chunking, or
+        decoding), calling ``release(slot)`` on each slot it holds."""
+        found = [r for r in self.queue if r.rid == rid]
+        if found:
+            self.queue = deque(r for r in self.queue if r.rid != rid)
+        live_pfs = [pf for pf in self._prefills if pf.req.rid == rid]
+        if live_pfs:
+            # rebuilt, not mutated: a tick may be iterating the old list
+            self._prefills = [pf for pf in self._prefills
+                              if pf.req.rid != rid]
+            for pf in live_pfs:
+                release(pf.slot)
+                found.append(pf.req)
+        for slot, r in list(self.running.items()):
+            if r.rid == rid:
+                self.running.pop(slot)
+                self._admit_seq.pop(slot, None)
+                release(slot)
+                found.append(r)
+        t_done = time.perf_counter()
+        for r in found:
+            r.slot, r.t_done = -1, t_done
+        return found
+
+    def _release(self, slot: int) -> None:
+        self.pool.free(slot)
+        self.slot_temps[slot] = 0.0
+
+    def _quarantine_slot(self, slot: int) -> None:
+        """The paged pool holds a poisoned slot's pages back; a contiguous
+        slot has nothing to hold and is freed."""
+        if self.paged:
+            self.pool.quarantine_slot(slot)
+        else:
+            self.pool.free(slot)
+        self.slot_temps[slot] = 0.0
+
+    def abort(self, rid: int, reason: str = "client") -> bool:
+        """Cancel request ``rid`` in whatever state it is in (queued,
+        preempted, mid-prefill, mid-decode), freeing its slot and pages.
+        Safe between ticks and from an ``on_token`` callback inside one
+        (the tick re-checks each row's owner). Returns False when ``rid``
+        holds nothing live (finished, shed, or unknown)."""
+        found = self._take(rid, self._release)
+        if not found:
+            return False
+        for r in found:
+            r.state, r.finish_reason = ABORTED, reason
+        self.aborted[rid] = found[0]
+        return True
+
+    def quarantine(self, rid: int, reason: str = "nan_logits") -> bool:
+        """Terminally remove a poisoned request, the watchdog's answer to
+        non-finite logits: as :meth:`abort`, except that its pages go to
+        the pool's quarantine hold (released by :meth:`shutdown`) and the
+        record lands in ``self.quarantined``. Partial output stays on the
+        request. Returns True if anything live was quarantined."""
+        found = self._take(rid, self._quarantine_slot)
+        if not found:
+            return False
+        for r in found:
+            r.state, r.finish_reason = QUARANTINED, reason
+        self.quarantined[rid] = found[0]
+        return True
+
+    def _expire_deadlines(self) -> None:
+        """Abort every live request that has had ``deadline_ticks`` full
+        ticks since it was submitted."""
+        t = self.ticks
+        live = (list(self.queue) + [pf.req for pf in self._prefills]
+                + list(self.running.values()))
+        expired = {r.rid for r in live if r.deadline_ticks is not None
+                   and t - r.submit_tick >= r.deadline_ticks}
+        for rid in sorted(expired):
+            if self.abort(rid, reason="deadline"):
+                self.deadline_misses += 1
+
+    def shutdown(self, grace_ticks: int = 0) -> DrainReport:
+        """Graceful drain: shed every new submission (``ShedError``,
+        reason ``"shutting_down"``), tick up to ``grace_ticks`` times so
+        in-flight and queued work can finish, abort what is left (reason
+        ``"shutdown"``, partial output kept), release the quarantine hold
+        and sweep the pool. ``grace_ticks`` is checked before anything
+        changes (:class:`InvalidConfig`)."""
+        grace_ticks = _check_count("grace_ticks", grace_ticks, 0)
+        self._draining = True
+        start = self.ticks
+        while self.busy() and self.ticks - start < grace_ticks:
+            self.step()
+        shed_rids = sorted({r.rid for r in self.queue}
+                           | {pf.req.rid for pf in self._prefills}
+                           | {r.rid for r in self.running.values()})
+        for rid in shed_rids:
+            self.abort(rid, reason="shutdown")
+        released = self.pool.release_quarantined() if self.paged else 0
+        return DrainReport(
+            finished=len(self.finished), shed_rids=shed_rids,
+            grace_ticks_used=self.ticks - start,
+            leak_findings=self.drain_check(),
+            quarantined_pages_released=released)
+
+    # ------------------------------------------------------------------
     def step(self) -> None:
-        """One scheduler tick. Paged: ONE serve_step call over the packed
-        batch of decode tokens and every in-flight prefill's chunk. Slots:
-        whole-prompt admission, then one decode_mixed call."""
+        """One scheduler tick: expire deadlines, then paged: ONE serve_step
+        call over the packed batch of decode tokens and every in-flight
+        prefill's chunk (retried on a fault); slots: whole-prompt
+        admission, then one decode_mixed call."""
+        self._expire_deadlines()
         if self.paged:
             self._paged_tick()
         else:
@@ -454,24 +633,21 @@ class ContinuousScheduler:
             budget -= take
         return shares
 
-    def _paged_tick(self) -> None:
-        """Pack the batch's real tokens into one flat list (decode rows,
-        then every in-flight prefill's chunk) and dispatch it once. The
-        packed width is one of two static values: ``num_slots`` for a
-        decode-only tick, ``num_slots - 1 + prefill_chunk`` otherwise
-        (dead-token padded)."""
-        self._admission_tick()
-        if self.running:
-            self._ensure_pages()    # may preempt rows / abort prefills
+    def _pack(self):
+        """The tick's packed token list: decode rows, then every in-flight
+        prefill's chunk. The packed width is one of two static values:
+        ``num_slots`` for a decode-only tick, ``num_slots - 1 +
+        prefill_chunk`` otherwise (dead-token padded). Returns the
+        serve_step arrays, each slot's committed depth, the per-prefill
+        shares and the prefills whose final chunk is packed."""
         pfs = self._prefills
-        if not self.running and not pfs:
-            return
         ns, qw = self.cfg.num_slots, self._qw
         T = ns - 1 + qw if pfs else ns
         tokens = np.zeros((T, 1), np.int32)
         token_rows = np.zeros(T, np.int32)
         token_pos = np.full(T, -1, np.int32)            # -1 = dead padding
         logit_idx = np.zeros(ns, np.int32)
+        committed = self.pool.cur_len.copy()
         finishing: List[_Prefill] = []                  # final chunk lands
         t = 0
         for slot, req in self.running.items():
@@ -483,6 +659,7 @@ class ContinuousScheduler:
             t += 1
         shares = self._split_budget()
         for pf, n in zip(pfs, shares):
+            committed[pf.slot] = pf.done
             if n == 0:          # budget spent by shorter prefills
                 continue
             lo = pf.done
@@ -494,29 +671,64 @@ class ContinuousScheduler:
                 self._arm_first_draw(pf.req, pf.slot)
                 finishing.append(pf)
             t += n
-        sample = (self.slot_temps, self.slot_topk, self.slot_topp,
-                  self.slot_keys, self.slot_steps)
-        toks, _, cache, finite = self.engine.serve_step(
-            tokens, token_rows, token_pos, logit_idx, self.pool.cache,
-            self.pool.block_tables, self.pool.task_id[token_rows], sample)
-        # only rows whose logits this tick reports are consulted
-        bad = sorted({req.rid for slot, req in self.running.items()
-                      if not finite[slot]}
-                     | {pf.req.rid for pf in finishing if not finite[pf.slot]})
-        if bad:
-            raise RuntimeError(f"non-finite logits for requests {bad}")
+        return (tokens, token_rows, token_pos, logit_idx, committed, shares,
+                finishing)
+
+    def _paged_tick(self) -> None:
+        """Pack the batch's real tokens into one flat list and dispatch it
+        once, in a loop that heals the tick. A dispatch that raises is
+        repacked and retried, up to ``cfg.tick_retries`` times, then
+        re-raised; no host state changed, and the write-fresh rule makes
+        the in-place pool as good as untouched (the retry's kernels queue
+        behind the failed attempt's on the same stream, with no wait). A
+        dispatch that reports a non-finite logits row for a live request
+        quarantines that request and retries with the survivors, whose
+        tokens are then bitwise those of a tick that was never poisoned;
+        the batch shrinks every pass, so this path needs no budget."""
+        self._admission_tick()
+        if self.running:
+            self._ensure_pages()    # may preempt rows / abort prefills
+        faults = 0
+        while True:
+            pfs = self._prefills
+            if not self.running and not pfs:
+                return              # nothing live, or all quarantined
+            (tokens, token_rows, token_pos, logit_idx, committed, shares,
+             finishing) = self._pack()
+            check_write_fresh(token_rows, token_pos, committed)
+            sample = (self.slot_temps, self.slot_topk, self.slot_topp,
+                      self.slot_keys, self.slot_steps)
+            try:
+                toks, _, cache, finite = self.engine.serve_step(
+                    tokens, token_rows, token_pos, logit_idx,
+                    self.pool.cache, self.pool.block_tables,
+                    self.pool.task_id[token_rows], sample)
+            except Exception:
+                self.dispatch_faults += 1
+                faults += 1
+                if faults > self.cfg.tick_retries:
+                    raise
+                self.tick_retries_used += 1
+                continue
+            # only rows whose logits this tick reports are consulted
+            bad = {req.rid for slot, req in self.running.items()
+                   if not finite[slot]}
+            bad |= {pf.req.rid for pf in finishing if not finite[pf.slot]}
+            if not bad:
+                break
+            for rid in sorted(bad):
+                self.quarantine(rid, reason="nan_logits")
+            self.tick_retries_used += 1
         self.pool.cache = cache
         active = list(self.running.items())
         if active:
             self.pool.advance([s for s, _ in active])
             self.steps_decoded += 1
-            for slot, req in active:
-                tok = int(toks[slot])
-                self.slot_tokens[slot, 0] = tok
-                if self._emit(req, tok):
-                    self._finish(req)
+            self._emit_rows(active, toks)
         still: List[_Prefill] = []
         for pf, n in zip(pfs, shares):
+            if pf.req.state in TERMINAL_STATES:
+                continue            # aborted mid-tick; pages already gone
             if n == 0:
                 still.append(pf)
                 continue
@@ -526,8 +738,23 @@ class ContinuousScheduler:
                 still.append(pf)
                 continue
             self._install(pf.req, pf.slot, pf.length, int(toks[pf.slot]))
-        self._prefills = still
+        # an on_token abort during an install rebuilt self._prefills; do
+        # not bring an aborted entry back from ``still``
+        self._prefills = [pf for pf in still
+                          if pf.req.state not in TERMINAL_STATES]
         self.peak_running = max(self.peak_running, len(self.running))
+
+    def _emit_rows(self, active, toks) -> None:
+        """Feed back and emit each decode row's token. A row is skipped
+        once an ``on_token`` callback has aborted its request."""
+        for slot, req in active:
+            if self.running.get(slot) is not req:
+                continue        # aborted by an earlier row's callback
+            tok = int(toks[slot])
+            self.slot_tokens[slot, 0] = tok
+            done = self._emit(req, tok)
+            if done and self.running.get(slot) is req:
+                self._finish(req)
 
     def _decode_sample_spec(self):
         """Per-slot sampling vectors for this decode step, or None when
@@ -559,11 +786,7 @@ class ContinuousScheduler:
         self.peak_running = max(self.peak_running, len(active))
         self.pool.advance([s for s, _ in active])
         self.steps_decoded += 1
-        for slot, req in active:
-            tok = int(toks[slot])
-            self.slot_tokens[slot, 0] = tok
-            if self._emit(req, tok):
-                self._finish(req)
+        self._emit_rows(active, toks)
 
     # ------------------------------------------------------------------
     def busy(self) -> bool:

@@ -161,3 +161,140 @@ def test_plain_ops_ragged_drops_the_plan():
         out = ops.ragged_paged_attention(q, k, v, bt, rows, pos, plan)
     assert torch.equal(out, da.ragged_paged_attention_plain(q, k, v, bt,
                                                             rows, pos))
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the faulted tick's gates and schedule
+# ---------------------------------------------------------------------------
+
+def test_survivors_expected_takes_out_every_loss():
+    assert cs.survivors_expected(range(6), [1], {4: "req"}, [5, 1]) == \
+        {0, 2, 3}
+    assert cs.survivors_expected([0, 1], [], {}, []) == {0, 1}
+
+
+def test_prefix_mismatches_stop_at_the_faulted_tick():
+    twin = {0: [5, 6, 7, 8], 1: [1, 2, 3], 2: [9, 9]}
+    ticks_of = {0: [3, 4, 10, 11], 1: [4, 5, 9], 2: [2, 6]}
+    # rid 0 differs only after tick 6, rid 1 at tick 5, rid 2 not at all
+    got = {0: [5, 6, 0, 0], 1: [1, 0, 3], 2: [9, 9]}
+    assert cs.prefix_mismatches(got, twin, ticks_of, 6) == [1]
+    assert cs.prefix_mismatches(got, twin, ticks_of, 4) == []
+    assert cs.prefix_mismatches(got, twin, ticks_of, 10) == [0, 1]
+
+
+def test_first_divergence_names_request_and_tick():
+    twin = {0: [1, 2], 1: [3, 4, 5], 2: [6]}
+    ticks_of = {0: [1, 2], 1: [2, 7, 8], 2: [3]}
+    assert cs.first_divergence({0: [1, 2], 2: [6]}, twin, ticks_of) is None
+    assert cs.first_divergence({0: [1, 2], 1: [3, 0, 5]}, twin,
+                               ticks_of) == (1, 7)
+    # one stream a prefix of the other: the tick of its last token
+    assert cs.first_divergence({1: [3, 4]}, twin, {1: [2, 7]}) == (1, 7)
+
+
+def test_fault_launches_count_the_raised_attempt():
+    assert cs.fault_launches(32, 71, 0) == 2272
+    assert cs.fault_launches(32, 71, cs.FAULT_LAYER) == 2272 + 16
+    assert cs.fault_launches(2, 5, 1) == 11
+
+
+class FakeEngine:
+    """The engine's serving interface without a model: a tick's tokens
+    are zeros, an armed fault acts as ``ServeEngine.inject_fault`` says,
+    and the block-table check runs as in ``serve_step`` (the scheduler
+    itself checks the write-fresh rule). Phase 5's scheduling
+    does not depend on the tokens (no stop or end token), so this replays
+    the card's schedule exactly."""
+
+    def __init__(self):
+        from types import SimpleNamespace
+        self.cfg = SimpleNamespace(max_len=cs.MAX_LEN)
+        self.model = SimpleNamespace(
+            cfg=SimpleNamespace(vocab_size=49152),
+            init_paged_cache=lambda nb, bs: {
+                n: torch.zeros(1, nb, bs, 1, 1) for n in ("k", "v")})
+        self.num_tasks, self.peft = 4, None
+        self.dispatches, self._pending_fault = 0, None
+
+    def inject_fault(self, kind, slot=-1):
+        self._pending_fault = (kind, slot)
+
+    def serve_step(self, tokens, token_rows, token_pos, logit_idx, cache,
+                   block_tables, token_tasks, sample):
+        import numpy as np
+        from repro_torch.models.model import check_table_reach
+        from repro_torch.serve.engine import DispatchFault
+        fault, self._pending_fault = self._pending_fault, None
+        if fault is not None and fault[0] == "alloc_failure":
+            raise DispatchFault("injected")
+        check_table_reach(token_rows, token_pos, block_tables.shape[1],
+                          cache["k"].shape[2])
+        finite = np.ones(len(logit_idx), bool)
+        if fault is not None:
+            finite[fault[1]] = False
+        self.dispatches += 1
+        return np.zeros(len(logit_idx), np.int32), None, cache, finite
+
+
+def _phase5_stream():
+    from repro_torch.launch import serve as launcher
+    args = launcher.parser().parse_args(cs.BASE + cs.GREEDY)
+    eng = FakeEngine()
+
+    def fresh():
+        return (launcher.make_scheduler(eng, args),
+                launcher.make_arrivals(args, 49152, args.tasks))
+    return eng, fresh
+
+
+def test_phase5e_f1_f2_find_their_ticks_on_phase5_stream():
+    eng, fresh = _phase5_stream()
+    twin, arrivals = fresh()
+    cs.stream_ticks(twin, arrivals)
+    assert (twin.ticks, len(twin.finished)) == (71, 16)
+    sched, arrivals = fresh()
+    state = {}
+    cs.stream_ticks(sched, arrivals, cs.f1_before(eng, state))
+    assert cs.F1_ALLOC_TICK <= state["alloc"] < cs.F1_RAISE_TICK
+    assert state["raise"] >= cs.F1_RAISE_TICK and state["armed"]
+    assert sched.dispatch_faults == sched.tick_retries_used == 1
+    assert sched.ticks == 71 and len(sched.finished) == 16
+    sched, arrivals = fresh()
+    state = {}
+    cs.stream_ticks(sched, arrivals, cs.f2_before(eng, state))
+    assert state["tick"] >= cs.F2_TICK
+    assert set(sched.quarantined) == {state["rid"]}
+    assert sched.pool.num_quarantined() > 0
+    assert len(sched.finished) == 15 and sched.drain_check() == []
+
+
+def test_phase5e_f3_plan_fires_every_kind_on_phase5_stream():
+    """F3_PLAN's seed fires every kind on phase 5's stream, work is live
+    at shutdown, and every F3 gate holds (the card runs the same
+    schedule; only the tokens differ)."""
+    _, fresh = _phase5_stream()
+    twin, arrivals = fresh()
+    cs.stream_ticks(twin, arrivals)
+    sched, arrivals = fresh()
+    res = cs.run_f3(sched, arrivals)
+    assert cs.f3_failures(sched, set(twin.finished), res, 16) == []
+    assert res["held"] > 0 and res["report"].quarantined_pages_released > 0
+    assert sched.preemptions > 0, "exhaust never pressed on the pool"
+
+
+def test_f3_failures_name_each_broken_gate():
+    _, fresh = _phase5_stream()
+    twin, arrivals = fresh()
+    cs.stream_ticks(twin, arrivals)
+    sched, arrivals = fresh()
+    res = cs.run_f3(sched, arrivals)
+    res["injector"].applied["nan"] = 0
+    res["leaks_before"] = ["leaked pages"]
+    lost = min(sched.finished)
+    sched.finished.pop(lost)
+    bad = cs.f3_failures(sched, set(twin.finished), res, 16)
+    assert "nan never fired" in bad
+    assert any(b.startswith("leaks") for b in bad)
+    assert any(b.startswith("survivors") for b in bad)
+    assert "1 requests unaccounted for" in bad
