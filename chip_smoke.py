@@ -36,9 +36,13 @@ Phases, each printing one line of results; any failure exits non-zero:
    0, lengths that straddle pages, depth 1024; pages of 16, 8 and 32; and
    bitwise equal to contiguous decode over the same K/V wherever the
    capacities match: those lengths and every split case at pages of 4-32
-   that divide S); and NaN in the K/V that nothing may read (past each
+   that divide S); NaN in the K/V that nothing may read (past each
    row's length, scratch page 0) leaves contiguous, paged and ragged
    outputs bitwise as zeros there do, kernel and plain version alike;
+   and one slot's query rows after a prefix-cache hit packed warm (a
+   chunk from the page-aligned hit) and cold (runs from 0, 200 and 8
+   before the hit), each within the tolerance, the rows not bitwise
+   equal to the warm packing's reported;
 4. kernel times at the serving paths' shapes (device time from
    torch.profiler), beside the plain version's, one PyTorch library call's
    where there is one, and the least time the card could take (bytes at
@@ -83,6 +87,17 @@ Phases, each printing one line of results; any failure exits non-zero:
    twin's requests less the disconnected, quarantined and shed; token
    equality reported); each run's kernels launch exactly 32 times per
    dispatch plus the layers a raised attempt reached;
+5f. page sharing and admission policy, through the launcher's client loop
+   (SHARED_RUNS): a 384-token system prompt per task without and with the
+   prefix cache (cold / warm: the warm run packs fewer prompt tokens by
+   the hits' tokens; tokens per request and tokens/s compared, reported);
+   n = 4 samples sampled, greedy chunked and greedy whole-prompt (flash):
+   forks and copy-on-write copies, greedy forked siblings bitwise equal;
+   a small pool whose admissions compaction rescues; a priority mix
+   against a bounded queue (queue_full and displaced sheds, retries, a
+   preemption for admission). Every run's counts must be the CPU
+   replay's (SHARED_EXPECT), every request not shed must finish, the
+   pool must drain clean and each kernel launch 32 times per call;
 6. cross-checks at full width with 2 layers, inputs drawn from a
    generator of their own (seed PHASE6_SEED; chip_seeds.py runs this phase
    at other seeds): one mixed tick, and a prefill plus three decode steps
@@ -90,7 +105,11 @@ Phases, each printing one line of results; any failure exits non-zero:
    versions fed the kernels' tokens (every logit within the bf16
    tolerance, so a token that differs is a near tie; each line counts
    them); paged against contiguous decode steps from one prefill (same
-   tokens); preempt-and-recompute parity is reported.
+   tokens); a request served warm from the prefix cache against the same
+   request cold (first-token logits and the K/V it wrote within the bf16
+   tolerance, bitwise shares reported); copy-on-write under the real tick
+   (bitwise: rows below the fork depth, every other page, differing
+   appends); preempt-and-recompute parity is reported.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -489,6 +508,7 @@ def phase_parity(gen, report):
     parity_flash(gen, report)
     parity_decode(gen, report)
     parity_stale_nan(gen, report)
+    parity_warm_cold(report)
 
 
 # ragged and paged parity builds: name -> (hd, data one element off a
@@ -943,6 +963,67 @@ def parity_stale_nan(gen, report):
     log("3 parity", kernel="decode+paged_decode+ragged (stale NaN)",
         result="kernel and plain bitwise unchanged by NaN past each row's "
         "length and on page 0", cases=len(cases))
+
+
+# phase 3's warm / cold packings of one slot's query rows: a cached prefix
+# of WARM_HIT positions (24 pages of 16), then WARM_TAIL queries (two
+# tiles of 16 and a one-token remainder); a cold prefill's second chunk
+# starts at COLD_SPLIT when the multi-prefill budget split cuts it there.
+# WARM_SWEEP adds hits where a tile's visible range crosses a multiple of
+# 256 positions (the token tile's kv split per block steps there), each
+# against a cold run from 0, one from 200 and one from 8 before the hit
+WARM_HIT, WARM_TAIL, COLD_SPLIT = 384, 33, 200
+WARM_SWEEP = (384, 496, 752)
+
+
+def parity_warm_cold(report, seed=3):
+    """Ragged attention of the same query rows (positions hit .. hit +
+    WARM_TAIL - 1 of one slot) over the same resident K/V, packed as a
+    warm chunk from the page-aligned hit and as cold runs from position
+    0, COLD_SPLIT and hit - 8, at each hit of WARM_SWEEP. Each packing
+    within TOL of its plain version; the rows of each cold packing not
+    bitwise equal to the warm one's are reported, with the smallest input
+    that has one (the token tile splits its own visible range over the
+    cluster's blocks, so a run's start can change a row's bits). Inputs
+    come from a generator of their own, so later phases draw what they
+    drew before."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=DEV)
+    lines, smallest = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        for hit in WARM_SWEEP:
+            L = hit + WARM_TAIL
+            q, k, v, bt, _, _ = ragged_inputs(gen, [0] * L, list(range(L)),
+                                              dtype)
+            k, v = k[0], v[0]
+            rows = {}
+            for lo in (hit, 0, COLD_SPLIT, hit - 8):
+                qq = q[lo:].contiguous()
+                r, p = i32([0] * (L - lo)), i32(list(range(lo, L)))
+                out = ops.ragged_paged_attention(qq, k, v, bt, r, p)
+                plain = da.ragged_paged_attention_plain(qq, k, v, bt, r, p)
+                check_close(f"ragged warm_cold/hit{hit}/from{lo}/{dtype}",
+                            out, plain, dtype, report)
+                rows[lo] = out[hit - lo:]
+            torch.cuda.synchronize()
+            for lo in (0, COLD_SPLIT, hit - 8):
+                bad = (rows[lo] != rows[hit]).flatten(1).any(1)
+                d = (rows[lo].float() - rows[hit].float()).abs().max().item()
+                key = f"{str(dtype)[6:]}/hit{hit}/from{lo}"
+                lines[key] = f"{int(bad.sum())}/{WARM_TAIL}"
+                report["parity"][f"warm_cold/{key}"] = dict(
+                    rows_not_bitwise=int(bad.sum()), rows=WARM_TAIL,
+                    max_abs_diff=d)
+                if bad.any() and (smallest is None or L < smallest[0]):
+                    smallest = (L, f"{key}/position "
+                                   f"{hit + int(bad.nonzero()[0])}")
+    report["parity"]["warm_cold/smallest"] = smallest and smallest[1]
+    log("3 parity", kernel="ragged_paged_attention (warm / cold packings)",
+        tail=WARM_TAIL, result="each packing within tolerance of its plain "
+        "version", rows_not_bitwise_vs_warm=lines,
+        smallest_input="none" if smallest is None else smallest[1])
 
 
 def flat(res):
@@ -1820,6 +1901,300 @@ def phase_faults(report, engine):
                                ("F3", f3))}
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: shared prefixes, n > 1 samples, compaction, priorities
+# ---------------------------------------------------------------------------
+
+SHARED_PROMPT = ["--requests", "16", "--system-prompt", "384",
+                 "--prompt", "128"]
+# each run's flags after BASE; the --num-blocks values are the CPU replay's
+# (tests/test_torch_smoke_checks.py): the first that shows a compaction
+# rescue, and one that sheds for a full queue, displaces and preempts for
+# admission
+SHARED_RUNS = {
+    "cold": SHARED_PROMPT + ["--prefix-cache-pages", "0"],
+    "warm": SHARED_PROMPT + ["--prefix-cache-pages", "128"],
+    "sampled_n4": ["--samples", "4", "--temperature", "0.8", "--top-p",
+                   "0.9", "--requests", "4", "--seed", "100"],
+    "greedy_n4": ["--samples", "4", "--requests", "4"],
+    "greedy_n4_whole": ["--samples", "4", "--requests", "4",
+                        "--prefill-chunk", "0"],
+    "compaction": SHARED_PROMPT + ["--num-blocks", "140"],
+    "priorities": ["--requests", "16", "--priority-mix",
+                   "latency=0.25,standard=0.5,best_effort=0.25",
+                   "--max-queue", "4", "--rate", "2", "--num-blocks", "160"],
+}
+# every count of each run, from the CPU replay with a model-less engine
+# (the schedules do not depend on the tokens: no stop or end token)
+SHARED_EXPECT = {
+    "cold": dict(ticks=99, serve_steps=99, prefill_requests=0, sample_firsts=0,
+                 prefill_tokens=7248, tokens=507, finished=16, preemptions=0,
+                 admission_preemptions=0, shed_queue_full=0, shed_displaced=0,
+                 gave_up=0, retries=0, forks=0, cow_copies=0, compactions=4,
+                 compaction_rescues=0, pages_deduped=192, forked_samples=[]),
+    "warm": dict(ticks=93, serve_steps=93, prefill_requests=0, sample_firsts=0,
+                 prefill_tokens=4944, tokens=507, finished=16, preemptions=0,
+                 admission_preemptions=0, shed_queue_full=0, shed_displaced=0,
+                 gave_up=0, retries=0, forks=0, cow_copies=0, compactions=2,
+                 compaction_rescues=0, pages_deduped=144, hits=6, misses=10,
+                 hit_tokens=2304, retained=157, evicted=29, forked_samples=[]),
+    "sampled_n4": dict(ticks=50, serve_steps=50, prefill_requests=0,
+                       sample_firsts=4, prefill_tokens=3561, tokens=324,
+                       finished=4, preemptions=0, admission_preemptions=0,
+                       shed_queue_full=0, shed_displaced=0, gave_up=0,
+                       retries=0, forks=4, cow_copies=4, compactions=4,
+                       compaction_rescues=0, pages_deduped=102,
+                       forked_samples=['0:1', '0:2', '0:3', '1:1']),
+    "greedy_n4": dict(ticks=50, serve_steps=50, prefill_requests=0,
+                      sample_firsts=4, prefill_tokens=3561, tokens=324,
+                      finished=4, preemptions=0, admission_preemptions=0,
+                      shed_queue_full=0, shed_displaced=0, gave_up=0,
+                      retries=0, forks=4, cow_copies=4, compactions=4,
+                      compaction_rescues=0, pages_deduped=102,
+                      forked_samples=['0:1', '0:2', '0:3', '1:1']),
+    "greedy_n4_whole": dict(ticks=42, serve_steps=42, prefill_requests=4,
+                            sample_firsts=4, prefill_tokens=0, tokens=324,
+                            finished=4, preemptions=0, admission_preemptions=0,
+                            shed_queue_full=0, shed_displaced=0, gave_up=0,
+                            retries=0, forks=12, cow_copies=12, compactions=0,
+                            compaction_rescues=0, pages_deduped=0,
+                            forked_samples=['0:1', '0:2', '0:3', '1:1', '1:2',
+                            '1:3', '2:1', '2:2', '2:3', '3:1', '3:2', '3:3']),
+    "compaction": dict(ticks=105, serve_steps=105, prefill_requests=0,
+                       sample_firsts=0, prefill_tokens=7248, tokens=507,
+                       finished=16, preemptions=0, admission_preemptions=0,
+                       shed_queue_full=0, shed_displaced=0, gave_up=0,
+                       retries=0, forks=0, cow_copies=0, compactions=10,
+                       compaction_rescues=7, pages_deduped=240,
+                       forked_samples=[]),
+    "priorities": dict(ticks=73, serve_steps=73, prefill_requests=0,
+                       sample_firsts=0, prefill_tokens=3470, tokens=369,
+                       finished=13, preemptions=1, admission_preemptions=1,
+                       shed_queue_full=17, shed_displaced=2, gave_up=3,
+                       retries=16, forks=0, cow_copies=0, compactions=0,
+                       compaction_rescues=0, pages_deduped=0,
+                       forked_samples=[]),
+}
+
+
+def shared_counts(sched, n, ticks_of, gave_up, retries):
+    """The counts of one 5f run that the CPU replay fixes."""
+    pool = sched.pool
+    c = dict(n, ticks=sched.ticks, tokens=sched.tokens_emitted,
+             finished=len(sched.finished), preemptions=sched.preemptions,
+             gave_up=len(gave_up), retries=retries, forks=pool.forks,
+             cow_copies=pool.cow_copies, compactions=pool.compactions,
+             pages_deduped=pool.pages_deduped,
+             forked_samples=forked_samples(ticks_of))
+    cache = pool.prefix_cache
+    if cache is not None:
+        c.update(hits=cache.hits, misses=cache.misses,
+                 hit_tokens=cache.hit_tokens,
+                 retained=cache.retained_pages, evicted=cache.evicted_pages)
+    return c
+
+
+def forked_samples(ticks_of):
+    """"rid:i" of every sample i > 0 that was forked: its first token came
+    in the tick of sample 0's (a requeued sample prefills later)."""
+    return sorted(f"{rid}:{i}" for (rid, i), t in ticks_of.items()
+                  if i > 0 and t[0] == ticks_of[(rid, 0)][0])
+
+
+def shared_run(engine, extra):
+    """One 5f stream: BASE + ``extra`` through the launcher's scheduler and
+    client loop (``run_with_retries``), counting serve_step calls, the
+    prompt tokens they packed, whole-prompt prefills, first-token draws,
+    sheds by reason, preemptions for admission and admissions that a
+    compaction rescued. Returns the
+    scheduler, the arrivals, the tick of each sample's tokens, seconds,
+    the kernels' launches and ``shared_counts``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    args = launcher.parser().parse_args(BASE + extra)
+    box, ticks_of, n = {}, {}, dict(serve_steps=0, prefill_tokens=0,
+                                     prefill_requests=0, sample_firsts=0,
+                                     shed_queue_full=0, shed_displaced=0,
+                                     admission_preemptions=0,
+                                     compaction_rescues=0)
+
+    def on_token(req, tok):
+        ticks_of.setdefault((req.rid, req.sample_idx), []).append(
+            box["sched"].ticks)
+    arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
+                                      args.tasks, on_token)
+    sched = box["sched"] = launcher.make_scheduler(engine, args)
+    step, first, prefill = (engine.serve_step, engine.sample_first,
+                            engine.prefill_request)
+    shed, claim, compact = (sched._shed, sched._preempt_for_admission,
+                            sched._try_compact)
+
+    def counted_step(tokens, token_rows, token_pos, *a):
+        n["serve_steps"] += 1
+        n["prefill_tokens"] += (int((np.asarray(token_pos) >= 0).sum())
+                                - len(sched.running))
+        return step(tokens, token_rows, token_pos, *a)
+
+    def counted_first(*a, **kw):
+        n["sample_firsts"] += 1
+        return first(*a, **kw)
+
+    def counted_prefill(*a, **kw):
+        n["prefill_requests"] += 1
+        return prefill(*a, **kw)
+
+    def counted_shed(req, reason):
+        n[f"shed_{reason}"] += 1
+        shed(req, reason)
+
+    def counted_claim(head):
+        took = claim(head)
+        n["admission_preemptions"] += took
+        return took
+    def counted_compact():
+        # a rescue: the pages compaction freed admit the queue's head (the
+        # check repeats the scheduler's next one, LRU touches included)
+        freed = compact()
+        n["compaction_rescues"] += freed and sched._can_admit_chunked(
+            sched.queue[0])
+        return freed
+    sched._shed, sched._preempt_for_admission = counted_shed, counted_claim
+    sched._try_compact = counted_compact
+    engine.serve_step, engine.sample_first = counted_step, counted_first
+    engine.prefill_request = counted_prefill
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        gave_up, retries = launcher.run_with_retries(sched, arrivals)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        del engine.serve_step, engine.sample_first, engine.prefill_request
+    return dict(sched=sched, arrivals=arrivals, ticks_of=ticks_of,
+                seconds=sec, launches=dict(ops.launches()), gave_up=gave_up,
+                counts=shared_counts(sched, n, ticks_of, gave_up, retries))
+
+
+def shared_failures(label, run, layers):
+    """5f's gates of one run, as a list of what failed (empty = passed):
+    the counts are the replay's, every request that was not shed finished
+    (every sample of it), the pool drained clean (a warm cache is
+    accounted, not leaked), and each kernel launched exactly ``layers``
+    times per call that runs it."""
+    sched, c = run["sched"], run["counts"]
+    bad = []
+    want = SHARED_EXPECT.get(label)
+    if c != want:
+        diff = {k: (c.get(k), (want or {}).get(k))
+                for k in set(c) | set(want or {})
+                if c.get(k) != (want or {}).get(k)}
+        bad.append(f"counts differ from the replay's (got, want): {diff}")
+    served = {r.rid for _, r in run["arrivals"]} - set(run["gave_up"])
+    if set(sched.finished) != served or sched.busy():
+        bad.append(f"finished {sorted(sched.finished)} != {sorted(served)}")
+    for r in sched.finished.values():
+        if r.samples is not None and any(s is None for s in r.samples):
+            bad.append(f"rid {r.rid}: a sample did not finish")
+    if sched.drain_check():
+        bad.append(f"leaks {sched.drain_check()}")
+    steps, pfs = c["serve_steps"], c["prefill_requests"]
+    try:
+        check_launches(label, run["launches"], {
+            "ragged_paged_attention": layers * steps,
+            "aot_gather_add_multitask": layers * (steps + pfs),
+            "flash_attention": layers * pfs})
+    except AssertionError as e:
+        bad.append(str(e))
+    return bad
+
+
+def requeued_tokens(sched, ticks_of):
+    """Each requeued sample's tokens ("rid:i" -> tokens): a sample of an
+    n > 1 request that found no slot to fork into and prefilled alone."""
+    forked = forked_samples(ticks_of)
+    return {f"{r.rid}:{i}": list(r.samples[i])
+            for r in sched.finished.values() if r.samples is not None
+            for i in range(1, len(r.samples))
+            if f"{r.rid}:{i}" not in forked}
+
+
+def sibling_report(sched, ticks_of):
+    """n > 1 greedy runs: whether the forked samples of each request are
+    bitwise equal to one another (they read the same pages in the same
+    ticks), and how many requeued samples equal sample 0."""
+    forked = forked_samples(ticks_of)
+    unequal = [f"{r.rid}:{i}" for r in sched.finished.values()
+               if r.samples is not None for i in range(1, len(r.samples))
+               if f"{r.rid}:{i}" in forked and r.samples[i] != r.samples[0]]
+    requeued = requeued_tokens(sched, ticks_of)
+    same = sum(toks == sched.finished[int(k.split(":")[0])].samples[0]
+               for k, toks in requeued.items())
+    return unequal, f"{same}/{len(requeued)}"
+
+
+def phase_shared(report, engine):
+    """Phase 5f: SHARED_RUNS through the launcher's own code. cold / warm:
+    a 384-token system prompt per task without and with the prefix cache
+    (the warm run packs fewer prompt tokens, by the replay's difference;
+    tokens compared per request, reported); three n = 4 runs (sampled,
+    greedy chunked, greedy whole-prompt through flash): forks and copies
+    as replayed, greedy forked siblings bitwise equal; compaction at a
+    small pool; the priority mix against a bounded queue. Every run's
+    counts are the CPU replay's (SHARED_EXPECT), and shared_failures'
+    gates hold."""
+    layers = engine.model.cfg.num_layers
+    card = smi()
+    res, launches, failed = {}, {}, {}
+    runs = {}
+    for label, extra in SHARED_RUNS.items():
+        run = runs[label] = shared_run(engine, extra)
+        sched, c = run["sched"], run["counts"]
+        bad = shared_failures(label, run, layers)
+        kv = {}
+        if label.startswith("greedy"):
+            unequal, same = sibling_report(sched, run["ticks_of"])
+            kv = dict(forked_siblings_unequal=unequal or "none",
+                      requeued_equal_sample0=same)
+            if unequal:
+                bad.append(f"forked siblings differ: {unequal}")
+        if label == "warm":
+            cold = runs["cold"]
+            got = stream_outs(sched.finished)
+            twin = stream_outs(cold["sched"].finished)
+            ticks = {rid: t for (rid, _), t in run["ticks_of"].items()}
+            div = first_divergence(got, twin, ticks)
+            n_same = sum(got[r] == twin.get(r) for r in got)
+            saved = cold["counts"]["prefill_tokens"] - c["prefill_tokens"]
+            speedup = cold["seconds"] / run["seconds"]
+            kv = dict(streams_equal_cold=f"{n_same}/{len(got)}",
+                      first_divergence="none" if div is None
+                      else f"rid {div[0]} at tick {div[1]}",
+                      prefill_tokens_saved=saved,
+                      speedup_vs_cold=f"{speedup:.3f}")
+            if saved != c["hit_tokens"]:
+                bad.append(f"warm packed {saved} fewer prompt tokens, "
+                           f"hits skipped {c['hit_tokens']}")
+        sec = run["seconds"]
+        log(f"5f shared/{label}", seconds=f"{sec:.3f}",
+            tokens_per_s=f"{sched.tokens_emitted / sec:.1f}",
+            **{k: v for k, v in c.items() if k != "forked_samples"},
+            forked=",".join(c["forked_samples"]) or "none", **kv,
+            launches=run["launches"], failures=bad or "none", card=card)
+        res[label] = dict(c, seconds=sec,
+                          tokens_per_s=sched.tokens_emitted / sec,
+                          launches=run["launches"], failures=bad,
+                          requeued_tokens=requeued_tokens(
+                              sched, run["ticks_of"]), **kv)
+        launches[f"shared_{label}"] = run["launches"]
+        if bad:
+            failed[label] = bad
+    report["shared"] = res
+    if failed:
+        raise AssertionError(f"phase 5f failed: {failed}")
+    return launches
+
+
 def paged_generate(engine, prompts, steps, task_ids):
     """The static batch over a paged pool, through the port's entry points:
     ``Model.prefill``, ``PagedKVPool.write_prefill`` of each row into its
@@ -2283,6 +2658,157 @@ def cross_check_peft(gen, report, model, params, tables):
     return [label for label, r in res.items() if not r["ok"]]
 
 
+def served_prefill(engine, sched_kw, reqs):
+    """Serve ``reqs`` one after another on a fresh scheduler; for the last
+    one, capture the logits row its final prefill chunk reported (its
+    first token's) and the K/V rows it holds at that point (every layer,
+    positions 0 .. length - 1, through its block table). Returns (the
+    last request, logits (V,) float32, {"k", "v"}: (L, length, kvh, hd)
+    float32, the prefix cache's hit tokens)."""
+    from repro_torch.serve.scheduler import (ContinuousScheduler,
+                                             SchedulerConfig)
+    sched = ContinuousScheduler(engine, SchedulerConfig(**sched_kw))
+    step, cap = engine.serve_step, {}
+    commit = sched.pool.commit_prefill
+
+    def tapped(*a):
+        out = step(*a)
+        cap["logits"] = out[1]
+        return out
+
+    def grab(slot, length):
+        commit(slot, length)
+        pages = sched.pool._pages[slot]
+        cap["row"] = cap["logits"][slot].float().clone()
+        cap["kv"] = {n: c[:, pages].flatten(1, 2)[:, :length].float().clone()
+                     for n, c in sched.pool.cache.items()}
+    engine.serve_step, sched.pool.commit_prefill = tapped, grab
+    try:
+        for r in reqs:
+            sched.submit(r)
+            sched.run()
+    finally:
+        del engine.serve_step
+    if sched.drain_check():
+        raise AssertionError(f"warm/cold: leaks {sched.drain_check()}")
+    cache = sched.pool.prefix_cache
+    return (reqs[-1], cap["row"], cap["kv"],
+            cache.hit_tokens if cache is not None else 0)
+
+
+def cross_check_warm_cold(gen, report, engine):
+    """At full width with 2 layers: request A (prefix S of WARM_HIT tokens
+    plus a tail) finishes and leaves S's pages in the prefix cache; B (S
+    plus WARM_TAIL tokens) hits them. Against B served cold (no cache, the
+    prefill budget splitting B's prompt at 200 as a stream would), B's
+    first-token logits row and the K/V rows it wrote (positions >= the
+    hit) must be within the bf16 tolerance; the cached rows against
+    cold B's own are reported, as are the bitwise shares, a near-tie flip
+    and whether B's greedy tokens agree. Returns whether the gate held."""
+    vocab = engine.model.cfg.vocab_size
+    rnd = lambda n: torch.randint(0, vocab, (n,), generator=gen, device=DEV,
+                                  dtype=torch.int32).cpu().numpy()
+    from repro_torch.serve.scheduler import Request
+    S, a, b = rnd(WARM_HIT), rnd(37), rnd(WARM_TAIL)
+    mk = lambda rid, tail: Request(rid=rid, prompt=np.concatenate([S, tail]),
+                                   task_id=2, max_new_tokens=8)
+    kw = dict(num_slots=4, block_size=BS, prefill_chunk=COLD_SPLIT,
+              max_prefills=2)
+    wb, w_row, w_kv, hit = served_prefill(
+        engine, dict(kw, prefix_cache_pages=64), [mk(0, a), mk(1, b)])
+    cb, c_row, c_kv, _ = served_prefill(engine, kw, [mk(1, b)])
+    res = against_plain(w_row[None], c_row[None])
+    kv = {}
+    for part, sl in (("written", slice(hit, None)),
+                     ("cached", slice(0, hit))):
+        w = torch.cat([w_kv[n][:, sl].flatten() for n in ("k", "v")])
+        c = torch.cat([c_kv[n][:, sl].flatten() for n in ("k", "v")])
+        kv[part] = dict(max_abs_err=(w - c).abs().max().item(),
+                        bitwise_share=(w == c).float().mean().item(),
+                        ok=torch.allclose(w, c, atol=TOL[torch.bfloat16],
+                                          rtol=TOL[torch.bfloat16]))
+    share = (w_row == c_row).float().mean().item()
+    ok = res["ok"] and kv["written"]["ok"] and hit == WARM_HIT
+    log("6 cross-check warm/cold", layers=2, hit=hit,
+        logits=f"{res['logits_max_abs_err']:.3e}/bitwise {share:.4f}"
+        f"/ties {res['near_ties']}",
+        kv_written=f"{kv['written']['max_abs_err']:.3e}"
+        f"/bitwise {kv['written']['bitwise_share']:.4f}",
+        kv_cached=f"{kv['cached']['max_abs_err']:.3e}"
+        f"/bitwise {kv['cached']['bitwise_share']:.4f}",
+        tokens="identical" if wb.out == cb.out else f"{wb.out} vs {cb.out}",
+        required="logits and written K/V within the bf16 tolerance")
+    report["cross_check_warm_cold"] = dict(
+        res, hit=hit, logits_bitwise_share=share, kv=kv,
+        tokens_equal=wb.out == cb.out)
+    return ok
+
+
+def cross_check_cow(gen, report, engine):
+    """At full width with 2 layers, copy-on-write under the real tick: a
+    slot prefilled to 300 positions (its tail page 12 rows deep) forks;
+    the tick's write-exclusive check refuses the shared tail until
+    ``ensure_append_page`` copies it; then one serve_step appends a
+    different token to each. Bitwise: rows below the fork depth of both
+    tail pages equal the pre-fork page, every other page is unchanged,
+    and the two appended rows differ. Returns whether it held."""
+    from repro_torch.models.model import check_write_exclusive
+    from repro_torch.serve.kv_pool import PagedKVPool
+    vocab = engine.model.cfg.vocab_size
+    ns, depth = 4, 300
+    pool = PagedKVPool(engine.model, ns, MAX_LEN, block_size=BS)
+    greedy = (np.zeros(ns, np.float32), np.zeros(ns, np.int32),
+              np.ones(ns, np.float32), np.zeros((ns, 2), np.uint32),
+              np.zeros(ns, np.int32))
+    slot = pool.alloc(1, pool.pages_needed(depth))
+    toks = torch.randint(0, vocab, (depth + 2, 1), generator=gen, device=DEV,
+                         dtype=torch.int32).cpu().numpy()
+    if toks[depth, 0] == toks[depth + 1, 0]:      # the two appends differ
+        toks[depth + 1, 0] = (toks[depth, 0] + 1) % vocab
+    engine.serve_step(toks[:depth], np.full(depth, slot, np.int32),
+                      np.arange(depth, dtype=np.int32),
+                      np.zeros(ns, np.int32), pool.cache, pool.block_tables,
+                      pool.task_id[np.full(depth, slot)], greedy)
+    pool.commit_prefill(slot, depth)
+    child = pool.fork(slot)
+    tail, row = depth // BS, depth % BS
+    old = pool._pages[slot][tail]
+    rows = np.asarray([slot, child], np.int32)
+    pos = np.full(2, depth, np.int32)
+    try:
+        check_write_exclusive(rows, pos, pool.block_tables, pool._refs, BS)
+        refused = False
+    except ValueError:
+        refused = True
+    torch.cuda.synchronize()
+    before = {n: c.clone() for n, c in pool.cache.items()}
+    copied = pool.ensure_append_page(slot) and pool.ensure_append_page(child)
+    new = pool._pages[slot][tail]
+    check_write_exclusive(rows, pos, pool.block_tables, pool._refs, BS)
+    engine.serve_step(toks[depth:], rows, pos, np.arange(ns) % 2,
+                      pool.cache, pool.block_tables, pool.task_id[rows],
+                      greedy)
+    torch.cuda.synchronize()
+    others = [p for p in range(pool.num_blocks) if p not in (old, new)]
+    below = all(torch.equal(c[:, p, :row], before[n][:, old, :row])
+                for n, c in pool.cache.items() for p in (old, new))
+    untouched = all(torch.equal(c[:, others], before[n][:, others])
+                    for n, c in pool.cache.items())
+    differ = all(not torch.equal(c[:, old, row], c[:, new, row])
+                 for c in pool.cache.values())
+    ok = (refused and copied and pool.cow_copies == 1 and new != old
+          and below and untouched and differ and pool.leak_report() == [])
+    log("6 cross-check cow", layers=2, depth=depth, tail_page=tail,
+        fork_depth_row=row, refused_before_copy=refused,
+        rows_below_fork="bitwise the pre-fork page" if below else "CHANGED",
+        other_pages="unchanged" if untouched else "CHANGED",
+        appended_rows="differ" if differ else "EQUAL",
+        required="all bitwise as stated")
+    report["cross_check_cow"] = dict(refused=refused, below=below,
+                                     untouched=untouched, differ=differ)
+    return ok
+
+
 # phase 6 draws its inputs and PEFT parameters from a generator of its own,
 # so that draws added to earlier phases leave them as they are
 PHASE6_SEED = 0
@@ -2347,6 +2873,12 @@ def phase_cross_check(report, seed=PHASE6_SEED, recompute=True):
     if not cross_check_static(gen, report, model, params, tables):
         failed.append("static")
     failed += cross_check_peft(gen, report, model, params, tables)
+    engine = ServeEngine(model, params, ServeConfig(max_len=MAX_LEN),
+                         fused_tasks={"table": tables})
+    if not cross_check_warm_cold(gen, report, engine):
+        failed.append("warm/cold")
+    if not cross_check_cow(gen, report, engine):
+        failed.append("cow")
     if failed:
         raise AssertionError(f"kernel and plain runs disagree for {failed}")
     if not recompute:
@@ -2411,6 +2943,7 @@ def main() -> int:
     launches.update(phase_static(report, engine))
     launches.update(phase_peft(report, engine))
     launches.update(phase_faults(report, engine))
+    launches.update(phase_shared(report, engine))
     del engine
     torch.cuda.empty_cache()
     for row in kernels:     # each kernel's count on the path it serves

@@ -2,12 +2,18 @@
 
 Fabricates fused AoT task tables (``--demo``) and serves a continuous
 Poisson stream of mixed-task requests from one frozen backbone: requests
-arrive on the scheduler's tick clock, pick a task at random, and stream
-their tokens through a callback as they decode. ``--layout`` picks the
-paged KV pool (chunked prefill, or whole prompts with ``--prefill-chunk
-0``) or contiguous slots (whole prompts); ``--static`` serves one static
-batch of equal-length prompts instead (greedy). Runs on the card unless
-``--device cpu`` is given. Exits non-zero if the KV pool leaks.
+arrive on the scheduler's tick clock, carry a priority class drawn from
+``--priority-mix``, pick a task at random, and stream their tokens through
+a callback as they decode. ``--layout`` picks the paged KV pool (chunked
+prefill, or whole prompts with ``--prefill-chunk 0``) or contiguous slots
+(whole prompts); ``--static`` serves one static batch of equal-length
+prompts instead (greedy). ``--system-prompt`` opens every request of a
+task with the same prefix, which ``--prefix-cache-pages`` reuses across
+requests; ``--samples`` draws n samples per request from one prefill;
+``--max-queue`` bounds the queue (a shed request is retried with
+exponential backoff, up to four times, as the reference's client does).
+Runs on the card unless ``--device cpu`` is given. Exits non-zero if the
+KV pool leaks.
 
     # on a GPU: full-width smollm-360m in bf16, four tasks
     PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \\
@@ -19,6 +25,18 @@ batch of equal-length prompts instead (greedy). Runs on the card unless
         --dtype bfloat16 --static --requests 16 --prompt 512 --steps 64 \\
         --max-len 1024
 
+    # ... a shared system prompt with the prefix cache, n = 4 samples,
+    # or a priority mix against a bounded queue
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \
+        --dtype bfloat16 --slots 8 --max-len 1024 --prefill-chunk 256 \
+        --system-prompt 384 --prompt 128 --prefix-cache-pages 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \
+        --dtype bfloat16 --slots 8 --max-len 1024 --samples 4 \
+        --temperature 0.8 --top-p 0.9
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \
+        --dtype bfloat16 --slots 8 --max-len 1024 --max-queue 4 \
+        --priority-mix latency=0.25,standard=0.5,best_effort=0.25
+
     # on the CPU, reduced widths
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --reduced --demo --tasks 3 --requests 6
@@ -27,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import heapq
 import sys
 from typing import List, Optional, Tuple
 
@@ -38,8 +57,8 @@ from repro_torch.core import aot as aot_mod
 from repro_torch.models.model import Model, ModelOptions
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.sampling import SamplingParams
-from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
-                                         SchedulerConfig)
+from repro_torch.serve.scheduler import (PRIORITIES, ContinuousScheduler,
+                                         Request, SchedulerConfig, ShedError)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -78,6 +97,21 @@ def parser() -> argparse.ArgumentParser:
                          "0 = whole-prompt prefills)")
     ap.add_argument("--max-prefills", type=int, default=4,
                     help="prompts allowed to chunk concurrently")
+    ap.add_argument("--prefix-cache-pages", type=int, default=0,
+                    help="prefix-cache capacity in pages: finished requests' "
+                         "full prompt pages are kept (LRU) and mapped into "
+                         "later requests of the same task, whose prefill "
+                         "starts at the first uncached token (needs "
+                         "--layout paged and --prefill-chunk > 0; 0 = off)")
+    ap.add_argument("--system-prompt", type=int, default=0,
+                    help="open every request of a task with the same "
+                         "seeded prefix of this many tokens (0 = none)")
+    ap.add_argument("--priority-mix", metavar="SPEC", default="standard=1",
+                    help="request class weights, e.g. "
+                         "'latency=0.2,standard=0.5,best_effort=0.3'")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: past this depth "
+                         "submissions are shed (0 = unbounded)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy argmax; > 0 samples with per-request "
                          "seeded streams")
@@ -85,6 +119,9 @@ def parser() -> argparse.ArgumentParser:
                     help="keep only the k highest logits (0 = off)")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = off)")
+    ap.add_argument("--samples", type=int, default=1,
+                    help="parallel samples per request (n > 1 shares the "
+                         "prefill's pages copy-on-write; --layout paged)")
     ap.add_argument("--seed", type=int, default=0,
                     help="base RNG seed (request i uses seed + i)")
     ap.add_argument("--prompt", type=int, default=16,
@@ -117,29 +154,60 @@ def build_engine(args) -> ServeEngine:
                        fused_tasks=aot_mod.stack_tasks(tasks))
 
 
+def parse_priority_mix(spec: str):
+    """``latency=0.2,standard=0.5,best_effort=0.3`` -> weights over the
+    scheduler's priority classes, normalised (missing classes get 0)."""
+    weights = {c: 0.0 for c in PRIORITIES}
+    for part in spec.split(","):
+        if not part.strip():
+            continue
+        name, _, val = part.partition("=")
+        name = name.strip()
+        if name not in weights:
+            raise ValueError(f"unknown priority class {name!r} "
+                             f"(choose from {', '.join(PRIORITIES)})")
+        weights[name] = float(val)
+    total = sum(weights.values())
+    if total <= 0:
+        raise ValueError(f"priority mix {spec!r} has no positive weight")
+    return {c: w / total for c, w in weights.items()}
+
+
 def make_arrivals(args, vocab_size: int, n_tasks: int,
                   on_token=None) -> List[Tuple[int, Request]]:
     """The ``--demo`` Poisson stream, drawn from ``default_rng(0)`` in the
-    reference launcher's order (so the same flags give the same requests)."""
+    reference launcher's order (so the same flags give the same requests):
+    the arrival ticks, then each task's system prompt, then per request
+    its prompt length, class, task, prompt and length."""
     rng = np.random.default_rng(0)
     ticks, t = [], 0.0
     for _ in range(args.requests):
         t += rng.exponential(1.0 / max(args.rate, 1e-6))
         ticks.append(int(t))
+    mix = parse_priority_mix(args.priority_mix)
+    classes = list(mix)
+    weights = [mix[c] for c in classes]
+    sys_prompts = {}
+    if args.system_prompt > 0:
+        sys_prompts = {t: rng.integers(0, vocab_size, args.system_prompt)
+                       .astype(np.int32) for t in range(n_tasks)}
     sampling = None
-    if args.temperature > 0:
+    if args.temperature > 0 or args.samples > 1:
         sampling = SamplingParams(temperature=args.temperature,
-                                  top_k=args.top_k, top_p=args.top_p)
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  n=args.samples)
     arrivals = []
     for i in range(args.requests):
         plen = int(rng.integers(4, args.prompt + 1))
-        rng.random()        # the reference draws a priority class here
+        prio = str(rng.choice(classes, p=weights))
         task = int(rng.integers(0, n_tasks))
         prompt = rng.integers(0, vocab_size, plen).astype(np.int32)
+        if sys_prompts:
+            prompt = np.concatenate([sys_prompts[task], prompt])
         req = Request(
             rid=i, prompt=prompt, task_id=task,
             max_new_tokens=int(rng.integers(2, args.steps + 1)),
-            on_token=on_token,
+            priority=prio, on_token=on_token,
             sampling=None if sampling is None
             else dataclasses.replace(sampling, seed=args.seed + i))
         arrivals.append((ticks[i], req))
@@ -151,13 +219,68 @@ def make_scheduler(engine: ServeEngine, args) -> ContinuousScheduler:
     return ContinuousScheduler(engine, SchedulerConfig(
         num_slots=args.slots, kv_layout=args.layout,
         block_size=args.block_size, num_blocks=args.num_blocks,
-        prefill_chunk=args.prefill_chunk, max_prefills=args.max_prefills))
+        prefill_chunk=args.prefill_chunk, max_prefills=args.max_prefills,
+        prefix_cache_pages=args.prefix_cache_pages,
+        max_queue=args.max_queue))
+
+
+# the reference launcher's client retry policy (its default flags)
+MAX_RETRIES, BACKOFF = 4, 2
+
+
+def run_with_retries(sched: ContinuousScheduler, arrivals,
+                     max_retries: int = MAX_RETRIES,
+                     backoff: int = BACKOFF):
+    """The client loop of the reference launcher: submit each request on
+    its arrival tick; a shed request (``ShedError`` at submit, or later
+    displaced from the queue, found in ``sched.shed`` after each tick) is
+    submitted again ``backoff ** (attempt - 1)`` ticks later, up to
+    ``max_retries`` times. Idle gaps fast-forward as in ``run_stream``,
+    which this equals when nothing is shed. Serves to the end; returns
+    the rids that gave up and the number of retries."""
+    heap = [(t, i, req) for i, (t, req) in enumerate(arrivals)]
+    heapq.heapify(heap)
+    seq = len(heap)
+    attempts = {}                       # rid -> submissions so far
+    pending = {req.rid for _, _, req in heap}   # waiting to be submitted
+    gave_up, retries = [], 0
+
+    def requeue(req):
+        nonlocal seq, retries
+        if attempts[req.rid] > max_retries:
+            if req.rid not in gave_up:
+                gave_up.append(req.rid)
+            return
+        retries += 1
+        heapq.heappush(heap, (sched.clock + backoff ** (attempts[req.rid] - 1),
+                              seq, req))
+        seq += 1
+        pending.add(req.rid)
+
+    while heap:
+        if not sched.busy() and heap[0][0] > sched.clock:
+            sched.clock = heap[0][0]     # idle: fast-forward
+        while heap and heap[0][0] <= sched.clock:
+            _, _, req = heapq.heappop(heap)
+            pending.discard(req.rid)
+            attempts[req.rid] = attempts.get(req.rid, 0) + 1
+            try:
+                sched.submit(req)
+            except ShedError:
+                requeue(req)
+        sched.step()
+        for rid in [r for r in sched.shed if r not in pending]:
+            requeue(sched.shed[rid])     # displaced: the client resubmits
+    while sched.busy():
+        sched.step()
+    return gave_up, retries
 
 
 def serve(engine: ServeEngine, args, arrivals) -> ContinuousScheduler:
-    """Serve the stream to the end on a fresh scheduler."""
+    """Serve the stream to the end on a fresh scheduler, through the
+    client loop (:func:`run_with_retries`)."""
     sched = make_scheduler(engine, args)
-    sched.run_stream(arrivals)
+    run_with_retries(sched, arrivals)
     return sched
 
 
@@ -180,9 +303,23 @@ def main(argv: Optional[List[str]] = None):
     if not args.demo:
         ap.error("pass --demo (fabricated tables); loading exported tables "
                  "is not ported yet")
-    if args.prompt + args.steps - 1 > args.max_len:
-        ap.error(f"--prompt {args.prompt} + --steps {args.steps} cannot fit "
+    if args.system_prompt + args.prompt + args.steps - 1 > args.max_len:
+        ap.error(f"--system-prompt {args.system_prompt} + --prompt "
+                 f"{args.prompt} + --steps {args.steps} cannot fit "
                  f"--max-len {args.max_len}")
+    if args.prefix_cache_pages > 0 and (args.layout != "paged"
+                                        or args.prefill_chunk <= 0):
+        ap.error(f"--prefix-cache-pages {args.prefix_cache_pages} needs "
+                 "--layout paged with --prefill-chunk > 0 (cached pages are "
+                 "mapped through block tables and prefill resumes at the "
+                 "first uncached token)")
+    if args.samples > 1 and args.layout != "paged":
+        ap.error(f"--samples {args.samples} needs --layout paged (the "
+                 "samples share the prefill's pages copy-on-write)")
+    try:
+        parse_priority_mix(args.priority_mix)
+    except ValueError as e:
+        ap.error(str(e))
     engine = build_engine(args)
     cfg = engine.model.cfg
     mb = aot_mod.table_bytes(cfg, args.tasks,
@@ -191,9 +328,10 @@ def main(argv: Optional[List[str]] = None):
           f"{mb:.1f} MB")
 
     if args.static:
-        if args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0:
-            print("warning: --static is greedy only; ignoring --temperature"
-                  "/--top-k/--top-p/--seed")
+        if args.temperature > 0 or args.samples > 1 or args.top_k > 0 \
+                or args.top_p < 1.0:
+            print("warning: --static is greedy single-sample only; "
+                  "ignoring --temperature/--top-k/--top-p/--samples/--seed")
         prompts, task_ids = static_batch(args, cfg.vocab_size, args.tasks)
         out = engine.generate(prompts, args.steps, task_ids)
         for i in range(args.requests):
@@ -205,15 +343,16 @@ def main(argv: Optional[List[str]] = None):
             print(f"  [stream] req {req.rid} task={req.task_id} "
                   f"tok#{len(req.out)}: {tok}")
 
-    if args.temperature > 0:
+    if args.temperature > 0 or args.samples > 1:
         print(f"sampling: temp={args.temperature} top_k={args.top_k} "
-              f"top_p={args.top_p} (seeded per request)")
+              f"top_p={args.top_p} n={args.samples} (seeded per request)")
     arrivals = make_arrivals(args, cfg.vocab_size, args.tasks, on_token)
     if args.prefill_chunk > 0 and args.layout != "paged":
         print("warning: chunked prefill rides the unified paged serve step; "
               "--layout slots falls back to whole-prompt prefills")
         args.prefill_chunk = 0
-    sched = serve(engine, args, arrivals)
+    sched = make_scheduler(engine, args)
+    gave_up, retries = run_with_retries(sched, arrivals)
     pool = sched.pool
     print(f"\nserved {len(sched.finished)} requests in {sched.ticks} real "
           f"ticks (+{sched.clock - sched.ticks} idle fast-forwarded): "
@@ -225,10 +364,24 @@ def main(argv: Optional[List[str]] = None):
               f"{pool.block_size} tokens, peak pages {pool.peak_pages}, "
               f"peak concurrency {sched.peak_running}, peak concurrent "
               f"prefills {sched.peak_prefills}, {sched.preemptions} "
-              "preemptions")
+              f"preemptions, {pool.forks} forks, {pool.cow_copies} COW page "
+              f"copies, {pool.compactions} compactions ({pool.pages_deduped} "
+              "pages deduplicated)")
+        cache = pool.prefix_cache
+        if cache is not None:
+            print(f"prefix cache ({cache.capacity} pages): {cache.hits}/"
+                  f"{cache.hits + cache.misses} admissions hit, "
+                  f"{cache.hit_tokens} prefill tokens skipped, "
+                  f"{cache.retained_pages} pages retained, "
+                  f"{cache.evicted_pages} evicted, {len(cache)} resident "
+                  "at exit")
     else:
         print(f"slot pool: {pool.num_slots} slots x {pool.alloc_len} "
               f"tokens, peak concurrency {sched.peak_running}")
+    if retries or gave_up:
+        print(f"overload: {retries} shed retries (backoff base "
+              f"{BACKOFF}), {len(gave_up)} requests gave up after "
+              f"{MAX_RETRIES} retries {sorted(gave_up)}")
     findings = sched.drain_check()
     if findings:
         print("DRAIN FAILED: KV pool leak findings at exit:", file=sys.stderr)

@@ -96,6 +96,29 @@ def check_write_fresh(token_rows, token_pos, committed) -> None:
             f"{int(np.asarray(committed)[rows[t]])}")
 
 
+def check_write_exclusive(token_rows, token_pos, block_tables, refs,
+                          block_size: int) -> None:
+    """Raise ValueError if a live token would write K/V into a page that
+    has another holder (``refs[page] > 1``: a forked sibling, the prefix
+    cache, a compacted duplicate): the write-exclusive half of the
+    write-fresh rule of :meth:`Model.mixed_step`. Host arrays, so the
+    check costs no wait on the card."""
+    pos = np.asarray(token_pos)
+    rows = np.asarray(token_rows)
+    tables = np.asarray(block_tables)
+    # positions past the table are check_table_reach's to refuse
+    live = np.flatnonzero((pos >= 0) & (pos < tables.shape[1] * block_size))
+    pages = tables[rows[live], pos[live] // block_size]
+    shared = np.flatnonzero(np.asarray(refs)[pages] > 1)
+    if shared.size:
+        t = int(live[shared[0]])
+        page = int(pages[shared[0]])
+        raise ValueError(
+            f"token {t} of slot {int(rows[t])} writes position "
+            f"{int(pos[t])} into page {page}, which has "
+            f"{int(np.asarray(refs)[page])} holders")
+
+
 class Model:
     def __init__(self, cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
                  device="cuda"):
@@ -441,8 +464,15 @@ class Model:
         way, or whose logits were poisoned, changed only rows that no
         reader has trusted yet, and its retry rewrites each of them before
         reading it: the pool is as good as untouched for every reader.
-        Page sharing (fork, a prefix cache) must keep the rule: a shared
-        page is copied before any write into it.
+        Page sharing (fork, the prefix cache, compaction) keeps the rule
+        by its write-exclusive half: a tick writes no page that has
+        another holder. A shared page is copied before the tick that
+        appends into it (copy-on-write in
+        ``PagedKVPool.ensure_append_page``, before the dispatch and never
+        inside the retry loop), a prefix-cache hit starts its chunk at
+        the first uncached page, and cached prompt pages are never
+        written; the scheduler checks it with ``check_write_exclusive``
+        beside ``check_write_fresh``.
         Indices on the CPU are held to the block table first
         (:func:`check_table_reach`); on the card that check would wait on
         the stream, so ``ServeEngine.serve_step`` makes it on its host

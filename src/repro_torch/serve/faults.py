@@ -10,16 +10,19 @@ machinery, not mocks:
 
 - ``exhaust``: :meth:`PagedKVPool.seize_pages` takes pages off the free
   list for a few ticks (admission backpressure, preemption, prefill
-  aborts, and at total exhaustion the last row's self-preemption);
+  aborts, and at total exhaustion the last row's self-preemption); pages
+  the prefix cache retains stay there, so seizure races retention: a
+  claim then evicts cold entries to find its pages;
 - ``straggler``: a host-side stall before the tick (wall time degrades,
   tokens must not);
 - ``disconnect``: :meth:`ContinuousScheduler.abort` of a live request
-  picked by the event's own uniform draw;
+  picked by the event's own uniform draw (a forked request's whole
+  sample group, which shares its rid);
 - ``malformed``: a garbage submission that must bounce off validation with
   ``InvalidRequest``;
 - ``nan``: one running slot's logits row poisoned at the next dispatch
   (:meth:`ServeEngine.inject_fault`); the watchdog must quarantine exactly
-  that request and retry the tick;
+  that request (its whole sample group) and retry the tick;
 - ``alloc_failure``: the next dispatch raises ``DispatchFault``; the tick
   loop must absorb it within ``tick_retries``;
 - ``crash``: scheduled, but inert: recovering from a process death needs

@@ -200,8 +200,9 @@ def test_fault_launches_count_the_raised_attempt():
 
 
 class FakeEngine:
-    """The engine's serving interface without a model: a tick's tokens
-    are zeros, an armed fault acts as ``ServeEngine.inject_fault`` says,
+    """The engine's serving interface without a model: a tick's tokens,
+    a whole prompt's first tokens and n > 1 first draws are zeros, an
+    armed fault acts as ``ServeEngine.inject_fault`` says,
     and the block-table check runs as in ``serve_step`` (the scheduler
     itself checks the write-fresh rule). Phase 5's scheduling
     does not depend on the tokens (no stop or end token), so this replays
@@ -220,6 +221,16 @@ class FakeEngine:
     def inject_fault(self, kind, slot=-1):
         self._pending_fault = (kind, slot)
 
+    def prefill_request(self, tokens, length, task_id, sample=None):
+        self.dispatches += 1
+        first = [0] if sample is None else self.sample_first(None, sample)
+        return first, {n: torch.zeros(1, 1, tokens.shape[1], 1, 1)
+                       for n in ("k", "v")}
+
+    def sample_first(self, logits_row, sample):
+        self.dispatches += 1
+        return [0] * len(sample[0])
+
     def serve_step(self, tokens, token_rows, token_pos, logit_idx, cache,
                    block_tables, token_tasks, sample):
         import numpy as np
@@ -234,7 +245,8 @@ class FakeEngine:
         if fault is not None:
             finite[fault[1]] = False
         self.dispatches += 1
-        return np.zeros(len(logit_idx), np.int32), None, cache, finite
+        return (np.zeros(len(logit_idx), np.int32),
+                np.zeros((len(logit_idx), 1), np.float32), cache, finite)
 
 
 def _phase5_stream():
@@ -298,3 +310,64 @@ def test_f3_failures_name_each_broken_gate():
     assert any(b.startswith("leaks") for b in bad)
     assert any(b.startswith("survivors") for b in bad)
     assert "1 requests unaccounted for" in bad
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the shared-prefix and policy streams, replayed
+# ---------------------------------------------------------------------------
+
+def _replay(monkeypatch, label):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return cs.shared_run(FakeEngine(), cs.SHARED_RUNS[label])
+
+
+@pytest.mark.parametrize("label", sorted(cs.SHARED_RUNS))
+def test_phase5f_replay_fixes_every_count(monkeypatch, label):
+    """The card's schedule of each 5f run is the replay's: its counts are
+    SHARED_EXPECT's and every gate holds (no kernel runs here)."""
+    run = _replay(monkeypatch, label)
+    assert run["counts"] == cs.SHARED_EXPECT[label]
+    assert cs.shared_failures(label, run, 0) == []
+
+
+def test_phase5f_runs_exercise_what_they_gate():
+    """The replayed counts show each path 5f is for: warm hits skip the
+    prompt tokens the cold run packs, the small pool's admissions are
+    rescued by compaction, the priority mix sheds both ways and preempts
+    for admission, and each n = 4 run forks some samples and requeues
+    others (the whole-prompt run forks all)."""
+    e = cs.SHARED_EXPECT
+    cold, warm = e["cold"], e["warm"]
+    assert warm["hits"] > 0 and cold["prefill_tokens"] - \
+        warm["prefill_tokens"] == warm["hit_tokens"] > 0
+    assert warm["evicted"] > 0 and warm["ticks"] < cold["ticks"]
+    assert e["compaction"]["compaction_rescues"] >= 1
+    p = e["priorities"]
+    assert min(p["shed_queue_full"], p["shed_displaced"],
+               p["admission_preemptions"]) >= 1
+    for label in ("sampled_n4", "greedy_n4", "greedy_n4_whole"):
+        r = e[label]
+        assert r["forks"] == r["cow_copies"] == len(r["forked_samples"]) > 0
+        assert r["finished"] == 4
+    assert e["greedy_n4"]["forks"] < 12 == e["greedy_n4_whole"]["forks"]
+
+
+def test_phase5f_gates_name_each_failure(monkeypatch):
+    run = _replay(monkeypatch, "priorities")
+    run["counts"]["forks"] += 1
+    lost = min(run["sched"].finished)
+    run["sched"].finished.pop(lost)
+    run["launches"]["ragged_paged_attention"] = 1
+    bad = cs.shared_failures("priorities", run, 0)
+    assert any("'forks': (1, 0)" in b for b in bad)
+    assert any(b.startswith("finished") for b in bad)
+    assert any("ragged_paged_attention launched 1 times" in b for b in bad)
+
+
+def test_sibling_report_tells_forked_from_requeued(monkeypatch):
+    run = _replay(monkeypatch, "greedy_n4")
+    sched = run["sched"]
+    assert cs.sibling_report(sched, run["ticks_of"]) == ([], "8/8")
+    sched.finished[1].samples[1] = [7]              # a forked sibling
+    sched.finished[2].samples[2] = [7]              # a requeued one
+    assert cs.sibling_report(sched, run["ticks_of"]) == (["1:1"], "7/8")
