@@ -98,6 +98,20 @@ Phases, each printing one line of results; any failure exits non-zero:
    preemption for admission). Every run's counts must be the CPU
    replay's (SHARED_EXPECT), every request not shed must finish, the
    pool must drain clean and each kernel launch 32 times per call;
+5g. observability and crash recovery, through the launcher's code: phase
+   5's greedy stream with metrics and the tick trace off and on in turns
+   (every stream bitwise phase 5's; tokens/s of each, the median ms of
+   each tick span, TTFT / TPOT in ticks and ms, reported); then with the
+   request journal: the crash-free twins, crashes after a tick of the
+   first chunks, a mixed tick and a decode-only tick (CRASH_RUNS), an
+   n = 4 sampled stream crashed while its forked samples decode, a
+   slots-layout live snapshot restored through JSON (flash, contiguous
+   decode), and F4 (a seeded FaultPlan with crashes through
+   run_chaos(sched_factory=...)). Every count must be the CPU replay's
+   (RESTORE_EXPECT), every request finish (F4: the twin's less the
+   disconnected and quarantined), pools drain clean, the tokens before
+   each crash be the twin's and each kernel launch 32 times per dispatch
+   or whole prefill; the tokens after a crash are reported;
 6. cross-checks at full width with 2 layers, inputs drawn from a
    generator of their own (seed PHASE6_SEED; chip_seeds.py runs this phase
    at other seeds): one mixed tick, and a prefill plus three decode steps
@@ -109,7 +123,10 @@ Phases, each printing one line of results; any failure exits non-zero:
    request cold (first-token logits and the K/V it wrote within the bf16
    tolerance, bitwise shares reported); copy-on-write under the real tick
    (bitwise: rows below the fork depth, every other page, differing
-   appends); preempt-and-recompute parity is reported.
+   appends); a request restored from a JSON snapshot against the same
+   request served through (the K/V its recompute wrote and the first
+   logits row it decodes from, within the bf16 tolerance, bitwise shares
+   reported); preempt-and-recompute parity is reported.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -120,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -1498,7 +1516,8 @@ def phase_main_path(report, engine, setup_s):
                             prompt_tokens=prompt_toks, ticks=sched.ticks,
                             dispatched=dispatched, seconds=sec,
                             tokens_per_s=sched.tokens_emitted / sec,
-                            preemptions=sched.preemptions, launches=counts)
+                            preemptions=sched.preemptions, launches=counts,
+                            streams=stream_outs(sched.finished))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log("5 main path", layers=layers, setup_s=f"{setup_s:.1f}",
         peak_memory_gib=f"{peak:.2f}",
@@ -1582,7 +1601,8 @@ def phase_whole_prompt(report, engine):
             prompt_tokens=prompt_toks, ticks=sched.ticks, prefills=n_pf[0],
             decode_calls=steps, seconds=sec,
             tokens_per_s=sched.tokens_emitted / sec,
-            preemptions=sched.preemptions, launches=counts)
+            preemptions=sched.preemptions, launches=counts,
+            streams=sample_outs(sched.finished))
     return out
 
 
@@ -2066,7 +2086,7 @@ def shared_run(engine, extra):
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
-        gave_up, retries = launcher.run_with_retries(sched, arrivals)
+        gave_up, retries, _ = launcher.run_with_retries(sched, arrivals)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
     finally:
@@ -2185,13 +2205,449 @@ def phase_shared(report, engine):
                           tokens_per_s=sched.tokens_emitted / sec,
                           launches=run["launches"], failures=bad,
                           requeued_tokens=requeued_tokens(
-                              sched, run["ticks_of"]), **kv)
+                              sched, run["ticks_of"]),
+                          streams=sample_outs(sched.finished), **kv)
         launches[f"shared_{label}"] = run["launches"]
         if bad:
             failed[label] = bad
     report["shared"] = res
     if failed:
         raise AssertionError(f"phase 5f failed: {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: observability and crash recovery on the paged tick
+# ---------------------------------------------------------------------------
+
+SPANS = ("admission", "ensure_pages", "pack_budget_split", "dispatch",
+         "postprocess")
+N4_SAMPLED = SHARED_RUNS["sampled_n4"]
+SLOTS_LAYOUT = ["--layout", "slots", "--prefill-chunk", "0"]
+# each crash run: (flags after BASE, the global tick after which the
+# process dies; the launcher's client loop crashes only while arrivals are
+# still due). In the CPU replay (tests/test_torch_smoke_checks.py) the
+# tick before each crash packs: first_chunks, 1 decode row and 3 prompts
+# chunking (the stream's first); mixed, 6 rows and a chunk; decode_only,
+# 8 rows and nothing chunking; sampled_n4, request 0's 4 forked samples
+# decoding and 3 fresh n = 4 prompts chunking
+CRASH_RUNS = {
+    "first_chunks": (GREEDY, 3),
+    "mixed": (GREEDY, 30),
+    "decode_only": (GREEDY, 25),
+    "sampled_n4": (N4_SAMPLED, 3),
+}
+SNAPSHOT_TICK = 20      # the slots stream's live snapshot
+# F4: a seeded plan with crashes among the other kinds (F3's less the
+# malformed submissions and stragglers); the seed is one whose crash and
+# other kinds fire on phase 5's stream in the CPU replay
+F4_PLAN = dict(seed=24, horizon=96, p_exhaust=0.04, exhaust_pages=480,
+               exhaust_ticks=3, p_straggler=0.0, p_disconnect=0.03,
+               p_malformed=0.0, p_nan=0.03, p_alloc_failure=0.03,
+               p_crash=0.03)
+# every count of each 5g run, from the CPU replay with a model-less engine
+# (the schedules do not depend on the tokens: no stop or end token)
+RESTORE_EXPECT = {
+    "first_chunks": dict(ticks=[3, 72], finished=16, tokens=445,
+                         journal=dict(admit=20, emit=445, finish=16,
+                         restored=4, submit=16), restored=[dict(live=4,
+                         finished=0, aborted=0, shed=0, quarantined=0)],
+                         dispatches=dict(serve_step=75, prefill=0,
+                         decode_mixed=0, sample_first=0), tick_before=[1, 3]),
+    "mixed": dict(ticks=[30, 72], finished=16, tokens=445,
+                  journal=dict(admit=23, emit=445, finish=16, restored=7,
+                  submit=16), restored=[dict(live=7, finished=3, aborted=0,
+                  shed=0, quarantined=0)], dispatches=dict(serve_step=102,
+                  prefill=0, decode_mixed=0, sample_first=0), tick_before=[6,
+                  1]),
+    "decode_only": dict(ticks=[25, 72], finished=16, tokens=445,
+                        journal=dict(admit=24, emit=445, finish=16, restored=8,
+                        submit=16), restored=[dict(live=8, finished=1,
+                        aborted=0, shed=0, quarantined=0)],
+                        dispatches=dict(serve_step=97, prefill=0,
+                        decode_mixed=0, sample_first=0), tick_before=[8, 0]),
+    "sampled_n4": dict(ticks=[3, 47], finished=4, tokens=324,
+                       journal=dict(admit=18, emit=324, finish=16, restored=4,
+                       submit=4), restored=[dict(live=4, finished=0, aborted=0,
+                       shed=0, quarantined=0)], dispatches=dict(serve_step=50,
+                       prefill=0, decode_mixed=0, sample_first=4),
+                       tick_before=[4, 3]),
+    "slots_snapshot": dict(ticks=[20, 71], finished=16, tokens=445,
+                           journal=dict(admit=24, emit=445, finish=16,
+                           restored=8, submit=16), restored=[dict(live=8,
+                           finished=1, aborted=0, shed=0, quarantined=0)],
+                           dispatches=dict(serve_step=0, prefill=24,
+                           decode_mixed=91, sample_first=0)),
+    "F4": dict(ticks=[39, 44, 20], finished=14, tokens=420,
+               journal=dict(abort=1, admit=28, emit=420, finish=14,
+               quarantine=1, restored=11, submit=16), restored=[dict(live=9,
+               finished=5, aborted=0, shed=0, quarantined=0), dict(live=2,
+               finished=13, aborted=1, shed=0, quarantined=0)],
+               dispatches=dict(serve_step=104, prefill=0, decode_mixed=0,
+               sample_first=0)),
+}
+
+
+def sample_outs(finished):
+    """Every sample's tokens, keyed "rid:sample"."""
+    out = {}
+    for r in finished.values():
+        for i, s in enumerate(r.samples if r.samples is not None
+                              else [r.out]):
+            out[f"{r.rid}:{i}"] = list(s)
+    return out
+
+
+def span_ms(tracer):
+    """Median ms of each tick span (SPANS) over a run's trace, and how
+    many of each."""
+    dur = {}
+    for ev in tracer.events:
+        if ev["ph"] == "X" and ev["name"] in SPANS:
+            dur.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    return {name: (median(dur[name]), len(dur[name])) for name in SPANS
+            if name in dur}
+
+
+def slo_ms(o):
+    """TTFT / TPOT p50 / p95 in ticks and ms from a run's SLO tracker."""
+    s = o.slo.summary()
+    return {k: (s[k]["p50"], s[k]["p95"])
+            for k in ("ttft_ticks", "ttft_ms", "tpot_ticks", "tpot_ms")}
+
+
+def journal_events(path):
+    """The journal's events by kind (a restore's resubmission counted as
+    ``restored``) and its size in bytes."""
+    kinds = {}
+    with open(path) as f:
+        for line in f:
+            e = json.loads(line)
+            k = "restored" if e.get("restored") else e["ev"]
+            kinds[k] = kinds.get(k, 0) + 1
+    return dict(sorted(kinds.items())), Path(path).stat().st_size
+
+
+def tick_packing(events, tick):
+    """(decode rows, prefills) that global tick ``tick`` packed, from the
+    run's trace (one pack_budget_split span per tick)."""
+    a = [e["args"] for e in events
+         if e["name"] == "pack_budget_split"][tick]
+    return [a["decode_rows"], a["prefills"]]
+
+
+def restore_run(engine, extra, path, drive, crash_at=None):
+    """One 5g stream: BASE + ``extra`` on a scheduler with metrics and the
+    trace on, journaling to ``path`` (emptied first); ``drive(sched,
+    arrivals, make)`` serves it, ``make()`` giving each fresh incarnation.
+    Records each sample's token ticks on one global clock (the ticks of
+    earlier incarnations added), every incarnation's ticks and what
+    restore re-admitted (and, with ``crash_at``, what the tick before the
+    crash packed). Returns the run and its counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import ServeObservability
+    from repro_torch.serve.recovery import RequestJournal
+    args = launcher.parser().parse_args(BASE + extra)
+    o = ServeObservability(metrics=True, trace=True)
+    box, ticks_of, incs, restored = {"base": 0}, {}, [], []
+    Path(path).unlink(missing_ok=True)
+
+    def on_token(req, tok):
+        ticks_of.setdefault(f"{req.rid}:{req.sample_idx}", []).append(
+            box["base"] + box["sched"].ticks)
+
+    def make():
+        if "sched" in box:
+            incs.append(box["sched"].ticks)
+            box["base"] += box["sched"].ticks
+        s = box["sched"] = launcher.make_scheduler(
+            engine, args, o, RequestJournal(path))
+        restore = s.restore
+
+        def counted(snap, **_):     # every restore re-attaches on_token
+            c = restore(snap, on_token=on_token)
+            restored.append(c)
+            return c
+        s.restore = counted
+        return s
+    arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
+                                      args.tasks, on_token)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    extra_out = drive(make(), arrivals, make)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    sched = box["sched"]
+    sched.journal.close()
+    m = o.metrics.snapshot()
+    disp = {k: m[f"engine_dispatch_{k}_total"]["value"]
+            for k in ("serve_step", "prefill", "decode_mixed",
+                      "sample_first")}
+    events, nbytes = journal_events(path)
+    counts = dict(ticks=incs + [sched.ticks], finished=len(sched.finished),
+                  tokens=m["sched_tokens_emitted_total"]["value"],
+                  journal=events, restored=restored, dispatches=disp)
+    if crash_at is not None:
+        counts["tick_before"] = tick_packing(o.tracer.events, crash_at - 1)
+    return dict(sched=sched, obs=o, arrivals=arrivals, ticks_of=ticks_of,
+                seconds=sec, launches=dict(ops.launches()),
+                journal_bytes=nbytes, extra=extra_out, counts=counts)
+
+
+def serve_crashing(crash_at):
+    """``drive`` through the launcher's client loop, its process dying
+    after ``crash_at`` global ticks."""
+    from repro_torch.launch import serve as launcher
+
+    def drive(sched, arrivals, make):
+        return launcher.run_with_retries(sched, arrivals,
+                                         crash_at_tick=crash_at,
+                                         make_sched=make)[:2]
+    return drive
+
+
+def serve_snapshot(tick, path):
+    """``drive``: serve as run_stream does; after ``tick`` ticks write a
+    live snapshot to ``path`` as JSON, drop the scheduler's pool, restore
+    a fresh one from the file and serve on (the arrivals not yet
+    submitted join on the new scheduler's clock, as after a crash)."""
+    from repro_torch.serve.recovery import read_snapshot, write_snapshot
+
+    def drive(sched, arrivals, make):
+        order = sorted(arrivals, key=lambda a: a[0])
+        i, done = 0, False
+        while i < len(order) or sched.busy():
+            if not sched.busy() and order[i][0] > sched.clock:
+                sched.clock = order[i][0]
+            while i < len(order) and order[i][0] <= sched.clock:
+                sched.submit(order[i][1])
+                i += 1
+            sched.step()
+            if sched.ticks == tick and not done:
+                done = True
+                write_snapshot(sched.snapshot(), path)
+                sched.pool.cache = None
+                sched = make()
+                sched.restore(read_snapshot(path))
+    return drive
+
+
+def serve_chaos(plan):
+    """``drive`` through run_chaos with ``make`` as its sched_factory."""
+    from repro_torch.serve.faults import FaultPlan, run_chaos
+
+    def drive(sched, arrivals, make):
+        return run_chaos(sched, arrivals, FaultPlan(**plan),
+                         sched_factory=make)
+    return drive
+
+
+def restore_failures(label, run, twin, crash_at, layers):
+    """5g's gates of one crash run, as a list of what failed (empty =
+    passed): every request finished (F4: the twin's less the
+    disconnected, quarantined and shed), the pool drained clean, the
+    tokens emitted before the crash bitwise the twin's, the counts the
+    replay's and each kernel 32 times per dispatch or whole prefill."""
+    sched, c = run["sched"], run["counts"]
+    bad = []
+    want = RESTORE_EXPECT.get(label)
+    if c != want:
+        diff = {k: (c.get(k), (want or {}).get(k))
+                for k in set(c) | set(want or {})
+                if c.get(k) != (want or {}).get(k)}
+        bad.append(f"counts differ from the replay's (got, want): {diff}")
+    got = sample_outs(sched.finished)
+    if label == "F4":
+        res = run["extra"]
+        inj = res["injector"]
+        survivors = survivors_expected({int(k.split(":")[0]) for k in twin},
+                                       inj.disconnected, sched.quarantined,
+                                       res["shed_rids"])
+        if set(sched.finished) != survivors:
+            bad.append(f"survivors {sorted(sched.finished)} != "
+                       f"{sorted(survivors)}")
+        if res["crashes"] < 1:
+            bad.append("no crash fired")
+    elif set(got) != set(twin):
+        bad.append(f"finished {sorted(got)} != {sorted(twin)}")
+    if sched.busy() or sched.drain_check():
+        bad.append(f"not drained clean: {sched.drain_check()}")
+    if crash_at is not None:
+        early = prefix_mismatches(got, twin, run["ticks_of"], crash_at - 1)
+        if early:
+            bad.append(f"tokens before the crash differ: {early}")
+    d = c["dispatches"]
+    steps, pfs = d["serve_step"], d["prefill"]
+    try:
+        check_launches(label, run["launches"], {
+            "ragged_paged_attention": layers * steps,
+            "aot_gather_add_multitask": layers * (steps + pfs
+                                                  + d["decode_mixed"]),
+            "flash_attention": layers * pfs,
+            "decode_attention": layers * d["decode_mixed"]})
+    except AssertionError as e:
+        bad.append(str(e))
+    return bad
+
+
+def restore_line(label, run, twin, bad, card, **kv):
+    """Log one 5g run's line; returns its record."""
+    sched, c = run["sched"], run["counts"]
+    got = sample_outs(sched.finished)
+    div = first_divergence(got, twin, run["ticks_of"])
+    same = sum(got[k] == twin.get(k) for k in got)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    spans = span_ms(run["obs"].tracer)
+    slo = slo_ms(run["obs"])
+    sec = run["seconds"]
+    log(f"5g restore/{label}", seconds=f"{sec:.3f}",
+        tokens_per_s=f"{c['tokens'] / sec:.1f}", ticks=c["ticks"],
+        finished=c["finished"], journal=c["journal"],
+        journal_bytes=run["journal_bytes"], restored=c["restored"],
+        dispatches=c["dispatches"], **kv,
+        streams_equal=f"{same}/{len(got)}",
+        first_divergence="none" if div is None
+        else f"{div[0]} at tick {div[1]}",
+        ttft=f"{slo['ttft_ticks']} ticks / {slo['ttft_ms']} ms",
+        tpot=f"{slo['tpot_ticks']} ticks / {slo['tpot_ms']} ms",
+        span_ms={k: f"{v[0]:.3f}" for k, v in spans.items()},
+        peak_memory_gib=f"{peak:.2f}", launches=run["launches"],
+        failures=bad or "none", card=card)
+    return dict(c, seconds=sec, tokens_per_s=c["tokens"] / sec,
+                journal_bytes=run["journal_bytes"], streams_equal=same,
+                streams=len(got), first_divergence=div, slo=slo,
+                span_ms=spans, peak_memory_gib=peak,
+                launches=run["launches"], failures=bad, **kv)
+
+
+def fresh_peak():
+    """Collect the garbage of earlier runs (their schedulers and pools sit
+    in reference cycles: requests' callbacks reach the scheduler that
+    holds them) and start a new peak-memory window."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def obs_runs(engine):
+    """Phase 5's greedy stream with observability off and on (metrics and
+    trace), in turns: off, on, on, off. Returns each run's (label,
+    seconds, tokens, streams, obs, leak findings)."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import ServeObservability
+    args = launcher.parser().parse_args(BASE + GREEDY)
+    runs = []
+    for on in (False, True, True, False):
+        o = ServeObservability(metrics=True, trace=True) if on else None
+        arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
+                                          args.tasks)
+        sched = launcher.make_scheduler(engine, args, o)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launcher.run_with_retries(sched, arrivals)
+        torch.cuda.synchronize()
+        runs.append(("on" if on else "off", time.perf_counter() - t0,
+                     sched.tokens_emitted, stream_outs(sched.finished), o,
+                     sched.drain_check()))
+    return runs
+
+
+def phase_restore(report, engine):
+    """Phase 5g: phase 5's greedy stream with metrics and trace on against
+    off, in turns (the tokens bitwise phase 5's; tokens/s reported; each
+    tick span's median ms, TTFT and TPOT); then crash recovery through the
+    launcher's code, each run with metrics and the trace on and its counts
+    the CPU replay's (RESTORE_EXPECT): the greedy stream journaled and
+    crashed after a tick of its first chunks, a mixed tick and a
+    decode-only tick (CRASH_RUNS), n = 4 sampled samples crashed while
+    forked samples decode, a slots-layout live snapshot restored through
+    JSON (flash and contiguous decode), and F4, a seeded plan with crashes
+    through run_chaos(sched_factory=...). Each is held against the same
+    stream served without a crash in phase 5, 5f or 5b (its twin);
+    restore_failures' gates hold for each; the tokens after a crash are
+    reported, not gated."""
+    layers = engine.model.cfg.num_layers
+    card = smi()
+    out_dir = ROOT / "chiprun_out" / "5g"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fresh_peak()
+    want = report["main_path"]["runs"]["greedy"]["streams"]
+    res, launches, failed = {}, {}, {}
+    # observability on / off
+    runs = obs_runs(engine)
+    differ = [f"{label}#{k}" for k, (label, _, _, streams, _, leaks)
+              in enumerate(runs) if streams != want or leaks]
+    rate = {lab: [t / s for lb, s, t, *_ in runs if lb == lab]
+            for lab in ("off", "on")}
+    o = runs[1][4]
+    spans, slo = span_ms(o.tracer), slo_ms(o)
+    o.tracer.write(str(out_dir / "greedy_trace.json"))
+    log("5g obs", tokens_per_s_off=[f"{r:.1f}" for r in rate["off"]],
+        tokens_per_s_on=[f"{r:.1f}" for r in rate["on"]],
+        on_over_off=f"{sum(rate['on']) / sum(rate['off']):.3f}",
+        streams_equal_phase5="all" if not differ else differ,
+        span_ms={k: f"{v[0]:.3f}x{v[1]}" for k, v in spans.items()},
+        ttft=f"{slo['ttft_ticks']} ticks / {slo['ttft_ms']} ms",
+        tpot=f"{slo['tpot_ticks']} ticks / {slo['tpot_ms']} ms",
+        trace_events=len(o.tracer.events), required="bitwise", card=card)
+    res["obs"] = dict(tokens_per_s=rate, span_ms=spans, slo=slo,
+                      snapshot=o.metrics.snapshot(), differ=differ)
+    if differ:
+        failed["obs"] = differ
+    # the crash-free twins: the same streams served in phases 5, 5f, 5b
+    twins = {tuple(GREEDY): {f"{r}:0": t for r, t in want.items()},
+             tuple(N4_SAMPLED): report["shared"]["sampled_n4"]["streams"],
+             tuple(GREEDY + SLOTS_LAYOUT):
+                 report["whole_prompt"]["slots_greedy"]["streams"]}
+    peaks = []
+    for label, (extra, crash_at) in CRASH_RUNS.items():
+        twin = twins[tuple(extra)]
+        fresh_peak()
+        run = restore_run(engine, extra, out_dir / f"{label}.jsonl",
+                          serve_crashing(crash_at), crash_at)
+        bad = restore_failures(label, run, twin, crash_at, layers)
+        res[label] = restore_line(label, run, twin, bad, card,
+                                  crash_at=crash_at)
+        peaks.append(res[label]["peak_memory_gib"])
+        launches[f"restore_{label}"] = run["launches"]
+        if bad:
+            failed[label] = bad
+    # slots: a live snapshot through JSON (flash prefill, contiguous decode)
+    twin = twins[tuple(GREEDY + SLOTS_LAYOUT)]
+    fresh_peak()
+    run = restore_run(engine, GREEDY + SLOTS_LAYOUT, out_dir / "slots.jsonl",
+                      serve_snapshot(SNAPSHOT_TICK, out_dir / "slots.json"))
+    bad = restore_failures("slots_snapshot", run, twin, SNAPSHOT_TICK,
+                           layers)
+    res["slots_snapshot"] = restore_line("slots_snapshot", run, twin, bad,
+                                         card, snapshot_at=SNAPSHOT_TICK)
+    peaks.append(res["slots_snapshot"]["peak_memory_gib"])
+    launches["restore_slots_snapshot"] = run["launches"]
+    if bad:
+        failed["slots_snapshot"] = bad
+    # F4: seeded chaos with crashes
+    twin = twins[tuple(GREEDY)]
+    fresh_peak()
+    run = restore_run(engine, GREEDY, out_dir / "F4.jsonl",
+                      serve_chaos(F4_PLAN))
+    bad = restore_failures("F4", run, twin, None, layers)
+    inj = run["extra"]["injector"]
+    res["F4"] = restore_line("F4", run, twin, bad, card,
+                             crashes=run["extra"]["crashes"],
+                             applied=inj.applied,
+                             disconnected=inj.disconnected,
+                             quarantined=sorted(run["sched"].quarantined))
+    launches["restore_F4"] = run["launches"]
+    if bad:
+        failed["F4"] = bad
+    peaks.append(res["F4"]["peak_memory_gib"])
+    res["peak_memory_gib"] = max(peaks)
+    log("5g restore", peak_memory_gib=f"{max(peaks):.2f}",
+        runs_peak_gib=[f"{p:.2f}" for p in peaks])
+    report["restore"] = res
+    if failed:
+        raise AssertionError(f"phase 5g failed: {failed}")
     return launches
 
 
@@ -2331,7 +2787,7 @@ def phase_static(report, engine):
 PEFT_METHODS = ("none", "aot", "bitfit", "lora", "lora_fused", "adapters",
                 "ptv2")
 LOGITS_GRID = ((1, 64), (8, 64), (1, 384), (8, 384))   # speed_overhead's
-PEFT_ROUNDS = 5     # each method's runs, in turns (the host's speed drifts)
+PEFT_ROUNDS = 3     # each method's runs, in turns (the host's speed drifts)
 
 
 def peft_setup(label, model, params, table, gen):
@@ -2809,6 +3265,109 @@ def cross_check_cow(gen, report, engine):
     return ok
 
 
+RESTORE_PROMPT, RESTORE_NEW, RESTORE_AT = 300, 24, 8
+
+
+def decode_rows(engine, sched, req):
+    """Serve ``sched`` to the end, recording the logits row each decode
+    tick of ``req`` reports, keyed by the index of the token drawn from
+    it."""
+    step, rows = engine.serve_step, {}
+
+    def tapped(*a):
+        out = step(*a)
+        if req.state == "running":
+            rows[len(req.out)] = out[1][req.slot].float().clone()
+        return out
+    engine.serve_step = tapped
+    try:
+        sched.run()
+    finally:
+        del engine.serve_step
+    return rows
+
+
+def slot_kv(pool, slot, length):
+    """A slot's K/V rows 0 .. length - 1 through its pages, every layer,
+    float32."""
+    pages = pool._pages[slot]
+    return {n: c[:, pages].flatten(1, 2)[:, :length].float().clone()
+            for n, c in pool.cache.items()}
+
+
+def cross_check_restore(gen, report, engine):
+    """At full width with 2 layers: one request served to the end, and the
+    same request snapshotted after RESTORE_AT ticks, its snapshot written
+    and read as JSON and restored into a fresh scheduler, which recomputes
+    prompt + out[:-1] in chunk tiles where the first run wrote the decoded
+    rows one token at a time. The K/V rows the recompute wrote against
+    those the first run held at the snapshot, and the first logits row the
+    restored request decodes from against the first run's for the same
+    token: within the bf16 tolerance, bitwise shares reported, as is
+    whether the two streams agree. Returns whether the gate held."""
+    from repro_torch.serve.recovery import read_snapshot, write_snapshot
+    from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
+                                             SchedulerConfig)
+    vocab = engine.model.cfg.vocab_size
+    prompt = torch.randint(0, vocab, (RESTORE_PROMPT,), generator=gen,
+                           device=DEV, dtype=torch.int32).cpu().numpy()
+    cfg = SchedulerConfig(num_slots=4, block_size=BS, prefill_chunk=128,
+                          max_prefills=2)
+
+    def fresh(submit=True):
+        sched = ContinuousScheduler(engine, cfg)
+        req = Request(rid=0, prompt=prompt, task_id=3,
+                      max_new_tokens=RESTORE_NEW)
+        if submit:
+            sched.submit(req)
+        return sched, req
+    whole, ra = fresh()
+    rows_a = decode_rows(engine, whole, ra)
+    sched, rb = fresh()
+    for _ in range(RESTORE_AT):
+        sched.step()
+    depth = int(sched.pool.cur_len[rb.slot])
+    kv_b = slot_kv(sched.pool, rb.slot, depth)
+    path = ROOT / "chiprun_out" / "restore_snapshot.json"
+    path.parent.mkdir(exist_ok=True)
+    write_snapshot(sched.snapshot(), path)
+    sched.pool.cache = None
+    restored, _ = fresh(submit=False)
+    restored.restore(read_snapshot(path))
+    rc = restored.queue[0]
+    j0, cap = len(rc.out), {}
+    commit = restored.pool.commit_prefill
+
+    def grab(slot, length):
+        commit(slot, length)
+        cap["kv"] = slot_kv(restored.pool, slot, length)
+    restored.pool.commit_prefill = grab
+    rows_c = decode_rows(engine, restored, rc)
+    res = against_plain(rows_c[j0][None], rows_a[j0][None])
+    share = (rows_c[j0] == rows_a[j0]).float().mean().item()
+    w = torch.cat([cap["kv"][n].flatten() for n in ("k", "v")])
+    c = torch.cat([kv_b[n].flatten() for n in ("k", "v")])
+    kv = dict(max_abs_err=(w - c).abs().max().item(),
+              bitwise_share=(w == c).float().mean().item(),
+              ok=torch.allclose(w, c, atol=TOL[torch.bfloat16],
+                                rtol=TOL[torch.bfloat16]))
+    ok = (res["ok"] and kv["ok"] and cap["kv"]["k"].shape[1] == depth
+          and restored.drain_check() == [])
+    log("6 cross-check restore", layers=2, prompt=RESTORE_PROMPT,
+        snapshot_tick=RESTORE_AT, recomputed=depth, first_token=j0,
+        logits=f"{res['logits_max_abs_err']:.3e}/bitwise {share:.4f}"
+        f"/ties {res['near_ties']}",
+        kv_recomputed=f"{kv['max_abs_err']:.3e}"
+        f"/bitwise {kv['bitwise_share']:.4f}",
+        tokens="identical" if rc.out == ra.out
+        else f"{ra.out} vs {rc.out}",
+        required="logits and recomputed K/V within the bf16 tolerance")
+    report["cross_check_restore"] = dict(
+        res, depth=depth, first_token=j0, logits_bitwise_share=share,
+        kv=kv, tokens_equal=rc.out == ra.out)
+    return ok
+
+
 # phase 6 draws its inputs and PEFT parameters from a generator of its own,
 # so that draws added to earlier phases leave them as they are
 PHASE6_SEED = 0
@@ -2879,6 +3438,8 @@ def phase_cross_check(report, seed=PHASE6_SEED, recompute=True):
         failed.append("warm/cold")
     if not cross_check_cow(gen, report, engine):
         failed.append("cow")
+    if not cross_check_restore(gen, report, engine):
+        failed.append("restore")
     if failed:
         raise AssertionError(f"kernel and plain runs disagree for {failed}")
     if not recompute:
@@ -2944,6 +3505,7 @@ def main() -> int:
     launches.update(phase_peft(report, engine))
     launches.update(phase_faults(report, engine))
     launches.update(phase_shared(report, engine))
+    launches.update(phase_restore(report, engine))
     del engine
     torch.cuda.empty_cache()
     for row in kernels:     # each kernel's count on the path it serves

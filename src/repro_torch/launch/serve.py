@@ -12,6 +12,12 @@ task with the same prefix, which ``--prefix-cache-pages`` reuses across
 requests; ``--samples`` draws n samples per request from one prefill;
 ``--max-queue`` bounds the queue (a shed request is retried with
 exponential backoff, up to four times, as the reference's client does).
+``--journal`` appends every request transition to a JSONL file,
+``--crash-at-tick`` then simulates a process death at a tick (the journal
+is replayed into a fresh scheduler, which serves on) and
+``--restore-from`` replays a journal before serving. ``--metrics``,
+``--metrics-out``, ``--trace-out`` and ``--torch-profile`` turn on the
+serve path's metrics, SLO summary, tick trace and profiler bracket.
 Runs on the card unless ``--device cpu`` is given. Exits non-zero if the
 KV pool leaks.
 
@@ -37,9 +43,13 @@ KV pool leaks.
         --dtype bfloat16 --slots 8 --max-len 1024 --max-queue 4 \
         --priority-mix latency=0.25,standard=0.5,best_effort=0.25
 
-    # on the CPU, reduced widths
+    # on the CPU, reduced widths; then a crash at tick 6 and a restore
+    # from the journal, with the metrics and SLO summary at the end
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --reduced --demo --tasks 3 --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --reduced --demo --tasks 3 --requests 6 --quiet --metrics \\
+        --journal /tmp/serve.jsonl --crash-at-tick 6
 """
 from __future__ import annotations
 
@@ -55,7 +65,10 @@ import torch
 from repro_torch import configs
 from repro_torch.core import aot as aot_mod
 from repro_torch.models.model import Model, ModelOptions
+from repro_torch.obs import ServeObservability
 from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.faults import crash_restore
+from repro_torch.serve.recovery import RequestJournal, replay_journal
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import (PRIORITIES, ContinuousScheduler,
                                          Request, SchedulerConfig, ShedError)
@@ -134,6 +147,42 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--static", action="store_true",
                     help="one static batch: --requests prompts of --prompt "
                          "tokens, --steps greedy tokens each")
+    rec = ap.add_argument_group("crash recovery (serve.recovery)")
+    rec.add_argument("--journal", metavar="FILE",
+                     help="append every request lifecycle transition "
+                          "(submit/admit/emit/finish/shed/abort/"
+                          "quarantine) to this JSONL file, enough to "
+                          "replay the run after a crash")
+    rec.add_argument("--restore-from", metavar="FILE",
+                     help="before serving, replay this journal and "
+                          "re-admit its live requests (their KV recomputed "
+                          "from prompt + emitted tokens)")
+    rec.add_argument("--crash-at-tick", type=int, default=0,
+                     help="simulate a process death at this global tick: "
+                          "abandon the scheduler, replay --journal into a "
+                          "fresh one, serve on (0 = off; needs --journal)")
+    obs_g = ap.add_argument_group("observability (repro_torch.obs)")
+    obs_g.add_argument("--metrics", action="store_true",
+                       help="collect serve-path metrics and request "
+                            "lifecycles; print the snapshot and the "
+                            "TTFT/TPOT/e2e SLO summary at drain")
+    obs_g.add_argument("--metrics-out", metavar="FILE",
+                       help="append the final metrics snapshot as one "
+                            "JSONL line (implies --metrics)")
+    obs_g.add_argument("--trace-out", metavar="FILE",
+                       help="write a Chrome trace-event JSON of every "
+                            "scheduler tick (admission / ensure_pages / "
+                            "budget split / dispatch / postprocess spans)")
+    obs_g.add_argument("--torch-profile", metavar="DIR",
+                       help="bracket the run with torch.profiler (CPU and "
+                            "CUDA) and export its trace into DIR; each tick "
+                            "span is marked with record_function")
+    obs_g.add_argument("--check-leaks", action="store_true",
+                       help="sweep the KV pool's invariants at drain; "
+                            "findings go into the metrics and fail the run")
+    obs_g.add_argument("--slo-ttft-ticks", type=float, default=8.0,
+                       help="TTFT SLO target in real ticks (attainment "
+                            "reported with --metrics)")
     return ap
 
 
@@ -214,14 +263,27 @@ def make_arrivals(args, vocab_size: int, n_tasks: int,
     return arrivals
 
 
-def make_scheduler(engine: ServeEngine, args) -> ContinuousScheduler:
-    """A fresh scheduler over ``engine`` as the flags configure it."""
+def make_obs(args) -> Optional[ServeObservability]:
+    """The observability bundle the flags ask for (None: none)."""
+    if not (args.metrics or args.metrics_out or args.trace_out
+            or args.torch_profile or args.check_leaks):
+        return None
+    return ServeObservability(
+        metrics=bool(args.metrics or args.metrics_out),
+        trace=bool(args.trace_out), profile_dir=args.torch_profile,
+        check_leaks=args.check_leaks)
+
+
+def make_scheduler(engine: ServeEngine, args, obs=None,
+                   journal=None) -> ContinuousScheduler:
+    """A fresh scheduler over ``engine`` as the flags configure it,
+    reporting to ``obs`` and journaling to ``journal``."""
     return ContinuousScheduler(engine, SchedulerConfig(
         num_slots=args.slots, kv_layout=args.layout,
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk, max_prefills=args.max_prefills,
         prefix_cache_pages=args.prefix_cache_pages,
-        max_queue=args.max_queue))
+        max_queue=args.max_queue), obs=obs, journal=journal)
 
 
 # the reference launcher's client retry policy (its default flags)
@@ -230,20 +292,29 @@ MAX_RETRIES, BACKOFF = 4, 2
 
 def run_with_retries(sched: ContinuousScheduler, arrivals,
                      max_retries: int = MAX_RETRIES,
-                     backoff: int = BACKOFF):
+                     backoff: int = BACKOFF, crash_at_tick: int = 0,
+                     make_sched=None, on_token=None):
     """The client loop of the reference launcher: submit each request on
     its arrival tick; a shed request (``ShedError`` at submit, or later
     displaced from the queue, found in ``sched.shed`` after each tick) is
     submitted again ``backoff ** (attempt - 1)`` ticks later, up to
     ``max_retries`` times. Idle gaps fast-forward as in ``run_stream``,
-    which this equals when nothing is shed. Serves to the end; returns
-    the rids that gave up and the number of retries."""
+    which this equals when nothing is shed. Serves to the end.
+
+    ``crash_at_tick > 0`` with ``make_sched`` (a zero-argument factory of
+    a fresh scheduler journaling to the same path) simulates a process
+    death once, after that many ticks counted across the run: the
+    scheduler is abandoned where it stands, its journal replayed and the
+    factory's scheduler restored (``on_token`` attached to the restored
+    requests), which serves on. Returns the rids that gave up, the number
+    of retries and the scheduler that finished the run."""
     heap = [(t, i, req) for i, (t, req) in enumerate(arrivals)]
     heapq.heapify(heap)
     seq = len(heap)
     attempts = {}                       # rid -> submissions so far
     pending = {req.rid for _, _, req in heap}   # waiting to be submitted
     gave_up, retries = [], 0
+    gt = 0                              # global tick, survives the crash
 
     def requeue(req):
         nonlocal seq, retries
@@ -269,19 +340,25 @@ def run_with_retries(sched: ContinuousScheduler, arrivals,
             except ShedError:
                 requeue(req)
         sched.step()
+        gt += 1
+        if crash_at_tick and gt == crash_at_tick and make_sched is not None:
+            sched, snap, counts = crash_restore(sched, make_sched, on_token)
+            print(f"simulated crash at tick {gt}: replayed journal "
+                  f"{sched.journal.path} ({len(snap['requests'])} requests, "
+                  f"{counts['live']} live re-admitted through prefill "
+                  "replay)")
         for rid in [r for r in sched.shed if r not in pending]:
             requeue(sched.shed[rid])     # displaced: the client resubmits
     while sched.busy():
         sched.step()
-    return gave_up, retries
+    sched._maybe_check_leaks()
+    return gave_up, retries, sched
 
 
 def serve(engine: ServeEngine, args, arrivals) -> ContinuousScheduler:
     """Serve the stream to the end on a fresh scheduler, through the
     client loop (:func:`run_with_retries`)."""
-    sched = make_scheduler(engine, args)
-    run_with_retries(sched, arrivals)
-    return sched
+    return run_with_retries(make_scheduler(engine, args), arrivals)[2]
 
 
 def static_batch(args, vocab_size: int, n_tasks: int):
@@ -316,6 +393,9 @@ def main(argv: Optional[List[str]] = None):
     if args.samples > 1 and args.layout != "paged":
         ap.error(f"--samples {args.samples} needs --layout paged (the "
                  "samples share the prefill's pages copy-on-write)")
+    if args.crash_at_tick > 0 and not args.journal:
+        ap.error("--crash-at-tick needs --journal (recovery replays the "
+                 "journal; without one there is nothing to restore from)")
     try:
         parse_priority_mix(args.priority_mix)
     except ValueError as e:
@@ -351,8 +431,36 @@ def main(argv: Optional[List[str]] = None):
         print("warning: chunked prefill rides the unified paged serve step; "
               "--layout slots falls back to whole-prompt prefills")
         args.prefill_chunk = 0
-    sched = make_scheduler(engine, args)
-    gave_up, retries = run_with_retries(sched, arrivals)
+    obs = make_obs(args)
+
+    def make_sched():
+        journal = RequestJournal(args.journal) if args.journal else None
+        return make_scheduler(engine, args, obs, journal)
+
+    sched = make_sched()
+    if args.restore_from:
+        snap = replay_journal(args.restore_from)
+        counts = sched.restore(snap, on_token=on_token)
+        print(f"restored from journal {args.restore_from}: "
+              f"{len(snap['requests'])} requests replayed, {counts['live']} "
+              "live re-admitted through prefill replay")
+    if obs is not None:
+        obs.tracer.start()          # nothing without --torch-profile
+    try:
+        gave_up, retries, sched = run_with_retries(
+            sched, arrivals, crash_at_tick=args.crash_at_tick,
+            make_sched=make_sched if args.journal else None,
+            on_token=on_token)
+    finally:
+        if obs is not None:
+            prof = obs.tracer.stop()
+            if prof:
+                print(f"torch.profiler trace -> {prof}")
+            if args.trace_out:
+                obs.tracer.write(args.trace_out)
+                print(f"tick trace -> {args.trace_out} "
+                      f"({len(obs.tracer.events)} events; load in "
+                      "chrome://tracing or ui.perfetto.dev)")
     pool = sched.pool
     print(f"\nserved {len(sched.finished)} requests in {sched.ticks} real "
           f"ticks (+{sched.clock - sched.ticks} idle fast-forwarded): "
@@ -382,6 +490,13 @@ def main(argv: Optional[List[str]] = None):
         print(f"overload: {retries} shed retries (backoff base "
               f"{BACKOFF}), {len(gave_up)} requests gave up after "
               f"{MAX_RETRIES} retries {sorted(gave_up)}")
+    if args.journal:
+        j = sched.journal
+        print(f"journal {args.journal}: {j.events_written} events, "
+              f"{j.bytes_written} bytes this run")
+        j.close()
+    if obs is not None and obs.metrics.enabled:
+        print_slo(obs, args, sched)
     findings = sched.drain_check()
     if findings:
         print("DRAIN FAILED: KV pool leak findings at exit:", file=sys.stderr)
@@ -394,6 +509,61 @@ def main(argv: Optional[List[str]] = None):
         print(f"req {rid} task={req.task_id} plen={len(req.prompt)} "
               f"latency={ms:.0f}ms: {req.out}")
     return sched
+
+
+def print_slo(obs: ServeObservability, args, sched) -> None:
+    """The SLO summary in ticks and in ms (never mixed), per class when
+    several ran, and the metrics snapshot (``--metrics``) or its JSONL
+    line (``--metrics-out``), as the reference launcher prints them."""
+    summary = obs.slo.summary(targets={"ttft_ticks": args.slo_ttft_ticks})
+    tick = {k: v for k, v in summary.items() if k.endswith("_ticks")}
+    wall = {k: v for k, v in summary.items() if k.endswith("_ms")}
+    print("\nSLO summary (real-tick series, load-invariant):")
+    for k, v in tick.items():
+        print(f"  {k:>18}: p50={v['p50']:g} p95={v['p95']:g} "
+              f"p99={v['p99']:g}")
+    print("SLO summary (wall-clock series, ms; a token is stamped after "
+          "its tick's download, so the device time is in):")
+    for k, v in wall.items():
+        print(f"  {k:>18}: p50={v['p50']:g} p95={v['p95']:g} "
+              f"p99={v['p99']:g}")
+    for name, frac in summary.get("slo_attainment", {}).items():
+        print(f"  attainment {name}: {frac:.1%}")
+    by_class = summary.get("by_class", {})
+    if by_class:
+        print("per-class SLO (real-tick series):")
+        for cls, c in by_class.items():
+            parts = [f"requests={c.get('requests', 0)}"]
+            for key in ("ttft_ticks", "tpot_ticks"):
+                if key in c:
+                    parts.append(f"{key} p50={c[key]['p50']:g} "
+                                 f"p95={c[key]['p95']:g}")
+            if c.get("shed"):
+                parts.append(f"shed={c['shed']}")
+            if c.get("aborted"):
+                parts.append(f"aborted={c['aborted']}")
+            print(f"  {cls:>12}: " + " ".join(parts))
+            for name, frac in c.get("slo_attainment", {}).items():
+                print(f"  {'':>12}  attainment {name}: {frac:.1%}")
+    if summary.get("sheds"):
+        print(f"  sheds: {summary['sheds']} "
+              f"(by class: {summary.get('sheds_by_class', {})})")
+    pcs = summary.get("prefix_cache")
+    if pcs:
+        print("prefix-cache TTFT (real-tick series): "
+              f"warm p50={pcs['warm_ttft_ticks']['p50']:g} "
+              f"({pcs['warm_requests']} requests) vs "
+              f"cold p50={pcs['cold_ttft_ticks']['p50']:g} "
+              f"({pcs['cold_requests']} requests); "
+              f"{pcs['cached_tokens']} prompt tokens served from cache")
+    if args.metrics_out:
+        obs.metrics.write_jsonl(args.metrics_out, extra={
+            "slo": summary, "ticks": sched.ticks,
+            "idle_fast_forward": sched.clock - sched.ticks})
+        print(f"metrics JSONL -> {args.metrics_out}")
+    if args.metrics:
+        print("\nmetrics snapshot (prometheus text):")
+        print(obs.metrics.prometheus_text())
 
 
 if __name__ == "__main__":

@@ -107,7 +107,22 @@ class ServeEngine:
         # serve_step, prefill_request, sample_first and decode_mixed calls:
         # the scheduler asserts one per paged tick
         self.dispatches = 0
+        self._m = None                  # per-kind obs counters, if attached
         self._pending_fault: Optional[Tuple[str, int]] = None
+
+    def attach_metrics(self, registry) -> None:
+        """Per-kind dispatch counters on an obs registry
+        (``engine_dispatch_<kind>_total``), counted on the host."""
+        self._m = {kind: registry.counter(
+            f"engine_dispatch_{kind}_total",
+            f"device dispatches via {kind}")
+            for kind in ("serve_step", "prefill", "decode_mixed",
+                         "sample_first")}
+
+    def _count(self, kind: str) -> None:
+        self.dispatches += 1
+        if self._m is not None:
+            self._m[kind].inc()
 
     def inject_fault(self, kind: str, slot: int = -1) -> None:
         """Arm a one-shot fault that the next :meth:`serve_step` consumes
@@ -174,7 +189,7 @@ class ServeEngine:
         logits, cache, _ = self.model.prefill(
             self.params, toks, self._peft(tids), max_len=self.cache_len,
             last_pos=length - 1)
-        self.dispatches += 1
+        self._count("prefill")
         return self._first_tokens(logits, sample), cache
 
     def _first_tokens(self, logits, sample) -> list:
@@ -193,7 +208,7 @@ class ServeEngine:
         toks = sample_tokens(rows, temps.view(torch.float32), top_ks,
                              top_ps.view(torch.float32),
                              base_keys.long() & 0xFFFFFFFF, steps)
-        self.dispatches += 1
+        self._count("sample_first")
         return [int(t) for t in toks.cpu()]
 
     def decode_mixed(self, tokens: np.ndarray, pos: np.ndarray, cache,
@@ -206,7 +221,7 @@ class ServeEngine:
         ignored by the caller. ``sample``: optional per-slot (temps, top_ks,
         top_ps, base_keys, steps); None takes the exact argmax.
         Returns (next token per slot (num_slots,) np, cache)."""
-        self.dispatches += 1
+        self._count("decode_mixed")
         arrays = [tokens, pos, task_ids]
         if sample is not None:
             arrays += [np.asarray(sample[0], np.float32), sample[1],
@@ -274,5 +289,5 @@ class ServeEngine:
             logits[fault[1]] = float("nan")
         finite = torch.isfinite(logits).all(dim=-1)
         out = torch.stack([toks.int(), finite.int()]).cpu().numpy()
-        self.dispatches += 1
+        self._count("serve_step")
         return out[0], logits, cache, out[1].astype(bool)

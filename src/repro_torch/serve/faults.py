@@ -25,8 +25,10 @@ machinery, not mocks:
   that request (its whole sample group) and retry the tick;
 - ``alloc_failure``: the next dispatch raises ``DispatchFault``; the tick
   loop must absorb it within ``tick_retries``;
-- ``crash``: scheduled, but inert: recovering from a process death needs
-  the request journal, which the port does not have yet.
+- ``crash``: a simulated process death. :func:`run_chaos`, given a
+  ``sched_factory``, abandons the scheduler where it stands, replays its
+  request journal and restores a fresh scheduler from it, which serves
+  on (the preempt-and-recompute path rebuilds the survivors' KV).
 
 The chaos invariants: the scheduler drains, ``leak_report()`` comes back
 empty, and every surviving request's tokens equal a fault-free run's.
@@ -39,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.serve.recovery import replay_journal
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import (InvalidRequest, Request,
                                          ShedError)
@@ -125,7 +128,9 @@ class FaultInjector:
     Call :meth:`before_tick` right before each ``sched.step()`` and
     :meth:`finish` after the drain (it restores the pages a trailing
     exhaustion still holds). ``applied`` counts the events that fired, so
-    a run can check that each kind was exercised, not just scheduled."""
+    a run can check that each kind was exercised, not just scheduled.
+    The injector counts its own ticks: a restored scheduler's ``ticks``
+    start again at 0, and the plan must march on, not replay its start."""
 
     def __init__(self, sched, plan: FaultPlan):
         self.sched = sched
@@ -139,6 +144,25 @@ class FaultInjector:
         self.disconnected: List[int] = []
         self.malformed_ok = True
         self._bad_rid = -1              # garbage rids, apart from real ones
+
+    def rebind(self, sched) -> None:
+        """Point the injector at the scheduler restored after a crash. The
+        applied counts and the injector's tick carry over; the seized
+        pages do not (they died with the old pool)."""
+        self.sched = sched
+        self._held = []
+
+    def crash_now(self) -> bool:
+        """True if a crash event is scheduled for the current tick, and
+        consume it; :func:`run_chaos` performs the crash and the
+        restore."""
+        evs = self._by_tick.get(self.t, ())
+        hit = [ev for ev in evs if ev.kind == "crash"]
+        if not hit:
+            return False
+        self._by_tick[self.t] = [ev for ev in evs if ev.kind != "crash"]
+        self.applied["crash"] += len(hit)
+        return True
 
     def before_tick(self) -> None:
         sched = self.sched
@@ -209,18 +233,38 @@ class FaultInjector:
         self.sched.engine._pending_fault = None
 
 
+def crash_restore(sched, sched_factory, on_token=None):
+    """Simulate the death of ``sched``'s process: abandon it where it
+    stands (no shutdown, no page freed), replay its journal and restore
+    ``sched_factory()``, a fresh scheduler journaling to the same path.
+    The abandoned pool's device tensors are dropped before the factory
+    allocates the new pool. Returns (the new scheduler, the snapshot,
+    restore's counts per status)."""
+    path = sched.journal.path
+    sched.journal.close()           # the dying process's buffers flush
+    snap = replay_journal(path)
+    sched.pool.cache = None         # the dead pool's K/V
+    sched = sched_factory()
+    counts = sched.restore(snap, on_token=on_token)
+    return sched, snap, counts
+
+
 def run_chaos(sched, arrivals, plan: FaultPlan, sched_factory=None) -> dict:
     """Serve a timed arrival stream under a fault plan: the arrival clock
     and idle fast-forward of :meth:`ContinuousScheduler.run_stream`, with
-    :meth:`FaultInjector.before_tick` at every tick boundary. ``crash``
-    events stay inert. Returns ``{"finished", "injector", "shed_rids",
-    "leak_findings", "quarantined", "crashes", "sched"}``."""
-    if sched_factory is not None:
-        raise NotImplementedError(
-            "crash recovery replays the request journal, which the port "
-            "does not have yet")
+    :meth:`FaultInjector.before_tick` at every tick boundary.
+
+    ``crash`` events need ``sched_factory``, a zero-argument callable that
+    returns a fresh scheduler journaling to the same path as ``sched``;
+    at each one the scheduler is abandoned, its journal replayed and the
+    factory's scheduler restored from it (:func:`crash_restore`), and the
+    new one serves the rest of the arrivals. Without a factory they are
+    inert. Returns ``{"finished", "injector", "shed_rids",
+    "leak_findings", "quarantined", "crashes", "sched"}``: ``finished``
+    spans every incarnation, ``sched`` is the last."""
     inj = FaultInjector(sched, plan)
     shed_rids: List[int] = []
+    crashes = 0
     order = sorted(range(len(arrivals)), key=lambda i: arrivals[i][0])
     i = 0
     while i < len(order) or sched.busy():
@@ -233,10 +277,15 @@ def run_chaos(sched, arrivals, plan: FaultPlan, sched_factory=None) -> dict:
             except ShedError:
                 shed_rids.append(arrivals[order[i]][1].rid)
             i += 1
+        if (sched_factory is not None and sched.journal.enabled
+                and inj.crash_now()):
+            sched = crash_restore(sched, sched_factory)[0]
+            inj.rebind(sched)
+            crashes += 1
         inj.before_tick()
         sched.step()
     inj.finish()
     return {"finished": sched.finished, "injector": inj,
             "shed_rids": shed_rids, "leak_findings": sched.drain_check(),
-            "quarantined": dict(sched.quarantined), "crashes": 0,
+            "quarantined": dict(sched.quarantined), "crashes": crashes,
             "sched": sched}

@@ -92,6 +92,17 @@ class SlotKVPool:
         self.task_id = np.zeros(num_slots, np.int32)
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self._used: Set[int] = set()
+        self._m = None                      # obs instruments, if attached
+
+    def attach_metrics(self, registry) -> None:
+        """The slot-occupancy gauge (the contiguous layout has no pages)."""
+        self._m = {"slots_used": registry.gauge(
+            "kv_slots_used", "occupied decode slots")}
+        self._gauge_sync()
+
+    def _gauge_sync(self) -> None:
+        if self._m is not None:
+            self._m["slots_used"].set(len(self._used))
 
     def has_free(self) -> bool:
         return bool(self._free)
@@ -104,6 +115,7 @@ class SlotKVPool:
         self._used.add(slot)
         self.task_id[slot] = task_id
         self.cur_len[slot] = 0
+        self._gauge_sync()
         return slot
 
     def free(self, slot: int) -> None:
@@ -113,6 +125,7 @@ class SlotKVPool:
         self.cur_len[slot] = 0
         self.task_id[slot] = 0
         self._free.append(slot)
+        self._gauge_sync()
 
     def write_prefill(self, slot: int, req_cache, length: int) -> None:
         """Copy a request's batch-1 prefill cache ``{"k", "v"}: (L, 1, S,
@@ -179,6 +192,7 @@ class PrefixCache:
         self.hit_tokens = 0             # prefill tokens skipped by matches
         self.retained_pages = 0         # entries ever inserted
         self.evicted_pages = 0          # entries ever evicted
+        self._m = None                  # obs instruments, if attached
 
     def match(self, task_id: int, toks) -> List[bytes]:
         """Keys of the longest cached run of full pages prefixing ``toks``
@@ -203,8 +217,13 @@ class PrefixCache:
         if matched_tokens > 0:
             self.hits += 1
             self.hit_tokens += matched_tokens
+            if self._m is not None:
+                self._m["hits"].inc()
+                self._m["hit_tokens"].inc(matched_tokens)
         else:
             self.misses += 1
+            if self._m is not None:
+                self._m["misses"].inc()
 
     def retain(self, task_id: int, prompt, slot: int) -> int:
         """Retain a finishing slot's full prompt pages: one cache refcount
@@ -237,7 +256,11 @@ class PrefixCache:
                 self._entries[parent].children.add(key)
             parent = key
             added += 1
-        self.retained_pages += added
+        if added:
+            self.retained_pages += added
+            if self._m is not None:
+                self._m["retained"].inc(added)
+            self._gauge_sync()
         return added
 
     def pin(self, keys: Sequence[bytes]) -> None:
@@ -257,6 +280,7 @@ class PrefixCache:
         keys = self._slot_pins.pop(slot, None)
         if keys:
             self.unpin(keys)
+            self._gauge_sync()
 
     def _evict_lru(self, protect: Optional[Set[bytes]] = None) -> bool:
         """Evict the least recently used childless, unpinned entry outside
@@ -279,7 +303,12 @@ class PrefixCache:
         pool._refs[ent.page] -= 1
         if pool._refs[ent.page] == 0:
             pool._free_blocks.append(ent.page)
+            if pool._m is not None:
+                pool._m["freed"].inc()
         self.evicted_pages += 1
+        if self._m is not None:
+            self._m["evicted"].inc()
+        self._gauge_sync()
 
     def reclaim(self, npages: int) -> bool:
         """Evict until the free list holds ``npages`` pages, or nothing
@@ -320,6 +349,37 @@ class PrefixCache:
 
     def pinned_entries(self) -> int:
         return sum(1 for e in self._entries.values() if e.pins)
+
+    def attach_metrics(self, registry) -> None:
+        """The cache's instruments, under the reference's names."""
+        self._m = {
+            "hits": registry.counter(
+                "prefix_cache_hits_total",
+                "admissions that mapped >= 1 cached prefix page"),
+            "misses": registry.counter(
+                "prefix_cache_misses_total",
+                "admissions that matched no cached prefix"),
+            "hit_tokens": registry.counter(
+                "prefix_cache_hit_tokens_total",
+                "prefill tokens skipped via cached prefix pages"),
+            "retained": registry.counter(
+                "prefix_cache_retained_pages_total",
+                "prompt pages retained at request finish"),
+            "evicted": registry.counter(
+                "prefix_cache_evicted_pages_total",
+                "cache entries evicted (LRU or reclaim)"),
+            "entries": registry.gauge(
+                "prefix_cache_pages", "cached prefix pages right now"),
+            "pinned": registry.gauge(
+                "prefix_cache_pinned", "cache entries pinned by live slots"),
+        }
+        self._gauge_sync()
+
+    def _gauge_sync(self) -> None:
+        self.pool._gauge_sync()
+        if self._m is not None:
+            self._m["entries"].set(len(self._entries))
+            self._m["pinned"].set(self.pinned_entries())
 
 
 class PagedKVPool:
@@ -363,19 +423,76 @@ class PagedKVPool:
         self._refs = np.zeros(num_blocks, np.int32)  # holders per page
         self._seized: Set[int] = set()      # pages held by fault injection
         self._quarantined: Set[int] = set()  # poisoned pages held back
+        self.quarantined_pages_total = 0    # pages ever moved to the hold
         self.peak_pages = 0                 # high-water blocks_in_use
         self.forks = 0                      # slots claimed by fork()
         self.cow_copies = 0                 # shared pages copied on append
         self.compactions = 0                # compact() calls that freed pages
         self.pages_deduped = 0              # pages freed by compact()
         self.prefix_cache: Optional[PrefixCache] = None
+        self._m = None                      # obs instruments, if attached
 
     def enable_prefix_cache(self, capacity: int) -> PrefixCache:
         """Layer a :class:`PrefixCache` of ``capacity`` pages over this
-        pool's free list."""
+        pool's free list (before :meth:`attach_metrics`, so that the
+        cache's instruments register with the pool's)."""
         assert self.prefix_cache is None, "prefix cache already enabled"
         self.prefix_cache = PrefixCache(self, capacity)
         return self.prefix_cache
+
+    # ------------------------------------------------------------------
+    # observability: page-lifecycle counters and pressure gauges
+    # ------------------------------------------------------------------
+    def attach_metrics(self, registry) -> None:
+        """Register the pool's instruments (the reference's names) on an
+        obs registry. They read host bookkeeping only."""
+        self._m = {
+            "claimed": registry.counter(
+                "kv_pages_claimed_total", "pages taken off the free list"),
+            "freed": registry.counter(
+                "kv_pages_freed_total", "pages returned to the free list"),
+            "forks": registry.counter(
+                "kv_forks_total", "COW slot forks (n>1 sampling)"),
+            "cow": registry.counter(
+                "kv_cow_copies_total", "shared tail pages copied on first "
+                "divergent append"),
+            "free": registry.gauge("kv_pages_free", "free pages right now"),
+            "used": registry.gauge("kv_pages_used", "mapped pages right now"),
+            "peak": registry.gauge("kv_pages_peak", "high-water mapped pages"),
+            "refs": registry.gauge(
+                "kv_page_refs_max", "max sharers of any one page"),
+            "slots_used": registry.gauge(
+                "kv_slots_used", "occupied decode slots"),
+            "quarantined_total": registry.counter(
+                "kv_pages_quarantined_total",
+                "poisoned pages moved to the quarantine hold"),
+            "quarantined": registry.gauge(
+                "kv_pages_quarantined", "pages in the quarantine hold now"),
+            "compactions": registry.counter(
+                "kv_compactions_total",
+                "defrag passes that freed at least one page"),
+            "deduped": registry.counter(
+                "kv_pages_deduped_total",
+                "duplicate prompt pages freed by compaction"),
+        }
+        if self.prefix_cache is not None:
+            self.prefix_cache.attach_metrics(registry)
+        self._gauge_sync()
+
+    def _gauge_sync(self) -> None:
+        """Raise ``peak_pages`` and, with metrics attached, set the
+        gauges (where the reference syncs, so the values agree)."""
+        used = self.blocks_in_use()
+        self.peak_pages = max(self.peak_pages, used)
+        m = self._m
+        if m is None:
+            return
+        m["free"].set(len(self._free_blocks))
+        m["used"].set(used)
+        m["peak"].set_max(used)
+        m["refs"].set(int(self._refs.max()))
+        m["slots_used"].set(len(self._used_slots))
+        m["quarantined"].set(len(self._quarantined))
 
     # ------------------------------------------------------------------
     # capacity queries
@@ -416,9 +533,6 @@ class PagedKVPool:
     # ------------------------------------------------------------------
     # slot and page lifecycle
     # ------------------------------------------------------------------
-    def _note_peak(self) -> None:
-        self.peak_pages = max(self.peak_pages, self.blocks_in_use())
-
     def _reclaim(self, npages: int) -> bool:
         """Ensure ``npages`` pages on the free list, evicting cold cache
         entries if needed; False when even eviction cannot."""
@@ -447,7 +561,9 @@ class PagedKVPool:
         pages = [self._free_blocks.pop() for _ in range(npages)]
         self._refs[pages] = 1
         slot = self._claim_slot(task_id, pages)
-        self._note_peak()
+        if self._m is not None:
+            self._m["claimed"].inc(npages)
+        self._gauge_sync()
         return slot
 
     def alloc_cached(self, task_id: int, keys: Sequence[bytes],
@@ -475,7 +591,9 @@ class PagedKVPool:
         self._refs[fresh] = 1
         slot = self._claim_slot(task_id, shared + fresh)
         cache.bind_slot(slot, keys)
-        self._note_peak()
+        if self._m is not None:
+            self._m["claimed"].inc(npages_new)
+        cache._gauge_sync()
         return slot
 
     def fork(self, slot: int) -> Optional[int]:
@@ -494,6 +612,9 @@ class PagedKVPool:
         self.block_tables[new] = self.block_tables[slot]
         self.cur_len[new] = self.cur_len[slot]
         self.forks += 1
+        if self._m is not None:
+            self._m["forks"].inc()
+        self._gauge_sync()
         return new
 
     def _copy_page(self, src: int, dst: int) -> None:
@@ -523,7 +644,10 @@ class PagedKVPool:
             pages[need] = new
             self.block_tables[slot, need] = new
             self.cow_copies += 1
-            self._note_peak()
+            if self._m is not None:
+                self._m["cow"].inc()
+                self._m["claimed"].inc()
+            self._gauge_sync()
             return True
         assert need == len(pages), "append skipped a page"
         if not self._reclaim(1):
@@ -532,7 +656,9 @@ class PagedKVPool:
         self._refs[page] = 1
         pages.append(page)
         self.block_tables[slot, need] = page
-        self._note_peak()
+        if self._m is not None:
+            self._m["claimed"].inc()
+        self._gauge_sync()
         return True
 
     def seize_pages(self, n: int) -> List[int]:
@@ -544,6 +670,7 @@ class PagedKVPool:
         take = min(max(n, 0), len(self._free_blocks))
         pages = [self._free_blocks.pop() for _ in range(take)]
         self._seized.update(pages)
+        self._gauge_sync()
         return pages
 
     def restore_pages(self, pages: List[int]) -> None:
@@ -553,6 +680,7 @@ class PagedKVPool:
                 raise ValueError(f"page {p} was not seized")
             self._seized.remove(p)
             self._free_blocks.append(p)
+        self._gauge_sync()
 
     def flush_prefix_cache(self) -> int:
         """Evict every evictable cache entry; returns the pages released
@@ -586,7 +714,10 @@ class PagedKVPool:
         return released
 
     def free(self, slot: int) -> None:
-        self._release_slot(slot, None)
+        returned = self._release_slot(slot, None)
+        if self._m is not None:
+            self._m["freed"].inc(returned)
+        self._gauge_sync()
 
     def quarantine_slot(self, slot: int) -> int:
         """:meth:`free` for a poisoned request (non-finite logits): the slot
@@ -596,7 +727,12 @@ class PagedKVPool:
         the K/V that gave the bad logits stays readable. Pages still shared
         with other slots or the cache only drop this slot's refcount.
         Returns the number of pages held."""
-        return self._release_slot(slot, self._quarantined)
+        held = self._release_slot(slot, self._quarantined)
+        self.quarantined_pages_total += held
+        if self._m is not None:
+            self._m["quarantined_total"].inc(held)
+        self._gauge_sync()
+        return held
 
     def release_quarantined(self) -> int:
         """Return every quarantined page to the free list; returns how
@@ -605,6 +741,9 @@ class PagedKVPool:
         n = len(self._quarantined)
         self._free_blocks.extend(sorted(self._quarantined, reverse=True))
         self._quarantined.clear()
+        if self._m is not None and n:
+            self._m["freed"].inc(n)
+        self._gauge_sync()
         return n
 
     def compact(self, slot_prompts: Dict[int, object]) -> int:
@@ -653,6 +792,11 @@ class PagedKVPool:
         if freed:
             self.compactions += 1
             self.pages_deduped += freed
+            if self._m is not None:
+                self._m["compactions"].inc()
+                self._m["deduped"].inc(freed)
+                self._m["freed"].inc(freed)
+            self._gauge_sync()
         return freed
 
     def write_prefill(self, slot: int, req_cache, length: int) -> None:

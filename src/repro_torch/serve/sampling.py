@@ -38,7 +38,8 @@ class SamplingParams:
     top_k: keep the k highest logits (0 = off).
     top_p: nucleus sampling, keep the smallest descending-probability
         prefix with cumulative mass >= top_p (1.0 = off).
-    n: parallel samples per prompt (the port serves n = 1 so far).
+    n: parallel samples per prompt (n > 1 forks the prefill's pages
+        copy-on-write; paged layout only).
     seed: root of the request's counter-based RNG stream.
     max_tokens: overrides Request.max_new_tokens when set.
     stop: extra stop-token ids.

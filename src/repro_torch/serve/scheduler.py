@@ -50,8 +50,18 @@ whole), ``deadline_ticks`` aborts one that has not finished in time, and
 ``shutdown`` drains, aborts what is left, flushes the prefix cache and
 sweeps the pool. ``serve.faults`` drives all of it from a seeded plan.
 
-Not ported yet: the journal (so a crash cannot be recovered),
-``snapshot`` / ``restore``, observability (metrics, tracing, SLOs).
+A crash is recovered from the request journal (``journal=``, a
+``serve.recovery.RequestJournal``): every lifecycle transition is one
+flushed JSONL line, ``serve.recovery.replay_journal`` rebuilds a snapshot
+from it, and :meth:`restore` re-admits the survivors into a fresh
+scheduler through the preempt-and-recompute path (:meth:`snapshot` makes
+the same snapshot from a live scheduler). No KV page is serialised.
+
+``obs=`` (a ``repro_torch.obs.ServeObservability``) turns on the
+reference's metrics, per-tick trace spans (``admission``,
+``ensure_pages``, ``pack_budget_split``, ``dispatch``, ``postprocess``)
+and SLO lifecycles. Every hook reads host values the scheduler already
+holds, so observability on or off gives the same tokens.
 """
 from __future__ import annotations
 
@@ -64,8 +74,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.models.model import check_write_exclusive, check_write_fresh
+from repro_torch.obs import NULL_OBS, ServeObservability
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kv_pool import PagedKVPool, SlotKVPool
+from repro_torch.serve.recovery import (NULL_JOURNAL, RequestJournal,
+                                        scheduler_restore, scheduler_snapshot)
 from repro_torch.serve.sampling import SamplingParams, request_base_key
 
 QUEUED, RUNNING, FINISHED = "queued", "running", "finished"
@@ -267,7 +280,9 @@ class ContinuousScheduler:
     """Drives a ServeEngine and a KV pool over an online stream."""
 
     def __init__(self, engine: ServeEngine,
-                 cfg: Optional[SchedulerConfig] = None):
+                 cfg: Optional[SchedulerConfig] = None,
+                 obs: Optional[ServeObservability] = None,
+                 journal: Optional[RequestJournal] = None):
         cfg = cfg if cfg is not None else SchedulerConfig()
         for knob, lo in (("num_slots", 1), ("bucket_min", 1),
                          ("admit_per_step", 0), ("block_size", 1),
@@ -315,6 +330,9 @@ class ContinuousScheduler:
         self.deadline_misses = 0
         self.dispatch_faults = 0        # serve_step calls that raised
         self.tick_retries_used = 0      # retry passes of the tick loop
+        # the append-only lifecycle journal (crash recovery); the null one
+        # by default, whose hooks do nothing
+        self.journal = journal if journal is not None else NULL_JOURNAL
         self._draining = False
         self.slot_tokens = np.zeros((cfg.num_slots, 1), np.int32)
         # per-slot sampling vectors, threaded into serve_step
@@ -337,6 +355,72 @@ class ContinuousScheduler:
         self._seq = 0
         # static per-tick chunk budget: chunk ticks pack to one width
         self._qw = max(1, cfg.prefill_chunk)
+        # observability: NULL_OBS hands out no-op instruments; real ones
+        # read host values only, never a device tensor
+        self.obs = obs if obs is not None else NULL_OBS
+        if self.obs.metrics.enabled:
+            self.pool.attach_metrics(self.obs.metrics)
+            engine.attach_metrics(self.obs.metrics)
+        m = self.obs.metrics
+        self._m_ticks = m.counter(
+            "sched_ticks_total", "real step() calls (no idle fast-forward)")
+        self._m_tokens = m.counter(
+            "sched_tokens_emitted_total", "generated tokens streamed out")
+        self._m_submitted = m.counter(
+            "sched_requests_submitted_total", "requests entering the queue")
+        self._m_admitted = m.counter(
+            "sched_admissions_total", "queue departures (slot+pages claimed; "
+            "recomputes re-admit)")
+        self._m_finished = m.counter(
+            "sched_requests_finished_total", "requests (or sample children) "
+            "completed")
+        self._m_preempt = m.counter(
+            "sched_preemptions_total", "decode rows preempted for pages")
+        self._m_aborts = m.counter(
+            "sched_prefill_aborts_total", "in-flight prefills aborted for "
+            "pages")
+        self._m_chunks = m.counter(
+            "sched_prefill_chunks_total", "prefill chunks advanced")
+        self._m_queue = m.gauge("sched_queue_depth", "requests waiting")
+        self._m_running = m.gauge("sched_running", "decode rows in flight")
+        self._m_inflight_pf = m.gauge(
+            "sched_prefills_inflight", "prompts mid-chunking")
+        self._m_peak_running = m.gauge(
+            "sched_peak_running", "high-water decode concurrency")
+        self._m_peak_pf = m.gauge(
+            "sched_peak_prefills", "high-water concurrent prefills")
+        self._m_tick_tokens = m.histogram(
+            "sched_tick_packed_tokens", [1, 2, 4, 8, 16, 32, 64, 128, 256],
+            "real (non-dead) tokens advanced per tick")
+        self._m_tick_ms = m.histogram(
+            "sched_tick_wall_ms", [1, 2, 5, 10, 20, 50, 100, 200, 500, 1000],
+            "wall ms per tick (the first ticks include kernel builds)")
+        self._m_leaks = m.gauge(
+            "kv_leak_findings", "drain-time pool invariant violations "
+            "(0 = clean; see ContinuousScheduler.drain_check)")
+        self._m_shed = m.counter(
+            "sched_shed_total", "submissions refused or displaced from the "
+            "bounded queue (see sched_shed_<reason>_total)")
+        self._m_client_aborts = m.counter(
+            "sched_aborts_total", "requests cancelled via abort() — client "
+            "aborts, disconnects, deadline misses, shutdown sheds")
+        self._m_deadline = m.counter(
+            "sched_deadline_misses_total", "requests aborted past their "
+            "deadline_ticks budget")
+        self._m_invalid = m.counter(
+            "sched_invalid_requests_total", "submissions rejected by "
+            "validation (InvalidRequest)")
+        self._m_draining = m.gauge(
+            "sched_draining", "1 while shutdown() drains (submits shed)")
+        self._m_quarantined = m.counter(
+            "sched_quarantined_total", "requests quarantined by the NaN/inf "
+            "logits watchdog (terminal; pages held for forensics)")
+        self._m_tick_retries = m.counter(
+            "sched_tick_retries_total", "tick repack+retry passes taken by "
+            "the self-healing dispatch loop")
+        self._m_dispatch_faults = m.counter(
+            "sched_dispatch_faults_total", "serve_step dispatches that "
+            "raised (retried up to tick_retries, then re-raised)")
 
     # ------------------------------------------------------------------
     def _max_new(self, req: Request) -> int:
@@ -398,6 +482,14 @@ class ContinuousScheduler:
     def _shed(self, req: Request, reason: str) -> None:
         req.state, req.finish_reason = SHED, reason
         self.shed[req.rid] = req
+        self._m_shed.inc()
+        self.obs.metrics.counter(
+            f"sched_shed_{reason}_total",
+            f"submissions shed with reason={reason}").inc()
+        self.obs.slo.on_shed(req, self.ticks, reason)
+        self.obs.tracer.instant("shed", rid=req.rid, reason=reason,
+                                priority=req.priority)
+        self.journal.shed(req.rid, reason)
 
     def submit(self, req: Request) -> None:
         """Validate and enqueue. Raises :class:`InvalidRequest` for a
@@ -407,7 +499,11 @@ class ContinuousScheduler:
         submission that outranks the newest waiter of the worst class
         displaces it instead: that waiter lands in ``self.shed`` with
         reason ``"displaced"``."""
-        self._validate(req)
+        try:
+            self._validate(req)
+        except InvalidRequest:
+            self._m_invalid.inc()
+            raise
         if self._draining:
             self._shed(req, "shutting_down")
             raise ShedError(req.rid, "shutting_down")
@@ -426,6 +522,10 @@ class ContinuousScheduler:
         req.t_submit = time.perf_counter()
         self.shed.pop(req.rid, None)    # resubmitted after a shed
         self.queue.append(req)
+        self._m_submitted.inc()
+        self._m_queue.set(len(self.queue))
+        self.obs.slo.on_submit(req, self.ticks)
+        self.journal.submit(req, self.ticks)
 
     def _emit(self, req: Request, tok: int) -> bool:
         """Record one generated token; True when the request is done."""
@@ -433,8 +533,11 @@ class ContinuousScheduler:
             req.t_first = time.perf_counter()
             if req.parent is not None and req.parent.t_first == 0.0:
                 req.parent.t_first = req.t_first
+            self.obs.slo.on_first_token(req, self.ticks)
         req.out.append(tok)
         self.tokens_emitted += 1
+        self._m_tokens.inc()
+        self.journal.emit(req, tok)
         if req.on_token is not None:
             req.on_token(req, tok)
         sp = req.sampling
@@ -454,6 +557,11 @@ class ContinuousScheduler:
         self.slot_temps[req.slot] = 0.0     # freed rows ride along as greedy
         req.state = FINISHED
         req.t_done = time.perf_counter()
+        self._m_finished.inc()
+        self.obs.slo.on_finish(req, self.ticks)
+        self.obs.tracer.instant("finish", rid=req.rid,
+                                sample=req.sample_idx, tokens=len(req.out))
+        self.journal.finish(req)
         if req.parent is not None:
             self._finish_sample(req)
         else:
@@ -600,8 +708,12 @@ class ContinuousScheduler:
                 pending.append(children[i])
             else:
                 slots[i] = forked
+                self.obs.tracer.instant("fork", rid=req.rid, sample=i,
+                                        slot=forked)
         for i, child in enumerate(children):
             if i in slots:
+                if i > 0:       # sample 0 has the parent's admission
+                    self.obs.slo.on_admit(child, self.ticks)
                 self._install_single(child, slots[i], first[i])
         for child in reversed(pending):
             self.queue.appendleft(child)
@@ -613,6 +725,9 @@ class ContinuousScheduler:
         s = len(toks_full)
         slot = self._alloc_slot(req, s)
         assert slot is not None
+        self._m_admitted.inc()
+        self.obs.slo.on_admit(req, self.ticks)
+        self.journal.admit(req, self.ticks)
         toks = np.zeros((1, self._bucket(s)), np.int32)
         toks[0, :s] = toks_full
         first, cache = self.engine.prefill_request(
@@ -638,6 +753,13 @@ class ContinuousScheduler:
         cached = len(keys) * self.cfg.block_size
         if cache is not None:
             cache.record_lookup(cached)
+            if cached:
+                self.obs.slo.on_prefix_hit(req, self.ticks, cached)
+                self.obs.tracer.instant("prefix_hit", rid=req.rid,
+                                        tokens=cached)
+        self._m_admitted.inc()
+        self.obs.slo.on_admit(req, self.ticks)
+        self.journal.admit(req, self.ticks)
         self.slot_temps[slot] = 0.0     # draws armed on the final chunk only
         self._prefills.append(_Prefill(req=req, slot=slot,
                                        toks=np.asarray(toks, np.int32),
@@ -682,8 +804,11 @@ class ContinuousScheduler:
         their pages are still being written. True if pages were freed."""
         if not self.paged or not self.running:
             return False
-        return self.pool.compact(
-            {slot: req.prompt for slot, req in self.running.items()}) > 0
+        freed = self.pool.compact(
+            {slot: req.prompt for slot, req in self.running.items()})
+        if freed:
+            self.obs.tracer.instant("compact", pages_freed=freed)
+        return freed > 0
 
     def _admission_tick(self) -> None:
         if self.cfg.prefill_chunk > 0:
@@ -721,6 +846,9 @@ class ContinuousScheduler:
         req.state, req.slot = QUEUED, -1
         self.queue.appendleft(req)
         self.preemptions += 1
+        self._m_preempt.inc()
+        self.obs.slo.on_preempt(req, self.ticks)
+        self.obs.tracer.instant("preempt", rid=req.rid, slot=slot)
 
     def _abort_prefill(self) -> None:
         """Abort an in-flight prefill for pages, the newest of the worst
@@ -735,6 +863,10 @@ class ContinuousScheduler:
         pf.req.state, pf.req.slot = QUEUED, -1
         self.queue.appendleft(pf.req)
         self.preemptions += 1
+        self._m_aborts.inc()
+        self.obs.slo.on_preempt(pf.req, self.ticks)
+        self.obs.tracer.instant("abort_prefill", rid=pf.req.rid,
+                                done=pf.done, length=pf.length)
 
     def _victim_key(self, slot: int):
         """Victim order over running rows: worst class first, newest
@@ -856,6 +988,14 @@ class ContinuousScheduler:
         for r in found + [root]:
             r.state, r.finish_reason = ABORTED, reason
         self.aborted[rid] = root
+        self._m_client_aborts.inc()
+        self.obs.metrics.counter(
+            f"sched_aborts_{reason}_total",
+            f"requests aborted with reason={reason}").inc()
+        self.obs.slo.on_abort(root, self.ticks, reason)
+        self.obs.tracer.instant("abort", rid=rid, reason=reason,
+                                cancelled=len(found))
+        self.journal.abort(rid, reason)
         return True
 
     def quarantine(self, rid: int, reason: str = "nan_logits") -> bool:
@@ -871,6 +1011,14 @@ class ContinuousScheduler:
         for r in found + [root]:
             r.state, r.finish_reason = QUARANTINED, reason
         self.quarantined[rid] = root
+        self._m_quarantined.inc()
+        self.obs.metrics.counter(
+            f"sched_quarantined_{reason}_total",
+            f"requests quarantined with reason={reason}").inc()
+        self.obs.slo.on_quarantine(root, self.ticks, reason)
+        self.obs.tracer.instant("quarantine", rid=rid, reason=reason,
+                                cancelled=len(found))
+        self.journal.quarantine(rid, reason)
         return True
 
     def _expire_deadlines(self) -> None:
@@ -884,6 +1032,7 @@ class ContinuousScheduler:
         for rid in sorted(expired):
             if self.abort(rid, reason="deadline"):
                 self.deadline_misses += 1
+                self._m_deadline.inc()
 
     def shutdown(self, grace_ticks: int = 0) -> DrainReport:
         """Graceful drain: shed every new submission (``ShedError``,
@@ -891,10 +1040,13 @@ class ContinuousScheduler:
         in-flight and queued work can finish, abort what is left (reason
         ``"shutdown"``, partial output kept), flush the prefix cache
         (nothing is pinned any more, so every cached page goes back),
-        release the quarantine hold and sweep the pool. ``grace_ticks``
-        is checked before anything changes (:class:`InvalidConfig`)."""
+        release the quarantine hold and sweep the pool (raising on a
+        finding when the obs bundle's ``check_leaks`` is set).
+        ``grace_ticks`` is checked before anything changes
+        (:class:`InvalidConfig`)."""
         grace_ticks = _check_count("grace_ticks", grace_ticks, 0)
         self._draining = True
+        self._m_draining.set(1)
         start = self.ticks
         while self.busy() and self.ticks - start < grace_ticks:
             self.step()
@@ -905,12 +1057,34 @@ class ContinuousScheduler:
             self.abort(rid, reason="shutdown")
         cache_released = self.pool.flush_prefix_cache() if self.paged else 0
         released = self.pool.release_quarantined() if self.paged else 0
-        return DrainReport(
+        findings = self.drain_check()
+        if self.obs.check_leaks and findings:
+            raise RuntimeError(
+                "KV pool leaked at shutdown: " + "; ".join(findings))
+        report = DrainReport(
             finished=len(self.finished), shed_rids=shed_rids,
-            grace_ticks_used=self.ticks - start,
-            leak_findings=self.drain_check(),
+            grace_ticks_used=self.ticks - start, leak_findings=findings,
             cache_pages_released=cache_released,
             quarantined_pages_released=released)
+        self.obs.tracer.instant(
+            "shutdown", grace=report.grace_ticks_used,
+            shed=len(shed_rids), finished=report.finished)
+        return report
+
+    # ------------------------------------------------------------------
+    # crash recovery (serve.recovery)
+    # ------------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """The host-side request state (queue, prefill progress, each
+        running sample's tokens, terminal records) as a JSON-serialisable
+        snapshot; KV pages are not kept (``serve.recovery``)."""
+        return scheduler_snapshot(self)
+
+    def restore(self, snap: dict, on_token=None) -> Dict[str, int]:
+        """Re-admit a snapshot's live requests into this fresh, idle
+        scheduler (``serve.recovery.scheduler_restore``); returns the
+        count of requests per status."""
+        return scheduler_restore(self, snap, on_token=on_token)
 
     # ------------------------------------------------------------------
     def step(self) -> None:
@@ -918,13 +1092,22 @@ class ContinuousScheduler:
         call over the packed batch of decode tokens and every in-flight
         prefill's chunk (retried on a fault); slots: whole-prompt
         admission, then one decode_mixed call."""
+        t0 = time.perf_counter()
         self._expire_deadlines()
-        if self.paged:
-            self._paged_tick()
-        else:
-            self._slots_tick()
+        with self.obs.tracer.span("tick", tick=self.ticks):
+            if self.paged:
+                self._paged_tick()
+            else:
+                self._slots_tick()
         self.clock += 1
         self.ticks += 1
+        self._m_ticks.inc()
+        self._m_tick_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._m_queue.set(len(self.queue))
+        self._m_running.set(len(self.running))
+        self._m_inflight_pf.set(len(self._prefills))
+        self._m_peak_running.set_max(self.peak_running)
+        self._m_peak_pf.set_max(self.peak_prefills)
 
     def _split_budget(self) -> List[int]:
         """Split the tick's chunk budget across the in-flight prefills: the
@@ -958,16 +1141,21 @@ class ContinuousScheduler:
             budget -= take
         return shares
 
-    def _pack(self):
-        """The tick's packed token list: decode rows, then every in-flight
-        prefill's chunk. The packed width is one of two static values:
+    def _width(self) -> int:
+        """The tick's packed width, one of two static values:
         ``num_slots`` for a decode-only tick, ``num_slots - 1 +
-        prefill_chunk`` otherwise (dead-token padded). Returns the
-        serve_step arrays, each slot's committed depth, the per-prefill
-        shares and the prefills whose final chunk is packed."""
+        prefill_chunk`` with a prefill in flight (dead-token padded)."""
+        ns = self.cfg.num_slots
+        return ns - 1 + self._qw if self._prefills else ns
+
+    def _pack(self):
+        """The tick's packed token list (:meth:`_width` wide): decode rows,
+        then every in-flight prefill's chunk. Returns the serve_step
+        arrays, each slot's committed depth, the per-prefill shares, the
+        prefills whose final chunk is packed and the number of real
+        tokens."""
         pfs = self._prefills
-        ns, qw = self.cfg.num_slots, self._qw
-        T = ns - 1 + qw if pfs else ns
+        ns, T = self.cfg.num_slots, self._width()
         tokens = np.zeros((T, 1), np.int32)
         token_rows = np.zeros(T, np.int32)
         token_pos = np.full(T, -1, np.int32)            # -1 = dead padding
@@ -997,7 +1185,7 @@ class ContinuousScheduler:
                 finishing.append(pf)
             t += n
         return (tokens, token_rows, token_pos, logit_idx, committed, shares,
-                finishing)
+                finishing, t)
 
     def _paged_tick(self) -> None:
         """Pack the batch's real tokens into one flat list and dispatch it
@@ -1011,34 +1199,46 @@ class ContinuousScheduler:
         reports a non-finite logits row for a live request quarantines
         that request and retries with the survivors, whose tokens are then
         bitwise those of a tick that was never poisoned; the batch shrinks
-        every pass, so this path needs no budget."""
-        self._admission_tick()
+        every pass, so this path needs no budget. The trace's spans nest
+        as the reference's: a retried dispatch is two ``dispatch`` spans
+        and a ``dispatch_fault`` instant."""
+        tr = self.obs.tracer
+        with tr.span("admission", queued=len(self.queue)):
+            self._admission_tick()
         if self.running:
-            self._ensure_pages()    # may preempt rows / abort prefills
+            with tr.span("ensure_pages", rows=len(self.running)):
+                self._ensure_pages()    # may preempt rows / abort prefills
         faults = 0
         while True:
             pfs = self._prefills
             if not self.running and not pfs:
                 return              # nothing live, or all quarantined
-            (tokens, token_rows, token_pos, logit_idx, committed, shares,
-             finishing) = self._pack()
-            check_write_fresh(token_rows, token_pos, committed)
-            check_write_exclusive(token_rows, token_pos,
-                                  self.pool.block_tables, self.pool._refs,
-                                  self.cfg.block_size)
+            T = self._width()
+            with tr.span("pack_budget_split", decode_rows=len(self.running),
+                         prefills=len(pfs), width=T):
+                (tokens, token_rows, token_pos, logit_idx, committed, shares,
+                 finishing, t) = self._pack()
+                check_write_fresh(token_rows, token_pos, committed)
+                check_write_exclusive(token_rows, token_pos,
+                                      self.pool.block_tables, self.pool._refs,
+                                      self.cfg.block_size)
             sample = (self.slot_temps, self.slot_topk, self.slot_topp,
                       self.slot_keys, self.slot_steps)
             try:
-                toks, logits, cache, finite = self.engine.serve_step(
-                    tokens, token_rows, token_pos, logit_idx,
-                    self.pool.cache, self.pool.block_tables,
-                    self.pool.task_id[token_rows], sample)
-            except Exception:
+                with tr.span("dispatch", tokens=int(t), width=T):
+                    toks, logits, cache, finite = self.engine.serve_step(
+                        tokens, token_rows, token_pos, logit_idx,
+                        self.pool.cache, self.pool.block_tables,
+                        self.pool.task_id[token_rows], sample)
+            except Exception as e:
                 self.dispatch_faults += 1
+                self._m_dispatch_faults.inc()
+                tr.instant("dispatch_fault", error=type(e).__name__)
                 faults += 1
                 if faults > self.cfg.tick_retries:
                     raise
                 self.tick_retries_used += 1
+                self._m_tick_retries.inc()
                 continue
             # only rows whose logits this tick reports are consulted
             bad = {req.rid for slot, req in self.running.items()
@@ -1049,37 +1249,46 @@ class ContinuousScheduler:
             for rid in sorted(bad):
                 self.quarantine(rid, reason="nan_logits")
             self.tick_retries_used += 1
+            self._m_tick_retries.inc()
+        self._m_tick_tokens.observe(t)      # real tokens; T - t are dead
         self.pool.cache = cache
-        active = list(self.running.items())
-        if active:
-            self.pool.advance([s for s, _ in active])
-            self.steps_decoded += 1
-            self._emit_rows(active, toks)
-        still: List[_Prefill] = []
-        for pf, n in zip(pfs, shares):
-            if pf.req.state in TERMINAL_STATES:
-                continue            # aborted mid-tick; pages already gone
-            if n == 0:
-                still.append(pf)
-                continue
-            pf.done += n
-            self.prefill_chunks_run += 1
-            if pf.done < pf.length:
-                still.append(pf)
-                continue
-            spec = self._first_sample_spec(pf.req)
-            if spec is not None and len(spec[0]) > 1:
-                # a fresh n > 1 parent: every sample's first token from
-                # this one logits row, each under its own stream
-                first = self.engine.sample_first(logits[pf.slot], spec)
-            else:
-                first = [int(toks[pf.slot])]    # drawn inside serve_step
-            self._install(pf.req, pf.slot, pf.length, first)
-        # an on_token abort during an install rebuilt self._prefills; do
-        # not bring an aborted entry back from ``still``
-        self._prefills = [pf for pf in still
-                          if pf.req.state not in TERMINAL_STATES]
+        with tr.span("postprocess"):
+            active = list(self.running.items())
+            if active:
+                self.pool.advance([s for s, _ in active])
+                self.steps_decoded += 1
+                self._emit_rows(active, toks)
+            still: List[_Prefill] = []
+            for pf, n in zip(pfs, shares):
+                if pf.req.state in TERMINAL_STATES:
+                    continue        # aborted mid-tick; pages already gone
+                if n == 0:
+                    still.append(pf)
+                    continue
+                pf.done += n
+                self.prefill_chunks_run += 1
+                self._m_chunks.inc()
+                if pf.done < pf.length:
+                    still.append(pf)
+                    continue
+                spec = self._first_sample_spec(pf.req)
+                if spec is not None and len(spec[0]) > 1:
+                    # a fresh n > 1 parent: every sample's first token
+                    # from this one logits row, each under its own stream
+                    first = self.engine.sample_first(logits[pf.slot], spec)
+                else:
+                    first = [int(toks[pf.slot])]    # drawn in serve_step
+                self._install(pf.req, pf.slot, pf.length, first)
+            # an on_token abort during an install rebuilt self._prefills;
+            # do not bring an aborted entry back from ``still``
+            self._prefills = [pf for pf in still
+                              if pf.req.state not in TERMINAL_STATES]
         self.peak_running = max(self.peak_running, len(self.running))
+        if tr.enabled:
+            tr.counter("pages", used=self.pool.blocks_in_use(),
+                       free=self.pool.free_blocks())
+            tr.counter("requests", running=len(self.running),
+                       queued=len(self.queue), prefills=len(self._prefills))
 
     def _emit_rows(self, active, toks) -> None:
         """Feed back and emit each decode row's token. A row is skipped
@@ -1112,18 +1321,24 @@ class ContinuousScheduler:
     def _slots_tick(self) -> None:
         """The contiguous-layout tick: bucketed whole-prompt admission,
         then one decode call over every slot."""
-        self._admission_tick()
+        tr = self.obs.tracer
+        with tr.span("admission", queued=len(self.queue)):
+            self._admission_tick()
         if not self.running:
             return
-        toks, cache = self.engine.decode_mixed(
-            self.slot_tokens, self.pool.cur_len, self.pool.cache,
-            self.pool.task_id, sample=self._decode_sample_spec())
+        sample = self._decode_sample_spec()
+        self._m_tick_tokens.observe(len(self.running))
+        with tr.span("dispatch", tokens=len(self.running)):
+            toks, cache = self.engine.decode_mixed(
+                self.slot_tokens, self.pool.cur_len, self.pool.cache,
+                self.pool.task_id, sample=sample)
         self.pool.cache = cache
-        active = list(self.running.items())
-        self.peak_running = max(self.peak_running, len(active))
-        self.pool.advance([s for s, _ in active])
-        self.steps_decoded += 1
-        self._emit_rows(active, toks)
+        with tr.span("postprocess"):
+            active = list(self.running.items())
+            self.peak_running = max(self.peak_running, len(active))
+            self.pool.advance([s for s, _ in active])
+            self.steps_decoded += 1
+            self._emit_rows(active, toks)
 
     # ------------------------------------------------------------------
     def busy(self) -> bool:
@@ -1131,13 +1346,29 @@ class ContinuousScheduler:
         return bool(self.queue or self.running or self._prefills)
 
     def drain_check(self) -> List[str]:
-        """The KV pool's invariant sweep (empty = clean)."""
-        return self.pool.leak_report()
+        """The KV pool's invariant sweep (empty = clean), its finding
+        count published as ``kv_leak_findings``."""
+        report = self.pool.leak_report()
+        self._m_leaks.set(len(report))
+        for msg in report:
+            self.obs.tracer.instant("kv_leak", finding=msg)
+        return report
+
+    def _maybe_check_leaks(self) -> None:
+        """With the obs bundle's ``check_leaks`` on, sweep the pool and
+        raise on a finding."""
+        if not self.obs.check_leaks:
+            return
+        report = self.drain_check()
+        if report:
+            raise RuntimeError(
+                "KV pool leaked at drain: " + "; ".join(report))
 
     def run(self) -> Dict[int, Request]:
         """Drain everything currently submitted."""
         while self.busy():
             self.step()
+        self._maybe_check_leaks()
         return self.finished
 
     def run_stream(self, arrivals: List[Tuple[int, Request]]
@@ -1156,4 +1387,5 @@ class ContinuousScheduler:
                 self.submit(arrivals[order[i]][1])
                 i += 1
             self.step()
+        self._maybe_check_leaks()
         return self.finished

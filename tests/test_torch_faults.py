@@ -810,9 +810,21 @@ def test_run_chaos_every_kind_equals_reference(engines, stochastic):
     assert got["dispatch_faults"] > 0 and got["quarantined"]
 
 
+def _crash_without_journal(ns, eng, cfg):
+    plan = ns.F.FaultPlan(seed=21, horizon=40, p_crash=0.25, p_exhaust=0.0,
+                          p_straggler=0.0, p_disconnect=0.0, p_malformed=0.0)
+
+    def factory():
+        raise AssertionError("a scheduler without a journal was restored")
+    res = ns.F.run_chaos(_chaos_sched(ns, eng), _wl(ns, cfg, 64), plan,
+                         sched_factory=factory)
+    assert res["crashes"] == 0 and not res["leak_findings"]
+    return res["injector"].applied["crash"], _outs(res["finished"].values())
+
+
 def test_run_chaos_refuses_crash_recovery(engines):
-    _, sides = engines
-    ns, eng = sides["port"]
-    with pytest.raises(NotImplementedError, match="journal"):
-        faults.run_chaos(_chaos_sched(ns, eng), [], faults.FaultPlan(),
-                         sched_factory=lambda: None)
+    """Without a journal there is nothing to recover from: crash events
+    stay inert (never consumed, no restore) on both schedulers, and the
+    streams are served as without them."""
+    applied, _ = both(engines, _crash_without_journal)
+    assert applied == 0

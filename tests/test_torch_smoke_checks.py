@@ -201,12 +201,13 @@ def test_fault_launches_count_the_raised_attempt():
 
 class FakeEngine:
     """The engine's serving interface without a model: a tick's tokens,
-    a whole prompt's first tokens and n > 1 first draws are zeros, an
-    armed fault acts as ``ServeEngine.inject_fault`` says,
-    and the block-table check runs as in ``serve_step`` (the scheduler
-    itself checks the write-fresh rule). Phase 5's scheduling
-    does not depend on the tokens (no stop or end token), so this replays
-    the card's schedule exactly."""
+    a whole prompt's first tokens, n > 1 first draws and a slots decode
+    step's tokens are zeros, an armed fault acts as
+    ``ServeEngine.inject_fault`` says, dispatches are counted by kind as
+    ``ServeEngine.attach_metrics`` counts them, and the block-table check
+    runs as in ``serve_step`` (the scheduler itself checks the write-fresh
+    rule). Phase 5's scheduling does not depend on the tokens (no stop or
+    end token), so this replays the card's schedule exactly."""
 
     def __init__(self):
         from types import SimpleNamespace
@@ -214,22 +215,39 @@ class FakeEngine:
         self.model = SimpleNamespace(
             cfg=SimpleNamespace(vocab_size=49152),
             init_paged_cache=lambda nb, bs: {
-                n: torch.zeros(1, nb, bs, 1, 1) for n in ("k", "v")})
+                n: torch.zeros(1, nb, bs, 1, 1) for n in ("k", "v")},
+            init_cache=lambda b, S: {
+                n: torch.zeros(1, b, S, 1, 1) for n in ("k", "v")})
         self.num_tasks, self.peft = 4, None
-        self.dispatches, self._pending_fault = 0, None
+        self.dispatches, self._pending_fault, self._m = 0, None, None
+
+    def attach_metrics(self, registry):
+        self._m = {k: registry.counter(f"engine_dispatch_{k}_total")
+                   for k in ("serve_step", "prefill", "decode_mixed",
+                             "sample_first")}
+
+    def _count(self, kind):
+        self.dispatches += 1
+        if self._m is not None:
+            self._m[kind].inc()
 
     def inject_fault(self, kind, slot=-1):
         self._pending_fault = (kind, slot)
 
     def prefill_request(self, tokens, length, task_id, sample=None):
-        self.dispatches += 1
+        self._count("prefill")
         first = [0] if sample is None else self.sample_first(None, sample)
         return first, {n: torch.zeros(1, 1, tokens.shape[1], 1, 1)
                        for n in ("k", "v")}
 
     def sample_first(self, logits_row, sample):
-        self.dispatches += 1
+        self._count("sample_first")
         return [0] * len(sample[0])
+
+    def decode_mixed(self, tokens, pos, cache, task_ids, sample=None):
+        import numpy as np
+        self._count("decode_mixed")
+        return np.zeros(len(pos), np.int32), cache
 
     def serve_step(self, tokens, token_rows, token_pos, logit_idx, cache,
                    block_tables, token_tasks, sample):
@@ -244,7 +262,7 @@ class FakeEngine:
         finite = np.ones(len(logit_idx), bool)
         if fault is not None:
             finite[fault[1]] = False
-        self.dispatches += 1
+        self._count("serve_step")
         return (np.zeros(len(logit_idx), np.int32),
                 np.zeros((len(logit_idx), 1), np.float32), cache, finite)
 
@@ -371,3 +389,100 @@ def test_sibling_report_tells_forked_from_requeued(monkeypatch):
     sched.finished[1].samples[1] = [7]              # a forked sibling
     sched.finished[2].samples[2] = [7]              # a requeued one
     assert cs.sibling_report(sched, run["ticks_of"]) == (["1:1"], "7/8")
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: observability and crash recovery, replayed
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def restore_twins(tmp_path_factory):
+    """The crash-free twin of each 5g stream, replayed."""
+    d = tmp_path_factory.mktemp("twins")
+    sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda: None
+    try:
+        return {tuple(extra): cs.sample_outs(cs.restore_run(
+            FakeEngine(), extra, d / "twin.jsonl",
+            cs.serve_crashing(0))["sched"].finished)
+            for extra in (cs.GREEDY, cs.N4_SAMPLED,
+                          cs.GREEDY + cs.SLOTS_LAYOUT)}
+    finally:
+        torch.cuda.synchronize = sync
+
+
+def _replay_5g(monkeypatch, tmp_path, label):
+    """One 5g run as phase_restore drives it, on the model-less engine.
+    Returns the run, its flags and its crash tick (None: no crash tick)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    eng, path = FakeEngine(), tmp_path / f"{label}.jsonl"
+    if label in cs.CRASH_RUNS:
+        extra, crash_at = cs.CRASH_RUNS[label]
+        return cs.restore_run(eng, extra, path, cs.serve_crashing(crash_at),
+                              crash_at), extra, crash_at
+    if label == "slots_snapshot":
+        extra = cs.GREEDY + cs.SLOTS_LAYOUT
+        return cs.restore_run(eng, extra, path, cs.serve_snapshot(
+            cs.SNAPSHOT_TICK, tmp_path / "slots.json")), extra, \
+            cs.SNAPSHOT_TICK
+    return cs.restore_run(eng, cs.GREEDY, path,
+                          cs.serve_chaos(cs.F4_PLAN)), cs.GREEDY, None
+
+
+@pytest.mark.parametrize("label", sorted(cs.RESTORE_EXPECT))
+def test_phase5g_replay_fixes_every_count(monkeypatch, tmp_path,
+                                          restore_twins, label):
+    """The card's schedule of each 5g run is the replay's: its counts are
+    RESTORE_EXPECT's and every gate of restore_failures holds."""
+    run, extra, crash_at = _replay_5g(monkeypatch, tmp_path, label)
+    assert run["counts"] == cs.RESTORE_EXPECT[label]
+    assert cs.restore_failures(label, run, restore_twins[tuple(extra)],
+                               crash_at, 0) == []
+
+
+def test_phase5g_runs_exercise_what_they_gate():
+    """Each crash run crashes once (F4 at least once) and restores live
+    requests; the tick before each crash packs what its name says: the
+    stream's first prompts chunking, decode rows beside a chunk, decode
+    rows alone, request 0's forked samples beside fresh n = 4 prompts."""
+    e = cs.RESTORE_EXPECT
+    for label, c in e.items():
+        assert len(c["ticks"]) >= 2 and c["restored"]
+        assert all(r["live"] > 0 for r in c["restored"]), label
+    assert cs.CRASH_RUNS["first_chunks"][1] <= 4
+    assert e["first_chunks"]["tick_before"][1] >= 2
+    assert min(e["mixed"]["tick_before"]) > 0
+    assert e["decode_only"]["tick_before"] == [8, 0]
+    assert e["sampled_n4"]["tick_before"] == [4, 3]
+    assert e["sampled_n4"]["dispatches"]["sample_first"] == 4
+    assert e["slots_snapshot"]["dispatches"]["serve_step"] == 0
+    assert e["F4"]["journal"]["quarantine"] and e["F4"]["journal"]["abort"]
+
+
+def test_phase5g_gates_name_each_failure(monkeypatch, tmp_path,
+                                        restore_twins):
+    run, extra, crash_at = _replay_5g(monkeypatch, tmp_path, "mixed")
+    twin = dict(restore_twins[tuple(extra)])
+    run["counts"]["ticks"] = [1, 2]
+    early = min(k for k, t in run["ticks_of"].items() if t[0] < crash_at)
+    twin[early] = [7] + twin[early][1:]      # a token before the crash
+    run["launches"]["ragged_paged_attention"] = 1
+    bad = cs.restore_failures("mixed", run, twin, crash_at, 0)
+    assert any("'ticks': ([1, 2]" in b for b in bad)
+    assert any(b.startswith("tokens before the crash") for b in bad)
+    assert any("ragged_paged_attention launched 1 times" in b for b in bad)
+
+
+def test_phase5g_obs_runs_are_bitwise_and_traced(monkeypatch):
+    """Observability off / on / on / off on phase 5's stream: every run's
+    streams equal, the traced run has every tick span once per tick (the
+    first, admission alone, has no decode rows to page)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    runs = cs.obs_runs(FakeEngine())
+    assert [r[0] for r in runs] == ["off", "on", "on", "off"]
+    assert all(r[3] == runs[0][3] and not r[5] for r in runs)
+    spans = cs.span_ms(runs[1][4].tracer)
+    assert set(spans) == set(cs.SPANS)
+    assert {k: n for k, (_, n) in spans.items()} == {
+        "admission": 71, "ensure_pages": 70, "pack_budget_split": 71,
+        "dispatch": 71, "postprocess": 71}
