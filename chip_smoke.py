@@ -126,7 +126,36 @@ Phases, each printing one line of results; any failure exits non-zero:
    appends); a request restored from a JSON snapshot against the same
    request served through (the K/V its recompute wrote and the first
    logits row it decodes from, within the bf16 tolerance, bitwise shares
-   reported); preempt-and-recompute parity is reported.
+   reported); preempt-and-recompute parity is reported;
+7. the paper's method trained, fused and served, through the training
+   launcher's functions (repro_torch.launch.train: float32, TF32 off,
+   attn_impl="ref", random backbone seed 0): 7a AoT fc and kron (rank 32)
+   each 30 steps of LMStream(seed 0) at seq 128, batch 8, lr 5e-3 (every
+   loss finite, the first 5 batches' mean loss under the trained
+   parameters below their mean in steps 0-4, for kron also the last 5
+   steps' mean loss below the first 5's (other batches; fc moves the loss
+   less than the batches differ, so that mean is reported for it), the
+   frozen backbone bitwise unchanged, no kernel launched; median ms per
+   step, peak memory, trainable parameters reported); 7b the paper's
+   protocol,
+   a classification head on ClassificationTask(seed 3) for AoT fc and
+   BitFit, 60 steps at batch 16, lr 8e-3 (held-out accuracy on 4 batches
+   of 32, reported only: the backbone is random); 7c 7a's fc and kron
+   parameters fused into float32 tables (forward through the tables
+   within 2e-5 of forward through the reparametrizations on 4 x 128
+   tokens), cast to bf16, stacked as two tasks and served as 8 requests
+   of phase 5's stream through the paged tick (every request finishes,
+   the pool drains clean, the counts are the CPU replay's, the fused
+   gather-add + norm and ragged attention launch 32 times per tick; per
+   task, the requests' first-token logits no further from Model.logits
+   through the reparametrization in float32 than BF16_FACTOR times the
+   same logits computed in plain bf16 PyTorch (attn_impl="ref") are, and
+   carrying the task's trained effect on them (the float32 logits less
+   the backbone's alone) within CARRY_TOL; two control serves, fc's table
+   zeroed and the two tables swapped, must fail that gate in exactly the
+   tasks they make wrong; against the plain bf16 logits directly: the max
+   error and near ties, reported: at 32 layers no two bf16 orders of the
+   same function agree to 2e-2).
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -3471,6 +3500,482 @@ def phase_cross_check(report, seed=PHASE6_SEED, recompute=True):
                                       equal_requests=n_same)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train the paper's method, fuse it, serve the trained tasks
+# ---------------------------------------------------------------------------
+
+TRAIN_BASE = ["--arch", "smollm-360m", "--rank", "32"]
+# 7a: the paper's two reparametrizations on the LM stream (the launcher's
+# defaults but for the steps)
+TRAIN_LM = {label: ["--method", "aot", "--aot-mode", label, "--steps", "30",
+                    "--seq", "128", "--batch", "8", "--lr", "5e-3"]
+            for label in ("fc", "kron")}
+# 7b: the paper's protocol, a classification head per method
+TRAIN_CLS = {"aot_fc": ["--method", "aot", "--aot-mode", "fc"],
+             "bitfit": ["--method", "bitfit"]}
+CLS_FLAGS = ["--steps", "60", "--seq", "64", "--batch", "16", "--lr", "8e-3"]
+CLS_TASK = dict(name="synth-3", vocab_size=49152, seq_len=64, num_classes=2,
+                seed=3)
+HELD_OUT = (4, 32, 1_000_000)   # batches, rows, first step (unseen)
+LOSS_WINDOW = 5
+# the 7a runs whose loss falls on fresh batches well above their noise:
+# also gated on the last LOSS_WINDOW steps' mean against the first's
+FRESH_GATED = ("kron",)
+FUSE_TOKENS = (4, 128)
+# 7c: phase 5's stream, 8 requests over the two trained tasks (greedy)
+SERVE_TRAINED = BASE[:BASE.index("--tasks")] + BASE[BASE.index("--tasks")
+                                                     + 2:] + [
+    "--tasks", "2", "--requests", "8"]
+TRAINED_EXPECT = {"ticks": 57, "dispatched": 57, "finished": 8}
+
+
+def loss_drop(losses, again, fresh=False):
+    """(mean of the first steps' losses, mean of ``again``, mean of the
+    last steps' losses, failures): ``losses`` every step's, ``again`` the
+    first ``len(again)`` batches' losses under the trained parameters.
+    Every loss must be finite and the same batches' mean must have fallen.
+    With ``fresh``, the last steps' mean (other batches) must also be
+    below the first steps': the training batches differ from step to step
+    by more than AoT fc lowers its loss in 30 steps on a random backbone,
+    so for fc that mean measures the noise and is reported only."""
+    n = len(again)
+    first, after = sum(losses[:n]) / n, sum(again) / n
+    last = sum(losses[-n:]) / n
+    bad = []
+    if not all(np.isfinite(losses + again)):
+        bad.append("a loss is not finite")
+    if not after < first:
+        bad.append(f"loss did not fall ({first:.4f} -> {after:.4f} on "
+                   f"the first {n} batches)")
+    if fresh and not last < first:
+        bad.append(f"loss did not fall ({first:.4f} -> {last:.4f} from the "
+                   f"first {n} steps to the last {n})")
+    return first, after, last, bad
+
+
+def losses_again(t, args, n=LOSS_WINDOW):
+    """The losses of the first ``n`` training batches under ``t``'s
+    trained parameters (the train step's loss, no update)."""
+    from repro_torch.launch import train as trainer
+    from repro_torch.train.step import TrainConfig, make_loss_fn
+    stream = trainer.lm_stream(args, t.model.cfg.vocab_size)
+    loss_fn = make_loss_fn(t.model, TrainConfig(peft=t.popt,
+                                                loss_chunk=args.seq // 4))
+    out = []
+    with torch.no_grad():
+        for _ in range(n):
+            b = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in stream.next().items()}
+            out.append(float(loss_fn(t.state["trainable"], t.frozen, b,
+                                     None)[0]))
+    return out
+
+
+def changed_leaves(before, after):
+    """Indices of the leaves of ``after`` not bitwise equal to ``before``'s
+    (two lists of tensors)."""
+    return [i for i, (a, b) in enumerate(zip(before, after))
+            if not torch.equal(a, b)]
+
+
+def fused_vs_reparam(model, params, peft_reparam, peft_fused, tokens):
+    """``model.forward`` through the reparametrization against forward
+    through its fused tables (both plain PyTorch, ``attn_impl="ref"``) on
+    ``tokens``: (max abs error, bitwise share of the hidden states)."""
+    with torch.no_grad():
+        h_r = model.forward(params, tokens, peft_reparam)
+        h_f = model.forward(params, tokens, peft_fused)
+    return ((h_r - h_f).abs().max().item(),
+            (h_r == h_f).float().mean().item())
+
+
+# the served bf16 logits may stray from the float32 function at most this
+# many times as far as plain bf16 PyTorch's logits of the same prompts do
+BF16_FACTOR = 2.0
+# ... and must carry the task's trained effect on them (the float32
+# function's logits less the backbone's alone) to within this share
+CARRY_TOL = 0.1
+
+
+def carried(lg, ref32, base32):
+    """The share of the task's effect ``ref32 - base32`` that ``lg``
+    carries: the least-squares coefficient of ``lg - base32`` on it, each
+    row less its mean (a shift of a whole row moves no probability; 1: all
+    of the effect, 0: a serve without the task's table)."""
+    eff = ref32 - base32
+    eff = eff - eff.mean(-1, keepdim=True)
+    return ((lg - base32) * eff).sum().item() / (eff * eff).sum().item()
+
+
+def against_float32(served, plain16, ref32, base32, task_ids):
+    """Per task: ``served`` (the kernels' bf16 logits) and ``plain16``
+    (plain bf16 PyTorch's) against ``ref32`` (the float32 function) on
+    the task's rows, all (n, V) float32 with ``task_ids`` (n,): each one's
+    max abs error and share ``carried`` of the task's effect over
+    ``base32`` (the float32 backbone's logits, no table). A task is
+    ``ok`` when the served error is within BF16_FACTOR times the plain one
+    (every logit: so an argmax that differs from ``ref32``'s is a near tie
+    of at most twice that) and the served rows carry the effect within
+    CARRY_TOL: a bf16 error as large as a small task's effect cannot hide
+    a dropped or swapped table. ``ok``: every task is."""
+    tasks = {}
+    for t in sorted(set(task_ids)):
+        m = torch.tensor([i == t for i in task_ids])
+        k, p, r, b = served[m], plain16[m], ref32[m], base32[m]
+        e_k = (k - r).abs().max().item()
+        e_p = (p - r).abs().max().item()
+        c_k, c_p = carried(k, r, b), carried(p, r, b)
+        tasks[t] = dict(served_err=e_k, plain_err=e_p, carried=c_k,
+                        carried_plain=c_p, effect_max=(r - b).abs().max()
+                        .item(), ok=e_k <= BF16_FACTOR * e_p
+                        and abs(c_k - 1) <= CARRY_TOL)
+    return dict(tasks=tasks, ok=all(r["ok"] for r in tasks.values()))
+
+
+def control_serves(tables):
+    """7c's controls, serves that ``against_float32`` must reject: (name,
+    the stacked tables it serves, the task ids whose rows it makes wrong)
+    for fc's table zeroed (a serve that dropped a task's table) and the
+    two tables swapped (a serve that mixed up the task ids). ``tables``:
+    [fc, kron], each ``{"table": (L, V, d)}``."""
+    from repro_torch.core.aot import stack_tasks
+    zero = {"table": torch.zeros_like(tables[0]["table"])}
+    yield "fc_zeroed", stack_tasks([zero, tables[1]]), {0}
+    del zero
+    yield "swapped", stack_tasks(tables[::-1]), {0, 1}
+
+
+def rejected(res):
+    """The task ids ``against_float32`` did not pass."""
+    return {t for t, r in res["tasks"].items() if not r["ok"]}
+
+
+def f32_text(res):
+    """One result of ``against_float32`` as text for a log line."""
+    return ";".join(f"task {t}: {r['served_err']:.3e}/plain "
+                    f"{r['plain_err']:.3e}/carried {r['carried']:.4f}"
+                    f"/plain {r['carried_plain']:.4f}/effect "
+                    f"{r['effect_max']:.3e}"
+                    for t, r in res["tasks"].items())
+
+
+def trained_launches(layers, dispatched):
+    """7c's launches: the multi-task gather-add + norm and ragged
+    attention once per layer of each dispatched tick, nothing else."""
+    return {"aot_gather_add_multitask": layers * dispatched,
+            "ragged_paged_attention": layers * dispatched}
+
+
+def cast_backbone(params, dtype):
+    """The backbone in ``dtype``, norm scales kept in float32 (as
+    ``Model.init`` keeps them)."""
+    if isinstance(params, dict):
+        return {k: (v if k == "scale" else cast_backbone(v, dtype))
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_backbone(v, dtype) for v in params]
+    return params.detach().to(dtype)
+
+
+def profile_train_step(t, args, steps=2):
+    """``steps`` more train steps of ``t`` on the stream's next batch under
+    torch.profiler (``profile_of``); their updates are dropped (the step
+    returns a new state), so the trained parameters stay as they were."""
+    from repro_torch.launch import train as trainer
+    from repro_torch.train.loop import step_rng
+    stream = trainer.lm_stream(args, t.model.cfg.vocab_size)
+    stream.restore(dict(stream.state(), step=args.steps))
+    b = {k: torch.from_numpy(v).to(DEV) for k, v in stream.next().items()}
+    return profile_of(lambda: [t.train_step(t.state, t.frozen, b,
+                                            step_rng(0, args.steps))
+                               for _ in range(steps)], steps)
+
+
+def train_lm(report):
+    """7a: each TRAIN_LM run through the training launcher; returns the
+    trained AoT bundles by label and the backbone (seed 0, float32)."""
+    from repro_torch import tree
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+    trained, failed, backbone = {}, [], None
+    for label, flags in TRAIN_LM.items():
+        args = trainer.parser().parse_args(TRAIN_BASE + flags)
+        fresh_peak()
+        t = trainer.build(args)
+        before = [x.clone() for x in tree.leaves(t.params)]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loop = trainer.train(t, args, log_every=1)
+        sec = time.perf_counter() - t0
+        counts = dict(ops.launches())
+        losses = [h["loss"] for h in loop.history]
+        again = losses_again(t, args)
+        first, after, last, bad = loss_drop(losses, again,
+                                            fresh=label in FRESH_GATED)
+        changed = changed_leaves(before, tree.leaves(t.params))
+        if changed:
+            bad.append(f"{len(changed)} backbone leaves changed")
+        if any(counts.values()):
+            bad.append(f"kernels launched while training: {counts}")
+        prof = profile_train_step(t, args)
+        peft = t.state["trainable"]["peft"]
+        n_train = sum(x.numel() for x in tree.leaves(peft))
+        ms = median(h["step_time_s"] for h in loop.history) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"7a train/{label}", steps=len(losses),
+            loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+            mean_first5=f"{first:.4f}", first5_after=f"{after:.4f}",
+            mean_last5=f"{last:.4f}",
+            median_ms_per_step=f"{ms:.2f}", seconds=f"{sec:.2f}",
+            peak_memory_gib=f"{peak:.2f}", trainable_params=n_train,
+            backbone="bitwise" if not changed else f"{len(changed)} changed",
+            launches=sum(counts.values()),
+            failures="none" if not bad else bad)
+        log(f"7a profile/{label}", steps=prof["steps"],
+            wall_ms=f"{prof['wall_ms']:.0f}",
+            device_busy_ms=f"{prof['device_busy_ms']:.1f}",
+            kernels_per_step=f"{prof['kernels_per_step']:.0f}",
+            top_kernels=";".join(f"{k[:40]}:{ms:.1f}ms"
+                                 for ms, k in prof["kernels"][:4]))
+        report.setdefault("train", {})[label] = dict(
+            losses=losses, first5_after=again, median_ms_per_step=ms,
+            seconds=sec,
+            peak_memory_gib=peak, trainable_params=n_train,
+            step_ms=[h["step_time_s"] * 1e3 for h in loop.history],
+            profile=prof, failures=bad)
+        failed += [f"{label}: {b}" for b in bad]
+        with torch.no_grad():
+            trained[label] = peft_mod.make(
+                tree.map(lambda x: x.detach(), peft), t.popt)
+        backbone = backbone or t.params
+        del t, before, loop
+    if failed:
+        raise AssertionError(f"7a: {failed}")
+    return trained, backbone
+
+
+def train_classify(report):
+    """7b: each TRAIN_CLS method with a 2-class head on CLS_TASK, then its
+    accuracy on HELD_OUT batches (reported only)."""
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.data.tasks import ClassificationTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+    from repro_torch.train.loop import step_rng
+    task = ClassificationTask(**CLS_TASK)
+    on_dev = lambda b: {k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+    for label, flags in TRAIN_CLS.items():
+        args = trainer.parser().parse_args(TRAIN_BASE + flags + CLS_FLAGS)
+        t = trainer.build(args, num_classes=task.num_classes)
+        ops.reset_launches()
+        losses, step_s = [], []
+        for i in range(args.steps):
+            t0 = time.perf_counter()
+            t.state, m = t.train_step(t.state, t.frozen,
+                                      on_dev(task.batch(args.batch, i)),
+                                      step_rng(0, i))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        n, rows, at = HELD_OUT
+        bundle = peft_mod.make(t.state["trainable"]["peft"], t.popt)
+        correct = 0
+        with torch.no_grad():
+            for k in range(n):
+                b = on_dev(task.batch(rows, at + k))
+                pred = t.model.classify(t.params, b["tokens"], bundle)
+                correct += int((pred.argmax(-1) == b["labels"]).sum())
+        counts = dict(ops.launches())
+        acc = correct / (n * rows)
+        log(f"7b classify/{label}", steps=args.steps,
+            loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+            median_ms_per_step=f"{median(step_s) * 1e3:.2f}",
+            held_out_acc=f"{acc:.4f}", held_out_rows=n * rows,
+            launches=sum(counts.values()), required="no")
+        report.setdefault("classify", {})[label] = dict(
+            losses=losses, held_out_acc=acc,
+            median_ms_per_step=median(step_s) * 1e3)
+        if any(counts.values()) or not all(np.isfinite(losses)):
+            raise AssertionError(f"7b {label}: launches {counts} or a "
+                                 "loss not finite")
+        del t
+
+
+def trained_stream(engine, args, arrivals):
+    """Serve ``arrivals`` through the launcher's scheduler and client loop,
+    capturing each request's first-token logits row (the row its final
+    prefill chunk reported). Returns (scheduler, {rid: row float32})."""
+    from repro_torch.launch import serve as launcher
+    sched = launcher.make_scheduler(engine, args)
+    step, install, cap, rows = engine.serve_step, sched._install, {}, {}
+
+    def tapped(*a):
+        out = step(*a)
+        cap["logits"] = out[1]
+        return out
+
+    def grab(req, slot, length, first, cache=None):
+        if req.rid not in rows and cache is None:
+            rows[req.rid] = torch.as_tensor(
+                cap["logits"][slot]).float().clone()
+        return install(req, slot, length, first, cache)
+    engine.serve_step, sched._install = tapped, grab
+    try:
+        launcher.run_with_retries(sched, arrivals)
+    finally:
+        del engine.serve_step
+    return sched, rows
+
+
+def first_rows(model, params, tables, args, arrivals):
+    """Serve ``arrivals`` on a fresh engine over the stacked ``tables``:
+    (the scheduler, the engine's dispatches, the first-token rows (n, V)
+    float32 in arrival order, or None where a request has none)."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    engine = ServeEngine(model, params, ServeConfig(max_len=MAX_LEN),
+                         fused_tasks=tables)
+    d0 = engine.dispatches
+    sched, rows = trained_stream(engine, args, arrivals)
+    torch.cuda.synchronize()
+    return (sched, engine.dispatches - d0,
+            [rows.get(req.rid) for _, req in arrivals])
+
+
+def fuse_and_serve(report, trained, backbone):
+    """7c: fuse 7a's parameters, hold forward through the tables against
+    forward through the reparametrizations (float32), then serve both
+    tables as two bf16 tasks and hold each request's first-token logits
+    against Model.logits through its reparametrization (``against_float32``
+    per task), and the control serves (``control_serves``) against the
+    same: each must fail in its wrong tasks. Returns the launches of the
+    served stream."""
+    from repro_torch import configs
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.model import Model, ModelOptions
+    cfg = configs.get("smollm-360m")
+    f32, dt = torch.float32, torch.bfloat16
+    ref32 = Model(cfg, ModelOptions(attn_impl="ref"), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, FUSE_TOKENS, generator=gen,
+                         device=DEV)
+    fused_opt = peft_mod.PEFTOptions(method="aot",
+                                     aot=aot_mod.AoTOptions(mode="fused"))
+    tables, failed = [], []
+    for label, bundle in trained.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = aot_mod.fuse(bundle["params"]["aot"], cfg, bundle["opt"].aot,
+                             embed=backbone["embed"]["tok"], dtype=f32)
+        torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+        err, share = fused_vs_reparam(ref32, backbone, bundle,
+                                      peft_mod.make({"aot": fused},
+                                                    fused_opt), toks)
+        log(f"7c fuse/{label}", fuse_s=f"{fuse_s:.2f}",
+            table_gib=f"{fused['table'].numel() * 4 / 2 ** 30:.2f}",
+            tokens="x".join(map(str, FUSE_TOKENS)),
+            max_abs_err=f"{err:.3e}", bitwise_share=f"{share:.4f}",
+            tol=TOL[f32])
+        report.setdefault("fuse", {})[label] = dict(
+            fuse_s=fuse_s, max_abs_err=err, bitwise_share=share)
+        if not err <= TOL[f32]:
+            failed.append(f"fused {label} off by {err:.3e}")
+        tables.append({"table": fused["table"].to(dt)})
+        del fused
+    torch.cuda.empty_cache()
+    params = cast_backbone(backbone, dt)
+    model = Model(cfg, ModelOptions(dt, dt), device=DEV)
+    args = launcher.parser().parse_args(SERVE_TRAINED)
+    arrivals = launcher.make_arrivals(args, cfg.vocab_size, args.tasks)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sched, dispatched, rows = first_rows(model, params,
+                                         aot_mod.stack_tasks(tables), args,
+                                         arrivals)
+    sec = time.perf_counter() - t0
+    counts = dict(ops.launches())
+    findings = sched.drain_check()
+    got = dict(ticks=sched.ticks, dispatched=dispatched,
+               finished=len(sched.finished))
+    if got != TRAINED_EXPECT:
+        failed.append(f"counts {got} != {TRAINED_EXPECT}")
+    if findings:
+        failed.append(f"leaks {findings}")
+    try:
+        check_launches("7c", counts, trained_launches(cfg.num_layers,
+                                                      dispatched))
+    except AssertionError as e:
+        failed.append(str(e))
+    if any(r is None for r in rows):
+        raise AssertionError(f"7c: {failed + ['a request has no row']}")
+    ref16 = Model(cfg, ModelOptions(dt, dt, attn_impl="ref"), device=DEV)
+    by_task = list(trained.values())
+    task_ids = [req.task_id for _, req in arrivals]
+    lg_p, lg_32, lg_0 = [], [], []
+    with torch.no_grad():
+        for _, req in arrivals:
+            prompt = torch.from_numpy(req.prompt).to(DEV)[None]
+            peft = by_task[req.task_id]
+            lg_p.append(ref16.logits(params, prompt, peft)[0, -1].float())
+            lg_32.append(ref32.logits(backbone, prompt, peft)[0, -1].float())
+            lg_0.append(ref32.logits(backbone, prompt)[0, -1].float())
+    lg_k, lg_p, lg_32, lg_0 = map(torch.stack, (rows, lg_p, lg_32, lg_0))
+    res = against_plain(lg_k, lg_p)
+    f32 = against_float32(lg_k, lg_p, lg_32, lg_0, task_ids)
+    if not f32["ok"]:
+        failed.append(f"first-token logits off the reparametrization in "
+                      f"tasks {sorted(rejected(f32))}")
+    log("7c serve trained", requests=f"{len(sched.finished)}/{len(arrivals)}",
+        tokens=sched.tokens_emitted, ticks=sched.ticks, dispatched=dispatched,
+        seconds=f"{sec:.3f}",
+        tokens_per_s=f"{sched.tokens_emitted / sec:.1f}",
+        drain="clean" if not findings else findings, launches=counts,
+        vs_float32=f32_text(f32), vs_plain_bf16=verdict(res),
+        within_2e_2="yes" if res["ok"] else "no",
+        failures="none" if not failed else failed)
+    controls = {}
+    for name, stacked, wrong in control_serves(tables):
+        arrivals = launcher.make_arrivals(args, cfg.vocab_size, args.tasks)
+        _, _, lg_c = first_rows(model, params, stacked, args, arrivals)
+        del stacked
+        if any(r is None for r in lg_c):
+            failed.append(f"control {name}: a request has no row")
+            continue
+        ctl = against_float32(torch.stack(lg_c), lg_p, lg_32, lg_0,
+                              task_ids)
+        controls[name] = dict(ctl, wrong=sorted(wrong),
+                              rejected=sorted(rejected(ctl)))
+        if rejected(ctl) != wrong:
+            failed.append(f"control {name}: the gate rejected tasks "
+                          f"{sorted(rejected(ctl))}, not {sorted(wrong)}")
+        log(f"7c control/{name}", wrong_tasks=sorted(wrong),
+            rejected=sorted(rejected(ctl)), vs_float32=f32_text(ctl))
+    report["serve_trained"] = dict(res, vs_float32=f32, controls=controls,
+                                   counts=got, seconds=sec,
+                                   tokens=sched.tokens_emitted,
+                                   launches=counts, failures=failed)
+    if failed:
+        raise AssertionError(f"7c: {failed}")
+    return {"trained_serve": counts}
+
+
+def phase_train(report):
+    """Phase 7 (7a, 7b, 7c); returns 7c's launches by path."""
+    t0 = time.perf_counter()
+    trained, backbone = train_lm(report)
+    train_classify(report)
+    launches = fuse_and_serve(report, trained, backbone)
+    report["train_seconds"] = time.perf_counter() - t0
+    log("7 train", seconds=f"{report['train_seconds']:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3507,6 +4012,10 @@ def main() -> int:
     launches.update(phase_shared(report, engine))
     launches.update(phase_restore(report, engine))
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_train(report))
+    gc.collect()
     torch.cuda.empty_cache()
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]

@@ -1,5 +1,6 @@
 """Carry the JAX reference's parameters, task tables, PEFT parameters and
-KV caches into the port.
+KV caches into the port, and the port's trees back out as numpy (to hold a
+trained port state against the reference's).
 
 The input is the reference's pytree as nested dicts / lists of numpy arrays
 (a caller holding JAX arrays turns them into numpy first, for instance with
@@ -112,11 +113,40 @@ def _options(cls, opt, **override):
 def peft_from_jax(tree: Dict[str, Any], opt, device="cuda",
                   dtype: torch.dtype = None) -> Dict[str, Any]:
     """The reference's PEFT parameters (``repro.core.peft.init`` layout:
-    numpy leaves stacked ``(L, ...)`` in global layer order, so an AoT
-    ``{"aot": {"table": (L, V, d)}}`` too) and its ``PEFTOptions`` -> the
-    port's bundle (``core.peft.make``) on ``device``, leaves cast to
-    ``dtype`` when given."""
+    numpy leaves stacked ``(L, ...)`` in global layer order: every method's
+    tree, AoT's fc / kron reparametrizations or fused ``{"table": (L, V,
+    d)}``, the P-Tuning v1 prompt, the classification head) and its
+    ``PEFTOptions`` -> the port's bundle (``core.peft.make``) on
+    ``device``, leaves cast to ``dtype`` when given."""
     port_opt = _options(peft_mod.PEFTOptions, opt,
                         aot=_options(AoTOptions, opt.aot))
     return peft_mod.make(_to_torch(tree, resolve_device(device), dtype),
                          port_opt)
+
+
+def to_numpy(tree):
+    """A port tree (nested dicts / lists of tensors) as the same tree of
+    numpy arrays (float32 for bfloat16 leaves, which numpy lacks): the PEFT
+    parameters come out in the reference's layout as they are."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_jax(cfg, params) -> Dict[str, Any]:
+    """The port's backbone parameters -> the reference's grouped layout
+    (``params["groups"][gi]["b{u}"]`` with leaves ``(R, ...)``) as numpy,
+    the inverse of :func:`params_from_jax`."""
+    layers = to_numpy(params["layers"])
+    stack = lambda trees: (np.stack(trees) if not isinstance(trees[0], dict)
+                           else {k: stack([t[k] for t in trees])
+                                 for k in trees[0]})
+    groups = [{f"b{u}": stack([layers[start + r * ulen + u]
+                               for r in range(repeats)])
+               for u in range(ulen)}
+              for start, repeats, ulen in _layer_groups(cfg)]
+    return {"embed": to_numpy(params["embed"]), "groups": groups,
+            "final_norm": to_numpy(params["final_norm"])}

@@ -1,20 +1,22 @@
-"""PEFT methods served beside AoT P-Tuning: the baselines of the paper's
-Fig. 3 / Table 1 overhead comparison.
-
-Counterpart of ``repro.core.peft`` for serving. Methods:
+"""The PEFT registry: AoT P-Tuning and every baseline the paper compares
+(Table 1, Fig. 3). Counterpart of ``repro.core.peft``. Methods:
+  ``ft``        full fine-tuning (no extra params; the backbone is trained)
   ``none``      frozen backbone, no extra params
-  ``aot``       Ahead-of-Time P-Tuning, fused tables ``{"table": (L, V, d)}``
+  ``aot``       Ahead-of-Time P-Tuning: fc / kron reparametrizations
+                (trained, ``attn_impl="ref"``) or fused tables
+                ``{"table": (L, V, d)}`` (served)
   ``bitfit``    bias deltas after the attention output and the MLP, and one
                 after the final norm that only ``Model.forward`` adds
   ``lora``      low-rank deltas on W_q and W_v (or fused by ``fuse_lora_into``)
   ``adapters``  Houlsby bottleneck adapters after attention and after the MLP
+  ``ptv1``      a soft prompt prepended to the input embeddings (P-Tuning
+                v1; trained and run whole-sequence only)
   ``ptv2``      per-layer K/V prefixes (P-Tuning v2), static batches only
 
-The model takes ``peft = {"method", "params", "opt"}`` (``make``); each
-per-layer leaf is stacked on axis 0 in layer order, ``(L, ...)``, as the
-reference's are. ``ft``, ``ptv1``, the fc / kron AoT reparametrizations,
-the classification head and the trainability masks are training-time and
-not ported.
+``num_classes`` > 0 adds a trainable classification head ``{"w", "b"}``
+(the paper's GLUE protocol, ``Model.classify``). The model takes
+``peft = {"method", "params", "opt"}`` (``make``); each per-layer leaf is
+stacked on axis 0 in layer order, ``(L, ...)``, as the reference's are.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import aot as aot_mod
 from repro_torch.core.aot import AoTOptions
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import dense_init
@@ -45,45 +48,49 @@ def init(cfg, opt: PEFTOptions, seed: int = 0, device="cuda",
          dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """The PEFT parameters of ``opt.method`` on ``device``, in ``dtype``,
     with the reference's shapes and distributions (dense matrices
-    truncated-normal std 1/sqrt(fan_in), P-Tuning v2 prefixes normal std
-    0.02, everything else zero, so that a fresh method leaves the backbone
-    unchanged but for the prefixes), drawn from a ``torch.Generator``
-    seeded with ``seed``: not the reference's bits."""
+    truncated-normal std 1/sqrt(fan_in), the P-Tuning v1 prompt
+    truncated-normal and the v2 prefixes normal, std 0.02, AoT as
+    ``aot.init``, everything else zero, so that a fresh method leaves the
+    backbone unchanged but for the prompts and prefixes), plus a zero
+    classification head when ``opt.num_classes`` > 0, drawn from a
+    ``torch.Generator`` seeded with ``seed``: not the reference's bits."""
     m = opt.method
     if m not in METHODS:
         raise ValueError(m)
-    if m in ("ft", "ptv1") or opt.num_classes or (
-            m == "aot" and opt.aot.mode != "fused"):
-        raise NotImplementedError(
-            f"peft {m!r} (aot mode {opt.aot.mode!r}, {opt.num_classes} "
-            "classes) is training-time and not ported")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    L, d = cfg.num_layers, cfg.d_model
     hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     dense = lambda *shape: torch.stack(
         [dense_init(shape, gen, dev, dtype) for _ in range(L)])
+    params: Dict[str, Any] = {}
     if m == "aot":
-        return {"aot": {"table": zeros(L, V, d)}}
-    if m == "bitfit":
-        return {"bitfit": {"attn_out": zeros(L, d), "mlp_out": zeros(L, d),
-                           "final": zeros(d)}}
-    if m == "lora":
+        params["aot"] = aot_mod.init(cfg, opt.aot, gen, dev, dtype)
+    elif m == "bitfit":
+        params["bitfit"] = {"attn_out": zeros(L, d), "mlp_out": zeros(L, d),
+                            "final": zeros(d)}
+    elif m == "lora":
         r = opt.lora_rank
-        return {"lora": {"qa": dense(d, r), "qb": zeros(L, r, hq),
-                         "va": dense(d, r), "vb": zeros(L, r, hkv)}}
-    if m == "adapters":
+        params["lora"] = {"qa": dense(d, r), "qb": zeros(L, r, hq),
+                          "va": dense(d, r), "vb": zeros(L, r, hkv)}
+    elif m == "adapters":
         r = opt.adapter_rank
         mk = lambda: {"down": dense(d, r), "up": zeros(L, r, d),
                       "b1": zeros(L, r), "b2": zeros(L, d)}
-        return {"adapters": {"attn": mk(), "mlp": mk()}}
-    if m == "ptv2":
+        params["adapters"] = {"attn": mk(), "mlp": mk()}
+    elif m == "ptv1":
+        params["ptv1"] = {"prompt": dense_init((opt.prompt_len, d), gen, dev,
+                                               dtype, scale=0.02)}
+    elif m == "ptv2":
         shape = (L, opt.prompt_len, cfg.num_kv_heads, cfg.head_dim)
         prefix = lambda: (torch.randn(shape, generator=gen, device=dev)
                           * 0.02).to(dtype)
-        return {"ptv2": {"pk": prefix(), "pv": prefix()}}
-    return {}                                         # none
+        params["ptv2"] = {"pk": prefix(), "pv": prefix()}
+    if opt.num_classes:
+        params["head"] = {"w": zeros(d, opt.num_classes),
+                          "b": zeros(opt.num_classes)}
+    return params
 
 
 def make(params, opt: PEFTOptions) -> Dict[str, Any]:
@@ -93,6 +100,11 @@ def make(params, opt: PEFTOptions) -> Dict[str, Any]:
 
 def lora_scale(opt: PEFTOptions) -> float:
     return opt.lora_alpha / opt.lora_rank
+
+
+def backbone_trainable(opt: PEFTOptions) -> bool:
+    """Whether the method trains the backbone (full fine-tuning only)."""
+    return opt.method == "ft"
 
 
 def fuse_lora_into(params, peft_params, cfg, opt: PEFTOptions):

@@ -7,6 +7,11 @@ that counts its kernel's launches (and nothing else), so that a run can
 show that it went through the kernel; ``reset_launches`` zeroes them all.
 A kernel function given an empty output returns it without a launch, so
 a wrapper counts only a non-empty output.
+
+A kernel's output carries no autograd history. So a wrapper about to
+launch while grad mode is on and an input requires grad raises
+RuntimeError before it builds or launches anything: training runs the
+model with ``attn_impl="ref"``. The plain versions stay differentiable.
 """
 from __future__ import annotations
 
@@ -34,6 +39,17 @@ def _on_cpu(*xs) -> bool:
                if isinstance(x, torch.Tensor))
 
 
+def _refuse_grad(name, *xs) -> None:
+    """Raise before a kernel launch that would silently cut the autograd
+    graph: grad mode on and a tensor among ``xs`` requiring grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"ops.{name}: the CUDA kernel has no backward pass, and an "
+            "input requires grad; train with ModelOptions(attn_impl='ref') "
+            "(differentiable plain PyTorch), or call under torch.no_grad()")
+
+
 def _count(wrapper, res):
     """Add one to ``wrapper.launches`` unless its kernel's output ``res``
     (a tensor, or the fused gather-add's (h, x) pair) is empty, which
@@ -51,6 +67,7 @@ def aot_gather_add(h, table, ids, *, norm=None):
     from one launch."""
     if _on_cpu(h, table, ids, *(norm or ())):
         return aot_gather_add_plain(h, table, ids, norm=norm)
+    _refuse_grad("aot_gather_add", h, table, ids, *(norm or ()))
     if h.dim() == 3:
         res = aot_gather_add(h.reshape(-1, h.shape[-1]), table,
                              ids.reshape(-1), norm=norm)
@@ -67,6 +84,8 @@ def aot_gather_add_multitask(h, tables, task_ids, ids, *, norm=None):
     if _on_cpu(h, tables, task_ids, ids, *(norm or ())):
         return aot_gather_add_multitask_plain(h, tables, task_ids, ids,
                                               norm=norm)
+    _refuse_grad("aot_gather_add_multitask", h, tables, task_ids, ids,
+             *(norm or ()))
     return _count(aot_gather_add_multitask, aot_gather_add_multitask_kernel(
         h, tables, task_ids, ids, norm=norm))
 
@@ -77,6 +96,7 @@ def rms_norm(h, scale, eps):
     no table, for a block whose input takes no AoT rows."""
     if _on_cpu(h, scale):
         return rms_norm_plain(h, scale, eps)
+    _refuse_grad("rms_norm", h, scale)
     if h.dim() != 2:
         return rms_norm(h.reshape(-1, h.shape[-1]), scale, eps).view(h.shape)
     return _count(rms_norm, rms_norm_kernel(h, scale, eps))
@@ -104,6 +124,7 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, token_rows,
     if _on_cpu(q, k_pages, v_pages, block_tables, token_rows, token_pos):
         return ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
                                             token_rows, token_pos)
+    _refuse_grad("ragged_paged_attention", q, k_pages, v_pages)
     out = ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
                                         token_rows, token_pos, plan)
     ragged_paged_attention.launches += out.numel() > 0
@@ -124,6 +145,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
+    _refuse_grad("flash_attention", q, k, v)
     out = flash_attention_kernel(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
     flash_attention.launches += out.numel() > 0
@@ -135,6 +157,7 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     step's KV already written; cur_len: scalar or (b,) visible lengths."""
     if _on_cpu(q, k_cache, v_cache, cur_len):
         return decode_attention_plain(q, k_cache, v_cache, cur_len)
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     out = decode_attention_kernel(q, k_cache, v_cache, cur_len)
     decode_attention.launches += out.numel() > 0
     return out
@@ -147,6 +170,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, cur_len):
     if _on_cpu(q, k_pages, v_pages, block_tables, cur_len):
         return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
                                             cur_len)
+    _refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     out = paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                         cur_len)
     paged_decode_attention.launches += out.numel() > 0

@@ -27,11 +27,11 @@ def _trunc_normal(shape, std, generator, device, dtype):
     return (t * std).to(dtype)
 
 
-def dense_init(shape, generator, device, dtype=torch.float32):
-    """Truncated normal in [-2, 2] standard deviations, std 1/sqrt(fan_in),
-    as the reference draws dense weights."""
-    return _trunc_normal(shape, 1.0 / math.sqrt(shape[0]), generator, device,
-                         dtype)
+def dense_init(shape, generator, device, dtype=torch.float32, scale=None):
+    """Truncated normal in [-2, 2] standard deviations, std ``scale``
+    (default 1/sqrt(fan_in)), as the reference draws dense weights."""
+    std = 1.0 / math.sqrt(shape[0]) if scale is None else scale
+    return _trunc_normal(shape, std, generator, device, dtype)
 
 
 def embed_init(shape, generator, device, dtype=torch.float32):
@@ -124,10 +124,12 @@ def attn_output(cfg, p, o, dtype, peft_bias=None):
     return out
 
 
-def attention_ref(q, k, v, *, causal, window=0, q_offset=0):
-    """Oracle attention. q: (b, sq, H, hd); k / v: (b, skv, KV, hd); query
-    row r sits at position ``i = q_offset + r`` and sees kv position j when
-    ``j <= i`` (``causal``) and ``j > i - window`` (``window > 0``, causal
+def attention_ref(q, k, v, *, causal, window=0, q_offset=0, prefix_len=0):
+    """Oracle attention, differentiable (the training path's). q: (b, sq,
+    H, hd); k / v: (b, skv, KV, hd); query row r sits at position
+    ``i = q_offset + r`` and sees kv position j when ``j <= i`` or
+    ``j < prefix_len`` (``causal``; P-Tuning v1's prompt is such a
+    bidirectional prefix) and ``j > i - window`` (``window > 0``, causal
     only: the reference's symmetric encoder window is not ported). Scores
     in the input dtype, softmax in float32, as the reference."""
     if window and not causal:
@@ -139,7 +141,7 @@ def attention_ref(q, k, v, *, causal, window=0, q_offset=0):
     kpos = torch.arange(skv, device=q.device)[None, :]
     ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
     if causal:
-        ok &= kpos <= qpos
+        ok &= (kpos <= qpos) | (kpos < prefix_len)
     if window:
         ok &= kpos > qpos - window
     s = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() / math.sqrt(hd)

@@ -1,7 +1,17 @@
-"""Model assembly for serving: init, the KV cache layouts, the whole-
-sequence forward, whole-prompt prefill, the decode step and the unified
+"""Model assembly: init, the KV cache layouts, the whole-sequence forward
+and ``classify``, whole-prompt prefill, the decode step and the unified
 ragged mixed step, each with the PEFT methods of the paper's Fig. 3
 (fused AoT tables, BitFit, LoRA, adapters, P-Tuning v2; ``core.peft``).
+
+Two implementations (``ModelOptions.attn_impl``): ``"kernel"`` serves
+through the hand-written kernels (``kernels.ops``: the fused gather-add +
+norm or the norm alone before each block, flash / decode / paged / ragged
+attention); ``"ref"`` runs the whole-sequence entry points with no cache
+(``forward``, ``logits``, ``classify``) in differentiable plain PyTorch
+(``layers.attention_ref``, ``layers.apply_norm``, ``h + rows`` for AoT),
+the training path, which also runs what only training uses: AoT's fc /
+kron reparametrizations, P-Tuning v1 and full fine-tuning. The serving
+entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse it.
 
 Counterpart of ``repro.models.model.Model`` for attention-only causal
 stacks (the serving path). Parameters are a plain dict of tensors with
@@ -21,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
+from repro_torch.core import aot as aot_mod
 from repro_torch.core.peft import lora_scale
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -28,6 +39,9 @@ from repro_torch.models import layers as L
 
 # the PEFT methods the model serves (core.peft)
 SERVED = ("none", "aot", "bitfit", "lora", "adapters", "ptv2")
+# the methods (besides AoT's fc / kron reparametrizations) that run only
+# whole-sequence under attn_impl="ref", the training path
+TRAINED = ("ft", "ptv1")
 _PTV2_PAGED = ("P-Tuning v2's prefix is not held in the paged pool; serve "
                "ptv2 with static batches over a contiguous cache (the "
                "reference's paged and ragged steps skip the prefix)")
@@ -37,6 +51,7 @@ _PTV2_PAGED = ("P-Tuning v2's prefix is not held in the paged pool; serve "
 class ModelOptions:
     compute_dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
+    attn_impl: str = "kernel"       # "kernel" (reference: "pallas") | "ref"
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -123,6 +138,9 @@ class Model:
     def __init__(self, cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
                  device="cuda"):
         check_supported(cfg)
+        if opts.attn_impl not in ("kernel", "ref"):
+            raise ValueError(f"attn_impl {opts.attn_impl!r}: 'kernel' or "
+                             "'ref'")
         self.cfg = cfg
         self.opts = opts
         self.device = resolve_device(device)
@@ -209,17 +227,61 @@ class Model:
     # PEFT: the per-layer hooks of every entry point (the reference's
     # _aot_bias, _attention and _ffn)
     # ------------------------------------------------------------------
-    @staticmethod
-    def _method(peft) -> str:
+    def _method(self, peft, whole: bool = False) -> str:
         """The bundle's method ("none" for no bundle); raises for one the
-        port does not serve."""
+        model does not run: the served methods (AoT as fused tables) run
+        everywhere, the training-time ones (``TRAINED``, AoT's fc / kron)
+        only ``whole``-sequence with no cache under ``attn_impl="ref"``."""
         method = peft["method"] if peft else "none"
-        if method not in SERVED or (method == "aot" and
-                                    peft["opt"].aot.mode != "fused"):
-            raise NotImplementedError(f"peft {method!r} is not ported (the "
-                                      f"port serves {', '.join(SERVED)}; "
-                                      "AoT as fused tables)")
-        return method
+        reparam = method == "aot" and peft["opt"].aot.mode != "fused"
+        if method in SERVED and not reparam:
+            return method
+        if whole and self.opts.attn_impl == "ref" and (
+                reparam or method in TRAINED):
+            return method
+        raise NotImplementedError(
+            f"peft {method!r} runs only through forward / logits / classify "
+            f"with attn_impl='ref' (the training path); the kernels serve "
+            f"{', '.join(SERVED)}, AoT as fused tables")
+
+    def _kernel_only(self, entry: str) -> None:
+        if self.opts.attn_impl != "kernel":
+            raise NotImplementedError(
+                f"{entry} runs the serving kernels only (attn_impl="
+                f"'kernel'); attn_impl='ref' runs the whole-sequence entry "
+                "points")
+
+    def _layer_generators(self, rng):
+        """One dropout generator per layer, seeded by draws from the step's
+        generator ``rng`` (the reference folds the layer index into its
+        key); None without ``rng``."""
+        if rng is None:
+            return None
+        seeds = torch.randint(0, 2 ** 62, (self.cfg.num_layers,),
+                              generator=rng, device=rng.device).tolist()
+        return [torch.Generator(device=self.device).manual_seed(s)
+                for s in seeds]
+
+    def _aot_rows(self, peft, i, ids, task_ids, e_rows, gens):
+        """Layer i's AoT rows (T, d) in the compute dtype for the flat token
+        ``ids`` (T,), in plain PyTorch (the reference's ``_aot_bias``): from
+        the fc reparametrization of ``e_rows`` = E[ids], the kron one of
+        ids (each with dropout when ``gens`` holds layer i's generator), or
+        the fused table (stacked tasks' by ``task_ids``)."""
+        ao, pp, dt = peft["opt"].aot, peft["params"]["aot"], \
+            self.opts.compute_dtype
+        gen = gens[i] if gens is not None else None
+        if ao.mode == "fc":
+            return aot_mod.rows_fc(aot_mod.layer_params(pp, i), e_rows, ao,
+                                   dt, gen)
+        if ao.mode == "kron":
+            return aot_mod.rows_kron(aot_mod.layer_params(pp, i), ids, ao,
+                                     dt, gen)
+        table = pp["table"][i]
+        if table.dim() == 3:
+            return aot_mod.rows_fused_multitask(table, task_ids,
+                                                ids[:, None], dt)[:, 0]
+        return aot_mod.rows_fused({"table": table}, ids, dt)
 
     def _aot_add(self, peft, i, lp, h, ids, task_ids=None):
         """h (b, s, d) plus layer i's AoT rows (the paper's Eq. 1) for the
@@ -251,16 +313,24 @@ class Model:
         projection with RoPE (``sincos``), ``attend(q, k, v)`` -> (b, s, H,
         hd) (which also writes the cache), output projection, norm, SwiGLU;
         with the PEFT hooks of ``peft``'s method: AoT's rows added to h for
-        the flat tokens ``aot`` = (ids, task_ids) in the same launch as the
-        input norm (:meth:`_aot_add`), LoRA's deltas on q and v, BitFit's
-        biases after the output projection and after the MLP, an adapter
-        after each. (P-Tuning v2's prefix comes inside ``attend``.) Without
-        AoT the input norm is one launch of its own (``ops.rms_norm``)."""
+        the flat tokens ``aot`` = (ids, task_ids[, e_rows, generators]) in
+        the same launch as the input norm (:meth:`_aot_add`), LoRA's deltas
+        on q and v, BitFit's biases after the output projection and after
+        the MLP, an adapter after each. (P-Tuning v2's prefix comes inside
+        ``attend``.) Without AoT the input norm is one launch of its own
+        (``ops.rms_norm``). Under ``attn_impl="ref"`` the rows
+        (:meth:`_aot_rows`) and the norm are plain PyTorch."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
         pp = peft["params"] if peft else {}
-        if method == "aot":                      # the paper's Eq. 1
-            h, x = self._aot_add(peft, i, lp, h, *aot)
+        ref = self.opts.attn_impl == "ref"
+        if method == "aot" and ref:              # the paper's Eq. 1
+            h = h + self._aot_rows(peft, i, *aot).reshape(h.shape).to(dt)
+            x = L.apply_norm(cfg, lp["ln1"], h)
+        elif method == "aot":
+            h, x = self._aot_add(peft, i, lp, h, *aot[:2])
+        elif ref:
+            x = L.apply_norm(cfg, lp["ln1"], h)
         else:
             x = ops.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
         qkv = None
@@ -283,30 +353,42 @@ class Model:
             out = self._adapter(pp["adapters"]["mlp"], i, out)
         return h + out
 
-    def _prompt(self, params, tokens, peft, cache=None):
+    def _prompt(self, params, tokens, peft, cache=None, rng=None):
         """Whole prompts tokens (b, s) through every layer, attending
-        through the flash attention kernel (causal); returns h (b, s, d)
-        after the final norm and the prefix length p (P-Tuning v2's, else
-        0). P-Tuning v2 puts its K/V prefix (no RoPE) before each layer's
-        k and v, and its queries attend from position p. With ``cache``,
-        layer i's ``[prefix | k]`` and ``[prefix | v]`` are written into
-        its rows ``[0, p + s)``."""
+        through the flash attention kernel (causal; ``attn_impl="ref"``:
+        ``layers.attention_ref``); returns h (b, s, d) after the final norm
+        and the prefix length p (P-Tuning v2's, else 0). P-Tuning v2 puts
+        its K/V prefix (no RoPE) before each layer's k and v, and its
+        queries attend from position p. P-Tuning v1 prepends its prompt to
+        the embeddings (a bidirectional prefix, positions shifted by its
+        length) and strips it after the final norm. With ``cache``, layer
+        i's ``[prefix | k]`` and ``[prefix | v]`` are written into its rows
+        ``[0, p + s)``. ``rng``: the step's ``torch.Generator``, which
+        seeds AoT's dropout (None: no dropout)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
-        method = self._method(peft)
+        method = self._method(peft, whole=cache is None)
         b, s = tokens.shape
         p = peft["opt"].prompt_len if method == "ptv2" else 0
         if cache is not None and p + s > cache["k"].shape[2]:
             raise ValueError(f"prompt length {s} (+ prefix {p}) exceeds the "
                              f"cache's {cache['k'].shape[2]} rows")
         ids = tokens.to(torch.int32)
-        h = params["embed"]["tok"][ids.long()].to(dt)             # (b, s, d)
-        sincos = L.rope_sincos(torch.arange(s, device=h.device),
+        e_rows = params["embed"]["tok"][ids.long()]              # (b, s, d)
+        h = e_rows.to(dt)
+        p1 = 0
+        if method == "ptv1":
+            prompt = peft["params"]["ptv1"]["prompt"].to(dt)
+            p1 = prompt.shape[0]
+            h = torch.cat([prompt.expand(b, -1, -1), h], 1)
+        sincos = L.rope_sincos(torch.arange(p1 + s, device=h.device),
                                cfg.head_dim, cfg.rope_theta)
         aot = None
         if method == "aot":     # each row's task over its s tokens, flat
             aot = (ids.reshape(-1).contiguous(),
                    peft["task_ids"].to(torch.int32).repeat_interleave(s)
-                   if "task_ids" in peft else None)
+                   if "task_ids" in peft else None,
+                   e_rows.reshape(b * s, -1), self._layer_generators(rng))
+        ref = self.opts.attn_impl == "ref"
         for i, lp in enumerate(params["layers"]):
             def attend(q, k, v, i=i):
                 if p:
@@ -318,24 +400,36 @@ class Model:
                 if cache is not None:
                     cache["k"][i, :, :p + s] = k
                     cache["v"][i, :, :p + s] = v
+                if ref:
+                    return L.attention_ref(q, k, v, causal=True, q_offset=p,
+                                           prefix_len=p1)
                 return ops.flash_attention(q, k, v, causal=True, q_offset=p)
             h = self._block(lp, h, sincos, attend, peft, i, aot)
-        return L.apply_norm(cfg, params["final_norm"], h), p
+        return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
 
-    def forward(self, params, tokens, peft=None):
+    def forward(self, params, tokens, peft=None, rng=None):
         """Whole-sequence causal pass, no cache (the reference's
         ``forward``; ``benchmarks/speed_overhead.py`` times it per PEFT
         method). tokens: (b, s) int -> hidden states (b, s, d) after the
         final norm, plus BitFit's ``final`` bias, which only this entry
-        point adds, as in the reference."""
-        h, _ = self._prompt(params, tokens, peft)
+        point adds, as in the reference. ``rng``: the step's
+        ``torch.Generator`` for AoT's dropout (None: none)."""
+        h, _ = self._prompt(params, tokens, peft, rng=rng)
         if peft and peft["method"] == "bitfit":
             h = h + peft["params"]["bitfit"]["final"].to(h.dtype)
         return h
 
-    def logits(self, params, tokens, peft=None):
+    def logits(self, params, tokens, peft=None, rng=None):
         """``unembed(forward(...))``: (b, s, V)."""
-        return self.unembed(params, self.forward(params, tokens, peft))
+        return self.unembed(params, self.forward(params, tokens, peft, rng))
+
+    def classify(self, params, tokens, peft, rng=None):
+        """The paper's GLUE protocol: the last position's hidden state (a
+        causal stack's pooled representation) through the trainable head
+        ``peft["params"]["head"]``: logits (b, num_classes)."""
+        pooled = self.forward(params, tokens, peft, rng)[:, -1]
+        head, dt = peft["params"]["head"], self.opts.compute_dtype
+        return pooled.to(dt) @ head["w"].to(dt) + head["b"].to(dt)
 
     def prefill(self, params, tokens, peft=None, *, max_len: int,
                 last_pos=None):
@@ -354,6 +448,7 @@ class Model:
         keeps positions <= last_pos independent of the padding. Returns
         (logits (b, 1, V), cache, pos = s + p): BitFit's ``final`` bias is
         not added here, as in the reference."""
+        self._kernel_only("prefill")
         cache = self.init_cache(tokens.shape[0], max_len)
         h, p = self._prompt(params, tokens, peft, cache)
         h_last = h[:, -1:] if last_pos is None else \
@@ -380,6 +475,7 @@ class Model:
         (logits (b, 1, V), cache). Paged positions on the CPU are held to
         the block table first (:func:`check_table_reach`)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
+        self._kernel_only("decode_step")
         method = self._method(peft)
         if method == "ptv2" and block_tables is not None:
             raise NotImplementedError(_PTV2_PAGED)
@@ -480,6 +576,7 @@ class Model:
         cfg = self.cfg
         dt = self.opts.compute_dtype
         assert block_tables is not None, "mixed_step serves paged pools only"
+        self._kernel_only("mixed_step")
         method = self._method(peft)
         if method == "ptv2":
             raise NotImplementedError(_PTV2_PAGED)

@@ -1,0 +1,168 @@
+"""The training step: PEFT-partitioned parameters, chunked cross-entropy,
+AdamW. Counterpart of ``repro.train.step``, in eager PyTorch with autograd
+on the model's ``attn_impl="ref"`` path (the kernels have no backward).
+
+The parameter tree is split into (trainable, frozen) before the step sees
+it: for the PEFT methods trainable = ``{"peft": ...}`` and frozen =
+``{"backbone": ...}``; for ``ft`` trainable = ``{"backbone", "peft"}``
+(peft may hold just the head). Frozen leaves have ``requires_grad`` off;
+gradients and optimizer state exist for the trainable tree only.
+
+Cross-entropy runs in sequence chunks, each under
+``torch.utils.checkpoint``, so the (b, s, |V|) logits are never resident
+for the backward pass. MoE's auxiliary losses are absent: the port refuses
+MoE backbones.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree as T
+from repro_torch.core import peft as peft_mod
+from repro_torch.optim import adamw, clip_by_global_norm
+from repro_torch.optim.schedules import constant
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    peft: peft_mod.PEFTOptions = field(default_factory=peft_mod.PEFTOptions)
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    clip_norm: float = 1.0
+    loss_chunk: int = 1024          # sequence chunk for CE (0 = unchunked)
+    z_loss: float = 1e-4
+    schedule: Any = None            # callable(step) -> lr; None: constant(lr)
+
+
+def _requires_grad(tree, on: bool):
+    for x in T.leaves(tree):
+        x.requires_grad_(on)
+    return tree
+
+
+def split_train(params, peft_params, method: str):
+    """(trainable, frozen) trees of the backbone ``params`` and the PEFT
+    parameters; trainable leaves get ``requires_grad``, frozen ones lose
+    it."""
+    if method == "ft":
+        trainable, frozen = {"backbone": params, "peft": peft_params}, {}
+    else:
+        trainable, frozen = {"peft": peft_params}, {"backbone": params}
+    return _requires_grad(trainable, True), _requires_grad(frozen, False)
+
+
+def merge_train(trainable, frozen):
+    backbone = trainable.get("backbone", frozen.get("backbone"))
+    return backbone, trainable["peft"]
+
+
+def _ce_piece(hc, w, lc, mc, z_loss: float):
+    logits = (hc @ w).float()                            # (b, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    pred_ok = (logits.argmax(-1) == lc).float()
+    return (nll * mc).sum(), (pred_ok * mc).sum(), mc.sum()
+
+
+def chunked_ce(h, w, labels, *, chunk: int, z_loss: float, mask=None):
+    """Cross entropy over the vocabulary without the full logits: h (b, s,
+    d), w (d, V), labels (b, s), optional 0/1 ``mask`` (b, s). Each
+    sequence chunk of ``chunk`` positions (0: one chunk) is recomputed in
+    the backward pass. Returns (mean loss, accuracy) over the masked
+    positions, with the z-loss ``z_loss * lse**2`` added per position."""
+    b, s, _ = h.shape
+    chunk = min(chunk or s, s)
+    tot = correct = denom = torch.zeros((), device=h.device)
+    for lo in range(0, s, chunk):
+        hi = min(s, lo + chunk)
+        mc = (mask[:, lo:hi].float() if mask is not None
+              else torch.ones((b, hi - lo), device=h.device))
+        t, c, dn = checkpoint(_ce_piece, h[:, lo:hi], w, labels[:, lo:hi],
+                              mc, z_loss, use_reentrant=False)
+        tot, correct, denom = tot + t, correct + c, denom + dn
+    denom = torch.clamp(denom, min=1.0)
+    return tot / denom, correct / denom
+
+
+def make_loss_fn(model, tcfg: TrainConfig):
+    """(trainable, frozen, batch, rng) -> (loss, metrics) for next-token
+    prediction: ``batch`` holds "tokens" and "labels" (b, s) and
+    optionally "loss_mask"; ``rng`` the step's generator (dropout)."""
+    method = tcfg.peft.method
+
+    def loss_fn(trainable, frozen, batch, rng):
+        backbone, peft_params = merge_train(trainable, frozen)
+        peft = peft_mod.make(peft_params, tcfg.peft) if method != "none" \
+            else None
+        h = model.forward(backbone, batch["tokens"], peft, rng)
+        dt = model.opts.compute_dtype
+        w = backbone["embed"]["tok"].to(dt).T            # tied unembedding
+        loss, acc = chunked_ce(h.to(dt), w, batch["labels"],
+                               chunk=tcfg.loss_chunk, z_loss=tcfg.z_loss,
+                               mask=batch.get("loss_mask"))
+        return loss, {"loss": loss, "acc": acc, "total_loss": loss}
+
+    return loss_fn
+
+
+def make_classify_loss_fn(model, tcfg: TrainConfig):
+    """The paper's protocol: the classification head on the pooled
+    representation (``Model.classify``); ``batch["labels"]`` (b,)."""
+
+    def loss_fn(trainable, frozen, batch, rng):
+        backbone, peft_params = merge_train(trainable, frozen)
+        peft = peft_mod.make(peft_params, tcfg.peft)
+        logits = model.classify(backbone, batch["tokens"], peft, rng).float()
+        labels = batch["labels"].long()
+        nll = torch.logsumexp(logits, -1) - logits.gather(
+            -1, labels[:, None])[:, 0]
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return nll.mean(), {"loss": nll.mean(), "acc": acc}
+
+    return loss_fn
+
+
+def make_train_step(model, tcfg: TrainConfig, *, classify: bool = False):
+    """Returns (init_state, train_step). ``state = {"trainable", "opt",
+    "step"}``; ``train_step(state, frozen, batch, rng)`` -> (new state,
+    metrics): the loss's gradients with respect to the trainable leaves,
+    clipped by global norm, one AdamW update. Metrics are 0-d tensors on
+    the device (``loss``, ``acc``, ``total_loss`` in LM mode,
+    ``grad_norm``, ``lr``); reading them waits for the device."""
+    loss_fn = (make_classify_loss_fn if classify else make_loss_fn)(model,
+                                                                    tcfg)
+    sched = tcfg.schedule or constant(tcfg.lr)
+    opt_init, opt_update = adamw(sched, weight_decay=tcfg.weight_decay)
+
+    def init_state(trainable):
+        """The state of ``trainable`` (``split_train``'s, whose leaves
+        require grad) before the first step."""
+        return {"trainable": trainable, "opt": opt_init(trainable),
+                "step": 0}
+
+    def train_step(state, frozen, batch, rng):
+        trainable = state["trainable"]
+        leaves = T.leaves(trainable)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(trainable, frozen, batch, rng)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = T.unflatten(trainable, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if tcfg.clip_norm:
+            grads, metrics["grad_norm"] = clip_by_global_norm(
+                grads, tcfg.clip_norm)
+        new_params, new_opt = opt_update(grads, state["opt"], trainable)
+        metrics["lr"] = torch.tensor(sched(state["step"] + 1))
+        return ({"trainable": _requires_grad(new_params, True),
+                 "opt": new_opt, "step": state["step"] + 1}, metrics)
+
+    return init_state, train_step

@@ -13,8 +13,11 @@ import torch
 
 import repro_torch
 from repro_torch import bridge, configs
+from repro_torch.core import peft as peft_mod
 from repro_torch.launch import serve as launcher
+from repro_torch.launch import train as train_launcher
 from repro_torch.models.model import Model
+from repro_torch.train.loop import TrainLoop
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -28,6 +31,10 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.serve.scheduler" in mods and len(mods) >= 20
+    for m in ("data.pipeline", "data.tasks", "data.tokenizer", "optim.adamw",
+              "optim.schedules", "train.step", "train.loop", "launch.train",
+              "tree"):
+        assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -66,6 +73,11 @@ ENTRY_POINTS = {
     "bridge": lambda cfg: bridge.params_from_jax(cfg, {}),
     "tables": lambda cfg: bridge.tables_from_jax([]),
     "launcher": lambda cfg: launcher.main(["--reduced", "--demo", "--quiet"]),
+    "peft": lambda cfg: peft_mod.init(cfg, peft_mod.PEFTOptions()),
+    "train_launcher": lambda cfg: train_launcher.main(["--reduced",
+                                                       "--steps", "1"]),
+    "train_loop": lambda cfg: TrainLoop(train_step=None, frozen={},
+                                        stream=None),
 }
 
 

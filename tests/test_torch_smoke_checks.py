@@ -1,9 +1,11 @@
 """The pure-Python gates of the port's card scripts, on the CPU: phase 2's
 check of the redesigned kernels' ptxas output (flash_mma_kernel,
 decode_split_kernel, ragged_split_kernel, aot_gather_add_kernel), phase
-6's comparison of kernel logits with the plain versions' (near ties), and
-phase 6's swap of the kernel wrappers in ``ops`` for the plain versions.
-The phases themselves need the card (chip_smoke.py)."""
+6's comparison of kernel logits with the plain versions' (near ties),
+phase 6's swap of the kernel wrappers in ``ops`` for the plain versions,
+phases 5e-5g's gates and replayed schedules, and phase 7's gates (the
+loss drop, the frozen backbone, fused against reparametrized) and 7c's
+stream replayed. The phases themselves need the card (chip_smoke.py)."""
 
 import importlib.util
 import inspect
@@ -486,3 +488,146 @@ def test_phase5g_obs_runs_are_bitwise_and_traced(monkeypatch):
     assert {k: n for k, (_, n) in spans.items()} == {
         "admission": 71, "ensure_pages": 70, "pack_budget_split": 71,
         "dispatch": 71, "postprocess": 71}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train, fuse, serve the trained tasks
+# ---------------------------------------------------------------------------
+
+def test_phase7a_loss_drop_gate():
+    """The same batches' mean must fall for every run; with ``fresh``
+    (the FRESH_GATED runs) the last steps' mean on other batches too."""
+    losses = [10.95, 10.96, 10.93, 10.94, 10.90] + [10.96] * 25
+    again = [10.90, 10.92, 10.89, 10.90, 10.86]
+    first, after, last, bad = cs.loss_drop(losses, again)
+    assert bad == [] and after < first < last
+    assert cs.loss_drop(losses, [11.0] * 5)[3] == [
+        "loss did not fall (10.9360 -> 11.0000 on the first 5 batches)"]
+    bad = cs.loss_drop(losses[:-1] + [float("nan")], [10.0] * 5)[3]
+    assert bad == ["a loss is not finite"]
+    assert cs.loss_drop(losses, again, fresh=True)[3] == [
+        "loss did not fall (10.9360 -> 10.9600 from the first 5 steps to "
+        "the last 5)"]
+    falling = losses[:5] + [10.5] * 25
+    assert cs.loss_drop(falling, again, fresh=True)[3] == []
+    assert cs.FRESH_GATED == ("kron",) and set(cs.FRESH_GATED) <= set(
+        cs.TRAIN_LM)
+
+
+def test_phase7a_changed_leaves_is_bitwise():
+    a = [torch.zeros(3), torch.ones(2)]
+    b = [x.clone() for x in a]
+    assert cs.changed_leaves(a, b) == []
+    b[1][0] = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
+    assert cs.changed_leaves(a, b) == [1]
+
+
+def test_phase7c_fused_vs_reparam_on_cpu():
+    """The comparison 7c gates, at reduced widths: exact on the CPU."""
+    from repro_torch import configs
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.models.model import Model, ModelOptions
+    cfg = configs.reduced(configs.get("smollm-360m"), repeats=2)
+    model = Model(cfg, ModelOptions(attn_impl="ref"), device="cpu")
+    params = model.init(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(0))
+    toks[0, 3] = 5
+    fused_opt = peft_mod.PEFTOptions(method="aot",
+                                     aot=aot_mod.AoTOptions(mode="fused"))
+    for mode in ("fc", "kron"):
+        opt = peft_mod.PEFTOptions(method="aot", aot=aot_mod.AoTOptions(
+            mode=mode, rank=4, dropout=0.0))
+        pp = peft_mod.init(cfg, opt, seed=1, device="cpu")
+        pp["aot"] = {k: torch.randn(v.shape) * 0.05
+                     for k, v in pp["aot"].items()}
+        fused = aot_mod.fuse(pp["aot"], cfg, opt.aot,
+                             embed=params["embed"]["tok"], vocab_chunk=50)
+        err, share = cs.fused_vs_reparam(
+            model, params, peft_mod.make(pp, opt),
+            peft_mod.make({"aot": fused}, fused_opt), toks)
+        assert (err, share) == (0.0, 1.0)
+        fused["table"][:, 5] += 1.0         # a wrong row shows
+        err, share = cs.fused_vs_reparam(
+            model, params, peft_mod.make(pp, opt),
+            peft_mod.make({"aot": fused}, fused_opt), toks)
+        assert err > 0.1 and share < 1.0
+
+
+def test_phase7c_replay_fixes_the_counts(monkeypatch):
+    """7c's stream (SERVE_TRAINED: phase 5's flags, two tasks, eight
+    requests) replayed without a model: the card's ticks and dispatches
+    are TRAINED_EXPECT's, every request's first-token row is captured, and
+    the launches 7c requires are one per layer per dispatched tick."""
+    from repro_torch.launch import serve as launcher
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    eng = FakeEngine()
+    args = launcher.parser().parse_args(cs.SERVE_TRAINED)
+    arrivals = launcher.make_arrivals(args, 49152, args.tasks)
+    assert {r.task_id for _, r in arrivals} == {0, 1}
+    sched, rows = cs.trained_stream(eng, args, arrivals)
+    got = dict(ticks=sched.ticks, dispatched=eng.dispatches,
+               finished=len(sched.finished))
+    assert got == cs.TRAINED_EXPECT
+    assert sorted(rows) == [r.rid for _, r in arrivals]
+    assert sched.drain_check() == [] and sched.preemptions == 0
+    assert cs.trained_launches(32, got["dispatched"]) == {
+        "aot_gather_add_multitask": 32 * 57,
+        "ragged_paged_attention": 32 * 57}
+    cs.check_launches("7c", dict(cs.trained_launches(2, 3), rms_norm=0),
+                      cs.trained_launches(2, 3))
+    with pytest.raises(AssertionError, match="rms_norm launched 1"):
+        cs.check_launches("7c", dict(cs.trained_launches(2, 3), rms_norm=1),
+                          cs.trained_launches(2, 3))
+
+
+def test_phase7c_against_float32_gate():
+    """Per task: the served error within BF16_FACTOR times plain bf16's,
+    and the task's effect over the backbone carried within CARRY_TOL."""
+    base = torch.tensor([[1.0, 0.5, -0.25, 0.0]] * 2)
+    ref = base + torch.tensor([[0.0, 0.5, 0.0, -0.5], [0.2, 0.0, 0.2, 0.0]])
+    plain = ref + torch.tensor([[0.04, 0.0, -0.01, 0.0]])
+    res = cs.against_float32(ref + 0.07, plain, ref, base, [0, 1])
+    assert res["ok"] and set(res["tasks"]) == {0, 1}
+    assert res["tasks"][1]["carried"] == pytest.approx(1.0)   # a row shift
+    assert res["tasks"][0]["carried_plain"] == pytest.approx(1.0)
+    off = ref + torch.tensor([[0.0, 0.09, 0.0, 0.0], [0.0] * 4])
+    res = cs.against_float32(off, plain, ref, base, [0, 1])
+    assert not res["ok"] and cs.rejected(res) == {0}
+    assert res["tasks"][0]["plain_err"] == pytest.approx(0.04)
+    assert res["tasks"][0]["served_err"] == pytest.approx(0.09)
+    # task 1 without its table: every logit within 2 x 0.04 of float32's
+    # (its effect is 0.2), but none of the effect carried
+    res = cs.against_float32(torch.stack([ref[0], base[1]]), plain + 0.1 *
+                             torch.tensor([[0.0] * 4, [1.0] * 4]), ref,
+                             base, [0, 1])
+    assert cs.rejected(res) == {1}
+    assert res["tasks"][1]["served_err"] <= 2 * res["tasks"][1]["plain_err"]
+    assert res["tasks"][1]["carried"] == pytest.approx(0.0)
+
+
+def test_phase7c_controls_are_rejected():
+    """``control_serves`` over two tasks' tables, each served as the
+    backbone's logits plus its task's slot of the stacked tables: the
+    true serve passes, each control fails in exactly its wrong tasks."""
+    g = torch.Generator().manual_seed(0)
+    V, task_ids = 64, [0, 1, 1, 0, 1]
+    fc = 0.03 * torch.randn(1, V, 1, generator=g)     # a small effect
+    kron = 0.5 * torch.randn(1, V, 1, generator=g)
+    tables = [{"table": fc}, {"table": kron}]
+    base = torch.randn(len(task_ids), V, generator=g)
+
+    def serve(stacked, noise):
+        return torch.stack([base[i] + stacked[0, t, :, 0]
+                            for i, t in enumerate(task_ids)]) + noise
+    ref = serve(torch.stack([fc, kron], 1), 0.0)
+    plain = ref + 0.02 * torch.randn(ref.shape, generator=g)
+    served = ref + 0.02 * torch.randn(ref.shape, generator=g)
+    assert cs.against_float32(served, plain, ref, base, task_ids)["ok"]
+    seen = {}
+    for name, stacked, wrong in cs.control_serves(tables):
+        res = cs.against_float32(serve(stacked["table"], served - ref),
+                                 plain, ref, base, task_ids)
+        seen[name] = (cs.rejected(res), wrong)
+    assert seen == {"fc_zeroed": ({0}, {0}), "swapped": ({0, 1}, {0, 1})}
