@@ -28,8 +28,12 @@ Phases, each printing one line of results; any failure exits non-zero:
    bitwise equal to paged decode with cur_len = pos + 1); flash attention
    (causal, full, window; sq = skv
    in {1, 37, 100, 512, 577}, sq != skv either way, hd 32, 60, 96, 128,
-   a strided q, a misaligned q, g 8; queries from an offset over sq +
-   offset keys, P-Tuning v2's prefill, with and without a window);
+   a strided q, a misaligned q, g 8; full mode at g = 1, the encoders' 16
+   heads over 16, at s 1, 37, 384, 512 and 577; queries from an offset
+   over sq + offset keys, P-Tuning v2's prefill, with and without a
+   window, and in full mode at g = 1); both gather-adds in their plain
+   mode (no norm: the encoders' post-LN blocks) at d 1024 and the
+   encoders' vocabularies 50265 and 128100, bitwise;
    contiguous decode (scalar and per-row lengths with 0, 1 and ragged
    depths, S = 1024; lengths at and on either side of the cluster's block
    boundaries, 0 and S, at S 300, 1000, 1024, 2048); paged decode (length
@@ -51,7 +55,9 @@ Phases, each printing one line of results; any failure exits non-zero:
    layers.apply_norm launches it), F.rms_norm alone, and host microseconds
    per wrapper call; flash also at one prompt of 512 (a whole-prompt
    stream's prefill); the ragged kernel's plan (host microseconds per
-   tick, items);
+   tick, items); at the encoders' shapes, flash in full mode at g = 1
+   over (8, 384) and (1, 512) beside SDPA, and the plain-mode gather-adds
+   at T 3072, d 1024;
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -155,11 +161,31 @@ Phases, each printing one line of results; any failure exits non-zero:
    zeroed and the two tables swapped, must fail that gate in exactly the
    tasks they make wrong; against the plain bf16 logits directly: the max
    error and near ties, reported: at 32 layers no two bf16 orders of the
-   same function agree to 2e-2).
+   same function agree to 2e-2);
+8. the paper's own encoders (post-LN, LayerNorm, GELU MLP, learned
+   positions, an untied head, full attention), random weights: 8a
+   roberta-large at full width (24 layers, bf16) through Model.logits at
+   speed_overhead.py's grid for the backbone, one fused AoT task, BitFit,
+   LoRA unfused and fused, adapters, P-Tuning v2 and a 4-task mixed
+   batch: exactly one flash attention (full mode) and, with AoT, one
+   plain gather-add per layer per call, finite logits, ms and the ratio
+   to the backbone's (reported), the mixed batch with every task id 0
+   bitwise the single-table call; 8b the same methods at full width with
+   2 layers through the kernels against the plain versions (every logit
+   within the bf16 tolerance, near ties counted); 8c deberta-xl at full
+   width (48 layers, V 128100) with and without a fused task (its bf16
+   table 11.7 GiB) at (8, 384): finite, 48 launches of each kernel, ms
+   and peak memory; 8d phase 7b's protocol on roberta-large with mean
+   pooling (AoT fc and BitFit, held-out accuracy reported), AoT fc fused
+   and served through the kernels' classify in bf16, gated against the
+   float32 reparametrized logits as 7c (within BF16_FACTOR x plain bf16's
+   error, the task's effect carried), a zeroed table as a control serve
+   that must fail the gate.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
-path's) and ``{"ok": true, "device": {...}}``. Details go to
+path's; ``encoder``: phase 4's times at the encoders' shapes and the
+launches of one phase 8a call) and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -184,6 +210,8 @@ BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # float32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 H, KVH, HD, BS = 15, 5, 64, 16     # smollm-360m attention, page size
+ENC_HEADS = (16, 16)               # roberta-large / deberta-xl: g = 1
+ENC_D, ENC_VOCABS = 1024, (50265, 128100)   # their width and vocabularies
 SLOTS, MAX_LEN = 8, 1024
 NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
@@ -550,6 +578,7 @@ def phase_parity(gen, report):
         tables="4x49152x960 (vec, misaligned h), 4x4096x962 (d%8!=0)",
         types="{f32,bf16}^2", T="8,263")
     parity_single_gather(gen, report)
+    parity_encoder_gather(gen, report)
 
     parity_ragged(gen, report)
     parity_flash(gen, report)
@@ -706,6 +735,54 @@ def parity_single_gather(gen, report):
         tables="49152x960, 4096x60", types="{f32,bf16}^2", T="16,263")
 
 
+def parity_encoder_gather(gen, report):
+    """Both gather-adds in their plain mode (no fused norm: a post-LN
+    encoder has no input norm) at the encoders' width d 1024 and
+    vocabularies 50265 and 128100, bitwise against the plain versions:
+    one task's table (V, d) and 4 stacked tasks' (4, V, d) in bf16, h in
+    bf16 and float32, T 64 and 3072 (8 x 384), ids at both ends of the
+    vocabulary and -1 (wraps once); and the single-table entry on task t's
+    table bitwise the multi-task entry with every task id t."""
+    from repro_torch.kernels import aot_bias, ops
+    cases = []
+    for vocab in ENC_VOCABS:
+        tables = (torch.randn(4, vocab, ENC_D, generator=gen, device=DEV)
+                  * 0.03).to(torch.bfloat16)
+        for h_dtype in (torch.bfloat16, torch.float32):
+            for T in (64, 3072):
+                h = torch.randn(T, ENC_D, generator=gen,
+                                device=DEV).to(h_dtype)
+                ids = torch.randint(0, vocab, (T,), generator=gen,
+                                    device=DEV, dtype=torch.int32)
+                ids[:3] = torch.tensor([0, vocab - 1, -1])
+                task = torch.randint(0, 4, (T,), generator=gen, device=DEV,
+                                     dtype=torch.int32)
+                task[:2] = 3
+                what = f"plain-mode gather-add V={vocab} h={h_dtype} T={T}"
+                single = ops.aot_gather_add(h, tables[3], ids)
+                multi = ops.aot_gather_add_multitask(h, tables, task, ids)
+                three = ops.aot_gather_add_multitask(
+                    h, tables, torch.full_like(task, 3), ids)
+                torch.cuda.synchronize()
+                if not torch.equal(single, aot_bias.aot_gather_add_plain(
+                        h, tables[3], ids)):
+                    raise AssertionError(f"{what}: single-table not bitwise")
+                if not torch.equal(multi, aot_bias.
+                                   aot_gather_add_multitask_plain(
+                                       h, tables, task, ids)):
+                    raise AssertionError(f"{what}: multi-task not bitwise")
+                if not torch.equal(single, three):
+                    raise AssertionError(f"{what}: single-table on task 3 "
+                                         "differs from multi-task at id 3")
+                cases.append(f"{vocab}/{str(h_dtype)[6:]}/T{T}")
+        del tables
+    report["parity"]["encoder_gather"] = cases
+    log("3 parity", kernel="aot_gather_add+aot_gather_add_multitask",
+        mode="plain (norm=None)", d=ENC_D, cases=len(cases),
+        result="bitwise equal; single-table = multi-task at one task id",
+        shapes=",".join(cases))
+
+
 # flash parity cases: name -> (b, sq, skv, hd, causal, window, strided,
 # heads, misaligned); smollm's heads (15 over 5) unless a case names
 # others. The bf16 kernel's edges: query tiles of 64 (sq 100, 577), kv
@@ -739,12 +816,20 @@ FLASH_CASES = {
     "causal_misaligned_100": (2, 100, 100, HD, True, 0, False, (H, KVH),
                               True),
     "causal_g8_577": (1, 577, 577, HD, True, 0, False, (8, 1)),
+    # the paper's encoders (roberta-large, deberta-xl): full mode, 16 heads
+    # over 16 KV heads (g = 1), whole sequences up to 512
+    "full_g1_1": (2, 1, 1, HD, False, 0, False, ENC_HEADS),
+    "full_g1_37": (2, 37, 37, HD, False, 0, False, ENC_HEADS),
+    "full_g1_384": (8, 384, 384, HD, False, 0, False, ENC_HEADS),
+    "full_g1_512": (1, 512, 512, HD, False, 0, False, ENC_HEADS),
+    "full_g1_577": (1, 577, 577, HD, False, 0, False, ENC_HEADS),
 }
 
 
 # queries from an offset (P-Tuning v2's prefill: sq prompt queries at
 # positions q_offset.. over the prefix and the prompt, skv = q_offset + sq):
-# name -> (b, sq, q_offset, window)
+# name -> (b, sq, q_offset, window[, causal, heads]); causal with smollm's
+# heads unless a case says otherwise
 FLASH_OFFSET_CASES = {
     "offset20_37": (2, 37, 20, 0),
     "offset37_100": (2, 100, 37, 0),
@@ -752,6 +837,7 @@ FLASH_OFFSET_CASES = {
     "offset20_window16": (2, 100, 20, 16),
     "offset37_window64_512": (1, 512, 37, 64),
     "offset37_window100_577": (1, 577, 37, 100),
+    "full_g1_offset20_384": (2, 384, 20, 0, False, ENC_HEADS),  # encoder
 }
 
 
@@ -784,19 +870,21 @@ def parity_flash(gen, report):
             err = check_close(f"flash/{name}/{dtype}", out, plain, dtype,
                               report)
             cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
-    for name, (b, sq, off, window) in FLASH_OFFSET_CASES.items():
+    for name, (b, sq, off, window, *mode) in FLASH_OFFSET_CASES.items():
+        causal, heads = mode or (True, (H, KVH))
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(gen, b, sq, sq + off, HD, dtype)
-            out = ops.flash_attention(q, k, v, causal=True, window=window,
+            q, k, v = flash_inputs(gen, b, sq, sq + off, HD, dtype,
+                                   heads=heads)
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=off)
             plain = flash_attention.flash_attention_plain(
-                q, k, v, causal=True, window=window, q_offset=off)
+                q, k, v, causal=causal, window=window, q_offset=off)
             err = check_close(f"flash/{name}/{dtype}", out, plain, dtype,
                               report)
             cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
     log("3 parity", kernel="flash_attention",
-        shapes="h15 kvh5 hd32|60|64|96|128, h8 kvh1 hd64; sq 1-577; "
-        "q_offset 20|37", max_abs_err=",".join(cases))
+        shapes="h15 kvh5 hd32|60|64|96|128, h8 kvh1 hd64, h16 kvh16 hd64 "
+        "(full); sq 1-577; q_offset 20|37", max_abs_err=",".join(cases))
 
 
 DECODE_LENS = [0, 1, 33, 255, 256, 577, 1000, 1024]   # per row, S = 1024
@@ -1176,7 +1264,89 @@ def phase_times(gen, report):
            f"{r['plan_host_us']:.1f}us]" for n, r in res.items()})
     report["times"]["ragged_paged_attention"] = res
     rows_out += times_prefill_decode(gen, report)
+    enc = times_encoder(gen, report)
+    for row in rows_out:
+        if row["name"] in enc:
+            row["encoder"] = enc[row["name"]]
     return rows_out
+
+
+def times_encoder(gen, report):
+    """The kernels at the paper's encoders' shapes, bf16 (phase 8's path):
+    flash in full mode at g = 1 (16 heads over 16, hd 64) over 8 x 384
+    (speed_overhead.py's largest cell) and 1 x 512, beside SDPA
+    non-causal with no mask; both gather-adds in their plain mode (no
+    norm: post-LN) at T 3072 = 8 x 384, d 1024, roberta's vocabulary
+    (one task's table; 4 tasks' for the multi-task entry). Inputs rotate
+    over 8 sets. Returns {kernel: its times, bound and shapes} for the
+    kernels line's ``encoder`` entries (launches added by phase 8)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import aot_bias
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es, (h, kvh) = torch.bfloat16, 2, ENC_HEADS
+    out, flash = {}, {}
+    for b, s in ((8, 384), (1, 512)):
+        qs = [flash_inputs(gen, b, s, s, HD, dt, heads=ENC_HEADS)
+              for _ in range(8)]
+        kern = lambda i: ops.flash_attention(*qs[i % 8], causal=False)
+        plain = lambda i: fa.flash_attention_plain(*qs[i % 8], causal=False)
+        r = timed(kern, plain, 32, 8, tol=TOL[dt])
+        sdpa = lambda i: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in qs[i % 8]))
+        r["library_ms"] = device_ms(sdpa, 32)        # yardstick only
+        r["bound_ms"], r["bound_by"] = bound(
+            b * s * (2 * h + 2 * kvh) * HD * es, 4 * HD * h * s * s * b, dt)
+        flash[f"b{b}_s{s}"] = r
+        del qs
+    log("4 times", kernel="flash_attention", mode="full g1 (encoders)", **{
+        k: fmt_times(r) + f"[{r['bound_by']}; library "
+        f"{r['library_ms']:.5f}]" for k, r in flash.items()})
+    r = flash["b8_s384"]
+    out["flash_attention"] = dict(shape="b8 s384 h16 kvh16 hd64 full",
+                                  **_enc_row(r), b1_s512=_enc_row(
+                                      flash["b1_s512"]))
+    T, vocab = 8 * 384, ENC_VOCABS[0]
+    tables = (torch.randn(4, vocab, ENC_D, generator=gen, device=DEV)
+              * 0.03).to(dt)
+    hs = [torch.randn(T, ENC_D, generator=gen, device=DEV).to(dt)
+          for _ in range(8)]
+    ids = [torch.randint(0, vocab, (T,), generator=gen, device=DEV,
+                         dtype=torch.int32) for _ in range(8)]
+    tasks = [torch.randint(0, 4, (T,), generator=gen, device=DEV,
+                           dtype=torch.int32) for _ in range(8)]
+    calls = {
+        "aot_gather_add": (
+            lambda i: ops.aot_gather_add(hs[i % 8], tables[0], ids[i % 8]),
+            lambda i: aot_bias.aot_gather_add_plain(hs[i % 8], tables[0],
+                                                    ids[i % 8])),
+        "aot_gather_add_multitask": (
+            lambda i: ops.aot_gather_add_multitask(hs[i % 8], tables,
+                                                   tasks[i % 8], ids[i % 8]),
+            lambda i: aot_bias.aot_gather_add_multitask_plain(
+                hs[i % 8], tables, tasks[i % 8], ids[i % 8]))}
+    gathers = {}
+    for name, (kern, plain) in calls.items():
+        r = gathers[name] = timed(kern, plain, 200, 50, tol=0)
+        r["library_ms"] = None      # no one PyTorch call gathers and adds
+        # h and a table row read, the sum written, the ids (and task ids)
+        r["bound_ms"] = (3 * T * ENC_D * es + 4 * T * (
+            2 if name.endswith("multitask") else 1)) / HBM_BYTES_PER_S * 1e3
+        r["bound_by"] = "bytes"
+        out[name] = dict(shape=f"T{T} d{ENC_D} V{vocab} plain mode",
+                         **_enc_row(r))
+    del tables, hs
+    log("4 times", kernel="aot_gather_add / _multitask",
+        mode="plain (encoders)", **{k: fmt_times(r) + "[bytes; library none]"
+                                    for k, r in gathers.items()})
+    report["times"]["encoder"] = dict(flash=flash, gathers=gathers)
+    return out
+
+
+def _enc_row(r):
+    """The numbers of one phase 4 timing that a kernels-line row carries."""
+    return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")} | {"max_abs_err": r["err"]}
 
 
 def times_gather_norm(gen, h, call, plain_call, iters):
@@ -3666,15 +3836,17 @@ def trained_launches(layers, dispatched):
             "ragged_paged_attention": layers * dispatched}
 
 
-def cast_backbone(params, dtype):
-    """The backbone in ``dtype``, norm scales kept in float32 (as
-    ``Model.init`` keeps them)."""
+def cast_backbone(params, dtype, norm=False):
+    """The backbone in ``dtype``, the norms' parameters (RMSNorm's scale,
+    LayerNorm's scale and bias: the subtrees ``bridge.NORMS``) kept in
+    float32 as ``Model.init`` keeps them."""
+    from repro_torch.bridge import NORMS
     if isinstance(params, dict):
-        return {k: (v if k == "scale" else cast_backbone(v, dtype))
+        return {k: cast_backbone(v, dtype, norm or k in NORMS)
                 for k, v in params.items()}
     if isinstance(params, list):
-        return [cast_backbone(v, dtype) for v in params]
-    return params.detach().to(dtype)
+        return [cast_backbone(v, dtype, norm) for v in params]
+    return params.detach() if norm else params.detach().to(dtype)
 
 
 def profile_train_step(t, args, steps=2):
@@ -3756,18 +3928,22 @@ def train_lm(report):
     return trained, backbone
 
 
-def train_classify(report):
-    """7b: each TRAIN_CLS method with a 2-class head on CLS_TASK, then its
-    accuracy on HELD_OUT batches (reported only)."""
+def train_classify(base=None, task_kw=None, phase="7b", keep=()):
+    """7b (8d: an encoder's ``base`` flags and ``task_kw``): each TRAIN_CLS
+    method with a 2-class head on CLS_TASK, then its accuracy on HELD_OUT
+    batches (reported only). Returns (each run's results, {label:
+    (backbone, trained bundle)} of the runs named in ``keep``)."""
     from repro_torch.core import peft as peft_mod
     from repro_torch.data.tasks import ClassificationTask
     from repro_torch.kernels import ops
     from repro_torch.launch import train as trainer
     from repro_torch.train.loop import step_rng
-    task = ClassificationTask(**CLS_TASK)
+    task = ClassificationTask(**(task_kw or CLS_TASK))
     on_dev = lambda b: {k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+    results, kept = {}, {}
     for label, flags in TRAIN_CLS.items():
-        args = trainer.parser().parse_args(TRAIN_BASE + flags + CLS_FLAGS)
+        args = trainer.parser().parse_args((base or TRAIN_BASE) + flags
+                                           + CLS_FLAGS)
         t = trainer.build(args, num_classes=task.num_classes)
         ops.reset_launches()
         losses, step_s = [], []
@@ -3789,18 +3965,20 @@ def train_classify(report):
                 correct += int((pred.argmax(-1) == b["labels"]).sum())
         counts = dict(ops.launches())
         acc = correct / (n * rows)
-        log(f"7b classify/{label}", steps=args.steps,
+        log(f"{phase} classify/{label}", arch=args.arch, steps=args.steps,
             loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
             median_ms_per_step=f"{median(step_s) * 1e3:.2f}",
             held_out_acc=f"{acc:.4f}", held_out_rows=n * rows,
             launches=sum(counts.values()), required="no")
-        report.setdefault("classify", {})[label] = dict(
-            losses=losses, held_out_acc=acc,
-            median_ms_per_step=median(step_s) * 1e3)
+        results[label] = dict(losses=losses, held_out_acc=acc,
+                              median_ms_per_step=median(step_s) * 1e3)
         if any(counts.values()) or not all(np.isfinite(losses)):
-            raise AssertionError(f"7b {label}: launches {counts} or a "
+            raise AssertionError(f"{phase} {label}: launches {counts} or a "
                                  "loss not finite")
-        del t
+        if label in keep:
+            kept[label] = (t.params, bundle)
+        del t, bundle
+    return results, kept
 
 
 def trained_stream(engine, args, arrivals):
@@ -3969,10 +4147,357 @@ def phase_train(report):
     """Phase 7 (7a, 7b, 7c); returns 7c's launches by path."""
     t0 = time.perf_counter()
     trained, backbone = train_lm(report)
-    train_classify(report)
+    report["classify"] = train_classify()[0]
     launches = fuse_and_serve(report, trained, backbone)
     report["train_seconds"] = time.perf_counter() - t0
     log("7 train", seconds=f"{report['train_seconds']:.1f}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paper's own encoders, roberta-large and deberta-xl
+# ---------------------------------------------------------------------------
+
+ENC_TASKS = 4                       # 8a's stacked tables
+ENC_CHECK = (2, 384)                # 8b's tokens
+ENC_DEBERTA = (8, 384)              # 8c's tokens
+ENC_METHODS = PEFT_METHODS + ("aot_multitask",)
+ENC_CLS_BASE = ["--arch", "roberta-large", "--rank", "32"]
+# the run whose launches the kernels line's ``encoder`` entry of each
+# kernel carries
+ENC_PATH = {"flash_attention": "enc_roberta_none",
+            "aot_gather_add": "enc_roberta_aot",
+            "aot_gather_add_multitask": "enc_roberta_aot_multitask"}
+
+
+def encoder_launches(layers, label):
+    """What one ``Model.logits`` or ``classify`` call of an encoder with
+    the method ``label`` of ENC_METHODS launches: one flash attention (full
+    mode) per layer and, with AoT, one plain gather-add per layer (one
+    task's table, or the multi-task entry for ``aot_multitask``: post-LN
+    has no input norm to fuse); nothing else (LayerNorm, the MLP and the
+    PEFT hooks are plain PyTorch)."""
+    want = {"flash_attention": layers}
+    if label == "aot":
+        want["aot_gather_add"] = layers
+    if label == "aot_multitask":
+        want["aot_gather_add_multitask"] = layers
+    return want
+
+
+def encoder_model(name, layers=0, seed=0):
+    """(model, params): the encoder ``name`` at full width in bf16 on the
+    card (``layers`` > 0 cuts its depth), random weights from ``seed``."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model, ModelOptions
+    cfg = configs.get(name)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    dt = torch.bfloat16
+    model = Model(cfg, ModelOptions(dt, dt), device=DEV)
+    return model, model.init(seed)
+
+
+def stacked_tables(cfg, embed, n):
+    """``n`` fabricated tasks' fused tables (``random_fused``, seeds 0 to
+    n - 1) stacked (L, n, V, d) in ``embed``'s dtype, filled one task at a
+    time (no second copy of the stack)."""
+    from repro_torch.core import aot as aot_mod
+    out = torch.empty((cfg.num_layers, n, cfg.vocab_size, cfg.d_model),
+                      dtype=embed.dtype, device=embed.device)
+    for t in range(n):
+        out[:, t] = aot_mod.random_fused(cfg, embed, seed=t, scale=0.03,
+                                         vocab_chunk=4096,
+                                         dtype=embed.dtype)["table"]
+    return out
+
+
+def encoder_setups(model, params, tables, b, gen):
+    """label -> (params, bundle or None) for ENC_METHODS: PEFT_METHODS
+    through ``peft_setup`` (AoT: task 0's table), and ``aot_multitask``:
+    the stacked ``tables`` (L, tasks, V, d), row r of a batch of ``b`` on
+    task r % tasks."""
+    table = tables[:, 0].contiguous()
+    setups = {label: peft_setup(label, model, params, table, gen)
+              for label in PEFT_METHODS}
+    setups["aot_multitask"] = (params, multitask_bundle(tables, b))
+    return setups
+
+
+def multitask_bundle(tables, b):
+    """``tasks_peft`` over ``tables`` for a batch of ``b`` rows, row r on
+    task r % tasks."""
+    return tasks_peft(tables, torch.arange(b, dtype=torch.int32,
+                                           device=tables.device)
+                      % tables.shape[1])
+
+
+def counted_logits(model, params, toks, bundle, label):
+    """One ``Model.logits`` call with the launch counts zeroed just before:
+    (logits, the counts); raises unless they are ``encoder_launches``'s
+    and every logit is finite."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lg = model.logits(params, toks, bundle)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches())
+    b, s = toks.shape
+    check_launches(f"8 {label} b{b} s{s}", counts,
+                   encoder_launches(model.cfg.num_layers, label))
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"8 {label} b{b} s{s}: a logit is not finite")
+    return lg, counts
+
+
+def multitask_equals_single(model, params, tables, toks):
+    """The multi-task batch with every task id 0 against one task's table
+    (task 0's) through the single-table gather-add: the sums are exact, so
+    the logits must be bitwise equal. Returns whether they are."""
+    from repro_torch.core import peft as P
+    opt = P.PEFTOptions(method="aot", aot=P.AoTOptions(mode="fused"))
+    zeros = torch.zeros(toks.shape[0], dtype=torch.int32, device=toks.device)
+    multi = model.logits(params, toks, tasks_peft(tables, zeros))
+    single = model.logits(params, toks, P.make(
+        {"aot": {"table": tables[:, 0].contiguous()}}, opt))
+    return torch.equal(multi, single)
+
+
+def encoder_fig3(report, gen):
+    """8a: roberta-large at full width (24 layers, bf16, random weights
+    seed 0) through ``Model.logits`` at speed_overhead.py's grid, every
+    method of ENC_METHODS (4 fabricated tasks' tables; AoT takes task 0's,
+    the multi-task batch all 4): one counted call each (exact launches,
+    finite logits), then PEFT_ROUNDS timed runs in turns, median ms and
+    its ratio to the backbone's (reported, no limit); the multi-task batch
+    with every task id 0 bitwise the single-table call. Returns the
+    launches by path."""
+    model, params = encoder_model("roberta-large")
+    cfg = model.cfg
+    tables = stacked_tables(cfg, params["embed"]["tok"], ENC_TASKS)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(2)
+    grid, counts = {}, {}
+    setups = encoder_setups(model, params, tables, LOGITS_GRID[0][0], gen)
+    for gb, gs in LOGITS_GRID:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (gb, gs)),
+                               dtype=torch.int32, device=DEV)
+        # the mixed batch's task ids follow the batch
+        setups["aot_multitask"] = (params, multitask_bundle(tables, gb))
+        with torch.no_grad():
+            for label, (p, bd) in setups.items():
+                counts[f"enc_roberta_{label}"] = counted_logits(
+                    model, p, toks, bd, label)[1]
+            ms = {label: [] for label in ENC_METHODS}
+            for r in range(PEFT_ROUNDS):
+                for label in ENC_METHODS[r:] + ENC_METHODS[:r]:
+                    p, bd = setups[label]
+                    ms[label].append(wall_ms(
+                        lambda i: model.logits(p, toks, bd), iters=3,
+                        warmup=1))
+        ms = {label: median(t) for label, t in ms.items()}
+        grid[f"b{gb}_s{gs}"] = ms
+        log("8a logits", arch=cfg.name, b=gb, s=gs, rounds=PEFT_ROUNDS,
+            **{label: f"{t:.3f}ms({t / ms['none']:.3f}x)"
+               for label, t in ms.items()})
+    with torch.no_grad():
+        same = multitask_equals_single(model, params, tables, toks)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("8a aot vs multi-task", b=toks.shape[0], s=toks.shape[1],
+        all_task_0="bitwise" if same else "DIFFER", required="bitwise",
+        launches_per_call={label: {k: v for k, v in c.items() if v}
+                           for label, c in counts.items()},
+        peak_memory_gib=f"{peak:.2f}",
+        tables_gib=f"{tables.numel() * 2 / 2 ** 30:.2f}")
+    report["encoder"]["fig3"] = dict(logits_ms=grid, launches=counts,
+                                     multitask_bitwise=same,
+                                     peak_memory_gib=peak)
+    if not same:
+        raise AssertionError("8a: the multi-task batch with every task id "
+                             "0 is not bitwise the single-table call")
+    return counts
+
+
+def encoder_cross_check(report, gen):
+    """8b: roberta-large at full width with 2 layers (seed 1), every
+    method of ENC_METHODS through the kernels against the plain versions
+    on ENC_CHECK tokens (``against_plain``: every logit within LOGIT_TOL,
+    a differing argmax counted as a near tie); raises if one missed."""
+    model, params = encoder_model("roberta-large", layers=2, seed=1)
+    tables = stacked_tables(model.cfg, params["embed"]["tok"], ENC_TASKS)
+    b, s = ENC_CHECK
+    toks = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    res = {}
+    with torch.no_grad():
+        for label, (p, bd) in encoder_setups(model, params, tables, b,
+                                             gen).items():
+            lg_k = model.logits(p, toks, bd).float()
+            with plain_ops():
+                lg_p = model.logits(p, toks, bd).float()
+            res[label] = against_plain(lg_k, lg_p)
+            del lg_k, lg_p
+    log("8b cross-check", arch=model.cfg.name, layers=2, b=b, s=s,
+        **{label: verdict(r) for label, r in res.items()})
+    report["encoder"]["cross_check"] = res
+    bad = [label for label, r in res.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"8b: kernel and plain logits disagree for "
+                             f"{bad}")
+
+
+def encoder_deberta(report):
+    """8c: deberta-xl at full width (48 layers, V 128100, bf16, random
+    weights seed 0): the backbone and one fabricated fused task (L, V, d)
+    through ``Model.logits`` at ENC_DEBERTA tokens: finite logits, exact
+    launches, ms (wall, 3 calls) and peak memory reported. Returns the
+    launches by path."""
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.core import peft as P
+    model, params = encoder_model("deberta-xl")
+    cfg = model.cfg
+    table = aot_mod.random_fused(cfg, params["embed"]["tok"], seed=0,
+                                 scale=0.03, vocab_chunk=4096,
+                                 dtype=torch.bfloat16)
+    opt = P.PEFTOptions(method="aot", aot=P.AoTOptions(mode="fused"))
+    runs = {"none": None, "aot": P.make({"aot": table}, opt)}
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, ENC_DEBERTA), dtype=torch.int32, device=DEV)
+    counts, res = {}, {}
+    with torch.no_grad():
+        for label, bd in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            lg, c = counted_logits(model, params, toks, bd, label)
+            counts[f"enc_deberta_{label}"] = c
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            del lg
+            ms = wall_ms(lambda i: model.logits(params, toks, bd), iters=3,
+                         warmup=1)
+            res[label] = dict(ms=ms, peak_memory_gib=peak, launches=c)
+            log(f"8c deberta/{label}", layers=cfg.num_layers,
+                vocab=cfg.vocab_size, b=toks.shape[0], s=toks.shape[1],
+                ms=f"{ms:.3f}", finite="yes", launches=c,
+                peak_memory_gib=f"{peak:.2f}",
+                table_gib=f"{table['table'].numel() * 2 / 2 ** 30:.2f}")
+    res["ratio"] = res["aot"]["ms"] / res["none"]["ms"]
+    report["encoder"]["deberta"] = res
+    return counts
+
+
+def classify_rows(model, params, batches, bundle):
+    """``model.classify`` over every batch of token tensors, concatenated
+    (n, classes) float32."""
+    return torch.cat([model.classify(params, toks, bundle).float()
+                      for toks in batches])
+
+
+def encoder_classify(report):
+    """8d: the paper's protocol on roberta-large (phase 7b's settings:
+    float32, TF32 off, attn_impl="ref", CLS_TASK at roberta's vocabulary,
+    60 steps at batch 16, lr 8e-3; mean pooling): AoT fc and BitFit
+    trained, held-out accuracy reported; AoT fc fused (forward through the
+    table within 2e-5 of forward through the reparametrization), cast to
+    bf16 and served through the kernels' ``classify`` on the HELD_OUT
+    batches; gate, as 7c's: the served logits within BF16_FACTOR x plain
+    bf16's error of the float32 reparametrized logits and carrying the
+    task's effect within CARRY_TOL (``against_float32``); a control serve
+    with the table zeroed must fail it. Returns the served call's
+    launches."""
+    from repro_torch import configs
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.core import peft as P
+    from repro_torch.data.tasks import ClassificationTask
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, ModelOptions
+    cfg = configs.get("roberta-large")
+    task_kw = dict(CLS_TASK, vocab_size=cfg.vocab_size)
+    results, kept = train_classify(ENC_CLS_BASE, task_kw, "8d",
+                                   keep=("aot_fc",))
+    backbone, bundle = kept.pop("aot_fc")
+    task = ClassificationTask(**task_kw)
+    n, rows, at = HELD_OUT
+    held = [task.batch(rows, at + k) for k in range(n)]
+    batches = [torch.from_numpy(b["tokens"]).to(DEV) for b in held]
+    labels = torch.from_numpy(np.concatenate([b["labels"] for b in held]))
+    f32, dt = torch.float32, torch.bfloat16
+    head = bundle["params"]["head"]
+    fopt = P.PEFTOptions(method="aot", num_classes=2,
+                         aot=P.AoTOptions(mode="fused"))
+    failed = []
+    with torch.no_grad():
+        ref32 = Model(cfg, ModelOptions(attn_impl="ref"), device=DEV)
+        fused = aot_mod.fuse(bundle["params"]["aot"], cfg, bundle["opt"].aot,
+                             embed=backbone["embed"]["tok"], dtype=f32)
+        err, share = fused_vs_reparam(ref32, backbone, bundle, P.make(
+            {"aot": fused, "head": head}, fopt), batches[0])
+        if not err <= TOL[f32]:
+            failed.append(f"fused off by {err:.3e}")
+        table = fused["table"].to(dt)
+        del fused
+        params = cast_backbone(backbone, dt)
+        model = Model(cfg, ModelOptions(dt, dt), device=DEV)
+        ref16 = Model(cfg, ModelOptions(dt, dt, attn_impl="ref"), device=DEV)
+        served_bundle = lambda t: P.make({"aot": {"table": t}, "head": head},
+                                         fopt)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        served = classify_rows(model, params, batches, served_bundle(table))
+        torch.cuda.synchronize()
+        counts = dict(ops.launches())
+        want = {k: v * n for k, v in encoder_launches(cfg.num_layers,
+                                                      "aot").items()}
+        try:
+            check_launches("8d served", counts, want)
+        except AssertionError as e:
+            failed.append(str(e))
+        plain16 = classify_rows(ref16, params, batches, bundle)
+        lg_32 = classify_rows(ref32, backbone, batches, bundle)
+        lg_0 = classify_rows(ref32, backbone, batches, P.make(
+            {"head": head}, P.PEFTOptions(method="none", num_classes=2)))
+        ids = [0] * len(labels)
+        res = against_float32(served, plain16, lg_32, lg_0, ids)
+        if not res["ok"]:
+            failed.append("served classifier off the reparametrization")
+        zero = classify_rows(model, params, batches,
+                             served_bundle(torch.zeros_like(table)))
+        ctl = against_float32(zero, plain16, lg_32, lg_0, ids)
+        if rejected(ctl) != {0}:
+            failed.append("the zeroed control passed the gate")
+    acc = {name: (lg.cpu().argmax(-1) == labels).float().mean().item()
+           for name, lg in (("served", served), ("float32", lg_32),
+                            ("zeroed", zero))}
+    log("8d serve classify", arch=cfg.name, fuse_max_abs_err=f"{err:.3e}",
+        fuse_bitwise_share=f"{share:.4f}", rows=len(labels),
+        launches=counts, vs_float32=f32_text(res),
+        control_zeroed=f32_text(ctl),
+        control_rejected=sorted(rejected(ctl)),
+        held_out_acc=",".join(f"{k}:{v:.4f}" for k, v in acc.items()),
+        failures="none" if not failed else failed)
+    report["encoder"]["classify"] = dict(
+        trained=results, fuse_max_abs_err=err, fuse_bitwise_share=share,
+        vs_float32=res, control=ctl, held_out_acc=acc, launches=counts,
+        failures=failed)
+    if failed:
+        raise AssertionError(f"8d: {failed}")
+    return {"enc_classify_served": counts}
+
+
+def phase_encoders(report):
+    """Phase 8 (8a-8d), each part's memory freed before the next; returns
+    the launches by path."""
+    t0 = time.perf_counter()
+    report["encoder"] = {}
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    launches = {}
+    for part in (lambda: encoder_fig3(report, gen),
+                 lambda: encoder_cross_check(report, gen),
+                 lambda: encoder_deberta(report),
+                 lambda: encoder_classify(report)):
+        launches.update(part() or {})
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["encoder"]["seconds"] = time.perf_counter() - t0
+    log("8 encoders", seconds=f"{report['encoder']['seconds']:.1f}")
     return launches
 
 
@@ -4017,6 +4542,7 @@ def main() -> int:
     launches.update(phase_train(report))
     gc.collect()
     torch.cuda.empty_cache()
+    launches.update(phase_encoders(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]
@@ -4025,6 +4551,9 @@ def main() -> int:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never launched on "
                                  f"{MAIN_PATH[row['name']]}")
+        if "encoder" in row:                # phase 8's path
+            row["encoder"]["launches"] = launches[ENC_PATH[row["name"]]][
+                row["name"]]
     phase_cross_check(report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -34,14 +34,21 @@ def _layer_groups(cfg):
     return groups
 
 
-def _to_torch(tree, device, dtype, key=""):
+# the subtrees whose leaves (scale, LayerNorm's bias) stay float32
+NORMS = ("ln1", "ln2", "final_norm")
+
+
+def _to_torch(tree, device, dtype, norm=False):
+    """numpy leaves -> tensors on ``device``, cast to ``dtype`` when given
+    except under a norm (``norm``, or a key of ``NORMS`` on the way down),
+    whose parameters stay float32 as in ``Model.init``."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype, k) for k, v in tree.items()}
+        return {k: _to_torch(v, device, dtype, norm or k in NORMS)
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_torch(v, device, dtype, key) for v in tree]
+        return [_to_torch(v, device, dtype, norm) for v in tree]
     t = torch.from_numpy(np.array(tree))              # a writable copy
-    # norm scales stay float32, as in Model.init
-    if dtype is not None and key != "scale":
+    if dtype is not None and not norm:
         t = t.to(dtype)
     return t.to(device)
 
@@ -49,7 +56,9 @@ def _to_torch(tree, device, dtype, key=""):
 def params_from_jax(cfg, tree: Dict[str, Any], device="cuda",
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """The reference's parameter tree -> the port's parameters on
-    ``device`` (matrices cast to ``dtype`` when given)."""
+    ``device`` (every leaf but the norms' cast to ``dtype`` when given):
+    the embeddings (tokens, and learned positions where the config has
+    them), the layers, the final norm and the untied head ``lm_head``."""
     dev = resolve_device(device)
     per_layer: List[Any] = [None] * cfg.num_layers
     for gi, (start, repeats, ulen) in enumerate(_layer_groups(cfg)):
@@ -57,9 +66,10 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda",
         for r in range(repeats):
             for u in range(ulen):
                 per_layer[start + r * ulen + u] = _take(group[f"b{u}"], r)
-    out = {"embed": {"tok": tree["embed"]["tok"]},
-           "layers": per_layer,
+    out = {"embed": tree["embed"], "layers": per_layer,
            "final_norm": tree["final_norm"]}
+    if "lm_head" in tree:
+        out["lm_head"] = tree["lm_head"]
     return _to_torch(out, dev, dtype)
 
 
@@ -148,5 +158,8 @@ def params_to_jax(cfg, params) -> Dict[str, Any]:
                                for r in range(repeats)])
                for u in range(ulen)}
               for start, repeats, ulen in _layer_groups(cfg)]
-    return {"embed": to_numpy(params["embed"]), "groups": groups,
-            "final_norm": to_numpy(params["final_norm"])}
+    out = {"embed": to_numpy(params["embed"]), "groups": groups,
+           "final_norm": to_numpy(params["final_norm"])}
+    if "lm_head" in params:
+        out["lm_head"] = to_numpy(params["lm_head"])
+    return out

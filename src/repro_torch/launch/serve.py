@@ -64,7 +64,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import aot as aot_mod
-from repro_torch.models.model import Model, ModelOptions
+from repro_torch.models.model import Model, ModelOptions, check_servable
 from repro_torch.obs import ServeObservability
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.faults import crash_restore
@@ -192,6 +192,7 @@ def build_engine(args) -> ServeEngine:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg, repeats=2)
+    check_servable(cfg)         # before the weights and tables are drawn
     dt = DTYPES[args.dtype]
     model = Model(cfg, ModelOptions(compute_dtype=dt, param_dtype=dt),
                   device=args.device)

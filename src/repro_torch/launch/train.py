@@ -11,6 +11,9 @@ plain path (``ModelOptions(attn_impl="ref")``). Counterpart of
     # on the CPU, reduced widths
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --steps 3 --method lora
+    # the paper's encoders (roberta-large, deberta-xl) train the same way
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --reduced --steps 3 --arch roberta-large --method bitfit
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
-"""Transformer building blocks of the serving path: norm, RoPE, SwiGLU,
-attention projections, and the reference's XLA attention paths (whole
-sequence, contiguous decode, paged decode, ragged paged).
+"""Transformer building blocks: norms, RoPE, the MLPs, attention
+projections, and the reference's XLA attention paths (whole sequence,
+contiguous decode, paged decode, ragged paged).
 
 Counterparts of the functions of the same names in
 ``repro.models.layers``, with the same tensor layouts: activations
 ``(b, s, d)``, queries ``(b, s, H, hd)``, weights ``(in, out)`` applied as
 ``x @ w``. Matmuls run in the compute dtype; norm statistics and softmax in
-float32. The port covers what smollm-360m uses: RMSNorm, SwiGLU, RoPE, no
-QKV bias, no q/k norm, no softcap, no bidirectional prefix.
+float32. The port covers what smollm-360m and the paper's encoders use:
+RMSNorm and LayerNorm (and the non-parametric norm), SwiGLU and the GELU
+MLP, RoPE; no QKV bias, no q/k norm, no softcap.
 """
 from __future__ import annotations
 
@@ -43,12 +44,39 @@ def embed_init(shape, generator, device, dtype=torch.float32):
 # norm, rope, mlp
 # ---------------------------------------------------------------------------
 
+def norm_init(cfg, device, d=None):
+    """A norm's parameters, float32: ``{"scale"}`` for RMSNorm, ``{"scale",
+    "bias"}`` for LayerNorm (ones and zeros), none for the non-parametric
+    norm."""
+    d = d or cfg.d_model
+    ones = lambda: torch.ones(d, dtype=torch.float32, device=device)
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": ones()}
+    if cfg.norm_type == "layernorm":
+        return {"scale": ones(),
+                "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+    if cfg.norm_type == "nonparametric":
+        return {}
+    raise ValueError(cfg.norm_type)
+
+
 def apply_norm(cfg, p, x):
-    """RMSNorm in float32, result in x's dtype (``aot_bias.rms_norm_plain``,
-    the arithmetic the fused gather-add + norm kernel follows)."""
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_type!r} is not ported")
-    return rms_norm_plain(x, p["scale"], cfg.norm_eps)
+    """The config's norm in float32, result in x's dtype. RMSNorm is
+    ``aot_bias.rms_norm_plain`` (the arithmetic the fused gather-add + norm
+    kernel follows); LayerNorm and the non-parametric norm are the
+    reference's ``apply_norm``: mean, biased variance, ``(x - mean) *
+    rsqrt(var + eps)``, then ``* scale + bias`` when ``p`` holds them."""
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm_plain(x, p["scale"], cfg.norm_eps)
+    if cfg.norm_type not in ("layernorm", "nonparametric"):
+        raise ValueError(cfg.norm_type)
+    x32 = x.float()
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(xc.square().mean(dim=-1, keepdim=True)
+                         + cfg.norm_eps)
+    if p:
+        y = y * p["scale"] + p["bias"]
+    return y.to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -78,14 +106,36 @@ def apply_rope(x, positions, theta: float, sincos=None):
     return out.to(x.dtype)
 
 
+def mlp_init(cfg, generator, device, dtype=torch.float32):
+    """The MLP's parameters, drawn as the reference's ``mlp_init`` draws
+    them: SwiGLU ``wg``, ``wu`` (d, f), ``wd`` (f, d); the GELU MLP ``w1``
+    (d, f), ``w2`` (f, d) and zero biases ``b1`` (f,), ``b2`` (d,)."""
+    d, f = cfg.d_model, cfg.d_ff
+    dense = lambda *shape: dense_init(shape, generator, device, dtype)
+    if cfg.mlp_type == "swiglu":
+        return {"wg": dense(d, f), "wu": dense(d, f), "wd": dense(f, d)}
+    if cfg.mlp_type == "gelu":
+        return {"w1": dense(d, f),
+                "b1": torch.zeros(f, dtype=dtype, device=device),
+                "w2": dense(f, d),
+                "b2": torch.zeros(d, dtype=dtype, device=device)}
+    raise NotImplementedError(f"mlp {cfg.mlp_type!r} is not ported")
+
+
 def apply_mlp(cfg, p, x, dtype):
-    """SwiGLU: (silu(x wg) * (x wu)) wd."""
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp {cfg.mlp_type!r} is not ported")
+    """SwiGLU: ``(silu(x wg) * (x wu)) wd``; the GELU MLP (BERT's, with
+    biases): ``gelu(x w1 + b1) w2 + b2`` with the tanh GELU
+    (``jax.nn.gelu``'s default)."""
     x = x.to(dtype)
-    g = x @ p["wg"].to(dtype)
-    u = x @ p["wu"].to(dtype)
-    return (F.silu(g) * u) @ p["wd"].to(dtype)
+    if cfg.mlp_type == "swiglu":
+        g = x @ p["wg"].to(dtype)
+        u = x @ p["wu"].to(dtype)
+        return (F.silu(g) * u) @ p["wd"].to(dtype)
+    if cfg.mlp_type == "gelu":
+        z = F.gelu(x @ p["w1"].to(dtype) + p["b1"].to(dtype),
+                   approximate="tanh")
+        return z @ p["w2"].to(dtype) + p["b2"].to(dtype)
+    raise NotImplementedError(f"mlp {cfg.mlp_type!r} is not ported")
 
 
 # ---------------------------------------------------------------------------

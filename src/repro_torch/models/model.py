@@ -13,8 +13,12 @@ the training path, which also runs what only training uses: AoT's fc /
 kron reparametrizations, P-Tuning v1 and full fine-tuning. The serving
 entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse it.
 
-Counterpart of ``repro.models.model.Model`` for attention-only causal
-stacks (the serving path). Parameters are a plain dict of tensors with
+Counterpart of ``repro.models.model.Model`` for attention-only stacks:
+pre-norm causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
+serving path's smollm-360m) and the paper's post-LN encoders (LayerNorm,
+the GELU MLP, learned positions, an untied head, full attention:
+roberta-large, deberta-xl), which run the whole-sequence entry points
+only (:func:`check_servable`). Parameters are a plain dict of tensors with
 ``params["layers"]`` a list of per-layer dicts in layer order (the bridge
 unpacks the reference's grouped ``(R, U, ...)`` stacking; eager PyTorch
 gains nothing from stacked leaves). A contiguous cache is ``{"k", "v"}`` of
@@ -52,30 +56,50 @@ class ModelOptions:
     compute_dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
     attn_impl: str = "kernel"       # "kernel" (reference: "pallas") | "ref"
+    max_learned_pos: int = 0        # 0: from the config's shapes (max_pos)
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a backbone the port can serve."""
+    """Raise unless the whole-sequence entry points (``forward``,
+    ``logits``, ``classify``: serving whole sequences and training) run
+    ``cfg``: an attention-only stack, pre-norm with RMSNorm or post-LN with
+    LayerNorm, a SwiGLU or GELU MLP, RoPE or learned positions, causal or
+    an encoder's full attention."""
     bad = []
     if set(cfg.layer_kinds) != {BLOCK_ATTN}:
         bad.append(f"block kinds {sorted(set(cfg.layer_kinds))}")
-    if not cfg.causal or cfg.prefix_lm_len:
-        bad.append("non-causal attention")
+    if cfg.prefix_lm_len or not (cfg.causal or cfg.is_encoder_only):
+        bad.append("a bidirectional prefix")
     if cfg.attn_kind != "full":
         bad.append(f"attention {cfg.attn_kind!r}")
     if cfg.moe is not None or cfg.frontend:
         bad.append("moe / frontend")
-    if cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu":
-        bad.append(f"{cfg.norm_type} / {cfg.mlp_type}")
-    if cfg.pos_type != "rope" or cfg.embed_scale or cfg.post_ln:
-        bad.append("positions / embedding scale / post-LN")
+    if (cfg.norm_type, cfg.post_ln) not in (("rmsnorm", False),
+                                            ("layernorm", True)):
+        bad.append(f"{cfg.norm_type} {'post' if cfg.post_ln else 'pre'}-LN")
+    if cfg.mlp_type not in ("swiglu", "gelu") or cfg.d_ff <= 0:
+        bad.append(f"mlp {cfg.mlp_type!r} (d_ff {cfg.d_ff})")
+    if cfg.pos_type not in ("rope", "learned") or cfg.embed_scale:
+        bad.append(f"positions {cfg.pos_type!r} / embedding scale")
     if cfg.qkv_bias or cfg.qk_norm or cfg.logit_softcap:
         bad.append("qkv bias / qk norm / softcap")
-    if not cfg.tie_embeddings or cfg.d_ff <= 0:
-        bad.append("untied embeddings / no MLP")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
+
+
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise unless the serving entry points (``prefill``, ``decode_step``,
+    ``mixed_step``, ``ServeEngine``) serve ``cfg``: a causal stack with
+    RoPE. An encoder (non-causal, learned positions) runs the
+    whole-sequence entry points only. The reference asserts causality in
+    its ``mixed_step`` but not in ``prefill`` / ``decode_step``; the port
+    refuses all three (ROADMAP C6)."""
+    check_supported(cfg)
+    if not cfg.causal or cfg.pos_type != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: the serving entry points serve causal stacks "
+            "with RoPE; an encoder runs Model.forward / logits / classify")
 
 
 def check_table_reach(token_rows, token_pos, npages: int,
@@ -146,33 +170,45 @@ class Model:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------
+    def max_pos(self) -> int:
+        """Rows of the learned position table: ``max_learned_pos``, else
+        the config's longest shape + 128 (the reference's ``max_pos``)."""
+        if self.opts.max_learned_pos:
+            return self.opts.max_learned_pos
+        return max(s.seq_len for s in self.cfg.shapes) + 128
+
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random parameters from a ``torch.Generator`` on the device, with
-        the reference's distributions: embeddings truncated-normal std 0.02,
-        dense weights truncated-normal std 1/sqrt(fan_in), norm scales 1.
-        Norm scales stay float32; matrices are stored in ``param_dtype``."""
+        the reference's distributions and tree: embeddings (the token
+        table, learned positions ``(max_pos(), d)``) truncated-normal std
+        0.02, dense weights (the untied head ``lm_head.w`` (d, V) too)
+        truncated-normal std 1/sqrt(fan_in), norm scales 1 and biases 0,
+        MLP biases 0. Norm parameters stay float32; everything else is
+        stored in ``param_dtype``."""
         cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
-        n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+        d, V = cfg.d_model, cfg.vocab_size
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
         dense = lambda *shape: L.dense_init(shape, gen, dev, pdt)
-        ones = lambda n: {"scale": torch.ones(n, dtype=torch.float32,
-                                              device=dev)}
+        norm = lambda: L.norm_init(cfg, dev)
 
         def layer():
-            return {"ln1": ones(d),
+            return {"ln1": norm(),
                     "attn": {"wq": dense(d, h * hd), "wk": dense(d, kvh * hd),
                              "wv": dense(d, kvh * hd), "wo": dense(h * hd, d)},
-                    "ln2": ones(d),
-                    "mlp": {"wg": dense(d, f), "wu": dense(d, f),
-                            "wd": dense(f, d)}}
+                    "ln2": norm(),
+                    "mlp": L.mlp_init(cfg, gen, dev, pdt)}
 
-        return {
-            "embed": {"tok": L.embed_init((cfg.vocab_size, d), gen, dev, pdt)},
-            "layers": [layer() for _ in range(n)],
-            "final_norm": ones(d),
-        }
+        embed = {"tok": L.embed_init((V, d), gen, dev, pdt)}
+        if cfg.pos_type == "learned":
+            embed["pos"] = L.embed_init((self.max_pos(), d), gen, dev, pdt)
+        params = {"embed": embed,
+                  "layers": [layer() for _ in range(cfg.num_layers)],
+                  "final_norm": norm()}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"w": dense(d, V)}
+        return params
 
     @staticmethod
     def param_count(params) -> int:
@@ -218,10 +254,17 @@ class Model:
                 for name, (shape, dt) in
                 self.paged_cache_specs(num_blocks, block_size).items()}
 
-    def unembed(self, params, h):
-        """Tied unembedding: h @ E^T in the compute dtype."""
+    def head_weight(self, params):
+        """The unembedding (d, V) in the compute dtype: E^T when tied, else
+        the untied head ``lm_head.w``."""
         dt = self.opts.compute_dtype
-        return h.to(dt) @ params["embed"]["tok"].to(dt).T
+        if self.cfg.tie_embeddings:
+            return params["embed"]["tok"].to(dt).T
+        return params["lm_head"]["w"].to(dt)
+
+    def unembed(self, params, h):
+        """h @ :meth:`head_weight` in the compute dtype."""
+        return h.to(self.opts.compute_dtype) @ self.head_weight(params)
 
     # ------------------------------------------------------------------
     # PEFT: the per-layer hooks of every entry point (the reference's
@@ -244,7 +287,10 @@ class Model:
             f"with attn_impl='ref' (the training path); the kernels serve "
             f"{', '.join(SERVED)}, AoT as fused tables")
 
-    def _kernel_only(self, entry: str) -> None:
+    def _serving(self, entry: str) -> None:
+        """Raise unless the serving entry point ``entry`` runs here: a
+        servable backbone (:func:`check_servable`) on the kernels."""
+        check_servable(self.cfg)
         if self.opts.attn_impl != "kernel":
             raise NotImplementedError(
                 f"{entry} runs the serving kernels only (attn_impl="
@@ -285,19 +331,23 @@ class Model:
 
     def _aot_add(self, peft, i, lp, h, ids, task_ids=None):
         """h (b, s, d) plus layer i's AoT rows (the paper's Eq. 1) for the
-        flat token ``ids`` (b s,) int32, and the block's input norm
-        (``lp["ln1"]``) of that sum: (h, x), both (b, s, d), from one
-        launch. The rows come from one task's table (V, d) through the
+        flat token ``ids`` (b s,) int32, and the attention's input x:
+        (h, x), both (b, s, d), from one launch. Pre-norm, x is the block's
+        input norm (``lp["ln1"]``) of the sum, fused into the launch;
+        post-LN has no input norm, so the plain gather-add runs and x is
+        the sum. The rows come from one task's table (V, d) through the
         single-table kernel, or from stacked tasks' tables (tasks, V, d) by
         ``task_ids`` (b s,) through the multi-task one."""
         table = peft["params"]["aot"]["table"][i]
-        norm = (lp["ln1"]["scale"], self.cfg.norm_eps)
+        norm = None if self.cfg.post_ln else (lp["ln1"]["scale"],
+                                              self.cfg.norm_eps)
         flat = h.reshape(-1, h.shape[-1])
         if table.dim() == 3:
-            h_out, x = ops.aot_gather_add_multitask(flat, table, task_ids,
-                                                    ids, norm=norm)
+            res = ops.aot_gather_add_multitask(flat, table, task_ids, ids,
+                                               norm=norm)
         else:
-            h_out, x = ops.aot_gather_add(flat, table, ids, norm=norm)
+            res = ops.aot_gather_add(flat, table, ids, norm=norm)
+        h_out, x = res if norm else (res, res)
         return h_out.view(h.shape), x.view(h.shape)
 
     def _adapter(self, a, i, out):
@@ -309,26 +359,35 @@ class Model:
         return out + z @ a["up"][i].to(dt) + a["b2"][i].to(dt)
 
     def _block(self, lp, h, sincos, attend, peft=None, i=0, aot=None):
-        """Layer i, one pre-norm block on h (b, s, d): norm, Q/K/V
-        projection with RoPE (``sincos``), ``attend(q, k, v)`` -> (b, s, H,
-        hd) (which also writes the cache), output projection, norm, SwiGLU;
-        with the PEFT hooks of ``peft``'s method: AoT's rows added to h for
-        the flat tokens ``aot`` = (ids, task_ids[, e_rows, generators]) in
-        the same launch as the input norm (:meth:`_aot_add`), LoRA's deltas
-        on q and v, BitFit's biases after the output projection and after
-        the MLP, an adapter after each. (P-Tuning v2's prefix comes inside
-        ``attend``.) Without AoT the input norm is one launch of its own
-        (``ops.rms_norm``). Under ``attn_impl="ref"`` the rows
-        (:meth:`_aot_rows`) and the norm are plain PyTorch."""
+        """Layer i on h (b, s, d). Pre-norm: norm, Q/K/V projection with
+        RoPE (``sincos``; None for learned positions), ``attend(q, k, v)``
+        -> (b, s, H, hd) (which also writes the cache), output projection,
+        the residual add, norm, the MLP, the residual add. Post-LN (the
+        encoders, the reference's order): attention reads h itself, then
+        ``h = ln1(h + att)``, the MLP on that h, ``h = ln2(h + ffn)``. With
+        the PEFT hooks of ``peft``'s method: AoT's rows added to h first,
+        for the flat tokens ``aot`` = (ids, task_ids[, e_rows,
+        generators]), in the same launch as the input norm
+        (:meth:`_aot_add`; post-LN: the plain gather-add), LoRA's deltas on
+        q and v from the attention's input, BitFit's biases after the
+        output projection and after the MLP, an adapter after each.
+        (P-Tuning v2's prefix comes inside ``attend``.) Pre-norm without
+        AoT, the input norm is one launch of its own (``ops.rms_norm``).
+        Under ``attn_impl="ref"`` the rows (:meth:`_aot_rows`) and the norm
+        are plain PyTorch; LayerNorm is plain PyTorch on both paths (the
+        reference's norms are XLA's)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
         pp = peft["params"] if peft else {}
         ref = self.opts.attn_impl == "ref"
+        post = cfg.post_ln
         if method == "aot" and ref:              # the paper's Eq. 1
             h = h + self._aot_rows(peft, i, *aot).reshape(h.shape).to(dt)
-            x = L.apply_norm(cfg, lp["ln1"], h)
+            x = h if post else L.apply_norm(cfg, lp["ln1"], h)
         elif method == "aot":
             h, x = self._aot_add(peft, i, lp, h, *aot[:2])
+        elif post:
+            x = h
         elif ref:
             x = L.apply_norm(cfg, lp["ln1"], h)
         else:
@@ -345,23 +404,30 @@ class Model:
         out = L.attn_output(cfg, lp["attn"], attend(q, k, v), dt, bias)
         if method == "adapters":
             out = self._adapter(pp["adapters"]["attn"], i, out)
-        h = h + out
-        out = L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], h), dt)
+        if post:
+            h = x = L.apply_norm(cfg, lp["ln1"], h + out)
+        else:
+            h = h + out
+            x = L.apply_norm(cfg, lp["ln2"], h)
+        out = L.apply_mlp(cfg, lp["mlp"], x, dt)
         if method == "bitfit":
             out = out + pp["bitfit"]["mlp_out"][i].to(dt)
         if method == "adapters":
             out = self._adapter(pp["adapters"]["mlp"], i, out)
-        return h + out
+        return L.apply_norm(cfg, lp["ln2"], h + out) if post else h + out
 
     def _prompt(self, params, tokens, peft, cache=None, rng=None):
         """Whole prompts tokens (b, s) through every layer, attending
-        through the flash attention kernel (causal; ``attn_impl="ref"``:
-        ``layers.attention_ref``); returns h (b, s, d) after the final norm
-        and the prefix length p (P-Tuning v2's, else 0). P-Tuning v2 puts
-        its K/V prefix (no RoPE) before each layer's k and v, and its
-        queries attend from position p. P-Tuning v1 prepends its prompt to
-        the embeddings (a bidirectional prefix, positions shifted by its
-        length) and strips it after the final norm. With ``cache``, layer
+        through the flash attention kernel (causal, or full for an encoder;
+        ``attn_impl="ref"``: ``layers.attention_ref``); returns h (b, s, d)
+        after the final norm and the prefix length p (P-Tuning v2's, else
+        0). P-Tuning v2 puts its K/V prefix (no RoPE) before each layer's k
+        and v, and its queries attend from position p. P-Tuning v1
+        prepends its prompt to the embeddings (a bidirectional prefix,
+        positions shifted by its length) and strips it after the final
+        norm. Learned positions ``embed.pos[:p1 + s]`` are added to the
+        embeddings after P-Tuning v1's prompt is prepended; more positions
+        than the table holds raise ValueError. With ``cache``, layer
         i's ``[prefix | k]`` and ``[prefix | v]`` are written into its rows
         ``[0, p + s)``. ``rng``: the step's ``torch.Generator``, which
         seeds AoT's dropout (None: no dropout)."""
@@ -380,8 +446,17 @@ class Model:
             prompt = peft["params"]["ptv1"]["prompt"].to(dt)
             p1 = prompt.shape[0]
             h = torch.cat([prompt.expand(b, -1, -1), h], 1)
-        sincos = L.rope_sincos(torch.arange(p1 + s, device=h.device),
-                               cfg.head_dim, cfg.rope_theta)
+        sincos = None
+        if cfg.pos_type == "learned":
+            pos = params["embed"]["pos"]
+            if p1 + s > pos.shape[0]:
+                raise ValueError(
+                    f"{p1 + s} positions (P-Tuning v1's prompt {p1} + {s} "
+                    f"tokens) exceed the {pos.shape[0]} learned positions")
+            h = h + pos[:p1 + s].to(dt)[None]
+        else:
+            sincos = L.rope_sincos(torch.arange(p1 + s, device=h.device),
+                                   cfg.head_dim, cfg.rope_theta)
         aot = None
         if method == "aot":     # each row's task over its s tokens, flat
             aot = (ids.reshape(-1).contiguous(),
@@ -401,14 +476,15 @@ class Model:
                     cache["k"][i, :, :p + s] = k
                     cache["v"][i, :, :p + s] = v
                 if ref:
-                    return L.attention_ref(q, k, v, causal=True, q_offset=p,
-                                           prefix_len=p1)
-                return ops.flash_attention(q, k, v, causal=True, q_offset=p)
+                    return L.attention_ref(q, k, v, causal=cfg.causal,
+                                           q_offset=p, prefix_len=p1)
+                return ops.flash_attention(q, k, v, causal=cfg.causal,
+                                           q_offset=p)
             h = self._block(lp, h, sincos, attend, peft, i, aot)
         return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
 
     def forward(self, params, tokens, peft=None, rng=None):
-        """Whole-sequence causal pass, no cache (the reference's
+        """Whole-sequence pass, no cache (the reference's
         ``forward``; ``benchmarks/speed_overhead.py`` times it per PEFT
         method). tokens: (b, s) int -> hidden states (b, s, d) after the
         final norm, plus BitFit's ``final`` bias, which only this entry
@@ -424,10 +500,12 @@ class Model:
         return self.unembed(params, self.forward(params, tokens, peft, rng))
 
     def classify(self, params, tokens, peft, rng=None):
-        """The paper's GLUE protocol: the last position's hidden state (a
-        causal stack's pooled representation) through the trainable head
-        ``peft["params"]["head"]``: logits (b, num_classes)."""
-        pooled = self.forward(params, tokens, peft, rng)[:, -1]
+        """The paper's GLUE protocol: the pooled representation (an
+        encoder's mean over positions, a causal stack's last position)
+        through the trainable head ``peft["params"]["head"]``: logits (b,
+        num_classes)."""
+        h = self.forward(params, tokens, peft, rng)
+        pooled = h.mean(1) if self.cfg.is_encoder_only else h[:, -1]
         head, dt = peft["params"]["head"], self.opts.compute_dtype
         return pooled.to(dt) @ head["w"].to(dt) + head["b"].to(dt)
 
@@ -448,7 +526,7 @@ class Model:
         keeps positions <= last_pos independent of the padding. Returns
         (logits (b, 1, V), cache, pos = s + p): BitFit's ``final`` bias is
         not added here, as in the reference."""
-        self._kernel_only("prefill")
+        self._serving("prefill")
         cache = self.init_cache(tokens.shape[0], max_len)
         h, p = self._prompt(params, tokens, peft, cache)
         h_last = h[:, -1:] if last_pos is None else \
@@ -475,7 +553,7 @@ class Model:
         (logits (b, 1, V), cache). Paged positions on the CPU are held to
         the block table first (:func:`check_table_reach`)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
-        self._kernel_only("decode_step")
+        self._serving("decode_step")
         method = self._method(peft)
         if method == "ptv2" and block_tables is not None:
             raise NotImplementedError(_PTV2_PAGED)
@@ -576,7 +654,7 @@ class Model:
         cfg = self.cfg
         dt = self.opts.compute_dtype
         assert block_tables is not None, "mixed_step serves paged pools only"
-        self._kernel_only("mixed_step")
+        self._serving("mixed_step")
         method = self._method(peft)
         if method == "ptv2":
             raise NotImplementedError(_PTV2_PAGED)

@@ -28,8 +28,9 @@ class AdamWState(NamedTuple):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a 0-d tensor
-    on the leaves' device; 0 for an empty tree on the CPU)."""
-    xs = T.leaves(tree)
+    on the leaves' device; 0 for an empty tree on the CPU), the leaves
+    summed in the reference's order (``tree.sorted_leaves``)."""
+    xs = T.sorted_leaves(tree)
     if not xs:
         return torch.zeros(())
     return torch.sqrt(torch.stack([x.float().square().sum()

@@ -32,7 +32,7 @@ import torch
 from repro_torch.core import peft as peft_mod
 from repro_torch.core.aot import AoTOptions
 from repro_torch.kernels.decode_attention import ragged_plan, round_kv_len
-from repro_torch.models.model import check_table_reach
+from repro_torch.models.model import check_servable, check_table_reach
 from repro_torch.serve.sampling import sample_tokens
 
 
@@ -77,7 +77,10 @@ class ServeEngine:
         task id; or ``peft``: one ready bundle (``core.peft.make``), used as
         given with no task ids (``num_tasks`` stays None, as in the
         reference). At most one of the two; neither serves the bare
-        backbone. Their tensors must lie on the model's device."""
+        backbone. Their tensors must lie on the model's device. Raises
+        NotImplementedError for a model the serving paths do not serve
+        (an encoder: ``models.model.check_servable``)."""
+        check_servable(model.cfg)
         if fused_tasks is not None and peft is not None:
             raise ValueError("give fused_tasks or peft, not both")
         self.model = model

@@ -103,7 +103,7 @@ def make_loss_fn(model, tcfg: TrainConfig):
             else None
         h = model.forward(backbone, batch["tokens"], peft, rng)
         dt = model.opts.compute_dtype
-        w = backbone["embed"]["tok"].to(dt).T            # tied unembedding
+        w = model.head_weight(backbone)     # E^T, or the untied lm_head
         loss, acc = chunked_ce(h.to(dt), w, batch["labels"],
                                chunk=tcfg.loss_chunk, z_loss=tcfg.z_loss,
                                mask=batch.get("loss_mask"))

@@ -1,5 +1,6 @@
 """Nested dicts and lists of tensors (the port's parameter trees): their
-leaves in a fixed order, and a map over one or more trees of one shape."""
+leaves in a fixed order (insertion order, or the reference's sorted keys),
+and a map over one or more trees of one shape."""
 from __future__ import annotations
 
 from typing import Any, Callable, List
@@ -12,6 +13,17 @@ def leaves(tree) -> List[Any]:
         return [x for v in tree.values() for x in leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def sorted_leaves(tree) -> List[Any]:
+    """The leaves of ``tree`` with each dict's keys in sorted order, the
+    order of ``jax.tree.leaves``: a sum over leaves taken in it adds its
+    terms in the reference's order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in sorted_leaves(v)]
     return [tree]
 
 

@@ -5,7 +5,10 @@ decode_split_kernel, ragged_split_kernel, aot_gather_add_kernel), phase
 phase 6's swap of the kernel wrappers in ``ops`` for the plain versions,
 phases 5e-5g's gates and replayed schedules, and phase 7's gates (the
 loss drop, the frozen backbone, fused against reparametrized) and 7c's
-stream replayed. The phases themselves need the card (chip_smoke.py)."""
+stream replayed, and phase 8's on a reduced encoder (the launch
+arithmetic, the multi-task batch bitwise the single table, the served
+classifier's gate and its zeroed control). The phases themselves need the
+card (chip_smoke.py)."""
 
 import importlib.util
 import inspect
@@ -631,3 +634,129 @@ def test_phase7c_controls_are_rejected():
                                  plain, ref, base, task_ids)
         seen[name] = (cs.rejected(res), wrong)
     assert seen == {"fc_zeroed": ({0}, {0}), "swapped": ({0, 1}, {0, 1})}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paper's encoders
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def encoder_kernels(monkeypatch):
+    """chip_smoke on the CPU at reduced size: ``DEV`` the CPU, the card's
+    waits no-ops, the wrappers on their kernel branch (so they count) with
+    the plain versions standing in for the kernels, the configs reduced."""
+    from repro_torch import configs
+    from repro_torch.kernels import aot_bias, ops
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *xs: False)
+    for name, fn in (("aot_gather_add_kernel", aot_bias.aot_gather_add_plain),
+                     ("aot_gather_add_multitask_kernel",
+                      aot_bias.aot_gather_add_multitask_plain),
+                     ("flash_attention_kernel", fa.flash_attention_plain)):
+        monkeypatch.setattr(ops, name, fn)
+    get = configs.get
+    monkeypatch.setattr(configs, "get",
+                        lambda name: configs.reduced(get(name), repeats=2))
+    yield
+    ops.reset_launches()
+
+
+def test_phase8_launch_arithmetic(encoder_kernels):
+    """One logits call of a reduced roberta-large launches what
+    ``encoder_launches`` says for every method of 8a: a flash attention
+    per layer, a plain gather-add per layer with AoT (the multi-task entry
+    for the mixed batch), no norm kernel; a stray launch fails the gate."""
+    model, params = cs.encoder_model("roberta-large")
+    L = model.cfg.num_layers
+    tables = cs.stacked_tables(model.cfg, params["embed"]["tok"],
+                               cs.ENC_TASKS)
+    toks = torch.randint(0, model.cfg.vocab_size, (3, 20),
+                         generator=torch.Generator().manual_seed(0))
+    setups = cs.encoder_setups(model, params, tables, 3,
+                               torch.Generator().manual_seed(1))
+    assert tuple(setups) == cs.ENC_METHODS
+    for label, (p, bd) in setups.items():
+        with torch.no_grad():
+            _, counts = cs.counted_logits(model, p, toks, bd, label)
+        assert {k: v for k, v in counts.items() if v} == \
+            cs.encoder_launches(L, label)
+    assert cs.encoder_launches(24, "aot") == {"flash_attention": 24,
+                                              "aot_gather_add": 24}
+    assert cs.encoder_launches(48, "none") == {"flash_attention": 48}
+    with pytest.raises(AssertionError, match="rms_norm launched 1"):
+        cs.check_launches("8", dict(cs.encoder_launches(L, "none"),
+                                    rms_norm=1),
+                          cs.encoder_launches(L, "none"))
+    assert set(cs.ENC_PATH) <= {"flash_attention", "aot_gather_add",
+                                "aot_gather_add_multitask"}
+    assert all(path[len("enc_roberta_"):] in cs.ENC_METHODS
+               for path in cs.ENC_PATH.values())
+
+
+def test_phase8_multitask_all_zero_is_bitwise_single(encoder_kernels,
+                                                     monkeypatch):
+    """8a's rule on the plain path: the multi-task batch with every task
+    id 0 gives the single-table call's logits bit for bit; a multi-task
+    gather that strays by one bf16-sized step fails it."""
+    from repro_torch.kernels import ops
+    model, params = cs.encoder_model("roberta-large")
+    tables = cs.stacked_tables(model.cfg, params["embed"]["tok"], 3)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert cs.multitask_equals_single(model, params, tables, toks)
+        real = ops.aot_gather_add_multitask_kernel
+        monkeypatch.setattr(ops, "aot_gather_add_multitask_kernel",
+                            lambda *a, **kw: real(*a, **kw) + 2 ** -8)
+        assert not cs.multitask_equals_single(model, params, tables, toks)
+
+
+def test_phase8_served_classifier_gate_rejects_the_zeroed_table(
+        encoder_kernels):
+    """8d's gate on a reduced roberta-large: a fused task with a head,
+    served through the kernel path in bf16, against the float32 function
+    (``against_float32``): the true table passes, the zeroed control is
+    rejected; the served calls launch ``encoder_launches`` per batch."""
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.core import peft as P
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, ModelOptions
+    model, params16 = cs.encoder_model("roberta-large")
+    cfg, dt = model.cfg, torch.bfloat16
+    ref32 = Model(cfg, ModelOptions(attn_impl="ref"), device="cpu")
+    ref16 = Model(cfg, ModelOptions(dt, dt, attn_impl="ref"), device="cpu")
+    params = ref32.init(0)
+    params16 = cs.cast_backbone(params, dt)
+    assert params16["layers"][0]["ln1"]["bias"].dtype == torch.float32
+    assert params16["layers"][0]["mlp"]["b1"].dtype == dt
+    g = torch.Generator().manual_seed(3)
+    table = aot_mod.random_fused(cfg, params["embed"]["tok"], seed=1,
+                                 scale=0.5)["table"]
+    head = {"w": torch.randn(cfg.d_model, 2, generator=g),
+            "b": torch.zeros(2)}
+    fopt = P.PEFTOptions(method="aot", num_classes=2,
+                         aot=P.AoTOptions(mode="fused"))
+    bundle = P.make({"aot": {"table": table}, "head": head}, fopt)
+    batches = [torch.randint(0, cfg.vocab_size, (8, 24), generator=g)
+               for _ in range(3)]
+    with torch.no_grad():
+        ops.reset_launches()
+        served = cs.classify_rows(model, params16, batches, P.make(
+            {"aot": {"table": table.to(dt)}, "head": head}, fopt))
+        counts = {k: v for k, v in ops.launches().items() if v}
+        plain16 = cs.classify_rows(ref16, params16, batches, bundle)
+        lg_32 = cs.classify_rows(ref32, params, batches, bundle)
+        lg_0 = cs.classify_rows(ref32, params, batches, P.make(
+            {"head": head}, P.PEFTOptions(method="none", num_classes=2)))
+        zero = cs.classify_rows(model, params16, batches, P.make(
+            {"aot": {"table": torch.zeros_like(table, dtype=dt)},
+             "head": head}, fopt))
+    assert counts == {k: 3 * v for k, v in cs.encoder_launches(
+        cfg.num_layers, "aot").items()}
+    ids = [0] * served.shape[0]
+    assert cs.against_float32(served, plain16, lg_32, lg_0, ids)["ok"]
+    ctl = cs.against_float32(zero, plain16, lg_32, lg_0, ids)
+    assert cs.rejected(ctl) == {0}
+    assert abs(ctl["tasks"][0]["carried"]) < 0.1
