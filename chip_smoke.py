@@ -180,12 +180,32 @@ Phases, each printing one line of results; any failure exits non-zero:
    and served through the kernels' classify in bf16, gated against the
    float32 reparametrized logits as 7c (within BF16_FACTOR x plain bf16's
    error, the task's effect carried), a zeroed table as a control serve
-   that must fail the gate.
+   that must fail the gate;
+9. the paper's lifecycle across processes: 9c (run beside phase 5, on its
+   engine) the launcher's overload flags: bursts of 6 (--arrivals bursty,
+   the gap derived from --rate) against --max-queue 4 with a class mix,
+   --deadline-ticks 24 on latency requests, --max-retries 2 --backoff 2,
+   --grace-ticks 8 (Scheduler.shutdown), then the same from two
+   --arrival-trace files (without and with a class column): every count
+   (sheds by reason, retries, requests that gave up, deadline misses,
+   aborts by reason, the drain report) the CPU replay's (OVERLOAD_EXPECT),
+   every request finished, given up or aborted, no leak, 32 launches per
+   tick; 9a (after phase 7) the training launcher in a process of its own
+   for 20 steps with --ckpt-dir, then resumed to 30 in a second: the final
+   checkpoint bitwise 7a's fc state (parameters, AdamW's mu, nu and step),
+   a state saved and restored in process bitwise, the checkpoint's bytes
+   and its save and restore ms reported; 9b 7c's float32 fused tables
+   (12.08 GB) written through launch.export.export_tasks after a disk
+   check, then served through the launcher's functions with --load in
+   bf16 on 7c's stream: every token equal to 7c's in-memory serve, every
+   request finished, drained clean, 32 launches per tick; seconds to
+   write, load and stage, peak memory reported.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
-path's; ``encoder``: phase 4's times at the encoders' shapes and the
-launches of one phase 8a call) and ``{"ok": true, "device": {...}}``. Details go to
+path's, phase 9's ``overload_*`` and ``lifecycle_load_serve`` among them;
+``encoder``: phase 4's times at the encoders' shapes and the launches of
+one phase 8a call) and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -194,7 +214,9 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2285,7 +2307,7 @@ def shared_run(engine, extra):
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
-        gave_up, retries, _ = launcher.run_with_retries(sched, arrivals)
+        gave_up, retries, _, _ = launcher.run_with_retries(sched, arrivals)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
     finally:
@@ -3865,12 +3887,13 @@ def profile_train_step(t, args, steps=2):
 
 def train_lm(report):
     """7a: each TRAIN_LM run through the training launcher; returns the
-    trained AoT bundles by label and the backbone (seed 0, float32)."""
+    trained AoT bundles by label, the backbone (seed 0, float32) and each
+    run's whole train state (parameters, AdamW state, step) by label."""
     from repro_torch import tree
     from repro_torch.core import peft as peft_mod
     from repro_torch.kernels import ops
     from repro_torch.launch import train as trainer
-    trained, failed, backbone = {}, [], None
+    trained, failed, backbone, states = {}, [], None, {}
     for label, flags in TRAIN_LM.items():
         args = trainer.parser().parse_args(TRAIN_BASE + flags)
         fresh_peak()
@@ -3922,10 +3945,11 @@ def train_lm(report):
             trained[label] = peft_mod.make(
                 tree.map(lambda x: x.detach(), peft), t.popt)
         backbone = backbone or t.params
+        states[label] = t.state
         del t, before, loop
     if failed:
         raise AssertionError(f"7a: {failed}")
-    return trained, backbone
+    return trained, backbone, states
 
 
 def train_classify(base=None, task_kw=None, phase="7b", keep=()):
@@ -4028,7 +4052,8 @@ def fuse_and_serve(report, trained, backbone):
     against Model.logits through its reparametrization (``against_float32``
     per task), and the control serves (``control_serves``) against the
     same: each must fail in its wrong tasks. Returns the launches of the
-    served stream."""
+    served stream and the float32 fused tables by label; the served
+    tokens go to ``report["serve_trained"]["streams"]``."""
     from repro_torch import configs
     from repro_torch.core import aot as aot_mod
     from repro_torch.core import peft as peft_mod
@@ -4043,7 +4068,7 @@ def fuse_and_serve(report, trained, backbone):
                          device=DEV)
     fused_opt = peft_mod.PEFTOptions(method="aot",
                                      aot=aot_mod.AoTOptions(mode="fused"))
-    tables, failed = [], []
+    tables, failed, fused32 = [], [], {}
     for label, bundle in trained.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4064,7 +4089,7 @@ def fuse_and_serve(report, trained, backbone):
         if not err <= TOL[f32]:
             failed.append(f"fused {label} off by {err:.3e}")
         tables.append({"table": fused["table"].to(dt)})
-        del fused
+        fused32[label] = fused
     torch.cuda.empty_cache()
     params = cast_backbone(backbone, dt)
     model = Model(cfg, ModelOptions(dt, dt), device=DEV)
@@ -4137,20 +4162,445 @@ def fuse_and_serve(report, trained, backbone):
     report["serve_trained"] = dict(res, vs_float32=f32, controls=controls,
                                    counts=got, seconds=sec,
                                    tokens=sched.tokens_emitted,
+                                   streams=stream_outs(sched.finished),
                                    launches=counts, failures=failed)
     if failed:
         raise AssertionError(f"7c: {failed}")
-    return {"trained_serve": counts}
+    return {"trained_serve": counts}, fused32
 
 
 def phase_train(report):
-    """Phase 7 (7a, 7b, 7c); returns 7c's launches by path."""
+    """Phase 7 (7a, 7b, 7c); returns 7c's launches by path and what phase
+    9 carries on from: 7a's fc train state and 7c's float32 fused tables
+    by label."""
     t0 = time.perf_counter()
-    trained, backbone = train_lm(report)
+    trained, backbone, states = train_lm(report)
     report["classify"] = train_classify()[0]
-    launches = fuse_and_serve(report, trained, backbone)
+    launches, fused32 = fuse_and_serve(report, trained, backbone)
     report["train_seconds"] = time.perf_counter() - t0
     log("7 train", seconds=f"{report['train_seconds']:.1f}")
+    return launches, dict(state=states["fc"], fused32=fused32)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the lifecycle across processes (checkpoints and resume, the
+# fused-table export, serve --load, the launcher's overload flags)
+# ---------------------------------------------------------------------------
+
+# scratch for 9a / 9b under the checkout (build/ is not committed); each
+# part removes its directory when it ends
+LIFECYCLE_DIR = ROOT / "build" / "lifecycle"
+# 9a: the training launcher with its defaults (7a's fc run: smollm-360m,
+# AoT fc rank 32, seq 128, batch 8, lr 5e-3), stopped after the first count
+# of steps and resumed to the second in another process
+RESUME_STEPS = (20, 30)
+RESUME_FLAGS = []       # the launcher's defaults (the CPU rehearsal adds)
+# 9b: 7c's stream (two tasks, eight requests) from the exported tables
+LOAD_SERVE = [f for f in SERVE_TRAINED if f != "--demo"]
+# 9c: phase 5's engine under the launcher's overload flags: bursts of 6
+# (the gap derived from --rate 0.5: 12 ticks) against a queue of 4, a
+# class mix, deadlines on latency requests, 2 retries, an 8-tick drain;
+# then the same flags with arrivals from a trace (OVERLOAD_TRACES)
+OVERLOAD = ["--requests", "16", "--max-queue", "4", "--priority-mix",
+            "latency=0.25,standard=0.5,best_effort=0.25",
+            "--deadline-ticks", "24", "--max-retries", "2", "--backoff",
+            "2", "--grace-ticks", "8"]
+OVERLOAD_RUNS = {"bursty": ["--arrivals", "bursty", "--burst", "6"],
+                 "trace_ticks": ["--arrival-trace", "trace_ticks"],
+                 "trace_classes": ["--arrival-trace", "trace_classes"]}
+# tick[,class] per line: a burst of 8, a pair, a late burst (classes drawn
+# from the mix); and lines that name a class (no draw) among lines that do
+# not
+OVERLOAD_TRACES = {
+    "trace_ticks": "0\n0\n0\n0\n0\n0\n0\n0\n3\n3\n40\n40\n40\n41\n41\n41\n",
+    "trace_classes": "# tick,class\n0,best_effort\n0,best_effort\n0\n"
+                     "0,best_effort\n0,latency\n1\n1,latency\n1,standard\n"
+                     "2\n2,latency\n30,best_effort\n30\n30,latency\n31\n"
+                     "31,latency\n60,best_effort\n"}
+# every count of each 9c run, from the CPU replay with a model-less engine
+# (the schedule does not depend on the tokens: no stop or end token)
+OVERLOAD_EXPECT = {
+    "bursty": dict(requests=16, ticks=36, dispatched=36,
+                   sheds={"displaced": 1, "queue_full": 1}, retries=2,
+                   gave_up=0, deadline_misses=2,
+                   aborted={"deadline": 2, "shutdown": 10}, finished=4,
+                   drain_finished=4, drain_shed=10, drain_grace_used=8),
+    "trace_ticks": dict(requests=16, ticks=50, dispatched=50,
+                        sheds={"displaced": 2, "queue_full": 4}, retries=6,
+                        gave_up=0, deadline_misses=3,
+                        aborted={"deadline": 3, "shutdown": 8}, finished=5,
+                        drain_finished=5, drain_shed=8, drain_grace_used=8),
+    "trace_classes": dict(requests=16, ticks=69, dispatched=69,
+                          sheds={"displaced": 2, "queue_full": 3},
+                          retries=4, gave_up=1, deadline_misses=3,
+                          aborted={"deadline": 3, "shutdown": 3},
+                          finished=9, drain_finished=9, drain_shed=3,
+                          drain_grace_used=8),
+}
+
+
+def tree_bits_equal(a, b):
+    """The leaves of two trees (tensors, ints) that are not bitwise
+    equal, as their indices in jax's order (empty: all equal)."""
+    from repro_torch import tree
+    la, lb = tree.sorted_leaves(a), tree.sorted_leaves(b)
+    if tree.structure(a) != tree.structure(b) or len(la) != len(lb):
+        return ["structure"]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if not (torch.equal(x.cpu(), y.cpu())
+                    and x.dtype == y.dtype
+                    if isinstance(x, torch.Tensor) else x == y)]
+
+
+def max_leaf_diff(a, b):
+    """The largest abs difference over the tensor leaves of two trees."""
+    from repro_torch import tree
+    return max((float((x.detach().float() - y.detach().float()).abs().max())
+                for x, y in zip(tree.sorted_leaves(a), tree.sorted_leaves(b))
+                if isinstance(x, torch.Tensor) and x.numel()), default=0.0)
+
+
+def train_process(ckpt_dir, steps):
+    """``python -m repro_torch.launch.train --ckpt-dir D --steps N`` in a
+    process of its own (the launcher's defaults, RESUME_FLAGS); returns
+    (its seconds, its stdout). Raises if it fails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--ckpt-dir",
+           str(ckpt_dir), "--steps", str(steps)] + RESUME_FLAGS
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    sec = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"9a: {' '.join(cmd[1:])} exited "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    return sec, res.stdout
+
+
+def ckpt_round_trip(state, directory):
+    """In process: ``state`` saved (the host copy in ``save``, then the
+    writer thread) and restored onto the card; returns (bytes on disk,
+    the host copy's ms, the writer's ms, restore ms, the leaves not bitwise
+    the saved state's)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    mgr = CheckpointManager(str(directory), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, state, extra={"step": 1})
+    t1 = time.perf_counter()
+    mgr.wait()
+    t2 = time.perf_counter()
+    got, _ = mgr.restore(state, device=DEV)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    size = (Path(directory) / "step_0000000001" / "arrays.npz").stat().st_size
+    return (size, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+            tree_bits_equal(got, state))
+
+
+def resume_across_processes(report, state):
+    """9a: the training launcher run to RESUME_STEPS[0] in one process and
+    resumed to RESUME_STEPS[1] in a second; the final checkpoint restored
+    (trainable parameters, AdamW's mu, nu and step, the step counter) must
+    be bitwise ``state``, 7a's fc state after as many unbroken steps in
+    this process (the fc step has no index backward into a trainable
+    tensor, so the card repeats it bit for bit). Also: ``state`` saved and
+    restored in process, bitwise; the checkpoint's bytes and its save and
+    restore ms reported."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as trainer
+    args = trainer.parser().parse_args(RESUME_FLAGS)
+    root = LIFECYCLE_DIR / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    failed, res = [], {}
+    try:
+        secs = []
+        for steps in RESUME_STEPS:
+            sec, out = train_process(root / "split", steps)
+            secs.append(sec)
+        if f"'kind': 'resume', 'step': {RESUME_STEPS[0]}" not in out:
+            failed.append(f"the second process did not resume at "
+                          f"{RESUME_STEPS[0]}: {out[-500:]}")
+        mgr = CheckpointManager(str(root / "split" / args.arch))
+        steps_kept = mgr.all_steps()
+        got, extra = mgr.restore(state, device=DEV)
+        bad = tree_bits_equal(got, state)
+        res = dict(process_s=secs, steps_kept=steps_kept,
+                   final_step=got["step"], data=extra.get("data"),
+                   not_bitwise=bad, max_abs_diff=max_leaf_diff(got, state))
+        if got["step"] != RESUME_STEPS[1] or steps_kept != list(RESUME_STEPS):
+            failed.append(f"final step {got['step']}, kept {steps_kept}")
+        if bad:
+            failed.append(f"resumed state not bitwise 7a's: leaves {bad}, "
+                          f"max abs diff {res['max_abs_diff']:.3e}")
+        size, host_ms, write_ms, restore_ms, rt_bad = ckpt_round_trip(
+            state, root / "round_trip")
+        res.update(bytes=size, save_host_copy_ms=host_ms,
+                   save_write_ms=write_ms, restore_ms=restore_ms,
+                   round_trip_not_bitwise=rt_bad)
+        if rt_bad:
+            failed.append(f"saved and restored in process: leaves {rt_bad} "
+                          "differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("9a resume", processes=",".join(f"{s:.1f}s" for s in secs),
+        steps=f"{RESUME_STEPS[0]}+{RESUME_STEPS[1] - RESUME_STEPS[0]}",
+        vs_unbroken="bitwise" if not res.get("not_bitwise")
+        else f"{len(res['not_bitwise'])} leaves differ",
+        max_abs_diff=f"{res.get('max_abs_diff', 0):.3e}",
+        ckpt_bytes=res.get("bytes"),
+        save_ms=f"{res.get('save_host_copy_ms', 0):.1f}+"
+                f"{res.get('save_write_ms', 0):.1f}",
+        restore_ms=f"{res.get('restore_ms', 0):.1f}",
+        round_trip="bitwise" if not res.get("round_trip_not_bitwise")
+        else res.get("round_trip_not_bitwise"),
+        failures="none" if not failed else failed)
+    report["resume"] = dict(res, failures=failed)
+    if failed:
+        raise AssertionError(f"9a: {failed}")
+
+
+def export_load_serve(report, fused32, want_streams):
+    """9b: 7c's float32 fused tables (``fused32``: fc, kron) written
+    through ``launch.export.export_tasks`` (after a check that the disk
+    holds them), then served through the launcher's functions
+    (``build_engine`` with ``--load``, so ``load_tasks``, in bf16;
+    ``make_arrivals``; ``serve``) on 7c's stream: every token equal to
+    7c's in-memory serve (``want_streams``), every request finished, the
+    pool drained clean, the counts TRAINED_EXPECT, 32 launches of the
+    fused gather-add + norm and ragged attention per tick. Reports seconds
+    to write, to load (disk to host) and to stage (the rest of
+    build_engine: weights, copy to the card, cast, stack), the memory
+    allocated before the build, its peak and the run's. Returns the
+    served stream's launches."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import export as exporter
+    from repro_torch.launch import serve as launcher
+    cfg = configs.get("smollm-360m")
+    root = LIFECYCLE_DIR / "fused"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    need = sum(f["table"].numel() * 4 for f in fused32.values())
+    free = shutil.disk_usage(root).free
+    failed = []
+    try:
+        if free < need * 1.02:
+            raise AssertionError(f"9b: {free / 1e9:.2f} GB free under "
+                                 f"{root}, the tables need {need / 1e9:.2f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = exporter.export_tasks(str(root), fused32, cfg.name)
+        write_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in root.rglob("*"))
+        fused32.clear()             # the card holds only what is loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = launcher.parser().parse_args(LOAD_SERVE + ["--load",
+                                                          str(root)])
+        load_s = [0.0]
+        restore = CheckpointManager.restore
+
+        def timed_restore(self, *a, **kw):
+            t = time.perf_counter()
+            out = restore(self, *a, **kw)
+            load_s[0] += time.perf_counter() - t
+            return out
+        fresh_peak()
+        before = torch.cuda.memory_allocated() / 2 ** 30
+        CheckpointManager.restore = timed_restore
+        try:
+            t0 = time.perf_counter()
+            engine = launcher.build_engine(args)
+            torch.cuda.synchronize()
+            engine_s = time.perf_counter() - t0
+        finally:
+            CheckpointManager.restore = restore
+        build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        arrivals = launcher.make_arrivals(args, cfg.vocab_size,
+                                          engine.num_tasks)
+        d0 = engine.dispatches
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        sched = launcher.serve(engine, args, arrivals)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(ops.launches())
+        dispatched = engine.dispatches - d0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = stream_outs(sched.finished)
+        same = sum(got.get(r) == t for r, t in want_streams.items())
+        div = first_divergence({r: t for r, t in got.items()
+                                if r in want_streams}, want_streams, {})
+        findings = sched.drain_check()
+        n = dict(ticks=sched.ticks, dispatched=dispatched,
+                 finished=len(sched.finished))
+        if same != len(want_streams) or len(got) != len(want_streams):
+            failed.append(f"tokens equal 7c's in {same}/"
+                          f"{len(want_streams)} requests")
+        if n != TRAINED_EXPECT:
+            failed.append(f"counts {n} != {TRAINED_EXPECT}")
+        if findings:
+            failed.append(f"leaks {findings}")
+        try:
+            check_launches("9b", counts, trained_launches(cfg.num_layers,
+                                                          dispatched))
+        except AssertionError as e:
+            failed.append(str(e))
+        res = dict(steps=steps, bytes=size, write_s=write_s,
+                   load_s=load_s[0], stage_s=engine_s - load_s[0],
+                   tasks=engine.num_tasks, seconds=sec,
+                   tokens=sched.tokens_emitted,
+                   tokens_per_s=sched.tokens_emitted / sec,
+                   streams_equal_7c=f"{same}/{len(want_streams)}",
+                   allocated_before_gib=before, build_peak_gib=build_peak,
+                   peak_memory_gib=peak, launches=counts, failures=failed,
+                   **n)
+        del engine, sched
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("9b export/load/serve", steps=steps, tables_gb=f"{size / 1e9:.2f}",
+        disk_free_gb=f"{free / 1e9:.1f}", write_s=f"{write_s:.2f}",
+        load_s=f"{res['load_s']:.2f}", stage_s=f"{res['stage_s']:.2f}",
+        requests=f"{n['finished']}/{len(arrivals)}", ticks=n["ticks"],
+        dispatched=dispatched, tokens_per_s=f"{res['tokens_per_s']:.1f}",
+        streams_equal_7c=res["streams_equal_7c"],
+        first_divergence="none" if div is None else f"rid {div[0]}",
+        drain="clean" if not findings else findings, launches=counts,
+        allocated_before_gib=f"{before:.2f}",
+        build_peak_gib=f"{build_peak:.2f}", peak_memory_gib=f"{peak:.2f}",
+        failures="none" if not failed else failed)
+    report["load_serve"] = res
+    if failed:
+        raise AssertionError(f"9b: {failed}")
+    return {"lifecycle_load_serve": counts}
+
+
+def phase_lifecycle(report, kept):
+    """9a and 9b (after phase 7, whose fc state and fused tables ``kept``
+    holds); returns 9b's launches by path."""
+    t0 = time.perf_counter()
+    resume_across_processes(report, kept.pop("state"))
+    launches = export_load_serve(report, kept.pop("fused32"),
+                                 report["serve_trained"]["streams"])
+    report["lifecycle_seconds"] = time.perf_counter() - t0
+    log("9ab lifecycle", seconds=f"{report['lifecycle_seconds']:.1f}")
+    return launches
+
+
+def overload_args(label, trace_dir):
+    """The launcher's arguments of the 9c run ``label``: BASE, OVERLOAD,
+    its OVERLOAD_RUNS flags, a trace name written to ``trace_dir``."""
+    from repro_torch.launch import serve as launcher
+    extra = list(OVERLOAD_RUNS[label])
+    if "--arrival-trace" in extra:
+        i = extra.index("--arrival-trace") + 1
+        path = Path(trace_dir) / f"{extra[i]}.txt"
+        path.write_text(OVERLOAD_TRACES[extra[i]])
+        extra[i] = str(path)
+    return launcher.parser().parse_args(BASE + OVERLOAD + extra)
+
+
+def overload_run(engine, args):
+    """One 9c stream through the launcher's code (``make_arrivals``,
+    ``make_scheduler``, ``run_with_retries`` with the flags' retries,
+    backoff and drain), counting sheds by reason. Returns the scheduler,
+    the arrivals, the rids that gave up, seconds, the kernels' launches
+    and ``overload_counts``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
+                                      engine.num_tasks)
+    sched = launcher.make_scheduler(engine, args)
+    sheds, shed = {}, sched._shed
+
+    def counted_shed(req, reason):
+        sheds[reason] = sheds.get(reason, 0) + 1
+        shed(req, reason)
+    sched._shed = counted_shed
+    d0 = engine.dispatches
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gave_up, retries, drain, sched = launcher.run_with_retries(
+        sched, arrivals, grace_ticks=args.grace_ticks,
+        max_retries=args.max_retries, backoff=args.backoff)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    aborted = {}
+    for r in sched.aborted.values():
+        aborted[r.finish_reason] = aborted.get(r.finish_reason, 0) + 1
+    counts = dict(requests=len(arrivals), ticks=sched.ticks,
+                  dispatched=engine.dispatches - d0,
+                  sheds=dict(sorted(sheds.items())), retries=retries,
+                  gave_up=len(gave_up), deadline_misses=sched.deadline_misses,
+                  aborted=dict(sorted(aborted.items())),
+                  finished=len(sched.finished),
+                  drain_finished=drain.finished,
+                  drain_shed=len(drain.shed_rids),
+                  drain_grace_used=drain.grace_ticks_used)
+    return dict(sched=sched, arrivals=arrivals, gave_up=gave_up,
+                drain=drain, seconds=sec, launches=dict(ops.launches()),
+                counts=counts)
+
+
+def overload_failures(label, run, layers):
+    """9c's gates of one run (empty = passed): the counts are the CPU
+    replay's (OVERLOAD_EXPECT), every request finished, gave up or was
+    aborted (deadline, shutdown), the pool and the drain report hold no
+    leak, and each kernel launched ``layers`` times per dispatched tick."""
+    sched, c, bad = run["sched"], run["counts"], []
+    want = OVERLOAD_EXPECT.get(label)
+    if c != want:
+        diff = {k: (c.get(k), (want or {}).get(k))
+                for k in set(c) | set(want or {})
+                if c.get(k) != (want or {}).get(k)}
+        bad.append(f"counts differ from the replay's (got, want): {diff}")
+    rids = {r.rid for _, r in run["arrivals"]}
+    done = set(sched.finished) | set(run["gave_up"]) | set(sched.aborted)
+    if done != rids or sched.busy():
+        bad.append(f"unaccounted requests {sorted(rids - done)}")
+    leaks = sorted(set(sched.drain_check()) | set(run["drain"].leak_findings))
+    if leaks:
+        bad.append(f"leaks {leaks}")
+    try:
+        check_launches(label, run["launches"], {
+            "ragged_paged_attention": layers * c["dispatched"],
+            "aot_gather_add_multitask": layers * c["dispatched"]})
+    except AssertionError as e:
+        bad.append(str(e))
+    return bad
+
+
+def phase_overload(report, engine):
+    """9c: OVERLOAD_RUNS on phase 5's engine through the launcher's flags;
+    every run's counts must be the CPU replay's and overload_failures'
+    gates hold. Returns the launches by path."""
+    layers = engine.model.cfg.num_layers
+    res, launches, failed = {}, {}, {}
+    d = LIFECYCLE_DIR / "traces"
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        for label in OVERLOAD_RUNS:
+            run = overload_run(engine, overload_args(label, d))
+            bad = overload_failures(label, run, layers)
+            c, sec = run["counts"], run["seconds"]
+            log(f"9c overload/{label}", seconds=f"{sec:.3f}",
+                tokens_per_s=f"{run['sched'].tokens_emitted / sec:.1f}",
+                **c, launches=run["launches"], failures=bad or "none")
+            res[label] = dict(c, seconds=sec,
+                              tokens=run["sched"].tokens_emitted,
+                              launches=run["launches"], failures=bad)
+            launches[f"overload_{label}"] = run["launches"]
+            if bad:
+                failed[label] = bad
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    report["overload"] = res
+    if failed:
+        raise AssertionError(f"phase 9c failed: {failed}")
     return launches
 
 
@@ -4536,10 +4986,14 @@ def main() -> int:
     launches.update(phase_faults(report, engine))
     launches.update(phase_shared(report, engine))
     launches.update(phase_restore(report, engine))
+    launches.update(phase_overload(report, engine))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    launches.update(phase_train(report))
+    trained, kept = phase_train(report)
+    launches.update(trained)
+    launches.update(phase_lifecycle(report, kept))
+    del kept
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_encoders(report))

@@ -1,17 +1,23 @@
 """Multi-task serving launcher of the port.
 
-Fabricates fused AoT task tables (``--demo``) and serves a continuous
-Poisson stream of mixed-task requests from one frozen backbone: requests
-arrive on the scheduler's tick clock, carry a priority class drawn from
-``--priority-mix``, pick a task at random, and stream their tokens through
-a callback as they decode. ``--layout`` picks the paged KV pool (chunked
-prefill, or whole prompts with ``--prefill-chunk 0``) or contiguous slots
-(whole prompts); ``--static`` serves one static batch of equal-length
-prompts instead (greedy). ``--system-prompt`` opens every request of a
-task with the same prefix, which ``--prefix-cache-pages`` reuses across
-requests; ``--samples`` draws n samples per request from one prefill;
-``--max-queue`` bounds the queue (a shed request is retried with
-exponential backoff, up to four times, as the reference's client does).
+Loads fused AoT task tables exported by ``repro_torch.launch.export`` or
+the reference's ``examples/fuse_and_export.py`` (``--load DIR``, one
+checkpoint step per task) or fabricates them (``--demo``), and serves a
+continuous stream of mixed-task requests from one frozen backbone:
+requests arrive on the scheduler's tick clock as a Poisson process (or
+``--arrivals bursty``, or ``--arrival-trace FILE``), carry a priority
+class drawn from ``--priority-mix``, pick a task at random, and stream
+their tokens through a callback as they decode. ``--layout`` picks the
+paged KV pool (chunked prefill, or whole prompts with ``--prefill-chunk
+0``) or contiguous slots (whole prompts); ``--static`` serves one static
+batch of equal-length prompts instead (greedy). ``--system-prompt`` opens
+every request of a task with the same prefix, which
+``--prefix-cache-pages`` reuses across requests; ``--samples`` draws n
+samples per request from one prefill. Overload: ``--max-queue`` bounds
+the queue (a shed request is retried with exponential backoff,
+``--backoff`` ** (attempt - 1) ticks, up to ``--max-retries`` times),
+latency-class requests can carry ``--deadline-ticks``, and
+``--grace-ticks`` hands the drain to ``Scheduler.shutdown``.
 ``--journal`` appends every request transition to a JSONL file,
 ``--crash-at-tick`` then simulates a process death at a tick (the journal
 is replayed into a fresh scheduler, which serves on) and
@@ -42,6 +48,13 @@ KV pool leaks.
     PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \
         --dtype bfloat16 --slots 8 --max-len 1024 --max-queue 4 \
         --priority-mix latency=0.25,standard=0.5,best_effort=0.25
+    # ... bursts against that queue, deadlines, a bounded drain
+    PYTHONPATH=src python -m repro_torch.launch.serve --demo --tasks 4 \
+        --dtype bfloat16 --slots 8 --max-len 1024 --max-queue 4 \
+        --arrivals bursty --burst 6 --deadline-ticks 24 --grace-ticks 8
+    # ... the tables that repro_torch.launch.export wrote
+    PYTHONPATH=src python -m repro_torch.launch.serve --dtype bfloat16 \
+        --slots 8 --max-len 1024 --load results/fused_artifacts
 
     # on the CPU, reduced widths; then a crash at tick 6 and a restore
     # from the journal, with the metrics and SLO summary at the end
@@ -63,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import aot as aot_mod
 from repro_torch.models.model import Model, ModelOptions, check_servable
 from repro_torch.obs import ServeObservability
@@ -81,19 +95,49 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the arch to 2 layers and tiny widths")
-    ap.add_argument("--demo", action="store_true",
-                    help="fabricate random task tables (required for now: "
-                         "loading exported tables is not ported)")
+    src = ap.add_argument_group("task tables (one of)")
+    src.add_argument("--demo", action="store_true",
+                     help="fabricate random task tables instead of loading")
+    src.add_argument("--load", metavar="DIR",
+                     help="load fused tables exported by repro_torch.launch."
+                          "export or examples/fuse_and_export.py (one "
+                          "checkpoint step per task, task id = step order)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu only "
                          "when asked for)")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
                     help="compute and parameter dtype (ModelOptions)")
     ap.add_argument("--tasks", type=int, default=3,
-                    help="number of fabricated tasks")
+                    help="number of fabricated tasks (--demo only)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--rate", type=float, default=0.5,
                     help="mean arrivals per tick (Poisson stream)")
+    ovl = ap.add_argument_group("overload")
+    ovl.add_argument("--arrivals", choices=("poisson", "bursty"),
+                     default="poisson",
+                     help="arrival process: poisson (independent "
+                          "increments) or bursty (on/off bursts)")
+    ovl.add_argument("--burst", type=int, default=6,
+                     help="arrivals per burst (--arrivals bursty)")
+    ovl.add_argument("--burst-gap", type=int, default=0,
+                     help="quiet ticks between bursts (0 = derived from "
+                          "--rate so the mean rate matches poisson)")
+    ovl.add_argument("--arrival-trace", metavar="FILE",
+                     help="trace-driven arrivals: one 'tick[,priority]' "
+                          "line per request (overrides --arrivals/--rate)")
+    ovl.add_argument("--deadline-ticks", type=int, default=0,
+                     help="deadline of latency-class requests in real "
+                          "ticks: past it a request is aborted and its "
+                          "pages freed (0 = no deadlines)")
+    ovl.add_argument("--max-retries", type=int, default=4,
+                     help="client retries of a shed submission")
+    ovl.add_argument("--backoff", type=int, default=2,
+                     help="backoff base in ticks: retry k waits "
+                          "backoff ** (k - 1) ticks")
+    ovl.add_argument("--grace-ticks", type=int, default=-1,
+                     help="once the stream ends, Scheduler.shutdown gives "
+                          "in-flight work this many ticks and sheds the "
+                          "rest (-1 = drain fully)")
     ap.add_argument("--slots", type=int, default=4,
                     help="KV-pool slots (continuous batch width)")
     ap.add_argument("--layout", choices=("paged", "slots"), default="paged",
@@ -186,9 +230,37 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def load_tasks(cfg, directory: str, dtype=torch.float32,
+               device="cuda") -> List[dict]:
+    """The fused task tables under ``directory`` (one checkpoint step per
+    task, as ``launch.export`` and the reference's example write them),
+    task id = step order: each read to the host, copied to ``device`` and
+    cast to ``dtype`` there before the next is read, so the host holds one
+    float32 table at a time. The shapes are read from a meta ``like``, so
+    nothing is allocated to learn them."""
+    mgr = CheckpointManager(directory, async_save=False)
+    steps = mgr.all_steps()
+    if not steps:
+        raise FileNotFoundError(
+            f"no fused-table checkpoints under {directory!r}; run "
+            "examples/fuse_and_export.py first (or pass --demo)")
+    like = {"table": torch.empty(
+        (cfg.num_layers, cfg.vocab_size, cfg.d_model), dtype=torch.float32,
+        device="meta")}
+    tasks = []
+    for s in steps:
+        tree, extra = mgr.restore(like, step=s)
+        print(f"  step {s}: fused {extra.get('mode', '?')} tables "
+              f"({extra.get('arch', '?')})")
+        tasks.append({"table": tree["table"].to(device).to(dtype)})
+        del tree
+    return tasks
+
+
 def build_engine(args) -> ServeEngine:
-    """Model with random weights (seed 0) and ``--tasks`` fabricated fused
-    tables, on ``--device``."""
+    """Model with random weights (seed 0) and the fused tables of
+    ``--load`` (:func:`load_tasks`) or ``--tasks`` fabricated ones, on
+    ``--device``."""
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg, repeats=2)
@@ -197,9 +269,12 @@ def build_engine(args) -> ServeEngine:
     model = Model(cfg, ModelOptions(compute_dtype=dt, param_dtype=dt),
                   device=args.device)
     params = model.init(0)
-    tasks = [aot_mod.random_fused(cfg, params["embed"]["tok"], seed=t,
-                                  scale=0.03, vocab_chunk=4096, dtype=dt)
-             for t in range(args.tasks)]
+    if args.load:
+        tasks = load_tasks(cfg, args.load, dt, model.device)
+    else:
+        tasks = [aot_mod.random_fused(cfg, params["embed"]["tok"], seed=t,
+                                      scale=0.03, vocab_chunk=4096, dtype=dt)
+                 for t in range(args.tasks)]
     return ServeEngine(model, params, ServeConfig(max_len=args.max_len),
                        fused_tasks=aot_mod.stack_tasks(tasks))
 
@@ -223,17 +298,67 @@ def parse_priority_mix(spec: str):
     return {c: w / total for c, w in weights.items()}
 
 
+def bursty_ticks(rng, n: int, burst: int, gap: int) -> List[int]:
+    """On/off arrivals: bursts of ``burst`` near-simultaneous arrivals
+    (each at the burst's tick or the next) every ``max(gap, 1)`` ticks,
+    the pattern that exercises shedding and displacement; sorted."""
+    ticks, t = [], 0
+    while len(ticks) < n:
+        k = min(burst, n - len(ticks))
+        ticks.extend(t + int(rng.integers(0, 2)) for _ in range(k))
+        t += max(gap, 1)
+    return sorted(ticks[:n])
+
+
+def burst_gap(args) -> int:
+    """``--burst-gap``, or (0) the gap that gives ``--rate`` arrivals per
+    tick on average."""
+    return args.burst_gap or max(int(args.burst / max(args.rate, 1e-6)), 1)
+
+
+def load_arrival_trace(path: str, n: int):
+    """A trace's first ``n`` requests, one ``tick[,priority]`` line each
+    (``#`` comments and blank lines skipped): (ticks, classes), a class
+    None where the line names none."""
+    ticks, prios = [], []
+    with open(path) as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            parts = [p.strip() for p in line.split(",")]
+            ticks.append(int(parts[0]))
+            prios.append(parts[1] if len(parts) > 1 and parts[1] else None)
+            if len(ticks) == n:
+                break
+    if not ticks:
+        raise ValueError(f"arrival trace {path!r} is empty")
+    return ticks, prios
+
+
 def make_arrivals(args, vocab_size: int, n_tasks: int,
                   on_token=None) -> List[Tuple[int, Request]]:
-    """The ``--demo`` Poisson stream, drawn from ``default_rng(0)`` in the
-    reference launcher's order (so the same flags give the same requests):
-    the arrival ticks, then each task's system prompt, then per request
-    its prompt length, class, task, prompt and length."""
+    """The stream, drawn from ``default_rng(0)`` in the reference
+    launcher's order (so the same flags give the same requests): the
+    arrival ticks (exponential gaps, ``bursty_ticks``, or none for a
+    trace, which also cuts ``--requests`` to its length), then each
+    task's system prompt, then per request its prompt length, class (no
+    draw where the trace names one), task, prompt and length.
+    Latency-class requests carry ``--deadline-ticks`` when it is > 0.
+    Raises ValueError for a trace class outside ``PRIORITIES``."""
     rng = np.random.default_rng(0)
-    ticks, t = [], 0.0
-    for _ in range(args.requests):
-        t += rng.exponential(1.0 / max(args.rate, 1e-6))
-        ticks.append(int(t))
+    n = args.requests
+    trace_prios = [None] * n
+    if args.arrival_trace:
+        ticks, trace_prios = load_arrival_trace(args.arrival_trace, n)
+        n = len(ticks)
+    elif args.arrivals == "bursty":
+        ticks = bursty_ticks(rng, n, args.burst, burst_gap(args))
+    else:
+        ticks, t = [], 0.0
+        for _ in range(n):
+            t += rng.exponential(1.0 / max(args.rate, 1e-6))
+            ticks.append(int(t))
     mix = parse_priority_mix(args.priority_mix)
     classes = list(mix)
     weights = [mix[c] for c in classes]
@@ -247,9 +372,12 @@ def make_arrivals(args, vocab_size: int, n_tasks: int,
                                   top_k=args.top_k, top_p=args.top_p,
                                   n=args.samples)
     arrivals = []
-    for i in range(args.requests):
+    for i in range(n):
         plen = int(rng.integers(4, args.prompt + 1))
-        prio = str(rng.choice(classes, p=weights))
+        prio = trace_prios[i] or str(rng.choice(classes, p=weights))
+        if prio not in PRIORITIES:
+            raise ValueError(f"arrival trace priority {prio!r} is not one "
+                             f"of {', '.join(PRIORITIES)}")
         task = int(rng.integers(0, n_tasks))
         prompt = rng.integers(0, vocab_size, plen).astype(np.int32)
         if sys_prompts:
@@ -258,6 +386,9 @@ def make_arrivals(args, vocab_size: int, n_tasks: int,
             rid=i, prompt=prompt, task_id=task,
             max_new_tokens=int(rng.integers(2, args.steps + 1)),
             priority=prio, on_token=on_token,
+            deadline_ticks=(args.deadline_ticks
+                            if args.deadline_ticks > 0 and prio == "latency"
+                            else None),
             sampling=None if sampling is None
             else dataclasses.replace(sampling, seed=args.seed + i))
         arrivals.append((ticks[i], req))
@@ -287,28 +418,28 @@ def make_scheduler(engine: ServeEngine, args, obs=None,
         max_queue=args.max_queue), obs=obs, journal=journal)
 
 
-# the reference launcher's client retry policy (its default flags)
-MAX_RETRIES, BACKOFF = 4, 2
-
-
 def run_with_retries(sched: ContinuousScheduler, arrivals,
-                     max_retries: int = MAX_RETRIES,
-                     backoff: int = BACKOFF, crash_at_tick: int = 0,
+                     grace_ticks: int = -1, max_retries: int = 4,
+                     backoff: int = 2, crash_at_tick: int = 0,
                      make_sched=None, on_token=None):
     """The client loop of the reference launcher: submit each request on
     its arrival tick; a shed request (``ShedError`` at submit, or later
     displaced from the queue, found in ``sched.shed`` after each tick) is
     submitted again ``backoff ** (attempt - 1)`` ticks later, up to
     ``max_retries`` times. Idle gaps fast-forward as in ``run_stream``,
-    which this equals when nothing is shed. Serves to the end.
+    which this equals when nothing is shed. When the stream ends,
+    ``grace_ticks >= 0`` hands the drain to ``Scheduler.shutdown`` (work
+    still live after that many ticks is shed and reported); ``-1`` serves
+    to the end.
 
     ``crash_at_tick > 0`` with ``make_sched`` (a zero-argument factory of
     a fresh scheduler journaling to the same path) simulates a process
     death once, after that many ticks counted across the run: the
     scheduler is abandoned where it stands, its journal replayed and the
     factory's scheduler restored (``on_token`` attached to the restored
-    requests), which serves on. Returns the rids that gave up, the number
-    of retries and the scheduler that finished the run."""
+    requests), which serves on. Returns (the rids that gave up, the number
+    of retries, the ``DrainReport`` or None, the scheduler that finished
+    the run)."""
     heap = [(t, i, req) for i, (t, req) in enumerate(arrivals)]
     heapq.heapify(heap)
     seq = len(heap)
@@ -350,16 +481,22 @@ def run_with_retries(sched: ContinuousScheduler, arrivals,
                   "replay)")
         for rid in [r for r in sched.shed if r not in pending]:
             requeue(sched.shed[rid])     # displaced: the client resubmits
+    if grace_ticks >= 0:
+        return gave_up, retries, sched.shutdown(grace_ticks), sched
     while sched.busy():
         sched.step()
     sched._maybe_check_leaks()
-    return gave_up, retries, sched
+    return gave_up, retries, None, sched
 
 
 def serve(engine: ServeEngine, args, arrivals) -> ContinuousScheduler:
-    """Serve the stream to the end on a fresh scheduler, through the
-    client loop (:func:`run_with_retries`)."""
-    return run_with_retries(make_scheduler(engine, args), arrivals)[2]
+    """Serve the stream on a fresh scheduler through the client loop
+    (:func:`run_with_retries`) with the flags' retry policy and drain;
+    returns the scheduler."""
+    return run_with_retries(make_scheduler(engine, args), arrivals,
+                            grace_ticks=args.grace_ticks,
+                            max_retries=args.max_retries,
+                            backoff=args.backoff)[3]
 
 
 def static_batch(args, vocab_size: int, n_tasks: int):
@@ -378,9 +515,10 @@ def main(argv: Optional[List[str]] = None):
     stream, or with ``--static`` the (requests, steps) generated tokens."""
     ap = parser()
     args = ap.parse_args(argv)
-    if not args.demo:
-        ap.error("pass --demo (fabricated tables); loading exported tables "
-                 "is not ported yet")
+    if not args.demo and not args.load:
+        ap.error("pass --demo (fabricated tables) or --load DIR (fused "
+                 "tables from repro_torch.launch.export or examples/"
+                 "fuse_and_export.py)")
     if args.system_prompt + args.prompt + args.steps - 1 > args.max_len:
         ap.error(f"--system-prompt {args.system_prompt} + --prompt "
                  f"{args.prompt} + --steps {args.steps} cannot fit "
@@ -403,9 +541,10 @@ def main(argv: Optional[List[str]] = None):
         ap.error(str(e))
     engine = build_engine(args)
     cfg = engine.model.cfg
-    mb = aot_mod.table_bytes(cfg, args.tasks,
+    n_tasks = engine.num_tasks
+    mb = aot_mod.table_bytes(cfg, n_tasks,
                              engine.tables.element_size()) / 1e6
-    print(f"serving {args.tasks} tasks on {engine.device}; fused tables "
+    print(f"serving {n_tasks} tasks on {engine.device}; fused tables "
           f"{mb:.1f} MB")
 
     if args.static:
@@ -413,7 +552,7 @@ def main(argv: Optional[List[str]] = None):
                 or args.top_p < 1.0:
             print("warning: --static is greedy single-sample only; "
                   "ignoring --temperature/--top-k/--top-p/--samples/--seed")
-        prompts, task_ids = static_batch(args, cfg.vocab_size, args.tasks)
+        prompts, task_ids = static_batch(args, cfg.vocab_size, n_tasks)
         out = engine.generate(prompts, args.steps, task_ids)
         for i in range(args.requests):
             print(f"req {i} task={task_ids[i]}: {out[i].tolist()}")
@@ -427,7 +566,19 @@ def main(argv: Optional[List[str]] = None):
     if args.temperature > 0 or args.samples > 1:
         print(f"sampling: temp={args.temperature} top_k={args.top_k} "
               f"top_p={args.top_p} n={args.samples} (seeded per request)")
-    arrivals = make_arrivals(args, cfg.vocab_size, args.tasks, on_token)
+    try:
+        arrivals = make_arrivals(args, cfg.vocab_size, n_tasks, on_token)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.arrival_trace:
+        if len(arrivals) < args.requests:
+            print(f"arrival trace has {len(arrivals)} entries; truncating "
+                  f"--requests {args.requests} to match")
+        print(f"trace-driven arrivals from {args.arrival_trace} "
+              f"({len(arrivals)} requests)")
+    elif args.arrivals == "bursty":
+        print(f"bursty arrivals: bursts of {args.burst} every "
+              f"{burst_gap(args)} ticks")
     if args.prefill_chunk > 0 and args.layout != "paged":
         print("warning: chunked prefill rides the unified paged serve step; "
               "--layout slots falls back to whole-prompt prefills")
@@ -448,8 +599,10 @@ def main(argv: Optional[List[str]] = None):
     if obs is not None:
         obs.tracer.start()          # nothing without --torch-profile
     try:
-        gave_up, retries, sched = run_with_retries(
-            sched, arrivals, crash_at_tick=args.crash_at_tick,
+        gave_up, retries, drain_report, sched = run_with_retries(
+            sched, arrivals, grace_ticks=args.grace_ticks,
+            max_retries=args.max_retries, backoff=args.backoff,
+            crash_at_tick=args.crash_at_tick,
             make_sched=make_sched if args.journal else None,
             on_token=on_token)
     finally:
@@ -487,10 +640,7 @@ def main(argv: Optional[List[str]] = None):
     else:
         print(f"slot pool: {pool.num_slots} slots x {pool.alloc_len} "
               f"tokens, peak concurrency {sched.peak_running}")
-    if retries or gave_up:
-        print(f"overload: {retries} shed retries (backoff base "
-              f"{BACKOFF}), {len(gave_up)} requests gave up after "
-              f"{MAX_RETRIES} retries {sorted(gave_up)}")
+    print_overload(args, sched, gave_up, retries, drain_report)
     if args.journal:
         j = sched.journal
         print(f"journal {args.journal}: {j.events_written} events, "
@@ -499,6 +649,8 @@ def main(argv: Optional[List[str]] = None):
     if obs is not None and obs.metrics.enabled:
         print_slo(obs, args, sched)
     findings = sched.drain_check()
+    if drain_report is not None:
+        findings = sorted(set(findings) | set(drain_report.leak_findings))
     if findings:
         print("DRAIN FAILED: KV pool leak findings at exit:", file=sys.stderr)
         for f in findings:
@@ -510,6 +662,37 @@ def main(argv: Optional[List[str]] = None):
         print(f"req {rid} task={req.task_id} plen={len(req.prompt)} "
               f"latency={ms:.0f}ms: {req.out}")
     return sched
+
+
+def print_overload(args, sched, gave_up, retries, drain_report) -> None:
+    """The overload and shutdown lines, as the reference launcher prints
+    them: retries and requests that gave up, deadline misses, aborts by
+    reason, the drain report, quarantined requests."""
+    if retries or gave_up or sched.shed or sched.aborted:
+        print(f"overload: {retries} shed retries (backoff base "
+              f"{args.backoff}), {len(gave_up)} requests gave up after "
+              f"{args.max_retries} retries "
+              f"{sorted(gave_up) if gave_up else ''}".rstrip())
+        if sched.deadline_misses:
+            print(f"  {sched.deadline_misses} deadline misses "
+                  f"(--deadline-ticks {args.deadline_ticks}); pages freed "
+                  "at abort")
+        if sched.aborted:
+            reasons = {}
+            for r in sched.aborted.values():
+                reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+            print(f"  aborted in flight: {dict(sorted(reasons.items()))}")
+    if drain_report is not None:
+        shed = drain_report.shed_rids
+        print(f"shutdown(grace={args.grace_ticks}): finished "
+              f"{drain_report.finished}, used {drain_report.grace_ticks_used}"
+              f" grace ticks, released {drain_report.cache_pages_released} "
+              f"cached prefix pages, shed {len(shed)} in-flight "
+              f"{shed if shed else ''}".rstrip())
+    if sched.quarantined:
+        print(f"quarantined {len(sched.quarantined)} poisoned requests "
+              f"{sorted(sched.quarantined)}; their pages were held for "
+              "forensics and released at shutdown")
 
 
 def print_slo(obs: ServeObservability, args, sched) -> None:

@@ -2,7 +2,10 @@
 the synthetic LM stream, from a random backbone (seed 0) and PEFT
 parameters (seed 1), in float32 with TF32 off, through the differentiable
 plain path (``ModelOptions(attn_impl="ref")``). Counterpart of
-``repro.launch.train`` with its defaults. Runs on the card unless
+``repro.launch.train`` with its defaults. The run checkpoints into
+``--ckpt-dir``/<arch> (the reference's format) and resumes from the newest
+checkpoint there, so a second call with more ``--steps`` continues the
+first, bit for bit the run that was never stopped. Runs on the card unless
 ``--device cpu`` is given.
 
     # on a GPU: full-width smollm-360m, AoT with the FC reparametrization
@@ -14,6 +17,9 @@ plain path (``ModelOptions(attn_impl="ref")``). Counterpart of
     # the paper's encoders (roberta-large, deberta-xl) train the same way
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --steps 3 --arch roberta-large --method bitfit
+    # stop after 20 steps, then resume to 30 in another process
+    PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir D --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir D --steps 30
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import aot as aot_mod
 from repro_torch.core import peft as peft_mod
 from repro_torch.data.pipeline import LMStream
@@ -38,8 +45,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         epilog="Not ported yet (ROADMAP A16): the reference's --mesh (a "
-               "data x model device mesh) and --ckpt-dir (checkpoints and "
-               "resume).")
+               "data x model device mesh).")
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--method", default="aot", choices=METHODS)
     ap.add_argument("--aot-mode", default="fc", choices=["fc", "kron"])
@@ -50,6 +56,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-friendly)")
+    ap.add_argument("--ckpt-dir", default="results/launch_train",
+                    help="checkpoints go to (and resume from) DIR/<arch>")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu to run there)")
     return ap
@@ -95,21 +103,28 @@ def lm_stream(args, vocab_size: int) -> LMStream:
                     batch_size=args.batch, seed=0)
 
 
-def train(trainer: Trainer, args, log_every: int = 10) -> TrainLoop:
+def train(trainer: Trainer, args, log_every: int = 10,
+          ckpt: Optional[CheckpointManager] = None) -> TrainLoop:
     """``--steps`` steps on :func:`lm_stream`; the trained state lands in
-    ``trainer.state``. Returns the loop (its ``history`` and
-    ``events``)."""
+    ``trainer.state``. With ``ckpt``, the newest checkpoint there is
+    resumed first and the run saves every ``max(20, steps // 5)`` steps
+    and at its last. Returns the loop (its ``history`` and ``events``)."""
     stream = lm_stream(args, trainer.model.cfg.vocab_size)
     loop = TrainLoop(train_step=trainer.train_step, frozen=trainer.frozen,
-                     stream=stream, log_every=log_every, device=args.device)
-    trainer.state = loop.run(trainer.state, args.steps)
+                     stream=stream, ckpt=ckpt,
+                     ckpt_every=max(20, args.steps // 5),
+                     log_every=log_every, device=args.device)
+    state, start = loop.resume(trainer.state)
+    trainer.state = loop.run(state, args.steps, start_step=start)
     return loop
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parser().parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 as float32
-    loop = train(build(args), args)
+    trainer = build(args)           # refuses a missing card before any file
+    ckpt = CheckpointManager(f"{args.ckpt_dir}/{args.arch}", keep=2)
+    loop = train(trainer, args, ckpt=ckpt)
     for h in loop.history[-3:]:
         print({k: round(v, 4) if isinstance(v, float) else v
                for k, v in h.items()})

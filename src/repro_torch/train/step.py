@@ -148,7 +148,8 @@ def make_train_step(model, tcfg: TrainConfig, *, classify: bool = False):
                 "step": 0}
 
     def train_step(state, frozen, batch, rng):
-        trainable = state["trainable"]
+        # a state restored from a checkpoint holds plain tensors
+        trainable = _requires_grad(state["trainable"], True)
         leaves = T.leaves(trainable)
         with torch.enable_grad():
             loss, metrics = loss_fn(trainable, frozen, batch, rng)

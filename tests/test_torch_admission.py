@@ -553,8 +553,8 @@ def _client_loop(ns, eng, cfg):
         for i in range(12)]
     sched = _sched(ns, eng, num_slots=2, num_blocks=7, max_queue=2)
     if ns is PORT:
-        gave_up, retries, _ = launcher.run_with_retries(sched, arrivals,
-                                                        2, 2)
+        gave_up, retries, _, _ = launcher.run_with_retries(
+            sched, arrivals, max_retries=2, backoff=2)
     else:
         from repro.launch import serve as jlaunch
         gave_up, retries, _, _ = jlaunch.run_with_retries(

@@ -159,12 +159,14 @@ def test_kron_factors_at_the_encoders_vocabularies(vocab):
 
 
 @pytest.mark.parametrize("arch", ENCODERS)
-def test_launcher_trains_an_encoder(arch, capsys):
+def test_launcher_trains_an_encoder(arch, capsys, tmp_path):
     """``launch/train.py --arch`` trains an encoder through the same
-    functions (LM mode, then classifying with a head)."""
+    functions (LM mode, then classifying with a head), from step 0 in a
+    fresh ``--ckpt-dir``."""
     assert launcher.main(["--device", "cpu", "--reduced", "--steps", "3",
                           "--arch", arch, "--method", "aot",
-                          "--aot-mode", "kron"]) == 0
+                          "--aot-mode", "kron",
+                          "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "'step': 2" in out and "events: []" in out
     args = launcher.parser().parse_args(["--device", "cpu", "--reduced",

@@ -14,6 +14,7 @@ import torch
 import repro_torch
 from repro_torch import bridge, configs
 from repro_torch.core import peft as peft_mod
+from repro_torch.launch import export as exporter
 from repro_torch.launch import serve as launcher
 from repro_torch.launch import train as train_launcher
 from repro_torch.models.model import Model
@@ -33,7 +34,7 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.serve.scheduler" in mods and len(mods) >= 20
     for m in ("data.pipeline", "data.tasks", "data.tokenizer", "optim.adamw",
               "optim.schedules", "train.step", "train.loop", "launch.train",
-              "tree"):
+              "tree", "checkpoint.manager", "launch.export"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -78,6 +79,7 @@ ENTRY_POINTS = {
                                                        "--steps", "1"]),
     "train_loop": lambda cfg: TrainLoop(train_step=None, frozen={},
                                         stream=None),
+    "export": lambda cfg: exporter.main(["--reduced"]),
 }
 
 

@@ -454,7 +454,7 @@ def _launcher_crash(ns, eng, cfg, tmp_path, crash_at):
         return _sched(ns, eng, journal=ns.R.RequestJournal(path),
                       max_queue=3)
     if ns is PORT:
-        gave_up, retries, sched = launcher.run_with_retries(
+        gave_up, retries, _, sched = launcher.run_with_retries(
             make(), arrivals, crash_at_tick=crash_at, make_sched=make)
     else:
         from repro.launch import serve as jlaunch

@@ -760,3 +760,108 @@ def test_phase8_served_classifier_gate_rejects_the_zeroed_table(
     ctl = cs.against_float32(zero, plain16, lg_32, lg_0, ids)
     assert cs.rejected(ctl) == {0}
     assert abs(ctl["tasks"][0]["carried"]) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the lifecycle across processes
+# ---------------------------------------------------------------------------
+
+def _overload(monkeypatch, tmp_path, label):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return cs.overload_run(FakeEngine(), cs.overload_args(label, tmp_path))
+
+
+@pytest.mark.parametrize("label", sorted(cs.OVERLOAD_RUNS))
+def test_phase9c_replay_fixes_every_count(monkeypatch, tmp_path, label):
+    """The card's schedule of each 9c run (the launcher's overload flags
+    on phase 5's engine) is the replay's: its counts are
+    OVERLOAD_EXPECT's and every gate holds (no kernel runs here)."""
+    run = _overload(monkeypatch, tmp_path, label)
+    assert run["counts"] == cs.OVERLOAD_EXPECT[label]
+    assert cs.overload_failures(label, run, 0) == []
+
+
+def test_phase9c_runs_exercise_what_they_gate(monkeypatch, tmp_path):
+    """Each run sheds both ways, retries, misses deadlines and leaves work
+    for the drain to shed; one gives up; the bursty run's gap is derived
+    from --rate (bursts of 6 every 12 ticks); the class column of the
+    trace is what the requests carry where it is given."""
+    for label, c in cs.OVERLOAD_EXPECT.items():
+        assert set(c["sheds"]) == {"displaced", "queue_full"}, label
+        assert c["retries"] > 0 and c["deadline_misses"] > 0, label
+        assert c["aborted"]["shutdown"] == c["drain_shed"] > 0, label
+        assert c["drain_grace_used"] == 8, label
+    assert max(c["gave_up"] for c in cs.OVERLOAD_EXPECT.values()) >= 1
+    from repro_torch.launch import serve as launcher
+    args = cs.overload_args("bursty", tmp_path)
+    assert launcher.burst_gap(args) == 12
+    ticks = [t for t, _ in launcher.make_arrivals(args, 49152, 4)]
+    assert ticks[0] <= 1 and ticks[6] >= 12 and ticks[12] >= 24
+    args = cs.overload_args("trace_classes", tmp_path)
+    named = [line.split(",")[1] if "," in line else None
+             for line in cs.OVERLOAD_TRACES["trace_classes"].splitlines()
+             if not line.startswith("#")]
+    got = [r.priority for _, r in launcher.make_arrivals(args, 49152, 4)]
+    assert all(n is None or n == g for n, g in zip(named, got))
+    assert {g for n, g in zip(named, got) if n is None} >= {"standard"}
+    reqs = [r for _, r in launcher.make_arrivals(args, 49152, 4)]
+    assert {r.deadline_ticks for r in reqs if r.priority == "latency"} \
+        == {24}
+    assert {r.deadline_ticks for r in reqs if r.priority != "latency"} \
+        == {None}
+
+
+def test_phase9c_gates_name_each_failure(monkeypatch, tmp_path):
+    run = _overload(monkeypatch, tmp_path, "trace_classes")
+    run["counts"]["retries"] += 1
+    lost = min(run["sched"].finished)
+    run["sched"].finished.pop(lost)
+    run["launches"]["ragged_paged_attention"] = 1
+    run["drain"].leak_findings.append("page 3 leaked")
+    bad = cs.overload_failures("trace_classes", run, 0)
+    assert any("'retries': (5, 4)" in b for b in bad)
+    assert any(b == f"unaccounted requests [{lost}]" for b in bad)
+    assert any("page 3 leaked" in b for b in bad)
+    assert any("ragged_paged_attention launched 1 times" in b for b in bad)
+
+
+def test_phase9a_bitwise_tree_comparison():
+    a = {"trainable": {"w": torch.arange(6.0).reshape(2, 3),
+                       "e": torch.ones(3, dtype=torch.bfloat16)},
+         "step": 30}
+    b = {"trainable": {"w": a["trainable"]["w"].clone(),
+                       "e": a["trainable"]["e"].clone()}, "step": 30}
+    assert cs.tree_bits_equal(a, b) == [] and cs.max_leaf_diff(a, b) == 0
+    b["trainable"]["w"][1, 2] += 1e-6
+    b["step"] = 29
+    assert cs.tree_bits_equal(a, b) == [0, 2]      # jax's order: keys sorted
+    assert cs.max_leaf_diff(a, b) == pytest.approx(1e-6, rel=0.1)
+    b["trainable"]["w"] = b["trainable"]["w"].double()
+    assert 2 in cs.tree_bits_equal(a, b)
+    assert cs.tree_bits_equal(a, {"trainable": a["trainable"]}) == \
+        ["structure"]
+
+
+def test_phase9a_resume_across_processes_on_the_cpu(monkeypatch, tmp_path):
+    """9a end to end on the CPU at reduced widths: two launcher processes
+    (2 steps, then resumed to 3) give 7a's in-process state bitwise, and a
+    state saved and restored in process is bitwise; a state the processes
+    did not reach fails the gate."""
+    from repro_torch.launch import train as trainer
+    flags = ["--device", "cpu", "--reduced"]
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    monkeypatch.setattr(cs, "RESUME_FLAGS", flags)
+    monkeypatch.setattr(cs, "RESUME_STEPS", (2, 3))
+    monkeypatch.setattr(cs, "LIFECYCLE_DIR", tmp_path)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    args = trainer.parser().parse_args(flags + ["--steps", "3"])
+    t = trainer.build(args)
+    trainer.train(t, args)
+    report = {}
+    cs.resume_across_processes(report, t.state)
+    r = report["resume"]
+    assert r["not_bitwise"] == [] and r["round_trip_not_bitwise"] == []
+    assert r["steps_kept"] == [2, 3] and r["final_step"] == 3
+    assert r["bytes"] > 0 and r["failures"] == []
+    assert not (tmp_path / "resume").exists()
+

@@ -471,6 +471,8 @@ def test_train_loop_history_matches_reference_keys(tiny_lm):
 
 
 def test_watchdog_fires_and_ckpt_waits():
+    """The watchdog fires on a stalled step; a run waits for its pending
+    checkpoint writes even when a step raises."""
     import time
     events = []
     wd = ploop.Watchdog(0.2, lambda dt: events.append(dt)).start()
@@ -478,15 +480,28 @@ def test_watchdog_fires_and_ckpt_waits():
     wd.stop()
     assert events, "watchdog did not fire on a stalled step"
     assert not wd._thread.is_alive()
-    with pytest.raises(NotImplementedError, match="A16"):
-        ploop.TrainLoop(train_step=None, frozen={}, stream=None,
-                        ckpt=object(), device="cpu")
+
+    class Ckpt:
+        waited = 0
+
+        def wait(self):
+            self.waited += 1
+
+    def boom(state, frozen, batch, rng):
+        raise RuntimeError("step failed")
+    ckpt = Ckpt()
+    loop = ploop.TrainLoop(train_step=boom, frozen={}, ckpt=ckpt,
+                           stream=LMStream(8, 4, 1), device="cpu")
+    with pytest.raises(RuntimeError, match="step failed"):
+        loop.run({"step": 0}, 2)
+    assert ckpt.waited == 1
 
 
 @pytest.mark.parametrize("method", ["aot", "ptv1"])
-def test_launcher_trains_on_the_cpu(method, capsys):
+def test_launcher_trains_on_the_cpu(method, capsys, tmp_path):
     assert launcher.main(["--device", "cpu", "--reduced", "--steps", "3",
-                          "--method", method]) == 0
+                          "--method", method,
+                          "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "'step': 2" in out and "events: []" in out
     assert "A16" in launcher.parser().format_help()
