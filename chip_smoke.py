@@ -24,14 +24,18 @@ Phases, each printing one line of results; any failure exits non-zero:
    that the plan puts on the tensor cores: four chunks at unaligned
    offsets, runs of 1 and 5, a run across pages from position 27, a run
    ending at 1023, positions past the table, dead padding between runs; at
-   pages of 16, 8 and 32, hd 60 / 64 / 128 and g 8; the decode_only packing
+   pages of 16, 8 and 32, hd 60 / 64 / 128 and g 8, and at phase 10's
+   heads (h32 kvh8 hd80, h16 kvh16 hd128, h40 kvh8 hd128, as contiguous
+   and paged decode are too); the decode_only packing
    bitwise equal to paged decode with cur_len = pos + 1); flash attention
    (causal, full, window; sq = skv
    in {1, 37, 100, 512, 577}, sq != skv either way, hd 32, 60, 96, 128,
    a strided q, a misaligned q, g 8; full mode at g = 1, the encoders' 16
    heads over 16, at s 1, 37, 384, 512 and 577; queries from an offset
    over sq + offset keys, P-Tuning v2's prefill, with and without a
-   window, and in full mode at g = 1); both gather-adds in their plain
+   window, and in full mode at g = 1; phase 10's decoders' heads: h32
+   kvh8 hd80 causal and with danube's window of 4096 over 6144, h16 kvh16
+   hd128, h40 kvh8 hd128); both gather-adds in their plain
    mode (no norm: the encoders' post-LN blocks) at d 1024 and the
    encoders' vocabularies 50265 and 128100, bitwise;
    contiguous decode (scalar and per-row lengths with 0, 1 and ragged
@@ -57,7 +61,10 @@ Phases, each printing one line of results; any failure exits non-zero:
    stream's prefill); the ragged kernel's plan (host microseconds per
    tick, items); at the encoders' shapes, flash in full mode at g = 1
    over (8, 384) and (1, 512) beside SDPA, and the plain-mode gather-adds
-   at T 3072, d 1024;
+   at T 3072, d 1024; at phase 10's, flash over (1, 6144) at danube's
+   heads with its window of 4096 beside SDPA with a bool mask, decode over
+   danube's full ring (b 4, S 4096) beside SDPA with a length mask, the
+   fused multi-task gather-add at T 263, d 2560 and 5120;
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -199,13 +206,38 @@ Phases, each printing one line of results; any failure exits non-zero:
    check, then served through the launcher's functions with --load in
    bf16 on 7c's stream: every token equal to 7c's in-memory serve, every
    request finished, drained clean, 32 launches per tick; seconds to
-   write, load and stage, peak memory reported.
+   write, load and stage, peak memory reported;
+10. the decoder variants at full width in bf16, random weights (seed 0),
+   fabricated tables drawn layer by layer on the card, each part's memory
+   freed before the next: 10a h2o-danube-1.8b (24 layers, 4 tasks,
+   max_len 8192, so a 4096-row ring): a static batch of 4 prompts of 6144
+   (one task each), 32 greedy steps through ServeEngine.generate (the
+   cache 4096 rows; exact launches; the decode over the ring, teacher-
+   forced with generate's tokens, must pick exactly those tokens, and its
+   logits per prompt must be within BF16_FACTOR times the bf16 whole
+   pass's error of a float32 whole-sequence pass with the window and
+   carry the window's effect within CARRY_TOL, while the bf16 pass with
+   no window, the control, must fail that in every prompt; the decode
+   against the bf16 whole pass is reported, not gated),
+   a slots stream of 8 requests of 3000-6000 tokens (buckets 4096 and
+   8192: past the window) with 16-48 new tokens on 4 slots (every request
+   finished, exact launches, each request's tokens equal to its prompt
+   served alone but at a near tie), --layout paged refused with
+   InvalidConfig; 10b olmo-1b (16 layers, 4 tasks) and 10c qwen2.5-14b (8
+   of its 48 layers: one bf16 table at full depth is 75 GB; 2 tasks, QKV
+   biases seeded non-zero): phase 5's paged chunked stream (16 / 8
+   requests, greedy: every request finished, drained clean, exact
+   launches, each request's tokens equal to its prompt served alone but
+   at a near tie) and 5c's static mixed batch (16 x 512 + 64 / 4 x 512 +
+   32; exact launches); tokens/s, peak memory, seconds and launches
+   reported.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
 path's, phase 9's ``overload_*`` and ``lifecycle_load_serve`` among them;
 ``encoder``: phase 4's times at the encoders' shapes and the launches of
-one phase 8a call) and ``{"ok": true, "device": {...}}``. Details go to
+one phase 8a call; ``decoders``: phase 4's times at phase 10's shapes and
+the launches of the phase 10 path ``DEC_PATH`` names) and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -234,6 +266,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 H, KVH, HD, BS = 15, 5, 64, 16     # smollm-360m attention, page size
 ENC_HEADS = (16, 16)               # roberta-large / deberta-xl: g = 1
 ENC_D, ENC_VOCABS = 1024, (50265, 128100)   # their width and vocabularies
+DANUBE_HEADS, OLMO_HEADS, QWEN_HEADS = (32, 8), (16, 16), (40, 8)
 SLOTS, MAX_LEN = 8, 1024
 NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
@@ -615,7 +648,12 @@ PARITY_VARIANTS = {"vec": (HD, False, (H, KVH)),
                    "vec_hd128": (128, False, (H, KVH)),
                    "scalar_hd60": (60, False, (H, KVH)),
                    "scalar_misaligned": (HD, True, (H, KVH)),
-                   "vec_g8": (HD, False, (8, 1))}
+                   "vec_g8": (HD, False, (8, 1)),
+                   # phase 10's decoders: danube hd 80 at g 4, olmo hd 128
+                   # at g 1, qwen2.5 hd 128 at g 5 (the g 8 build)
+                   "danube_hd80": (80, False, DANUBE_HEADS),
+                   "olmo_hd128": (128, False, OLMO_HEADS),
+                   "qwen_hd128": (128, False, QWEN_HEADS)}
 PARITY_BS = (16, 8, 32)
 
 
@@ -845,6 +883,14 @@ FLASH_CASES = {
     "full_g1_384": (8, 384, 384, HD, False, 0, False, ENC_HEADS),
     "full_g1_512": (1, 512, 512, HD, False, 0, False, ENC_HEADS),
     "full_g1_577": (1, 577, 577, HD, False, 0, False, ENC_HEADS),
+    # phase 10's decoders: h2o-danube-1.8b (h32 kvh8 hd80: hd padded to
+    # the 128 build), causal and its window of 4096 over 6144; olmo-1b
+    # (h16 kvh16 hd128, g 1), qwen2.5-14b (h40 kvh8 hd128, g 5)
+    "danube_causal_577": (1, 577, 577, 80, True, 0, False, DANUBE_HEADS),
+    "danube_window4096_6144": (1, 6144, 6144, 80, True, 4096, False,
+                               DANUBE_HEADS),
+    "olmo_causal_577": (1, 577, 577, 128, True, 0, False, OLMO_HEADS),
+    "qwen_causal_577": (1, 577, 577, 128, True, 0, False, QWEN_HEADS),
 }
 
 
@@ -906,7 +952,9 @@ def parity_flash(gen, report):
             cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
     log("3 parity", kernel="flash_attention",
         shapes="h15 kvh5 hd32|60|64|96|128, h8 kvh1 hd64, h16 kvh16 hd64 "
-        "(full); sq 1-577; q_offset 20|37", max_abs_err=",".join(cases))
+        "(full); h32 kvh8 hd80 (window 4096 over 6144), h16 kvh16 hd128, "
+        "h40 kvh8 hd128; sq 1-6144; q_offset 20|37",
+        max_abs_err=",".join(cases))
 
 
 DECODE_LENS = [0, 1, 33, 255, 256, 577, 1000, 1024]   # per row, S = 1024
@@ -1287,9 +1335,12 @@ def phase_times(gen, report):
     report["times"]["ragged_paged_attention"] = res
     rows_out += times_prefill_decode(gen, report)
     enc = times_encoder(gen, report)
+    dec = times_decoders(gen, report)
     for row in rows_out:
         if row["name"] in enc:
             row["encoder"] = enc[row["name"]]
+        if row["name"] in dec:
+            row["decoders"] = dec[row["name"]]
     return rows_out
 
 
@@ -1362,6 +1413,96 @@ def times_encoder(gen, report):
         mode="plain (encoders)", **{k: fmt_times(r) + "[bytes; library none]"
                                     for k, r in gathers.items()})
     report["times"]["encoder"] = dict(flash=flash, gathers=gathers)
+    return out
+
+
+def times_decoders(gen, report):
+    """The kernels at phase 10's new shapes, bf16: flash over one prompt
+    of 6144 at danube's heads (h32 kvh8 hd80) with its window of 4096,
+    beside SDPA with a bool mask; contiguous decode over danube's full
+    ring (b 4, S 4096) beside SDPA with a length mask; the multi-task
+    gather-add fused with the norm at d 2560 (danube, 4 tasks of V 32000)
+    and d 5120 (qwen2.5, 2 tasks of V 152064), T 263. Inputs rotate over
+    8 sets (decode: ROTATE layers). Returns {kernel: {shape: numbers}} for
+    the kernels line's ``decoders`` entries (launches added by phase
+    10)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import aot_bias
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es = torch.bfloat16, 2
+    (h, kvh), hd, out = DANUBE_HEADS, 80, {}
+    # ---- flash: (1, 6144) causal with the window of 4096
+    s, window = 6144, 4096
+    qs = [flash_inputs(gen, 1, s, s, hd, dt, heads=DANUBE_HEADS)
+          for _ in range(4)]
+    kern = lambda i: ops.flash_attention(*qs[i % 4], window=window)
+    plain = lambda i: fa.flash_attention_plain(*qs[i % 4], window=window)
+    r = timed(kern, plain, 16, 2, tol=TOL[dt])
+    pos = torch.arange(s, device=DEV)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    sdpa = lambda i: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in qs[i % 4]), attn_mask=mask,
+        enable_gqa=True)
+    r["library_ms"] = device_ms(sdpa, 16)          # yardstick only
+    pairs = h * int(mask.sum().item())              # visible (head, q, kv)
+    r["bound_ms"], r["bound_by"] = bound(s * (2 * h + 2 * kvh) * hd * es,
+                                         4 * hd * pairs, dt)
+    out["flash_attention"] = {"danube_b1_s6144_window4096": dict(
+        shape="b1 s6144 h32 kvh8 hd80 causal window 4096", **_enc_row(r))}
+    log("4 times", kernel="flash_attention", mode="window 4096 (danube)",
+        b1_s6144=fmt_times(r) + f"[{r['bound_by']}; library "
+        f"{r['library_ms']:.5f}]")
+    del qs, mask
+    # ---- contiguous decode over the full ring: b 4, S = cur = 4096
+    S = window
+    q, k, v, cur = decode_inputs(gen, [S] * 4, dt, hd, layers=ROTATE, S=S,
+                                 heads=DANUBE_HEADS)
+    layer = lambda i: (k[i % ROTATE], v[i % ROTATE])
+    kern = lambda i: ops.decode_attention(q, *layer(i), cur)
+    plain = lambda i: da.decode_attention_plain(q, *layer(i), cur)
+    r = timed(kern, plain, 64, 16, tol=TOL[dt])
+    mask = (torch.arange(S, device=DEV)[None, :]
+            < cur[:, None])[:, None, None, :]
+    sdpa = lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *(x.transpose(1, 2) for x in layer(i)),
+        attn_mask=mask, enable_gqa=True)
+    r["library_ms"] = device_ms(sdpa, 64)          # yardstick only
+    n_kv = 4 * S
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * 4 * h * hd * es + 2 * n_kv * kvh * hd * es + 16, 4 * hd * h * n_kv,
+        dt)
+    out["decode_attention"] = {"danube_ring_b4_S4096": dict(
+        shape="b4 h32 kvh8 hd80 S4096 (the ring, full)", **_enc_row(r))}
+    log("4 times", kernel="decode_attention", mode="ring (danube)",
+        b4_S4096=fmt_times(r) + f"[{r['bound_by']}; library "
+        f"{r['library_ms']:.5f}]")
+    del q, k, v
+    # ---- the fused multi-task gather-add at d 2560 and 5120
+    gathers = {}
+    for d, (n_tasks, vocab) in ((2560, (4, 32000)), (5120, (2, 152064))):
+        tables = (torch.randn(n_tasks, vocab, d, generator=gen, device=DEV,
+                              dtype=dt) * 0.02)
+        hh, tasks, ids = gather_inputs(gen, 263, dt, tables, sets=8)
+        args = lambda i: (hh, tables, tasks[i % 8], ids[i % 8])
+        r = times_gather_norm(
+            gen, hh, lambda i, **kw: ops.aot_gather_add_multitask(*args(i),
+                                                                  **kw),
+            lambda i, **kw: aot_bias.aot_gather_add_multitask_plain(
+                *args(i), **kw), 200)
+        r["library_ms"], r["bound_by"] = None, "bytes"
+        gathers[f"d{d}"] = r
+        out.setdefault("aot_gather_add_multitask", {})[f"T263_d{d}"] = dict(
+            shape=f"T263 d{d} {n_tasks} tasks of V{vocab} +norm",
+            **_enc_row(r), replaced_ms=r["replaced_ms"],
+            library_norm_ms=r["library_norm_ms"])
+        del tables, hh
+    log("4 times", kernel="aot_gather_add_multitask", fused="norm",
+        mode="decoders", **{k: fmt_gather_norm(r)
+                            for k, r in gathers.items()})
+    report["times"]["decoders"] = dict(out)
     return out
 
 
@@ -2920,6 +3061,34 @@ def static_batch(engine):
     return prompts, rng.integers(0, engine.num_tasks, 16).astype(np.int32)
 
 
+def counted(label, counts, fn):
+    """fn() with every kernel count zeroed first; its counts go into
+    ``counts[label]``. Returns (fn's result, seconds)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts[label] = dict(ops.launches())
+    return out, sec
+
+
+def static_mixed(engine, label, prompts, task_ids, steps, counts):
+    """One static mixed batch through ``ServeEngine.generate``, counted
+    (:func:`counted`) and held to its launches: a flash per layer for the
+    prefill, a decode per layer and step, a gather-add per layer for the
+    prefill and for each step. Returns (tokens, seconds)."""
+    layers = engine.model.cfg.num_layers
+    out, sec = counted(label, counts,
+                       lambda: engine.generate(prompts, steps, task_ids))
+    check_launches(label, counts[label], {
+        "flash_attention": layers, "decode_attention": layers * steps,
+        "aot_gather_add_multitask": layers * (1 + steps)})
+    return out, sec
+
+
 def phase_static(report, engine):
     """The paper's Fig. 3 setting at full width: one static batch of 16
     prompts of 512 tokens with mixed task ids, 64 greedy tokens each,
@@ -2927,7 +3096,6 @@ def phase_static(report, engine):
     the same prompts as per-task batches, each on an engine holding that
     task's table alone (benchmarks/multitask_throughput.py's sequential
     baseline); and the mixed batch over a paged pool (paged decode)."""
-    from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeEngine
     layers = engine.model.cfg.num_layers
     n_tasks = engine.num_tasks
@@ -2936,22 +3104,17 @@ def phase_static(report, engine):
     engine.generate(prompts[:2], 2, task_ids[:2])        # warm-up
     res, counts = {}, {}
 
-    def run(label, fn):
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        counts[label] = dict(ops.launches())
+    def timed(label, out_sec):
+        out, sec = out_sec
         res[label] = dict(seconds=sec, tokens_per_s=b * steps / sec)
         return out
 
-    mixed = run("static_mixed", lambda: engine.generate(prompts, steps,
-                                                        task_ids))
-    check_launches("static_mixed", counts["static_mixed"], {
-        "flash_attention": layers, "decode_attention": layers * steps,
-        "aot_gather_add_multitask": layers * (1 + steps)})
+    def run(label, fn):
+        return timed(label, counted(label, counts, fn))
+
+    mixed = timed("static_mixed", static_mixed(engine, "static_mixed",
+                                               prompts, task_ids, steps,
+                                               counts))
 
     def per_task():
         outs = np.zeros_like(mixed)
@@ -3860,11 +4023,11 @@ def trained_launches(layers, dispatched):
 
 def cast_backbone(params, dtype, norm=False):
     """The backbone in ``dtype``, the norms' parameters (RMSNorm's scale,
-    LayerNorm's scale and bias: the subtrees ``bridge.NORMS``) kept in
-    float32 as ``Model.init`` keeps them."""
-    from repro_torch.bridge import NORMS
+    LayerNorm's scale and bias) and the QKV biases (the subtrees
+    ``bridge.FLOAT32``) kept in float32 as ``Model.init`` keeps them."""
+    from repro_torch.bridge import FLOAT32
     if isinstance(params, dict):
-        return {k: cast_backbone(v, dtype, norm or k in NORMS)
+        return {k: cast_backbone(v, dtype, norm or k in FLOAT32)
                 for k, v in params.items()}
     if isinstance(params, list):
         return [cast_backbone(v, dtype, norm) for v in params]
@@ -4951,6 +5114,384 @@ def phase_encoders(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the decoder variants at full width (h2o-danube-1.8b's sliding
+# window over its ring, olmo-1b's non-parametric LayerNorm, qwen2.5-14b's
+# QKV bias)
+# ---------------------------------------------------------------------------
+
+DEC_TABLE_SCALE = 0.02          # the fabricated tables' normals
+# 10a: danube at all 24 layers, 4 tasks, max_len 8192 (a ring of 4096 rows)
+DANUBE = dict(arch="h2o-danube-1.8b", layers=0, tasks=4, max_len=8192,
+              static=(4, 6144, 32), slots=4, requests=8,
+              prompt=(3000, 6000), new=(16, 48))
+# 10b / 10c: phase 5's paged chunked stream and 5c's static mixed batch;
+# qwen2.5 cut to 8 of its 48 layers (one bf16 table at full depth is 75 GB)
+PAGED_DECODERS = {
+    "olmo": dict(arch="olmo-1b", layers=0, tasks=4, requests=16,
+                 static=(16, 512, 64)),
+    "qwen": dict(arch="qwen2.5-14b", layers=8, tasks=2, requests=8,
+                 static=(4, 512, 32)),
+}
+# the phase 10 run whose count rides with each kernel's phase 4 times at
+# phase 10's shapes (``decoders``)
+DEC_PATH = {"flash_attention": "decoder_danube_static",
+            "decode_attention": "decoder_danube_static",
+            "aot_gather_add_multitask": "decoder_qwen_paged"}
+
+
+def fabricated_tables(cfg, n_tasks, dtype, seed=0):
+    """Stacked fused tables (L, tasks, V, d) in ``dtype``, each (V, d)
+    slice drawn in place on the card as normals x DEC_TABLE_SCALE (a
+    float32 draw of qwen2.5's 8 x 152064 x 5120 table would be a 25 GB
+    temporary)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    t = torch.empty(cfg.num_layers, n_tasks, cfg.vocab_size, cfg.d_model,
+                    dtype=dtype, device=DEV)
+    for layer in range(cfg.num_layers):
+        for task in range(n_tasks):
+            t[layer, task].normal_(0.0, DEC_TABLE_SCALE, generator=gen)
+    return t
+
+
+def decoder_engine(spec, max_len):
+    """A ServeEngine over ``spec``'s arch (cut to ``spec["layers"]`` when
+    set) in bf16, random weights (seed 0), QKV biases (where the config
+    has them) drawn as normals x 0.1 from a seeded generator (zero biases
+    would hide a missing add), and ``spec["tasks"]`` fabricated tables."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model, ModelOptions
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    cfg = configs.get(spec["arch"])
+    if spec["layers"]:
+        cfg = cfg.replace(num_layers=spec["layers"])
+    dt = torch.bfloat16
+    model = Model(cfg, ModelOptions(dt, dt), device=DEV)
+    params = model.init(0)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        for lp in params["layers"]:
+            for b in ("bq", "bk", "bv"):
+                lp["attn"][b].normal_(0.0, 0.1, generator=gen)
+    tables = fabricated_tables(cfg, spec["tasks"], dt)
+    return ServeEngine(model, params, ServeConfig(max_len=max_len),
+                       fused_tasks={"table": tables})
+
+
+def divergence(got, want, lgs):
+    """A stream's greedy tokens ``got`` against the same prompt's tokens
+    served alone ``want``, with ``lgs`` (n, V) float32 the alone run's
+    logits that picked them: None when equal; else (the first index that
+    differs, the gap in ``lgs`` there between ``want``'s token and
+    ``got``'s, whether it is a near tie: within two LOGIT_TOL tolerances
+    at the top logit's magnitude, phase 6's rule). Past the first
+    difference the two continue from other tokens and are not compared."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            row = lgs[j]
+            gap = (row[b] - row[a]).item()
+            tol = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * row[b].abs().item()
+            return j, gap, gap <= 2 * tol
+    if len(got) != len(want):
+        return min(len(got), len(want)), float("inf"), False
+    return None
+
+
+def stream_vs_alone(engine, finished):
+    """Each finished request's tokens against its prompt served alone
+    (``Model.prefill`` of the exact prompt, then greedy decode steps with
+    the logits kept): (requests equal, [(rid, index, gap)] near-tie
+    divergences, [(rid, index, gap)] divergences that are not near
+    ties)."""
+    model, params = engine.model, engine.params
+    equal, ties, bad = 0, [], []
+    for rid, req in sorted(finished.items()):
+        toks = torch.as_tensor(np.asarray(req.prompt)[None],
+                               dtype=torch.int32, device=DEV)
+        peft = engine._peft(torch.full((1,), req.task_id, dtype=torch.int32,
+                                       device=DEV))
+        logits, cache, pos = model.prefill(params, toks, peft,
+                                           max_len=engine.cache_len)
+        lgs, alone = greedy_decode(model, params, logits, cache, pos, peft,
+                                   len(req.out))
+        del cache
+        d = divergence([int(t) for t in req.out], alone[0].tolist(),
+                       lgs[:, 0])
+        if d is None:
+            equal += 1
+        else:
+            (ties if d[2] else bad).append((rid, d[0], round(d[1], 5)))
+    return equal, ties, bad
+
+
+def decoder_static(engine, label, shape, counts, seed=0):
+    """5c's static mixed batch of ``shape`` = (b, prompt, steps) through
+    ``ServeEngine.generate``, tasks assigned in turn; its launch gate.
+    Returns (prompts, task ids, tokens, tokens/s)."""
+    b, s, steps = shape
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, engine.model.cfg.vocab_size,
+                           (b, s)).astype(np.int32)
+    task_ids = (np.arange(b) % engine.num_tasks).astype(np.int32)
+    engine.generate(prompts[:1, :64], 2, task_ids[:1])          # warm-up
+    out, sec = static_mixed(engine, label, prompts, task_ids, steps, counts)
+    return prompts, task_ids, out, b * steps / sec
+
+
+def whole_logits(model, params, seq, peft, s):
+    """``Model.logits`` over ``seq`` (b, s + steps), unembedded only at the
+    positions s - 1 .. that picked the generated tokens: (steps + 1, b, V)
+    float32."""
+    h = model.forward(params, seq, peft)
+    return model.unembed(params, h[:, s - 1:]).float().transpose(0, 1)
+
+
+def ring_vs_window(model, params, tables, seq, s, lg_dec, peft):
+    """10a's gate on the decode steps' logits ``lg_dec`` (steps + 1, b, V)
+    of the prompts in ``seq`` (prompt i served with task i), as 7c's
+    ``against_float32``: per prompt, against the float32 whole-sequence
+    pass with the window (``ref32``), within BF16_FACTOR times the bf16
+    whole-sequence pass's error, and carrying the window's effect (ref32
+    less the float32 pass with no window) within CARRY_TOL; the bf16 pass
+    with no window as a control that must fail in every prompt (a ring
+    that dropped the window). LOGIT_TOL does not hold between two bf16
+    orders of 24 layers (PERF.md, section 6), so the comparison of the
+    decode with the bf16 whole pass is reported (``vs_whole``), not
+    gated."""
+    from repro_torch.models.model import Model, ModelOptions
+    cfg, f32 = model.cfg, torch.float32
+    nowin = Model(cfg.replace(attn_kind="full"), model.opts, device=DEV)
+    lg_whole = whole_logits(model, params, seq, peft, s)
+    lg_nowin = whole_logits(nowin, params, seq, peft, s)
+    m32 = Model(cfg, ModelOptions(f32, f32), device=DEV)
+    n32 = Model(cfg.replace(attn_kind="full"), ModelOptions(f32, f32),
+                device=DEV)
+    p32 = cast_backbone(params, f32)
+    ref32, base32 = [], []
+    for i in range(seq.shape[0]):
+        one = tasks_peft(tables[:, i:i + 1].float(),
+                         torch.zeros(1, dtype=torch.int32, device=DEV))
+        ref32.append(whole_logits(m32, p32, seq[i:i + 1], one, s))
+        base32.append(whole_logits(n32, p32, seq[i:i + 1], one, s))
+        del one
+    del p32
+    rows = lambda x: x.reshape(-1, x.shape[-1])
+    ref32, base32 = torch.cat(ref32, 1), torch.cat(base32, 1)
+    ids = list(range(seq.shape[0])) * lg_dec.shape[0]
+    res = against_float32(rows(lg_dec), rows(lg_whole), rows(ref32),
+                          rows(base32), ids)
+    control = against_float32(rows(lg_nowin), rows(lg_whole), rows(ref32),
+                              rows(base32), ids)
+    res["vs_whole"] = against_plain(lg_dec, lg_whole)
+    res["control_rejected"] = sorted(rejected(control))
+    res["control"] = control
+    res["ok"] = res["ok"] and len(rejected(control)) == seq.shape[0]
+    return res
+
+
+def decoder_danube(report):
+    """10a: danube at full width and depth. The static mixed batch (4
+    prompts of 6144, one task each, 32 greedy steps through
+    ``ServeEngine.generate``): a 4096-row ring, exact launches, the decode
+    over the ring teacher-forced with generate's tokens picking exactly
+    those tokens, and its logits held by :func:`ring_vs_window` (against
+    a float32 whole pass with the window, the no-window bf16 pass as a
+    control that must fail). The slots stream (8 requests
+    of 3000-6000 tokens, buckets of 4096 and 8192: past the window, the
+    C7 case): every request finished, exact launches, each request's
+    tokens equal to its prompt's served alone but at near ties. The paged
+    layout refused with the scheduler's error."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.scheduler import InvalidConfig, Request
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec, counts, failures = DANUBE, {}, []
+    engine = decoder_engine(spec, spec["max_len"])
+    model, params, cfg = engine.model, engine.params, engine.model.cfg
+    layers, window = cfg.num_layers, model.window()
+    setup_s = time.perf_counter() - t0
+    # ---- the static mixed batch
+    prompts, task_ids, out, static_tps = decoder_static(
+        engine, "decoder_danube_static", spec["static"], counts)
+    b, s, steps = spec["static"]
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=DEV)
+    gen_toks = torch.as_tensor(out, dtype=torch.int32, device=DEV)
+    peft = engine._peft(torch.as_tensor(task_ids, device=DEV))
+    logits, cache, pos = model.prefill(params, toks, peft,
+                                       max_len=engine.cache_len)
+    rows = cache["k"].shape[2]
+    if rows != window:
+        failures.append(f"ring of {rows} rows, not {window}")
+    lg_dec, _ = greedy_decode(model, params, logits, cache, pos, peft,
+                              steps, forced=gen_toks)
+    del cache, logits
+    if not torch.equal(lg_dec[:-1].argmax(-1).T.int(), gen_toks):
+        failures.append("teacher-forced decode disagrees with generate")
+    seq = torch.cat([toks, gen_toks], 1)
+    window_gate = ring_vs_window(model, params, engine.tables, seq, s,
+                                 lg_dec, peft)
+    del lg_dec
+    if not window_gate["ok"]:
+        failures.append(f"decode over the ring vs the window: "
+                        f"{window_gate}")
+    # ---- the slots stream
+    rng = np.random.default_rng(10)
+    lo, hi = spec["prompt"]
+    arrivals = []
+    for i in range(spec["requests"]):
+        arrivals.append((i // 2, Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, int(
+                rng.integers(lo, hi + 1))).astype(np.int32),
+            task_id=int(rng.integers(0, spec["tasks"])),
+            max_new_tokens=int(rng.integers(spec["new"][0],
+                                            spec["new"][1] + 1)))))
+    flags = ["--arch", spec["arch"], "--demo", "--tasks",
+             str(spec["tasks"]), "--slots", str(spec["slots"]),
+             "--max-len", str(spec["max_len"]), "--dtype", "bfloat16",
+             "--quiet", "--requests", str(spec["requests"])]
+    args = launcher.parser().parse_args(flags + ["--layout", "slots",
+                                                 "--prefill-chunk", "0"])
+    d0 = engine.dispatches
+    sched, slots_s = counted("decoder_danube_slots", counts,
+                             lambda: launcher.serve(engine, args, arrivals))
+    dispatched = engine.dispatches - d0
+    n_pre = len(arrivals) + sched.preemptions
+    buckets = sorted({sched._bucket(len(r.prompt)) for _, r in arrivals})
+    if len(sched.finished) != len(arrivals) or sched.drain_check():
+        failures.append(f"slots: {len(sched.finished)}/{len(arrivals)} "
+                        f"finished, {sched.drain_check()}")
+    try:
+        check_launches("decoder_danube_slots",
+                       counts["decoder_danube_slots"], {
+            "flash_attention": layers * n_pre,
+            "decode_attention": layers * (dispatched - n_pre),
+            "aot_gather_add_multitask": layers * dispatched})
+    except AssertionError as e:
+        failures.append(str(e))
+    equal, ties, bad = stream_vs_alone(engine, sched.finished)
+    if bad:
+        failures.append(f"slots vs alone: divergences past a near tie {bad}")
+    try:
+        launcher.make_scheduler(engine, launcher.parser().parse_args(
+            flags + ["--layout", "paged"]))
+        paged = "accepted"
+        failures.append("kv_layout='paged' accepted an SWA config")
+    except InvalidConfig as e:
+        paged = f"InvalidConfig({e})"
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in sched.finished.values())
+    log("10a danube", layers=layers, window=window, ring_rows=rows,
+        setup_s=f"{setup_s:.1f}", static=f"{b}x{s}+{steps}",
+        static_tokens_per_s=f"{static_tps:.1f}",
+        decode_vs_whole=verdict(window_gate["vs_whole"]),
+        vs_float32=f32_text(window_gate),
+        control_rejected=window_gate["control_rejected"],
+        slots_requests=f"{len(sched.finished)}/{len(arrivals)}",
+        slots_buckets=buckets, slots_tokens=tokens,
+        slots_tokens_per_s=f"{tokens / slots_s:.1f}",
+        slots_ticks=sched.ticks, dispatched=dispatched,
+        slots_vs_alone=f"{equal}/{len(sched.finished)} equal",
+        near_tie_divergences=ties, paged=paged,
+        peak_memory_gib=f"{peak:.2f}", seconds=f"{sec:.1f}",
+        launches=counts, failures=failures or "none")
+    report["decoders"]["danube"] = dict(
+        setup_s=setup_s, ring_rows=rows, static_tokens_per_s=static_tps,
+        window_gate=window_gate, slots_tokens_per_s=tokens / slots_s,
+        slots_buckets=buckets, slots_equal=equal, near_ties=ties,
+        divergences=bad, paged=paged, peak_memory_gib=peak, seconds=sec,
+        launches=counts, failures=failures)
+    if failures:
+        raise AssertionError(f"10a danube: {failures}")
+    return counts
+
+
+def decoder_paged(report, name):
+    """10b / 10c: ``PAGED_DECODERS[name]`` on phase 5's paged chunked
+    stream (greedy; every request finished, drained clean, exact launches
+    per tick, each request's tokens equal to its prompt's served alone but
+    at near ties) and 5c's static mixed batch (exact launches)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launcher
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec, counts, failures = PAGED_DECODERS[name], {}, []
+    engine = decoder_engine(spec, MAX_LEN)
+    cfg = engine.model.cfg
+    layers = cfg.num_layers
+    setup_s = time.perf_counter() - t0
+    flags = list(BASE)
+    flags[flags.index("--arch") + 1] = spec["arch"]
+    flags[flags.index("--tasks") + 1] = str(spec["tasks"])
+    args = launcher.parser().parse_args(flags + ["--requests",
+                                                 str(spec["requests"])])
+    arrivals = launcher.make_arrivals(args, cfg.vocab_size, spec["tasks"])
+    label = f"decoder_{name}_paged"
+    d0 = engine.dispatches
+    sched, stream_s = counted(label, counts,
+                              lambda: launcher.serve(engine, args, arrivals))
+    dispatched = engine.dispatches - d0
+    if len(sched.finished) != len(arrivals) or sched.drain_check():
+        failures.append(f"{len(sched.finished)}/{len(arrivals)} finished, "
+                        f"{sched.drain_check()}")
+    try:
+        check_launches(label, counts[label], {
+            "aot_gather_add_multitask": layers * dispatched,
+            "ragged_paged_attention": layers * dispatched})
+    except AssertionError as e:
+        failures.append(str(e))
+    equal, ties, bad = stream_vs_alone(engine, sched.finished)
+    if bad:
+        failures.append(f"stream vs alone: divergences past a near tie "
+                        f"{bad}")
+    _, _, _, static_tps = decoder_static(engine, f"decoder_{name}_static",
+                                         spec["static"], counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec = time.perf_counter() - t0
+    phase = "10b" if name == "olmo" else "10c"
+    full = configs.get(spec["arch"]).num_layers
+    log(f"{phase} {name}", arch=spec["arch"], layers=layers,
+        cut=f"{layers} of {full} layers" if layers < full else "none",
+        tasks=spec["tasks"],
+        setup_s=f"{setup_s:.1f}",
+        requests=f"{len(sched.finished)}/{len(arrivals)}",
+        tokens=sched.tokens_emitted, ticks=sched.ticks,
+        dispatched=dispatched,
+        tokens_per_s=f"{sched.tokens_emitted / stream_s:.1f}",
+        stream_vs_alone=f"{equal}/{len(sched.finished)} equal",
+        near_tie_divergences=ties,
+        static=f"{spec['static'][0]}x{spec['static'][1]}+"
+        f"{spec['static'][2]}", static_tokens_per_s=f"{static_tps:.1f}",
+        peak_memory_gib=f"{peak:.2f}", seconds=f"{sec:.1f}",
+        launches=counts, failures=failures or "none")
+    report["decoders"][name] = dict(
+        setup_s=setup_s, tokens_per_s=sched.tokens_emitted / stream_s,
+        ticks=sched.ticks, stream_equal=equal, near_ties=ties,
+        divergences=bad, static_tokens_per_s=static_tps,
+        peak_memory_gib=peak, seconds=sec, launches=counts,
+        failures=failures)
+    if failures:
+        raise AssertionError(f"{phase} {name}: {failures}")
+    return counts
+
+
+def phase_decoders(report):
+    """Phase 10 (10a-10c), each part's memory freed before the next;
+    returns the launches by path."""
+    t0 = time.perf_counter()
+    report["decoders"] = {}
+    launches = {}
+    for part in (lambda: decoder_danube(report),
+                 lambda: decoder_paged(report, "olmo"),
+                 lambda: decoder_paged(report, "qwen")):
+        launches.update(part())
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["decoders"]["seconds"] = time.perf_counter() - t0
+    log("10 decoders", seconds=f"{report['decoders']['seconds']:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4997,6 +5538,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_encoders(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_decoders(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]
@@ -5007,6 +5551,9 @@ def main() -> int:
                                  f"{MAIN_PATH[row['name']]}")
         if "encoder" in row:                # phase 8's path
             row["encoder"]["launches"] = launches[ENC_PATH[row["name"]]][
+                row["name"]]
+        if "decoders" in row:               # phase 10's path
+            row["decoders"]["launches"] = launches[DEC_PATH[row["name"]]][
                 row["name"]]
     phase_cross_check(report)
     report["kernels"] = kernels

@@ -34,16 +34,18 @@ def _layer_groups(cfg):
     return groups
 
 
-# the subtrees whose leaves (scale, LayerNorm's bias) stay float32
-NORMS = ("ln1", "ln2", "final_norm")
+# the subtrees whose leaves stay float32, as in ``Model.init``: the norms'
+# (scale, LayerNorm's bias; none for the non-parametric norm) and the QKV
+# biases
+FLOAT32 = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
 
 
 def _to_torch(tree, device, dtype, norm=False):
     """numpy leaves -> tensors on ``device``, cast to ``dtype`` when given
-    except under a norm (``norm``, or a key of ``NORMS`` on the way down),
-    whose parameters stay float32 as in ``Model.init``."""
+    except under a key of ``FLOAT32`` (``norm`` on the way down), whose
+    parameters stay float32 as in ``Model.init``."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype, norm or k in NORMS)
+        return {k: _to_torch(v, device, dtype, norm or k in FLOAT32)
                 for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_torch(v, device, dtype, norm) for v in tree]

@@ -6,9 +6,9 @@ Counterparts of the functions of the same names in
 ``repro.models.layers``, with the same tensor layouts: activations
 ``(b, s, d)``, queries ``(b, s, H, hd)``, weights ``(in, out)`` applied as
 ``x @ w``. Matmuls run in the compute dtype; norm statistics and softmax in
-float32. The port covers what smollm-360m and the paper's encoders use:
-RMSNorm and LayerNorm (and the non-parametric norm), SwiGLU and the GELU
-MLP, RoPE; no QKV bias, no q/k norm, no softcap.
+float32. The port covers what its decoders and the paper's encoders use:
+RMSNorm, LayerNorm and the non-parametric norm, SwiGLU, GeGLU and the GELU
+MLP, RoPE, the QKV bias; no q/k norm, no softcap.
 """
 from __future__ import annotations
 
@@ -108,11 +108,12 @@ def apply_rope(x, positions, theta: float, sincos=None):
 
 def mlp_init(cfg, generator, device, dtype=torch.float32):
     """The MLP's parameters, drawn as the reference's ``mlp_init`` draws
-    them: SwiGLU ``wg``, ``wu`` (d, f), ``wd`` (f, d); the GELU MLP ``w1``
-    (d, f), ``w2`` (f, d) and zero biases ``b1`` (f,), ``b2`` (d,)."""
+    them: SwiGLU and GeGLU ``wg``, ``wu`` (d, f), ``wd`` (f, d); the GELU
+    MLP ``w1`` (d, f), ``w2`` (f, d) and zero biases ``b1`` (f,), ``b2``
+    (d,)."""
     d, f = cfg.d_model, cfg.d_ff
     dense = lambda *shape: dense_init(shape, generator, device, dtype)
-    if cfg.mlp_type == "swiglu":
+    if cfg.mlp_type in ("swiglu", "geglu"):
         return {"wg": dense(d, f), "wu": dense(d, f), "wd": dense(f, d)}
     if cfg.mlp_type == "gelu":
         return {"w1": dense(d, f),
@@ -123,14 +124,17 @@ def mlp_init(cfg, generator, device, dtype=torch.float32):
 
 
 def apply_mlp(cfg, p, x, dtype):
-    """SwiGLU: ``(silu(x wg) * (x wu)) wd``; the GELU MLP (BERT's, with
-    biases): ``gelu(x w1 + b1) w2 + b2`` with the tanh GELU
-    (``jax.nn.gelu``'s default)."""
+    """SwiGLU: ``(silu(x wg) * (x wu)) wd``; GeGLU: the same with
+    ``gelu`` for ``silu``; the GELU MLP (BERT's, with biases): ``gelu(x w1
+    + b1) w2 + b2``. Every GELU is the tanh one (``jax.nn.gelu``'s
+    default)."""
     x = x.to(dtype)
-    if cfg.mlp_type == "swiglu":
+    if cfg.mlp_type in ("swiglu", "geglu"):
         g = x @ p["wg"].to(dtype)
         u = x @ p["wu"].to(dtype)
-        return (F.silu(g) * u) @ p["wd"].to(dtype)
+        act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(
+            g, approximate="tanh")
+        return (act * u) @ p["wd"].to(dtype)
     if cfg.mlp_type == "gelu":
         z = F.gelu(x @ p["w1"].to(dtype) + p["b1"].to(dtype),
                    approximate="tanh")
@@ -142,16 +146,37 @@ def apply_mlp(cfg, p, x, dtype):
 # attention
 # ---------------------------------------------------------------------------
 
+def attn_init(cfg, generator, device, dtype=torch.float32):
+    """The attention's parameters: ``wq`` (d, H hd), ``wk`` / ``wv`` (d, KV
+    hd), ``wo`` (H hd, d) drawn as :func:`dense_init`, and with the
+    config's ``qkv_bias`` the float32 zero biases ``bq``, ``bk``, ``bv``,
+    as the reference's ``attn_init``."""
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    dense = lambda *shape: dense_init(shape, generator, device, dtype)
+    p = {"wq": dense(d, h * hd), "wk": dense(d, kvh * hd),
+         "wv": dense(d, kvh * hd), "wo": dense(h * hd, d)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * hd), ("bk", kvh * hd),
+                            ("bv", kvh * hd)):
+            p[name] = torch.zeros(width, dtype=torch.float32, device=device)
+    return p
+
+
 def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None,
                      peft_qkv=None):
     """x: (b, s, d) -> q (b, s, H, hd), k, v (b, s, KV, hd), RoPE applied at
-    ``positions`` (or with their precomputed ``sincos``). ``peft_qkv``:
-    (dq, dk, dv) deltas, each None or (b, s, width), added to the
-    projections before the reshape and RoPE (LoRA's)."""
+    ``positions`` (or with their precomputed ``sincos``). The config's QKV
+    bias is added to the projections first, then ``peft_qkv``: (dq, dk,
+    dv) deltas, each None or (b, s, width) (LoRA's), both before the
+    reshape and RoPE."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = x.to(dtype)
     q, k, v = (x @ p[w].to(dtype) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = (y + p[b_].to(dtype)
+                   for y, b_ in zip((q, k, v), ("bq", "bk", "bv")))
     if peft_qkv is not None:
         q, k, v = (y if dy is None else y + dy.to(dtype)
                    for y, dy in zip((q, k, v), peft_qkv))

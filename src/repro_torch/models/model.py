@@ -15,18 +15,26 @@ entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse it.
 
 Counterpart of ``repro.models.model.Model`` for attention-only stacks:
 pre-norm causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
-serving path's smollm-360m) and the paper's post-LN encoders (LayerNorm,
-the GELU MLP, learned positions, an untied head, full attention:
-roberta-large, deberta-xl), which run the whole-sequence entry points
-only (:func:`check_servable`). Parameters are a plain dict of tensors with
-``params["layers"]`` a list of per-layer dicts in layer order (the bridge
-unpacks the reference's grouped ``(R, U, ...)`` stacking; eager PyTorch
-gains nothing from stacked leaves). A contiguous cache is ``{"k", "v"}`` of
-shape ``(L, b, S, kvh, hd)``; the paged KV pool is ``{"k", "v"}`` of shape
+serving path's smollm-360m; olmo-1b's non-parametric LayerNorm,
+qwen2.5-14b's QKV bias and untied head, h2o-danube-1.8b's sliding window;
+GeGLU and the embeddings' ``sqrt(d)`` scale) and the paper's post-LN
+encoders (LayerNorm, the GELU MLP, learned positions, an untied head,
+full attention: roberta-large, deberta-xl), which run the whole-sequence
+entry points only (:func:`check_servable`). A sliding-window stack's
+contiguous cache is a ring of ``sliding_window`` rows when the window is
+shorter than the cache, as the reference's default: position ``pos``
+lives in row ``pos % sliding_window``, and the paged paths refuse it, as
+the reference's do. Parameters are a plain
+dict of tensors with ``params["layers"]`` a list of per-layer dicts in
+layer order (the bridge unpacks the reference's grouped ``(R, U, ...)``
+stacking; eager PyTorch gains nothing from stacked leaves). A contiguous
+cache is ``{"k", "v"}`` of shape ``(L, b, S, kvh, hd)``; the paged KV
+pool is ``{"k", "v"}`` of shape
 ``(L, num_blocks, block_size, kvh, hd)``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict
 
@@ -49,6 +57,11 @@ TRAINED = ("ft", "ptv1")
 _PTV2_PAGED = ("P-Tuning v2's prefix is not held in the paged pool; serve "
                "ptv2 with static batches over a contiguous cache (the "
                "reference's paged and ragged steps skip the prefix)")
+# the reference's words (repro/models/model.py, _attention's paged branches)
+SWA_PAGED_DECODE = ("paged decode has no sliding-window masking; serve SWA "
+                    "models with the contiguous slot layout")
+SWA_PAGED_TICK = ("paged serving has no sliding-window masking; serve SWA "
+                  "models with the contiguous slot layout")
 
 
 @dataclass(frozen=True)
@@ -62,27 +75,31 @@ class ModelOptions:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise unless the whole-sequence entry points (``forward``,
     ``logits``, ``classify``: serving whole sequences and training) run
-    ``cfg``: an attention-only stack, pre-norm with RMSNorm or post-LN with
-    LayerNorm, a SwiGLU or GELU MLP, RoPE or learned positions, causal or
-    an encoder's full attention."""
+    ``cfg``: an attention-only stack, pre-norm with RMSNorm, LayerNorm or
+    the non-parametric norm, or post-LN with LayerNorm, a SwiGLU, GeGLU or
+    GELU MLP, RoPE or learned positions (embeddings scaled by sqrt(d) or
+    not), an optional QKV bias, causal (full or sliding-window) or an
+    encoder's full attention."""
     bad = []
     if set(cfg.layer_kinds) != {BLOCK_ATTN}:
         bad.append(f"block kinds {sorted(set(cfg.layer_kinds))}")
     if cfg.prefix_lm_len or not (cfg.causal or cfg.is_encoder_only):
         bad.append("a bidirectional prefix")
-    if cfg.attn_kind != "full":
-        bad.append(f"attention {cfg.attn_kind!r}")
+    if not (cfg.attn_kind == "full" or (
+            cfg.attn_kind == "swa" and cfg.causal and cfg.sliding_window)):
+        bad.append(f"attention {cfg.attn_kind!r} (causal {cfg.causal}, "
+                   f"window {cfg.sliding_window})")
     if cfg.moe is not None or cfg.frontend:
         bad.append("moe / frontend")
-    if (cfg.norm_type, cfg.post_ln) not in (("rmsnorm", False),
-                                            ("layernorm", True)):
+    if cfg.norm_type not in ("rmsnorm", "layernorm", "nonparametric") or (
+            cfg.post_ln and cfg.norm_type != "layernorm"):
         bad.append(f"{cfg.norm_type} {'post' if cfg.post_ln else 'pre'}-LN")
-    if cfg.mlp_type not in ("swiglu", "gelu") or cfg.d_ff <= 0:
+    if cfg.mlp_type not in ("swiglu", "geglu", "gelu") or cfg.d_ff <= 0:
         bad.append(f"mlp {cfg.mlp_type!r} (d_ff {cfg.d_ff})")
-    if cfg.pos_type not in ("rope", "learned") or cfg.embed_scale:
-        bad.append(f"positions {cfg.pos_type!r} / embedding scale")
-    if cfg.qkv_bias or cfg.qk_norm or cfg.logit_softcap:
-        bad.append("qkv bias / qk norm / softcap")
+    if cfg.pos_type not in ("rope", "learned"):
+        bad.append(f"positions {cfg.pos_type!r}")
+    if cfg.qk_norm or cfg.logit_softcap:
+        bad.append("qk norm / softcap")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
@@ -100,6 +117,18 @@ def check_servable(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the serving entry points serve causal stacks "
             "with RoPE; an encoder runs Model.forward / logits / classify")
+
+
+def ring_spans(n: int, rows: int):
+    """The copies that put the last ``rows`` of positions ``[0, n)`` into a
+    ring of ``rows`` rows, position j at row ``j % rows``: at most two
+    (first position, end position, first row) runs."""
+    lo = max(0, n - rows)
+    cut = min(n, (lo // rows + 1) * rows)       # where the row index wraps
+    spans = [(lo, cut, lo % rows)]
+    if cut < n:
+        spans.append((cut, n, 0))
+    return spans
 
 
 def check_table_reach(token_rows, token_pos, npages: int,
@@ -183,20 +212,19 @@ class Model:
         table, learned positions ``(max_pos(), d)``) truncated-normal std
         0.02, dense weights (the untied head ``lm_head.w`` (d, V) too)
         truncated-normal std 1/sqrt(fan_in), norm scales 1 and biases 0,
-        MLP biases 0. Norm parameters stay float32; everything else is
-        stored in ``param_dtype``."""
+        MLP and QKV biases 0. Norm parameters and the QKV biases stay
+        float32 (the reference's ``attn_init``); everything else is stored
+        in ``param_dtype``."""
         cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d, V = cfg.d_model, cfg.vocab_size
-        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
         dense = lambda *shape: L.dense_init(shape, gen, dev, pdt)
         norm = lambda: L.norm_init(cfg, dev)
 
         def layer():
             return {"ln1": norm(),
-                    "attn": {"wq": dense(d, h * hd), "wk": dense(d, kvh * hd),
-                             "wv": dense(d, kvh * hd), "wo": dense(h * hd, d)},
+                    "attn": L.attn_init(cfg, gen, dev, pdt),
                     "ln2": norm(),
                     "mlp": L.mlp_init(cfg, gen, dev, pdt)}
 
@@ -220,10 +248,26 @@ class Model:
         return count(params)
 
     # ------------------------------------------------------------------
+    def window(self) -> int:
+        """The attention's sliding window (0: full attention)."""
+        cfg = self.cfg
+        return cfg.sliding_window if cfg.attn_kind == "swa" else 0
+
     def _cache_len(self, max_len: int) -> int:
-        """Rows of a contiguous cache for ``max_len`` tokens (full attention
-        only: ``check_supported`` refuses the reference's SWA ring)."""
+        """Rows of a contiguous cache for ``max_len`` tokens (the caller's
+        rounded length): the window when the cache is a ring (SWA with a
+        window shorter than ``max_len``), else ``max_len``, as the
+        reference's."""
+        w = self.window()
+        if w and w < max_len:
+            return w
         return max_len
+
+    def is_ring(self, rows: int) -> bool:
+        """Whether a contiguous cache of ``rows`` rows is the ring: position
+        ``pos`` in row ``pos % rows``, every resident row inside the window
+        (the reference's ``is_ring``)."""
+        return bool(self.window() and rows == self.window())
 
     def cache_specs(self, batch: int, max_len: int):
         """Shape and dtype of each contiguous cache leaf: per layer a
@@ -332,22 +376,31 @@ class Model:
     def _aot_add(self, peft, i, lp, h, ids, task_ids=None):
         """h (b, s, d) plus layer i's AoT rows (the paper's Eq. 1) for the
         flat token ``ids`` (b s,) int32, and the attention's input x:
-        (h, x), both (b, s, d), from one launch. Pre-norm, x is the block's
-        input norm (``lp["ln1"]``) of the sum, fused into the launch;
-        post-LN has no input norm, so the plain gather-add runs and x is
-        the sum. The rows come from one task's table (V, d) through the
-        single-table kernel, or from stacked tasks' tables (tasks, V, d) by
-        ``task_ids`` (b s,) through the multi-task one."""
+        (h, x), both (b, s, d). Pre-norm with RMSNorm, x is the block's
+        input norm (``lp["ln1"]``) of the sum, fused into the launch; with
+        LayerNorm or the non-parametric norm the plain gather-add runs and
+        x is ``layers.apply_norm`` of the sum (plain PyTorch, as the
+        reference's norms are XLA's); post-LN has no input norm, so the
+        plain gather-add runs and x is the sum. The rows come from one
+        task's table (V, d) through the single-table kernel, or from
+        stacked tasks' tables (tasks, V, d) by ``task_ids`` (b s,) through
+        the multi-task one."""
+        cfg = self.cfg
         table = peft["params"]["aot"]["table"][i]
-        norm = None if self.cfg.post_ln else (lp["ln1"]["scale"],
-                                              self.cfg.norm_eps)
+        fused = cfg.norm_type == "rmsnorm" and not cfg.post_ln
+        norm = (lp["ln1"]["scale"], cfg.norm_eps) if fused else None
         flat = h.reshape(-1, h.shape[-1])
         if table.dim() == 3:
             res = ops.aot_gather_add_multitask(flat, table, task_ids, ids,
                                                norm=norm)
         else:
             res = ops.aot_gather_add(flat, table, ids, norm=norm)
-        h_out, x = res if norm else (res, res)
+        if fused:
+            h_out, x = res
+        else:
+            h_out = x = res
+            if not cfg.post_ln:
+                x = L.apply_norm(cfg, lp["ln1"], h_out)
         return h_out.view(h.shape), x.view(h.shape)
 
     def _adapter(self, a, i, out):
@@ -368,13 +421,14 @@ class Model:
         the PEFT hooks of ``peft``'s method: AoT's rows added to h first,
         for the flat tokens ``aot`` = (ids, task_ids[, e_rows,
         generators]), in the same launch as the input norm
-        (:meth:`_aot_add`; post-LN: the plain gather-add), LoRA's deltas on
-        q and v from the attention's input, BitFit's biases after the
-        output projection and after the MLP, an adapter after each.
-        (P-Tuning v2's prefix comes inside ``attend``.) Pre-norm without
-        AoT, the input norm is one launch of its own (``ops.rms_norm``).
-        Under ``attn_impl="ref"`` the rows (:meth:`_aot_rows`) and the norm
-        are plain PyTorch; LayerNorm is plain PyTorch on both paths (the
+        (:meth:`_aot_add`; post-LN or a norm other than RMSNorm: the plain
+        gather-add), LoRA's deltas on q and v from the attention's input,
+        BitFit's biases after the output projection and after the MLP, an
+        adapter after each. (P-Tuning v2's prefix comes inside
+        ``attend``.) Pre-norm without AoT, an RMSNorm input norm is one
+        launch of its own (``ops.rms_norm``). Under ``attn_impl="ref"`` the
+        rows (:meth:`_aot_rows`) and the norm are plain PyTorch; LayerNorm
+        and the non-parametric norm are plain PyTorch on both paths (the
         reference's norms are XLA's)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
@@ -388,7 +442,7 @@ class Model:
             h, x = self._aot_add(peft, i, lp, h, *aot[:2])
         elif post:
             x = h
-        elif ref:
+        elif ref or cfg.norm_type != "rmsnorm":
             x = L.apply_norm(cfg, lp["ln1"], h)
         else:
             x = ops.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
@@ -416,10 +470,24 @@ class Model:
             out = self._adapter(pp["adapters"]["mlp"], i, out)
         return L.apply_norm(cfg, lp["ln2"], h + out) if post else h + out
 
-    def _prompt(self, params, tokens, peft, cache=None, rng=None):
+    def _embed(self, params, ids):
+        """(E[ids] as stored, which AoT's fc reads, and h: those rows in
+        the compute dtype, times sqrt(d) where the config scales its
+        embeddings, the factor rounded to the compute dtype first, as the
+        reference's)."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        e_rows = params["embed"]["tok"][ids.long()]
+        h = e_rows.to(dt)
+        if cfg.embed_scale:
+            h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
+        return e_rows, h
+
+    def _prompt(self, params, tokens, peft, cache=None, rng=None,
+                max_len=0, real=None):
         """Whole prompts tokens (b, s) through every layer, attending
-        through the flash attention kernel (causal, or full for an encoder;
-        ``attn_impl="ref"``: ``layers.attention_ref``); returns h (b, s, d)
+        through the flash attention kernel (causal, with the config's
+        sliding window, or full for an encoder; ``attn_impl="ref"``:
+        ``layers.attention_ref``); returns h (b, s, d)
         after the final norm and the prefix length p (P-Tuning v2's, else
         0). P-Tuning v2 puts its K/V prefix (no RoPE) before each layer's k
         and v, and its queries attend from position p. P-Tuning v1
@@ -427,20 +495,28 @@ class Model:
         positions shifted by its length) and strips it after the final
         norm. Learned positions ``embed.pos[:p1 + s]`` are added to the
         embeddings after P-Tuning v1's prompt is prepended; more positions
-        than the table holds raise ValueError. With ``cache``, layer
-        i's ``[prefix | k]`` and ``[prefix | v]`` are written into its rows
-        ``[0, p + s)``. ``rng``: the step's ``torch.Generator``, which
-        seeds AoT's dropout (None: no dropout)."""
+        than the table holds raise ValueError. With ``cache`` (made for
+        ``max_len`` positions), layer i's ``[prefix | k]`` and ``[prefix |
+        v]`` are written into its rows ``[0, p + s)``; into a ring shorter
+        than that, the last ring-length of the first ``p + real`` positions
+        (``real``: the real tokens of right-padded prompts, default s), each
+        at row ``position % rows``. ``rng``: the step's
+        ``torch.Generator``, which seeds AoT's dropout (None: no
+        dropout)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = self._method(peft, whole=cache is None)
         b, s = tokens.shape
         p = peft["opt"].prompt_len if method == "ptv2" else 0
-        if cache is not None and p + s > cache["k"].shape[2]:
-            raise ValueError(f"prompt length {s} (+ prefix {p}) exceeds the "
-                             f"cache's {cache['k'].shape[2]} rows")
+        spans = None
+        if cache is not None:
+            if p + s > max_len:
+                raise ValueError(f"prompt length {s} (+ prefix {p}) exceeds "
+                                 f"the cache's {max_len} positions")
+            rows = cache["k"].shape[2]
+            spans = (ring_spans(p + (s if real is None else real), rows)
+                     if p + s > rows else [(0, p + s, 0)])
         ids = tokens.to(torch.int32)
-        e_rows = params["embed"]["tok"][ids.long()]              # (b, s, d)
-        h = e_rows.to(dt)
+        e_rows, h = self._embed(params, ids)                     # (b, s, d)
         p1 = 0
         if method == "ptv1":
             prompt = peft["params"]["ptv1"]["prompt"].to(dt)
@@ -464,6 +540,7 @@ class Model:
                    if "task_ids" in peft else None,
                    e_rows.reshape(b * s, -1), self._layer_generators(rng))
         ref = self.opts.attn_impl == "ref"
+        window = self.window()
         for i, lp in enumerate(params["layers"]):
             def attend(q, k, v, i=i):
                 if p:
@@ -472,14 +549,15 @@ class Model:
                         b, -1, -1, -1), k], 1)
                     v = torch.cat([pre["pv"][i].to(v.dtype).expand(
                         b, -1, -1, -1), v], 1)
-                if cache is not None:
-                    cache["k"][i, :, :p + s] = k
-                    cache["v"][i, :, :p + s] = v
+                for lo, hi, at in spans or ():
+                    cache["k"][i, :, at:at + hi - lo] = k[:, lo:hi]
+                    cache["v"][i, :, at:at + hi - lo] = v[:, lo:hi]
                 if ref:
                     return L.attention_ref(q, k, v, causal=cfg.causal,
-                                           q_offset=p, prefix_len=p1)
+                                           window=window, q_offset=p,
+                                           prefix_len=p1)
                 return ops.flash_attention(q, k, v, causal=cfg.causal,
-                                           q_offset=p)
+                                           window=window, q_offset=p)
             h = self._block(lp, h, sincos, attend, peft, i, aot)
         return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
 
@@ -518,17 +596,23 @@ class Model:
         stacked tasks' ``(L, tasks, V, d)`` plus ``"task_ids"`` (b,) int32;
         ``bitfit``, ``lora``, ``adapters`` or ``ptv2``. max_len: the cache's
         length (>= s, plus P-Tuning v2's prefix). Every layer attends
-        through the flash attention kernel (causal) and writes its K/V into
-        rows ``[0, p + s)`` of a fresh ``init_cache(b, max_len)`` (p: the
-        P-Tuning v2 prefix, else 0). ``last_pos`` (an int) picks the
-        position whose logits are returned instead of the last one: the
-        continuous scheduler right-pads prompts to a bucket, and causality
-        keeps positions <= last_pos independent of the padding. Returns
-        (logits (b, 1, V), cache, pos = s + p): BitFit's ``final`` bias is
-        not added here, as in the reference."""
+        through the flash attention kernel (causal, with the config's
+        window) and writes its K/V into rows ``[0, p + s)`` of a fresh
+        ``init_cache(b, max_len)`` (p: the P-Tuning v2 prefix, else 0).
+        ``last_pos`` (an int) picks the position whose logits are returned
+        instead of the last one: the continuous scheduler right-pads
+        prompts to a bucket, and causality keeps positions <= last_pos
+        independent of the padding. A ring shorter than ``p + s`` takes the
+        last ring-length of the real positions ``[0, p + last_pos]``, each
+        at row ``position % rows`` (the reference keeps the padded tail
+        there, which loses real rows: ROADMAP C7). Returns (logits (b, 1,
+        V), cache, pos = s + p): BitFit's ``final`` bias is not added here,
+        as in the reference."""
         self._serving("prefill")
         cache = self.init_cache(tokens.shape[0], max_len)
-        h, p = self._prompt(params, tokens, peft, cache)
+        h, p = self._prompt(params, tokens, peft, cache, max_len=max_len,
+                            real=None if last_pos is None
+                            else int(last_pos) + 1)
         h_last = h[:, -1:] if last_pos is None else \
             h[:, int(last_pos):int(last_pos) + 1]
         return self.unembed(params, h_last), cache, tokens.shape[1] + p
@@ -541,40 +625,54 @@ class Model:
         (b, npages) int32 the paged pool (``init_paged_cache``), in which
         case ``pos`` must be per-row. peft as in :meth:`prefill`, with
         ``"task_ids"`` (b,) for stacked tasks; P-Tuning v2 takes the
-        contiguous cache only.
+        contiguous cache only. A sliding-window config takes the
+        contiguous cache only (the reference's words, ``SWA_PAGED_DECODE``).
 
         The new K/V is written into the cache IN PLACE (the reference
-        returns a new cache): contiguous at row ``pos``, paged into the page
-        ``block_tables`` maps for depth ``pos``. Attention then runs the
-        decode kernel (contiguous) or the paged decode kernel over
-        ``pos + 1`` positions. RoPE takes ``pos`` as the position, as the
-        reference does: after a P-Tuning v2 prefill (pos = s + p) the first
-        decoded token sits p positions past the prompt's last. Returns
-        (logits (b, 1, V), cache). Paged positions on the CPU are held to
-        the block table first (:func:`check_table_reach`)."""
-        cfg, dt = self.cfg, self.opts.compute_dtype
+        returns a new cache): contiguous at row ``pos`` (``pos % rows`` in
+        a ring), paged into the page ``block_tables`` maps for depth
+        ``pos``. Attention then runs the decode kernel (contiguous) or the
+        paged decode kernel over ``pos + 1`` positions (``min(pos + 1,
+        rows)`` in a ring: every resident row lies inside the window).
+        RoPE takes ``pos`` as the position, as the reference does: after a
+        P-Tuning v2 prefill (pos = s + p) the first decoded token sits p
+        positions past the prompt's last. Returns (logits (b, 1, V),
+        cache). Paged positions on the CPU are held to the block table
+        first (:func:`check_table_reach`)."""
+        cfg = self.cfg
         self._serving("decode_step")
         method = self._method(peft)
         if method == "ptv2" and block_tables is not None:
             raise NotImplementedError(_PTV2_PAGED)
+        if self.window() and block_tables is not None:
+            raise NotImplementedError(SWA_PAGED_DECODE)
         dev = self.device
-        ids = tokens[:, 0].to(torch.int32)
+        # contiguous: tokens may be a column of a wider (b, steps) tensor
+        ids = tokens[:, 0].to(torch.int32).contiguous()
         b = ids.shape[0]
-        h = params["embed"]["tok"][ids.long()].to(dt)[:, None]   # (b, 1, d)
+        h = self._embed(params, ids)[1][:, None]                # (b, 1, d)
+        rows = cache["k"].shape[2]
+        ring = self.is_ring(rows)       # SWA has refused block_tables
+        # Outside a ring the window masks nothing: every position is below
+        # rows, which is at most the window, so the plain decode walk over
+        # cur_len rows is the reference's windowed attention_decode.
         if getattr(pos, "ndim", 0) == 1:
             pos_t = torch.as_tensor(pos, device=dev).long()
             positions = pos_t[:, None]                          # (b, 1)
-            cur = (pos_t + 1).to(torch.int32)
-            where = (torch.arange(b, device=dev), pos_t)     # each row's row
+            cur = (pos_t + 1).clamp(max=rows) if ring else pos_t + 1
+            cur = cur.to(torch.int32)
+            where = (torch.arange(b, device=dev),               # each row's
+                     pos_t % rows if ring else pos_t)
         else:
             if block_tables is not None:
                 raise ValueError("a paged decode step needs per-row pos")
             # filled on the device: a host number uploaded here (or in each
             # layer's wrapper) would wait on the stream every step
             positions = torch.full((1,), int(pos), device=dev)  # every row's
-            cur = torch.full((b,), int(pos) + 1, dtype=torch.int32,
+            cur = torch.full((b,), min(int(pos) + 1, rows) if ring
+                             else int(pos) + 1, dtype=torch.int32,
                              device=dev)
-            where = (slice(None), int(pos))
+            where = (slice(None), int(pos) % rows if ring else int(pos))
         sincos = L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
         if block_tables is not None:        # the page and offset of each row
             bs = cache["k"].shape[2]
@@ -652,14 +750,15 @@ class Model:
         the stream, so ``ServeEngine.serve_step`` makes it on its host
         copies."""
         cfg = self.cfg
-        dt = self.opts.compute_dtype
         assert block_tables is not None, "mixed_step serves paged pools only"
         self._serving("mixed_step")
         method = self._method(peft)
         if method == "ptv2":
             raise NotImplementedError(_PTV2_PAGED)
+        if self.window():
+            raise NotImplementedError(SWA_PAGED_TICK)
         ids = tokens[:, 0].to(torch.int32)
-        h = params["embed"]["tok"][ids.long()].to(dt)[:, None]   # (T, 1, d)
+        h = self._embed(params, ids)[1][:, None]                # (T, 1, d)
         pos = token_pos.clamp(min=0).long()
         sincos = L.rope_sincos(pos[:, None], cfg.head_dim, cfg.rope_theta)
         bs_page = cache["k"].shape[2]

@@ -308,6 +308,11 @@ class ContinuousScheduler:
             raise InvalidConfig(
                 f"{method}: prompt/prefix tuning changes the cache layout "
                 "per request; serve it with static batches")
+        if cfg.kv_layout == "paged" and engine.model.window():
+            raise InvalidConfig(
+                f"{engine.model.cfg.name}: paged decode has no "
+                "sliding-window masking yet; serve SWA models with "
+                "kv_layout='slots'")
         self.engine = engine
         self.cfg = cfg
         self.max_len = engine.cfg.max_len

@@ -34,7 +34,9 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.serve.scheduler" in mods and len(mods) >= 20
     for m in ("data.pipeline", "data.tasks", "data.tokenizer", "optim.adamw",
               "optim.schedules", "train.step", "train.loop", "launch.train",
-              "tree", "checkpoint.manager", "launch.export"):
+              "tree", "checkpoint.manager", "launch.export",
+              "configs.olmo_1b", "configs.qwen2p5_14b",
+              "configs.h2o_danube_1p8b"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,4 +90,18 @@ def test_entry_points_refuse_cpu_unless_asked(no_cuda, entry):
     cfg = configs.reduced(configs.get("smollm-360m"), repeats=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[entry](cfg)
+    assert Model(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2.5-14b",
+                                  "h2o-danube-1.8b"])
+def test_decoder_configs_refuse_cpu_unless_asked(no_cuda, name):
+    """Each decoder config module registers its config; its model and
+    launchers raise without CUDA unless the CPU is asked for."""
+    cfg = configs.reduced(configs.get(name), repeats=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--reduced", "--demo", "--quiet", "--arch", name,
+                       "--layout", "slots"])
     assert Model(cfg, device="cpu").device.type == "cpu"

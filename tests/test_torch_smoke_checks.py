@@ -7,8 +7,10 @@ phases 5e-5g's gates and replayed schedules, and phase 7's gates (the
 loss drop, the frozen backbone, fused against reparametrized) and 7c's
 stream replayed, and phase 8's on a reduced encoder (the launch
 arithmetic, the multi-task batch bitwise the single table, the served
-classifier's gate and its zeroed control). The phases themselves need the
-card (chip_smoke.py)."""
+classifier's gate and its zeroed control), and phase 10's rule for a
+stream's tokens against its prompts served alone (the first difference a
+near tie) on a reduced sliding-window stream. The phases themselves need
+the card (chip_smoke.py)."""
 
 import importlib.util
 import inspect
@@ -218,7 +220,7 @@ class FakeEngine:
         from types import SimpleNamespace
         self.cfg = SimpleNamespace(max_len=cs.MAX_LEN)
         self.model = SimpleNamespace(
-            cfg=SimpleNamespace(vocab_size=49152),
+            cfg=SimpleNamespace(vocab_size=49152), window=lambda: 0,
             init_paged_cache=lambda nb, bs: {
                 n: torch.zeros(1, nb, bs, 1, 1) for n in ("k", "v")},
             init_cache=lambda b, S: {
@@ -865,3 +867,68 @@ def test_phase9a_resume_across_processes_on_the_cpu(monkeypatch, tmp_path):
     assert r["bytes"] > 0 and r["failures"] == []
     assert not (tmp_path / "resume").exists()
 
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a stream's tokens against its prompts served alone
+# ---------------------------------------------------------------------------
+
+def _alone_logits(n, v=6, top=None):
+    """(n, v) logits whose argmax is token 0 with a margin of 1, row ``j``
+    of ``top`` = {j: (token, gap)} instead putting ``token`` that far
+    below the argmax."""
+    lgs = torch.zeros(n, v)
+    lgs[:, 0] = 1.0
+    for j, (tok, gap) in (top or {}).items():
+        lgs[j, tok] = 1.0 - gap
+    return lgs
+
+
+@pytest.mark.parametrize("got,top,want", [
+    ([0, 0, 0], None, None),
+    ([0, 3, 5], {1: (3, 0.03)}, (1, 0.03, True)),    # a near tie
+    ([0, 3, 5], {1: (3, 0.09)}, (1, 0.09, False)),   # past two tolerances
+    ([4, 0, 0], None, (0, 1.0, False)),
+    ([0, 0], None, (2, float("inf"), False))])       # a short stream
+def test_phase10_divergence_rule(got, top, want):
+    """The first differing token is a near tie when the alone run's logit
+    gap there is within two LOGIT_TOL tolerances at the top logit (2e-2 +
+    2e-2 x 1 each); tokens past it are not compared; a stream of another
+    length diverges."""
+    res = cs.divergence(got, [0, 0, 0], _alone_logits(3, top=top))
+    if want is None:
+        assert res is None
+    else:
+        assert res[0] == want[0] and res[2] == want[2]
+        assert res[1] == pytest.approx(want[1])
+
+
+def test_phase10_stream_vs_alone_on_a_reduced_ring(monkeypatch):
+    """``stream_vs_alone`` on a reduced danube slots stream served on the
+    CPU (window 8, prompts of 9-15 in buckets of 16: the C7 case): every
+    request's tokens equal its prompt's served alone."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
+                                             SchedulerConfig)
+    import numpy as np
+    cfg = configs.reduced(configs.get("h2o-danube-1.8b"), repeats=2).replace(
+        sliding_window=8)
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    tables = torch.randn(cfg.num_layers, 2, cfg.vocab_size, cfg.d_model) * 0.02
+    engine = ServeEngine(model, params, ServeConfig(max_len=40),
+                         fused_tasks={"table": tables})
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    rng = np.random.default_rng(1)
+    sched = ContinuousScheduler(engine, SchedulerConfig(
+        kv_layout="slots", num_slots=2, bucket_min=16))
+    for i in range(4):
+        sched.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(9, 16))).astype(np.int32),
+            task_id=i % 2, max_new_tokens=int(rng.integers(4, 12))))
+    sched.run()
+    equal, ties, bad = cs.stream_vs_alone(engine, sched.finished)
+    assert (equal, ties, bad) == (4, [], [])
