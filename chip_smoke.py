@@ -25,8 +25,9 @@ Phases, each printing one line of results; any failure exits non-zero:
    offsets, runs of 1 and 5, a run across pages from position 27, a run
    ending at 1023, positions past the table, dead padding between runs; at
    pages of 16, 8 and 32, hd 60 / 64 / 128 and g 8, and at phase 10's
-   heads (h32 kvh8 hd80, h16 kvh16 hd128, h40 kvh8 hd128, as contiguous
-   and paged decode are too); the decode_only packing
+   heads (h32 kvh8 hd80, h16 kvh16 hd128, h40 kvh8 hd128, the last also
+   llama4's) and phase 11's qwen3-moe (h32 kvh4 hd128, g 8), as
+   contiguous and paged decode are too; the decode_only packing
    bitwise equal to paged decode with cur_len = pos + 1); flash attention
    (causal, full, window; sq = skv
    in {1, 37, 100, 512, 577}, sq != skv either way, hd 32, 60, 96, 128,
@@ -35,7 +36,10 @@ Phases, each printing one line of results; any failure exits non-zero:
    over sq + offset keys, P-Tuning v2's prefill, with and without a
    window, and in full mode at g = 1; phase 10's decoders' heads: h32
    kvh8 hd80 causal and with danube's window of 4096 over 6144, h16 kvh16
-   hd128, h40 kvh8 hd128); both gather-adds in their plain
+   hd128, h40 kvh8 hd128; phase 11's h32 kvh4 hd128 causal at 577 and
+   4 x 512); the fused multi-task gather-add at phase 11's widths (d 2048
+   over V 151936, d 5120 over V 202048, 2 tasks), bitwise; both
+   gather-adds in their plain
    mode (no norm: the encoders' post-LN blocks) at d 1024 and the
    encoders' vocabularies 50265 and 128100, bitwise;
    contiguous decode (scalar and per-row lengths with 0, 1 and ragged
@@ -64,7 +68,11 @@ Phases, each printing one line of results; any failure exits non-zero:
    at T 3072, d 1024; at phase 10's, flash over (1, 6144) at danube's
    heads with its window of 4096 beside SDPA with a bool mask, decode over
    danube's full ring (b 4, S 4096) beside SDPA with a length mask, the
-   fused multi-task gather-add at T 263, d 2560 and 5120;
+   fused multi-task gather-add at T 263, d 2560 and 5120; at phase 11's
+   qwen3-moe heads (h32 kvh4 hd128, g 8), flash over (16, 512) causal and
+   contiguous decode beside SDPA, paged decode and ragged attention on
+   the serving tick's packings, the fused multi-task gather-add at T 263
+   over qwen3-moe's and llama4's tables;
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -230,14 +238,46 @@ Phases, each printing one line of results; any failure exits non-zero:
    launches, each request's tokens equal to its prompt served alone but
    at a near tie) and 5c's static mixed batch (16 x 512 + 64 / 4 x 512 +
    32; exact launches); tokens/s, peak memory, seconds and launches
-   reported.
+   reported;
+11. the mixture-of-experts decoders at full width in bf16, random weights
+   (seed 0), fabricated tables, each part's memory freed before the next,
+   MoE routing recorded (Model.record_routes): 11a qwen3-moe-30b-a3b
+   (16 of 48 layers: 128 experts top-8, d_ff_expert 768, q/k norm, h32
+   kvh4 hd128, V 151936, 2 tasks) on phase 5's paged chunked stream at its
+   capacity factor 1.25 (every request finished, drained clean, exact
+   launches, no decode-only tick dropping an assignment; the dropped
+   share per chunk tick over all tokens and over live ones, and requests
+   equal to their prompt served alone, reported), the same stream drop-free
+   (capacity factor 128: each request's tokens equal to its prompt served
+   alone, or diverging at a near tie of the logits or of the router, the
+   first routing difference's swapped experts within 10% in probability),
+   5c's static mixed batch (16 x 512 + 64: exact
+   launches, the prefill's dropped share), 4 of its prompts over a paged
+   pool (16 paged decode steps, exact launches) and AoT's effect on
+   routing (the
+   share of (token, layer) expert sets each task's table changes); 11b
+   llama4-maverick-400b-a17b (one interleave unit: a dense layer of d_ff
+   16384, a MoE layer of 128 experts top-1 of 8192 plus a shared expert of
+   8192; h40 kvh8 hd128, V 202048, 2 tasks): the stream cut to 8 requests
+   and a 4 x 512 + 32 static batch, gated as 11a's; 11c phase 6's checks
+   on qwen3-moe at full width with 2 layers, drop-free: one mixed tick and
+   a prefill plus three decode steps through the kernels, through the
+   plain versions in the same packing and through float32 plain PyTorch,
+   the latter two fed the kernels' tokens; the tokens whose expert set
+   differs per layer reported (each flip between kernels and plain
+   versions a near tie of the router, gated); on the rows that routed
+   alike in all three, the kernels' error against float32 within 2x plain
+   bf16's (7c's rule, gated); 40 live rows after 24 padding rows equal to
+   them alone drop-free (gated) and displaced at 1.25 (reported).
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
 path's, phase 9's ``overload_*`` and ``lifecycle_load_serve`` among them;
 ``encoder``: phase 4's times at the encoders' shapes and the launches of
 one phase 8a call; ``decoders``: phase 4's times at phase 10's shapes and
-the launches of the phase 10 path ``DEC_PATH`` names) and ``{"ok": true, "device": {...}}``. Details go to
+the launches of the phase 10 path ``DEC_PATH`` names; ``moe``: phase 4's
+times at phase 11's shapes and the launches of the phase 11 path
+``MOE_PATH`` names) and ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -267,6 +307,11 @@ H, KVH, HD, BS = 15, 5, 64, 16     # smollm-360m attention, page size
 ENC_HEADS = (16, 16)               # roberta-large / deberta-xl: g = 1
 ENC_D, ENC_VOCABS = 1024, (50265, 128100)   # their width and vocabularies
 DANUBE_HEADS, OLMO_HEADS, QWEN_HEADS = (32, 8), (16, 16), (40, 8)
+# phase 11: qwen3-moe-30b-a3b h32 kvh4 hd128 (g = 8); llama4-maverick's
+# h40 kvh8 hd128 is qwen2.5's QWEN_HEADS
+MOE_HEADS = (32, 4)
+# phase 11's fused multi-task tables: (tasks, V, d) of qwen3-moe, llama4
+MOE_GATHERS = ((2, 151936, 2048), (2, 202048, 5120))
 SLOTS, MAX_LEN = 8, 1024
 NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
@@ -422,19 +467,19 @@ def ragged_inputs(gen, rows, pos, dtype, layers=1, hd=HD, bs=BS,
     return q, k, v, bt, i32(rows), i32(pos)
 
 
-def ragged_bound(rows, pos, dtype):
+def ragged_bound(rows, pos, dtype, heads=(H, KVH), hd=HD):
     """Least time for one call: each input byte read once (per slot, the
     kv positions its deepest token needs), each output byte written once;
     operations 4 * hd per (query head, visible kv position)."""
     es = torch.finfo(dtype).bits // 8
-    T = len(rows)
+    T, (h, kvh) = len(rows), heads
     depth = {}
     for r, p in zip(rows, pos):
         if p >= 0:
             depth[r] = max(depth.get(r, 0), p + 1)
-    kv = sum(depth.values()) * KVH * HD * es * 2
-    nbytes = 2 * T * H * HD * es + kv + 2 * T * 4 + SLOTS * NPAGES * 4
-    flops = sum(p + 1 for p in pos if p >= 0) * H * HD * 4
+    kv = sum(depth.values()) * kvh * hd * es * 2
+    nbytes = 2 * T * h * hd * es + kv + 2 * T * 4 + SLOTS * NPAGES * 4
+    flops = sum(p + 1 for p in pos if p >= 0) * h * hd * 4
     return bound(nbytes, flops, dtype)
 
 
@@ -634,6 +679,7 @@ def phase_parity(gen, report):
         types="{f32,bf16}^2", T="8,263")
     parity_single_gather(gen, report)
     parity_encoder_gather(gen, report)
+    parity_moe_gather(gen, report)
 
     parity_ragged(gen, report)
     parity_flash(gen, report)
@@ -653,7 +699,10 @@ PARITY_VARIANTS = {"vec": (HD, False, (H, KVH)),
                    # at g 1, qwen2.5 hd 128 at g 5 (the g 8 build)
                    "danube_hd80": (80, False, DANUBE_HEADS),
                    "olmo_hd128": (128, False, OLMO_HEADS),
-                   "qwen_hd128": (128, False, QWEN_HEADS)}
+                   "qwen_hd128": (128, False, QWEN_HEADS),
+                   # phase 11's qwen3-moe: hd 128 at g 8 (llama4's h40
+                   # kvh8 hd128 is qwen_hd128)
+                   "qwen3moe_hd128": (128, False, MOE_HEADS)}
 PARITY_BS = (16, 8, 32)
 
 
@@ -795,6 +844,42 @@ def parity_single_gather(gen, report):
         tables="49152x960, 4096x60", types="{f32,bf16}^2", T="16,263")
 
 
+def parity_moe_gather(gen, report):
+    """The fused multi-task gather-add at phase 11's widths (MOE_GATHERS:
+    qwen3-moe's d 2048 over V 151936, llama4's d 5120 over V 202048, 2
+    tasks each), bf16, T 8 and 263, with and without the norm: h_out
+    bitwise the plain sum, x within the tolerance of the plain norm."""
+    from repro_torch.kernels import aot_bias, ops
+    cases, norm_err = [], 0.0
+    for n_tasks, vocab, d in MOE_GATHERS:
+        tables = torch.empty(n_tasks, vocab, d, dtype=torch.bfloat16,
+                             device=DEV)
+        for t in range(n_tasks):
+            tables[t].normal_(0.0, 0.03, generator=gen)
+        for T in (8, 263):
+            h, tasks, ids = gather_inputs(gen, T, torch.bfloat16, tables)
+            out = ops.aot_gather_add_multitask(h, tables, tasks[0], ids[0])
+            plain = aot_bias.aot_gather_add_multitask_plain(h, tables,
+                                                            tasks[0], ids[0])
+            torch.cuda.synchronize()
+            what = f"gather-add moe d{d} V{vocab} T{T}"
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{what}: not bitwise equal")
+            scale = norm_scale(gen, d)
+            fused = ops.aot_gather_add_multitask(h, tables, tasks[0], ids[0],
+                                                 norm=(scale, EPS))
+            norm_err = max(norm_err, check_fused(what + " +norm", fused,
+                                                 plain, h, scale, report))
+            cases.append(f"d{d}/T{T}")
+        del tables
+    report["parity"]["aot_gather_add_multitask_moe"] = dict(
+        cases=cases, norm_max_abs_err=norm_err)
+    log("3 parity", kernel="aot_gather_add_multitask", mode="moe",
+        cases=",".join(cases), result="h_out bitwise equal (with and "
+        "without the norm)", norm_max_abs_err=f"bf16:{norm_err:.2e}",
+        tables=",".join(f"{n}x{v}x{d}" for n, v, d in MOE_GATHERS) + " bf16")
+
+
 def parity_encoder_gather(gen, report):
     """Both gather-adds in their plain mode (no fused norm: a post-LN
     encoder has no input norm) at the encoders' width d 1024 and
@@ -891,6 +976,9 @@ FLASH_CASES = {
                                DANUBE_HEADS),
     "olmo_causal_577": (1, 577, 577, 128, True, 0, False, OLMO_HEADS),
     "qwen_causal_577": (1, 577, 577, 128, True, 0, False, QWEN_HEADS),
+    # phase 11's qwen3-moe (h32 kvh4 hd128, g 8); llama4 is qwen_causal_577
+    "qwen3moe_causal_577": (1, 577, 577, 128, True, 0, False, MOE_HEADS),
+    "qwen3moe_causal_512_b4": (4, 512, 512, 128, True, 0, False, MOE_HEADS),
 }
 
 
@@ -1336,11 +1424,14 @@ def phase_times(gen, report):
     rows_out += times_prefill_decode(gen, report)
     enc = times_encoder(gen, report)
     dec = times_decoders(gen, report)
+    moe = times_moe(gen, report)
     for row in rows_out:
         if row["name"] in enc:
             row["encoder"] = enc[row["name"]]
         if row["name"] in dec:
             row["decoders"] = dec[row["name"]]
+        if row["name"] in moe:
+            row["moe"] = moe[row["name"]]
     return rows_out
 
 
@@ -1503,6 +1594,133 @@ def times_decoders(gen, report):
         mode="decoders", **{k: fmt_gather_norm(r)
                             for k, r in gathers.items()})
     report["times"]["decoders"] = dict(out)
+    return out
+
+
+def times_moe(gen, report):
+    """The kernels at phase 11's new shapes, bf16, qwen3-moe's heads (h32
+    kvh4 hd128, g = 8): flash at its static batch's prefill (16 x 512,
+    causal) beside SDPA, contiguous decode at its steps (16 rows at depths
+    512-575 of S 1024) beside SDPA with a length mask, paged decode over 8
+    slots of depths up to 1024, ragged attention on the serving tick's
+    packings (T 263 and a decode-only tick); the multi-task gather-add
+    fused with the norm at T 263 over MOE_GATHERS' tables (qwen3-moe d
+    2048, llama4 d 5120). Inputs rotate as in phase 4. Returns {kernel:
+    {shape: numbers}} for the kernels line's ``moe`` entries (launches
+    added by phase 11)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import aot_bias
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es = torch.bfloat16, 2
+    (h, kvh), hd, out, text = MOE_HEADS, 128, {}, {}
+    shape = f"h{h} kvh{kvh} hd{hd}"
+
+    def keep(kernel, key, desc, r, lib=True):
+        out.setdefault(kernel, {})[key] = dict(shape=f"{desc} {shape}",
+                                               **_enc_row(r))
+        text[f"{kernel}/{key}"] = fmt_times(r) + (
+            f"[{r['bound_by']}; library {r['library_ms']:.5f}]"
+            if r["library_ms"] is not None else f"[{r['bound_by']}]")
+    # ---- flash: (16, 512) causal
+    b, s = 16, 512
+    qs = [flash_inputs(gen, b, s, s, hd, dt, heads=MOE_HEADS)
+          for _ in range(4)]
+    r = timed(lambda i: ops.flash_attention(*qs[i % 4], causal=True),
+              lambda i: fa.flash_attention_plain(*qs[i % 4], causal=True),
+              16, 4, tol=TOL[dt])
+    r["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in qs[i % 4]), is_causal=True,
+        enable_gqa=True), 16)                       # yardstick only
+    pairs = b * h * s * (s + 1) // 2
+    r["bound_ms"], r["bound_by"] = bound(b * s * (2 * h + 2 * kvh) * hd * es,
+                                         4 * hd * pairs, dt)
+    keep("flash_attention", "b16_s512_causal", "b16 s512 causal", r)
+    del qs
+    # ---- contiguous decode: 16 rows at depths 512..575 of S 1024
+    lens = list(range(512, 576, 4))
+    q, k, v, cur = decode_inputs(gen, lens, dt, hd, layers=ROTATE,
+                                 heads=MOE_HEADS)
+    layer = lambda i: (k[i % ROTATE], v[i % ROTATE])
+    r = timed(lambda i: ops.decode_attention(q, *layer(i), cur),
+              lambda i: da.decode_attention_plain(q, *layer(i), cur),
+              64, 16, tol=TOL[dt])
+    mask = (torch.arange(MAX_LEN, device=DEV)[None, :]
+            < cur[:, None])[:, None, None, :]
+    r["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *(x.transpose(1, 2) for x in layer(i)),
+        attn_mask=mask, enable_gqa=True), 64)     # yardstick only
+    n_kv = sum(lens)
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * len(lens) * h * hd * es + 2 * n_kv * kvh * hd * es
+        + 4 * len(lens), 4 * hd * h * n_kv, dt)
+    keep("decode_attention", "b16_depth512-575", "b16 depths 512-575", r)
+    del q, k, v
+    # ---- paged decode: 8 slots of depths up to 1024, scrambled pages
+    plens = [1024, 1000, 777, 576, 512, 300, 129, 17]
+    q = torch.randn(SLOTS, h, hd, generator=gen, device=DEV).to(dt)
+    kp = torch.randn(ROTATE, NUM_BLOCKS, BS, kvh, hd, generator=gen,
+                     device=DEV).to(dt)
+    vp = torch.randn(ROTATE, NUM_BLOCKS, BS, kvh, hd, generator=gen,
+                     device=DEV).to(dt)
+    perm = torch.randperm(NUM_BLOCKS - 1, generator=gen, device=DEV) + 1
+    bt = perm.view(SLOTS, NPAGES).to(torch.int32)
+    cur = torch.tensor(plens, dtype=torch.int32, device=DEV)
+    layer = lambda i: (kp[i % ROTATE], vp[i % ROTATE])
+    r = timed(lambda i: ops.paged_decode_attention(q, *layer(i), bt, cur),
+              lambda i: da.paged_decode_attention_plain(q, *layer(i), bt,
+                                                        cur),
+              64, 16, tol=TOL[dt])
+    r["library_ms"] = None      # no one PyTorch call reads block tables
+    n_kv = sum(plens)
+    pages_read = sum(-(-n // BS) for n in plens)
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * SLOTS * h * hd * es + 2 * n_kv * kvh * hd * es
+        + 4 * (SLOTS + pages_read), 4 * hd * h * n_kv, dt)
+    keep("paged_decode_attention", "slots8_depth<=1024",
+         "8 slots depths 17-1024", r)
+    del kp, vp
+    # ---- ragged attention: the serving tick's packings
+    pk = packings()
+    for name in ("chunk256_decode", "decode_only"):
+        rows, pos = pk[name]
+        q, k, v, bt, rr, p = ragged_inputs(gen, rows, pos, dt, layers=ROTATE,
+                                           hd=hd, heads=MOE_HEADS)
+        plan = torch.from_numpy(da.ragged_plan(
+            np.asarray(rows, np.int32), np.asarray(pos, np.int32))).to(DEV)
+        r = timed(lambda i: ops.ragged_paged_attention(
+            q, k[i % ROTATE], v[i % ROTATE], bt, rr, p, plan),
+            lambda i: da.ragged_paged_attention_plain(
+                q, k[i % ROTATE], v[i % ROTATE], bt, rr, p),
+            64, 16, tol=TOL[dt])
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = ragged_bound(rows, pos, dt,
+                                                    heads=MOE_HEADS, hd=hd)
+        keep("ragged_paged_attention", name, f"{name} T{len(rows)}", r)
+        del q, k, v
+    # ---- the fused multi-task gather-add at T 263
+    for n_tasks, vocab, d in MOE_GATHERS:
+        tables = torch.empty(n_tasks, vocab, d, dtype=dt, device=DEV)
+        for t in range(n_tasks):
+            tables[t].normal_(0.0, 0.02, generator=gen)
+        hh, tasks, ids = gather_inputs(gen, 263, dt, tables, sets=8)
+        args = lambda i: (hh, tables, tasks[i % 8], ids[i % 8])
+        r = times_gather_norm(
+            gen, hh, lambda i, **kw: ops.aot_gather_add_multitask(*args(i),
+                                                                  **kw),
+            lambda i, **kw: aot_bias.aot_gather_add_multitask_plain(
+                *args(i), **kw), 200)
+        r["library_ms"], r["bound_by"] = None, "bytes"
+        out.setdefault("aot_gather_add_multitask", {})[f"T263_d{d}"] = dict(
+            shape=f"T263 d{d} {n_tasks} tasks of V{vocab} +norm",
+            **_enc_row(r), replaced_ms=r["replaced_ms"],
+            library_norm_ms=r["library_norm_ms"])
+        text[f"aot_gather_add_multitask/T263_d{d}"] = fmt_gather_norm(r)
+        del tables, hh
+    for key, line in text.items():
+        log("4 times", mode="moe", case=key, times=line)
+    report["times"]["moe"] = dict(out)
     return out
 
 
@@ -5492,6 +5710,603 @@ def phase_decoders(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mixture-of-experts decoders at full width (qwen3-moe-30b-a3b:
+# 128 experts top-8, q/k norm, g = 8; llama4-maverick-400b-a17b: MoE on every
+# second layer, top-1 with a shared expert)
+# ---------------------------------------------------------------------------
+
+# 11a: qwen3-moe cut to 16 of its 48 layers (each layer's weights 1.25 GB,
+# each task's table 0.62 GB a layer), 2 tasks; 11b: llama4 cut to one
+# interleave unit (a dense layer, then a MoE layer of 16.1 G parameters)
+MOE_PARTS = {
+    "qwen3moe": dict(arch="qwen3-moe-30b-a3b", layers=16, tasks=2,
+                     requests=16, static=(16, 512, 64)),
+    "llama4": dict(arch="llama4-maverick-400b-a17b", layers=2, tasks=2,
+                   requests=8, static=(4, 512, 32)),
+}
+MOE_DROPFREE = 128.0        # capacity factor = E: C = T * k, nothing drops
+MOE_ROUTING = (4, 256)      # 11a's tokens for AoT's effect on routing
+MOE_CHECK_LAYERS = 2        # 11c: qwen3-moe at full width with 2 layers
+MOE_CHECK_STATIC = (16, 8, 3)   # 11c's prefill (b, s) and decode steps
+# the phase 11 run whose count rides with each kernel's phase 4 times at
+# phase 11's shapes (``moe``)
+MOE_PATH = {"flash_attention": "moe_qwen3moe_static",
+            "decode_attention": "moe_qwen3moe_static",
+            "ragged_paged_attention": "moe_qwen3moe_paged",
+            "aot_gather_add_multitask": "moe_qwen3moe_paged",
+            "paged_decode_attention": "moe_qwen3moe_static_paged"}
+MOE_PAGED_STATIC = (4, 512, 16)     # 11a's static batch over a paged pool
+
+
+def with_capacity(engine, factor):
+    """A ServeEngine over ``engine``'s parameters and tables whose model's
+    MoE capacity factor is ``factor`` (no copy of either)."""
+    import dataclasses
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    model = engine.model
+    cfg = model.cfg.replace(moe=dataclasses.replace(
+        model.cfg.moe, capacity_factor=factor))
+    return ServeEngine(Model(cfg, model.opts, device=DEV), engine.params,
+                       ServeConfig(max_len=engine.cfg.max_len),
+                       fused_tasks={"table": engine.tables})
+
+
+def route_drops(routes, n_moe, live, decode_T):
+    """A stream's recorded routes (``Model.record_routes``: one record per
+    MoE layer per tick, ``n_moe`` per tick) and each tick's live-token
+    mask ``live`` (host bools: token_pos >= 0) -> per tick the dropped
+    share of its T * k assignments over its MoE layers (``moe_dropped_frac``:
+    dead padding included, and the dead tokens, one hidden state, all pick
+    the same experts) and of its live tokens' assignments, split into chunk
+    ticks and decode-only ticks (T == ``decode_T``)."""
+    calls = []
+    for c, i in enumerate(range(0, len(routes), n_moe)):
+        recs = routes[i:i + n_moe]
+        keep = torch.stack([r["keep"] for r in recs]).float()  # (m, T, k)
+        mask = torch.as_tensor(live[c], device=keep.device)
+        calls.append((recs[0]["tokens"], 1.0 - keep.mean().item(),
+                      1.0 - keep[:, mask].mean().item()))
+    stat = lambda xs: dict(ticks=len(xs), mean=float(np.mean(xs)) if xs
+                           else 0.0, max=max(xs, default=0.0))
+    out = {}
+    for kind, pick in (("chunk", lambda t: t != decode_T),
+                       ("decode", lambda t: t == decode_T)):
+        mine = [c for c in calls if pick(c[0])]
+        out[kind] = stat([c[1] for c in mine])
+        out[kind + "_live"] = stat([c[2] for c in mine])
+    return out
+
+
+def expert_sets(routes):
+    """Each record's top-k expert sets, sorted: [(T, k) int64, ...]."""
+    return [r["top_e"].sort(-1).values for r in routes]
+
+
+def routing_effect(model, params, tables, gen):
+    """AoT's effect on routing: for MOE_ROUTING's tokens, the share of
+    (token, MoE layer) expert sets that differ between the backbone alone
+    and each task's table (every row served with that task)."""
+    b, s = MOE_ROUTING
+    toks = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    with torch.no_grad(), model.record_routes() as base:
+        model.forward(params, toks)
+    base = expert_sets(base)
+    share = {}
+    for task in range(tables.shape[1]):
+        peft = tasks_peft(tables, torch.full((b,), task, dtype=torch.int32,
+                                             device=DEV))
+        with torch.no_grad(), model.record_routes() as got:
+            model.forward(params, toks, peft)
+        diff = [(x != y).any(-1) for x, y in zip(base, expert_sets(got))]
+        share[f"task{task}"] = torch.cat(diff).float().mean().item()
+    return share
+
+
+# a router near tie: an expert one run chose and the other did not has, in
+# the other run, at least (1 - MOE_ROUTE_TIE) of that run's k-th
+# probability (the swapped experts' probabilities within 10% of each other)
+MOE_ROUTE_TIE = 0.1
+
+
+def route_sets(recs):
+    """One call's records (one per MoE layer) as host arrays: the ranked
+    experts (m, T, R) and their probabilities (m, T, R)."""
+    return (torch.stack([r["rank_e"] for r in recs]).cpu().numpy(),
+            torch.stack([r["rank_p"] for r in recs]).cpu().numpy())
+
+
+def route_gap(a, b, k) -> float:
+    """One token's routes in one layer from two runs, each (ranked
+    experts (R,), probabilities (R,)): 0 when their top-k sets are equal;
+    else the largest relative shortfall, over the experts one run chose
+    and the other did not, of the other run's probability of that expert
+    below that run's k-th probability (1.0 for an expert outside the
+    other's recorded ranks). A router near tie is a gap of at most
+    MOE_ROUTE_TIE."""
+    gap = 0.0
+    for (ea, _), (eb, pb) in ((a, b), (b, a)):
+        kth = float(pb[k - 1])
+        prob = {int(e): float(p) for e, p in zip(eb, pb)}
+        for e in set(ea[:k].tolist()) - set(eb[:k].tolist()):
+            gap = max(gap, 1.0 - prob.get(int(e), 0.0) / kth)
+    return gap
+
+
+def moe_stream(engine, name, spec, label, counts, failures):
+    """Phase 5's paged chunked stream (``spec["requests"]`` requests) on
+    ``engine`` through the launcher's code, greedy, its routes recorded:
+    every request finished, drained clean, each kernel exactly once per
+    layer per tick. Returns (scheduler, seconds, the drops by tick kind,
+    each request's routes {rid: {position: (ranked experts (m, R), their
+    probabilities (m, R))}})."""
+    from repro_torch.launch import serve as launcher
+    cfg = engine.model.cfg
+    layers, n_moe = cfg.num_layers, sum(cfg.moe_layer_mask())
+    flags = list(BASE)
+    flags[flags.index("--arch") + 1] = spec["arch"]
+    flags[flags.index("--tasks") + 1] = str(spec["tasks"])
+    args = launcher.parser().parse_args(flags + ["--requests",
+                                                 str(spec["requests"])])
+    arrivals = launcher.make_arrivals(args, cfg.vocab_size, spec["tasks"])
+    sched = launcher.make_scheduler(engine, args)
+    d0, live, owners, step = engine.dispatches, [], [], engine.serve_step
+
+    def tapped(tokens, token_rows, token_pos, *rest):
+        # each packed token's request at dispatch: decode rows and prefills
+        owner = {slot: r.rid for slot, r in sched.running.items()}
+        owner.update({pf.slot: pf.req.rid for pf in sched._prefills})
+        live.append(np.asarray(token_pos) >= 0)
+        owners.append([(owner[int(r)], int(p)) if p >= 0 else None
+                       for r, p in zip(token_rows, token_pos)])
+        return step(tokens, token_rows, token_pos, *rest)
+    engine.serve_step = tapped
+    try:
+        with engine.model.record_routes() as routes:
+            sched, sec = counted(label, counts, lambda: launcher.
+                                 run_with_retries(
+                                     sched, arrivals,
+                                     grace_ticks=args.grace_ticks,
+                                     max_retries=args.max_retries,
+                                     backoff=args.backoff)[3])
+    finally:
+        del engine.serve_step
+    dispatched = engine.dispatches - d0
+    if len(sched.finished) != len(arrivals) or sched.drain_check():
+        failures.append(f"{label}: {len(sched.finished)}/{len(arrivals)} "
+                        f"finished, {sched.drain_check()}")
+    try:
+        check_launches(label, counts[label], {
+            "aot_gather_add_multitask": layers * dispatched,
+            "ragged_paged_attention": layers * dispatched})
+    except AssertionError as e:
+        failures.append(str(e))
+    if len(routes) != n_moe * dispatched:
+        failures.append(f"{label}: {len(routes)} MoE calls recorded, "
+                        f"{n_moe * dispatched} expected")
+    drops = route_drops(routes, n_moe, live, SLOTS)
+    per_req = {}
+    for c, own in enumerate(owners):       # later ticks overwrite (a retry)
+        ranked, probs = route_sets(routes[c * n_moe:(c + 1) * n_moe])
+        for t, o in enumerate(own):
+            if o is not None:
+                per_req.setdefault(o[0], {})[o[1]] = (ranked[:, t],
+                                                      probs[:, t])
+    del routes
+    if drops["decode"]["max"] != 0.0:      # T <= 8 <= C: nothing can drop
+        failures.append(f"{label}: a decode-only tick dropped {drops}")
+    return sched, sec, drops, per_req
+
+
+def moe_vs_alone(engine, finished, stream_routes):
+    """:func:`stream_vs_alone` for a MoE model, its routes compared too:
+    each finished request's tokens against its prompt served alone
+    (prefill, then greedy decode steps, routes recorded). A divergence is
+    a logit near tie (:func:`divergence`'s rule), or a router near tie:
+    some position before the diverging token routed differently in some
+    layer, and at the first such (position, layer) the swapped experts'
+    probabilities are within MOE_ROUTE_TIE (:func:`route_gap`; one
+    flipped expert reroutes the token and everything after it reads it).
+    Returns (requests equal, [(rid, index, gap)] logit near ties, [(rid,
+    index, position, layer, route gap)] router near ties, [(rid, index,
+    gap, why)] divergences neither explains)."""
+    model, params = engine.model, engine.params
+    n_moe, k = sum(model.cfg.moe_layer_mask()), model.cfg.moe.top_k
+    equal, ties, route_ties, bad = 0, [], [], []
+    for rid, req in sorted(finished.items()):
+        toks = torch.as_tensor(np.asarray(req.prompt)[None],
+                               dtype=torch.int32, device=DEV)
+        peft = engine._peft(torch.full((1,), req.task_id, dtype=torch.int32,
+                                       device=DEV))
+        with model.record_routes() as routes:
+            logits, cache, pos = model.prefill(params, toks, peft,
+                                               max_len=engine.cache_len)
+            lgs, alone = greedy_decode(model, params, logits, cache, pos,
+                                       peft, len(req.out))
+        del cache
+        d = divergence([int(t) for t in req.out], alone[0].tolist(),
+                       lgs[:, 0])
+        if d is None:
+            equal += 1
+            continue
+        if d[2]:
+            ties.append((rid, d[0], round(d[1], 5)))
+            continue
+        # the alone run's routes by position: the prefill's, then a step's
+        alone_at = {}
+        for c in range(len(routes) // n_moe):
+            re_, rp = route_sets(routes[c * n_moe:(c + 1) * n_moe])
+            base = 0 if c == 0 else len(req.prompt) + c - 1
+            for t in range(re_.shape[1]):
+                alone_at[base + t] = (re_[:, t], rp[:, t])
+        del routes
+        mine = stream_routes.get(rid, {})
+        # the token at out[j] reads positions < len(prompt) + j
+        first, why = None, "no routing difference before it"
+        for p in range(len(req.prompt) + d[0]):
+            if p not in mine or p not in alone_at:
+                continue
+            (ea, pa), (eb, pb) = mine[p], alone_at[p]
+            gaps = [route_gap((ea[m], pa[m]), (eb[m], pb[m]), k)
+                    for m in range(n_moe)]
+            layer = next((m for m, g in enumerate(gaps) if g > 0), None)
+            if layer is not None:
+                first = (p, layer, round(gaps[layer], 4))
+                if gaps[layer] > MOE_ROUTE_TIE:
+                    why = (f"position {p} layer {layer}: route gap "
+                           f"{gaps[layer]:.4f}")
+                    first = None
+                break
+        if first is None:
+            bad.append((rid, d[0], round(d[1], 5), why))
+        else:
+            route_ties.append((rid, d[0]) + first)
+    return equal, ties, route_ties, bad
+
+
+def moe_part(report, name):
+    """11a / 11b: ``MOE_PARTS[name]`` at full width, bf16, random weights
+    (seed 0) and fabricated tables, at the config's capacity factor 1.25:
+    phase 5's paged chunked stream (gated: finished, drained, exact
+    launches, no decode-only tick drops; reported: tokens/s, the dropped
+    share per chunk tick and per decode tick, requests equal to their
+    prompt served alone) and 5c's static mixed batch (exact launches;
+    tokens/s and the prefill's dropped share). qwen3-moe also runs the
+    stream drop-free (capacity factor MOE_DROPFREE: each request's tokens
+    equal to its prompt served alone but at near ties, gated) and reports
+    AoT's effect on routing."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec, counts, failures = MOE_PARTS[name], {}, []
+    engine = decoder_engine(spec, MAX_LEN)
+    model, cfg = engine.model, engine.model.cfg
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res = dict(setup_s=setup_s, layers=cfg.num_layers,
+               moe_layers=sum(cfg.moe_layer_mask()),
+               capacity_factor=cfg.moe.capacity_factor)
+    label = f"moe_{name}_paged"
+    sched, sec, drops, sroutes = moe_stream(engine, name, spec, label,
+                                            counts, failures)
+    equal, ties, rties, bad = moe_vs_alone(engine, sched.finished, sroutes)
+    res.update(tokens_per_s=sched.tokens_emitted / sec, ticks=sched.ticks,
+               drops=drops, stream_equal=equal, near_ties=ties,
+               router_ties=rties, divergences=bad,
+               requests=len(sched.finished))
+    del sched, sroutes
+    if name == "qwen3moe":
+        free = with_capacity(engine, MOE_DROPFREE)
+        flabel = f"moe_{name}_paged_dropfree"
+        sched, fsec, fdrops, sroutes = moe_stream(free, name, spec, flabel,
+                                                  counts, failures)
+        fequal, fties, frties, fbad = moe_vs_alone(free, sched.finished,
+                                                   sroutes)
+        if fbad or fdrops["chunk"]["max"] != 0.0:
+            failures.append(f"{flabel}: divergences neither tie explains "
+                            f"{fbad}, drops {fdrops}")
+        res["dropfree"] = dict(tokens_per_s=sched.tokens_emitted / fsec,
+                               drops=fdrops, stream_equal=fequal,
+                               near_ties=fties, router_ties=frties,
+                               divergences=fbad)
+        del sched, free
+        gc.collect()
+        res["aot_routing_differs"] = routing_effect(
+            model, engine.params, engine.tables,
+            torch.Generator(device=DEV).manual_seed(11))
+    with model.record_routes() as routes:
+        prompts, task_ids, _, static_tps = decoder_static(
+            engine, f"moe_{name}_static", spec["static"], counts)
+    if name == "qwen3moe":          # the static batch over a paged pool
+        pb, ps, psteps = MOE_PAGED_STATIC
+        plabel = f"moe_{name}_static_paged"
+        _, psec = counted(plabel, counts, lambda: paged_generate(
+            engine, prompts[:pb, :ps], psteps, task_ids[:pb]))
+        try:
+            check_launches(plabel, counts[plabel], {
+                "flash_attention": cfg.num_layers,
+                "paged_decode_attention": cfg.num_layers * psteps,
+                "aot_gather_add_multitask": cfg.num_layers * (1 + psteps)})
+        except AssertionError as e:
+            failures.append(str(e))
+        res["static_paged_tokens_per_s"] = pb * psteps / psec
+    b, s, _ = spec["static"]
+    pre = [r for r in routes if r["tokens"] == b * s]    # the prefill's
+    res["static_tokens_per_s"] = static_tps
+    res["static_prefill_dropped"] = 1.0 - torch.stack(
+        [r["keep"].float().mean() for r in pre]).mean().item()
+    del routes, pre
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"], res["failures"] = counts, failures
+    full = configs.get(spec["arch"]).num_layers
+    phase = "11a" if name == "qwen3moe" else "11b"
+    fmt_drops = lambda d: (
+        f"chunk mean {d['chunk']['mean']:.4f} max {d['chunk']['max']:.4f} "
+        f"live mean {d['chunk_live']['mean']:.4f} max "
+        f"{d['chunk_live']['max']:.4f} ({d['chunk']['ticks']} ticks), "
+        f"decode max {d['decode']['max']:.4f} ({d['decode']['ticks']} "
+        "ticks)")
+    extra = {}
+    if "dropfree" in res:
+        f = res["dropfree"]
+        extra = dict(static_paged=f"{MOE_PAGED_STATIC[0]}x"
+                     f"{MOE_PAGED_STATIC[1]}+{MOE_PAGED_STATIC[2]}: "
+                     f"{res['static_paged_tokens_per_s']:.1f} tokens/s",
+                     dropfree_tokens_per_s=f"{f['tokens_per_s']:.1f}",
+                     dropfree_vs_alone=f"{f['stream_equal']}/"
+                     f"{res['requests']} equal, {len(f['near_ties'])} "
+                     f"logit near ties, {len(f['router_ties'])} router "
+                     f"near ties, {len(f['divergences'])} neither",
+                     dropfree_router_ties=f["router_ties"],
+                     aot_routing_differs={k: round(v, 4) for k, v in
+                                          res["aot_routing_differs"].items()})
+    log(f"{phase} {name}", arch=spec["arch"], layers=cfg.num_layers,
+        cut=f"{cfg.num_layers} of {full} layers", tasks=spec["tasks"],
+        setup_s=f"{setup_s:.1f}",
+        requests=f"{res['requests']}/{spec['requests']}",
+        tokens_per_s=f"{res['tokens_per_s']:.1f}", ticks=res["ticks"],
+        dropped=fmt_drops(drops),
+        stream_vs_alone=f"{equal}/{res['requests']} equal, {len(ties)} "
+        f"logit near ties, {len(rties)} router near ties, {len(bad)} "
+        "neither (reported: drops differ)",
+        static=f"{spec['static'][0]}x{spec['static'][1]}+"
+        f"{spec['static'][2]}", static_tokens_per_s=f"{static_tps:.1f}",
+        static_prefill_dropped=f"{res['static_prefill_dropped']:.4f}",
+        **extra, peak_memory_gib=f"{res['peak_memory_gib']:.2f}",
+        seconds=f"{res['seconds']:.1f}", launches=counts,
+        failures=failures or "none")
+    report["moe"][name] = res
+    if failures:
+        raise AssertionError(f"{phase} {name}: {failures}")
+    return counts
+
+
+def routes_agree(routes_k, routes_p, n_moe):
+    """Per call and MoE layer, the tokens whose expert sets or kept
+    assignments differ between the kernel run's routes and the plain
+    run's (a flip elsewhere can move a token's bucket position past the
+    capacity): [(T,) bool per record]; the count of differing tokens per
+    layer (summed over calls); and the set flips whose :func:`route_gap`
+    exceeds MOE_ROUTE_TIE as (record, token, gap)."""
+    diff, not_ties = [], []
+    for i, (a, b) in enumerate(zip(routes_k, routes_p)):
+        sa, sb = (r["top_e"].sort(-1).values for r in (a, b))
+        flip = (sa != sb).any(-1)
+        diff.append(flip | (a["keep"] != b["keep"]).any(-1))
+        k = sa.shape[-1]
+        for t in flip.nonzero()[:, 0].tolist():
+            gap = route_gap(*(((r["rank_e"][t].cpu(), r["rank_p"][t].cpu())
+                               for r in (a, b))), k)
+            if gap > MOE_ROUTE_TIE:
+                not_ties.append((i, t, round(gap, 4)))
+    per_layer = [sum(int(diff[c * n_moe + m].sum())
+                     for c in range(len(diff) // n_moe))
+                 for m in range(n_moe)]
+    return diff, per_layer, not_ties
+
+
+def moe_padding(model, params, gen, factor):
+    """ROADMAP C9 on the card, one MoE layer of ``model`` (layer 0): 40
+    live rows alone, then after 24 rows of one padding vector, at the
+    config's capacity ``factor`` and drop-free (MOE_DROPFREE). Drop-free,
+    the live rows' outputs must equal those alone within 2e-2 of the
+    largest |output| (gated; their routes are the same bits); at
+    ``factor``, the live assignments the padding displaces are
+    reported."""
+    import dataclasses
+    from repro_torch.models import moe
+    cfg, dt = model.cfg, model.opts.compute_dtype
+    p = params["layers"][0]["moe"]
+    live = torch.randn(40, cfg.d_model, generator=gen, device=DEV).to(dt)
+    pad = torch.randn(1, cfg.d_model, generator=gen, device=DEV).to(dt)
+    x = torch.cat([pad.expand(24, -1), live])
+    out = {}
+    for label, factor in (("config", factor), ("dropfree", MOE_DROPFREE)):
+        c = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                capacity_factor=factor))
+        routes = []
+        alone, _ = moe.apply_moe(c, p, live, dt, record=routes)
+        after, _ = moe.apply_moe(c, p, x, dt, record=routes)
+        err = (after[24:].float() - alone.float()).abs().max().item()
+        scale = alone.float().abs().max().item()
+        displaced = int((~routes[1]["keep"][24:]).sum()) - int(
+            (~routes[0]["keep"]).sum())
+        out[label] = dict(max_abs_err=err, scale=scale, displaced=displaced)
+    out["ok"] = out["dropfree"]["max_abs_err"] <= 2e-2 * max(
+        1.0, out["dropfree"]["scale"])
+    return out
+
+
+def judge_moe(lg, routes, row_of, n_moe):
+    """11c's verdict on one check: ``lg`` and ``routes`` of the kernels'
+    bf16 run ("k"), the plain versions' ("p") and float32 plain PyTorch's
+    ("f32"), logits (rows, ..., V) float32; ``row_of(record)`` maps a
+    record's tokens to logit rows (-1: none). A row is gated when each of
+    its tokens routed alike (sets and kept assignments) in all three runs;
+    every k / p flip must be a router near tie (:func:`route_gap`). On the
+    gated rows, the kernels' error against float32 must be within
+    BF16_FACTOR times the plain versions' (7c's rule: the kernels lose no
+    more than plain bf16 PyTorch does), and the kernels against the plain
+    versions at LOGIT_TOL is reported."""
+    diff_kp, per_layer, not_ties = routes_agree(routes["k"], routes["p"],
+                                                n_moe)
+    diff_k32 = routes_agree(routes["k"], routes["f32"], n_moe)[0]
+    n = lg["k"].shape[0]
+    bad = torch.zeros(n + 1, dtype=torch.bool, device=DEV)
+    for rec, d1, d2 in zip(routes["k"], diff_kp, diff_k32):
+        rows = row_of(rec)
+        bad[rows[d1 | d2].clamp(min=-1)] = True      # row -1 lands at n
+    keep = (~bad[:n]).nonzero()[:, 0]
+    g = {key: x[keep] for key, x in lg.items()}
+    res = dict(routing_differs_per_layer=per_layer, not_ties=not_ties,
+               rows_gated=f"{len(keep)}/{n}", rows=len(keep))
+    if len(keep):
+        e_k = (g["k"] - g["f32"]).abs().max().item()
+        e_p = (g["p"] - g["f32"]).abs().max().item()
+        res.update(vs_plain=against_plain(g["k"], g["p"]), err_k_f32=e_k,
+                   err_p_f32=e_p, ok=not not_ties and e_k <= BF16_FACTOR
+                   * e_p)
+    else:
+        res.update(ok=not not_ties)
+    return res
+
+
+def moe_cross_check(report):
+    """11c: qwen3-moe at full width with MOE_CHECK_LAYERS layers (phase 6's
+    generator), drop-free (capacity factor MOE_DROPFREE: at the config's
+    1.25 one flipped route moves later tokens' bucket positions past the
+    capacity, C9, and no logit row would be left to compare; the capacity
+    is held by :func:`moe_padding` instead): one mixed tick (phase 6's
+    packing) and a whole-prompt prefill (MOE_CHECK_STATIC) plus three
+    decode steps, each through the kernels, through the plain versions in
+    the same packing and through float32 plain PyTorch, the latter two fed
+    the kernels' tokens; :func:`judge_moe` gates the rows that routed
+    alike in all three, and every flip between the kernels and the plain
+    versions must be a near tie of the router. (LOGIT_TOL between the
+    kernels and the plain versions, phase 6's rule, is reported: the
+    experts' weights, std 1/sqrt(E) (C10), carry bf16's rounding into the
+    logits at 4e-2 in two layers.)"""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.models import model as model_mod
+    gen = torch.Generator(device=DEV).manual_seed(PHASE6_SEED)
+    dt, f32 = torch.bfloat16, torch.float32
+    base = configs.get(MOE_PARTS["qwen3moe"]["arch"]).replace(
+        num_layers=MOE_CHECK_LAYERS)
+    cfg = base.replace(moe=dataclasses.replace(base.moe,
+                                               capacity_factor=MOE_DROPFREE))
+    n_moe = sum(cfg.moe_layer_mask())
+    model = model_mod.Model(cfg, model_mod.ModelOptions(dt, dt), device=DEV)
+    params = model.init(1)
+    tables = aot_mod.stack_tasks([aot_mod.random_fused(
+        cfg, params["embed"]["tok"], seed=t, scale=0.03, vocab_chunk=4096,
+        dtype=dt) for t in range(2)])["table"]
+    runs = {"k": (model, params, tables),
+            "f32": (model_mod.Model(cfg, model_mod.ModelOptions(f32, f32),
+                                    device=DEV), cast_backbone(params, f32),
+                    tables.float())}
+    runs["p"] = runs["k"]
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=DEV)
+    # ---- one mixed tick
+    rows, pos = packings()["chunks_decode_dead"]
+    T = len(rows)
+    cache0 = model.init_paged_cache(NUM_BLOCKS, BS)
+    for n in ("k", "v"):
+        cache0[n].normal_(generator=gen)
+    perm = torch.randperm(NUM_BLOCKS - 1, generator=gen, device=DEV) + 1
+    bt = perm.view(SLOTS, NPAGES).to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (T, 1), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    lidx = [0] * SLOTS
+    for t, (r, p) in enumerate(zip(rows, pos)):
+        if p >= 0:
+            lidx[r] = t
+    live = sorted({r for r, p in zip(rows, pos) if p >= 0})
+    task_of = i32([r % 2 for r in rows])
+    # each token's logit row: its slot's place among the live slots
+    tick_row = i32([live.index(r) if p >= 0 else -1
+                    for r, p in zip(rows, pos)]).long()
+
+    def tick(key):
+        m, prm, tbl = runs[key]
+        cache = {n: c.clone().to(m.opts.compute_dtype)
+                 for n, c in cache0.items()}
+        with m.record_routes() as routes:
+            logits, _ = m.mixed_step(prm, tokens, i32(rows), i32(pos), cache,
+                                     tasks_peft(tbl, task_of),
+                                     block_tables=bt, logit_idx=i32(lidx))
+        torch.cuda.synchronize()
+        return logits[live].float(), routes
+    # ---- a whole-prompt prefill plus three decode steps
+    b, s, steps = MOE_CHECK_STATIC
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    stask = torch.arange(b, dtype=torch.int32, device=DEV) % 2
+
+    def static(key, forced=None):
+        m, prm, tbl = runs[key]
+        peft = tasks_peft(tbl, stask)
+        with m.record_routes() as routes:
+            logits, cache, p0 = m.prefill(prm, toks, peft, max_len=MAX_LEN)
+            lgs, tk = greedy_decode(m, prm, logits, cache, p0, peft, steps,
+                                    forced=forced)
+        return lgs.transpose(0, 1), tk, routes     # rows first
+    static_row = lambda rec: (torch.arange(rec["tokens"], device=DEV)
+                              // (s if rec["tokens"] == b * s else 1))
+    lg_t, rt_t, lg_s, rt_s = {}, {}, {}, {}
+    lg_t["k"], rt_t["k"] = tick("k")
+    lg_s["k"], tok_k, rt_s["k"] = static("k")
+    with plain_ops():
+        for key in ("p", "f32"):
+            lg_t[key], rt_t[key] = tick(key)
+            lg_s[key], _, rt_s[key] = static(key, forced=tok_k)
+    tick_res = judge_moe(lg_t, rt_t, lambda rec: tick_row, n_moe)
+    static_res = judge_moe(lg_s, rt_s, static_row, n_moe)
+    del runs, lg_t, lg_s, rt_t, rt_s
+    pad = moe_padding(model, params, gen, base.moe.capacity_factor)
+    ok = tick_res["ok"] and static_res["ok"] and pad["ok"] and (
+        tick_res["rows"] + static_res["rows"] > 0)
+    fmt = lambda r: (f"rows {r['rows_gated']}, routing differs per layer "
+                     f"{r['routing_differs_per_layer']}, flips not router "
+                     f"ties {len(r['not_ties'])}" + (
+                         f", vs float32 {r['err_k_f32']:.3e} (plain bf16 "
+                         f"{r['err_p_f32']:.3e}), vs plain "
+                         f"{verdict(r['vs_plain'])} (LOGIT_TOL "
+                         f"{'held' if r['vs_plain']['ok'] else 'missed'})"
+                         if r["rows"] else ""))
+    log("11c moe cross-check", layers=MOE_CHECK_LAYERS, T=T,
+        tick=fmt(tick_res), static=f"b{b} s{s}+{steps}: " + fmt(static_res),
+        padding_first=f"dropfree {pad['dropfree']['max_abs_err']:.3e} of "
+        f"{pad['dropfree']['scale']:.3e}, displaced at factor "
+        f"{base.moe.capacity_factor}: {pad['config']['displaced']}",
+        result="ok" if ok else "FAIL")
+    report["moe"]["cross_check"] = dict(tick=tick_res, static=static_res,
+                                        padding=pad)
+    if not ok:
+        raise AssertionError(f"11c: {report['moe']['cross_check']}")
+
+
+def phase_moe(report):
+    """Phase 11 (11a-11c), each part's memory freed before the next;
+    returns the launches by path."""
+    t0 = time.perf_counter()
+    report["moe"] = {}
+    launches = {}
+    for part in (lambda: moe_part(report, "qwen3moe"),
+                 lambda: moe_part(report, "llama4"),
+                 lambda: moe_cross_check(report)):
+        launches.update(part() or {})
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["moe"]["seconds"] = time.perf_counter() - t0
+    log("11 moe", seconds=f"{report['moe']['seconds']:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5541,6 +6356,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_decoders(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_moe(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]
@@ -5554,6 +6372,9 @@ def main() -> int:
                 row["name"]]
         if "decoders" in row:               # phase 10's path
             row["decoders"]["launches"] = launches[DEC_PATH[row["name"]]][
+                row["name"]]
+        if row["name"] in MOE_PATH:         # phase 11's path
+            row["moe"]["launches"] = launches[MOE_PATH[row["name"]]][
                 row["name"]]
     phase_cross_check(report)
     report["kernels"] = kernels

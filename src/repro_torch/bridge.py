@@ -9,11 +9,14 @@ The input is the reference's pytree as nested dicts / lists of numpy arrays
 The reference stacks each group of layers as ``params["groups"][gi]["b{u}"]``
 with leaves ``(R, ...)``: group ``gi`` repeats its pattern unit ``R`` times,
 and unit position ``u`` of repeat ``r`` is global layer
-``start + r * U + u`` (``repro.models.model.layer_plan``). The port keeps
+``start + r * U + u`` (``repro.models.model.layer_plan``; with MoE on every
+``interleave``-th layer the unit is widened to ``lcm(len(pattern_unit),
+interleave)`` layers, so llama4's is (dense, MoE): U = 2). The port keeps
 a list of per-layer dicts in global layer order.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import fields
 from typing import Any, Dict, List, Sequence
 
@@ -26,18 +29,25 @@ from repro_torch.device import resolve_device
 
 
 def _layer_groups(cfg):
-    """(start, repeats, unit length) of each reference layer group."""
+    """(start, repeats, unit length) of each reference layer group, as the
+    reference's ``layer_plan`` groups them."""
+    ulen = len(cfg.pattern_unit)
+    if cfg.moe is not None and cfg.moe.interleave > 1:
+        ulen = math.lcm(ulen, cfg.moe.interleave)
     covered = cfg.pattern_repeats * len(cfg.pattern_unit)
-    groups = [(0, cfg.pattern_repeats, len(cfg.pattern_unit))]
+    assert covered % ulen == 0, (cfg.name, ulen, covered)
+    groups = [(0, covered // ulen, ulen)]
     if cfg.pattern_remainder:
         groups.append((covered, 1, len(cfg.pattern_remainder)))
     return groups
 
 
 # the subtrees whose leaves stay float32, as in ``Model.init``: the norms'
-# (scale, LayerNorm's bias; none for the non-parametric norm) and the QKV
-# biases
-FLOAT32 = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
+# (scale, LayerNorm's bias; none for the non-parametric norm), the QKV
+# biases, the q/k norms and the MoE router (the reference routes in float32
+# from a float32 router; a bf16 one would move near-tie routes)
+FLOAT32 = ("ln1", "ln2", "final_norm", "bq", "bk", "bv", "q_norm", "k_norm",
+           "router")
 
 
 def _to_torch(tree, device, dtype, norm=False):

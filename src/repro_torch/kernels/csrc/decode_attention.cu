@@ -81,9 +81,9 @@
 //   barrier keeps each partial alive until it has been read;
 // - a run of dead tokens (pos < 0), of any length, is one item: group 0's
 //   blocks share its zeros and return. Single tokens and float32 runs use
-//   group 0 only (at g > 4 group 1's clusters return at once; no served
-//   model has g > 4, and one cluster taking both groups' tiles in turn
-//   spilled at hd 128).
+//   group 0 only (at g > 4 group 1's clusters return at once: every tick
+//   of qwen3-moe-30b-a3b, h32 over kvh4 at hd 128, g = 8, launches them;
+//   one cluster taking both groups' tiles in turn spilled at hd 128).
 // float32 keeps every token on the split walk (mma.sync has no fp32 input
 // short of TF32, which would miss fp32's 2e-5 tolerance): a run's tokens
 // walk one after another in their cluster. No served path runs fp32

@@ -9,8 +9,9 @@ against forward through the reparametrization (bitwise on the CPU, within
 2e-5 on CUDA, where cuBLAS may tile the two GEMMs differently), and writes
 both through the checkpoint manager in the reference's format: step 1
 fc, step 2 kron, ``extra={"mode", "arch"}``. ``launch.serve --load DIR``
-(either package's) serves them, task id = step order. Runs on the card
-unless ``--device cpu`` is given.
+(either package's) serves them, task id = step order. ``--arch`` picks
+another decoder (the MoE pair among them; serve with the same ``--arch``).
+Runs on the card unless ``--device cpu`` is given.
 
     # on the CPU, reduced widths, as the reference's example runs
     PYTHONPATH=src python -m repro_torch.launch.export --device cpu --reduced
@@ -49,6 +50,9 @@ TRAIN_STEPS, BATCH, SEQ, LR, RANK = 100, 16, 32, 8e-3, 16
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=ARCH,
+                    help="any servable decoder (default: the reference "
+                         "example's smollm-360m)")
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the arch to 2 layers and tiny widths")
     ap.add_argument("--out", default="results/fused_artifacts",
@@ -108,7 +112,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser().parse_args(argv)
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 as float32
-    cfg = configs.get(ARCH)
+    cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg, repeats=2)
     model = Model(cfg, ModelOptions(attn_impl="ref"), device=dev)

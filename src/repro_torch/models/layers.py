@@ -8,7 +8,7 @@ Counterparts of the functions of the same names in
 ``x @ w``. Matmuls run in the compute dtype; norm statistics and softmax in
 float32. The port covers what its decoders and the paper's encoders use:
 RMSNorm, LayerNorm and the non-parametric norm, SwiGLU, GeGLU and the GELU
-MLP, RoPE, the QKV bias; no q/k norm, no softcap.
+MLP, RoPE, the QKV bias, qwen3's per-head q/k RMSNorm; no softcap.
 """
 from __future__ import annotations
 
@@ -33,6 +33,20 @@ def dense_init(shape, generator, device, dtype=torch.float32, scale=None):
     (default 1/sqrt(fan_in)), as the reference draws dense weights."""
     std = 1.0 / math.sqrt(shape[0]) if scale is None else scale
     return _trunc_normal(shape, std, generator, device, dtype)
+
+
+def dense_init_sliced(shape, generator, device, dtype=torch.float32):
+    """:func:`dense_init` of a stacked leaf ``(n, fan_in, ...)`` with the
+    reference's std ``1/sqrt(shape[0])`` (fan-in read on the stacking
+    axis, as its ``dense_init`` reads a MoE expert leaf), drawn one
+    ``shape[1:]`` slice at a time into a tensor of ``dtype``: no float32
+    copy of the whole leaf exists (a llama4 expert leaf is 5.4 G
+    values)."""
+    std = 1.0 / math.sqrt(shape[0])
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = _trunc_normal(shape[1:], std, generator, device, dtype)
+    return out
 
 
 def embed_init(shape, generator, device, dtype=torch.float32):
@@ -77,6 +91,16 @@ def apply_norm(cfg, p, x):
     if p:
         y = y * p["scale"] + p["bias"]
     return y.to(x.dtype)
+
+
+def rms_head_norm(scale, x, eps=1e-6):
+    """qwen3's per-head RMSNorm of q or k over the last axis (head_dim):
+    float32 statistics, ``x * rsqrt(mean(x^2) + eps) * scale``, the result
+    in x's dtype, as the reference's ``rms_head_norm`` (eps fixed at its
+    default, not the config's)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -148,9 +172,10 @@ def apply_mlp(cfg, p, x, dtype):
 
 def attn_init(cfg, generator, device, dtype=torch.float32):
     """The attention's parameters: ``wq`` (d, H hd), ``wk`` / ``wv`` (d, KV
-    hd), ``wo`` (H hd, d) drawn as :func:`dense_init`, and with the
-    config's ``qkv_bias`` the float32 zero biases ``bq``, ``bk``, ``bv``,
-    as the reference's ``attn_init``."""
+    hd), ``wo`` (H hd, d) drawn as :func:`dense_init`, with the config's
+    ``qkv_bias`` the float32 zero biases ``bq``, ``bk``, ``bv``, and with
+    its ``qk_norm`` the float32 scales ``q_norm``, ``k_norm`` (hd,) of
+    ones, as the reference's ``attn_init``."""
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
     dense = lambda *shape: dense_init(shape, generator, device, dtype)
@@ -160,6 +185,9 @@ def attn_init(cfg, generator, device, dtype=torch.float32):
         for name, width in (("bq", h * hd), ("bk", kvh * hd),
                             ("bv", kvh * hd)):
             p[name] = torch.zeros(width, dtype=torch.float32, device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones(hd, dtype=torch.float32, device=device)
     return p
 
 
@@ -169,7 +197,8 @@ def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None,
     ``positions`` (or with their precomputed ``sincos``). The config's QKV
     bias is added to the projections first, then ``peft_qkv``: (dq, dk,
     dv) deltas, each None or (b, s, width) (LoRA's), both before the
-    reshape and RoPE."""
+    reshape; then the config's q/k norm per head (:func:`rms_head_norm`),
+    then RoPE."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = x.to(dtype)
@@ -183,6 +212,9 @@ def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, sincos)
         k = apply_rope(k, positions, cfg.rope_theta, sincos)

@@ -17,7 +17,10 @@ Counterpart of ``repro.models.model.Model`` for attention-only stacks:
 pre-norm causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
 serving path's smollm-360m; olmo-1b's non-parametric LayerNorm,
 qwen2.5-14b's QKV bias and untied head, h2o-danube-1.8b's sliding window;
-GeGLU and the embeddings' ``sqrt(d)`` scale) and the paper's post-LN
+GeGLU and the embeddings' ``sqrt(d)`` scale; the mixture-of-experts
+decoders qwen3-moe-30b-a3b, with its per-head q/k norm, and
+llama4-maverick-400b-a17b, MoE on every second layer with a shared
+expert: ``models.moe``) and the paper's post-LN
 encoders (LayerNorm, the GELU MLP, learned positions, an untied head,
 full attention: roberta-large, deberta-xl), which run the whole-sequence
 entry points only (:func:`check_servable`). A sliding-window stack's
@@ -34,6 +37,7 @@ pool is ``{"k", "v"}`` of shape
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict
@@ -48,6 +52,7 @@ from repro_torch.core.peft import lora_scale
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 # the PEFT methods the model serves (core.peft)
 SERVED = ("none", "aot", "bitfit", "lora", "adapters", "ptv2")
@@ -77,9 +82,10 @@ def check_supported(cfg: ArchConfig) -> None:
     ``logits``, ``classify``: serving whole sequences and training) run
     ``cfg``: an attention-only stack, pre-norm with RMSNorm, LayerNorm or
     the non-parametric norm, or post-LN with LayerNorm, a SwiGLU, GeGLU or
-    GELU MLP, RoPE or learned positions (embeddings scaled by sqrt(d) or
-    not), an optional QKV bias, causal (full or sliding-window) or an
-    encoder's full attention."""
+    GELU MLP or a routed MoE FFN on the config's MoE layers, RoPE or
+    learned positions (embeddings scaled by sqrt(d) or not), an optional
+    QKV bias and q/k norm, causal (full or sliding-window) or an encoder's
+    full attention."""
     bad = []
     if set(cfg.layer_kinds) != {BLOCK_ATTN}:
         bad.append(f"block kinds {sorted(set(cfg.layer_kinds))}")
@@ -89,8 +95,8 @@ def check_supported(cfg: ArchConfig) -> None:
             cfg.attn_kind == "swa" and cfg.causal and cfg.sliding_window)):
         bad.append(f"attention {cfg.attn_kind!r} (causal {cfg.causal}, "
                    f"window {cfg.sliding_window})")
-    if cfg.moe is not None or cfg.frontend:
-        bad.append("moe / frontend")
+    if cfg.frontend:
+        bad.append(f"frontend {cfg.frontend!r}")
     if cfg.norm_type not in ("rmsnorm", "layernorm", "nonparametric") or (
             cfg.post_ln and cfg.norm_type != "layernorm"):
         bad.append(f"{cfg.norm_type} {'post' if cfg.post_ln else 'pre'}-LN")
@@ -98,8 +104,8 @@ def check_supported(cfg: ArchConfig) -> None:
         bad.append(f"mlp {cfg.mlp_type!r} (d_ff {cfg.d_ff})")
     if cfg.pos_type not in ("rope", "learned"):
         bad.append(f"positions {cfg.pos_type!r}")
-    if cfg.qk_norm or cfg.logit_softcap:
-        bad.append("qk norm / softcap")
+    if cfg.logit_softcap:
+        bad.append(f"attention softcap {cfg.logit_softcap}")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
@@ -197,6 +203,7 @@ class Model:
         self.cfg = cfg
         self.opts = opts
         self.device = resolve_device(device)
+        self._routes = None         # the open record_routes() list, if any
 
     # ------------------------------------------------------------------
     def max_pos(self) -> int:
@@ -212,9 +219,11 @@ class Model:
         table, learned positions ``(max_pos(), d)``) truncated-normal std
         0.02, dense weights (the untied head ``lm_head.w`` (d, V) too)
         truncated-normal std 1/sqrt(fan_in), norm scales 1 and biases 0,
-        MLP and QKV biases 0. Norm parameters and the QKV biases stay
-        float32 (the reference's ``attn_init``); everything else is stored
-        in ``param_dtype``."""
+        MLP and QKV biases 0, q/k norm scales 1. A MoE layer (the config's
+        ``moe_layer_mask``) holds ``moe`` (``moe.moe_init``) where the
+        others hold ``mlp``. Norm parameters, the QKV biases, the q/k norms
+        and the router stay float32 (the reference's ``attn_init`` and
+        ``moe_init``); everything else is stored in ``param_dtype``."""
         cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d, V = cfg.d_model, cfg.vocab_size
@@ -222,17 +231,20 @@ class Model:
         dense = lambda *shape: L.dense_init(shape, gen, dev, pdt)
         norm = lambda: L.norm_init(cfg, dev)
 
-        def layer():
-            return {"ln1": norm(),
-                    "attn": L.attn_init(cfg, gen, dev, pdt),
-                    "ln2": norm(),
-                    "mlp": L.mlp_init(cfg, gen, dev, pdt)}
+        def layer(moe):
+            lp = {"ln1": norm(), "attn": L.attn_init(cfg, gen, dev, pdt),
+                  "ln2": norm()}
+            if moe:
+                lp["moe"] = moe_mod.moe_init(cfg, gen, dev, pdt)
+            else:
+                lp["mlp"] = L.mlp_init(cfg, gen, dev, pdt)
+            return lp
 
         embed = {"tok": L.embed_init((V, d), gen, dev, pdt)}
         if cfg.pos_type == "learned":
             embed["pos"] = L.embed_init((self.max_pos(), d), gen, dev, pdt)
         params = {"embed": embed,
-                  "layers": [layer() for _ in range(cfg.num_layers)],
+                  "layers": [layer(m) for m in cfg.moe_layer_mask()],
                   "final_norm": norm()}
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": dense(d, V)}
@@ -411,11 +423,41 @@ class Model:
                    approximate="tanh")
         return out + z @ a["up"][i].to(dt) + a["b2"][i].to(dt)
 
-    def _block(self, lp, h, sincos, attend, peft=None, i=0, aot=None):
+    @contextlib.contextmanager
+    def record_routes(self):
+        """Collect the routing of every MoE layer this model runs while
+        open: a list that gains one record per layer per call
+        (``moe.apply_moe``'s ``record``), in call and layer order."""
+        prev, routes = self._routes, []
+        self._routes = routes
+        try:
+            yield routes
+        finally:
+            self._routes = prev
+
+    def _ffn(self, lp, x, aux):
+        """The block's FFN on x (b, s, d): the MLP, or on a MoE layer
+        ``moe.apply_moe`` over x's tokens flattened row-major (the call's
+        order, in which they claim capacity), its aux values added into
+        ``aux`` (a dict, or None to drop them) and its routing into an
+        open :meth:`record_routes` list."""
+        dt = self.opts.compute_dtype
+        if "moe" not in lp:
+            return L.apply_mlp(self.cfg, lp["mlp"], x, dt)
+        out, layer_aux = moe_mod.apply_moe(self.cfg, lp["moe"], x, dt,
+                                           record=self._routes)
+        if aux is not None:
+            for k, v in layer_aux.items():
+                aux[k] = aux[k] + v if k in aux else v
+        return out
+
+    def _block(self, lp, h, sincos, attend, peft=None, i=0, aot=None,
+               aux=None):
         """Layer i on h (b, s, d). Pre-norm: norm, Q/K/V projection with
         RoPE (``sincos``; None for learned positions), ``attend(q, k, v)``
         -> (b, s, H, hd) (which also writes the cache), output projection,
-        the residual add, norm, the MLP, the residual add. Post-LN (the
+        the residual add, norm, the FFN (:meth:`_ffn`: the MLP or the MoE,
+        whose aux values go into ``aux``), the residual add. Post-LN (the
         encoders, the reference's order): attention reads h itself, then
         ``h = ln1(h + att)``, the MLP on that h, ``h = ln2(h + ffn)``. With
         the PEFT hooks of ``peft``'s method: AoT's rows added to h first,
@@ -463,7 +505,7 @@ class Model:
         else:
             h = h + out
             x = L.apply_norm(cfg, lp["ln2"], h)
-        out = L.apply_mlp(cfg, lp["mlp"], x, dt)
+        out = self._ffn(lp, x, aux)
         if method == "bitfit":
             out = out + pp["bitfit"]["mlp_out"][i].to(dt)
         if method == "adapters":
@@ -483,7 +525,7 @@ class Model:
         return e_rows, h
 
     def _prompt(self, params, tokens, peft, cache=None, rng=None,
-                max_len=0, real=None):
+                max_len=0, real=None, aux=None):
         """Whole prompts tokens (b, s) through every layer, attending
         through the flash attention kernel (causal, with the config's
         sliding window, or full for an encoder; ``attn_impl="ref"``:
@@ -502,7 +544,8 @@ class Model:
         (``real``: the real tokens of right-padded prompts, default s), each
         at row ``position % rows``. ``rng``: the step's
         ``torch.Generator``, which seeds AoT's dropout (None: no
-        dropout)."""
+        dropout). ``aux``: a dict that gains the MoE layers' aux values,
+        summed over layers."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = self._method(peft, whole=cache is None)
         b, s = tokens.shape
@@ -558,7 +601,7 @@ class Model:
                                            prefix_len=p1)
                 return ops.flash_attention(q, k, v, causal=cfg.causal,
                                            window=window, q_offset=p)
-            h = self._block(lp, h, sincos, attend, peft, i, aot)
+            h = self._block(lp, h, sincos, attend, peft, i, aot, aux)
         return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
 
     def forward(self, params, tokens, peft=None, rng=None):
@@ -568,10 +611,18 @@ class Model:
         final norm, plus BitFit's ``final`` bias, which only this entry
         point adds, as in the reference. ``rng``: the step's
         ``torch.Generator`` for AoT's dropout (None: none)."""
-        h, _ = self._prompt(params, tokens, peft, rng=rng)
+        return self.forward_aux(params, tokens, peft, rng)[0]
+
+    def forward_aux(self, params, tokens, peft=None, rng=None):
+        """:meth:`forward` and the MoE layers' aux values summed over
+        layers (``moe_lb_loss``, ``moe_z_loss``, ``moe_dropped_frac``; an
+        empty dict without MoE layers), the reference's ``(h, aux)``: what
+        the training step adds to its loss."""
+        aux = {}
+        h, _ = self._prompt(params, tokens, peft, rng=rng, aux=aux)
         if peft and peft["method"] == "bitfit":
             h = h + peft["params"]["bitfit"]["final"].to(h.dtype)
-        return h
+        return h, aux
 
     def logits(self, params, tokens, peft=None, rng=None):
         """``unembed(forward(...))``: (b, s, V)."""

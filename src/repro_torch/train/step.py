@@ -10,8 +10,10 @@ gradients and optimizer state exist for the trainable tree only.
 
 Cross-entropy runs in sequence chunks, each under
 ``torch.utils.checkpoint``, so the (b, s, |V|) logits are never resident
-for the backward pass. MoE's auxiliary losses are absent: the port refuses
-MoE backbones.
+for the backward pass. A MoE backbone adds its auxiliary losses, as the
+reference: ``moe_lb_weight`` times the load-balance loss and
+``moe_z_weight`` times the router z-loss, each averaged over the MoE
+layers.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ class TrainConfig:
     clip_norm: float = 1.0
     loss_chunk: int = 1024          # sequence chunk for CE (0 = unchunked)
     z_loss: float = 1e-4
+    moe_lb_weight: float = 1e-2
+    moe_z_weight: float = 1e-3
     schedule: Any = None            # callable(step) -> lr; None: constant(lr)
 
 
@@ -94,20 +98,31 @@ def chunked_ce(h, w, labels, *, chunk: int, z_loss: float, mask=None):
 def make_loss_fn(model, tcfg: TrainConfig):
     """(trainable, frozen, batch, rng) -> (loss, metrics) for next-token
     prediction: ``batch`` holds "tokens" and "labels" (b, s) and
-    optionally "loss_mask"; ``rng`` the step's generator (dropout)."""
+    optionally "loss_mask"; ``rng`` the step's generator (dropout). With
+    MoE layers the loss adds their weighted aux losses and the metrics
+    gain ``moe_lb`` and ``moe_drop`` (per MoE layer), as the
+    reference's."""
     method = tcfg.peft.method
 
     def loss_fn(trainable, frozen, batch, rng):
         backbone, peft_params = merge_train(trainable, frozen)
         peft = peft_mod.make(peft_params, tcfg.peft) if method != "none" \
             else None
-        h = model.forward(backbone, batch["tokens"], peft, rng)
+        h, aux = model.forward_aux(backbone, batch["tokens"], peft, rng)
         dt = model.opts.compute_dtype
         w = model.head_weight(backbone)     # E^T, or the untied lm_head
         loss, acc = chunked_ce(h.to(dt), w, batch["labels"],
                                chunk=tcfg.loss_chunk, z_loss=tcfg.z_loss,
                                mask=batch.get("loss_mask"))
-        return loss, {"loss": loss, "acc": acc, "total_loss": loss}
+        metrics = {"loss": loss, "acc": acc}
+        if "moe_lb_loss" in aux:
+            nmoe = max(sum(model.cfg.moe_layer_mask()), 1)
+            loss = (loss + tcfg.moe_lb_weight * aux["moe_lb_loss"] / nmoe
+                    + tcfg.moe_z_weight * aux["moe_z_loss"] / nmoe)
+            metrics["moe_lb"] = aux["moe_lb_loss"] / nmoe
+            metrics["moe_drop"] = aux["moe_dropped_frac"] / nmoe
+        metrics["total_loss"] = loss
+        return loss, metrics
 
     return loss_fn
 

@@ -160,9 +160,7 @@ def test_config_copies_equal_reference(name):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(qk_norm=True), "qk norm"),
     (dict(logit_softcap=30.0), "softcap"),
-    (dict(moe=jconfigs.get("qwen3-moe-30b-a3b").moe), "moe"),
     (dict(frontend="vision_patches"), "frontend"),
     (dict(pattern_unit=("rglru", "rglru", "attn"), num_layers=3), "block"),
     (dict(prefix_lm_len=4), "prefix"),

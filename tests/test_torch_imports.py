@@ -36,7 +36,8 @@ def test_importing_the_port_loads_no_jax():
               "optim.schedules", "train.step", "train.loop", "launch.train",
               "tree", "checkpoint.manager", "launch.export",
               "configs.olmo_1b", "configs.qwen2p5_14b",
-              "configs.h2o_danube_1p8b"):
+              "configs.h2o_danube_1p8b", "configs.qwen3_moe_30b_a3b",
+              "configs.llama4_maverick_400b_a17b", "models.moe"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -94,7 +95,8 @@ def test_entry_points_refuse_cpu_unless_asked(no_cuda, entry):
 
 
 @pytest.mark.parametrize("name", ["olmo-1b", "qwen2.5-14b",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "qwen3-moe-30b-a3b",
+                                  "llama4-maverick-400b-a17b"])
 def test_decoder_configs_refuse_cpu_unless_asked(no_cuda, name):
     """Each decoder config module registers its config; its model and
     launchers raise without CUDA unless the CPU is asked for."""

@@ -932,3 +932,112 @@ def test_phase10_stream_vs_alone_on_a_reduced_ring(monkeypatch):
     sched.run()
     equal, ties, bad = cs.stream_vs_alone(engine, sched.finished)
     assert (equal, ties, bad) == (4, [], [])
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mixture-of-experts decoders
+# ---------------------------------------------------------------------------
+
+def _rank(experts, probs):
+    return (torch.tensor(experts), torch.tensor(probs))
+
+
+@pytest.mark.parametrize("a,b,want", [
+    (_rank([3, 1, 2], [0.5, 0.3, 0.2]), _rank([3, 1, 2], [0.5, 0.3, 0.2]),
+     0.0),
+    # the 2nd and 3rd swap, each within 5% of the other's 2nd probability
+    (_rank([3, 1, 2], [0.5, 0.25, 0.24]), _rank([3, 2, 1], [0.5, 0.25, 0.24]),
+     0.04),
+    # the other run's 2nd was this run's 3rd, 40% below
+    (_rank([3, 1, 2], [0.5, 0.3, 0.18]), _rank([3, 2, 1], [0.5, 0.3, 0.18]),
+     0.4),
+    # an expert outside the other run's recorded ranks
+    (_rank([3, 1, 2], [0.5, 0.3, 0.2]), _rank([3, 0, 2], [0.5, 0.3, 0.2]),
+     1.0)])
+def test_phase11_route_gap(a, b, want):
+    """``route_gap`` at k = 2: 0 for equal sets; else the largest shortfall
+    of a swapped expert's probability in the other run below that run's
+    k-th, 1.0 when it is not among the other's recorded ranks. A router
+    near tie is a gap within MOE_ROUTE_TIE (0.1)."""
+    assert cs.route_gap(a, b, 2) == pytest.approx(want, abs=1e-6)
+    assert (cs.route_gap(a, b, 2) <= cs.MOE_ROUTE_TIE) == (want <= 0.1)
+
+
+def test_phase11_route_drops_split_ticks_and_live_tokens():
+    """Two MoE layers; a chunk tick of 4 tokens (the last 2 dead, and
+    dropped in layer 0), then a decode-only tick of 2 tokens: the chunk
+    tick drops 1 / 8 of all assignments and none of the live ones."""
+    keep = lambda rows: {"keep": torch.tensor(rows), "tokens": len(rows)}
+    routes = [keep([[True], [True], [False], [False]]),
+              keep([[True]] * 4), keep([[True]] * 2), keep([[True]] * 2)]
+    live = [[True, True, False, False], [True, True]]
+    got = cs.route_drops(routes, 2, live, decode_T=2)
+    assert got["chunk"]["ticks"] == got["decode"]["ticks"] == 1
+    assert got["chunk"]["max"] == pytest.approx(0.25)
+    assert got["chunk_live"]["max"] == 0.0 and got["decode"]["max"] == 0.0
+
+
+def test_phase11_on_reduced_moe_configs(monkeypatch):
+    """Phase 11 on the CPU at reduced widths (qwen3-moe and llama4 at 4
+    experts, their capacity factor set back to 1.25, phase 5's stream cut
+    to short prompts): every gate of 11a-11c runs and passes, launches are
+    exact, the drop-free stream equals each prompt served alone, nothing
+    drops on a decode-only tick and the padding placed first displaces
+    live rows at 1.25."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import aot_bias, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(ops, "_on_cpu", lambda *xs: False)
+    for name, fn in (
+            ("aot_gather_add_multitask_kernel",
+             aot_bias.aot_gather_add_multitask_plain),
+            ("rms_norm_kernel", aot_bias.rms_norm_plain),
+            ("flash_attention_kernel", fa.flash_attention_plain),
+            ("decode_attention_kernel", da.decode_attention_plain),
+            ("paged_decode_attention_kernel",
+             da.paged_decode_attention_plain),
+            ("ragged_paged_attention_kernel",
+             lambda q, k, v, bt, r, p, plan=None:
+             da.ragged_paged_attention_plain(q, k, v, bt, r, p))):
+        monkeypatch.setattr(ops, name, fn)
+    get = configs.get
+
+    def reduced(name):
+        cfg = configs.reduced(get(name), repeats=4)
+        return cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                   capacity_factor=1.25))
+    monkeypatch.setattr(configs, "get", reduced)
+    base = list(cs.BASE)
+    base[base.index("--prompt") + 1] = "40"
+    base[base.index("--steps") + 1] = "6"
+    monkeypatch.setattr(cs, "BASE", base)
+    parts = {k: dict(v, requests=6, static=(2, 16, 3), layers=v["layers"]
+                     and 2) for k, v in cs.MOE_PARTS.items()}
+    monkeypatch.setattr(cs, "MOE_PARTS", parts)
+    monkeypatch.setattr(cs, "MOE_ROUTING", (2, 16))
+    monkeypatch.setattr(cs, "MOE_PAGED_STATIC", (2, 16, 3))
+    monkeypatch.setattr(cs, "MOE_CHECK_STATIC", (4, 8, 2))
+    report, threads = {}, torch.get_num_threads()
+    torch.set_num_threads(1)        # six tier-1 workers share the cores
+    try:
+        launches = cs.phase_moe(report)
+    finally:
+        torch.set_num_threads(threads)
+        ops.reset_launches()
+    moe = report["moe"]
+    assert set(launches) == {"moe_qwen3moe_paged",
+                             "moe_qwen3moe_paged_dropfree",
+                             "moe_qwen3moe_static",
+                             "moe_qwen3moe_static_paged", "moe_llama4_paged",
+                             "moe_llama4_static"}
+    q = moe["qwen3moe"]
+    assert q["failures"] == [] and q["dropfree"]["divergences"] == []
+    assert q["dropfree"]["stream_equal"] == q["requests"] == 6
+    assert q["drops"]["decode"]["max"] == 0.0
+    assert moe["cross_check"]["padding"]["config"]["displaced"] > 0
