@@ -37,7 +37,13 @@ Phases, each printing one line of results; any failure exits non-zero:
    window, and in full mode at g = 1; phase 10's decoders' heads: h32
    kvh8 hd80 causal and with danube's window of 4096 over 6144, h16 kvh16
    hd128, h40 kvh8 hd128; phase 11's h32 kvh4 hd128 causal at 577 and
-   4 x 512); the fused multi-task gather-add at phase 11's widths (d 2048
+   4 x 512; phase 12's recurrentgemma, h16 kvh1 at hd 256 (the hd 256
+   build) with its window of 2048 over 4 x 3072, causal and full, at 577,
+   hd 250 and misaligned, and hd 256 at g 1 and g 8); contiguous decode
+   at hd 256 with g 16 (two clusters of 8 heads), 8 and 3 over
+   recurrentgemma's wrapped 2048-row ring and the split cases, hd 250 and
+   a misaligned cache, and hd 128 at g 16 and 12 (WIDE_VARIANTS); the
+   fused multi-task gather-add at phase 11's widths (d 2048
    over V 151936, d 5120 over V 202048, 2 tasks), bitwise; both
    gather-adds in their plain
    mode (no norm: the encoders' post-LN blocks) at d 1024 and the
@@ -72,7 +78,11 @@ Phases, each printing one line of results; any failure exits non-zero:
    qwen3-moe heads (h32 kvh4 hd128, g 8), flash over (16, 512) causal and
    contiguous decode beside SDPA, paged decode and ragged attention on
    the serving tick's packings, the fused multi-task gather-add at T 263
-   over qwen3-moe's and llama4's tables;
+   over qwen3-moe's and llama4's tables; at phase 12's recurrentgemma
+   heads (h16 kvh1 hd256), flash over 4 x 3072 with the window of 2048,
+   causal and full beside SDPA, contiguous decode over the full 2048-row
+   ring (b 4) beside SDPA, the fused gather-add at d 4096 (2 tasks of V
+   256000) and the plain one at xlstm's d 1024 (4 tasks of V 50304);
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -268,7 +278,26 @@ Phases, each printing one line of results; any failure exits non-zero:
    versions a near tie of the router, gated); on the rows that routed
    alike in all three, the kernels' error against float32 within 2x plain
    bf16's (7c's rule, gated); 40 live rows after 24 padding rows equal to
-   them alone drop-free (gated) and displaced at 1.25 (reported).
+   them alone drop-free (gated) and displaced at 1.25 (reported);
+12. the recurrent backbones at full width in bf16, random weights (seed
+   0), fabricated tables, static batches only (the paged paths refuse
+   them): 12a recurrentgemma-9b (8 of 38 layers: two (rglru, rglru, attn)
+   units and the (rglru, rglru) remainder; 2 tasks) on a static mixed
+   batch of 4 x 3072 + 32 over its 2048-row ring (exact launches: a flash
+   and a decode per attention layer, a fused gather-add per layer; each
+   task's rows served as a batch of their own equal to the mixed batch's
+   or diverging at a near tie; every recurrent state finite; one AoT
+   decode step launching exactly 2 decodes and 8 gather-adds; a step's
+   host, wall and device ms and the RG-LRU blocks' host share), then one
+   unit (3 layers) with 2 prompts of 2040 and 16 steps past the ring's
+   wrap, held to Model.logits by 7c's float32 rule; 12b xlstm-350m (24
+   blocks, 4 tasks) on 5c's static mixed batch (16 x 512 + 64: exact
+   launches, 24 plain-mode gather-adds per call and no attention), its
+   prefill and decode steps held to Model.logits by 7c's rule with the
+   carried share against plain bf16's, each task's rows against the
+   mixed batch's within twice plain bf16's error of float32 (xLSTM's
+   bf16 orders part by about that), every state finite; the host share
+   of the mLSTM and sLSTM blocks in a step and in the prefill.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -277,8 +306,9 @@ path's, phase 9's ``overload_*`` and ``lifecycle_load_serve`` among them;
 one phase 8a call; ``decoders``: phase 4's times at phase 10's shapes and
 the launches of the phase 10 path ``DEC_PATH`` names; ``moe``: phase 4's
 times at phase 11's shapes and the launches of the phase 11 path
-``MOE_PATH`` names) and ``{"ok": true, "device": {...}}``. Details go to
-chiprun_out/chip_smoke.json.
+``MOE_PATH`` names; ``recurrent``: phase 4's times at phase 12's shapes
+and the launches of the phase 12 path ``REC_PATH`` names) and ``{"ok":
+true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -312,6 +342,9 @@ DANUBE_HEADS, OLMO_HEADS, QWEN_HEADS = (32, 8), (16, 16), (40, 8)
 MOE_HEADS = (32, 4)
 # phase 11's fused multi-task tables: (tasks, V, d) of qwen3-moe, llama4
 MOE_GATHERS = ((2, 151936, 2048), (2, 202048, 5120))
+# phase 12: recurrentgemma-9b's local attention, MQA h16 kvh1 at hd 256 (g
+# 16) with a window of 2048 over a 2048-row ring
+RGEMMA_HEADS, RGEMMA_HD, RGEMMA_WINDOW = (16, 1), 256, 2048
 SLOTS, MAX_LEN = 8, 1024
 NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
@@ -684,6 +717,7 @@ def phase_parity(gen, report):
     parity_ragged(gen, report)
     parity_flash(gen, report)
     parity_decode(gen, report)
+    parity_decode_wide(gen, report)
     parity_stale_nan(gen, report)
     parity_warm_cold(report)
 
@@ -979,6 +1013,27 @@ FLASH_CASES = {
     # phase 11's qwen3-moe (h32 kvh4 hd128, g 8); llama4 is qwen_causal_577
     "qwen3moe_causal_577": (1, 577, 577, 128, True, 0, False, MOE_HEADS),
     "qwen3moe_causal_512_b4": (4, 512, 512, 128, True, 0, False, MOE_HEADS),
+    # phase 12's recurrentgemma-9b (h16 kvh1 hd256, g 16: the hd 256
+    # build): its static batch's prefill (4 x 3072, window 2048), causal and
+    # full there, query tiles past either end (577), the element-load build
+    # at hd 250, and g 1 / g 8 at hd 256
+    "rgemma_window2048_3072_b4": (4, 3072, 3072, RGEMMA_HD, True,
+                                  RGEMMA_WINDOW, False, RGEMMA_HEADS),
+    "rgemma_causal_3072_b4": (4, 3072, 3072, RGEMMA_HD, True, 0, False,
+                              RGEMMA_HEADS),
+    "rgemma_full_3072_b4": (4, 3072, 3072, RGEMMA_HD, False, 0, False,
+                            RGEMMA_HEADS),
+    "rgemma_causal_577": (1, 577, 577, RGEMMA_HD, True, 0, False,
+                          RGEMMA_HEADS),
+    "rgemma_window100_577": (1, 577, 577, RGEMMA_HD, True, 100, False,
+                             RGEMMA_HEADS),
+    "rgemma_causal_sq577_skv300": (1, 577, 300, RGEMMA_HD, True, 0, False,
+                                   RGEMMA_HEADS),
+    "rgemma_hd250_100": (2, 100, 100, 250, True, 0, False, RGEMMA_HEADS),
+    "rgemma_misaligned_100": (2, 100, 100, RGEMMA_HD, True, 0, False,
+                              RGEMMA_HEADS, True),
+    "hd256_g1_100": (2, 100, 100, RGEMMA_HD, False, 0, False, (4, 4)),
+    "hd256_g8_strided_100": (2, 100, 100, RGEMMA_HD, True, 0, True, (8, 1)),
 }
 
 
@@ -1041,7 +1096,8 @@ def parity_flash(gen, report):
     log("3 parity", kernel="flash_attention",
         shapes="h15 kvh5 hd32|60|64|96|128, h8 kvh1 hd64, h16 kvh16 hd64 "
         "(full); h32 kvh8 hd80 (window 4096 over 6144), h16 kvh16 hd128, "
-        "h40 kvh8 hd128; sq 1-6144; q_offset 20|37",
+        "h40 kvh8 hd128; h16 kvh1 hd250|256 (window 2048 over 4 x 3072), "
+        "h4 kvh4 / h8 kvh1 hd256; sq 1-6144; q_offset 20|37",
         max_abs_err=",".join(cases))
 
 
@@ -1173,6 +1229,54 @@ def parity_decode(gen, report):
             variant=variant,
             shapes=f"b8 h{heads[0]} kvh{kvh} hd{hd} S300-2048 bs8|16|32",
             paged_bitwise_contiguous=f"{bitwise} cases",
+            max_abs_err=",".join(cases))
+
+
+# contiguous decode's new instances (phase 12): name -> (hd, data one
+# element off a 16-byte boundary, (h, kvh)): the wide walk at hd 256 with G
+# 8 (g 16 in two clusters, g 8) and G 4 (g 3), its element-load build (hd
+# 250, a misaligned cache), and g 16 / g 12 at hd 128 (two clusters of the
+# existing G 8 instance)
+WIDE_VARIANTS = {"rgemma_hd256_g16": (RGEMMA_HD, False, RGEMMA_HEADS),
+                 "hd256_g8": (RGEMMA_HD, False, (8, 1)),
+                 "hd256_g3": (RGEMMA_HD, False, (6, 2)),
+                 "scalar_hd250_g16": (250, False, RGEMMA_HEADS),
+                 "scalar_misaligned_hd256_g16": (RGEMMA_HD, True,
+                                                 RGEMMA_HEADS),
+                 "hd128_g16": (128, False, (16, 1)),
+                 "hd128_g12": (128, False, (24, 2))}
+RING_ROWS = 4       # phase 12's static batch over its 2048-row ring
+
+
+def parity_decode_wide(gen, report):
+    """Contiguous decode at recurrentgemma's heads and the instances they
+    added (WIDE_VARIANTS), float32 and bf16, against the plain version:
+    the static batch's wrapped ring (b 4, S 2048, every row full, scalar
+    and per-row lengths), DECODE_LENS over S 1024 and every SPLIT_LENS
+    case."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    for variant, (hd, shift, heads) in WIDE_VARIANTS.items():
+        cases = []
+        runs = [("ring", RGEMMA_WINDOW, [RGEMMA_WINDOW] * RING_ROWS),
+                ("ring_ragged", RGEMMA_WINDOW, [RGEMMA_WINDOW, 1, 1000, 0]),
+                ("lens", MAX_LEN, DECODE_LENS)]
+        runs += [(f"split_S{S}", S, lens) for S, lens in SPLIT_LENS.items()]
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, S, lens in runs:
+                q, k, v, cur = decode_inputs(gen, lens, dtype, hd, S=S,
+                                             heads=heads)
+                k, v = k[0], v[0]
+                if shift:
+                    k, v = misaligned(k), misaligned(v)
+                arg = int(cur[0]) if name == "ring" else cur
+                out = ops.decode_attention(q, k, v, arg)
+                plain = da.decode_attention_plain(q, k, v, arg)
+                err = check_close(f"decode/{variant}/{name}/{dtype}", out,
+                                  plain, dtype, report, cur <= 0)
+                cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
+        log("3 parity", kernel="decode_attention", variant=variant,
+            shapes=f"h{heads[0]} kvh{heads[1]} hd{hd} S300-2048",
             max_abs_err=",".join(cases))
 
 
@@ -1425,6 +1529,7 @@ def phase_times(gen, report):
     enc = times_encoder(gen, report)
     dec = times_decoders(gen, report)
     moe = times_moe(gen, report)
+    rec = times_recurrent(gen, report)
     for row in rows_out:
         if row["name"] in enc:
             row["encoder"] = enc[row["name"]]
@@ -1432,6 +1537,8 @@ def phase_times(gen, report):
             row["decoders"] = dec[row["name"]]
         if row["name"] in moe:
             row["moe"] = moe[row["name"]]
+        if row["name"] in rec:
+            row["recurrent"] = rec[row["name"]]
     return rows_out
 
 
@@ -1721,6 +1828,123 @@ def times_moe(gen, report):
     for key, line in text.items():
         log("4 times", mode="moe", case=key, times=line)
     report["times"]["moe"] = dict(out)
+    return out
+
+
+def times_recurrent(gen, report):
+    """The kernels at phase 12's new shapes, bf16: flash at recurrentgemma's
+    heads (h16 kvh1 hd256, the hd 256 build) over its static batch's
+    prefill (4 x 3072) with the window of 2048, and causal and full, beside
+    SDPA (a bool mask for the window, ``is_causal`` for causal); contiguous
+    decode over its wrapped
+    2048-row ring (b 4, g 16 in two clusters of 8, the wide walk) beside
+    SDPA over the ring; the multi-task gather-add fused with the norm at d
+    4096 (2 tasks of V 256000, T 263) and in its plain mode at xlstm's d
+    1024 (4 tasks of V 50304, T 263: xLSTM's LayerNorm). Returns {kernel:
+    {shape: numbers}} for the kernels line's ``recurrent`` entries
+    (launches added by phase 12)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import aot_bias
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es = torch.bfloat16, 2
+    (h, kvh), hd, out = RGEMMA_HEADS, RGEMMA_HD, {}
+    b, s, window = RING_ROWS, 3072, RGEMMA_WINDOW
+    qs = [flash_inputs(gen, b, s, s, hd, dt, heads=RGEMMA_HEADS)
+          for _ in range(2)]
+    pos = torch.arange(s, device=DEV)
+    flash = {}
+    for mode, (causal, win) in (("window2048", (True, window)),
+                                ("causal", (True, 0)),
+                                ("full", (False, 0))):
+        kern = lambda i: ops.flash_attention(*qs[i % 2], causal=causal,
+                                             window=win)
+        plain = lambda i: fa.flash_attention_plain(*qs[i % 2],
+                                                   causal=causal, window=win)
+        r = timed(kern, plain, 8, 2, tol=TOL[dt])
+        mask = torch.ones(s, s, dtype=torch.bool, device=DEV)
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        if win:
+            mask &= pos[None, :] > pos[:, None] - win
+        sdpa = lambda i: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in qs[i % 2]),
+            attn_mask=mask if win else None, is_causal=mode == "causal",
+            enable_gqa=True)
+        r["library_ms"] = device_ms(sdpa, 8)           # yardstick only
+        pairs = b * h * int(mask.sum().item())          # visible pairs
+        r["bound_ms"], r["bound_by"] = bound(
+            b * s * (2 * h + 2 * kvh) * hd * es, 4 * hd * pairs, dt)
+        flash[mode] = r
+        del mask
+    log("4 times", kernel="flash_attention", mode="hd256 (recurrentgemma)",
+        **{f"b4_s3072_{k}": fmt_times(r) + f"[{r['bound_by']}; library "
+           f"{r['library_ms']:.5f}]" for k, r in flash.items()})
+    out["flash_attention"] = {"rgemma_b4_s3072_window2048": dict(
+        shape="b4 s3072 h16 kvh1 hd256 causal window 2048",
+        **_enc_row(flash["window2048"]),
+        causal=_enc_row(flash["causal"]), full=_enc_row(flash["full"]))}
+    del qs
+    # ---- contiguous decode over the full ring: b 4, S = cur = 2048
+    S = window
+    q, k, v, cur = decode_inputs(gen, [S] * b, dt, hd, layers=8, S=S,
+                                 heads=RGEMMA_HEADS)
+    layer = lambda i: (k[i % 8], v[i % 8])
+    kern = lambda i: ops.decode_attention(q, *layer(i), cur)
+    plain = lambda i: da.decode_attention_plain(q, *layer(i), cur)
+    r = timed(kern, plain, 64, 16, tol=TOL[dt])
+    mask = (torch.arange(S, device=DEV)[None, :]
+            < cur[:, None])[:, None, None, :]
+    sdpa = lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *(x.transpose(1, 2) for x in layer(i)),
+        attn_mask=mask, enable_gqa=True)
+    r["library_ms"] = device_ms(sdpa, 64)              # yardstick only
+    n_kv = b * S
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * b * h * hd * es + 2 * n_kv * kvh * hd * es + 4 * b,
+        4 * hd * h * n_kv, dt)
+    out["decode_attention"] = {"rgemma_ring_b4_S2048": dict(
+        shape="b4 h16 kvh1 hd256 S2048 (the ring, full)", **_enc_row(r))}
+    log("4 times", kernel="decode_attention", mode="ring hd256 g16 "
+        "(recurrentgemma)", b4_S2048=fmt_times(r) + f"[{r['bound_by']}; "
+        f"library {r['library_ms']:.5f}]")
+    decode = r
+    del q, k, v
+    # ---- the gather-adds: fused with RMSNorm at d 4096, plain at d 1024
+    gathers = {}
+    tables = (torch.randn(2, 256000, 4096, generator=gen, device=DEV,
+                          dtype=dt) * 0.02)
+    hh, tasks, ids = gather_inputs(gen, 263, dt, tables, sets=8)
+    args = lambda i: (hh, tables, tasks[i % 8], ids[i % 8])
+    r = times_gather_norm(
+        gen, hh, lambda i, **kw: ops.aot_gather_add_multitask(*args(i), **kw),
+        lambda i, **kw: aot_bias.aot_gather_add_multitask_plain(*args(i),
+                                                                **kw), 200)
+    r["library_ms"], r["bound_by"] = None, "bytes"
+    gathers["rgemma_d4096_norm"] = r
+    del tables, hh
+    tables = (torch.randn(4, 50304, 1024, generator=gen, device=DEV,
+                          dtype=dt) * 0.02)
+    hh, tasks, ids = gather_inputs(gen, 263, dt, tables, sets=8)
+    kern = lambda i: ops.aot_gather_add_multitask(*args(i))
+    plain = lambda i: aot_bias.aot_gather_add_multitask_plain(*args(i))
+    r = timed(kern, plain, 200, 50, tol=0)
+    r["library_ms"], r["bound_by"] = None, "bytes"
+    r["bound_ms"] = (3 * 263 * 1024 * es + 8 * 263) / HBM_BYTES_PER_S * 1e3
+    gathers["xlstm_d1024_plain"] = r
+    del tables, hh
+    out["aot_gather_add_multitask"] = {
+        "T263_d4096": dict(shape="T263 d4096 2 tasks of V256000 +norm",
+                           **_enc_row(gathers["rgemma_d4096_norm"])),
+        "T263_d1024_plain": dict(shape="T263 d1024 4 tasks of V50304 plain",
+                                 **_enc_row(gathers["xlstm_d1024_plain"]))}
+    log("4 times", kernel="aot_gather_add_multitask", mode="recurrent",
+        rgemma_d4096_norm=fmt_gather_norm(gathers["rgemma_d4096_norm"]),
+        xlstm_d1024_plain=fmt_times(gathers["xlstm_d1024_plain"])
+        + "[bytes; library none]")
+    report["times"]["recurrent"] = dict(flash=flash, decode=decode,
+                                        gathers=gathers)
     return out
 
 
@@ -5382,7 +5606,7 @@ def decoder_engine(spec, max_len):
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     cfg = configs.get(spec["arch"])
     if spec["layers"]:
-        cfg = cfg.replace(num_layers=spec["layers"])
+        cfg = cfg.replace(num_layers=spec["layers"], **spec.get("cut", {}))
     dt = torch.bfloat16
     model = Model(cfg, ModelOptions(dt, dt), device=DEV)
     params = model.init(0)
@@ -6307,6 +6531,406 @@ def phase_moe(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent backbones at full width (recurrentgemma-9b: RG-LRU
+# blocks and local MQA attention at hd 256, g 16, over a 2048-row ring;
+# xlstm-350m: mLSTM / sLSTM), served as static batches
+# ---------------------------------------------------------------------------
+
+# 12a: recurrentgemma cut to 8 of its 38 layers, two (rglru, rglru, attn)
+# units and the (rglru, rglru) remainder, so that both groups run (each
+# task's bf16 table at 8 layers is 16.8 GB), 2 tasks; the ring wrap checked
+# on one unit (3 layers); 12b: xlstm at full depth (24 blocks), 4 tasks
+RGEMMA = dict(arch="recurrentgemma-9b", layers=8, tasks=2,
+              static=(RING_ROWS, 3072, 32))
+RGEMMA_UNIT = dict(arch="recurrentgemma-9b", layers=3, tasks=2,
+                   cut=dict(pattern_remainder=()), wrap=(2040, 16))
+XLSTM = dict(arch="xlstm-350m", layers=0, tasks=4, static=(16, 512, 64))
+# the phase 12 run whose count rides with each kernel's phase 4 times at
+# phase 12's shapes (``recurrent``)
+REC_PATH = {"flash_attention": "rec_rgemma_static",
+            "decode_attention": "rec_rgemma_static",
+            "aot_gather_add_multitask": "rec_rgemma_static"}
+
+
+def attention_layers(cfg) -> int:
+    return sum(k == "attn" for k in cfg.layer_kinds)
+
+
+def rec_launches(cfg, steps):
+    """A static batch's launches on a recurrent stack: a flash per
+    attention layer for the prefill and a decode per attention layer and
+    step; a gather-add per layer for the prefill and each step (fused with
+    RMSNorm, or plain under LayerNorm)."""
+    n_attn = attention_layers(cfg)
+    return {"flash_attention": n_attn, "decode_attention": n_attn * steps,
+            "aot_gather_add_multitask": cfg.num_layers * (1 + steps)}
+
+
+@contextlib.contextmanager
+def block_host_ms():
+    """Host milliseconds spent inside each recurrent block kind's plain
+    PyTorch (the enqueue of its eager launches; nothing waits on the
+    card), summed while open: {"rglru" | "mlstm" | "slstm": ms}."""
+    from repro_torch.models import recurrent as rec_mod
+    from repro_torch.models import xlstm as xl_mod
+    spent = {}
+    saved = [(rec_mod, "apply_rglru", "rglru"),
+             (xl_mod, "apply_mlstm_block", "mlstm"),
+             (xl_mod, "apply_slstm_block", "slstm")]
+    originals = [getattr(m, n) for m, n, _ in saved]
+
+    def timed_fn(fn, kind):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[kind] = spent.get(kind, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+        return run
+    for (m, n, kind), fn in zip(saved, originals):
+        setattr(m, n, timed_fn(fn, kind))
+    try:
+        yield spent
+    finally:
+        for (m, n, _), fn in zip(saved, originals):
+            setattr(m, n, fn)
+
+
+def rec_step_times(model, params, logits, cache, pos, peft, steps=8):
+    """Greedy decode steps from a prefill's ``logits`` and ``cache``: per
+    step the host ms to enqueue it (no wait), the wall ms (each step
+    waited for), the device busy ms from a profiled run, kernels per step,
+    and the host ms inside each recurrent block kind (``block_host_ms``)
+    with its share of the steps' host time. Each step is followed by a
+    device wait here, so that a step's host time is its own."""
+    b = logits.shape[0]
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    host, wall = [], []
+    with block_host_ms() as spent:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, tok, pos + i, cache, peft)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+    prof = profile_of(lambda: [model.decode_step(
+        params, tok, pos + steps + i, cache, peft) for i in range(steps)],
+        steps)
+    total = sum(host)
+    return dict(host_ms=median(host), wall_ms=median(wall),
+                device_busy_ms=prof["device_busy_ms"] / steps,
+                kernels_per_step=prof["kernels_per_step"],
+                block_host_ms={k: v / steps for k, v in spent.items()},
+                block_host_share={k: v / total for k, v in spent.items()},
+                batch=b)
+
+
+def rec_mixed_vs_per_task(model, params, tables, prompts, task_ids, steps,
+                          mixed, tie=None):
+    """Each task's rows of the static batch served as a batch of their own
+    (``Model.prefill`` then greedy decode steps, logits kept) against the
+    mixed batch's tokens ``mixed``: (rows equal, [(row, index, gap)] near
+    ties, [(row, index, gap)] divergences that are not), and whether every
+    recurrent state read back from the caches is finite. A near tie is
+    phase 6's (``divergence``), or with ``tie`` a gap of at most ``tie``
+    (12b: two bf16 orders of xLSTM part by about its bf16 error)."""
+    from repro_torch import tree as T
+    equal, ties, bad, finite = 0, [], [], True
+    for t in sorted(set(task_ids.tolist())):
+        rows = np.flatnonzero(task_ids == t)
+        toks = torch.as_tensor(prompts[rows], dtype=torch.int32, device=DEV)
+        peft = tasks_peft(tables, torch.full((len(rows),), t,
+                                             dtype=torch.int32, device=DEV))
+        logits, cache, pos = model.prefill(params, toks, peft,
+                                           max_len=prompts.shape[1] + steps)
+        lgs, alone = greedy_decode(model, params, logits, cache, pos, peft,
+                                   steps)
+        finite = finite and all(
+            bool(torch.isfinite(x).all()) for lc, kind in
+            zip(cache["layers"], model.kinds) if kind != "attn"
+            for x in T.leaves(lc))
+        del cache
+        for j, r in enumerate(rows):
+            d = divergence([int(x) for x in mixed[r]], alone[j].tolist(),
+                           lgs[:, j])
+            if d is None:
+                equal += 1
+            else:
+                near = d[2] or (tie is not None and d[1] <= tie)
+                (ties if near else bad).append((int(r), d[0], round(d[1], 5)))
+    return equal, ties, bad, finite
+
+
+def rec_against_logits(model, params, tables, seq, s, lg_dec, task_ids,
+                       carry_vs_plain=False):
+    """7c's float32 rule on decode logits ``lg_dec`` (steps + 1, b, V) of
+    the prompts in ``seq`` (b, s + steps) served with ``task_ids``: per
+    task, against ``Model.logits`` of the same tokens in float32 plain
+    PyTorch (``attn_impl="ref"``), within BF16_FACTOR times the same
+    logits in plain bf16 PyTorch, and carrying the task's effect (less the
+    float32 backbone's logits) within CARRY_TOL; with ``carry_vs_plain``
+    (12b) within CARRY_TOL of the share that plain bf16 carries (xLSTM in
+    bf16 carries about 0.69 of it in the plain versions as in the
+    kernels: PERF.md section 6). The comparison with the kernels'
+    bf16 whole pass is reported (``vs_whole``)."""
+    from repro_torch.models.model import Model, ModelOptions
+    cfg, f32, bf = model.cfg, torch.float32, torch.bfloat16
+    lg_whole = whole_logits(model, params, seq, tasks_peft(
+        tables, torch.as_tensor(task_ids, device=DEV)), s)
+    plain16 = Model(cfg, ModelOptions(bf, bf, attn_impl="ref"), device=DEV)
+    lg_p16 = whole_logits(plain16, params, seq, tasks_peft(
+        tables, torch.as_tensor(task_ids, device=DEV)), s)
+    m32 = Model(cfg, ModelOptions(f32, f32, attn_impl="ref"), device=DEV)
+    p32 = cast_backbone(params, f32)
+    ref32 = torch.empty_like(lg_dec)
+    base32 = torch.empty_like(lg_dec)
+    for t in sorted(set(task_ids.tolist())):
+        rows = torch.as_tensor(np.flatnonzero(task_ids == t), device=DEV)
+        one = tasks_peft(tables[:, t:t + 1].float(), torch.zeros(
+            len(rows), dtype=torch.int32, device=DEV))
+        ref32[:, rows] = whole_logits(m32, p32, seq[rows], one, s)
+        base32[:, rows] = whole_logits(m32, p32, seq[rows], None, s)
+        del one
+    del p32
+    flat = lambda x: x.reshape(-1, x.shape[-1])
+    ids = [int(t) for t in task_ids] * lg_dec.shape[0]
+    res = against_float32(flat(lg_dec), flat(lg_p16), flat(ref32),
+                          flat(base32), ids)
+    if carry_vs_plain:
+        for r in res["tasks"].values():
+            r["ok"] = (r["served_err"] <= BF16_FACTOR * r["plain_err"]
+                       and abs(r["carried"] - r["carried_plain"])
+                       <= CARRY_TOL)
+        res["ok"] = all(r["ok"] for r in res["tasks"].values())
+    res["vs_whole"] = against_plain(lg_dec, lg_whole)
+    return res
+
+
+def rec_rgemma(report):
+    """12a: recurrentgemma-9b at full width, 8 layers (both groups of its
+    plan), 2 tasks. The static mixed batch (4 x 3072 + 32: prompts past
+    the window, so the ring wraps in the prefill) through
+    ``ServeEngine.generate``: exact launches, the tokens against each
+    task's rows served alone (equal, or a first difference at a near tie),
+    every recurrent state finite; per decode step host, wall and device
+    time and the host share of the RG-LRU blocks. Then one unit (rglru,
+    rglru, attn): 2 prompts of 2040, one per task, and 16 decode steps (the
+    ring wraps while decoding), each step's logits held to ``Model.logits``
+    by 7c's float32 rule; and one AoT decode step's exact launches (flash
+    0, decode 2 at g 16 and hd 256, the fused gather-add 8 on the 8-layer
+    stack)."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec, counts, failures = RGEMMA, {}, []
+    engine = decoder_engine(spec, spec["static"][1] + spec["static"][2])
+    model, params, cfg = engine.model, engine.params, engine.model.cfg
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b, s, steps = spec["static"]
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    task_ids = (np.arange(b) % spec["tasks"]).astype(np.int32)
+    engine.generate(prompts[:1, :64], 2, task_ids[:1])          # warm-up
+    label = "rec_rgemma_static"
+    out, sec = counted(label, counts,
+                       lambda: engine.generate(prompts, steps, task_ids))
+    try:
+        check_launches(label, counts[label], rec_launches(cfg, steps))
+    except AssertionError as e:
+        failures.append(str(e))
+    equal, ties, bad, finite = rec_mixed_vs_per_task(
+        model, params, engine.tables, prompts, task_ids, steps, out)
+    if bad or not finite:
+        failures.append(f"mixed vs per task: divergences past a near tie "
+                        f"{bad}, states finite {finite}")
+    peft = engine._peft(torch.as_tensor(task_ids, device=DEV))
+    logits, cache, pos = model.prefill(
+        params, torch.as_tensor(prompts, device=DEV), peft,
+        max_len=engine.cache_len)
+    ring = model.cache_rows(cache)
+    if ring != RGEMMA_WINDOW:
+        failures.append(f"ring of {ring} rows, not {RGEMMA_WINDOW}")
+    ops.reset_launches()
+    model.decode_step(params, logits[:, -1].argmax(-1).to(torch.int32)[
+        :, None], pos, cache, peft)
+    step_launches = {k: v for k, v in ops.launches().items() if v}
+    want = {"decode_attention": attention_layers(cfg),
+            "aot_gather_add_multitask": cfg.num_layers}
+    if step_launches != want:
+        failures.append(f"one AoT decode step launched {step_launches}, "
+                        f"expected {want}")
+    times = rec_step_times(model, params, logits, cache, pos + 1, peft)
+    del cache, logits, engine, model, params, peft
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # ---- one unit: the ring wraps while decoding
+    torch.cuda.reset_peak_memory_stats()
+    unit = decoder_engine(RGEMMA_UNIT, 4096)
+    umodel, uparams = unit.model, unit.params
+    (ws, wsteps), ub = RGEMMA_UNIT["wrap"], RGEMMA_UNIT["tasks"]
+    wprompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ub, ws)),
+                               dtype=torch.int32, device=DEV)
+    wtasks = np.arange(ub, dtype=np.int32)
+    upeft = unit._peft(torch.as_tensor(wtasks, device=DEV))
+    logits, cache, upos = umodel.prefill(uparams, wprompts, upeft,
+                                         max_len=ws + wsteps + 64)
+    urows = umodel.cache_rows(cache)
+    lg_dec, wtoks = greedy_decode(umodel, uparams, logits, cache, upos,
+                                  upeft, wsteps)
+    del cache, logits
+    seq = torch.cat([wprompts, wtoks], 1)
+    gate = rec_against_logits(umodel, uparams, unit.tables, seq, ws, lg_dec,
+                              wtasks)
+    if urows != RGEMMA_WINDOW or not gate["ok"]:
+        failures.append(f"unit: ring {urows} rows; decode vs Model.logits "
+                        f"{gate}")
+    upeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del unit, umodel, uparams, lg_dec
+    sec_all = time.perf_counter() - t0
+    log("12a rgemma", layers=cfg.num_layers, kinds="".join(
+        k[0] for k in cfg.layer_kinds), ring_rows=ring,
+        setup_s=f"{setup_s:.1f}", static=f"{b}x{s}+{steps}",
+        static_tokens_per_s=f"{b * steps / sec:.1f}",
+        mixed_vs_per_task=f"{equal}/{b} equal", near_ties=ties,
+        states_finite=finite, step_launches=step_launches,
+        step_host_ms=f"{times['host_ms']:.2f}",
+        step_wall_ms=f"{times['wall_ms']:.2f}",
+        step_device_ms=f"{times['device_busy_ms']:.2f}",
+        rglru_host_share={k: round(v, 3) for k, v in
+                          times["block_host_share"].items()},
+        peak_memory_gib=f"{peak:.2f}",
+        unit_wrap=f"{ws}+{wsteps} over {urows} rows",
+        unit_vs_float32=f32_text(gate),
+        unit_vs_whole=verdict(gate["vs_whole"]),
+        unit_peak_memory_gib=f"{upeak:.2f}", seconds=f"{sec_all:.1f}",
+        launches=counts, failures=failures or "none")
+    report["recurrent"]["rgemma"] = dict(
+        setup_s=setup_s, static_tokens_per_s=b * steps / sec,
+        mixed_equal=equal, near_ties=ties, divergences=bad,
+        states_finite=finite, step_launches=step_launches, step=times,
+        peak_memory_gib=peak, unit_gate=gate, unit_peak_memory_gib=upeak,
+        seconds=sec_all, launches=counts, failures=failures)
+    if failures:
+        raise AssertionError(f"12a rgemma: {failures}")
+    return counts
+
+
+def rec_xlstm(report):
+    """12b: xlstm-350m at full depth (24 blocks: 21 mLSTM, 3 sLSTM), 4
+    tasks. 5c's static mixed batch (16 x 512 + 64) through
+    ``ServeEngine.generate``: exact launches (24 plain-mode gather-adds for
+    the prefill and each step, no attention kernel), the tokens against
+    each task's rows served alone (equal, or a first difference within
+    twice plain bf16's error of float32: xLSTM's bf16 orders part by about
+    that), every state finite; the mixed batch's prefill then decode steps
+    held to ``Model.logits`` by 7c's float32 rule, the task's carried
+    share against plain bf16's (``rec_against_logits``); per decode step host,
+    wall and device time, the host share of the mLSTM and sLSTM blocks in
+    a step and in the prefill."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    spec, counts, failures = XLSTM, {}, []
+    engine = decoder_engine(spec, spec["static"][1] + spec["static"][2])
+    model, params, cfg = engine.model, engine.params, engine.model.cfg
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b, s, steps = spec["static"]
+    rng = np.random.default_rng(13)
+    prompts = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    task_ids = (np.arange(b) % spec["tasks"]).astype(np.int32)
+    engine.generate(prompts[:1, :64], 2, task_ids[:1])          # warm-up
+    label = "rec_xlstm_static"
+    out, sec = counted(label, counts,
+                       lambda: engine.generate(prompts, steps, task_ids))
+    try:
+        check_launches(label, counts[label], rec_launches(cfg, steps))
+    except AssertionError as e:
+        failures.append(str(e))
+    toks = torch.as_tensor(prompts, device=DEV)
+    peft = engine._peft(torch.as_tensor(task_ids, device=DEV))
+    torch.cuda.synchronize()
+    with block_host_ms() as pre_spent:
+        p0 = time.perf_counter()
+        logits, cache, pos = model.prefill(params, toks, peft,
+                                           max_len=engine.cache_len)
+        pre_host = (time.perf_counter() - p0) * 1e3
+        torch.cuda.synchronize()
+        pre_wall = (time.perf_counter() - p0) * 1e3
+    times = rec_step_times(model, params, logits, cache, pos, peft)
+    del cache
+    logits, cache, pos = model.prefill(params, toks, peft,
+                                       max_len=engine.cache_len)
+    lg_dec, gen_toks = greedy_decode(model, params, logits, cache, pos,
+                                     peft, steps)
+    del cache, logits
+    if not np.array_equal(gen_toks.cpu().numpy(), out):
+        failures.append("prefill + decode steps picked other tokens than "
+                        "generate")
+    seq = torch.cat([toks, gen_toks], 1)
+    gate = rec_against_logits(model, params, engine.tables, seq, s, lg_dec,
+                              task_ids, carry_vs_plain=True)
+    if not gate["ok"]:
+        failures.append(f"decode vs Model.logits: {gate}")
+    del lg_dec
+    # two bf16 orders of the same function (batches of 16 and of 4 rows)
+    # part by about bf16's own error: a divergence within twice the plain
+    # bf16 run's error against float32 is a near tie there
+    tie = BF16_FACTOR * max(r["plain_err"] for r in gate["tasks"].values())
+    equal, ties, bad, finite = rec_mixed_vs_per_task(
+        model, params, engine.tables, prompts, task_ids, steps, out, tie)
+    if bad or not finite:
+        failures.append(f"mixed vs per task: divergences past a near tie "
+                        f"{bad}, states finite {finite}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec_all = time.perf_counter() - t0
+    log("12b xlstm", layers=cfg.num_layers, setup_s=f"{setup_s:.1f}",
+        static=f"{b}x{s}+{steps}",
+        static_tokens_per_s=f"{b * steps / sec:.1f}",
+        mixed_vs_per_task=f"{equal}/{b} equal", near_ties=ties,
+        states_finite=finite,
+        step_host_ms=f"{times['host_ms']:.2f}",
+        step_wall_ms=f"{times['wall_ms']:.2f}",
+        step_device_ms=f"{times['device_busy_ms']:.2f}",
+        step_block_host_share={k: round(v, 3) for k, v in
+                               times["block_host_share"].items()},
+        prefill_host_ms=f"{pre_host:.1f}", prefill_wall_ms=f"{pre_wall:.1f}",
+        prefill_block_host_share={k: round(v / pre_host, 3)
+                                  for k, v in pre_spent.items()},
+        vs_float32=f32_text(gate), vs_whole=verdict(gate["vs_whole"]),
+        peak_memory_gib=f"{peak:.2f}", seconds=f"{sec_all:.1f}",
+        launches=counts, failures=failures or "none")
+    report["recurrent"]["xlstm"] = dict(
+        setup_s=setup_s, static_tokens_per_s=b * steps / sec,
+        mixed_equal=equal, near_ties=ties, divergences=bad,
+        states_finite=finite, step=times, prefill_host_ms=pre_host,
+        prefill_wall_ms=pre_wall, prefill_block_host_ms=dict(pre_spent),
+        gate=gate, peak_memory_gib=peak, seconds=sec_all, launches=counts,
+        failures=failures)
+    if failures:
+        raise AssertionError(f"12b xlstm: {failures}")
+    return counts
+
+
+def phase_recurrent(report):
+    """Phase 12 (12a, 12b), each part's memory freed before the next;
+    returns the launches by path."""
+    t0 = time.perf_counter()
+    report["recurrent"] = {}
+    launches = {}
+    for part in (lambda: rec_rgemma(report), lambda: rec_xlstm(report)):
+        launches.update(part())
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["recurrent"]["seconds"] = time.perf_counter() - t0
+    log("12 recurrent", seconds=f"{report['recurrent']['seconds']:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6359,6 +6983,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_moe(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_recurrent(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]
@@ -6375,6 +7002,9 @@ def main() -> int:
                 row["name"]]
         if row["name"] in MOE_PATH:         # phase 11's path
             row["moe"]["launches"] = launches[MOE_PATH[row["name"]]][
+                row["name"]]
+        if row["name"] in REC_PATH:         # phase 12's path
+            row["recurrent"]["launches"] = launches[REC_PATH[row["name"]]][
                 row["name"]]
     phase_cross_check(report)
     report["kernels"] = kernels

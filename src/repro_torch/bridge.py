@@ -11,8 +11,11 @@ with leaves ``(R, ...)``: group ``gi`` repeats its pattern unit ``R`` times,
 and unit position ``u`` of repeat ``r`` is global layer
 ``start + r * U + u`` (``repro.models.model.layer_plan``; with MoE on every
 ``interleave``-th layer the unit is widened to ``lcm(len(pattern_unit),
-interleave)`` layers, so llama4's is (dense, MoE): U = 2). The port keeps
-a list of per-layer dicts in global layer order.
+interleave)`` layers, so llama4's is (dense, MoE): U = 2; a remainder
+after the repeats is a second group of one repeat, recurrentgemma's
+(rglru, rglru) after its (rglru, rglru, attn) units). The port keeps a
+list of per-layer dicts in global layer order, whatever each layer's block
+kind.
 """
 from __future__ import annotations
 
@@ -44,10 +47,12 @@ def _layer_groups(cfg):
 
 # the subtrees whose leaves stay float32, as in ``Model.init``: the norms'
 # (scale, LayerNorm's bias; none for the non-parametric norm), the QKV
-# biases, the q/k norms and the MoE router (the reference routes in float32
-# from a float32 router; a bf16 one would move near-tie routes)
+# biases, the q/k norms, the MoE router (the reference routes in float32
+# from a float32 router; a bf16 one would move near-tie routes) and
+# RG-LRU's ``lam`` (it enters the gates uncast); in a cache, the m/sLSTM
+# ``state``
 FLOAT32 = ("ln1", "ln2", "final_norm", "bq", "bk", "bv", "q_norm", "k_norm",
-           "router")
+           "router", "lam", "state")
 
 
 def _to_torch(tree, device, dtype, norm=False):
@@ -57,8 +62,8 @@ def _to_torch(tree, device, dtype, norm=False):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, dtype, norm or k in FLOAT32)
                 for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_torch(v, device, dtype, norm) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v, device, dtype, norm) for v in tree)
     t = torch.from_numpy(np.array(tree))              # a writable copy
     if dtype is not None and not norm:
         t = t.to(dtype)
@@ -72,13 +77,7 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda",
     the embeddings (tokens, and learned positions where the config has
     them), the layers, the final norm and the untied head ``lm_head``."""
     dev = resolve_device(device)
-    per_layer: List[Any] = [None] * cfg.num_layers
-    for gi, (start, repeats, ulen) in enumerate(_layer_groups(cfg)):
-        group = tree["groups"][gi]
-        for r in range(repeats):
-            for u in range(ulen):
-                per_layer[start + r * ulen + u] = _take(group[f"b{u}"], r)
-    out = {"embed": tree["embed"], "layers": per_layer,
+    out = {"embed": tree["embed"], "layers": _ungroup(cfg, tree["groups"]),
            "final_norm": tree["final_norm"]}
     if "lm_head" in tree:
         out["lm_head"] = tree["lm_head"]
@@ -86,9 +85,41 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda",
 
 
 def _take(tree, r: int):
+    """Repeat r of a grouped subtree (leaves (R, ...))."""
     if isinstance(tree, dict):
         return {k: _take(v, r) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_take(v, r) for v in tree)
     return np.asarray(tree)[r]
+
+
+def _ungroup(cfg, groups) -> List[Any]:
+    """The reference's grouped trees ``[{"b{u}": (R, ...) leaves}, ...]``
+    -> one subtree per layer in global layer order."""
+    per_layer: List[Any] = [None] * cfg.num_layers
+    for gi, (start, repeats, ulen) in enumerate(_layer_groups(cfg)):
+        for r in range(repeats):
+            for u in range(ulen):
+                per_layer[start + r * ulen + u] = _take(
+                    groups[gi][f"b{u}"], r)
+    return per_layer
+
+
+def _group(cfg, per_layer):
+    """The inverse of :func:`_ungroup`: per-layer numpy subtrees ->
+    ``[{"b{u}": leaves stacked (R, ...)}, ...]``."""
+    def stack(trees):
+        t0 = trees[0]
+        if isinstance(t0, dict):
+            return {k: stack([t[k] for t in trees]) for k in t0}
+        if isinstance(t0, (list, tuple)):
+            return type(t0)(stack([t[i] for t in trees])
+                            for i in range(len(t0)))
+        return np.stack(trees)
+    return [{f"b{u}": stack([per_layer[start + r * ulen + u]
+                             for r in range(repeats)])
+             for u in range(ulen)}
+            for start, repeats, ulen in _layer_groups(cfg)]
 
 
 def tables_from_jax(fused_list: Sequence[Dict[str, Any]], device="cuda",
@@ -108,8 +139,12 @@ def cache_from_jax(cfg, cache: Sequence[Dict[str, Any]], device="cuda",
     """The reference's grouped contiguous cache ``[{"b{u}": {"k": (R, b, S,
     kvh, hd), "v": ...}}, ...]`` (``Model.init_cache`` / ``prefill``) ->
     the port's ``{"k": (L, b, S, kvh, hd), "v": ...}`` in global layer
-    order on ``device``."""
+    order on ``device``; for a stack with recurrent blocks, the port's
+    per-layer ``{"layers": [...]}`` (every kind's entry, the m/sLSTM
+    states kept float32, the rest cast to ``dtype`` when given)."""
     dev = resolve_device(device)
+    if set(cfg.layer_kinds) != {"attn"}:
+        return {"layers": _to_torch(_ungroup(cfg, cache), dev, dtype)}
     out = {}
     for name in ("k", "v"):
         per_layer: List[Any] = [None] * cfg.num_layers
@@ -158,18 +193,33 @@ def to_numpy(tree):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _numpy_keep(tree):
+    """:func:`to_numpy` that keeps tuples tuples (the mLSTM state)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_keep(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_keep(v) for v in tree)
+    return to_numpy(tree)
+
+
+def cache_to_jax(cfg, cache) -> List[Dict[str, Any]]:
+    """The port's contiguous cache (either layout) -> the reference's
+    grouped one as numpy (float32 for bf16 leaves), the inverse of
+    :func:`cache_from_jax`."""
+    if "layers" in cache:
+        per_layer = [_numpy_keep(c) for c in cache["layers"]]
+    else:
+        per_layer = [{"k": to_numpy(cache["k"][i]),
+                      "v": to_numpy(cache["v"][i])}
+                     for i in range(cfg.num_layers)]
+    return _group(cfg, per_layer)
+
+
 def params_to_jax(cfg, params) -> Dict[str, Any]:
     """The port's backbone parameters -> the reference's grouped layout
     (``params["groups"][gi]["b{u}"]`` with leaves ``(R, ...)``) as numpy,
     the inverse of :func:`params_from_jax`."""
-    layers = to_numpy(params["layers"])
-    stack = lambda trees: (np.stack(trees) if not isinstance(trees[0], dict)
-                           else {k: stack([t[k] for t in trees])
-                                 for k in trees[0]})
-    groups = [{f"b{u}": stack([layers[start + r * ulen + u]
-                               for r in range(repeats)])
-               for u in range(ulen)}
-              for start, repeats, ulen in _layer_groups(cfg)]
+    groups = _group(cfg, to_numpy(params["layers"]))
     out = {"embed": to_numpy(params["embed"]), "groups": groups,
            "final_norm": to_numpy(params["final_norm"])}
     if "lm_head" in params:

@@ -113,10 +113,14 @@ def fuse_lora_into(params, peft_params, cfg, opt: PEFTOptions):
     Returns new backbone parameters; the tensors it does not change are
     shared with ``params``, which is left as it was. The product is taken
     in float32 and rounded once to the weight's dtype, as the reference
-    does."""
+    does. Layers without attention (recurrent blocks) are left as they
+    are, as the reference skips every unit that is not ``attn``."""
     lora, s = peft_params["lora"], lora_scale(opt)
     layers = []
     for i, lp in enumerate(params["layers"]):
+        if "attn" not in lp:
+            layers.append(lp)
+            continue
         attn = dict(lp["attn"])
         for w, a, b in (("wq", "qa", "qb"), ("wv", "va", "vb")):
             delta = (lora[a][i].float() @ lora[b][i].float()) * s

@@ -93,8 +93,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared row of a staged tile: HDP channels (hd padded with zeros to 64 or
-// 128) and 16 bytes more, so that rows read 16 bytes at a time (ldmatrix or
+// Shared row of a staged tile: HDP channels (hd padded with zeros to 64,
+// 128 or 256) and 16 bytes more, so that rows read 16 bytes at a time (ldmatrix or
 // a vector load), eight rows at once, start in eight different 4-bank
 // groups: no bank conflicts.
 template <typename T, int HDP>
@@ -120,7 +120,9 @@ __device__ __forceinline__ void stage_rows(T* dst, Src src, int count, int hd,
     constexpr int kChunks = HDP / L::kVecE;
     static_assert(ROWS * kChunks % THREADS == 0, "whole passes");
     const T* any = src(0);    // a valid address for the zero-filling copies
-#pragma unroll
+    // (unrolled 16 copies deep: the float32 hd 256 walk's 32 a thread,
+    // unrolled whole, spilled)
+#pragma unroll 16
     for (int it = 0; it < ROWS * kChunks / THREADS; ++it) {
       const int i = tid + it * THREADS;
       const int r = i / kChunks;

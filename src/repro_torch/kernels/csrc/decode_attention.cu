@@ -34,7 +34,8 @@
 // - K/V tiles of 64 positions are staged in their own type with cp.async,
 //   double-buffered: eight threads cover a 128-byte row, one instruction
 //   four rows (a one-element build takes rows that are not 16-byte
-//   aligned); hd is padded with zeros to 64 or 128 in shared memory. Each
+//   aligned); hd is padded with zeros to 64 or 128 (contiguous decode
+//   also 256: the wide walk below) in shared memory. Each
 //   staged row comes from its own address: position p of a contiguous row,
 //   or page table[p / block_size] of a paged one (any block size; a tile of
 //   64 spans pages, 4 of them at smollm's 16), so the paged walk visits the
@@ -47,11 +48,19 @@
 //   time from the warp's shared row. The heads are a compile-time G (g
 //   rounded up to 4 or 8, the rows past g zeros), so no loop over them
 //   branches and the reductions of the G heads overlap;
+// - more than 8 query heads of one KV head (recurrentgemma-9b's MQA, g 16,
+//   contiguous decode only) take ceil(g / 8) clusters of 8 heads each over
+//   the same K/V, which the second reads from L2 (a 2048-row ring at hd 256
+//   is 1 MB a row);
 // - the four warps merge in shared memory; each block then writes its
 //   partial (m, l, acc) into a slot of rank 0's shared memory (distributed
 //   shared memory, remote stores that do not wait), and after one cluster
 //   barrier rank 0 merges the slots and writes the row: one launch, no
-//   global scratch, no counters.
+//   global scratch, no counters. At hd 256 (the wide walk, contiguous
+//   decode only) the ring and the slots together would pass a block's 227
+//   KB, so the slots reuse the ring once every block's walk has ended (the
+//   blocks arrive at the cluster barrier after their walks, not before),
+//   and float32 stages one K/V tile at a time.
 // Ragged lists (ragged_split_kernel) run one launch over a per-tick plan
 // that the host builds from its own copies of token_rows and token_pos:
 // items of (first token, count), one cluster per (item, KV head, group of
@@ -125,17 +134,31 @@ constexpr int kPlanWidth = 2;    // ints per plan item
 // each (shared memory holds a walk to 4 blocks an SM anyway); asking for 3
 // blocks (170 registers) made the bf16 token tile at hd 64 spill.
 
-// The split walk: K and V tiles (two stages each), then in fp32 the G q
-// rows, each warp's probabilities (G x 16) and partial (acc, m, l), and a
-// slot per block of the cluster for the block partials that rank 0 merges
-// (a paged walk's page ids follow)
+// The wide walk (hd padded to 256, recurrentgemma's MQA heads: contiguous
+// decode only): its ring and merge slots together would pass the 227 KB a
+// block may have (244 KB in bf16 at G 8), so the merge space reuses the
+// ring once the walk has ended, and float32 stages one K/V tile at a time
+// (two would be 266 KB alone)
+__host__ __device__ constexpr bool wide_walk(int hdp) { return hdp > 128; }
+
+__host__ __device__ constexpr int walk_stages(size_t elem, int hdp) {
+  return wide_walk(hdp) && elem == sizeof(float) ? 1 : 2;
+}
+
+// The split walk: K and V tiles (two stages each, or one: walk_stages),
+// then in fp32 the G q rows, each warp's probabilities (G x 16) and partial
+// (acc, m, l), and a slot per block of the cluster for the block partials
+// that rank 0 merges (in the ring for the wide walk); a paged walk's page
+// ids follow
 __host__ __device__ inline size_t walk_smem_bytes(size_t elem, int hdp,
                                                   int G, int g) {
   const size_t ld = hdp + 16 / elem;
   const size_t part = static_cast<size_t>(g) * (hdp + 2);
-  return elem * 2 * 2 * kSplitTile * ld +
-         sizeof(float) * (static_cast<size_t>(G) * (hdp + kWarps * 16) +
-                          (kWarps + kMaxSplit) * part);
+  const size_t ring = elem * 2 * walk_stages(elem, hdp) * kSplitTile * ld;
+  const size_t q_p = sizeof(float) * static_cast<size_t>(G) *
+                     (hdp + kWarps * 16);
+  const size_t merge = sizeof(float) * (kWarps + kMaxSplit) * part;
+  return ring + q_p + (wide_walk(hdp) ? 0 : merge);
 }
 
 // The token tile (bf16): the same K/V ring, then the four warps' 16 q rows;
@@ -149,6 +172,12 @@ __host__ __device__ inline size_t tile_smem_bytes(int hdp) {
 // the cluster barrier in two halves: arrive without waiting, wait later
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// ... with release semantics: this block's reads of its shared memory are
+// done before another block's writes there that follow the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_wait() {
@@ -235,9 +264,9 @@ __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* kb,
 // chunk), cut at n) of one walk; rank 0 writes the g heads to out_row.
 // q_row: the token's g query heads of this KV head (g * hd, contiguous);
 // kb, vb: channel 0 of this KV head at offset 0; rows: position -> offset.
-// HDP: hd padded to 64 or 128. G: g rounded up to 4 or 8; the rows past g
-// are zeros, so every loop over the heads runs without a branch. Every
-// block of the cluster calls it with the same n.
+// HDP: hd padded to 64, 128 or 256 (the wide walk). G: g rounded up to 4
+// or 8; the rows past g are zeros, so every loop over the heads runs
+// without a branch. Every block of the cluster calls it with the same n.
 template <typename T, bool VEC, int HDP, int G, typename Rows>
 __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
                                            const T* __restrict__ kb,
@@ -249,12 +278,20 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
   constexpr int kE = L::kVecE;            // elements per 16-byte chunk
   constexpr int kLd = L::kLd;
   constexpr int kC = HDP / 64;            // channel pairs per lane in P V
+  constexpr bool kWide = wide_walk(HDP);
+  constexpr int kStages = walk_stages(sizeof(T), HDP);
+  static_assert(!kWide || sizeof(float) * (kWarps + kMaxSplit) * G *
+                                 (HDP + 2) <=
+                             sizeof(T) * 2 * kStages * kSplitTile * kLd,
+                "the wide walk's merge space fits in its ring");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_s = reinterpret_cast<T*>(smem_raw);          // 2 x kSplitTile rows
-  T* v_s = k_s + 2 * kSplitTile * kLd;               // 2 x kSplitTile rows
-  float* q_s = reinterpret_cast<float*>(v_s + 2 * kSplitTile * kLd);
+  T* k_s = reinterpret_cast<T*>(smem_raw);          // kStages x kSplitTile
+  T* v_s = k_s + kStages * kSplitTile * kLd;         // kStages x kSplitTile
+  float* q_s = reinterpret_cast<float*>(v_s + kStages * kSplitTile * kLd);
   float* p_s = q_s + G * HDP;                        // kWarps x G x 16
-  float* w_acc = p_s + kWarps * G * 16;              // kWarps x g x HDP
+  // the merge space: after the probabilities, or (wide) over the ring
+  float* w_acc = kWide ? reinterpret_cast<float*>(smem_raw)
+                       : p_s + kWarps * G * 16;      // kWarps x g x HDP
   float* w_m = w_acc + kWarps * g * HDP;             // kWarps x g
   float* w_l = w_m + kWarps * g;                     // kWarps x g
   // kMaxSplit slots of (acc g x HDP, m g, l g): rank 0's receive the blocks'
@@ -273,7 +310,9 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
     }
     return;
   }
-  cluster_arrive_relaxed();   // this block has started (see cluster_wait)
+  // this block has started (see cluster_wait); the wide walk arrives once
+  // its walk has ended, for its ring then takes the merge slots
+  if constexpr (!kWide) cluster_arrive_relaxed();
   const int lo = min(rank * chunk, n);
   const int hi = min(lo + chunk, n);
   const int n_tiles = (hi - lo + kSplitTile - 1) / kSplitTile;
@@ -305,18 +344,22 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
   float* pws = p_s + warp * G * 16;        // this warp's probabilities
 
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      const int p1 = lo + (t + 1) * kSplitTile;
-      const int st = ((t + 1) & 1) * kSplitTile * kLd;
-      stage_kv<T, HDP, VEC>(k_s + st, v_s + st, kb, vb, srows, p1, hi, hd,
-                            tid);
+    if constexpr (kStages == 2) {
+      if (t + 1 < n_tiles) {
+        const int p1 = lo + (t + 1) * kSplitTile;
+        const int st = ((t + 1) & 1) * kSplitTile * kLd;
+        stage_kv<T, HDP, VEC>(k_s + st, v_s + st, kb, vb, srows, p1, hi, hd,
+                              tid);
+      }
+      attn::cp_async_commit();
+      attn::cp_async_wait<1>();           // tile t has landed
+    } else {
+      attn::cp_async_wait<0>();           // tile t has landed
     }
-    attn::cp_async_commit();
-    attn::cp_async_wait<1>();             // tile t has landed
     __syncthreads();                      // (and q_s, on the first pass)
     const int p0 = lo + t * kSplitTile;
-    const T* kt = k_s + (t & 1) * kSplitTile * kLd;
-    const T* vt = v_s + (t & 1) * kSplitTile * kLd;
+    const T* kt = k_s + (t % kStages) * kSplitTile * kLd;
+    const T* vt = v_s + (t % kStages) * kSplitTile * kLd;
 
     // ---- scores of position p0 + pw: this lane's half of the chunks, then
     // the other half's by one shuffle
@@ -388,33 +431,48 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
     for (int gi = 0; gi < G; ++gi) l[gi] += ps[gi];
     __syncwarp();
     // ---- acc[gi][channels 64 c + 2 lane + {0, 1}] += p[gi][j] v[j], four
-    // positions at a time
+    // positions at a time (kJv V rows in registers at once: four, or one
+    // in the wide walk, whose eight channel pairs a lane would hold 64
+    // registers of V)
+    constexpr int kJv = kWide ? 1 : 4;
 #pragma unroll
     for (int j0 = 0; j0 < 16; j0 += 4) {
-      float2 vv[4][kC];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const T* vr = vt + (warp * 16 + j0 + j) * kLd + 2 * lane;
+      for (int jv = 0; jv < 4; jv += kJv) {
+        float2 vv[kJv][kC];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) vv[j][c] = load_pair(vr + 64 * c);
-      }
+        for (int j = 0; j < kJv; ++j) {
+          const T* vr = vt + (warp * 16 + j0 + jv + j) * kLd + 2 * lane;
 #pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pws + gi * 16 + j0);
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+          for (int c = 0; c < kC; ++c) vv[j][c] = load_pair(vr + 64 * c);
+        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int gi = 0; gi < G; ++gi) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(pws + gi * 16 + j0);
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            acc[gi][c][0] = fmaf(pj[j], vv[j][c].x, acc[gi][c][0]);
-            acc[gi][c][1] = fmaf(pj[j], vv[j][c].y, acc[gi][c][1]);
+          for (int j = 0; j < kJv; ++j) {
+#pragma unroll
+            for (int c = 0; c < kC; ++c) {
+              acc[gi][c][0] = fmaf(pj[jv + j], vv[j][c].x, acc[gi][c][0]);
+              acc[gi][c][1] = fmaf(pj[jv + j], vv[j][c].y, acc[gi][c][1]);
+            }
           }
         }
       }
     }
-    __syncthreads();                      // stage t & 1 is free again
+    __syncthreads();                      // stage t % kStages is free again
+    if constexpr (kStages == 1) {
+      if (t + 1 < n_tiles) {
+        stage_kv<T, HDP, VEC>(k_s, v_s, kb, vb, srows,
+                              lo + (t + 1) * kSplitTile, hi, hd, tid);
+      }
+      attn::cp_async_commit();
+    }
   }
   attn::cp_async_wait<0>();
+  if constexpr (kWide) cluster_arrive();   // the ring is free
 
   // ---- the four warps' partials -> the block's partial
 #pragma unroll
@@ -772,8 +830,10 @@ __device__ __forceinline__ void token_tile(const bf16* __restrict__ q,
 
 // Contiguous (PAGED false: caches (b, cap, kvh, hd)) or paged (PAGED true:
 // pages through block_tables (b, npages), cap = npages * block_size) decode:
-// cluster (b, kh) of `split` blocks walks row b's n = min(cur_len[b], cap)
-// positions.
+// cluster (b, kh, group) of `split` blocks walks row b's n = min(cur_len[b],
+// cap) positions for query heads G group .. G group + G - 1 of KV head kh
+// (groups = ceil(g / G): one where g <= 8; recurrentgemma's g 16 takes two
+// clusters of 8 heads, which read the same K/V, the second from L2).
 template <typename T, bool VEC, int HDP, int G, bool PAGED>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -781,23 +841,28 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int32_t* __restrict__ block_tables,
                     const int32_t* __restrict__ cur_len, T* __restrict__ out,
                     int cap, int kvh, int g, int hd, int block_size,
-                    int npages, int split, int chunk, float scale) {
-  const int64_t row = blockIdx.x / split;           // b * kvh + kh
+                    int npages, int groups, int split, int chunk,
+                    float scale) {
+  const int64_t id = blockIdx.x / split;            // (b * kvh + kh, group)
+  const int group = static_cast<int>(id % groups);
+  const int64_t row = id / groups;                  // b * kvh + kh
   const int64_t bi = row / kvh;
   const int kh = static_cast<int>(row % kvh);
   const int64_t stride = static_cast<int64_t>(kvh) * hd;
   const int n = min(cur_len[bi], cap);
-  const T* q_row = q + row * g * hd;
-  T* out_row = out + row * g * hd;
+  const int64_t head0 = row * g + G * group;
+  const int gc = min(G, g - G * group);             // this cluster's heads
+  const T* q_row = q + head0 * hd;
+  T* out_row = out + head0 * hd;
   if constexpr (PAGED) {
     split_walk<T, VEC, HDP, G>(
         q_row, k + kh * hd, v + kh * hd,
         TableRows{block_tables + bi * npages, block_size, stride}, n, out_row,
-        g, hd, split, chunk, scale);
+        gc, hd, split, chunk, scale);
   } else {
     const int64_t base = bi * cap * stride + kh * hd;
     split_walk<T, VEC, HDP, G>(q_row, k + base, v + base,
-                               ContiguousRows{stride}, n, out_row, g, hd,
+                               ContiguousRows{stride}, n, out_row, gc, hd,
                                split, chunk, scale);
   }
 }
@@ -902,22 +967,28 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           void* out, int b, int cap, int kvh, int g, int hd,
                           int block_size, int npages, int split, float scale,
                           cudaStream_t stream) {
+  const int groups = (g + G - 1) / G;
   return launch_clusters(
-      decode_split_kernel<T, VEC, HDP, G, PAGED>, int64_t{b} * kvh * split,
-      split,
-      walk_smem_bytes(sizeof(T), HDP, G, g) +
+      decode_split_kernel<T, VEC, HDP, G, PAGED>,
+      int64_t{b} * kvh * groups * split, split,
+      walk_smem_bytes(sizeof(T), HDP, G, std::min(g, G)) +
           (PAGED ? sizeof(int32_t) * npages : 0),
       stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(block_tables),
       static_cast<const int32_t*>(cur_len), static_cast<T*>(out), cap, kvh, g,
-      hd, block_size, npages, split, (cap + split - 1) / split, scale);
+      hd, block_size, npages, groups, split, (cap + split - 1) / split,
+      scale);
 }
 
 // One launcher per form, each templated on the element type, the load
-// width, the padded hd and the padded head count.
+// width, the padded hd and the padded head count. kWide: whether the form
+// has instances at hd 256 (contiguous decode only; the paged and ragged
+// walks serve no such stack: the reference pages no recurrent or
+// sliding-window model).
 template <typename T, bool VEC, int HDP, int G>
 struct Contiguous {
+  static constexpr bool kWide = true;
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* cur_len, void* out, int b, int S,
                          int kvh, int g, int hd, int split, float scale,
@@ -930,6 +1001,7 @@ struct Contiguous {
 
 template <typename T, bool VEC, int HDP, int G>
 struct Paged {
+  static constexpr bool kWide = false;
   static cudaError_t run(const void* q, const void* k_pages,
                          const void* v_pages, const void* block_tables,
                          const void* cur_len, void* out, int b, int kvh,
@@ -944,6 +1016,7 @@ struct Paged {
 
 template <typename T, bool VEC, int HDP, int G>
 struct Ragged {
+  static constexpr bool kWide = false;
   static cudaError_t run(const void* q, const void* k_pages,
                          const void* v_pages, const void* block_tables,
                          const void* token_rows, const void* token_pos,
@@ -970,8 +1043,8 @@ struct Ragged {
   }
 };
 
-// pick the element type, the load width, hd padded to 64 or 128 and g to 4
-// or 8
+// pick the element type, the load width, hd padded to 64, 128 or (kWide
+// forms) 256 and g to 4 or 8 (more than 8 heads: clusters of 8)
 template <template <typename, bool, int, int> class F, typename T, int HDP,
           typename... Args>
 cudaError_t dispatch_g(int vec, int g, Args... args) {
@@ -985,6 +1058,14 @@ cudaError_t dispatch_g(int vec, int g, Args... args) {
 
 template <template <typename, bool, int, int> class F, typename... Args>
 cudaError_t dispatch(int bf16_, int vec, int hd, int g, Args... args) {
+  if (hd > 128) {
+    if constexpr (F<float, true, 64, 4>::kWide) {
+      return bf16_ ? dispatch_g<F, bf16, 256>(vec, g, args...)
+                   : dispatch_g<F, float, 256>(vec, g, args...);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   if (bf16_) {
     return hd <= 64 ? dispatch_g<F, bf16, 64>(vec, g, args...)
                     : dispatch_g<F, bf16, 128>(vec, g, args...);
@@ -996,7 +1077,8 @@ cudaError_t dispatch(int bf16_, int vec, int hd, int g, Args... args) {
 }  // namespace
 
 // q (b, kvh * g, hd); k, v (b, S, kvh, hd); cur_len (b,) int32; out like q.
-// split: blocks per (row, KV head) cluster, 1 .. 8. bf16 picks bf16 (1) or
+// hd <= 256; g <= 16 (more than 8 heads of a KV head take clusters of 8).
+// split: blocks per (row, KV head, group of heads) cluster, 1 .. 8. bf16 picks bf16 (1) or
 // float32 (0) for q, the caches and out. vec: 1 when hd % 8 == 0 and the
 // cache pointers are 16-byte aligned.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,

@@ -22,23 +22,27 @@
 //
 // bf16, on the tensor cores (flash_mma_kernel), FlashAttention-2's forward:
 // - one block of four warps per (tile of 64 query positions, query head,
-//   batch row); warp w owns query rows 16 w .. 16 w + 15. The g query heads
+//   batch row); warp w owns query rows 16 w .. 16 w + 15 (at hd 256 two
+//   warps share them, 128 output columns each: ColSplit). The g query heads
 //   of one KV head are neighbouring blocks, so their re-reads of its K/V
 //   come from L2. The block index runs over heads, then rows, then query
 //   tiles from the last to the first: causally the heaviest tiles start
 //   first and the short ones fill the tail;
 // - q, k and v are read in their native (b, s, heads, hd) layouts through
-//   the strides the wrapper passes; hd is padded with zeros to 64 or 128
-//   (one instance each) in shared memory, whose rows carry 16 bytes of
+//   the strides the wrapper passes; hd is padded with zeros to 64, 128 or
+//   256 (one instance each) in shared memory, whose rows carry 16 bytes of
 //   padding so that ldmatrix reads them free of bank conflicts;
 // - K/V tiles of 64 positions are staged in bf16 with cp.async (16 bytes a
 //   thread) in a ring of three stages at hd <= 64 (63 KB: three blocks an
-//   SM, as many as their registers allow) and two at hd 128: the next
-//   tiles load while this one is multiplied. A second build takes element
+//   SM, as many as their registers allow) and two at hd 128 and 256: the
+//   next tiles load while this one is multiplied. A second build takes element
 //   loads into the same layout where rows are not 16-byte aligned (hd % 8
 //   != 0, an odd stride or pointer);
 // - both products are mma.sync.m16n8k16 on bf16 with fp32 accumulators:
-//   Q's A fragments are loaded once with ldmatrix and kept in registers;
+//   Q's A fragments are loaded once with ldmatrix and kept in registers
+//   (at hd 256, recurrentgemma's, they are read again from the staged Q
+//   tile at each 16-channel step: the 16 x 256 accumulator fills the
+//   registers);
 //   S = Q K^T takes K's B fragments by ldmatrix; the online softmax runs on
 //   the S fragments in registers (row max and sum over the quad that holds
 //   a row, by shuffles; expf as the plain version takes it); P is split in
@@ -102,15 +106,38 @@ struct Strides {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMmaThreads = 128;          // four warps, 16 query rows each
 constexpr int kBq = 64;                   // query positions per block
 constexpr int kBk = 64;                   // kv positions per staged tile
 
 // K/V tiles in flight: three at hd <= 64 (63 KB of shared memory, three
 // blocks an SM, as many as their registers allow), two at hd 128 (87 KB)
+// and at hd 256 (165 KB: one block an SM)
 template <int HDP>
 struct Stages {
   static constexpr int k = HDP <= 64 ? 3 : 2;
+};
+
+// Output columns per warp: all of them at hd <= 128 (four warps, 16 query
+// rows each); at hd 256 a warp's 16 x 256 fp32 accumulator alone would be
+// 128 registers a lane, and with S, P and Q's fragments it spilled, so
+// eight warps split the columns: warp w owns rows 16 (w % 4) .. + 15 and
+// columns 128 (w / 4) .. + 127, and the two warps of a row tile each
+// compute its S and softmax (the same values), then P V on their halves.
+// Q's A fragments stay in registers for the whole walk at hd <= 128; at hd
+// 256 they are read from the staged Q tile at each 16-channel step
+template <int HDP>
+struct ColSplit {
+  static constexpr int k = HDP > 128 ? 2 : 1;
+};
+
+template <int HDP>
+struct MmaThreads {
+  static constexpr int k = 128 * ColSplit<HDP>::k;
+};
+
+template <int HDP>
+struct QInRegisters {
+  static constexpr bool k = HDP <= 128;
 };
 
 template <int HDP>
@@ -120,7 +147,7 @@ size_t mma_smem_bytes() {
 }
 
 template <int HDP, bool VEC>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(MmaThreads<HDP>::k)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  Strides qs, Strides ks, Strides vs, int b, int sq, int skv,
@@ -128,9 +155,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float scale) {
   constexpr int kLd = attn::Tile<bf16, HDP>::kLd;
   constexpr int kKc = HDP / 16;           // 16-channel steps of Q K^T
-  constexpr int kNc = HDP / 8;            // 8-channel output tiles of P V
+  constexpr int kCols = HDP / ColSplit<HDP>::k;     // a warp's out columns
+  constexpr int kNc = kCols / 8;          // 8-channel output tiles of P V
   constexpr int kNt = kBk / 8;            // 8-position score tiles
   constexpr int kStages = Stages<HDP>::k;
+  constexpr int kMmaThreads = MmaThreads<HDP>::k;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // kBq rows
   bf16* k_s = q_s + kBq * kLd;                       // kStages x kBk rows
@@ -138,7 +167,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int warp = (tid >> 5) & 3;        // the warp's 16-row tile
+  const int col0 = (tid >> 7) * kCols;    // ... and its first out column
   const int n_qt = (sq + kBq - 1) / kBq;
   const int64_t id = blockIdx.x;
   const int head = static_cast<int>(id % h);
@@ -197,12 +227,14 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
   // Q's A fragments for every 16-channel step, kept for the whole walk
-  uint32_t qf[kKc][4];
+  // (QInRegisters), else read again at each step from q_s
+  constexpr bool kQRegs = QInRegisters<HDP>::k;
+  const bf16* q_frag = q_s + (warp * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
+  uint32_t qf[kQRegs ? kKc : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int c = 0; c < kKc; ++c) {
-    if (n_tiles > 0) {
-      ldsm_x4(q_s + (warp * 16 + (lane & 15)) * kLd + c * 16 + (lane >> 4) * 8,
-              qf[c]);
+    for (int c = 0; c < kKc; ++c) {
+      if (n_tiles > 0) ldsm_x4(q_frag + c * 16, qf[c]);
     }
   }
 
@@ -224,14 +256,21 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int c = 0; c < kKc; ++c) {
+      uint32_t qc[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qc[e] = qf[c][e];
+      } else {
+        ldsm_x4(q_frag + c * 16, qc);
+      }
 #pragma unroll
       for (int np = 0; np < kNt / 2; ++np) {
         uint32_t kf[4];   // B fragments of position tiles 2 np and 2 np + 1
         ldsm_x4(kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
                     c * 16 + ((lane >> 3) & 1) * 8,
                 kf);
-        mma_bf16(s[2 * np], qf[c], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[c], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qc, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qc, kf[2], kf[3]);
       }
     }
 
@@ -286,8 +325,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // (A fragment registers 0, 1) and 2 j + 1 (2, 3), as three bf16 parts;
     // V's B fragments by ldmatrix.trans. At hd <= 64 the tile's products
     // sum in an accumulator of their own (pv), which joins acc with one
-    // rounding per element, not one truncation per product; hd 128 has no
-    // registers left for it and scales acc first
+    // rounding per element, not one truncation per product; hd 128 and 256
+    // have no registers left for it and scale acc first
     constexpr bool kTileAcc = HDP <= 64;
     float ta[kNc][4];
     float (&pv)[kNc][4] = kTileAcc ? ta : acc;
@@ -313,7 +352,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t vf[4];   // B fragments of channel tiles 2 cp and 2 cp + 1
         ldsm_x4_trans(vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                kLd +
-                          cp * 16 + (lane >> 4) * 8,
+                          col0 + cp * 16 + (lane >> 4) * 8,
                       vf);
         mma_bf16(pv[2 * cp], ph, vf[0], vf[1]);
         mma_bf16(pv[2 * cp + 1], ph, vf[2], vf[3]);
@@ -343,7 +382,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ob = out + (bi * sq) * row_stride + static_cast<int64_t>(head) * hd;
 #pragma unroll
   for (int n = 0; n < kNc; ++n) {
-    const int ch = n * 8 + 2 * ft;
+    const int ch = col0 + n * 8 + 2 * ft;
     if (row0 < sq) {
       store_pair<VEC>(ob + row0 * row_stride, ch, hd, acc[n][0] / d0,
                       acc[n][1] / d0);
@@ -367,7 +406,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   auto kernel = flash_mma_kernel<HDP, VEC>;
   cudaError_t err = attn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), MmaThreads<HDP>::k, smem,
+           stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, b, sq,
       skv, h, kvh, hd, causal, window, q_offset, scale);
@@ -605,28 +645,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    if (hd <= 64) {
-      err = vec ? launch_mma<64, true>(q, k, v, out, qs, ks, vs, b, sq, skv,
-                                       h, kvh, hd, causal, window, q_offset,
-                                       scale, s)
-                : launch_mma<64, false>(q, k, v, out, qs, ks, vs, b, sq, skv,
-                                        h, kvh, hd, causal, window, q_offset,
-                                        scale, s);
-    } else {
-      err = vec ? launch_mma<128, true>(q, k, v, out, qs, ks, vs, b, sq, skv,
-                                        h, kvh, hd, causal, window, q_offset,
-                                        scale, s)
-                : launch_mma<128, false>(q, k, v, out, qs, ks, vs, b, sq,
-                                         skv, h, kvh, hd, causal, window,
-                                         q_offset, scale, s);
-    }
+    auto mma = [&](auto hdp) {
+      constexpr int HDP = decltype(hdp)::value;
+      return vec ? launch_mma<HDP, true>(q, k, v, out, qs, ks, vs, b, sq, skv,
+                                         h, kvh, hd, causal, window, q_offset,
+                                         scale, s)
+                 : launch_mma<HDP, false>(q, k, v, out, qs, ks, vs, b, sq,
+                                          skv, h, kvh, hd, causal, window,
+                                          q_offset, scale, s);
+    };
+    err = hd <= 64    ? mma(std::integral_constant<int, 64>{})
+          : hd <= 128 ? mma(std::integral_constant<int, 128>{})
+                      : mma(std::integral_constant<int, 256>{});
   } else {
-    err = hd <= 64 ? simt::launch<2>(q, k, v, out, qs, ks, vs, b, sq, skv, h,
-                                     kvh, hd, causal, window, q_offset, scale,
-                                     s)
-                   : simt::launch<4>(q, k, v, out, qs, ks, vs, b, sq, skv, h,
-                                     kvh, hd, causal, window, q_offset, scale,
-                                     s);
+    auto simt_c = [&](auto c) {
+      return simt::launch<decltype(c)::value>(q, k, v, out, qs, ks, vs, b, sq,
+                                              skv, h, kvh, hd, causal, window,
+                                              q_offset, scale, s);
+    };
+    err = hd <= 64    ? simt_c(std::integral_constant<int, 2>{})
+          : hd <= 128 ? simt_c(std::integral_constant<int, 4>{})
+                      : simt_c(std::integral_constant<int, 8>{});
   }
   return static_cast<int>(err);
 }

@@ -45,7 +45,12 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-MAX_G = 8            # query heads per KV head the decode kernels hold
+MAX_G = 8            # query heads per KV head the paged and ragged walks hold
+MAX_HD = 128         # the paged and ragged walks' largest head_dim
+# contiguous decode also takes recurrentgemma-9b's MQA: g up to 16 (in
+# clusters of 8 heads) and hd up to 256 (the wide walk)
+MAX_G_CONTIGUOUS = 16
+MAX_HD_CONTIGUOUS = 256
 SPLIT_POSITIONS = 256   # cache positions per block of a decode cluster
 MAX_SPLIT = 8           # blocks a cluster holds
 TILE_TOKENS = 16        # tokens of a ragged run per tensor-core tile
@@ -185,11 +190,12 @@ def _lib(name: str):
     return fn
 
 
-def _check(q, k, v, ints):
+def _check(q, k, v, ints, max_g=MAX_G, max_hd=MAX_HD):
     """The checks the three kernels share: same devices, types, q (n, h,
-    hd) against K/V (..., kvh, hd) with at most ``MAX_G`` query heads per
-    KV head, int32 index tensors, contiguity (the caller checks last that
-    the device is a CUDA one). Returns (n, h, hd, kvh)."""
+    hd) against K/V (..., kvh, hd) with at most ``max_g`` query heads per
+    KV head and hd at most ``max_hd``, int32 index tensors, contiguity (the
+    caller checks last that the device is a CUDA one). Returns (n, h, hd,
+    kvh)."""
     dev = q.device
     for name, x in (("k", k), ("v", v)) + ints:
         if x.device != dev:
@@ -208,7 +214,7 @@ def _check(q, k, v, ints):
                          f"{tuple(v.shape)} disagree")
     n, h, hd = q.shape
     kvh = k.shape[2]
-    if h % kvh or h // kvh > MAX_G or not 0 < hd <= 128:
+    if h % kvh or h // kvh > max_g or not 0 < hd <= max_hd:
         raise ValueError(f"unsupported h {h} / kvh {kvh} / hd {hd}")
     for name, x in (("q", q), ("k", k), ("v", v)) + ints:
         if not x.is_contiguous():
@@ -234,8 +240,9 @@ def _vec(hd, *xs) -> int:
 def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
                                   token_rows, token_pos, plan=None):
     """Launch the ragged kernel on CUDA tensors (same device, contiguous; q
-    and the pages both float32 or both bfloat16; indices int32; hd <= 128;
-    h a multiple of kvh, at most 8 query heads per KV head). ``plan``: the
+    and the pages both float32 or both bfloat16; indices int32; hd <=
+    ``MAX_HD``; h a multiple of kvh, at most ``MAX_G`` query heads per KV
+    head). ``plan``: the
     (n_items, 2) int32 :func:`ragged_plan` of these indices on the device;
     None builds it from host copies of them (:func:`plan_tensor`). Raises
     on anything the kernel does not take; never falls back."""
@@ -278,11 +285,14 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
 
 def decode_attention_kernel(q, k_cache, v_cache, cur_len):
     """Launch the contiguous decode kernel on CUDA tensors: q (b, h, hd),
-    caches (b, S, kvh, hd), all contiguous, float32 or bfloat16; cur_len a
-    scalar or (b,), made a (b,) int32 tensor on the device here. Raises on
-    anything the kernel does not take; never falls back."""
+    caches (b, S, kvh, hd), all contiguous, float32 or bfloat16, hd <=
+    ``MAX_HD_CONTIGUOUS``, at most ``MAX_G_CONTIGUOUS`` query heads per KV
+    head; cur_len a scalar or (b,), made a (b,) int32 tensor on the device
+    here. Raises on anything the kernel does not take; never falls
+    back."""
     lens = _lengths(cur_len, q.shape[0], q.device)
-    b, h, hd, kvh = _check(q, k_cache, v_cache, (("cur_len", lens),))
+    b, h, hd, kvh = _check(q, k_cache, v_cache, (("cur_len", lens),),
+                           MAX_G_CONTIGUOUS, MAX_HD_CONTIGUOUS)
     if k_cache.shape[0] != b:
         raise ValueError(f"caches {tuple(k_cache.shape)} hold another batch "
                          f"than q {tuple(q.shape)}")
@@ -306,7 +316,8 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   cur_len):
     """Launch the paged decode kernel on CUDA tensors: q (b, h, hd), pages
     (num_blocks, block_size, kvh, hd), block_tables (b, npages) and
-    cur_len (b,) int32, all contiguous. The cluster split is
+    cur_len (b,) int32, all contiguous; hd <= ``MAX_HD``, at most
+    ``MAX_G`` query heads per KV head. The cluster split is
     ``decode_split(npages * block_size)``. Raises on anything the kernel
     does not take; never falls back."""
     ints = (("block_tables", block_tables), ("cur_len", cur_len))

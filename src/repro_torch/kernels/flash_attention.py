@@ -25,6 +25,7 @@ from repro_torch.kernels._build import on_device as _on_device
 
 NEG = -1e30          # the reference kernel's mask value
 MAX_G = 96           # query heads per KV head the kernel's tile can hold
+MAX_HD = 256         # hd padded to 64, 128 or 256 (recurrentgemma's)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,8 +88,8 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
     """Launch the CUDA kernel on CUDA tensors (same device; q, k and v all
     float32 or all bfloat16, each with a unit channel stride, any other
     strides; h a multiple of kvh with at most 96 query heads per KV head;
-    hd <= 128). Raises on anything the kernel does not take; never falls
-    back."""
+    hd <= ``MAX_HD``). Raises on anything the kernel does not take; never
+    falls back."""
     dev = q.device
     for name, x in (("k", k), ("v", v)):
         if x.device != dev:
@@ -106,7 +107,7 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
     if k.shape[0] != b or hd_k != hd:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree")
-    if h % kvh or h // kvh > MAX_G or not 0 < hd <= 128:
+    if h % kvh or h // kvh > MAX_G or not 0 < hd <= MAX_HD:
         raise ValueError(f"unsupported h {h} / kvh {kvh} / hd {hd}")
     if window < 0 or q_offset < 0:
         raise ValueError(f"window {window} and q_offset {q_offset} must be "

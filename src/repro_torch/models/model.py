@@ -13,8 +13,8 @@ the training path, which also runs what only training uses: AoT's fc /
 kron reparametrizations, P-Tuning v1 and full fine-tuning. The serving
 entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse it.
 
-Counterpart of ``repro.models.model.Model`` for attention-only stacks:
-pre-norm causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
+Counterpart of ``repro.models.model.Model``: attention stacks, pre-norm
+causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
 serving path's smollm-360m; olmo-1b's non-parametric LayerNorm,
 qwen2.5-14b's QKV bias and untied head, h2o-danube-1.8b's sliding window;
 GeGLU and the embeddings' ``sqrt(d)`` scale; the mixture-of-experts
@@ -23,17 +23,28 @@ llama4-maverick-400b-a17b, MoE on every second layer with a shared
 expert: ``models.moe``) and the paper's post-LN
 encoders (LayerNorm, the GELU MLP, learned positions, an untied head,
 full attention: roberta-large, deberta-xl), which run the whole-sequence
-entry points only (:func:`check_servable`). A sliding-window stack's
+entry points only (:func:`check_servable`), and the recurrent stacks
+(``models.recurrent``, ``models.xlstm``): recurrentgemma-9b, RG-LRU
+blocks with a GeGLU FFN interleaved 2:1 with local MQA attention, and
+xlstm-350m, seven mLSTM blocks to one sLSTM, no positions. Every block
+takes AoT's rows before it. Recurrent stacks serve whole sequences,
+prefill and the decode step over a contiguous cache; the paged pool and
+the continuous scheduler refuse them, as the reference's do: bucket
+padding would fold into their state. A sliding-window stack's
 contiguous cache is a ring of ``sliding_window`` rows when the window is
 shorter than the cache, as the reference's default: position ``pos``
 lives in row ``pos % sliding_window``, and the paged paths refuse it, as
 the reference's do. Parameters are a plain
 dict of tensors with ``params["layers"]`` a list of per-layer dicts in
 layer order (the bridge unpacks the reference's grouped ``(R, U, ...)``
-stacking; eager PyTorch gains nothing from stacked leaves). A contiguous
-cache is ``{"k", "v"}`` of shape ``(L, b, S, kvh, hd)``; the paged KV
-pool is ``{"k", "v"}`` of shape
-``(L, num_blocks, block_size, kvh, hd)``.
+stacking; eager PyTorch gains nothing from stacked leaves). The contiguous
+cache of an attention-only stack is ``{"k", "v"}`` of shape ``(L, b, S,
+kvh, hd)``; a stack with recurrent blocks holds one entry per layer,
+``{"layers": [...]}``: an attention layer's ``{"k", "v"}`` (b, S, kvh,
+hd), an RG-LRU layer's ``{"conv", "h"}``, an mLSTM layer's ``{"conv",
+"state": (C, n, m)}`` and an sLSTM layer's ``{"conv", "state": {"h", "c",
+"n", "m"}}`` (the reference's ``_block_cache_spec``). The paged KV pool is
+``{"k", "v"}`` of shape ``(L, num_blocks, block_size, kvh, hd)``.
 """
 from __future__ import annotations
 
@@ -46,13 +57,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import BLOCK_ATTN, ArchConfig
+from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MLSTM, BLOCK_RGLRU,
+                                      BLOCK_SLSTM, ArchConfig)
 from repro_torch.core import aot as aot_mod
 from repro_torch.core.peft import lora_scale
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xl_mod
 
 # the PEFT methods the model serves (core.peft)
 SERVED = ("none", "aot", "bitfit", "lora", "adapters", "ptv2")
@@ -67,6 +81,7 @@ SWA_PAGED_DECODE = ("paged decode has no sliding-window masking; serve SWA "
                     "models with the contiguous slot layout")
 SWA_PAGED_TICK = ("paged serving has no sliding-window masking; serve SWA "
                   "models with the contiguous slot layout")
+RECURRENT = (BLOCK_RGLRU, BLOCK_MLSTM, BLOCK_SLSTM)
 
 
 @dataclass(frozen=True)
@@ -75,20 +90,25 @@ class ModelOptions:
     param_dtype: torch.dtype = torch.float32
     attn_impl: str = "kernel"       # "kernel" (reference: "pallas") | "ref"
     max_learned_pos: int = 0        # 0: from the config's shapes (max_pos)
+    mlstm_chunk: int = 64           # mLSTM's chunk (xlstm.mlstm_chunkwise)
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise unless the whole-sequence entry points (``forward``,
     ``logits``, ``classify``: serving whole sequences and training) run
-    ``cfg``: an attention-only stack, pre-norm with RMSNorm, LayerNorm or
-    the non-parametric norm, or post-LN with LayerNorm, a SwiGLU, GeGLU or
-    GELU MLP or a routed MoE FFN on the config's MoE layers, RoPE or
-    learned positions (embeddings scaled by sqrt(d) or not), an optional
-    QKV bias and q/k norm, causal (full or sliding-window) or an encoder's
-    full attention."""
+    ``cfg``: attention blocks, RG-LRU blocks (with the config's MLP when
+    d_ff > 0), mLSTM and sLSTM blocks; pre-norm with RMSNorm, LayerNorm or
+    the non-parametric norm, or (attention only) post-LN with LayerNorm, a
+    SwiGLU, GeGLU or GELU MLP or a routed MoE FFN on the config's MoE
+    layers, RoPE, learned or no positions (embeddings scaled by sqrt(d) or
+    not), an optional QKV bias and q/k norm, causal (full or
+    sliding-window) or an encoder's full attention."""
     bad = []
-    if set(cfg.layer_kinds) != {BLOCK_ATTN}:
-        bad.append(f"block kinds {sorted(set(cfg.layer_kinds))}")
+    kinds = set(cfg.layer_kinds)
+    if not kinds <= {BLOCK_ATTN, *RECURRENT}:
+        bad.append(f"block kinds {sorted(kinds)}")
+    if kinds & set(RECURRENT) and cfg.post_ln:
+        bad.append("post-LN recurrent blocks")
     if cfg.prefix_lm_len or not (cfg.causal or cfg.is_encoder_only):
         bad.append("a bidirectional prefix")
     if not (cfg.attn_kind == "full" or (
@@ -100,9 +120,10 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.norm_type not in ("rmsnorm", "layernorm", "nonparametric") or (
             cfg.post_ln and cfg.norm_type != "layernorm"):
         bad.append(f"{cfg.norm_type} {'post' if cfg.post_ln else 'pre'}-LN")
-    if cfg.mlp_type not in ("swiglu", "geglu", "gelu") or cfg.d_ff <= 0:
+    if cfg.mlp_type not in ("swiglu", "geglu", "gelu") or (
+            cfg.d_ff <= 0 and BLOCK_ATTN in kinds):
         bad.append(f"mlp {cfg.mlp_type!r} (d_ff {cfg.d_ff})")
-    if cfg.pos_type not in ("rope", "learned"):
+    if cfg.pos_type not in ("rope", "learned", "none"):
         bad.append(f"positions {cfg.pos_type!r}")
     if cfg.logit_softcap:
         bad.append(f"attention softcap {cfg.logit_softcap}")
@@ -114,15 +135,35 @@ def check_supported(cfg: ArchConfig) -> None:
 def check_servable(cfg: ArchConfig) -> None:
     """Raise unless the serving entry points (``prefill``, ``decode_step``,
     ``mixed_step``, ``ServeEngine``) serve ``cfg``: a causal stack with
-    RoPE. An encoder (non-causal, learned positions) runs the
-    whole-sequence entry points only. The reference asserts causality in
-    its ``mixed_step`` but not in ``prefill`` / ``decode_step``; the port
-    refuses all three (ROADMAP C6)."""
+    RoPE or no positions (xlstm-350m). An encoder (non-causal, learned
+    positions) runs the whole-sequence entry points only. The reference
+    asserts causality in its ``mixed_step`` but not in ``prefill`` /
+    ``decode_step``; the port refuses all three (ROADMAP C6)."""
     check_supported(cfg)
-    if not cfg.causal or cfg.pos_type != "rope":
+    if not cfg.causal or cfg.pos_type not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: the serving entry points serve causal stacks "
-            "with RoPE; an encoder runs Model.forward / logits / classify")
+            "with RoPE or no positions; an encoder runs Model.forward / "
+            "logits / classify")
+
+
+def recurrent_kinds(cfg: ArchConfig):
+    """The recurrent block kinds of ``cfg``'s stack (empty: attention
+    only)."""
+    return sorted(set(cfg.layer_kinds) & set(RECURRENT))
+
+
+def refuse_recurrent(cfg: ArchConfig, what: str) -> None:
+    """Raise NotImplementedError with the reference's reason for ``what``
+    (the paged pool, the mixed step, continuous batching) on a stack with
+    recurrent blocks: bucket padding folds into their state, and their
+    state has no paged layout."""
+    kinds = recurrent_kinds(cfg)
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} needs attention-only stacks: recurrent "
+            f"blocks ({set(kinds)}) fold bucket padding into their state; "
+            "serve them with static batches (ServeEngine.generate)")
 
 
 def ring_spans(n: int, rows: int):
@@ -203,6 +244,10 @@ class Model:
         self.cfg = cfg
         self.opts = opts
         self.device = resolve_device(device)
+        self.kinds = cfg.layer_kinds    # each layer's block kind
+        # a per-layer cache ({"layers": [...]}) for stacks with recurrent
+        # blocks; attention-only stacks keep the stacked {"k", "v"}
+        self.layered = bool(recurrent_kinds(cfg))
         self._routes = None         # the open record_routes() list, if any
 
     # ------------------------------------------------------------------
@@ -221,9 +266,14 @@ class Model:
         truncated-normal std 1/sqrt(fan_in), norm scales 1 and biases 0,
         MLP and QKV biases 0, q/k norm scales 1. A MoE layer (the config's
         ``moe_layer_mask``) holds ``moe`` (``moe.moe_init``) where the
-        others hold ``mlp``. Norm parameters, the QKV biases, the q/k norms
-        and the router stay float32 (the reference's ``attn_init`` and
-        ``moe_init``); everything else is stored in ``param_dtype``."""
+        others hold ``mlp``. An RG-LRU layer holds ``ln1`` and ``rglru``
+        (``recurrent.rglru_init``), and ``ln2`` / ``mlp`` when d_ff > 0; an
+        mLSTM or sLSTM layer ``ln1`` and ``core`` (``xlstm``'s block
+        inits), as the reference's ``_block_init``. Norm parameters, the
+        QKV biases, the q/k norms, the router and RG-LRU's ``lam`` stay
+        float32 (the reference's ``attn_init``, ``moe_init`` and
+        ``rglru_init``, whose ``lam`` enters the gates uncast); everything
+        else is stored in ``param_dtype``."""
         cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d, V = cfg.d_model, cfg.vocab_size
@@ -231,7 +281,17 @@ class Model:
         dense = lambda *shape: L.dense_init(shape, gen, dev, pdt)
         norm = lambda: L.norm_init(cfg, dev)
 
-        def layer(moe):
+        def layer(kind, moe):
+            if kind == BLOCK_RGLRU:
+                lp = {"ln1": norm(), "rglru": rec_mod.rglru_init(cfg, gen, dev,
+                                                                 pdt)}
+                if cfg.d_ff > 0:
+                    lp.update(ln2=norm(), mlp=L.mlp_init(cfg, gen, dev, pdt))
+                return lp
+            if kind in (BLOCK_MLSTM, BLOCK_SLSTM):
+                init = (xl_mod.mlstm_block_init if kind == BLOCK_MLSTM
+                        else xl_mod.slstm_block_init)
+                return {"ln1": norm(), "core": init(cfg, gen, dev, pdt)}
             lp = {"ln1": norm(), "attn": L.attn_init(cfg, gen, dev, pdt),
                   "ln2": norm()}
             if moe:
@@ -244,7 +304,8 @@ class Model:
         if cfg.pos_type == "learned":
             embed["pos"] = L.embed_init((self.max_pos(), d), gen, dev, pdt)
         params = {"embed": embed,
-                  "layers": [layer(m) for m in cfg.moe_layer_mask()],
+                  "layers": [layer(k, m) for k, m in
+                             zip(self.kinds, cfg.moe_layer_mask())],
                   "final_norm": norm()}
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": dense(d, V)}
@@ -283,23 +344,72 @@ class Model:
 
     def cache_specs(self, batch: int, max_len: int):
         """Shape and dtype of each contiguous cache leaf: per layer a
-        (batch, S, kvh, hd) K and V, stacked (L, batch, S, kvh, hd)."""
+        (batch, S, kvh, hd) K and V, stacked (L, batch, S, kvh, hd); with
+        recurrent blocks, :meth:`init_cache`'s per-layer tree with a
+        (shape, dtype) pair for each leaf."""
         cfg = self.cfg
+        if self.layered:
+            return _specs(self._layered_cache(batch, max_len, "meta"))
         shape = (cfg.num_layers, batch, self._cache_len(max_len),
                  cfg.num_kv_heads, cfg.head_dim)
         return {"k": (shape, self.opts.compute_dtype),
                 "v": (shape, self.opts.compute_dtype)}
 
     def init_cache(self, batch: int, max_len: int):
+        """A fresh contiguous cache (the stabilizers of m/sLSTM states at
+        -1e30, everything else zeros)."""
+        if self.layered:
+            return self._layered_cache(batch, max_len, self.device)
         return {name: torch.zeros(shape, dtype=dt, device=self.device)
                 for name, (shape, dt) in
                 self.cache_specs(batch, max_len).items()}
 
+    def _layered_cache(self, batch: int, max_len: int, device):
+        """The per-layer cache of a stack with recurrent blocks on
+        ``device``, shaped as the reference's ``_block_cache_spec``: an
+        attention layer's K and V (batch, S, kvh, hd), an RG-LRU layer's
+        conv inputs and state, an m/sLSTM layer's conv inputs and float32
+        state, the conv inputs and RG-LRU state in the compute dtype."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        S = self._cache_len(max_len)
+        init = {BLOCK_RGLRU: rec_mod.rglru_init_cache,
+                BLOCK_MLSTM: xl_mod.mlstm_init_cache,
+                BLOCK_SLSTM: xl_mod.slstm_init_cache}
+        layers = []
+        for kind in self.kinds:
+            if kind == BLOCK_ATTN:
+                kv = lambda: torch.zeros(batch, S, cfg.num_kv_heads,
+                                         cfg.head_dim, dtype=dt,
+                                         device=device)
+                layers.append({"k": kv(), "v": kv()})
+            else:
+                layers.append(init[kind](cfg, batch, dt, device))
+        return {"layers": layers}
+
+    def kv(self, cache, i: int):
+        """Layer i's contiguous K and V (b, S, kvh, hd), views that writes
+        go through, in either cache layout."""
+        if self.layered:
+            return cache["layers"][i]["k"], cache["layers"][i]["v"]
+        return cache["k"][i], cache["v"][i]
+
+    def cache_rows(self, cache) -> int:
+        """S, the rows of the attention layers' contiguous caches (0 for a
+        stack with no attention layer)."""
+        if not self.layered:
+            return cache["k"].shape[2]
+        for kind, c in zip(self.kinds, cache["layers"]):
+            if kind == BLOCK_ATTN:
+                return c["k"].shape[1]
+        return 0
+
     def paged_cache_specs(self, num_blocks: int, block_size: int):
         """Shape and dtype of each paged pool leaf: a global
         (L, num_blocks, block_size, kvh, hd) K and V page pool shared by
-        every request."""
+        every request. Attention-only stacks: recurrent state has no paged
+        layout (the reference asserts the same)."""
         cfg = self.cfg
+        refuse_recurrent(cfg, "the paged KV pool")
         shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
                  cfg.head_dim)
         return {"k": (shape, self.opts.compute_dtype),
@@ -475,19 +585,8 @@ class Model:
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
         pp = peft["params"] if peft else {}
-        ref = self.opts.attn_impl == "ref"
         post = cfg.post_ln
-        if method == "aot" and ref:              # the paper's Eq. 1
-            h = h + self._aot_rows(peft, i, *aot).reshape(h.shape).to(dt)
-            x = h if post else L.apply_norm(cfg, lp["ln1"], h)
-        elif method == "aot":
-            h, x = self._aot_add(peft, i, lp, h, *aot[:2])
-        elif post:
-            x = h
-        elif ref or cfg.norm_type != "rmsnorm":
-            x = L.apply_norm(cfg, lp["ln1"], h)
-        else:
-            x = ops.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
+        h, x = self._block_input(lp, h, peft, i, aot)
         qkv = None
         if method == "lora":
             lo, sc = pp["lora"], lora_scale(peft["opt"])
@@ -505,12 +604,70 @@ class Model:
         else:
             h = h + out
             x = L.apply_norm(cfg, lp["ln2"], h)
+        out = self._ffn_hooks(lp, x, peft, i, aux)
+        return L.apply_norm(cfg, lp["ln2"], h + out) if post else h + out
+
+    def _block_input(self, lp, h, peft, i, aot):
+        """Layer i's input: (h, x) with h plus AoT's rows when ``peft`` is
+        AoT (the paper's Eq. 1, for the flat tokens ``aot``) and x the
+        block's input norm of it (post-LN: h itself). On the kernels the
+        rows and an RMSNorm are one fused launch (:meth:`_aot_add`), an
+        RMSNorm alone is ``ops.rms_norm``; under ``attn_impl="ref"`` both
+        are plain PyTorch, and LayerNorm and the non-parametric norm are
+        plain PyTorch on both paths."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        method = peft["method"] if peft else "none"
+        ref = self.opts.attn_impl == "ref"
+        post = cfg.post_ln
+        if method == "aot" and ref:              # the paper's Eq. 1
+            h = h + self._aot_rows(peft, i, *aot).reshape(h.shape).to(dt)
+            x = h if post else L.apply_norm(cfg, lp["ln1"], h)
+        elif method == "aot":
+            h, x = self._aot_add(peft, i, lp, h, *aot[:2])
+        elif post:
+            x = h
+        elif ref or cfg.norm_type != "rmsnorm":
+            x = L.apply_norm(cfg, lp["ln1"], h)
+        else:
+            x = ops.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
+        return h, x
+
+    def _ffn_hooks(self, lp, x, peft, i, aux):
+        """:meth:`_ffn` on x with layer i's PEFT hooks after it: BitFit's
+        ``mlp_out`` bias, then the MLP adapter."""
+        dt = self.opts.compute_dtype
+        method = peft["method"] if peft else "none"
         out = self._ffn(lp, x, aux)
         if method == "bitfit":
-            out = out + pp["bitfit"]["mlp_out"][i].to(dt)
+            out = out + peft["params"]["bitfit"]["mlp_out"][i].to(dt)
         if method == "adapters":
-            out = self._adapter(pp["adapters"]["mlp"], i, out)
-        return L.apply_norm(cfg, lp["ln2"], h + out) if post else h + out
+            out = self._adapter(peft["params"]["adapters"]["mlp"], i, out)
+        return out
+
+    def _recurrent_block(self, kind, lp, h, peft, i, aot, state):
+        """Recurrent layer i (``kind``) on h (b, s, d), the reference's
+        ``_block_apply``: AoT's rows and the input norm first
+        (:meth:`_block_input`), the temporal mix (RG-LRU, mLSTM or sLSTM)
+        from ``state`` (the layer's cache entry, or None for a fresh one),
+        the residual add, and on an RG-LRU block with an MLP the second
+        norm, the FFN with BitFit's ``mlp_out`` and the MLP adapter, the
+        residual add. LoRA, BitFit's ``attn_out`` and the attention adapter
+        act on attention layers only. Returns (h, the layer's new cache
+        entry)."""
+        cfg, dt = self.cfg, self.opts.compute_dtype
+        h, x = self._block_input(lp, h, peft, i, aot)
+        if kind == BLOCK_RGLRU:
+            mix, new = rec_mod.apply_rglru(cfg, lp["rglru"], x, dt, state)
+        elif kind == BLOCK_MLSTM:
+            mix, new = xl_mod.apply_mlstm_block(cfg, lp["core"], x, dt, state,
+                                                chunk=self.opts.mlstm_chunk)
+        else:
+            mix, new = xl_mod.apply_slstm_block(cfg, lp["core"], x, dt, state)
+        h = h + mix
+        if "mlp" in lp:                 # an RG-LRU block's FFN
+            x = L.apply_norm(cfg, lp["ln2"], h)
+            h = h + self._ffn_hooks(lp, x, peft, i, None)
+        return h, new
 
     def _embed(self, params, ids):
         """(E[ids] as stored, which AoT's fc reads, and h: those rows in
@@ -555,9 +712,9 @@ class Model:
             if p + s > max_len:
                 raise ValueError(f"prompt length {s} (+ prefix {p}) exceeds "
                                  f"the cache's {max_len} positions")
-            rows = cache["k"].shape[2]
+            rows = self.cache_rows(cache)
             spans = (ring_spans(p + (s if real is None else real), rows)
-                     if p + s > rows else [(0, p + s, 0)])
+                     if p + s > rows else [(0, p + s, 0)]) if rows else []
         ids = tokens.to(torch.int32)
         e_rows, h = self._embed(params, ids)                     # (b, s, d)
         p1 = 0
@@ -573,7 +730,7 @@ class Model:
                     f"{p1 + s} positions (P-Tuning v1's prompt {p1} + {s} "
                     f"tokens) exceed the {pos.shape[0]} learned positions")
             h = h + pos[:p1 + s].to(dt)[None]
-        else:
+        elif cfg.pos_type == "rope":
             sincos = L.rope_sincos(torch.arange(p1 + s, device=h.device),
                                    cfg.head_dim, cfg.rope_theta)
         aot = None
@@ -585,6 +742,15 @@ class Model:
         ref = self.opts.attn_impl == "ref"
         window = self.window()
         for i, lp in enumerate(params["layers"]):
+            kind = self.kinds[i]
+            if kind != BLOCK_ATTN:      # a fresh cache's state, or none
+                h, new = self._recurrent_block(
+                    kind, lp, h, peft, i, aot,
+                    None if cache is None else cache["layers"][i])
+                if cache is not None:
+                    cache["layers"][i] = new
+                continue
+
             def attend(q, k, v, i=i):
                 if p:
                     pre = peft["params"]["ptv2"]
@@ -592,9 +758,11 @@ class Model:
                         b, -1, -1, -1), k], 1)
                     v = torch.cat([pre["pv"][i].to(v.dtype).expand(
                         b, -1, -1, -1), v], 1)
+                if spans:
+                    kc, vc = self.kv(cache, i)
                 for lo, hi, at in spans or ():
-                    cache["k"][i, :, at:at + hi - lo] = k[:, lo:hi]
-                    cache["v"][i, :, at:at + hi - lo] = v[:, lo:hi]
+                    kc[:, at:at + hi - lo] = k[:, lo:hi]
+                    vc[:, at:at + hi - lo] = v[:, lo:hi]
                 if ref:
                     return L.attention_ref(q, k, v, causal=cfg.causal,
                                            window=window, q_offset=p,
@@ -695,6 +863,8 @@ class Model:
         method = self._method(peft)
         if method == "ptv2" and block_tables is not None:
             raise NotImplementedError(_PTV2_PAGED)
+        if block_tables is not None:
+            refuse_recurrent(cfg, "paged decode")
         if self.window() and block_tables is not None:
             raise NotImplementedError(SWA_PAGED_DECODE)
         dev = self.device
@@ -702,7 +872,7 @@ class Model:
         ids = tokens[:, 0].to(torch.int32).contiguous()
         b = ids.shape[0]
         h = self._embed(params, ids)[1][:, None]                # (b, 1, d)
-        rows = cache["k"].shape[2]
+        rows = self.cache_rows(cache)
         ring = self.is_ring(rows)       # SWA has refused block_tables
         # Outside a ring the window masks nothing: every position is below
         # rows, which is at most the window, so the plain decode walk over
@@ -724,7 +894,8 @@ class Model:
                              else int(pos) + 1, dtype=torch.int32,
                              device=dev)
             where = (slice(None), int(pos) % rows if ring else int(pos))
-        sincos = L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
+        sincos = (L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
+                  if cfg.pos_type == "rope" else None)
         if block_tables is not None:        # the page and offset of each row
             bs = cache["k"].shape[2]
             if pos_t.device.type == "cpu":
@@ -733,7 +904,12 @@ class Model:
             where = (block_tables.long()[where[0], pos_t // bs], pos_t % bs)
         aot = (ids, peft.get("task_ids")) if method == "aot" else None
         for i, lp in enumerate(params["layers"]):
-            kc, vc = cache["k"][i], cache["v"][i]
+            kind = self.kinds[i]
+            if kind != BLOCK_ATTN:      # the state's step, stored back
+                h, cache["layers"][i] = self._recurrent_block(
+                    kind, lp, h, peft, i, aot, cache["layers"][i])
+                continue
+            kc, vc = self.kv(cache, i)
 
             def attend(q, k, v, kc=kc, vc=vc):
                 kc[where] = k[:, 0]
@@ -801,6 +977,7 @@ class Model:
         the stream, so ``ServeEngine.serve_step`` makes it on its host
         copies."""
         cfg = self.cfg
+        refuse_recurrent(cfg, "the unified mixed step")
         assert block_tables is not None, "mixed_step serves paged pools only"
         self._serving("mixed_step")
         method = self._method(peft)
@@ -839,3 +1016,12 @@ class Model:
             logit_idx = torch.arange(h.shape[0], device=h.device)
         h_sel = h[:, 0][logit_idx.long()]                         # (slots, d)
         return self.unembed(params, h_sel), cache
+
+
+def _specs(tree):
+    """A cache tree with each tensor replaced by its (shape, dtype)."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.dtype
+    if isinstance(tree, dict):
+        return {k: _specs(v) for k, v in tree.items()}
+    return type(tree)(_specs(v) for v in tree)

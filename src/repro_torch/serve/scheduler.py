@@ -73,7 +73,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.models.model import check_write_exclusive, check_write_fresh
+from repro_torch.models.model import (check_write_exclusive, check_write_fresh,
+                                      recurrent_kinds)
 from repro_torch.obs import NULL_OBS, ServeObservability
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kv_pool import PagedKVPool, SlotKVPool
@@ -308,6 +309,13 @@ class ContinuousScheduler:
             raise InvalidConfig(
                 f"{method}: prompt/prefix tuning changes the cache layout "
                 "per request; serve it with static batches")
+        kinds = recurrent_kinds(engine.model.cfg)
+        if kinds:
+            raise InvalidConfig(
+                f"{engine.model.cfg.name}: recurrent blocks ({set(kinds)}) "
+                "fold bucket padding into their state; continuous batching "
+                "needs attention-only stacks (or exact-length prefill) for "
+                "now: serve them with static batches")
         if cfg.kv_layout == "paged" and engine.model.window():
             raise InvalidConfig(
                 f"{engine.model.cfg.name}: paged decode has no "

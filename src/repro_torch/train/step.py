@@ -168,7 +168,10 @@ def make_train_step(model, tcfg: TrainConfig, *, classify: bool = False):
         leaves = T.leaves(trainable)
         with torch.enable_grad():
             loss, metrics = loss_fn(trainable, frozen, batch, rng)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # no trainable leaf may reach the loss (LoRA on a stack without
+            # attention): every gradient is then zero, as jax.grad's
+            grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+                     if loss.requires_grad else [None] * len(leaves))
         grads = T.unflatten(trainable, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)])

@@ -277,8 +277,23 @@ BAD = {
     "decode_half": (port_decode_kernel, (_Q3.half(), _C4, _C4, 3), TypeError,
                     "float32 or bfloat16"),
     "decode_group_over_8": (port_decode_kernel,
-                            (torch.zeros(2, 9, 8), _C4, _C4, 3), ValueError,
+                            (torch.zeros(2, 17, 8), _C4, _C4, 3), ValueError,
                             "unsupported"),
+    "decode_hd_over_256": (port_decode_kernel,
+                           (torch.zeros(2, 2, 264), torch.zeros(2, 5, 1, 264),
+                            torch.zeros(2, 5, 1, 264), 3), ValueError,
+                           "unsupported"),
+    "paged_group_over_8": (port_paged_kernel,
+                           (torch.zeros(2, 9, 8), _C4, _C4, _i32(2, 3),
+                            _i32(2)), ValueError, "unsupported"),
+    "paged_hd_over_128": (port_paged_kernel,
+                          (torch.zeros(2, 1, 136), torch.zeros(2, 5, 1, 136),
+                           torch.zeros(2, 5, 1, 136), _i32(2, 3), _i32(2)),
+                          ValueError, "unsupported"),
+    "flash_hd_over_256": (port_flash_kernel,
+                          (torch.zeros(1, 4, 2, 264), torch.zeros(1, 4, 1, 264),
+                           torch.zeros(1, 4, 1, 264)), ValueError,
+                          "unsupported"),
     "paged_cpu": (port_paged_kernel, (_Q3, _C4, _C4, _i32(2, 3), _i32(2)),
                   ValueError, "CUDA tensors"),
     "paged_int64_lengths": (port_paged_kernel,

@@ -162,13 +162,21 @@ def test_config_copies_equal_reference(name):
 @pytest.mark.parametrize("change,match", [
     (dict(logit_softcap=30.0), "softcap"),
     (dict(frontend="vision_patches"), "frontend"),
-    (dict(pattern_unit=("rglru", "rglru", "attn"), num_layers=3), "block"),
+    (dict(frontend="audio_frames"), "frontend"),
     (dict(prefix_lm_len=4), "prefix"),
     (dict(attn_kind="swa", sliding_window=0), "attention")])
 def test_check_supported_still_refuses(change, match):
     cfg = configs.reduced(configs.get("smollm-360m")).replace(**change)
     with pytest.raises(NotImplementedError, match=match):
         model_mod.check_supported(cfg)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "xlstm-350m"])
+def test_check_supported_accepts_recurrent_stacks(name):
+    """The recurrent block kinds (RG-LRU, mLSTM, sLSTM) and xLSTM's lack of
+    positions are ported: both full configs pass both checks."""
+    model_mod.check_supported(configs.get(name))
+    model_mod.check_servable(configs.get(name))
 
 
 @pytest.mark.parametrize("name", NAMES + [GEGLU])

@@ -37,7 +37,9 @@ def test_importing_the_port_loads_no_jax():
               "tree", "checkpoint.manager", "launch.export",
               "configs.olmo_1b", "configs.qwen2p5_14b",
               "configs.h2o_danube_1p8b", "configs.qwen3_moe_30b_a3b",
-              "configs.llama4_maverick_400b_a17b", "models.moe"):
+              "configs.llama4_maverick_400b_a17b", "models.moe",
+              "configs.recurrentgemma_9b", "configs.xlstm_350m",
+              "models.recurrent", "models.xlstm"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -60,7 +62,8 @@ def _imports(path: Path):
 
 def test_no_jax_or_reference_import_in_the_source():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_seeds.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_seeds.py",
+              ROOT / "chip_ab.py"]
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (

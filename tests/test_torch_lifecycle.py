@@ -184,10 +184,14 @@ def test_reference_checkpoint_continues_in_the_port(tmp_path, tiny_lm):
 # export, then serve --load
 # ---------------------------------------------------------------------------
 
-def test_export_writes_what_both_loaders_read(tmp_path, capsys):
+def test_export_writes_what_both_loaders_read(tmp_path, capsys,
+                                             monkeypatch):
     """The port's export (reduced widths) writes step 1 fc and step
     2 kron in float32, fused bitwise the reparametrization on the CPU; the
-    reference's ``load_tasks`` reads them as the port's does."""
+    reference's ``load_tasks`` reads them as the port's does. None of that
+    depends on how long each mode trains, so 3 steps stand for the
+    exporter's 100."""
+    monkeypatch.setattr(exporter, "TRAIN_STEPS", 3)
     d = str(tmp_path / "fused")
     assert exporter.main(REDUCED + ["--out", d]) == 0
     assert "fuse_err=0.0e+00" in capsys.readouterr().out

@@ -220,7 +220,8 @@ class FakeEngine:
         from types import SimpleNamespace
         self.cfg = SimpleNamespace(max_len=cs.MAX_LEN)
         self.model = SimpleNamespace(
-            cfg=SimpleNamespace(vocab_size=49152), window=lambda: 0,
+            cfg=SimpleNamespace(vocab_size=49152, layer_kinds=("attn",)),
+            window=lambda: 0,
             init_paged_cache=lambda nb, bs: {
                 n: torch.zeros(1, nb, bs, 1, 1) for n in ("k", "v")},
             init_cache=lambda b, S: {
