@@ -42,7 +42,16 @@ Phases, each printing one line of results; any failure exits non-zero:
    hd 250 and misaligned, and hd 256 at g 1 and g 8); contiguous decode
    at hd 256 with g 16 (two clusters of 8 heads), 8 and 3 over
    recurrentgemma's wrapped 2048-row ring and the split cases, hd 250 and
-   a misaligned cache, and hd 128 at g 16 and 12 (WIDE_VARIANTS); the
+   a misaligned cache, and hd 128 at g 16 and 12 (WIDE_VARIANTS); phase
+   13's shapes: flash in full mode at hubert's h16 kvh16 hd80 (g 1) over
+   8 x 512 and 577, contiguous decode at paligemma's h8 kvh1 hd256 (g 8)
+   over b 4, S 1024, the fused multi-task gather-add at d 2048 over 2
+   tasks of V 257216 (bitwise), the single-table gather-add's plain mode
+   at d 1280 over V 504 (bitwise), and the route of a bidirectional
+   prefix, layers.attention_chunked (plain PyTorch: the wrapper's one
+   block and chunks of 128), on the card against layers.attention_ref on
+   the card within 2e-5 in float32 at a prefix of 256 over 512 and 577;
+   the
    fused multi-task gather-add at phase 11's widths (d 2048
    over V 151936, d 5120 over V 202048, 2 tasks), bitwise; both
    gather-adds in their plain
@@ -82,7 +91,14 @@ Phases, each printing one line of results; any failure exits non-zero:
    heads (h16 kvh1 hd256), flash over 4 x 3072 with the window of 2048,
    causal and full beside SDPA, contiguous decode over the full 2048-row
    ring (b 4) beside SDPA, the fused gather-add at d 4096 (2 tasks of V
-   256000) and the plain one at xlstm's d 1024 (4 tasks of V 50304);
+   256000) and the plain one at xlstm's d 1024 (4 tasks of V 50304); at
+   phase 13's, flash in full mode at h16 kvh16 hd80 over 8 x 512 beside
+   SDPA non-causal, contiguous decode at h8 kvh1 hd256 over b 4, S 1024
+   beside SDPA with a length mask, the fused gather-add at T 2048 over
+   paligemma's tables (8 sets of h and ids rotating, so that h is read
+   from HBM) beside F.rms_norm, the plain single-table one at T
+   4096, d 1280; and (no kernel) attention_chunked at paligemma's prefill
+   beside SDPA with the same bool mask;
 5. the paged main path: full-width 32-layer smollm-360m in bfloat16 with 4
    fused tasks serving a Poisson stream through the launcher's own code
    (repro_torch.launch.serve, chunked prefill), greedy, then 4 requests
@@ -106,7 +122,10 @@ Phases, each printing one line of results; any failure exits non-zero:
    backbone's, kernels per step and device busy ms from a profiled run;
    the AoT engine's tokens must equal the multi-task engine's with every
    task id 0; then Model.logits at benchmarks/speed_overhead.py's grid,
-   time ratios to the backbone's (reported, no limit);
+   P-Tuning v1 among the methods (whole sequences only), one counted call
+   each (flash 32 per call, or for P-Tuning v1 flash 0 and 32 calls of
+   attention_chunked, its prompt being a bidirectional prefix), time
+   ratios to the backbone's (reported, no limit);
 5e. the faulted tick: phase 5's greedy stream fault-free (the twin), then
    F1 (an injected alloc_failure on one chunk tick and an exception raised
    after 16 layers of another: every stream bitwise the twin's, 2 faults,
@@ -290,14 +309,35 @@ Phases, each printing one line of results; any failure exits non-zero:
    decode step launching exactly 2 decodes and 8 gather-adds; a step's
    host, wall and device ms and the RG-LRU blocks' host share), then one
    unit (3 layers) with 2 prompts of 2040 and 16 steps past the ring's
-   wrap, held to Model.logits by 7c's float32 rule; 12b xlstm-350m (24
-   blocks, 4 tasks) on 5c's static mixed batch (16 x 512 + 64: exact
-   launches, 24 plain-mode gather-adds per call and no attention), its
+   wrap, held to Model.logits by 7c's float32 rule; 12b xlstm-350m (two
+   7:1 units, 16 of 24 blocks, 4 tasks) on 5c's static mixed batch (16 x
+   512 + 64: exact launches, 16 plain-mode gather-adds per call and no
+   attention), its
    prefill and decode steps held to Model.logits by 7c's rule with the
    carried share against plain bf16's, each task's rows against the
    mixed batch's within twice plain bf16's error of float32 (xLSTM's
    bf16 orders part by about that), every state finite; the host share
-   of the mLSTM and sLSTM blocks in a step and in the prefill.
+   of the mLSTM and sLSTM blocks in a step and in the prefill;
+13. the two front-ends at full width in bf16, random weights (seed 0),
+   each part's memory freed before the next: 13a paligemma-3b at full
+   depth (18 layers, 2 fabricated tasks: 37.9 GB of tables), a static
+   batch of 4 prompts of 256 stub patches (seeded, over sentinel ids)
+   and 256 text tokens through Model.prefill(patches=) and 32 greedy
+   decode steps (exact launches: per prefill 18 fused multi-task
+   gather-adds and 18 attention_chunked calls for the bidirectional
+   prefix, no flash; per step 18 contiguous decodes at h8 kvh1 hd256 and
+   18 gather-adds; each task's rows alone equal to the mixed batch's or
+   diverging at a near tie; decode steps 0, 8 and 31 held to Model.logits
+   with the same patches by 7c's float32 rule; tokens/s, a step's host,
+   wall and device ms, peak memory reported); 13b hubert-xlarge at full
+   depth (48 layers, 1024 learned positions) on seeded frames (8, 512):
+   Model.logits for the backbone, unit-AoT (one fused table (48, 504,
+   1280) indexed by seeded unit ids through the plain-mode gather-add),
+   BitFit, LoRA, adapters, P-Tuning v1 and v2 (exact launches: 48 flash
+   in full mode per call, or 48 attention_chunked calls for P-Tuning v1;
+   48 gather-adds for unit-AoT), each by 7c's float32 rule (the backbone
+   by its error half), ms and the ratio to the backbone's (Fig. 3,
+   reported), then classify through a seeded head by the error rule.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -307,7 +347,9 @@ one phase 8a call; ``decoders``: phase 4's times at phase 10's shapes and
 the launches of the phase 10 path ``DEC_PATH`` names; ``moe``: phase 4's
 times at phase 11's shapes and the launches of the phase 11 path
 ``MOE_PATH`` names; ``recurrent``: phase 4's times at phase 12's shapes
-and the launches of the phase 12 path ``REC_PATH`` names) and ``{"ok":
+and the launches of the phase 12 path ``REC_PATH`` names; ``frontends``:
+phase 4's times at phase 13's shapes and the launches of the phase 13
+path ``FRONT_PATH`` names) and ``{"ok":
 true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -345,12 +387,19 @@ MOE_GATHERS = ((2, 151936, 2048), (2, 202048, 5120))
 # phase 12: recurrentgemma-9b's local attention, MQA h16 kvh1 at hd 256 (g
 # 16) with a window of 2048 over a 2048-row ring
 RGEMMA_HEADS, RGEMMA_HD, RGEMMA_WINDOW = (16, 1), 256, 2048
+# phase 13: paligemma-3b's MQA h8 kvh1 hd256 (g 8) over a bidirectional
+# prefix of 256 patches, its fused tables (tasks, V, d); hubert-xlarge's
+# full attention h16 kvh16 hd80 (g 1), its unit-AoT table (V, d)
+PALI_HEADS, PALI_HD, PALI_PREFIX = (8, 1), 256, 256
+PALI_GATHER = (2, 257216, 2048)
+HUBERT_HEADS, HUBERT_HD = (16, 16), 80
+HUBERT_GATHER = (504, 1280)
 SLOTS, MAX_LEN = 8, 1024
 NPAGES = MAX_LEN // BS
 NUM_BLOCKS = SLOTS * NPAGES + 1
 DEV = "cuda"
 ROTATE = 32                        # layers of inputs a timing cycles through
-PROFILE_ATTEMPTS = 3               # traces device_ms takes at most
+PROFILE_ATTEMPTS = 6               # traces device_ms takes at most
 KERNEL_SOURCES = sorted(p.stem for p in (
     ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"))
 
@@ -720,6 +769,7 @@ def phase_parity(gen, report):
     parity_decode_wide(gen, report)
     parity_stale_nan(gen, report)
     parity_warm_cold(report)
+    parity_frontends(gen, report)
 
 
 # ragged and paged parity builds: name -> (hd, data one element off a
@@ -878,14 +928,15 @@ def parity_single_gather(gen, report):
         tables="49152x960, 4096x60", types="{f32,bf16}^2", T="16,263")
 
 
-def parity_moe_gather(gen, report):
+def parity_moe_gather(gen, report, gathers=MOE_GATHERS, mode="moe"):
     """The fused multi-task gather-add at phase 11's widths (MOE_GATHERS:
     qwen3-moe's d 2048 over V 151936, llama4's d 5120 over V 202048, 2
-    tasks each), bf16, T 8 and 263, with and without the norm: h_out
-    bitwise the plain sum, x within the tolerance of the plain norm."""
+    tasks each; or ``gathers``, phase 13's paligemma), bf16, T 8 and 263,
+    with and without the norm: h_out bitwise the plain sum, x within the
+    tolerance of the plain norm."""
     from repro_torch.kernels import aot_bias, ops
     cases, norm_err = [], 0.0
-    for n_tasks, vocab, d in MOE_GATHERS:
+    for n_tasks, vocab, d in gathers:
         tables = torch.empty(n_tasks, vocab, d, dtype=torch.bfloat16,
                              device=DEV)
         for t in range(n_tasks):
@@ -896,7 +947,7 @@ def parity_moe_gather(gen, report):
             plain = aot_bias.aot_gather_add_multitask_plain(h, tables,
                                                             tasks[0], ids[0])
             torch.cuda.synchronize()
-            what = f"gather-add moe d{d} V{vocab} T{T}"
+            what = f"gather-add {mode} d{d} V{vocab} T{T}"
             if not torch.equal(out, plain):
                 raise AssertionError(f"{what}: not bitwise equal")
             scale = norm_scale(gen, d)
@@ -906,12 +957,12 @@ def parity_moe_gather(gen, report):
                                                  plain, h, scale, report))
             cases.append(f"d{d}/T{T}")
         del tables
-    report["parity"]["aot_gather_add_multitask_moe"] = dict(
+    report["parity"][f"aot_gather_add_multitask_{mode}"] = dict(
         cases=cases, norm_max_abs_err=norm_err)
-    log("3 parity", kernel="aot_gather_add_multitask", mode="moe",
+    log("3 parity", kernel="aot_gather_add_multitask", mode=mode,
         cases=",".join(cases), result="h_out bitwise equal (with and "
         "without the norm)", norm_max_abs_err=f"bf16:{norm_err:.2e}",
-        tables=",".join(f"{n}x{v}x{d}" for n, v, d in MOE_GATHERS) + " bf16")
+        tables=",".join(f"{n}x{v}x{d}" for n, v, d in gathers) + " bf16")
 
 
 def parity_encoder_gather(gen, report):
@@ -1034,6 +1085,12 @@ FLASH_CASES = {
                               RGEMMA_HEADS, True),
     "hd256_g1_100": (2, 100, 100, RGEMMA_HD, False, 0, False, (4, 4)),
     "hd256_g8_strided_100": (2, 100, 100, RGEMMA_HD, True, 0, True, (8, 1)),
+    # phase 13's hubert-xlarge: full mode at g 1, hd 80 (the 128 build's
+    # padding), its frames (8 x 512) and query tiles past either end
+    "hubert_full_g1_hd80_512_b8": (8, 512, 512, HUBERT_HD, False, 0, False,
+                                   HUBERT_HEADS),
+    "hubert_full_g1_hd80_577": (1, 577, 577, HUBERT_HD, False, 0, False,
+                                HUBERT_HEADS),
 }
 
 
@@ -1097,7 +1154,8 @@ def parity_flash(gen, report):
         shapes="h15 kvh5 hd32|60|64|96|128, h8 kvh1 hd64, h16 kvh16 hd64 "
         "(full); h32 kvh8 hd80 (window 4096 over 6144), h16 kvh16 hd128, "
         "h40 kvh8 hd128; h16 kvh1 hd250|256 (window 2048 over 4 x 3072), "
-        "h4 kvh4 / h8 kvh1 hd256; sq 1-6144; q_offset 20|37",
+        "h4 kvh4 / h8 kvh1 hd256, h16 kvh16 hd80 (full); sq 1-6144; "
+        "q_offset 20|37",
         max_abs_err=",".join(cases))
 
 
@@ -1530,6 +1588,7 @@ def phase_times(gen, report):
     dec = times_decoders(gen, report)
     moe = times_moe(gen, report)
     rec = times_recurrent(gen, report)
+    front = times_frontends(gen, report)
     for row in rows_out:
         if row["name"] in enc:
             row["encoder"] = enc[row["name"]]
@@ -1539,6 +1598,8 @@ def phase_times(gen, report):
             row["moe"] = moe[row["name"]]
         if row["name"] in rec:
             row["recurrent"] = rec[row["name"]]
+        if row["name"] in front:
+            row["frontends"] = front[row["name"]]
     return rows_out
 
 
@@ -1954,7 +2015,7 @@ def _enc_row(r):
                               "bound_by")} | {"max_abs_err": r["err"]}
 
 
-def times_gather_norm(gen, h, call, plain_call, iters):
+def times_gather_norm(gen, h, call, plain_call, iters, sets=1):
     """The fused gather-add + norm ``call(i, norm=...)`` (the gather-add
     alone without ``norm``) at h's shape, bf16: device and wall time
     against its plain version ``plain_call`` (h_out bitwise, x within
@@ -1966,7 +2027,8 @@ def times_gather_norm(gen, h, call, plain_call, iters):
     fused wrapper, the gather-add wrapper alone and the replaced sequence
     (at larger T the device, not the host, would set the pace); the bound:
     bytes, h and a table row read, h_out and x written, the ids and the
-    scale read once."""
+    scale read once. ``sets``: how many input sets ``call(i)`` rotates
+    through, so that F.rms_norm rotates as many sums."""
     import torch.nn.functional as F
     from repro_torch.kernels import aot_bias
     T, d = h.shape
@@ -1980,10 +2042,10 @@ def times_gather_norm(gen, h, call, plain_call, iters):
                              "the plain sum")
     res["replaced_ms"] = device_ms(seq, iters)
     res["replaced_wall_ms"] = wall_ms(seq, iters)
-    summed = call(0)
+    summed = [call(i) for i in range(sets)]
     w = norm[0].to(h.dtype)
     res["library_norm_ms"] = device_ms(      # yardstick only
-        lambda i: F.rms_norm(summed, (d,), w, EPS), iters)
+        lambda i: F.rms_norm(summed[i % sets], (d,), w, EPS), iters)
     res["host_us"] = {name: host_us(fn) for name, fn in (
         ("fused", kern), ("gather_add_alone", lambda i: call(i)),
         ("replaced", seq))} if T <= HOST_T else None
@@ -3613,6 +3675,9 @@ def phase_static(report, engine):
 PEFT_METHODS = ("none", "aot", "bitfit", "lora", "lora_fused", "adapters",
                 "ptv2")
 LOGITS_GRID = ((1, 64), (8, 64), (1, 384), (8, 384))   # speed_overhead's
+# the grid's methods: P-Tuning v1 runs whole sequences only (its prompt, a
+# bidirectional prefix, goes to attention_chunked), not ServeEngine
+LOGITS_METHODS = PEFT_METHODS + ("ptv1",)
 PEFT_ROUNDS = 3     # each method's runs, in turns (the host's speed drifts)
 
 
@@ -3644,6 +3709,17 @@ def peft_setup(label, model, params, table, gen):
     return params, P.make(pp, opt)
 
 
+def logits_launches(layers, label):
+    """One smollm ``Model.logits`` call's launches with ``label`` of
+    LOGITS_METHODS: per layer one flash attention (P-Tuning v1: none, and
+    one ``attention_chunked`` call for its prompt's bidirectional prefix)
+    and one input norm, fused into the single-table gather-add for AoT."""
+    want = ({"chunked": layers} if label == "ptv1"
+            else {"flash_attention": layers})
+    want["aot_gather_add" if label == "aot" else "rms_norm"] = layers
+    return want
+
+
 def phase_peft(report, engine):
     """The paper's Fig. 3 comparison at full width, bf16: phase 5c's 16
     prompts of 512 tokens, 64 greedy tokens, through one
@@ -3653,8 +3729,11 @@ def phase_peft(report, engine):
     backbone's; kernels per step and device busy ms from one profiled
     16-step run. Launches are checked exactly in every run; the AoT rows
     must equal the multi-task engine's with every task id 0, token for
-    token. Then ``Model.logits`` at speed_overhead.py's grid, in turns,
-    each method's median time ratio to the backbone's (reported only)."""
+    token. Then ``Model.logits`` at speed_overhead.py's grid for each
+    method of LOGITS_METHODS (PEFT_METHODS and P-Tuning v1), one counted
+    call each (exact launches: ``logits_launches``; ptv1 flash 0 and
+    chunked 32), then in turns, each method's median time ratio to the
+    backbone's (reported only)."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeEngine
     model = engine.model
@@ -3664,9 +3743,10 @@ def phase_peft(report, engine):
     gen = torch.Generator(device=DEV).manual_seed(5)
     table = engine.tables[:, 0].contiguous()
     setups = {label: peft_setup(label, model, engine.params, table, gen)
-              for label in PEFT_METHODS}
-    engines = {label: ServeEngine(model, params, engine.cfg, peft=bundle)
-               for label, (params, bundle) in setups.items()}
+              for label in LOGITS_METHODS}
+    engines = {label: ServeEngine(model, setups[label][0], engine.cfg,
+                                  peft=setups[label][1])
+               for label in PEFT_METHODS}
     for eng in engines.values():
         eng.generate(prompts[:2], 2)                     # warm-up
     want = {"flash_attention": layers, "decode_attention": layers * steps}
@@ -3717,15 +3797,26 @@ def phase_peft(report, engine):
     if same != b:
         raise AssertionError(f"the single-table AoT engine's tokens equal "
                              f"the multi-task engine's in {same}/{b} rows")
-    grid = {}
+    grid, grid_counts = {}, {}
     rng = np.random.default_rng(1)
     for gb, gs in LOGITS_GRID:
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size,
                                             (gb, gs)), dtype=torch.int32,
                                device=DEV)
-        ms = {label: [] for label in PEFT_METHODS}
+        for label in LOGITS_METHODS:            # one counted call each
+            p, bd = setups[label]
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            model.logits(p, toks, bd)
+            torch.cuda.synchronize()
+            key = f"logits_{label}_b{gb}_s{gs}"
+            grid_counts[key] = dict(ops.launches(),
+                                    chunked=ops.chunked_calls())
+            check_launches(key, grid_counts[key],
+                           logits_launches(layers, label))
+        ms = {label: [] for label in LOGITS_METHODS}
         for r in range(PEFT_ROUNDS):
-            for label in PEFT_METHODS[r:] + PEFT_METHODS[:r]:
+            for label in LOGITS_METHODS[r:] + LOGITS_METHODS[:r]:
                 p, bd = setups[label]
                 ms[label].append(wall_ms(
                     lambda i: model.logits(p, toks, bd), iters=3,
@@ -3736,7 +3827,7 @@ def phase_peft(report, engine):
             label: f"{t:.2f}ms({t / ms['none']:.3f}x)"
             for label, t in ms.items()})
     report["peft"] = dict(runs=res, launches=counts, aot_rows_equal=same,
-                          logits_ms=grid)
+                          logits_ms=grid, logits_launches=grid_counts)
     del setups, table
     return counts
 
@@ -5227,11 +5318,15 @@ ENC_PATH = {"flash_attention": "enc_roberta_none",
 
 def encoder_launches(layers, label):
     """What one ``Model.logits`` or ``classify`` call of an encoder with
-    the method ``label`` of ENC_METHODS launches: one flash attention (full
-    mode) per layer and, with AoT, one plain gather-add per layer (one
-    task's table, or the multi-task entry for ``aot_multitask``: post-LN
-    has no input norm to fuse); nothing else (LayerNorm, the MLP and the
-    PEFT hooks are plain PyTorch)."""
+    the method ``label`` of ENC_METHODS (or HUBERT_METHODS) launches: one
+    flash attention (full mode) per layer, or for P-Tuning v1 none and one
+    ``attention_chunked`` call per layer (its prompt is a bidirectional
+    prefix), and, with AoT, one plain gather-add per layer (one task's
+    table, or the multi-task entry for ``aot_multitask``: LayerNorm has no
+    input norm to fuse); nothing else (LayerNorm, the MLP and the PEFT
+    hooks are plain PyTorch)."""
+    if label == "ptv1":
+        return {"chunked": layers}
     want = {"flash_attention": layers}
     if label == "aot":
         want["aot_gather_add"] = layers
@@ -5240,16 +5335,19 @@ def encoder_launches(layers, label):
     return want
 
 
-def encoder_model(name, layers=0, seed=0):
-    """(model, params): the encoder ``name`` at full width in bf16 on the
-    card (``layers`` > 0 cuts its depth), random weights from ``seed``."""
+def encoder_model(name, layers=0, seed=0, max_pos=0):
+    """(model, params): the arch ``name`` (an encoder, or phase 13's
+    front-ends) at full width in bf16 on the card (``layers`` > 0 cuts its
+    depth; ``max_pos`` > 0 its learned positions), random weights from
+    ``seed``."""
     from repro_torch import configs
     from repro_torch.models.model import Model, ModelOptions
     cfg = configs.get(name)
     if layers:
         cfg = cfg.replace(num_layers=layers)
     dt = torch.bfloat16
-    model = Model(cfg, ModelOptions(dt, dt), device=DEV)
+    model = Model(cfg, ModelOptions(dt, dt, max_learned_pos=max_pos),
+                  device=DEV)
     return model, model.init(seed)
 
 
@@ -6540,12 +6638,13 @@ def phase_moe(report):
 # 12a: recurrentgemma cut to 8 of its 38 layers, two (rglru, rglru, attn)
 # units and the (rglru, rglru) remainder, so that both groups run (each
 # task's bf16 table at 8 layers is 16.8 GB), 2 tasks; the ring wrap checked
-# on one unit (3 layers); 12b: xlstm at full depth (24 blocks), 4 tasks
+# on one unit (3 layers); 12b: xlstm cut to two 7:1 units (16 of 24
+# blocks, 2 of its 3 sLSTM: the whole run near 900 s), 4 tasks
 RGEMMA = dict(arch="recurrentgemma-9b", layers=8, tasks=2,
               static=(RING_ROWS, 3072, 32))
 RGEMMA_UNIT = dict(arch="recurrentgemma-9b", layers=3, tasks=2,
                    cut=dict(pattern_remainder=()), wrap=(2040, 16))
-XLSTM = dict(arch="xlstm-350m", layers=0, tasks=4, static=(16, 512, 64))
+XLSTM = dict(arch="xlstm-350m", layers=16, tasks=4, static=(16, 512, 64))
 # the phase 12 run whose count rides with each kernel's phase 4 times at
 # phase 12's shapes (``recurrent``)
 REC_PATH = {"flash_attention": "rec_rgemma_static",
@@ -6821,13 +6920,14 @@ def rec_rgemma(report):
 
 
 def rec_xlstm(report):
-    """12b: xlstm-350m at full depth (24 blocks: 21 mLSTM, 3 sLSTM), 4
-    tasks. 5c's static mixed batch (16 x 512 + 64) through
-    ``ServeEngine.generate``: exact launches (24 plain-mode gather-adds for
-    the prefill and each step, no attention kernel), the tokens against
-    each task's rows served alone (equal, or a first difference within
-    twice plain bf16's error of float32: xLSTM's bf16 orders part by about
-    that), every state finite; the mixed batch's prefill then decode steps
+    """12b: xlstm-350m at full width, two units (16 of 24 blocks: 14
+    mLSTM, 2 sLSTM), 4 tasks. 5c's static mixed batch (16 x 512 + 64)
+    through ``ServeEngine.generate``: exact launches (16 plain-mode
+    gather-adds for the prefill and each step, no attention kernel), the
+    tokens against each task's rows served alone (equal, or a first
+    difference within twice plain bf16's error of float32: xLSTM's bf16
+    orders part by about that), every state finite; the mixed batch's
+    prefill then decode steps
     held to ``Model.logits`` by 7c's float32 rule, the task's carried
     share against plain bf16's (``rec_against_logits``); per decode step host,
     wall and device time, the host share of the mLSTM and sLSTM blocks in
@@ -6931,6 +7031,541 @@ def phase_recurrent(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the two front-ends (paligemma-3b, hubert-xlarge)
+# ---------------------------------------------------------------------------
+
+# 13a's static batch: (b, text tokens after the 256 patches, steps)
+PALI = dict(arch="paligemma-3b", tasks=2, static=(4, 256, 32))
+PALI_SENTINEL = 0           # the token id AoT indexes at a patch position
+PALI_CHECK_STEPS = (0, 8, 31)   # decode steps held to Model.logits
+HUBERT = dict(arch="hubert-xlarge", frames=(8, 512), max_pos=1024)
+HUBERT_METHODS = ("none", "aot", "bitfit", "lora", "adapters", "ptv1",
+                  "ptv2")
+# the phase 13 run whose count rides with each kernel's phase 4 times at
+# phase 13's shapes (``frontends``)
+FRONT_PATH = {"aot_gather_add_multitask": "front_pali_prefill",
+              "decode_attention": "front_pali_decode",
+              "flash_attention": "front_hubert_none",
+              "aot_gather_add": "front_hubert_aot"}
+
+
+def parity_frontends(gen, report):
+    """Phase 3 at phase 13's new shapes: flash in full mode at hubert's
+    heads (h16 kvh16 hd80, g 1; FLASH_CASES' ``hubert_*``) runs with
+    parity_flash; here contiguous decode at paligemma's MQA (h8 kvh1
+    hd256, g 8) over b 4, S 1024 (every row full, and 13a's depths 512 +
+    i), the fused multi-task gather-add at d 2048 over 2 tasks of V 257216
+    (with and without the norm, bitwise h_out), the single-table
+    gather-add in its plain mode at hubert's d 1280 over V 504 (bitwise),
+    and ``layers.attention_chunked`` (the route of a bidirectional prefix)
+    on the card against ``layers.attention_ref`` on the card in float32
+    (TF32 off) within TOL: a prefix of 256 over 512 and 577 tokens at
+    paligemma's heads, through ``ops.flash_attention(prefix_len=)`` (the
+    reference's chunks of 1024: one block) and with chunks of 128 (the
+    online-softmax scan)."""
+    from repro_torch.kernels import aot_bias, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import layers as L
+    (h, kvh), hd = PALI_HEADS, PALI_HD
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, lens in (("full", [MAX_LEN] * 4),
+                           ("13a_depths", [512 + i for i in (0, 1, 15, 31)])):
+            q, k, v, cur = decode_inputs(gen, lens, dtype, hd, S=MAX_LEN,
+                                         heads=PALI_HEADS)
+            out = ops.decode_attention(q, k[0], v[0], cur)
+            plain = da.decode_attention_plain(q, k[0], v[0], cur)
+            err = check_close(f"decode/pali/{name}/{dtype}", out, plain,
+                              dtype, report)
+            cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
+    log("3 parity", kernel="decode_attention", variant="pali_hd256_g8",
+        shapes=f"b4 h{h} kvh{kvh} hd{hd} S{MAX_LEN}",
+        max_abs_err=",".join(cases))
+    parity_moe_gather(gen, report, gathers=(PALI_GATHER,), mode="paligemma")
+    vocab, d = HUBERT_GATHER
+    table = (torch.randn(vocab, d, generator=gen, device=DEV) * 0.03).to(
+        torch.bfloat16)
+    gcases = []
+    for h_dtype in (torch.bfloat16, torch.float32):
+        for T in (64, 4096):
+            hh = torch.randn(T, d, generator=gen, device=DEV).to(h_dtype)
+            ids = torch.randint(0, vocab, (T,), generator=gen, device=DEV,
+                                dtype=torch.int32)
+            ids[:3] = torch.tensor([0, vocab - 1, -1])
+            out = ops.aot_gather_add(hh, table, ids)
+            torch.cuda.synchronize()
+            if not torch.equal(out, aot_bias.aot_gather_add_plain(
+                    hh, table, ids)):
+                raise AssertionError(f"plain-mode gather-add d{d} V{vocab} "
+                                     f"h={h_dtype} T{T}: not bitwise")
+            gcases.append(f"{str(h_dtype)[6:]}/T{T}")
+    log("3 parity", kernel="aot_gather_add", mode="plain (hubert unit-AoT)",
+        d=d, V=vocab, cases=",".join(gcases), result="bitwise equal")
+    ccases = []
+    for b, s in ((2, 512), (1, 577)):
+        q, k, v = flash_inputs(gen, b, s, s, hd, torch.float32,
+                               heads=PALI_HEADS)
+        kw = dict(causal=True, prefix_len=PALI_PREFIX)
+        want = L.attention_ref(q, k, v, **kw)
+        for label, got in (
+                ("wrapper", ops.flash_attention(q, k, v, **kw)),
+                ("chunks128", L.attention_chunked(q, k, v, chunk_q=128,
+                                                  chunk_kv=128, **kw))):
+            err = check_close(f"chunked/{label}/b{b}_s{s}", got, want,
+                              torch.float32, report)
+            ccases.append(f"{label}/b{b}_s{s}:{err:.2e}")
+    report["parity"]["frontends"] = dict(decode=cases, gather=gcases,
+                                         chunked=ccases)
+    log("3 parity", path="attention_chunked (prefix_len)",
+        against="layers.attention_ref on the card", dtype="float32",
+        prefix=PALI_PREFIX, heads=f"h{h} kvh{kvh} hd{hd}",
+        max_abs_err=",".join(ccases))
+
+
+def times_frontends(gen, report):
+    """The kernels at phase 13's new shapes, bf16: flash in full mode at
+    hubert's heads (h16 kvh16 hd80, g 1) over its frames (8 x 512) beside
+    SDPA non-causal; contiguous decode at paligemma's MQA (h8 kvh1 hd256,
+    g 8) over b 4, S 1024 beside SDPA with a length mask; the fused
+    multi-task gather-add at d 2048 over 2 tasks of V 257216 at 13a's
+    prefill (T 2048 = 4 x 512) beside the sequence it replaces and
+    F.rms_norm; the single-table gather-add in its plain mode at d 1280
+    over V 504 at 13b's T 4096 (no library call). Also, no kernel: the
+    prefix's route, ``attention_chunked`` through ``ops.flash_attention``
+    at 13a's prefill (4 x 512, prefix 256) beside SDPA with the same bool
+    mask (a log line). Returns {kernel: {shape: numbers}} for the kernels
+    line's ``frontends`` entries (launches added by phase 13)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import aot_bias
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt, es, out, text = torch.bfloat16, 2, {}, {}
+
+    def keep(kernel, key, desc, r):
+        out.setdefault(kernel, {})[key] = dict(shape=desc, **_enc_row(r))
+        text[f"{kernel}/{key}"] = fmt_times(r) + (
+            f"[{r['bound_by']}; library {r['library_ms']:.5f}]"
+            if r["library_ms"] is not None else f"[{r['bound_by']}]")
+    # ---- flash, full mode at g 1, hd 80: hubert's (8, 512)
+    (h, kvh), hd = HUBERT_HEADS, HUBERT_HD
+    b, s = HUBERT["frames"]
+    qs = [flash_inputs(gen, b, s, s, hd, dt, heads=HUBERT_HEADS)
+          for _ in range(4)]
+    r = timed(lambda i: ops.flash_attention(*qs[i % 4], causal=False),
+              lambda i: fa.flash_attention_plain(*qs[i % 4], causal=False),
+              16, 4, tol=TOL[dt])
+    r["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in qs[i % 4])), 16)   # yardstick only
+    r["bound_ms"], r["bound_by"] = bound(b * s * (2 * h + 2 * kvh) * hd * es,
+                                         4 * hd * h * s * s * b, dt)
+    keep("flash_attention", "hubert_b8_s512_full",
+         f"b{b} s{s} h{h} kvh{kvh} hd{hd} full", r)
+    del qs
+    # ---- contiguous decode at paligemma's MQA: b 4, S 1024, rows full
+    (h, kvh), hd = PALI_HEADS, PALI_HD
+    q, k, v, cur = decode_inputs(gen, [MAX_LEN] * 4, dt, hd, layers=8,
+                                 S=MAX_LEN, heads=PALI_HEADS)
+    layer = lambda i: (k[i % 8], v[i % 8])
+    r = timed(lambda i: ops.decode_attention(q, *layer(i), cur),
+              lambda i: da.decode_attention_plain(q, *layer(i), cur),
+              64, 16, tol=TOL[dt])
+    mask = (torch.arange(MAX_LEN, device=DEV)[None, :]
+            < cur[:, None])[:, None, None, :]
+    r["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], *(x.transpose(1, 2) for x in layer(i)),
+        attn_mask=mask, enable_gqa=True), 64)     # yardstick only
+    n_kv = 4 * MAX_LEN
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * 4 * h * hd * es + 2 * n_kv * kvh * hd * es + 16,
+        4 * hd * h * n_kv, dt)
+    keep("decode_attention", "pali_b4_S1024",
+         f"b4 h{h} kvh{kvh} hd{hd} S{MAX_LEN} (rows full)", r)
+    del q, k, v, mask
+    # ---- the fused multi-task gather-add at 13a's prefill
+    n_tasks, vocab, d = PALI_GATHER
+    tables = torch.empty(n_tasks, vocab, d, dtype=dt, device=DEV)
+    for t in range(n_tasks):
+        tables[t].normal_(0.0, DEC_TABLE_SCALE, generator=gen)
+    T = 4 * 512
+    # 8 sets of h, task ids and ids rotate (64 MB of h over a 50 MB L2),
+    # so that each call reads its h from HBM, as a prefill's layer does
+    hh, tasks, ids = gather_inputs(gen, T, dt, tables, sets=8)
+    hs = [hh] + [torch.randn(T, d, generator=gen, device=DEV).to(dt)
+                 for _ in range(7)]
+    args = lambda i: (hs[i % 8], tables, tasks[i % 8], ids[i % 8])
+    r = times_gather_norm(
+        gen, hh, lambda i, **kw: ops.aot_gather_add_multitask(*args(i), **kw),
+        lambda i, **kw: aot_bias.aot_gather_add_multitask_plain(*args(i),
+                                                                **kw), 200,
+        sets=8)
+    r["library_ms"], r["bound_by"] = r["library_norm_ms"], "bytes"
+    keep("aot_gather_add_multitask", "pali_T2048_d2048_norm",
+         f"T{T} d{d} {n_tasks} tasks of V{vocab} +norm (library: "
+         "F.rms_norm alone)", r)
+    text["aot_gather_add_multitask/pali_T2048_d2048_norm"] = \
+        fmt_gather_norm(r)
+    del tables, hh, hs
+    # ---- the single-table gather-add, plain mode, hubert's unit-AoT
+    vocab, d = HUBERT_GATHER
+    T = HUBERT["frames"][0] * HUBERT["frames"][1]
+    table = (torch.randn(vocab, d, generator=gen, device=DEV) * 0.02).to(dt)
+    hs = [torch.randn(T, d, generator=gen, device=DEV).to(dt)
+          for _ in range(8)]
+    idl = [torch.randint(0, vocab, (T,), generator=gen, device=DEV,
+                         dtype=torch.int32) for _ in range(8)]
+    r = timed(lambda i: ops.aot_gather_add(hs[i % 8], table, idl[i % 8]),
+              lambda i: aot_bias.aot_gather_add_plain(hs[i % 8], table,
+                                                      idl[i % 8]),
+              200, 50, tol=0)
+    r["library_ms"], r["bound_by"] = None, "bytes"
+    # h read and the sum written; of the table (V 504 < T) only the rows
+    # the ids touch, each once
+    rows = int(torch.unique(idl[0]).numel())
+    r["bound_ms"] = ((2 * T + rows) * d * es + 4 * T) / HBM_BYTES_PER_S * 1e3
+    keep("aot_gather_add", "hubert_T4096_d1280_plain",
+         f"T{T} d{d} V{vocab} plain mode", r)
+    del hs, table
+    # ---- the prefix's route (not a kernel): attention_chunked at 13a's
+    # prefill beside SDPA with the same mask
+    (h, kvh), hd = PALI_HEADS, PALI_HD
+    b, s = 4, 512
+    qs = [flash_inputs(gen, b, s, s, hd, dt, heads=PALI_HEADS)
+          for _ in range(2)]
+    pos = torch.arange(s, device=DEV)
+    mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < PALI_PREFIX)
+    chunked = dict(
+        ms=device_ms(lambda i: ops.flash_attention(
+            *qs[i % 2], causal=True, prefix_len=PALI_PREFIX), 8),
+        wall_ms=wall_ms(lambda i: ops.flash_attention(
+            *qs[i % 2], causal=True, prefix_len=PALI_PREFIX), 8),
+        library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in qs[i % 2]), attn_mask=mask,
+            enable_gqa=True), 8))
+    pairs = b * h * int(mask.sum().item())
+    chunked["bound_ms"], chunked["bound_by"] = bound(
+        b * s * (2 * h + 2 * kvh) * hd * es, 4 * hd * pairs, dt)
+    del qs, mask
+    log("4 times", kernel="(none) attention_chunked", mode="prefix 256 "
+        "(paligemma's prefill, 4 x 512, h8 kvh1 hd256)",
+        ms=f"{chunked['ms']:.5f}", wall_ms=f"{chunked['wall_ms']:.4f}",
+        sdpa_bool_mask_ms=f"{chunked['library_ms']:.5f}",
+        bound_ms=f"{chunked['bound_ms']:.5f}[{chunked['bound_by']}]")
+    log("4 times", kernel="frontends", mode="paligemma / hubert", **text)
+    report["times"]["frontends"] = dict(rows=out, chunked=chunked)
+    return out
+
+
+def pali_inputs(cfg, b, s_text, seed=13):
+    """13a's batch: token ids (b, frontend_len + s_text), the patch
+    positions holding ``PALI_SENTINEL`` (what AoT indexes there), and the
+    stub's patches (b, frontend_len, frontend_dim) float32, seeded."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (b, cfg.frontend_len + s_text))
+    toks[:, :cfg.frontend_len] = PALI_SENTINEL
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    patches = torch.randn(b, cfg.frontend_len, cfg.frontend_dim,
+                          generator=gen, device=DEV)
+    return torch.as_tensor(toks, dtype=torch.int32, device=DEV), patches
+
+
+def pali_logits_rule(model, params, tables, seq, s, lg_dec, task_ids,
+                     patches, steps):
+    """7c's float32 rule on the decode steps ``steps`` of ``lg_dec``
+    (steps + 1, b, V): against ``Model.logits`` of the grown sequences
+    ``seq`` (b, s + n) with the same patches in float32 plain PyTorch
+    (``attn_impl="ref"``; the bf16 tables read exactly, no float32 copy),
+    within BF16_FACTOR times plain bf16 PyTorch's error, carrying each
+    task's effect within CARRY_TOL (``against_float32``)."""
+    from repro_torch.models.model import Model, ModelOptions
+    cfg, f32, bf = model.cfg, torch.float32, torch.bfloat16
+    at = torch.as_tensor([1 + k for k in steps], device=DEV)
+
+    def logits_at(m, p, rows, peft):
+        h = m.forward(p, seq[rows], peft, patches=patches[rows])
+        return m.unembed(p, h[:, s - 1 + at]).float().transpose(0, 1)
+    every = torch.arange(seq.shape[0], device=DEV)
+    tids = torch.as_tensor(task_ids, device=DEV)
+    plain16 = Model(cfg, ModelOptions(bf, bf, attn_impl="ref"), device=DEV)
+    lg_p16 = logits_at(plain16, params, every, tasks_peft(tables, tids))
+    m32 = Model(cfg, ModelOptions(f32, f32, attn_impl="ref"), device=DEV)
+    p32 = cast_backbone(params, f32)
+    ref32 = torch.empty_like(lg_p16)
+    base32 = torch.empty_like(lg_p16)
+    for t in sorted(set(task_ids.tolist())):
+        rows = torch.as_tensor(np.flatnonzero(task_ids == t), device=DEV)
+        one = tasks_peft(tables[:, t:t + 1], torch.zeros(
+            len(rows), dtype=torch.int32, device=DEV))
+        ref32[:, rows] = logits_at(m32, p32, rows, one)
+        base32[:, rows] = logits_at(m32, p32, rows, None)
+    del p32
+    flat = lambda x: x.reshape(-1, x.shape[-1])
+    ids = [int(t) for t in task_ids] * len(steps)
+    res = against_float32(flat(lg_dec[at]), flat(lg_p16), flat(ref32),
+                          flat(base32), ids)
+    res["steps"] = list(steps)
+    return res
+
+
+def pali_static(report):
+    """13a: paligemma-3b at full depth (18 layers, bf16, random weights
+    seed 0) with 2 fabricated tasks (37.9 GB of tables): a static batch of
+    4 prompts of 256 patches and 256 text tokens through ``Model.prefill``
+    (patches over the sentinel ids, bidirectional over the 256) then 32
+    greedy decode steps (MQA at hd 256, g 8). Gates: the prefill launches
+    18 fused multi-task gather-adds and sends 18 attentions to
+    ``attention_chunked`` (flash 0), each decode step 18 contiguous decodes
+    and 18 gather-adds; each task's rows served as a batch of their own
+    equal to the mixed batch's tokens or diverging at a near tie (phase
+    6's rule); decode steps PALI_CHECK_STEPS held to ``Model.logits`` with
+    the same patches by 7c's float32 rule. Reported: tokens/s, a step's
+    host, wall and device ms, peak memory."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    counts, failures = {}, []
+    model, params = encoder_model(PALI["arch"])
+    cfg = model.cfg
+    tables = fabricated_tables(cfg, PALI["tasks"], torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b, s_text, steps = PALI["static"]
+    toks, patches = pali_inputs(cfg, b, s_text)
+    s = toks.shape[1]
+    task_ids = (np.arange(b) % PALI["tasks"]).astype(np.int32)
+    peft = tasks_peft(tables, torch.as_tensor(task_ids, device=DEV))
+    max_len = s + steps + 16          # rec_step_times' 16 steps after
+    L = cfg.num_layers
+
+    def prefill(rows=slice(None), bundle=peft):
+        return model.prefill(params, toks[rows], bundle, max_len=max_len,
+                             patches=patches[rows])
+    prefill(slice(0, 1), tasks_peft(tables, torch.zeros(
+        1, dtype=torch.int32, device=DEV)))                     # warm-up
+    (logits, cache, pos), psec = counted("front_pali_prefill", counts,
+                                         prefill)
+    counts["front_pali_prefill"]["chunked"] = ops.chunked_calls()
+    (lg_dec, out), dsec = counted(
+        "front_pali_decode", counts, lambda: greedy_decode(
+            model, params, logits, cache, pos, peft, steps))
+    counts["front_pali_decode"]["chunked"] = ops.chunked_calls()
+    for label, want in (
+            ("front_pali_prefill", {"aot_gather_add_multitask": L,
+                                    "chunked": L}),
+            ("front_pali_decode", {"aot_gather_add_multitask": L * steps,
+                                   "decode_attention": L * steps})):
+        try:
+            check_launches(label, counts[label], want)
+        except AssertionError as e:
+            failures.append(str(e))
+    times = rec_step_times(model, params, lg_dec[-1][:, None], cache,
+                           pos + steps, peft)
+    del cache, logits
+    # each task's rows alone against the mixed batch's tokens
+    equal, ties, bad = 0, [], []
+    for t in range(PALI["tasks"]):
+        rows = torch.as_tensor(np.flatnonzero(task_ids == t), device=DEV)
+        one = tasks_peft(tables, torch.full((len(rows),), t,
+                                            dtype=torch.int32, device=DEV))
+        lg1, c1, p1 = prefill(rows, one)
+        lgs, alone = greedy_decode(model, params, lg1, c1, p1, one, steps)
+        del c1
+        for j, r in enumerate(rows.tolist()):
+            d = divergence(out[r].tolist(), alone[j].tolist(), lgs[:, j])
+            if d is None:
+                equal += 1
+            else:
+                (ties if d[2] else bad).append((r, d[0], round(d[1], 5)))
+    if bad:
+        failures.append(f"mixed vs per task: divergences past a near tie "
+                        f"{bad}")
+    seq = torch.cat([toks, out], 1)
+    gate = pali_logits_rule(model, params, tables, seq, s, lg_dec, task_ids,
+                            patches, PALI_CHECK_STEPS)
+    if not gate["ok"]:
+        failures.append(f"decode vs Model.logits (7c's rule): {gate}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec_all = time.perf_counter() - t0
+    tps = b * steps / (psec + dsec)
+    log("13a paligemma", layers=L, tasks=PALI["tasks"],
+        static=f"{b}x({cfg.frontend_len} patches + {s_text})+{steps}",
+        setup_s=f"{setup_s:.1f}", prefill_ms=f"{psec * 1e3:.1f}",
+        decode_ms=f"{dsec * 1e3:.1f}", tokens_per_s=f"{tps:.1f}",
+        mixed_vs_per_task=f"{equal}/{b} equal", near_ties=ties,
+        step_host_ms=f"{times['host_ms']:.2f}",
+        step_wall_ms=f"{times['wall_ms']:.2f}",
+        step_device_ms=f"{times['device_busy_ms']:.2f}",
+        decode_vs_logits=f32_text(gate), peak_memory_gib=f"{peak:.2f}",
+        seconds=f"{sec_all:.1f}", launches=counts,
+        failures=failures or "none")
+    report["frontends"]["paligemma"] = dict(
+        setup_s=setup_s, prefill_s=psec, decode_s=dsec, tokens_per_s=tps,
+        mixed_equal=equal, near_ties=ties, divergences=bad, step=times,
+        gate=gate, peak_memory_gib=peak, seconds=sec_all, launches=counts,
+        failures=failures)
+    del model, params, tables, peft
+    if failures:
+        raise AssertionError(f"13a paligemma: {failures}")
+    return counts
+
+
+def hubert_setups(model, params, gen):
+    """label -> (params, bundle or None) for HUBERT_METHODS: the methods of
+    PEFT_METHODS through ``peft_setup`` (P-Tuning v1 too), and ``aot``:
+    unit-AoT, one fused table (L, 504, d) of normals x DEC_TABLE_SCALE
+    indexed by the unit ids."""
+    from repro_torch.core import peft as P
+    cfg = model.cfg
+    out = {}
+    for label in HUBERT_METHODS:
+        if label == "aot":
+            table = torch.empty(cfg.num_layers, cfg.vocab_size, cfg.d_model,
+                                dtype=model.opts.compute_dtype, device=DEV)
+            table.normal_(0.0, DEC_TABLE_SCALE, generator=gen)
+            out[label] = (params, P.make({"aot": {"table": table}},
+                                         P.PEFTOptions(
+                                             method="aot", aot=P.AoTOptions(
+                                                 mode="fused"))))
+        else:
+            out[label] = peft_setup(label, model, params, None, gen)
+    return out
+
+
+def hubert_encoder(report):
+    """13b: hubert-xlarge at full depth (48 layers, bf16, random weights
+    seed 0, 1024 learned positions) on seeded frames (8, 512) and unit ids:
+    ``Model.logits`` for each method of HUBERT_METHODS, one counted call
+    each (exact launches: ``encoder_launches``, finite logits), each held
+    by 7c's float32 rule (within BF16_FACTOR times plain bf16's error of
+    the float32 logits in plain PyTorch; the method's effect carried within
+    CARRY_TOL, but the backbone's, which has none); then PEFT_ROUNDS timed
+    runs in turns, each method's ms over the backbone's (Fig. 3, reported);
+    then ``classify`` (a seeded 2-way head) held by the same error rule."""
+    from repro_torch.core import peft as P
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, ModelOptions
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bf, f32 = torch.bfloat16, torch.float32
+    model, params = encoder_model(HUBERT["arch"], max_pos=HUBERT["max_pos"])
+    cfg, L = model.cfg, model.cfg.num_layers
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    b, s = HUBERT["frames"]
+    frames = torch.randn(b, s, cfg.frontend_dim, generator=gen, device=DEV)
+    units = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                          device=DEV, dtype=torch.int32)
+    setups = hubert_setups(model, params, gen)
+    plain16 = Model(cfg, ModelOptions(bf, bf, attn_impl="ref",
+                                      max_learned_pos=HUBERT["max_pos"]),
+                    device=DEV)
+    m32 = Model(cfg, ModelOptions(f32, f32, attn_impl="ref",
+                                  max_learned_pos=HUBERT["max_pos"]),
+                device=DEV)
+    p32 = cast_backbone(params, f32)
+
+    def inputs(label):
+        return dict(frames=frames, aot_ids=units if label == "aot" else None)
+
+    def bundle32(bundle):
+        if bundle is None:
+            return None
+        return dict(bundle, params=cast_backbone(bundle["params"], f32))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    base32 = m32.logits(p32, None, None, frames=frames).float()
+    counts, gates, failures = {}, {}, []
+    for label in HUBERT_METHODS:
+        p, bd = setups[label]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        lg = model.logits(p, None, bd, **inputs(label)).float()
+        torch.cuda.synchronize()
+        c = counts[f"front_hubert_{label}"] = dict(
+            ops.launches(), chunked=ops.chunked_calls())
+        try:
+            check_launches(f"13b {label}", c, encoder_launches(L, label))
+        except AssertionError as e:
+            failures.append(str(e))
+        if not bool(torch.isfinite(lg).all()):
+            failures.append(f"13b {label}: a logit is not finite")
+        ref = m32.logits(cast_backbone(p, f32), None, bundle32(bd),
+                         **inputs(label)).float()
+        lp = plain16.logits(p, None, bd, **inputs(label)).float()
+        flat = lambda x: x.reshape(-1, x.shape[-1])
+        if label == "none":         # the backbone: no effect to carry
+            g = dict(served_err=(lg - ref).abs().max().item(),
+                     plain_err=(lp - ref).abs().max().item(),
+                     carried=float("nan"))
+            g["ok"] = g["served_err"] <= BF16_FACTOR * g["plain_err"]
+        else:
+            g = against_float32(flat(lg), flat(lp), flat(ref), flat(base32),
+                                [0] * (b * s))["tasks"][0]
+        gates[label] = g
+        if not g["ok"]:
+            failures.append(f"13b {label}: against float32 {g}")
+        del lg, ref, lp
+    ms = {label: [] for label in HUBERT_METHODS}
+    for r in range(PEFT_ROUNDS):
+        for label in HUBERT_METHODS[r:] + HUBERT_METHODS[:r]:
+            p, bd = setups[label]
+            ms[label].append(wall_ms(
+                lambda i: model.logits(p, None, bd, **inputs(label)),
+                iters=3, warmup=2 if r == 0 else 0))
+    ms = {label: median(t) for label, t in ms.items()}
+    # classify: a seeded 2-way head on the mean-pooled frames
+    head = {"w": torch.randn(cfg.d_model, 2, generator=gen, device=DEV)
+            * 0.02, "b": torch.zeros(2, device=DEV)}
+    cls_opt = P.PEFTOptions(method="none", num_classes=2)
+    cls = lambda m, pp, dt: m.classify(pp, None, P.make(
+        {"head": {k: v.to(dt) for k, v in head.items()}}, cls_opt),
+        frames=frames).float()
+    c_k, c_p, c_r = cls(model, params, bf), cls(plain16, params, bf), \
+        cls(m32, p32, f32)
+    cls_gate = dict(served_err=(c_k - c_r).abs().max().item(),
+                    plain_err=(c_p - c_r).abs().max().item())
+    cls_gate["ok"] = cls_gate["served_err"] <= BF16_FACTOR * cls_gate[
+        "plain_err"]
+    if not cls_gate["ok"]:
+        failures.append(f"13b classify: {cls_gate}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec_all = time.perf_counter() - t0
+    log("13b hubert", layers=L, frames=f"{b}x{s}x{cfg.frontend_dim}",
+        setup_s=f"{setup_s:.1f}",
+        logits_ms={k: f"{t:.2f}({t / ms['none']:.3f}x)"
+                   for k, t in ms.items()},
+        vs_float32={k: f"{g['served_err']:.3e}/plain {g['plain_err']:.3e}"
+                    f"/carried {g['carried']:.4f}" for k, g in gates.items()},
+        classify=f"{cls_gate['served_err']:.3e}/plain "
+        f"{cls_gate['plain_err']:.3e}", peak_memory_gib=f"{peak:.2f}",
+        seconds=f"{sec_all:.1f}", launches=counts,
+        failures=failures or "none")
+    report["frontends"]["hubert"] = dict(
+        setup_s=setup_s, logits_ms=ms, gates=gates, classify=cls_gate,
+        peak_memory_gib=peak, seconds=sec_all, launches=counts,
+        failures=failures)
+    del model, params, setups, plain16, m32, p32
+    if failures:
+        raise AssertionError(f"13b hubert: {failures}")
+    return counts
+
+
+def phase_frontends(report):
+    """Phase 13 (13a, 13b), each part's memory freed before the next;
+    returns the launches by path."""
+    t0 = time.perf_counter()
+    report["frontends"] = {}
+    launches = {}
+    for part in (lambda: pali_static(report),
+                 lambda: hubert_encoder(report)):
+        launches.update(part())
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["frontends"]["seconds"] = time.perf_counter() - t0
+    log("13 frontends", seconds=f"{report['frontends']['seconds']:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6986,6 +7621,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_recurrent(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_frontends(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]
@@ -7006,6 +7644,9 @@ def main() -> int:
         if row["name"] in REC_PATH:         # phase 12's path
             row["recurrent"]["launches"] = launches[REC_PATH[row["name"]]][
                 row["name"]]
+        if row["name"] in FRONT_PATH:       # phase 13's path
+            row["frontends"]["launches"] = launches[FRONT_PATH[
+                row["name"]]][row["name"]]
     phase_cross_check(report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
@@ -7015,7 +7656,7 @@ def main() -> int:
                                                         default=str))
     print(f"[done] seconds={report['seconds']:.1f}")
     print(smi())
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels}, separators=(",", ":")))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -74,13 +74,16 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda",
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """The reference's parameter tree -> the port's parameters on
     ``device`` (every leaf but the norms' cast to ``dtype`` when given):
-    the embeddings (tokens, and learned positions where the config has
-    them), the layers, the final norm and the untied head ``lm_head``."""
+    the embeddings (tokens, none for audio frames, and learned positions
+    where the config has them, as many rows as the reference's ``max_pos``
+    drew), the layers, the final norm, the untied head ``lm_head`` and a
+    front-end's ``frontend.proj``."""
     dev = resolve_device(device)
     out = {"embed": tree["embed"], "layers": _ungroup(cfg, tree["groups"]),
            "final_norm": tree["final_norm"]}
-    if "lm_head" in tree:
-        out["lm_head"] = tree["lm_head"]
+    for name in ("lm_head", "frontend"):
+        if name in tree:
+            out[name] = tree[name]
     return _to_torch(out, dev, dtype)
 
 
@@ -222,6 +225,7 @@ def params_to_jax(cfg, params) -> Dict[str, Any]:
     groups = _group(cfg, to_numpy(params["layers"]))
     out = {"embed": to_numpy(params["embed"]), "groups": groups,
            "final_norm": to_numpy(params["final_norm"])}
-    if "lm_head" in params:
-        out["lm_head"] = to_numpy(params["lm_head"])
+    for name in ("lm_head", "frontend"):
+        if name in params:
+            out[name] = to_numpy(params[name])
     return out

@@ -8,10 +8,13 @@ qwen3-moe-30b-a3b, 128 experts top-8 with q/k norm, and
 llama4-maverick-400b-a17b, MoE on every second layer with a shared
 expert, ``MOE``), the recurrent backbones recurrentgemma-9b (RG-LRU
 blocks and local MQA attention) and xlstm-350m (mLSTM / sLSTM), served
-as static batches (``RECURRENT``), and the paper's own encoders
-roberta-large and deberta-xl (``PAPER_BACKBONES``), which run the
-whole-sequence entry points (``Model.forward`` / ``logits`` /
-``classify``) and train.
+as static batches (``RECURRENT``), the two front-ends (``FRONTENDS``):
+paligemma-3b (stub SigLIP patches over a bidirectional prefix, static
+batches) and hubert-xlarge (stub audio frames, an encoder), and the
+paper's own encoders roberta-large and deberta-xl (``PAPER_BACKBONES``);
+the encoders run the whole-sequence entry points (``Model.forward`` /
+``logits`` / ``classify``) and train. ``REGISTRY`` holds the reference's
+twelve configs.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from typing import Dict, List
 from repro_torch.configs.base import ArchConfig, reduced  # noqa: F401
 from repro_torch.configs.deberta_xl import CONFIG as _deberta
 from repro_torch.configs.h2o_danube_1p8b import CONFIG as _danube
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
 from repro_torch.configs.llama4_maverick_400b_a17b import CONFIG as _llama4
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
+from repro_torch.configs.paligemma_3b import CONFIG as _pali
 from repro_torch.configs.qwen2p5_14b import CONFIG as _qwen
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3moe
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _rgemma
@@ -32,9 +37,11 @@ from repro_torch.configs.xlstm_350m import CONFIG as _xlstm
 DECODERS: List[ArchConfig] = [_smollm, _olmo, _qwen, _danube]
 MOE: List[ArchConfig] = [_qwen3moe, _llama4]
 RECURRENT: List[ArchConfig] = [_rgemma, _xlstm]
+FRONTENDS: List[ArchConfig] = [_pali, _hubert]
 PAPER_BACKBONES: List[ArchConfig] = [_roberta, _deberta]
 REGISTRY: Dict[str, ArchConfig] = {
-    c.name: c for c in DECODERS + MOE + RECURRENT + PAPER_BACKBONES}
+    c.name: c for c in DECODERS + MOE + RECURRENT + FRONTENDS
+    + PAPER_BACKBONES}
 
 
 def get(name: str) -> ArchConfig:

@@ -9,8 +9,8 @@
                 after the final norm that only ``Model.forward`` adds
   ``lora``      low-rank deltas on W_q and W_v (or fused by ``fuse_lora_into``)
   ``adapters``  Houlsby bottleneck adapters after attention and after the MLP
-  ``ptv1``      a soft prompt prepended to the input embeddings (P-Tuning
-                v1; trained and run whole-sequence only)
+  ``ptv1``      a soft prompt prepended to the input embeddings (token or
+                audio frames alike; P-Tuning v1; run whole-sequence only)
   ``ptv2``      per-layer K/V prefixes (P-Tuning v2), static batches only
 
 ``num_classes`` > 0 adds a trainable classification head ``{"w", "b"}``
@@ -53,10 +53,17 @@ def init(cfg, opt: PEFTOptions, seed: int = 0, device="cuda",
     ``aot.init``, everything else zero, so that a fresh method leaves the
     backbone unchanged but for the prompts and prefixes), plus a zero
     classification head when ``opt.num_classes`` > 0, drawn from a
-    ``torch.Generator`` seeded with ``seed``: not the reference's bits."""
+    ``torch.Generator`` seeded with ``seed``: not the reference's bits.
+    AoT's fc and kron reparametrizations need discrete input ids: a config
+    without them (``aot_applicable`` False: hubert's audio frames) raises
+    ValueError in the reference's words; fused tables, which the caller
+    indexes by its own ids (hubert's unit-AoT), are allowed."""
     m = opt.method
     if m not in METHODS:
         raise ValueError(m)
+    if m == "aot" and not (cfg.aot_applicable or opt.aot.mode == "fused"):
+        raise ValueError(f"{cfg.name}: AoT P-Tuning needs discrete input "
+                         f"ids ({cfg.aot_note}); choose another method")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     L, d = cfg.num_layers, cfg.d_model

@@ -12,6 +12,11 @@ prefix length over ``[prefix | k]``. The CUDA kernel is
 rows in whole 16-byte units, an element-load build otherwise), float32 on
 the CUDA cores. The plain version below is the reference kernel's masked
 fp32 softmax in one piece.
+
+Beside it, :func:`attention_chunked`: the reference's blockwise XLA
+attention (``repro.models.layers.attention_chunked``), plain PyTorch and
+differentiable, where :func:`ops.flash_attention` sends a bidirectional
+``prefix_len`` as the reference's wrapper does; no kernel.
 """
 from __future__ import annotations
 
@@ -19,9 +24,12 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import on_device as _on_device
+from repro_torch.kernels.decode_attention import NEG_INF
 
 NEG = -1e30          # the reference kernel's mask value
 MAX_G = 96           # query heads per KV head the kernel's tile can hold
@@ -52,6 +60,149 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None,
     p = torch.softmax(s.masked_fill(~ok, NEG), dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _mask_bias(q_pos, kv_pos, *, causal, window, prefix_len,
+               kv_valid_len=None):
+    """(q, kv) additive float32 mask: 0 where query position i sees kv
+    position j, else ``NEG_INF``. Causal: ``j <= i`` or ``j < prefix_len``
+    (a bidirectional prefix: paligemma's patches, P-Tuning v1's prompt);
+    a window: ``j > i - window``, and for a non-causal stack also ``j < i +
+    window`` (the encoders' symmetric window); ``j < kv_valid_len`` when
+    given (a padded tail). The reference's ``_mask_bias``."""
+    qp, kp = q_pos[:, None], kv_pos[None, :]
+    ok = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        c = kp <= qp
+        if prefix_len:
+            c = c | (kp < prefix_len)
+        ok &= c
+    if window:
+        ok &= kp > qp - window
+        if not causal:
+            ok &= kp < qp + window
+    if kv_valid_len is not None:
+        ok &= kp < kv_valid_len
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _sdpa_block(q5, k, v, bias):
+    """q5: (b, qc, KV, G, hd); k / v: (b, kc, KV, hd); bias: (qc, kc) ->
+    (b, qc, KV, G, hd): softmax over the whole block, scores taken in the
+    input dtype, softmax in float32 (the reference's ``_sdpa_block``)."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() / math.sqrt(
+        q5.shape[-1])
+    p = torch.softmax(s + bias, dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+
+
+def _scan_step(carry_m, carry_l, acc, q5, kc, vc, bias):
+    """One kv chunk of the online softmax: the running max ``carry_m``,
+    sum ``carry_l`` (b, KV, G, qc) and float32 accumulator ``acc`` (b, KV,
+    G, qc, hd) after the chunk ``kc`` / ``vc`` (b, ckv, KV, hd) under
+    ``bias`` (qc, ckv)."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q5, kc).float() / math.sqrt(
+        q5.shape[-1]) + bias
+    m_new = torch.maximum(carry_m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(carry_m - m_new)
+    l_new = carry_l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bkgqs,bskh->bkgqh", p.to(vc.dtype), vc).float()
+    return m_new, l_new, acc_new
+
+
+def _online_chunk_scan(q5, k_r, v_r, q_pos, kv_start, chunk_kv, *, causal,
+                       window, prefix_len, kv_valid_len):
+    """The online-softmax scan over the kv chunks of ``k_r`` / ``v_r`` (b,
+    L, KV, hd), L a multiple of ``chunk_kv``, for one q chunk q5 (b, qc,
+    KV, G, hd) at positions ``q_pos``; the chunks start at kv position
+    ``kv_start``. Under autograd each step runs under
+    ``torch.utils.checkpoint``, as the reference's scan body runs under
+    ``jax.checkpoint``: only the carries are kept for the backward pass.
+    Returns (b, qc, KV, G, hd) in q5's dtype."""
+    b, qc, kvh, g, hd = q5.shape
+    dev = q5.device
+    m = torch.full((b, kvh, g, qc), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, g, qc), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, qc, hd), dtype=torch.float32, device=dev)
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q5, k_r, v_r))
+    for j in range(k_r.shape[1] // chunk_kv):
+        lo = j * chunk_kv
+        kv_pos = kv_start + lo + torch.arange(chunk_kv, device=dev)
+        bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
+                          prefix_len=prefix_len, kv_valid_len=kv_valid_len)
+        args = (m, l, acc, q5, k_r[:, lo:lo + chunk_kv],
+                v_r[:, lo:lo + chunk_kv], bias)
+        m, l, acc = (checkpoint(_scan_step, *args, use_reentrant=False)
+                     if remat else _scan_step(*args))
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q5.dtype)
+
+
+def attention_chunked(q, k, v, *, causal, window=0, prefix_len=0,
+                      chunk_q=1024, chunk_kv=1024, q_offset=0,
+                      kv_valid_len=None):
+    """Blockwise attention with static causal / window block skipping, the
+    reference's ``attention_chunked`` (its default ``attn_impl``, and where
+    its kernel wrapper sends ``prefix_len``). q: (b, sq, H, hd); k / v:
+    (b, skv, KV, hd); the mask is
+    :func:`_mask_bias`'s, as in ``layers.attention_ref``.
+
+    A Python loop over q chunks of ``chunk_q`` rows; each touches only the
+    kv range its mask admits (causal: up to its last position, or the
+    prefix's end if later; a window: from its first position less the
+    window, or from 0 under a prefix), aligned down to the kv chunk and
+    padded to a whole number of chunks with a tail masked by
+    ``kv_valid_len``. A range of at most two kv chunks is one masked block
+    (:func:`_sdpa_block`); a longer one runs :func:`_online_chunk_scan`.
+    Differentiable; no softcap (not ported)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    dev = q.device
+    cq = min(chunk_q, sq)
+    outs = []
+    for lo_q in range(0, sq, cq):
+        hi_q = min(lo_q + cq, sq)
+        qc = q[:, lo_q:hi_q].reshape(b, hi_q - lo_q, kvh, g, hd)
+        q_pos = q_offset + torch.arange(lo_q, hi_q, device=dev)
+        if causal:
+            hi_kv = min(skv, q_offset + hi_q)
+            if prefix_len:
+                hi_kv = max(hi_kv, min(skv, prefix_len))
+            lo_kv = 0
+            if window and not prefix_len:
+                lo_kv = max(0, q_offset + lo_q - window + 1)
+        else:
+            lo_kv, hi_kv = 0, skv
+            if window:
+                lo_kv = max(0, q_offset + lo_q - window + 1)
+                hi_kv = min(skv, q_offset + hi_q - 1 + window)
+        ckv = min(chunk_kv, hi_kv - lo_kv) or 1
+        lo_kv = (lo_kv // ckv) * ckv
+        n_kv = -(-(hi_kv - lo_kv) // ckv)
+        k_r = k[:, lo_kv:min(skv, lo_kv + n_kv * ckv)]
+        v_r = v[:, lo_kv:min(skv, lo_kv + n_kv * ckv)]
+        pad = n_kv * ckv - k_r.shape[1]
+        valid = kv_valid_len
+        if pad:         # a whole number of kv chunks; the mask hides the tail
+            k_r = F.pad(k_r, (0, 0, 0, 0, 0, pad))
+            v_r = F.pad(v_r, (0, 0, 0, 0, 0, pad))
+            valid = hi_kv if kv_valid_len is None else kv_valid_len
+        if n_kv <= 2:
+            kv_pos = lo_kv + torch.arange(k_r.shape[1], device=dev)
+            bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
+                              prefix_len=prefix_len, kv_valid_len=valid)
+            o = _sdpa_block(qc, k_r, v_r, bias)
+        else:
+            o = _online_chunk_scan(qc, k_r, v_r, q_pos, lo_kv, ckv,
+                                   causal=causal, window=window,
+                                   prefix_len=prefix_len, kv_valid_len=valid)
+        outs.append(o.reshape(b, hi_q - lo_q, h, hd))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 _FN = None

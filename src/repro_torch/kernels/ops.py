@@ -28,7 +28,8 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_kernel, decode_attention_plain,
     paged_decode_attention_kernel, paged_decode_attention_plain, plan_tensor,
     ragged_paged_attention_kernel, ragged_paged_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+from repro_torch.kernels.flash_attention import (attention_chunked,
+                                                 flash_attention_kernel,
                                                  flash_attention_plain)
 
 
@@ -137,11 +138,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
     reference's model-facing signature. Query row i sits at position
     ``q_offset + i``: P-Tuning v2 prepends its prefix to k and v and
     attends with ``q_offset`` = the prefix length, which the reference
-    sends to XLA. ``prefix_len`` and ``softcap`` also go to XLA there; no
-    model the port serves needs them, so they raise here."""
-    if prefix_len or softcap:
-        raise NotImplementedError(
-            "flash_attention: prefix_len and softcap are not ported")
+    sends to XLA and the port to the flash kernel. A bidirectional
+    ``prefix_len`` (paligemma's patches, P-Tuning v1's prompt) goes to
+    ``flash_attention.attention_chunked``, plain PyTorch, as the
+    reference's wrapper sends it to its chunked XLA path: counted in
+    :func:`chunked_calls`, not as a launch. ``softcap`` is not ported and raises."""
+    if softcap:
+        raise NotImplementedError("flash_attention: softcap is not ported")
+    if prefix_len:
+        flash_attention.chunked += 1
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 prefix_len=prefix_len, q_offset=q_offset)
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -183,12 +190,20 @@ WRAPPERS = (aot_gather_add, aot_gather_add_multitask, rms_norm,
 
 
 def reset_launches() -> None:
+    """Zero every kernel's launch count and :func:`chunked_calls`."""
     for fn in WRAPPERS:
         fn.launches = 0
+    flash_attention.chunked = 0
 
 
 def launches() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def chunked_calls() -> int:
+    """The :func:`flash_attention` calls sent to ``attention_chunked`` (a
+    ``prefix_len``) since :func:`reset_launches`: no kernel launch."""
+    return flash_attention.chunked
 
 
 reset_launches()

@@ -17,6 +17,9 @@ first, bit for bit the run that was never stopped. Runs on the card unless
     # the paper's encoders (roberta-large, deberta-xl) train the same way
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --reduced --steps 3 --arch roberta-large --method bitfit
+    # the front-ends: seeded stub patches / audio frames beside the stream
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --reduced --steps 3 --arch hubert-xlarge --method lora
     # stop after 20 steps, then resume to 30 in another process
     PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir D --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir D --steps 30
@@ -25,8 +28,9 @@ from __future__ import annotations
 
 import argparse
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -82,6 +86,9 @@ def build(args, num_classes: int = 0) -> Trainer:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg, repeats=2)
+    if args.seq < cfg.frontend_len:
+        raise SystemExit(f"{cfg.name}: --seq {args.seq} is shorter than its "
+                         f"{cfg.frontend_len} patches")
     model = Model(cfg, ModelOptions(attn_impl="ref"), device=args.device)
     params = model.init(0)
     popt = peft_mod.PEFTOptions(
@@ -103,13 +110,49 @@ def lm_stream(args, vocab_size: int) -> LMStream:
                     batch_size=args.batch, seed=0)
 
 
+class FrontEndStream:
+    """An :class:`LMStream` with a front-end's stub inputs beside each
+    batch, seeded normals drawn as ``data.pipeline.input_batch_for`` draws
+    them, from ``(seed, step)`` so that the stream resumes bitwise: a vision
+    front-end's "patches" (b, frontend_len, frontend_dim); for audio frames
+    "frames" (b, s, frontend_dim) in place of the tokens (the labels
+    stay)."""
+
+    def __init__(self, stream: LMStream, cfg):
+        self.stream, self.cfg = stream, cfg
+
+    def state(self) -> Dict:
+        return self.stream.state()
+
+    def restore(self, state: Dict):
+        self.stream.restore(state)
+
+    def next(self) -> Dict[str, np.ndarray]:
+        cfg, step = self.cfg, self.stream.state()["step"]
+        batch = self.stream.next()
+        b, s = batch["labels"].shape
+        rng = np.random.default_rng((self.stream.seed, step, 1))
+        if cfg.frontend == "audio_frames":
+            del batch["tokens"]
+            batch["frames"] = rng.normal(
+                size=(b, s, cfg.frontend_dim)).astype(np.float32)
+        else:
+            batch["patches"] = rng.normal(
+                size=(b, cfg.frontend_len, cfg.frontend_dim)).astype(
+                    np.float32)
+        return batch
+
+
 def train(trainer: Trainer, args, log_every: int = 10,
           ckpt: Optional[CheckpointManager] = None) -> TrainLoop:
     """``--steps`` steps on :func:`lm_stream`; the trained state lands in
     ``trainer.state``. With ``ckpt``, the newest checkpoint there is
     resumed first and the run saves every ``max(20, steps // 5)`` steps
     and at its last. Returns the loop (its ``history`` and ``events``)."""
-    stream = lm_stream(args, trainer.model.cfg.vocab_size)
+    cfg = trainer.model.cfg
+    stream = lm_stream(args, cfg.vocab_size)
+    if cfg.frontend:
+        stream = FrontEndStream(stream, cfg)
     loop = TrainLoop(train_step=trainer.train_step, frozen=trainer.frozen,
                      stream=stream, ckpt=ckpt,
                      ckpt_every=max(20, args.steps // 5),

@@ -1,6 +1,7 @@
 """Transformer building blocks: norms, RoPE, the MLPs, attention
 projections, and the reference's XLA attention paths (whole sequence,
-contiguous decode, paged decode, ragged paged).
+contiguous decode, paged decode, ragged paged; the blockwise chunked one
+lives beside the flash kernel's plain version and is re-exported here).
 
 Counterparts of the functions of the same names in
 ``repro.models.layers``, with the same tensor layouts: activations
@@ -20,6 +21,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.aot_bias import rms_norm_plain
 from repro_torch.kernels.decode_attention import (
     NEG_INF, ragged_paged_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: F401 (re-exported)
+    _mask_bias, _online_chunk_scan, _sdpa_block, attention_chunked)
 
 
 def _trunc_normal(shape, std, generator, device, dtype):
@@ -234,26 +237,14 @@ def attn_output(cfg, p, o, dtype, peft_bias=None):
 def attention_ref(q, k, v, *, causal, window=0, q_offset=0, prefix_len=0):
     """Oracle attention, differentiable (the training path's). q: (b, sq,
     H, hd); k / v: (b, skv, KV, hd); query row r sits at position
-    ``i = q_offset + r`` and sees kv position j when ``j <= i`` or
-    ``j < prefix_len`` (``causal``; P-Tuning v1's prompt is such a
-    bidirectional prefix) and ``j > i - window`` (``window > 0``, causal
-    only: the reference's symmetric encoder window is not ported). Scores
-    in the input dtype, softmax in float32, as the reference."""
-    if window and not causal:
-        raise NotImplementedError("a window without causality is not ported")
+    ``q_offset + r`` and sees the kv positions :func:`_mask_bias` admits.
+    Scores in the input dtype, softmax in float32, as the reference."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    q5 = q.reshape(b, sq, kvh, h // kvh, hd)
-    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= (kpos <= qpos) | (kpos < prefix_len)
-    if window:
-        ok &= kpos > qpos - window
-    s = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() / math.sqrt(hd)
-    p = torch.softmax(s + torch.where(ok, 0.0, NEG_INF), dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    bias = _mask_bias(q_offset + torch.arange(sq, device=q.device),
+                      torch.arange(skv, device=q.device), causal=causal,
+                      window=window, prefix_len=prefix_len)
+    o = _sdpa_block(q.reshape(b, sq, kvh, h // kvh, hd), k, v, bias)
     return o.reshape(b, sq, h, hd)
 
 

@@ -3,15 +3,20 @@ and ``classify``, whole-prompt prefill, the decode step and the unified
 ragged mixed step, each with the PEFT methods of the paper's Fig. 3
 (fused AoT tables, BitFit, LoRA, adapters, P-Tuning v2; ``core.peft``).
 
-Two implementations (``ModelOptions.attn_impl``): ``"kernel"`` serves
+Three implementations (``ModelOptions.attn_impl``): ``"kernel"`` serves
 through the hand-written kernels (``kernels.ops``: the fused gather-add +
 norm or the norm alone before each block, flash / decode / paged / ragged
-attention); ``"ref"`` runs the whole-sequence entry points with no cache
-(``forward``, ``logits``, ``classify``) in differentiable plain PyTorch
-(``layers.attention_ref``, ``layers.apply_norm``, ``h + rows`` for AoT),
-the training path, which also runs what only training uses: AoT's fc /
-kron reparametrizations, P-Tuning v1 and full fine-tuning. The serving
-entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse it.
+attention; a bidirectional prefix goes through ``ops.flash_attention`` to
+``layers.attention_chunked``, as the reference's wrapper sends it to XLA);
+``"ref"`` and ``"chunked"`` run the whole-sequence entry points with no
+cache (``forward``, ``logits``, ``classify``) in differentiable plain
+PyTorch (``layers.attention_ref`` or the blockwise
+``layers.attention_chunked``, the reference's default, ``layers.apply_norm``,
+``h + rows`` for AoT): the training paths, which also run what only
+training uses, AoT's fc / kron reparametrizations and full fine-tuning.
+P-Tuning v1 runs the whole-sequence entry points on all three. The
+serving entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse
+``"ref"`` and ``"chunked"``.
 
 Counterpart of ``repro.models.model.Model``: attention stacks, pre-norm
 causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
@@ -20,10 +25,15 @@ qwen2.5-14b's QKV bias and untied head, h2o-danube-1.8b's sliding window;
 GeGLU and the embeddings' ``sqrt(d)`` scale; the mixture-of-experts
 decoders qwen3-moe-30b-a3b, with its per-head q/k norm, and
 llama4-maverick-400b-a17b, MoE on every second layer with a shared
-expert: ``models.moe``) and the paper's post-LN
+expert: ``models.moe``; paligemma-3b, whose stub SigLIP patches,
+projected by ``frontend.proj``, replace the first ``frontend_len`` token
+embeddings and are attended bidirectionally with the rest of the
+``prefix_lm_len`` prefix) and the paper's post-LN
 encoders (LayerNorm, the GELU MLP, learned positions, an untied head,
-full attention: roberta-large, deberta-xl), which run the whole-sequence
-entry points only (:func:`check_servable`), and the recurrent stacks
+full attention: roberta-large, deberta-xl, and hubert-xlarge, fed by stub
+audio frames through ``frontend.proj`` and no token table), which run the
+whole-sequence entry points only (:func:`check_servable`), and the
+recurrent stacks
 (``models.recurrent``, ``models.xlstm``): recurrentgemma-9b, RG-LRU
 blocks with a GeGLU FFN interleaved 2:1 with local MQA attention, and
 xlstm-350m, seven mLSTM blocks to one sLSTM, no positions. Every block
@@ -70,9 +80,13 @@ from repro_torch.models import xlstm as xl_mod
 
 # the PEFT methods the model serves (core.peft)
 SERVED = ("none", "aot", "bitfit", "lora", "adapters", "ptv2")
+# P-Tuning v1 runs whole sequences on every attn_impl (its prompt is a
+# bidirectional prefix); the serving entry points refuse it, since the
+# reference's prefill returns the wrong cache position for it (ROADMAP C12)
+WHOLE = ("ptv1",)
 # the methods (besides AoT's fc / kron reparametrizations) that run only
-# whole-sequence under attn_impl="ref", the training path
-TRAINED = ("ft", "ptv1")
+# whole-sequence under attn_impl="ref" or "chunked", the training paths
+TRAINED = ("ft",)
 _PTV2_PAGED = ("P-Tuning v2's prefix is not held in the paged pool; serve "
                "ptv2 with static batches over a contiguous cache (the "
                "reference's paged and ragged steps skip the prefix)")
@@ -88,7 +102,10 @@ RECURRENT = (BLOCK_RGLRU, BLOCK_MLSTM, BLOCK_SLSTM)
 class ModelOptions:
     compute_dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
-    attn_impl: str = "kernel"       # "kernel" (reference: "pallas") | "ref"
+    # "kernel" (reference: "pallas") | "chunked" | "ref"
+    attn_impl: str = "kernel"
+    chunk_q: int = 1024             # attention_chunked's chunks ("chunked")
+    chunk_kv: int = 1024
     max_learned_pos: int = 0        # 0: from the config's shapes (max_pos)
     mlstm_chunk: int = 64           # mLSTM's chunk (xlstm.mlstm_chunkwise)
 
@@ -102,21 +119,29 @@ def check_supported(cfg: ArchConfig) -> None:
     SwiGLU, GeGLU or GELU MLP or a routed MoE FFN on the config's MoE
     layers, RoPE, learned or no positions (embeddings scaled by sqrt(d) or
     not), an optional QKV bias and q/k norm, causal (full or
-    sliding-window) or an encoder's full attention."""
+    sliding-window, with or without a bidirectional prefix) or an
+    encoder's full attention; token ids, with or without vision patches
+    over the first positions, or audio frames (no token table, so an
+    untied head)."""
     bad = []
     kinds = set(cfg.layer_kinds)
     if not kinds <= {BLOCK_ATTN, *RECURRENT}:
         bad.append(f"block kinds {sorted(kinds)}")
     if kinds & set(RECURRENT) and cfg.post_ln:
         bad.append("post-LN recurrent blocks")
-    if cfg.prefix_lm_len or not (cfg.causal or cfg.is_encoder_only):
-        bad.append("a bidirectional prefix")
+    if kinds & set(RECURRENT) and cfg.prefix_lm_len:
+        bad.append("a bidirectional prefix over recurrent blocks")
+    if not (cfg.causal or cfg.is_encoder_only):
+        bad.append("bidirectional attention outside an encoder")
     if not (cfg.attn_kind == "full" or (
             cfg.attn_kind == "swa" and cfg.causal and cfg.sliding_window)):
         bad.append(f"attention {cfg.attn_kind!r} (causal {cfg.causal}, "
                    f"window {cfg.sliding_window})")
-    if cfg.frontend:
-        bad.append(f"frontend {cfg.frontend!r}")
+    if cfg.frontend not in (None, "vision_patches", "audio_frames") or (
+            cfg.frontend == "audio_frames" and cfg.tie_embeddings):
+        bad.append(f"frontend {cfg.frontend!r}"
+                   + (" with a head tied to a token table it lacks"
+                      if cfg.frontend == "audio_frames" else ""))
     if cfg.norm_type not in ("rmsnorm", "layernorm", "nonparametric") or (
             cfg.post_ln and cfg.norm_type != "layernorm"):
         bad.append(f"{cfg.norm_type} {'post' if cfg.post_ln else 'pre'}-LN")
@@ -145,6 +170,18 @@ def check_servable(cfg: ArchConfig) -> None:
             f"{cfg.name}: the serving entry points serve causal stacks "
             "with RoPE or no positions; an encoder runs Model.forward / "
             "logits / classify")
+
+
+def refuse_prefix_lm(cfg: ArchConfig, what: str) -> None:
+    """Raise NotImplementedError for ``what`` (the paged pool, paged
+    decode, the mixed step) on a stack with a bidirectional prefix, in the
+    reference's words (its ``mixed_step`` asserts causal masking): bucket
+    padding and other requests' tokens would enter the prefix."""
+    if cfg.prefix_lm_len:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} relies on causal masking, and a "
+            f"bidirectional prefix ({cfg.prefix_lm_len} tokens) is not; "
+            "serve it with static batches over a contiguous cache")
 
 
 def recurrent_kinds(cfg: ArchConfig):
@@ -238,9 +275,9 @@ class Model:
     def __init__(self, cfg: ArchConfig, opts: ModelOptions = ModelOptions(),
                  device="cuda"):
         check_supported(cfg)
-        if opts.attn_impl not in ("kernel", "ref"):
-            raise ValueError(f"attn_impl {opts.attn_impl!r}: 'kernel' or "
-                             "'ref'")
+        if opts.attn_impl not in ("kernel", "chunked", "ref"):
+            raise ValueError(f"attn_impl {opts.attn_impl!r}: 'kernel', "
+                             "'chunked' or 'ref'")
         self.cfg = cfg
         self.opts = opts
         self.device = resolve_device(device)
@@ -273,7 +310,9 @@ class Model:
         QKV biases, the q/k norms, the router and RG-LRU's ``lam`` stay
         float32 (the reference's ``attn_init``, ``moe_init`` and
         ``rglru_init``, whose ``lam`` enters the gates uncast); everything
-        else is stored in ``param_dtype``."""
+        else is stored in ``param_dtype``. A front-end adds
+        ``frontend.proj`` (frontend_dim, d), dense, drawn last; audio
+        frames have no token table ``embed.tok`` (the reference's tree)."""
         cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d, V = cfg.d_model, cfg.vocab_size
@@ -300,7 +339,9 @@ class Model:
                 lp["mlp"] = L.mlp_init(cfg, gen, dev, pdt)
             return lp
 
-        embed = {"tok": L.embed_init((V, d), gen, dev, pdt)}
+        embed = {}
+        if cfg.frontend != "audio_frames":
+            embed["tok"] = L.embed_init((V, d), gen, dev, pdt)
         if cfg.pos_type == "learned":
             embed["pos"] = L.embed_init((self.max_pos(), d), gen, dev, pdt)
         params = {"embed": embed,
@@ -309,6 +350,8 @@ class Model:
                   "final_norm": norm()}
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": dense(d, V)}
+        if cfg.frontend:
+            params["frontend"] = {"proj": dense(cfg.frontend_dim, d)}
         return params
 
     @staticmethod
@@ -410,6 +453,7 @@ class Model:
         layout (the reference asserts the same)."""
         cfg = self.cfg
         refuse_recurrent(cfg, "the paged KV pool")
+        refuse_prefix_lm(cfg, "the paged KV pool")
         shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
                  cfg.head_dim)
         return {"k": (shape, self.opts.compute_dtype),
@@ -439,19 +483,23 @@ class Model:
     def _method(self, peft, whole: bool = False) -> str:
         """The bundle's method ("none" for no bundle); raises for one the
         model does not run: the served methods (AoT as fused tables) run
-        everywhere, the training-time ones (``TRAINED``, AoT's fc / kron)
-        only ``whole``-sequence with no cache under ``attn_impl="ref"``."""
+        everywhere, P-Tuning v1 (``WHOLE``) only ``whole``-sequence with no
+        cache, the training-time ones (``TRAINED``, AoT's fc / kron) only
+        so and under ``attn_impl="ref"`` or ``"chunked"``."""
         method = peft["method"] if peft else "none"
         reparam = method == "aot" and peft["opt"].aot.mode != "fused"
         if method in SERVED and not reparam:
             return method
-        if whole and self.opts.attn_impl == "ref" and (
-                reparam or method in TRAINED):
+        if whole and (method in WHOLE or (
+                self.opts.attn_impl != "kernel" and (
+                    reparam or method in TRAINED))):
             return method
+        where = ("" if method in WHOLE else " with attn_impl='ref' or "
+                 "'chunked' (the training paths)")
         raise NotImplementedError(
-            f"peft {method!r} runs only through forward / logits / classify "
-            f"with attn_impl='ref' (the training path); the kernels serve "
-            f"{', '.join(SERVED)}, AoT as fused tables")
+            f"peft {method!r} runs only through forward / logits / classify"
+            f"{where}; the serving entry points serve {', '.join(SERVED)}, "
+            "AoT as fused tables")
 
     def _serving(self, entry: str) -> None:
         """Raise unless the serving entry point ``entry`` runs here: a
@@ -460,8 +508,8 @@ class Model:
         if self.opts.attn_impl != "kernel":
             raise NotImplementedError(
                 f"{entry} runs the serving kernels only (attn_impl="
-                f"'kernel'); attn_impl='ref' runs the whole-sequence entry "
-                "points")
+                f"'kernel'); attn_impl={self.opts.attn_impl!r} runs the "
+                "whole-sequence entry points")
 
     def _layer_generators(self, rng):
         """One dropout generator per layer, seeded by draws from the step's
@@ -578,10 +626,10 @@ class Model:
         BitFit's biases after the output projection and after the MLP, an
         adapter after each. (P-Tuning v2's prefix comes inside
         ``attend``.) Pre-norm without AoT, an RMSNorm input norm is one
-        launch of its own (``ops.rms_norm``). Under ``attn_impl="ref"`` the
-        rows (:meth:`_aot_rows`) and the norm are plain PyTorch; LayerNorm
-        and the non-parametric norm are plain PyTorch on both paths (the
-        reference's norms are XLA's)."""
+        launch of its own (``ops.rms_norm``). Under ``attn_impl="ref"`` or
+        ``"chunked"`` the rows (:meth:`_aot_rows`) and the norm are plain
+        PyTorch; LayerNorm and the non-parametric norm are plain PyTorch on
+        every path (the reference's norms are XLA's)."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
         pp = peft["params"] if peft else {}
@@ -612,12 +660,12 @@ class Model:
         AoT (the paper's Eq. 1, for the flat tokens ``aot``) and x the
         block's input norm of it (post-LN: h itself). On the kernels the
         rows and an RMSNorm are one fused launch (:meth:`_aot_add`), an
-        RMSNorm alone is ``ops.rms_norm``; under ``attn_impl="ref"`` both
+        RMSNorm alone is ``ops.rms_norm``; under "ref" or "chunked" both
         are plain PyTorch, and LayerNorm and the non-parametric norm are
         plain PyTorch on both paths."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = peft["method"] if peft else "none"
-        ref = self.opts.attn_impl == "ref"
+        ref = self.opts.attn_impl != "kernel"
         post = cfg.post_ln
         if method == "aot" and ref:              # the paper's Eq. 1
             h = h + self._aot_rows(peft, i, *aot).reshape(h.shape).to(dt)
@@ -669,43 +717,81 @@ class Model:
             h = h + self._ffn_hooks(lp, x, peft, i, None)
         return h, new
 
-    def _embed(self, params, ids):
-        """(E[ids] as stored, which AoT's fc reads, and h: those rows in
-        the compute dtype, times sqrt(d) where the config scales its
-        embeddings, the factor rounded to the compute dtype first, as the
-        reference's)."""
+    def _embed(self, params, ids, patches=None, frames=None):
+        """(E[ids] as stored, which AoT's fc reads, and h (b, s, d): those
+        rows in the compute dtype, the first ``patches.shape[1]`` of them
+        replaced by ``patches @ frontend.proj`` (a vision front-end's
+        patches (b, n, frontend_dim)), then times sqrt(d) where the config
+        scales its embeddings, the factor rounded to the compute dtype
+        first, as the reference's). Audio ``frames`` (b, s, frontend_dim):
+        h is ``frames @ frontend.proj``, unscaled, and E[ids] None."""
         cfg, dt = self.cfg, self.opts.compute_dtype
+        if frames is not None:
+            return None, frames.to(dt) @ params["frontend"]["proj"].to(dt)
         e_rows = params["embed"]["tok"][ids.long()]
         h = e_rows.to(dt)
+        if patches is not None:
+            pe = patches.to(dt) @ params["frontend"]["proj"].to(dt)
+            h = torch.cat([pe, h[:, pe.shape[1]:]], 1)
         if cfg.embed_scale:
             h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
         return e_rows, h
 
+    def _inputs(self, tokens, patches, frames, aot_ids):
+        """Check the entry point's inputs against the config's front-end;
+        returns the ids AoT indexes: the tokens, or with audio frames the
+        optional unit ids ``aot_ids`` (the reference's unit-AoT)."""
+        cfg = self.cfg
+        if cfg.frontend == "audio_frames":
+            if frames is None or tokens is not None:
+                raise ValueError(f"{cfg.name} takes audio frames (b, s, "
+                                 f"{cfg.frontend_dim}) and no tokens")
+            return aot_ids
+        if frames is not None or aot_ids is not None:
+            raise ValueError(f"{cfg.name} takes token ids, not frames or "
+                             "aot_ids")
+        if patches is not None and not (
+                cfg.frontend == "vision_patches"
+                and patches.shape[1] <= tokens.shape[1]):
+            raise ValueError(f"{cfg.name}: patches {tuple(patches.shape)} "
+                             f"over {tuple(tokens.shape)} tokens")
+        return tokens
+
     def _prompt(self, params, tokens, peft, cache=None, rng=None,
-                max_len=0, real=None, aux=None):
-        """Whole prompts tokens (b, s) through every layer, attending
-        through the flash attention kernel (causal, with the config's
-        sliding window, or full for an encoder; ``attn_impl="ref"``:
-        ``layers.attention_ref``); returns h (b, s, d)
-        after the final norm and the prefix length p (P-Tuning v2's, else
-        0). P-Tuning v2 puts its K/V prefix (no RoPE) before each layer's k
+                max_len=0, real=None, aux=None, patches=None, frames=None,
+                aot_ids=None):
+        """Whole prompts through every layer; returns h (b, s, d) after the
+        final norm and the prefix length p (P-Tuning v2's, else 0).
+        ``tokens`` (b, s) int, or with an audio front-end ``frames`` (b, s,
+        frontend_dim) and optional unit ids ``aot_ids`` (b, s) for a fused
+        AoT table; a vision front-end's ``patches`` (b, n, frontend_dim)
+        replace the first n token embeddings (:meth:`_embed`).
+
+        Attention: the flash attention kernel (causal, with the config's
+        sliding window, or full for an encoder); ``attn_impl="chunked"``:
+        ``layers.attention_chunked``; ``"ref"``: ``layers.attention_ref``.
+        Positions below ``prefix_len = prefix_lm_len + p1 + p`` (when the
+        config has a prefix or P-Tuning v1 a prompt of p1 rows) are seen by
+        every query, the reference's arithmetic; the kernel path then sends
+        attention to ``attention_chunked`` through ``ops.flash_attention``.
+        P-Tuning v2 puts its K/V prefix (no RoPE) before each layer's k
         and v, and its queries attend from position p. P-Tuning v1
-        prepends its prompt to the embeddings (a bidirectional prefix,
-        positions shifted by its length) and strips it after the final
-        norm. Learned positions ``embed.pos[:p1 + s]`` are added to the
-        embeddings after P-Tuning v1's prompt is prepended; more positions
-        than the table holds raise ValueError. With ``cache`` (made for
-        ``max_len`` positions), layer i's ``[prefix | k]`` and ``[prefix |
-        v]`` are written into its rows ``[0, p + s)``; into a ring shorter
-        than that, the last ring-length of the first ``p + real`` positions
-        (``real``: the real tokens of right-padded prompts, default s), each
-        at row ``position % rows``. ``rng``: the step's
-        ``torch.Generator``, which seeds AoT's dropout (None: no
-        dropout). ``aux``: a dict that gains the MoE layers' aux values,
-        summed over layers."""
+        prepends its prompt to the embeddings (positions shifted by its
+        length) and strips it after the final norm. Learned positions
+        ``embed.pos[:p1 + s]`` are added to the embeddings after P-Tuning
+        v1's prompt is prepended; more positions than the table holds raise
+        ValueError. With ``cache`` (made for ``max_len`` positions), layer
+        i's ``[prefix | k]`` and ``[prefix | v]`` are written into its rows
+        ``[0, p + s)``; into a ring shorter than that, the last ring-length
+        of the first ``p + real`` positions (``real``: the real tokens of
+        right-padded prompts, default s), each at row ``position % rows``.
+        ``rng``: the step's ``torch.Generator``, which seeds AoT's dropout
+        (None: no dropout). ``aux``: a dict that gains the MoE layers' aux
+        values, summed over layers."""
         cfg, dt = self.cfg, self.opts.compute_dtype
         method = self._method(peft, whole=cache is None)
-        b, s = tokens.shape
+        ids = self._inputs(tokens, patches, frames, aot_ids)
+        b, s = (frames if frames is not None else tokens).shape[:2]
         p = peft["opt"].prompt_len if method == "ptv2" else 0
         spans = None
         if cache is not None:
@@ -715,8 +801,9 @@ class Model:
             rows = self.cache_rows(cache)
             spans = (ring_spans(p + (s if real is None else real), rows)
                      if p + s > rows else [(0, p + s, 0)]) if rows else []
-        ids = tokens.to(torch.int32)
-        e_rows, h = self._embed(params, ids)                     # (b, s, d)
+        if ids is not None:
+            ids = ids.to(torch.int32)
+        e_rows, h = self._embed(params, ids, patches, frames)    # (b, s, d)
         p1 = 0
         if method == "ptv1":
             prompt = peft["params"]["ptv1"]["prompt"].to(dt)
@@ -735,12 +822,18 @@ class Model:
                                    cfg.head_dim, cfg.rope_theta)
         aot = None
         if method == "aot":     # each row's task over its s tokens, flat
+            if ids is None:
+                raise ValueError(f"{cfg.name}: AoT over audio frames "
+                                 "indexes unit ids: pass aot_ids")
             aot = (ids.reshape(-1).contiguous(),
                    peft["task_ids"].to(torch.int32).repeat_interleave(s)
                    if "task_ids" in peft else None,
-                   e_rows.reshape(b * s, -1), self._layer_generators(rng))
-        ref = self.opts.attn_impl == "ref"
-        window = self.window()
+                   None if e_rows is None else e_rows.reshape(b * s, -1),
+                   self._layer_generators(rng))
+        impl = self.opts.attn_impl
+        kw = dict(causal=cfg.causal, window=self.window(), q_offset=p)
+        if cfg.prefix_lm_len or p1:     # the reference's arithmetic
+            kw["prefix_len"] = cfg.prefix_lm_len + p1 + p
         for i, lp in enumerate(params["layers"]):
             kind = self.kinds[i]
             if kind != BLOCK_ATTN:      # a fresh cache's state, or none
@@ -763,51 +856,62 @@ class Model:
                 for lo, hi, at in spans or ():
                     kc[:, at:at + hi - lo] = k[:, lo:hi]
                     vc[:, at:at + hi - lo] = v[:, lo:hi]
-                if ref:
-                    return L.attention_ref(q, k, v, causal=cfg.causal,
-                                           window=window, q_offset=p,
-                                           prefix_len=p1)
-                return ops.flash_attention(q, k, v, causal=cfg.causal,
-                                           window=window, q_offset=p)
+                if impl == "ref":
+                    return L.attention_ref(q, k, v, **kw)
+                if impl == "chunked":
+                    return L.attention_chunked(
+                        q, k, v, chunk_q=self.opts.chunk_q,
+                        chunk_kv=self.opts.chunk_kv, **kw)
+                return ops.flash_attention(q, k, v, **kw)
             h = self._block(lp, h, sincos, attend, peft, i, aot, aux)
         return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
 
-    def forward(self, params, tokens, peft=None, rng=None):
+    def forward(self, params, tokens, peft=None, rng=None, *, patches=None,
+                frames=None, aot_ids=None):
         """Whole-sequence pass, no cache (the reference's
         ``forward``; ``benchmarks/speed_overhead.py`` times it per PEFT
         method). tokens: (b, s) int -> hidden states (b, s, d) after the
         final norm, plus BitFit's ``final`` bias, which only this entry
         point adds, as in the reference. ``rng``: the step's
-        ``torch.Generator`` for AoT's dropout (None: none)."""
-        return self.forward_aux(params, tokens, peft, rng)[0]
+        ``torch.Generator`` for AoT's dropout (None: none). A vision
+        front-end takes ``patches`` (b, frontend_len, frontend_dim) beside
+        the tokens; an audio one ``frames`` (b, s, frontend_dim) with
+        ``tokens`` None, and optional unit ids ``aot_ids`` (b, s) for a
+        fused AoT table (:meth:`_prompt`)."""
+        return self.forward_aux(params, tokens, peft, rng, patches=patches,
+                                frames=frames, aot_ids=aot_ids)[0]
 
-    def forward_aux(self, params, tokens, peft=None, rng=None):
+    def forward_aux(self, params, tokens, peft=None, rng=None, *,
+                    patches=None, frames=None, aot_ids=None):
         """:meth:`forward` and the MoE layers' aux values summed over
         layers (``moe_lb_loss``, ``moe_z_loss``, ``moe_dropped_frac``; an
         empty dict without MoE layers), the reference's ``(h, aux)``: what
         the training step adds to its loss."""
         aux = {}
-        h, _ = self._prompt(params, tokens, peft, rng=rng, aux=aux)
+        h, _ = self._prompt(params, tokens, peft, rng=rng, aux=aux,
+                            patches=patches, frames=frames, aot_ids=aot_ids)
         if peft and peft["method"] == "bitfit":
             h = h + peft["params"]["bitfit"]["final"].to(h.dtype)
         return h, aux
 
-    def logits(self, params, tokens, peft=None, rng=None):
-        """``unembed(forward(...))``: (b, s, V)."""
-        return self.unembed(params, self.forward(params, tokens, peft, rng))
+    def logits(self, params, tokens, peft=None, rng=None, **inputs):
+        """``unembed(forward(...))``: (b, s, V); ``inputs``: the front-end's
+        keywords of :meth:`forward`."""
+        return self.unembed(params, self.forward(params, tokens, peft, rng,
+                                                 **inputs))
 
-    def classify(self, params, tokens, peft, rng=None):
+    def classify(self, params, tokens, peft, rng=None, **inputs):
         """The paper's GLUE protocol: the pooled representation (an
         encoder's mean over positions, a causal stack's last position)
         through the trainable head ``peft["params"]["head"]``: logits (b,
-        num_classes)."""
-        h = self.forward(params, tokens, peft, rng)
+        num_classes); ``inputs`` as for :meth:`logits`."""
+        h = self.forward(params, tokens, peft, rng, **inputs)
         pooled = h.mean(1) if self.cfg.is_encoder_only else h[:, -1]
         head, dt = peft["params"]["head"], self.opts.compute_dtype
         return pooled.to(dt) @ head["w"].to(dt) + head["b"].to(dt)
 
     def prefill(self, params, tokens, peft=None, *, max_len: int,
-                last_pos=None):
+                last_pos=None, patches=None, frames=None, aot_ids=None):
         """Run whole prompts and build their contiguous cache.
 
         tokens: (b, s) int; peft: None or a bundle (``core.peft.make``):
@@ -816,22 +920,25 @@ class Model:
         ``bitfit``, ``lora``, ``adapters`` or ``ptv2``. max_len: the cache's
         length (>= s, plus P-Tuning v2's prefix). Every layer attends
         through the flash attention kernel (causal, with the config's
-        window) and writes its K/V into rows ``[0, p + s)`` of a fresh
-        ``init_cache(b, max_len)`` (p: the P-Tuning v2 prefix, else 0).
-        ``last_pos`` (an int) picks the position whose logits are returned
-        instead of the last one: the continuous scheduler right-pads
-        prompts to a bucket, and causality keeps positions <= last_pos
-        independent of the padding. A ring shorter than ``p + s`` takes the
-        last ring-length of the real positions ``[0, p + last_pos]``, each
-        at row ``position % rows`` (the reference keeps the padded tail
-        there, which loses real rows: ROADMAP C7). Returns (logits (b, 1,
-        V), cache, pos = s + p): BitFit's ``final`` bias is not added here,
-        as in the reference."""
+        window; a config's bidirectional prefix, paligemma's, through
+        ``attention_chunked``) and writes its K/V into rows ``[0, p + s)``
+        of a fresh ``init_cache(b, max_len)`` (p: the P-Tuning v2 prefix,
+        else 0). ``patches``, ``frames``, ``aot_ids``: the front-end's
+        inputs (:meth:`forward`). ``last_pos`` (an int) picks the position
+        whose logits are returned instead of the last one: the continuous
+        scheduler right-pads prompts to a bucket, and causality keeps
+        positions <= last_pos independent of the padding. A ring shorter
+        than ``p + s`` takes the last ring-length of the real positions
+        ``[0, p + last_pos]``, each at row ``position % rows`` (the
+        reference keeps the padded tail there, which loses real rows:
+        ROADMAP C7). Returns (logits (b, 1, V), cache, pos = s + p):
+        BitFit's ``final`` bias is not added here, as in the reference."""
         self._serving("prefill")
         cache = self.init_cache(tokens.shape[0], max_len)
         h, p = self._prompt(params, tokens, peft, cache, max_len=max_len,
                             real=None if last_pos is None
-                            else int(last_pos) + 1)
+                            else int(last_pos) + 1, patches=patches,
+                            frames=frames, aot_ids=aot_ids)
         h_last = h[:, -1:] if last_pos is None else \
             h[:, int(last_pos):int(last_pos) + 1]
         return self.unembed(params, h_last), cache, tokens.shape[1] + p
@@ -865,6 +972,7 @@ class Model:
             raise NotImplementedError(_PTV2_PAGED)
         if block_tables is not None:
             refuse_recurrent(cfg, "paged decode")
+            refuse_prefix_lm(cfg, "paged decode")
         if self.window() and block_tables is not None:
             raise NotImplementedError(SWA_PAGED_DECODE)
         dev = self.device
@@ -978,6 +1086,7 @@ class Model:
         copies."""
         cfg = self.cfg
         refuse_recurrent(cfg, "the unified mixed step")
+        refuse_prefix_lm(cfg, "the unified mixed step")
         assert block_tables is not None, "mixed_step serves paged pools only"
         self._serving("mixed_step")
         method = self._method(peft)

@@ -304,6 +304,12 @@ class ContinuousScheduler:
                 "the prefix cache maps cached pages into block tables and "
                 "starts prefill at the first uncached token: it needs "
                 "kv_layout='paged' with chunked prefill (prefill_chunk > 0)")
+        mcfg = engine.model.cfg
+        if mcfg.prefix_lm_len:
+            raise InvalidConfig(
+                f"{mcfg.name}: a bidirectional prefix ({mcfg.prefix_lm_len} "
+                "tokens) attends to bucket padding; continuous batching "
+                "needs fully-causal attention")
         method = engine.peft["method"] if engine.peft else "none"
         if method in ("ptv1", "ptv2"):
             raise InvalidConfig(

@@ -1,6 +1,7 @@
 """The training step: PEFT-partitioned parameters, chunked cross-entropy,
 AdamW. Counterpart of ``repro.train.step``, in eager PyTorch with autograd
-on the model's ``attn_impl="ref"`` path (the kernels have no backward).
+on the model's ``attn_impl="ref"`` or ``"chunked"`` path (the kernels have
+no backward).
 
 The parameter tree is split into (trainable, frozen) before the step sees
 it: for the PEFT methods trainable = ``{"peft": ...}`` and frozen =
@@ -95,9 +96,18 @@ def chunked_ce(h, w, labels, *, chunk: int, z_loss: float, mask=None):
     return tot / denom, correct / denom
 
 
+def frontend_inputs(batch):
+    """The model's front-end keywords found in ``batch``: "patches" (a
+    vision front-end's), "frames" and "aot_ids" (an audio one's), as the
+    reference's step hands the model its whole batch."""
+    return {k: batch[k] for k in ("patches", "frames", "aot_ids")
+            if k in batch}
+
+
 def make_loss_fn(model, tcfg: TrainConfig):
     """(trainable, frozen, batch, rng) -> (loss, metrics) for next-token
-    prediction: ``batch`` holds "tokens" and "labels" (b, s) and
+    prediction: ``batch`` holds "tokens" (or an audio front-end's
+    "frames", :func:`frontend_inputs`) and "labels" (b, s) and
     optionally "loss_mask"; ``rng`` the step's generator (dropout). With
     MoE layers the loss adds their weighted aux losses and the metrics
     gain ``moe_lb`` and ``moe_drop`` (per MoE layer), as the
@@ -108,7 +118,8 @@ def make_loss_fn(model, tcfg: TrainConfig):
         backbone, peft_params = merge_train(trainable, frozen)
         peft = peft_mod.make(peft_params, tcfg.peft) if method != "none" \
             else None
-        h, aux = model.forward_aux(backbone, batch["tokens"], peft, rng)
+        h, aux = model.forward_aux(backbone, batch.get("tokens"), peft, rng,
+                                   **frontend_inputs(batch))
         dt = model.opts.compute_dtype
         w = model.head_weight(backbone)     # E^T, or the untied lm_head
         loss, acc = chunked_ce(h.to(dt), w, batch["labels"],
@@ -134,7 +145,8 @@ def make_classify_loss_fn(model, tcfg: TrainConfig):
     def loss_fn(trainable, frozen, batch, rng):
         backbone, peft_params = merge_train(trainable, frozen)
         peft = peft_mod.make(peft_params, tcfg.peft)
-        logits = model.classify(backbone, batch["tokens"], peft, rng).float()
+        logits = model.classify(backbone, batch.get("tokens"), peft, rng,
+                                **frontend_inputs(batch)).float()
         labels = batch["labels"].long()
         nll = torch.logsumexp(logits, -1) - logits.gather(
             -1, labels[:, None])[:, 0]

@@ -161,9 +161,12 @@ def test_config_copies_equal_reference(name):
 
 @pytest.mark.parametrize("change,match", [
     (dict(logit_softcap=30.0), "softcap"),
-    (dict(frontend="vision_patches"), "frontend"),
-    (dict(frontend="audio_frames"), "frontend"),
-    (dict(prefix_lm_len=4), "prefix"),
+    # the two front-ends and the bidirectional prefix are ported: an
+    # unknown front-end, audio frames under a head tied to the token table
+    # they lack, and a prefix over recurrent blocks are still refused
+    (dict(frontend="video_frames"), "frontend"),
+    (dict(frontend="audio_frames", tie_embeddings=True), "frontend"),
+    (dict(prefix_lm_len=4, pattern_unit=("rglru",)), "prefix"),
     (dict(attn_kind="swa", sliding_window=0), "attention")])
 def test_check_supported_still_refuses(change, match):
     cfg = configs.reduced(configs.get("smollm-360m")).replace(**change)

@@ -39,7 +39,8 @@ def test_importing_the_port_loads_no_jax():
               "configs.h2o_danube_1p8b", "configs.qwen3_moe_30b_a3b",
               "configs.llama4_maverick_400b_a17b", "models.moe",
               "configs.recurrentgemma_9b", "configs.xlstm_350m",
-              "models.recurrent", "models.xlstm"):
+              "models.recurrent", "models.xlstm", "configs.paligemma_3b",
+              "configs.hubert_xlarge"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -220,7 +220,8 @@ class FakeEngine:
         from types import SimpleNamespace
         self.cfg = SimpleNamespace(max_len=cs.MAX_LEN)
         self.model = SimpleNamespace(
-            cfg=SimpleNamespace(vocab_size=49152, layer_kinds=("attn",)),
+            cfg=SimpleNamespace(vocab_size=49152, layer_kinds=("attn",),
+                                prefix_lm_len=0, frontend=None),
             window=lambda: 0,
             init_paged_cache=lambda nb, bs: {
                 n: torch.zeros(1, nb, bs, 1, 1) for n in ("k", "v")},
@@ -1042,3 +1043,74 @@ def test_phase11_on_reduced_moe_configs(monkeypatch):
     assert q["dropfree"]["stream_equal"] == q["requests"] == 6
     assert q["drops"]["decode"]["max"] == 0.0
     assert moe["cross_check"]["padding"]["config"]["displaced"] > 0
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the front-ends; phase 5d's P-Tuning v1 launches
+# ---------------------------------------------------------------------------
+
+def test_phase13_on_reduced_frontends(monkeypatch):
+    """Phase 13 on the CPU at reduced widths (paligemma-3b and
+    hubert-xlarge with 2 layers, a prefix of 4 patches, 4 x (4 + 12) + 5
+    steps, frames 2 x 24): every gate of 13a and 13b runs and passes, the
+    launches are exact (the prefix through attention_chunked, no flash in
+    paligemma's prefill; P-Tuning v1's on hubert likewise), and a stray
+    launch or a missing chunked call fails the launch arithmetic."""
+    from repro_torch import configs
+    from repro_torch.kernels import aot_bias, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "wall_ms", lambda fn, iters, warmup=3: (
+        fn(0), 1.0)[1])
+    monkeypatch.setattr(cs, "profile_of", lambda fn, steps: dict(
+        device_busy_ms=1.0, kernels_per_step=1.0))
+    monkeypatch.setattr(ops, "_on_cpu", lambda *xs: False)
+    for name, fn in (
+            ("aot_gather_add_kernel", aot_bias.aot_gather_add_plain),
+            ("aot_gather_add_multitask_kernel",
+             aot_bias.aot_gather_add_multitask_plain),
+            ("rms_norm_kernel", aot_bias.rms_norm_plain),
+            ("flash_attention_kernel", fa.flash_attention_plain),
+            ("decode_attention_kernel", da.decode_attention_plain)):
+        monkeypatch.setattr(ops, name, fn)
+    get = configs.get
+    monkeypatch.setattr(configs, "get",
+                        lambda name: configs.reduced(get(name), repeats=2))
+    monkeypatch.setattr(cs, "PALI", dict(cs.PALI, static=(4, 12, 5)))
+    monkeypatch.setattr(cs, "PALI_CHECK_STEPS", (0, 2, 4))
+    monkeypatch.setattr(cs, "HUBERT", dict(cs.HUBERT, frames=(2, 24),
+                                           max_pos=64))
+    report, threads = {}, torch.get_num_threads()
+    torch.set_num_threads(1)        # six tier-1 workers share the cores
+    try:
+        with torch.no_grad():
+            launches = cs.phase_frontends(report)
+    finally:
+        torch.set_num_threads(threads)
+        ops.reset_launches()
+    front = report["frontends"]
+    assert front["paligemma"]["failures"] == []
+    assert front["hubert"]["failures"] == []
+    assert front["paligemma"]["mixed_equal"] + len(
+        front["paligemma"]["near_ties"]) == 4
+    nonzero = lambda c: {k: v for k, v in c.items() if v}
+    assert nonzero(launches["front_pali_prefill"]) == {
+        "aot_gather_add_multitask": 2, "chunked": 2}
+    assert nonzero(launches["front_pali_decode"]) == {
+        "aot_gather_add_multitask": 10, "decode_attention": 10}
+    for label in cs.HUBERT_METHODS:
+        assert nonzero(launches[f"front_hubert_{label}"]) == \
+            cs.encoder_launches(2, label)
+    assert set(cs.FRONT_PATH.values()) <= set(launches)
+    assert cs.encoder_launches(48, "ptv1") == {"chunked": 48}
+    assert cs.logits_launches(32, "ptv1") == {"chunked": 32, "rms_norm": 32}
+    assert cs.logits_launches(32, "aot") == {"flash_attention": 32,
+                                             "aot_gather_add": 32}
+    with pytest.raises(AssertionError, match="flash_attention launched 1"):
+        cs.check_launches("13", dict(cs.encoder_launches(2, "ptv1"),
+                                     flash_attention=1),
+                          cs.encoder_launches(2, "ptv1"))

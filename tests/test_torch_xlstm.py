@@ -5,8 +5,10 @@ one-chunk fallback) against the reference's and against the recurrent
 oracle, the recurrent step, the group norm, both blocks whole, from a
 carried cache and one step at a time, and the caches' -1e30 stabilizers;
 float32 within 2e-5, bfloat16 within 2e-2 of the output's largest
-magnitude.
+magnitude. And ROADMAP C13: the whole stack at the reference's own init,
+both packages against a float64 run of the port.
 """
+import contextlib
 import functools
 
 import jax
@@ -207,3 +209,49 @@ def test_init_and_cache_match_reference(kind):
     state = c["state"]
     m = state[2] if kind == "mlstm" else state["m"]
     assert m.dtype == torch.float32 and bool((m == -1e30).all())
+
+
+@contextlib.contextmanager
+def _float64_everywhere():
+    """Widen the port's float32 casts (``Tensor.float`` and
+    ``torch.float32``, which the xLSTM blocks take for gates, stabilizers
+    and states) to float64 while open: a float64 run of the same code."""
+    to_float, f32 = torch.Tensor.float, torch.float32
+    torch.Tensor.float, torch.float32 = torch.Tensor.double, torch.float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.float32 = to_float, f32
+
+
+def test_c13_float32_parting_is_rounding_at_the_references_init():
+    """ROADMAP C13: reduced xlstm (8 blocks) at the reference's own init,
+    ten prompts of 64 tokens (seeds 0-9) in one batch, mLSTM chunks of 64.
+    The two packages' float32 logits part by more than 2e-5, and each sits
+    about as far from a float64 run of the port: the port's largest error
+    against it is no larger than the reference's, so the parting is the
+    float32 rounding of an ill-conditioned stack, not the port's error."""
+    from repro.models.model import Model as JModel
+    from repro.models.model import ModelOptions as JOpts
+    from repro_torch import bridge
+    from repro_torch.models.model import Model, ModelOptions
+    jcfg, cfg = cfgs("xlstm")
+    jmodel = JModel(jcfg, JOpts(mlstm_chunk=64))
+    jp = jax.device_get(jmodel.init(jax.random.PRNGKey(0)))
+    toks = np.concatenate([np.random.default_rng(s).integers(
+        0, cfg.vocab_size, (2, 64)) for s in range(10)]).astype(np.int32)
+    want = np.asarray(jax.jit(lambda p, t: jmodel.logits(p, {"tokens": t})[
+        0])(jp, jnp.asarray(toks)))
+    params = bridge.params_from_jax(cfg, jp, device="cpu")
+    got = Model(cfg, ModelOptions(mlstm_chunk=64), device="cpu").logits(
+        params, torch.from_numpy(toks)).numpy()
+    with _float64_everywhere():
+        model64 = Model(cfg, ModelOptions(
+            mlstm_chunk=64, compute_dtype=torch.float64,
+            param_dtype=torch.float64), device="cpu")
+        exact = model64.logits(jax.tree.map(lambda x: x.double(), params),
+                               torch.from_numpy(toks)).numpy()
+    assert exact.dtype == np.float64
+    port_err, ref_err = np.abs(got - exact).max(), np.abs(want - exact).max()
+    assert np.abs(got - want).max() > 2e-5
+    assert port_err <= ref_err, (port_err, ref_err)
