@@ -69,7 +69,11 @@ Phases, each printing one line of results; any failure exits non-zero:
    and one slot's query rows after a prefix-cache hit packed warm (a
    chunk from the page-aligned hit) and cold (runs from 0, 200 and 8
    before the hit), each within the tolerance, the rows not bitwise
-   equal to the warm packing's reported;
+   equal to the warm packing's reported; and the attention softcap
+   (tanh(s / 30) * 30, no kernel takes it) through its plain paths on
+   CUDA tensors (the whole-sequence oracle, attention_chunked, contiguous,
+   paged and ragged decode at smollm's heads) against the same calls on
+   the CPU, float32, within 2e-5;
 4. kernel times at the serving paths' shapes (device time from
    torch.profiler), beside the plain version's, one PyTorch library call's
    where there is one, and the least time the card could take (bytes at
@@ -338,6 +342,23 @@ Phases, each printing one line of results; any failure exits non-zero:
    48 gather-adds for unit-AoT), each by 7c's float32 rule (the backbone
    by its error half), ms and the ratio to the backbone's (Fig. 3,
    reported), then classify through a seeded head by the error rule.
+14. distribution on a one-rank NCCL mesh (1 x 1, ("data", "model"), the
+   group joined at a free local TCP port): 14a smollm-360m at full width
+   (32 layers, bf16), 4 fabricated tasks, a (16, 64) batch of mixed task
+   ids through Model.logits on the kernels, unsharded and then with the
+   parameters, tables and batch laid out by their logical axes under the
+   production rules (the wrappers run on local shards): the largest
+   difference (0 or within 2e-2, bf16) and launches equal to the
+   unsharded call's, 32 flash and 32 fused multi-task gather-adds; 14b the
+   training launcher's --mesh 1x1 run (smollm-360m, float32, AoT fc rank
+   32, 3 steps) against the same run without --mesh: losses and trainable
+   leaves within 2e-5, and whether bitwise; 14e that run's DTensor state
+   saved, restored and laid out again, bitwise; 14c qwen3-moe-30b-a3b's
+   MoE layer (d 2048, 128 experts, top-8, f 768) on 1024 tokens in bf16,
+   apply_moe_ep at M = 1 against apply_moe_gspmd, drop-free (capacity
+   factor 8), within 2e-2, and a finite gradient with respect to x; 14d
+   all_reduce_compressed over NCCL bitwise compress_decompress. Each line
+   carries the card's name and power limit.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -356,6 +377,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -770,6 +792,7 @@ def phase_parity(gen, report):
     parity_stale_nan(gen, report)
     parity_warm_cold(report)
     parity_frontends(gen, report)
+    parity_softcap(gen, report)
 
 
 # ragged and paged parity builds: name -> (hd, data one element off a
@@ -7050,6 +7073,64 @@ FRONT_PATH = {"aot_gather_add_multitask": "front_pali_prefill",
               "aot_gather_add": "front_hubert_aot"}
 
 
+def softcap_cases(dev, gen, cap=30.0):
+    """The plain softcap paths (``tanh(s / cap) * cap`` on the scores; no
+    kernel takes it) at smollm-360m's heads in float32 on ``dev``: the
+    whole-sequence oracle, ``attention_chunked`` over several kv chunks,
+    contiguous, paged and ragged decode. Returns {name: (fn, inputs)}:
+    calling fn on the inputs (or on CPU copies) gives the output."""
+    from repro_torch.models import layers as L
+    g = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    b, s, nb, bs = 2, 96, 16, BS
+    q, k, v = g(b, s, H, HD), g(b, s, KVH, HD), g(b, s, KVH, HD)
+    pages = (g(nb, bs, KVH, HD), g(nb, bs, KVH, HD))
+    tables = torch.arange(1, 1 + 2 * 6, device=dev).reshape(2, 6).to(
+        torch.int32)
+    cur = torch.tensor([37, 90], device=dev, dtype=torch.int32)
+    rows = torch.tensor([0, 1, 1, 0], device=dev, dtype=torch.int32)
+    pos = torch.tensor([36, 88, 89, -1], device=dev, dtype=torch.int32)
+    return {
+        "attention_ref": (lambda q, k, v: L.attention_ref(
+            q, k, v, causal=True, softcap=cap), (q, k, v)),
+        "attention_chunked": (lambda q, k, v: L.attention_chunked(
+            q, k, v, causal=True, softcap=cap, chunk_q=32, chunk_kv=16),
+            (q, k, v)),
+        "attention_decode": (lambda q, k, v, c: L.attention_decode(
+            q, k, v, c, softcap=cap), (q[:, :1], k, v, cur)),
+        "paged_attention_decode": (lambda q, kp, vp, t, c: (
+            L.paged_attention_decode(q, kp, vp, t, c, softcap=cap)),
+            (q[:, :1], *pages, tables, cur)),
+        "ragged_paged_attention_decode": (
+            lambda q, kp, vp, t, r, p: L.ragged_paged_attention_decode(
+                q, kp, vp, t, r, p, softcap=cap),
+            (q[0, :4, None], *pages, tables, rows, pos)),
+    }
+
+
+def softcap_errors(cases):
+    """The largest difference of each case on its device from the same
+    call on CPU copies of its inputs."""
+    out = {}
+    for name, (fn, xs) in cases.items():
+        got = fn(*xs)
+        want = fn(*(x.cpu() for x in xs))
+        out[name] = float((got.cpu() - want).abs().max())
+    return out
+
+
+def parity_softcap(gen, report):
+    """Phase 3's softcap line: the plain paths on CUDA tensors against
+    the CPU, float32, within TOL; no kernel mode exists for it."""
+    errs = softcap_errors(softcap_cases(DEV, gen))
+    report["parity"]["softcap"] = errs
+    bad = {k: e for k, e in errs.items() if not e <= TOL[torch.float32]}
+    log("3 parity", kernel="none (plain softcap paths)", cap=30.0,
+        max_abs_err=max(errs.values()), cases=len(errs),
+        result="cuda vs cpu within 2e-5" if not bad else f"FAIL {bad}")
+    if bad:
+        raise AssertionError(f"softcap on the card vs the CPU: {bad}")
+
+
 def parity_frontends(gen, report):
     """Phase 3 at phase 13's new shapes: flash in full mode at hubert's
     heads (h16 kvh16 hd80, g 1; FLASH_CASES' ``hubert_*``) runs with
@@ -7566,11 +7647,318 @@ def phase_frontends(report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distribution on a one-rank mesh (the NCCL group, DTensors, the
+# kernel wrappers on shards, the sharded train step, expert parallelism,
+# the compressed all-reduce and resharding)
+# ---------------------------------------------------------------------------
+
+DIST_TASKS, DIST_BATCH = 4, (16, 64)
+DIST_TRAIN = ["--arch", "smollm-360m", "--method", "aot", "--aot-mode", "fc",
+              "--rank", "32", "--steps", "3"]
+# qwen3-moe-30b-a3b's MoE layer (d 2048, E 128, top-8, f 768) on 1024 tokens
+DIST_MOE_X = (4, 256)
+
+
+def dist_mesh(dev):
+    """Join a one-rank process group (NCCL on the card, gloo on the CPU)
+    at a free local TCP port, unless one exists; the (1, 1) ("data",
+    "model") mesh on ``dev``."""
+    import socket
+    from repro_torch.launch import mesh as mesh_mod
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    kind = torch.device(dev).type
+    mesh_mod.init_group(0, 1, kind, init_method=f"tcp://127.0.0.1:{port}")
+    return mesh_mod.make_mesh((1, 1), ("data", "model"), kind)
+
+
+def _names(path, leaf):
+    from repro_torch.distrib import axes as axlib
+    return axlib.logical_axes_for(path, tuple(leaf.shape))
+
+
+def _put_batch(x, name, mesh, rules):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distrib import axes as axlib
+    from repro_torch.distrib import sharding as shlib
+    return distribute_tensor(x, mesh, shlib.placements_for(
+        axlib.batch_axes_for(name, x.shape), x.shape, mesh, rules),
+        src_data_rank=None)
+
+
+def sharded_logits(mesh, cfg, dtype, dev, n_tasks=DIST_TASKS,
+                   batch=DIST_BATCH, seed=0):
+    """14a: ``Model.logits`` (the kernels) with ``n_tasks`` fused stacked
+    tables over a batch of mixed task ids, unsharded and then on ``mesh``
+    under the production rules. Returns (max abs difference, the
+    unsharded call's launches, the sharded call's, the logits'
+    placements)."""
+    from repro_torch.checkpoint.reshard import reshard_tree
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, ModelOptions
+    rules = shlib.tp_dp_rules()
+    model = Model(cfg, ModelOptions(dtype, dtype), device=dev)
+    params = model.init(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    tables = torch.empty(cfg.num_layers, n_tasks, cfg.vocab_size,
+                         cfg.d_model, dtype=dtype, device=dev)
+    for layer in range(cfg.num_layers):
+        for task in range(n_tasks):
+            tables[layer, task].normal_(0.0, 0.02, generator=gen)
+    b, s = batch
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    task_ids = (torch.arange(b, device=dev) * 3 % n_tasks).to(torch.int32)
+    opt = peft_mod.PEFTOptions(method="aot", aot=peft_mod.AoTOptions(
+        mode="fused"))
+    bundle = dict(peft_mod.make({"aot": {"table": tables}}, opt),
+                  task_ids=task_ids)
+    with torch.no_grad():
+        ops.reset_launches()
+        ref = model.logits(params, tokens, bundle)
+        _sync(dev)
+        plain = dict(ops.launches())
+        params_s = reshard_tree(params, mesh, rules, _names)
+        tables_s = reshard_tree({"aot": {"table": tables}}, mesh, rules,
+                                _names)["aot"]
+        bundle_s = dict(peft_mod.make({"aot": tables_s}, opt),
+                        task_ids=_put_batch(task_ids, "task_ids", mesh,
+                                            rules))
+        toks = _put_batch(tokens, "tokens", mesh, rules)
+        ops.reset_launches()
+        with shlib.use_rules(mesh, rules):
+            out = model.logits(params_s, toks, bundle_s)
+        _sync(dev)
+        sharded = dict(ops.launches())
+    err = float((out.full_tensor().float() - ref.float()).abs().max())
+    return err, plain, sharded, str(tuple(out.placements))
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sharded_logits_gate(err, tol, plain, sharded, layers, on_card):
+    """14a's failures: the sharded logits further than ``tol`` from the
+    unsharded call's, launches unlike its, or (on the card) not one flash
+    and one fused multi-task gather-add per layer and nothing else."""
+    failures = []
+    if not err <= tol:
+        failures.append(f"sharded logits max err {err:.3e} > {tol}")
+    if sharded != plain:
+        failures.append(f"launches {sharded} != the unsharded {plain}")
+    if on_card:
+        want = {k: 0 for k in plain}
+        want.update(flash_attention=layers, aot_gather_add_multitask=layers)
+        if plain != want:
+            failures.append(f"unsharded launches {plain} != {want}")
+    return failures
+
+
+def train_mesh_vs_plain(mesh_arg, argv, dev, ckpt_dir):
+    """14b: the training launcher's run with ``--mesh mesh_arg`` (this
+    process as rank 0 of the group it is in) and the same run without a
+    mesh, every step logged. Returns {"mesh" / "plain": (losses, trainable
+    leaves gathered whole, the state)}."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.checkpoint.reshard import gather_tree
+    from repro_torch.launch import train as tl
+    runs = {}
+    for label in ("plain", "mesh"):
+        args = tl.parser().parse_args(
+            argv + ["--device", dev, "--ckpt-dir", f"{ckpt_dir}/{label}"]
+            + (["--mesh", mesh_arg] if label == "mesh" else []))
+        if label == "mesh":
+            trainer, loop = tl.run_mesh(args, 0, 1, log_every=1)
+        else:
+            trainer = tl.build(args)
+            loop = tl.train(trainer, args, log_every=1, ckpt=CheckpointManager(
+                f"{args.ckpt_dir}/{args.arch}", keep=2))
+        _sync(dev)
+        runs[label] = ([h["loss"] for h in loop.history],
+                       gather_tree(trainer.state["trainable"]), trainer.state)
+    return runs
+
+
+def train_gate(runs, tol=2e-5):
+    """14b: (max difference over losses and trainable leaves, whether all
+    are bitwise equal, failures)."""
+    (la, ta, _), (lb, tb, _) = runs["mesh"], runs["plain"]
+    failures = []
+    if len(la) != len(lb) or not la:
+        return float("inf"), False, [f"losses {la} vs {lb}"]
+    err = max(max(abs(a - b) for a, b in zip(la, lb)), max_leaf_diff(ta, tb))
+    bitwise = la == lb and not tree_bits_equal(ta, tb)
+    if not err <= tol:
+        failures.append(f"mesh vs plain max err {err:.3e} > {tol}")
+    return err, bitwise, failures
+
+
+def ep_vs_gspmd(mesh, cfg, dtype, dev, x_shape=DIST_MOE_X, seed=0):
+    """14c: ``apply_moe_ep`` on ``mesh`` (M = the model axis) against
+    ``apply_moe_gspmd`` under the same rules, on seeded parameters and
+    inputs; then the gradient of the EP output's sum with respect to x.
+    Returns (max abs difference, whether the outputs agree by the repo's
+    rule for ``dtype``, allclose with atol = rtol = TOL, the largest
+    output magnitude, whether the gradient is finite, the dropped
+    fractions of both)."""
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.models import moe as moe_mod
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = moe_mod.moe_init(cfg, gen, dev, dtype)
+    x = torch.randn(*x_shape, cfg.d_model, generator=gen, device=dev).to(dtype)
+    with shlib.use_rules(mesh, shlib.tp_dp_rules()):
+        with torch.no_grad():
+            ref, aux_ref = moe_mod.apply_moe_gspmd(cfg, p, x, dtype)
+        xg = x.clone().requires_grad_(True)
+        out, aux = moe_mod.apply_moe_ep(cfg, p, xg, dtype)
+        out.float().sum().backward()
+    _sync(dev)
+    a, b = out.detach().float(), ref.float()
+    tol = TOL[dtype]
+    return (float((a - b).abs().max()),
+            bool(torch.allclose(a, b, atol=tol, rtol=tol)),
+            float(b.abs().max()), bool(torch.isfinite(xg.grad).all()),
+            float(aux["moe_dropped_frac"]), float(aux_ref["moe_dropped_frac"]))
+
+
+def ep_gate(err, close, finite, dropped):
+    """14c's failures: outputs apart by the repo's rule, a gradient that
+    is not finite, or any drop at capacity factor 8."""
+    failures = []
+    if not close:
+        failures.append(f"EP vs gather path apart (max err {err:.3e})")
+    if not finite:
+        failures.append("the gradient with respect to x is not finite")
+    if dropped != (0.0, 0.0):
+        failures.append(f"drops {dropped} at capacity factor 8")
+    return failures
+
+
+def compressed_vs_rounding(dev, seed=0):
+    """14d: ``all_reduce_compressed`` over the group (world 1) against
+    ``compress_decompress``: (the mean and error leaves that are not
+    bitwise equal to the rounding's, as names)."""
+    from repro_torch.optim import compression as comp
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = {"w": torch.randn(1024, 960, generator=gen, device=dev),
+             "b": torch.randn(7, generator=gen, device=dev)}
+    err = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3
+           for k, v in grads.items()}
+    mean, new_err = comp.all_reduce_compressed(grads, err)
+    _sync(dev)
+    bad = []
+    for k in grads:
+        q, e = comp.compress_decompress(grads[k], err[k])
+        if not torch.equal(mean[k], q):
+            bad.append(f"mean[{k}]")
+        if not torch.equal(new_err[k], e):
+            bad.append(f"error[{k}]")
+    return bad
+
+
+def reshard_round_trip(state, mesh, ckpt_dir):
+    """14e: a DTensor state saved (whole leaves), restored and laid out
+    on ``mesh`` again; the leaves not bitwise equal to the saved state's
+    (empty: all equal)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.checkpoint.reshard import gather_tree, reshard_tree
+    from repro_torch.distrib import sharding as shlib
+    mgr = CheckpointManager(ckpt_dir, async_save=False)
+    mgr.save(1, state)
+    restored, _ = mgr.restore(state)
+    again = reshard_tree(restored, mesh, shlib.tp_dp_rules(), _names)
+    return tree_bits_equal(gather_tree(state), gather_tree(again))
+
+
+def phase_distrib(report):
+    """Phase 14 (14a-14e) on a one-rank NCCL mesh, the group destroyed
+    after; returns the launches of 14a's sharded call by path."""
+    import torch.distributed as dist
+    mesh = dist_mesh(DEV)
+    try:
+        return distrib_parts(report, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def distrib_parts(report, mesh):
+    """Phase 14's parts on ``mesh``."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    out, failures = {"card": smi()}, []
+    cfg = configs.get("smollm-360m")
+    err, plain, sharded, placed = sharded_logits(mesh, cfg, torch.bfloat16,
+                                                 DEV)
+    failures += sharded_logits_gate(err, TOL[torch.bfloat16], plain, sharded,
+                                    cfg.num_layers, on_card=True)
+    out["14a"] = {"max_abs_err": err, "tol": TOL[torch.bfloat16],
+                  "launches": sharded, "placements": placed}
+    log("14a sharded logits", arch="smollm-360m", layers=cfg.num_layers,
+        tasks=DIST_TASKS, batch="x".join(map(str, DIST_BATCH)), dtype="bf16",
+        max_abs_err=f"{err:.3e}", launches=sharded, card=out["card"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = LIFECYCLE_DIR / "distrib"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        runs = train_mesh_vs_plain("1x1", DIST_TRAIN, DEV, tmp)
+        terr, bitwise, fails = train_gate(runs)
+        failures += fails
+        out["14b"] = {"max_abs_err": terr, "bitwise": bitwise,
+                      "losses": runs["mesh"][0]}
+        log("14b sharded train step", arch="smollm-360m", dtype="f32",
+            steps=3, losses=[f"{x:.6f}" for x in runs["mesh"][0]],
+            max_abs_err=f"{terr:.3e}", bitwise=bitwise, card=out["card"])
+        bad = reshard_round_trip(runs["mesh"][2], mesh, f"{tmp}/reshard")
+        if bad:
+            failures.append(f"reshard round trip: leaves {bad} differ")
+        out["14e"] = {"bitwise": not bad}
+        del runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = configs.get("qwen3-moe-30b-a3b")
+    mcfg = mcfg.replace(moe=dataclasses.replace(mcfg.moe,
+                                                capacity_factor=8.0))
+    eerr, close, scale, finite, *dropped = ep_vs_gspmd(
+        mesh, mcfg, torch.bfloat16, DEV)
+    failures += ep_gate(eerr, close, finite, tuple(dropped))
+    out["14c"] = {"max_abs_err": eerr, "allclose": close,
+                  "max_abs_out": scale, "grad_finite": finite}
+    log("14c expert parallelism", arch="qwen3-moe-30b-a3b", d=mcfg.d_model,
+        experts=mcfg.moe.num_experts, top_k=mcfg.moe.top_k,
+        tokens=DIST_MOE_X[0] * DIST_MOE_X[1], dtype="bf16",
+        max_abs_err=f"{eerr:.3e}", max_abs_out=f"{scale:.3e}",
+        allclose_2e2=close, grad_finite=finite, card=out["card"])
+    bad = compressed_vs_rounding(DEV)
+    if bad:
+        failures.append(f"compressed all-reduce: {bad} not bitwise")
+    out["14d"] = {"bitwise": not bad}
+    out["seconds"] = time.perf_counter() - t0
+    report["distrib"] = out
+    log("14 distrib", reshard_bitwise=out["14e"]["bitwise"],
+        compressed_bitwise=not bad, seconds=f"{out['seconds']:.1f}",
+        card=out["card"])
+    if failures:
+        raise AssertionError(f"phase 14 failed: {failures}")
+    return {"sharded_logits": sharded}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the build and parity phases (a first "
                          "check of new kernel code; prints no result)")
+    ap.add_argument("--phase14", action="store_true",
+                    help="the build, parity and phase 14 alone (a first "
+                         "check of the distribution code; prints no result)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: no CUDA device", file=sys.stderr)
@@ -7591,6 +7979,9 @@ def main() -> int:
     phase_parity(gen, report)
     if args.quick:
         print("[quick] stopped after parity; no result")
+        return 0
+    if args.phase14:
+        print(f"[phase14] launches {phase_distrib(report)}; no result")
         return 0
     kernels = phase_times(gen, report)
     engine, setup_s = build_engine()
@@ -7624,6 +8015,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_frontends(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_distrib(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]

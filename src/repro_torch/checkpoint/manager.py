@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as T
 
@@ -36,7 +37,11 @@ BF16_RAW = np.dtype("V2")           # how numpy saves a bfloat16 leaf
 
 def _host(x) -> np.ndarray:
     """A host numpy copy of one leaf (never a view of ``x``: a later
-    in-place update must not change what is written)."""
+    in-place update must not change what is written). A DTensor leaf is
+    written whole (``full_tensor``, a collective over its mesh), so a
+    checkpoint has the reference's format whatever mesh wrote it."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         if x.device.type == "meta":
             raise ValueError("cannot save a meta tensor (it holds no data)")
@@ -82,9 +87,15 @@ def _restore_leaf(arr: np.ndarray, like, device):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    """``writer``: whether this process writes. Under a mesh every rank
+    calls :meth:`save` (gathering a DTensor leaf is a collective) and one
+    rank, made with ``writer=True``, writes."""
+
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
+                 writer: bool = True):
         self.dir = directory
         self.keep = keep
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
@@ -143,6 +154,8 @@ class CheckpointManager:
         write is raised here."""
         self._raise_pending()
         arrays, structure = _flatten(tree)
+        if not self.writer:
+            return
         if self._async:
             self._q.put((step, arrays, structure, extra or {}))
         else:

@@ -80,6 +80,40 @@ def aot_gather_add_multitask_plain(h, tables, task_ids, ids, *, norm=None):
     return _with_norm(h + rows.to(h.dtype), norm)
 
 
+def sharded_rows(table, task_ids, ids):
+    """The rows ``table[ids]`` (or ``tables[task_ids, ids]``, a 3-d
+    table) of a DTensor table whose task, vocab or embed dims are sharded,
+    for plain index tensors ``task_ids`` (None for one table) / ``ids``
+    (T,) that every rank holds alike: a DTensor (T, d) in the table's
+    dtype. Each rank takes the rows its vocab (and task) shard holds, in
+    its embed slice, and zeros for the rest: a partial sum over the mesh
+    dims that shard the rows (exact, one non-zero term per element), an
+    embed shard over the one that shards d. Only these T rows move, never
+    the table. Indices follow the multi-task gather's rule (wrap once,
+    clamp); the single-table rule's NaN rows are the caller's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distrib.sharding import from_local, shard_range
+    mesh, lead = table.device_mesh, table.dim() - 2
+    vocab, d = table.shape[-2], table.shape[-1]
+    v = gather_index(ids, vocab)
+    v_off, v_len = shard_range(table.placements, mesh, lead, vocab)
+    mine = (v >= v_off) & (v < v_off + v_len)
+    at = [(v - v_off).clamp(0, v_len - 1)]
+    if lead:
+        n_tasks = table.shape[0]
+        t = gather_index(task_ids, n_tasks)
+        t_off, t_len = shard_range(table.placements, mesh, 0, n_tasks)
+        mine &= (t >= t_off) & (t < t_off + t_len)
+        at.insert(0, (t - t_off).clamp(0, t_len - 1))
+    local = table.to_local()[tuple(at)]                   # (T, d_local)
+    local = torch.where(mine[:, None], local, local.new_zeros(()))
+    placements = [Shard(1) if p.is_shard(lead + 1) else
+                  Partial() if p.is_shard() else Replicate()
+                  for p in table.placements]
+    return from_local(local, mesh, placements, (ids.shape[0], d))
+
+
 _FNS = {}
 _ARGTYPES = {
     "aot_gather_add": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -62,6 +62,17 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None,
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def kv_span(q_off: int, q_len: int, g: int):
+    """The KV heads ``[lo, hi)`` that query heads ``[q_off, q_off +
+    q_len)`` read (query head j reads KV head ``j // g``), or None when
+    that shard's heads do not map onto a contiguous KV span with one group
+    size (a shard of whole groups, or a part of one group)."""
+    lo, hi = q_off // g, (q_off + q_len - 1) // g + 1
+    if (q_off % g == 0 and q_len % g == 0) or hi - lo == 1:
+        return lo, hi
+    return None
+
+
 def _mask_bias(q_pos, kv_pos, *, causal, window, prefix_len,
                kv_valid_len=None):
     """(q, kv) additive float32 mask: 0 where query position i sees kv
@@ -87,23 +98,30 @@ def _mask_bias(q_pos, kv_pos, *, causal, window, prefix_len,
     return torch.where(ok, 0.0, NEG_INF)
 
 
-def _sdpa_block(q5, k, v, bias):
+def _softcap(s, softcap: float):
+    """Scores capped smoothly at +-``softcap``: ``tanh(s / softcap) *
+    softcap`` (Gemma 2's); ``s`` itself for 0."""
+    return torch.tanh(s / softcap) * softcap if softcap else s
+
+
+def _sdpa_block(q5, k, v, bias, softcap: float = 0.0):
     """q5: (b, qc, KV, G, hd); k / v: (b, kc, KV, hd); bias: (qc, kc) ->
     (b, qc, KV, G, hd): softmax over the whole block, scores taken in the
-    input dtype, softmax in float32 (the reference's ``_sdpa_block``)."""
+    input dtype, capped by ``softcap`` (:func:`_softcap`), softmax in
+    float32 (the reference's ``_sdpa_block``)."""
     s = torch.einsum("bqkgh,bskh->bkgqs", q5, k).float() / math.sqrt(
         q5.shape[-1])
-    p = torch.softmax(s + bias, dim=-1)
+    p = torch.softmax(_softcap(s, softcap) + bias, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
 
 
-def _scan_step(carry_m, carry_l, acc, q5, kc, vc, bias):
+def _scan_step(carry_m, carry_l, acc, q5, kc, vc, bias, softcap=0.0):
     """One kv chunk of the online softmax: the running max ``carry_m``,
     sum ``carry_l`` (b, KV, G, qc) and float32 accumulator ``acc`` (b, KV,
     G, qc, hd) after the chunk ``kc`` / ``vc`` (b, ckv, KV, hd) under
-    ``bias`` (qc, ckv)."""
-    s = torch.einsum("bqkgh,bskh->bkgqs", q5, kc).float() / math.sqrt(
-        q5.shape[-1]) + bias
+    ``bias`` (qc, ckv), the scores capped by ``softcap``."""
+    s = _softcap(torch.einsum("bqkgh,bskh->bkgqs", q5, kc).float()
+                 / math.sqrt(q5.shape[-1]), softcap) + bias
     m_new = torch.maximum(carry_m, s.amax(dim=-1))
     p = torch.exp(s - m_new[..., None])
     corr = torch.exp(carry_m - m_new)
@@ -114,7 +132,7 @@ def _scan_step(carry_m, carry_l, acc, q5, kc, vc, bias):
 
 
 def _online_chunk_scan(q5, k_r, v_r, q_pos, kv_start, chunk_kv, *, causal,
-                       window, prefix_len, kv_valid_len):
+                       window, prefix_len, kv_valid_len, softcap=0.0):
     """The online-softmax scan over the kv chunks of ``k_r`` / ``v_r`` (b,
     L, KV, hd), L a multiple of ``chunk_kv``, for one q chunk q5 (b, qc,
     KV, G, hd) at positions ``q_pos``; the chunks start at kv position
@@ -135,7 +153,7 @@ def _online_chunk_scan(q5, k_r, v_r, q_pos, kv_start, chunk_kv, *, causal,
         bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
                           prefix_len=prefix_len, kv_valid_len=kv_valid_len)
         args = (m, l, acc, q5, k_r[:, lo:lo + chunk_kv],
-                v_r[:, lo:lo + chunk_kv], bias)
+                v_r[:, lo:lo + chunk_kv], bias, softcap)
         m, l, acc = (checkpoint(_scan_step, *args, use_reentrant=False)
                      if remat else _scan_step(*args))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
@@ -144,7 +162,7 @@ def _online_chunk_scan(q5, k_r, v_r, q_pos, kv_start, chunk_kv, *, causal,
 
 def attention_chunked(q, k, v, *, causal, window=0, prefix_len=0,
                       chunk_q=1024, chunk_kv=1024, q_offset=0,
-                      kv_valid_len=None):
+                      kv_valid_len=None, softcap=0.0):
     """Blockwise attention with static causal / window block skipping, the
     reference's ``attention_chunked`` (its default ``attn_impl``, and where
     its kernel wrapper sends ``prefix_len``). q: (b, sq, H, hd); k / v:
@@ -158,7 +176,8 @@ def attention_chunked(q, k, v, *, causal, window=0, prefix_len=0,
     padded to a whole number of chunks with a tail masked by
     ``kv_valid_len``. A range of at most two kv chunks is one masked block
     (:func:`_sdpa_block`); a longer one runs :func:`_online_chunk_scan`.
-    Differentiable; no softcap (not ported)."""
+    Scores are capped by ``softcap`` (0: none), as the reference's.
+    Differentiable."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -196,11 +215,12 @@ def attention_chunked(q, k, v, *, causal, window=0, prefix_len=0,
             kv_pos = lo_kv + torch.arange(k_r.shape[1], device=dev)
             bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
                               prefix_len=prefix_len, kv_valid_len=valid)
-            o = _sdpa_block(qc, k_r, v_r, bias)
+            o = _sdpa_block(qc, k_r, v_r, bias, softcap)
         else:
             o = _online_chunk_scan(qc, k_r, v_r, q_pos, lo_kv, ckv,
                                    causal=causal, window=window,
-                                   prefix_len=prefix_len, kv_valid_len=valid)
+                                   prefix_len=prefix_len, kv_valid_len=valid,
+                                   softcap=softcap)
         outs.append(o.reshape(b, hi_q - lo_q, h, hd))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 

@@ -23,10 +23,30 @@ first, bit for bit the run that was never stopped. Runs on the card unless
     # stop after 20 steps, then resume to 30 in another process
     PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir D --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --ckpt-dir D --steps 30
+    # a (data 2, model 4) mesh: 8 local gloo ranks on the CPU, spawned here
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --reduced --steps 2 --mesh 2x4
+    # under torchrun (RANK / WORLD_SIZE set): one NCCL rank per GPU
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --mesh 2x2
+
+With ``--mesh DxM`` the trainable state and the frozen tree are laid out
+on a (data D, model M) mesh by their logical axes (``distrib.axes``,
+``distrib.sharding.tp_dp_rules``), each batch by its batch axes, and the
+step runs under those rules; gradients are reduced over the data axis
+where the parameters are replicated. Rank 0 logs and writes the
+checkpoints, whole leaves in the reference's format, so a run resumes on
+any mesh or none. Without ``RANK`` / ``WORLD_SIZE`` in the environment
+the launcher spawns the D * M local ranks itself.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import socket
+import subprocess
+import sys
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -35,9 +55,14 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.reshard import reshard_tree
 from repro_torch.core import aot as aot_mod
 from repro_torch.core import peft as peft_mod
 from repro_torch.data.pipeline import LMStream
+from repro_torch.device import resolve_device
+from repro_torch.distrib import axes as axlib
+from repro_torch.distrib import sharding as shlib
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.model import Model, ModelOptions
 from repro_torch.train.loop import TrainLoop
 from repro_torch.train.step import TrainConfig, make_train_step, split_train
@@ -46,10 +71,7 @@ METHODS = ("aot", "bitfit", "lora", "adapters", "ptv1", "ptv2", "ft")
 
 
 def parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="Not ported yet (ROADMAP A16): the reference's --mesh (a "
-               "data x model device mesh).")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--method", default="aot", choices=METHODS)
     ap.add_argument("--aot-mode", default="fc", choices=["fc", "kron"])
@@ -64,6 +86,9 @@ def parser() -> argparse.ArgumentParser:
                     help="checkpoints go to (and resume from) DIR/<arch>")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu to run there)")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 2x4 => (data=2, model=4) ranks: NCCL, one GPU "
+                         "each, or gloo with --device cpu; empty = no mesh")
     return ap
 
 
@@ -143,35 +168,140 @@ class FrontEndStream:
         return batch
 
 
+def _names(path, leaf):
+    return axlib.logical_axes_for(path, tuple(leaf.shape))
+
+
+def sharded_step(train_step, mesh, rules):
+    """``train_step`` on ``mesh``: each batch entry laid out by its batch
+    axes (every rank holds the whole batch and keeps its shard), the step
+    run under ``rules``, its metrics gathered whole."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def step(state, frozen, batch, rng):
+        batch = {k: distribute_tensor(
+            v, mesh, shlib.placements_for(axlib.batch_axes_for(k, v.shape),
+                                          v.shape, mesh, rules),
+            src_data_rank=None) for k, v in batch.items()}
+        with shlib.use_rules(mesh, rules):
+            state, metrics = train_step(state, frozen, batch, rng)
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+    return step
+
+
 def train(trainer: Trainer, args, log_every: int = 10,
-          ckpt: Optional[CheckpointManager] = None) -> TrainLoop:
+          ckpt: Optional[CheckpointManager] = None, mesh=None,
+          rules=None) -> TrainLoop:
     """``--steps`` steps on :func:`lm_stream`; the trained state lands in
     ``trainer.state``. With ``ckpt``, the newest checkpoint there is
     resumed first and the run saves every ``max(20, steps // 5)`` steps
-    and at its last. Returns the loop (its ``history`` and ``events``)."""
+    and at its last. With ``mesh`` and ``rules``, the state and the frozen
+    tree are laid out on the mesh by their logical axes (a resumed state
+    too) and every step runs there (:func:`sharded_step`). Returns the
+    loop (its ``history`` and ``events``)."""
     cfg = trainer.model.cfg
     stream = lm_stream(args, cfg.vocab_size)
     if cfg.frontend:
         stream = FrontEndStream(stream, cfg)
-    loop = TrainLoop(train_step=trainer.train_step, frozen=trainer.frozen,
-                     stream=stream, ckpt=ckpt,
-                     ckpt_every=max(20, args.steps // 5),
+    step, frozen = trainer.train_step, trainer.frozen
+    if mesh is not None:
+        step = sharded_step(step, mesh, rules)
+        frozen = reshard_tree(frozen, mesh, rules, _names)
+    loop = TrainLoop(train_step=step, frozen=frozen, stream=stream,
+                     ckpt=ckpt, ckpt_every=max(20, args.steps // 5),
                      log_every=log_every, device=args.device)
     state, start = loop.resume(trainer.state)
+    if mesh is not None:
+        state = reshard_tree(state, mesh, rules, _names)
     trainer.state = loop.run(state, args.steps, start_step=start)
     return loop
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv: List[str], world: int, timeout_s: float = 3600.0
+                ) -> int:
+    """Run this launcher with ``argv`` as ``world`` local ranks (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT`` on a free local
+    port), wait for all, and return the first non-zero exit code (0 when
+    all succeed). A rank that fails ends the others; so does
+    ``timeout_s``."""
+    src = os.path.dirname(os.path.dirname(os.path.abspath(configs.__file__)))
+    path = os.pathsep.join(p for p in (src, os.environ.get("PYTHONPATH"))
+                           if p)
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), PYTHONPATH=path)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r))) for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    rc = 0
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs if p.returncode]
+            if bad or time.monotonic() > deadline:
+                rc = bad[0] if bad else 124
+                break
+            time.sleep(0.1)
+        rc = rc or next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return rc
+
+
+def run_mesh(args, rank: int, world: int, log_every: int = 10):
+    """This rank's share of a ``--mesh`` run: join the process group
+    (NCCL on CUDA, gloo with ``--device cpu``; an initialised group is
+    kept), build the trainer on this rank's device, and train it on the
+    mesh. Rank 0 logs and writes the checkpoints. Returns (trainer,
+    loop)."""
+    shape, axes = mesh_mod.parse_mesh(args.mesh)
+    if world != int(np.prod(shape)):
+        raise SystemExit(f"--mesh {args.mesh} needs {int(np.prod(shape))} "
+                         f"ranks; WORLD_SIZE is {world}")
+    dev = mesh_mod.init_group(rank, world, args.device)
+    args.device = str(dev)
+    trainer = build(args)
+    mesh = mesh_mod.make_mesh(shape, axes, dev.type)
+    ckpt = CheckpointManager(f"{args.ckpt_dir}/{args.arch}", keep=2,
+                             writer=rank == 0)
+    loop = train(trainer, args, log_every=log_every, ckpt=ckpt, mesh=mesh,
+                 rules=shlib.tp_dp_rules())
+    if rank == 0:
+        _report(loop)
+    return trainer, loop
+
+
+def _report(loop: TrainLoop) -> None:
+    for h in loop.history[-3:]:
+        print({k: round(v, 4) if isinstance(v, float) else v
+               for k, v in h.items()})
+    print("events:", loop.events)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parser().parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 as float32
+    if args.mesh:
+        shape, _ = mesh_mod.parse_mesh(args.mesh)
+        resolve_device(args.device)     # refuses a missing card up front
+        ranked = mesh_mod.env_rank()
+        if ranked is None:
+            return spawn_ranks(sys.argv[1:] if argv is None else list(argv),
+                               int(np.prod(shape)))
+        run_mesh(args, *ranked)
+        return 0
     trainer = build(args)           # refuses a missing card before any file
     ckpt = CheckpointManager(f"{args.ckpt_dir}/{args.arch}", keep=2)
-    loop = train(trainer, args, ckpt=ckpt)
-    for h in loop.history[-3:]:
-        print({k: round(v, 4) if isinstance(v, float) else v
-               for k, v in h.items()})
-    print("events:", loop.events)
+    _report(train(trainer, args, ckpt=ckpt))
     return 0
 
 

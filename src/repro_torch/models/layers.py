@@ -9,7 +9,8 @@ Counterparts of the functions of the same names in
 ``x @ w``. Matmuls run in the compute dtype; norm statistics and softmax in
 float32. The port covers what its decoders and the paper's encoders use:
 RMSNorm, LayerNorm and the non-parametric norm, SwiGLU, GeGLU and the GELU
-MLP, RoPE, the QKV bias, qwen3's per-head q/k RMSNorm; no softcap.
+MLP, RoPE, the QKV bias, qwen3's per-head q/k RMSNorm, and the attention
+softcap on every XLA attention path (``tanh(s / softcap) * softcap``).
 """
 from __future__ import annotations
 
@@ -18,11 +19,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distrib.sharding import constrain
 from repro_torch.kernels.aot_bias import rms_norm_plain
 from repro_torch.kernels.decode_attention import (
     NEG_INF, ragged_paged_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: F401 (re-exported)
-    _mask_bias, _online_chunk_scan, _sdpa_block, attention_chunked)
+    _mask_bias, _online_chunk_scan, _sdpa_block, _softcap, attention_chunked)
 
 
 def _trunc_normal(shape, std, generator, device, dtype):
@@ -157,15 +159,18 @@ def apply_mlp(cfg, p, x, dtype):
     default)."""
     x = x.to(dtype)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = x @ p["wg"].to(dtype)
-        u = x @ p["wu"].to(dtype)
+        g = constrain(x @ p["wg"].to(dtype), "batch", "seq", "mlp")
+        u = constrain(x @ p["wu"].to(dtype), "batch", "seq", "mlp")
         act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(
             g, approximate="tanh")
-        return (act * u) @ p["wd"].to(dtype)
+        return constrain((act * u) @ p["wd"].to(dtype), "batch", "seq",
+                         "embed")
     if cfg.mlp_type == "gelu":
-        z = F.gelu(x @ p["w1"].to(dtype) + p["b1"].to(dtype),
-                   approximate="tanh")
-        return z @ p["w2"].to(dtype) + p["b2"].to(dtype)
+        z = constrain(x @ p["w1"].to(dtype) + p["b1"].to(dtype), "batch",
+                      "seq", "mlp")
+        z = F.gelu(z, approximate="tanh")
+        return constrain(z @ p["w2"].to(dtype) + p["b2"].to(dtype), "batch",
+                         "seq", "embed")
     raise NotImplementedError(f"mlp {cfg.mlp_type!r} is not ported")
 
 
@@ -221,7 +226,9 @@ def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None,
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, sincos)
         k = apply_rope(k, positions, cfg.rope_theta, sincos)
-    return q, k, v
+    return (constrain(q, "batch", "seq", "heads", "head_dim"),
+            constrain(k, "batch", "seq", "kv_heads", "head_dim"),
+            constrain(v, "batch", "seq", "kv_heads", "head_dim"))
 
 
 def attn_output(cfg, p, o, dtype, peft_bias=None):
@@ -231,24 +238,26 @@ def attn_output(cfg, p, o, dtype, peft_bias=None):
     out = o.reshape(b, s, h * hd).to(dtype) @ p["wo"].to(dtype)
     if peft_bias is not None:
         out = out + peft_bias.to(dtype)
-    return out
+    return constrain(out, "batch", "seq", "embed")
 
 
-def attention_ref(q, k, v, *, causal, window=0, q_offset=0, prefix_len=0):
+def attention_ref(q, k, v, *, causal, window=0, q_offset=0, prefix_len=0,
+                  softcap=0.0):
     """Oracle attention, differentiable (the training path's). q: (b, sq,
     H, hd); k / v: (b, skv, KV, hd); query row r sits at position
     ``q_offset + r`` and sees the kv positions :func:`_mask_bias` admits.
-    Scores in the input dtype, softmax in float32, as the reference."""
+    Scores in the input dtype, capped by ``softcap``, softmax in float32,
+    as the reference."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     bias = _mask_bias(q_offset + torch.arange(sq, device=q.device),
                       torch.arange(skv, device=q.device), causal=causal,
                       window=window, prefix_len=prefix_len)
-    o = _sdpa_block(q.reshape(b, sq, kvh, h // kvh, hd), k, v, bias)
+    o = _sdpa_block(q.reshape(b, sq, kvh, h // kvh, hd), k, v, bias, softcap)
     return o.reshape(b, sq, h, hd)
 
 
-def attention_decode(q, k_cache, v_cache, cur_len, *, window=0):
+def attention_decode(q, k_cache, v_cache, cur_len, *, window=0, softcap=0.0):
     """Single-token decode attention against a contiguous cache.
 
     q: (b, 1, H, hd); caches: (b, S, KV, hd); cur_len: scalar — the number
@@ -259,6 +268,7 @@ def attention_decode(q, k_cache, v_cache, cur_len, *, window=0):
     S, kvh = k_cache.shape[1], k_cache.shape[2]
     q5 = q.reshape(b, 1, kvh, h // kvh, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", q5, k_cache).float() / math.sqrt(hd)
+    s = _softcap(s, softcap)
     pos = torch.arange(S, device=q.device)
     cl = torch.as_tensor(cur_len, device=q.device).expand(b)
     ok = pos[None, :] < cl[:, None]
@@ -274,30 +284,39 @@ def attention_decode(q, k_cache, v_cache, cur_len, *, window=0):
     return out.reshape(b, 1, h, hd)
 
 
-def paged_attention_decode(q, k_pages, v_pages, block_tables, cur_len):
+def paged_attention_decode(q, k_pages, v_pages, block_tables, cur_len, *,
+                           softcap=0.0):
     """Single-token decode attention against a paged KV pool.
 
     q: (b, 1, H, hd); pages: (num_blocks, block_size, KV, hd);
     block_tables: (b, npages) (unmapped entries point at page 0 and sit past
     cur_len); cur_len: (b,). Gathers each row's pages contiguous, then
-    :func:`attention_decode`."""
+    :func:`attention_decode` (scores capped by ``softcap``)."""
     b = q.shape[0]
     kvh, hd = k_pages.shape[2], k_pages.shape[3]
     bt = block_tables.long()
     k = k_pages[bt].reshape(b, -1, kvh, hd)
     v = v_pages[bt].reshape(b, -1, kvh, hd)
-    return attention_decode(q, k, v, cur_len)
+    return attention_decode(q, k, v, cur_len, softcap=softcap)
 
 
 def ragged_paged_attention_decode(q, k_pages, v_pages, block_tables,
-                                  token_rows, token_pos):
+                                  token_rows, token_pos, *, softcap=0.0):
     """The plain packed ragged attention in the reference's layout.
 
     q: (T, 1, H, hd) — the tick's packed tokens; k_pages / v_pages:
     (num_blocks, block_size, KV, hd) with the step's KV already written;
     block_tables: (num_slots, npages); token_rows / token_pos: (T,) — each
     token's slot and absolute position (-1 = dead token, output zeros).
+    With ``softcap`` the reference's own walk: each token's slot pages
+    gathered, :func:`attention_decode` with ``token_pos + 1`` visible
+    positions and capped scores, dead rows zeroed.
     """
+    if softcap:
+        bt = block_tables.long()[token_rows.long()]
+        out = paged_attention_decode(q, k_pages, v_pages, bt,
+                                     token_pos.long() + 1, softcap=softcap)
+        return torch.where((token_pos >= 0)[:, None, None, None], out, 0.0)
     return ragged_paged_attention_plain(q[:, 0], k_pages, v_pages,
                                         block_tables, token_rows,
                                         token_pos)[:, None]

@@ -72,6 +72,7 @@ from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MLSTM, BLOCK_RGLRU,
 from repro_torch.core import aot as aot_mod
 from repro_torch.core.peft import lora_scale
 from repro_torch.device import resolve_device
+from repro_torch.distrib.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -120,7 +121,8 @@ def check_supported(cfg: ArchConfig) -> None:
     layers, RoPE, learned or no positions (embeddings scaled by sqrt(d) or
     not), an optional QKV bias and q/k norm, causal (full or
     sliding-window, with or without a bidirectional prefix) or an
-    encoder's full attention; token ids, with or without vision patches
+    encoder's full attention, with or without a softcap on the scores
+    (plain attention only, as the reference routes it); token ids, with or without vision patches
     over the first positions, or audio frames (no token table, so an
     untied head)."""
     bad = []
@@ -150,8 +152,6 @@ def check_supported(cfg: ArchConfig) -> None:
         bad.append(f"mlp {cfg.mlp_type!r} (d_ff {cfg.d_ff})")
     if cfg.pos_type not in ("rope", "learned", "none"):
         bad.append(f"positions {cfg.pos_type!r}")
-    if cfg.logit_softcap:
-        bad.append(f"attention softcap {cfg.logit_softcap}")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
@@ -473,8 +473,10 @@ class Model:
         return params["lm_head"]["w"].to(dt)
 
     def unembed(self, params, h):
-        """h @ :meth:`head_weight` in the compute dtype."""
-        return h.to(self.opts.compute_dtype) @ self.head_weight(params)
+        """h @ :meth:`head_weight` in the compute dtype (under a mesh, vocab
+        takes the model axis)."""
+        logits = h.to(self.opts.compute_dtype) @ self.head_weight(params)
+        return constrain(logits, "batch", None, "vocab")
 
     # ------------------------------------------------------------------
     # PEFT: the per-layer hooks of every entry point (the reference's
@@ -820,6 +822,7 @@ class Model:
         elif cfg.pos_type == "rope":
             sincos = L.rope_sincos(torch.arange(p1 + s, device=h.device),
                                    cfg.head_dim, cfg.rope_theta)
+        h = constrain(h, "batch", "seq", "embed")
         aot = None
         if method == "aot":     # each row's task over its s tokens, flat
             if ids is None:
@@ -832,6 +835,8 @@ class Model:
                    self._layer_generators(rng))
         impl = self.opts.attn_impl
         kw = dict(causal=cfg.causal, window=self.window(), q_offset=p)
+        if cfg.logit_softcap:           # the kernel path: attention_chunked
+            kw["softcap"] = cfg.logit_softcap
         if cfg.prefix_lm_len or p1:     # the reference's arithmetic
             kw["prefix_len"] = cfg.prefix_lm_len + p1 + p
         for i, lp in enumerate(params["layers"]):
@@ -842,6 +847,7 @@ class Model:
                     None if cache is None else cache["layers"][i])
                 if cache is not None:
                     cache["layers"][i] = new
+                h = constrain(h, "batch", "seq", "embed")
                 continue
 
             def attend(q, k, v, i=i):
@@ -864,6 +870,7 @@ class Model:
                         chunk_kv=self.opts.chunk_kv, **kw)
                 return ops.flash_attention(q, k, v, **kw)
             h = self._block(lp, h, sincos, attend, peft, i, aot, aux)
+            h = constrain(h, "batch", "seq", "embed")
         return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
 
     def forward(self, params, tokens, peft=None, rng=None, *, patches=None,
@@ -1011,6 +1018,7 @@ class Model:
                                   bs)
             where = (block_tables.long()[where[0], pos_t // bs], pos_t % bs)
         aot = (ids, peft.get("task_ids")) if method == "aot" else None
+        softcap = cfg.logit_softcap
         for i, lp in enumerate(params["layers"]):
             kind = self.kinds[i]
             if kind != BLOCK_ATTN:      # the state's step, stored back
@@ -1022,6 +1030,11 @@ class Model:
             def attend(q, k, v, kc=kc, vc=vc):
                 kc[where] = k[:, 0]
                 vc[where] = v[:, 0]
+                if softcap:     # the reference's XLA walks; no kernel
+                    return (L.paged_attention_decode(
+                        q, kc, vc, block_tables, cur, softcap=softcap)
+                        if block_tables is not None else
+                        L.attention_decode(q, kc, vc, cur, softcap=softcap))
                 if block_tables is not None:
                     o = ops.paged_decode_attention(q[:, 0], kc, vc,
                                                    block_tables, cur)
@@ -1110,12 +1123,17 @@ class Model:
         if plan is None:
             plan = ops.ragged_plan(token_rows, token_pos)
         aot = (ids, peft.get("task_ids")) if method == "aot" else None
+        softcap = cfg.logit_softcap
         for i, lp in enumerate(params["layers"]):
             kc, vc = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, kc=kc, vc=vc):
                 kc.view(-1, kvh, hd).index_copy_(0, row, k[:, 0].to(kc.dtype))
                 vc.view(-1, kvh, hd).index_copy_(0, row, v[:, 0].to(vc.dtype))
+                if softcap:     # the reference's XLA walk; no kernel
+                    return L.ragged_paged_attention_decode(
+                        q, kc, vc, block_tables, token_rows, token_pos,
+                        softcap=softcap)
                 return ops.ragged_paged_attention(
                     q[:, 0], kc, vc, block_tables, token_rows, token_pos,
                     plan)[:, None]

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distrib.sharding import constrain
 from repro_torch.models.layers import dense_init
 
 _C_MAX = 8.0   # RG-LRU gate exponent scale (Griffin's c)
@@ -122,6 +123,8 @@ def apply_rglru(cfg, p, x, dtype, cache: Optional[dict] = None):
     xin = x.to(dtype)
     gate = F.gelu(xin @ p["in_gate"].to(dtype), approximate="tanh")
     xr = xin @ p["in_x"].to(dtype)
+    xr = constrain(xr, "batch", "seq", "lru")
+    gate = constrain(gate, "batch", "seq", "lru")
     xc, conv_state = _conv1d_causal(p["conv_w"], p["conv_b"], xr,
                                     cache["conv"] if cache else None)
     a, imult = _gates(p, xc, H)
@@ -133,7 +136,7 @@ def apply_rglru(cfg, p, x, dtype, cache: Optional[dict] = None):
         h0 = cache["h"].float() if cache else None
         hs = rglru_scan(a, bterm, h0)
     y = hs.to(dtype) * gate
-    out = y @ p["out"].to(dtype)
+    out = constrain(y @ p["out"].to(dtype), "batch", "seq", "embed")
     return out, {"conv": conv_state, "h": hs[:, -1].to(dtype)}
 
 

@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distrib.sharding import constrain
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recurrent import _conv1d_causal
 
@@ -202,7 +203,8 @@ def apply_mlstm_block(cfg, p, x, dtype, cache=None, chunk: int = 64):
                       .float()).to(dtype)
     y = _group_norm(h.reshape(b, s, di).to(dtype) * o, p["gn_scale"], H)
     y = y * F.silu(z)
-    return y @ p["down"].to(dtype), {"conv": conv_state, "state": st}
+    out = constrain(y @ p["down"].to(dtype), "batch", "seq", "embed")
+    return out, {"conv": conv_state, "state": st}
 
 
 def mlstm_init_cache(cfg, batch: int, dtype, device):
@@ -299,6 +301,7 @@ def apply_slstm_block(cfg, p, x, dtype, cache=None):
     u1 = y @ p["up1"].to(dtype)
     u2 = y @ p["up2"].to(dtype)
     out = (F.gelu(u1, approximate="tanh") * u2) @ p["down"].to(dtype)
+    out = constrain(out, "batch", "seq", "embed")
     return out, {"conv": conv_state, "state": new_state}
 
 

@@ -22,10 +22,12 @@ from dataclasses import dataclass, field
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.core import peft as peft_mod
+from repro_torch.distrib.sharding import constrain
 from repro_torch.optim import adamw, clip_by_global_norm
 from repro_torch.optim.schedules import constant
 
@@ -49,6 +51,15 @@ def _requires_grad(tree, on: bool):
     return tree
 
 
+def _like(g, p):
+    """The gradient ``g`` of a DTensor leaf ``p`` redistributed to ``p``'s
+    placements (a partial sum over the data axis becomes its all-reduce:
+    the data-parallel gradient reduction); ``g`` itself otherwise."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def split_train(params, peft_params, method: str):
     """(trainable, frozen) trees of the backbone ``params`` and the PEFT
     parameters; trainable leaves get ``requires_grad``, frozen ones lose
@@ -66,9 +77,16 @@ def merge_train(trainable, frozen):
 
 
 def _ce_piece(hc, w, lc, mc, z_loss: float):
-    logits = (hc @ w).float()                            # (b, c, V)
+    # vocab, not seq, takes the model axis (the reference's constraint)
+    logits = constrain(hc @ w, "batch", None, "vocab").float()  # (b, c, V)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        # over vocab shards: each row's one gold logit among zeros, summed
+        # (exact in any order)
+        hit = torch.arange(logits.shape[-1], device=lc.device) == lc[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, lc[..., None].long())[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse.square()
@@ -185,7 +203,7 @@ def make_train_step(model, tcfg: TrainConfig, *, classify: bool = False):
             grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
                      if loss.requires_grad else [None] * len(leaves))
         grads = T.unflatten(trainable, [
-            torch.zeros_like(p) if g is None else g
+            torch.zeros_like(p) if g is None else _like(g, p)
             for p, g in zip(leaves, grads)])
         metrics = {k: v.detach() for k, v in metrics.items()}
         if tcfg.clip_norm:

@@ -106,19 +106,20 @@ def test_attention_ref_matches_reference_layer(rng, case):
 
 
 def test_flash_wrapper_refuses_what_the_reference_sends_to_xla(rng):
-    """softcap goes to XLA in the reference and is not ported: it raises.
-    prefix_len goes there too, and the port sends it, as the reference,
-    to the plain ``layers.attention_chunked`` (no launch; counted by
+    """The kernel takes neither softcap nor prefix_len, which go to XLA in
+    the reference: the port sends both, as the reference, to the plain
+    ``layers.attention_chunked`` (no launch; counted by
     ``ops.chunked_calls``); q_offset (P-Tuning v2's prefill) is ported."""
     (_, qt), (_, kt), (_, vt) = _flash_inputs(rng, 1, 4, 4, 2, 1, 8,
                                               jnp.float32)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        ops.flash_attention(qt, kt, vt, causal=True, softcap=30.0)
     ops.reset_launches()
     out = ops.flash_attention(qt, kt, vt, causal=True, prefix_len=2)
     assert torch.equal(out, port_layers.attention_chunked(
         qt, kt, vt, causal=True, prefix_len=2))
-    assert ops.chunked_calls() == 1
+    out = ops.flash_attention(qt, kt, vt, causal=True, softcap=30.0)
+    assert torch.equal(out, port_layers.attention_chunked(
+        qt, kt, vt, causal=True, softcap=30.0))
+    assert ops.chunked_calls() == 2
 
 
 # name -> (b, sq, q_offset, h, kvh, hd, window): queries at positions

@@ -160,18 +160,28 @@ def test_config_copies_equal_reference(name):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(logit_softcap=30.0), "softcap"),
-    # the two front-ends and the bidirectional prefix are ported: an
-    # unknown front-end, audio frames under a head tied to the token table
-    # they lack, and a prefix over recurrent blocks are still refused
+    # the two front-ends, the bidirectional prefix and softcap are ported:
+    # an unknown front-end, audio frames under a head tied to the token
+    # table they lack, and a prefix over recurrent blocks are still refused
     (dict(frontend="video_frames"), "frontend"),
     (dict(frontend="audio_frames", tie_embeddings=True), "frontend"),
     (dict(prefix_lm_len=4, pattern_unit=("rglru",)), "prefix"),
-    (dict(attn_kind="swa", sliding_window=0), "attention")])
+    (dict(attn_kind="swa", sliding_window=0), "attention")],
+    ids=["change1-frontend", "change2-frontend", "change3-prefix",
+         "change4-attention"])
 def test_check_supported_still_refuses(change, match):
     cfg = configs.reduced(configs.get("smollm-360m")).replace(**change)
     with pytest.raises(NotImplementedError, match=match):
         model_mod.check_supported(cfg)
+
+
+def test_check_supported_accepts_softcap():
+    """Softcap runs on the plain attention paths (tests/test_torch_softcap.py
+    holds them against the reference)."""
+    cfg = configs.reduced(configs.get("smollm-360m")).replace(
+        logit_softcap=30.0)
+    model_mod.check_supported(cfg)
+    model_mod.check_servable(cfg)
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "xlstm-350m"])

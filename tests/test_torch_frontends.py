@@ -165,7 +165,7 @@ def port_bundle(bundle):
 def test_registry_holds_the_references_configs():
     """The port's registry has the reference's twelve names, the two new
     configs copied field for field (and reduced alike); ``check_supported``
-    accepts every one (softcap, which none sets, is its last refusal)."""
+    accepts every one, and softcap, which none sets, too (ported)."""
     assert sorted(configs.REGISTRY) == sorted(jconfigs.REGISTRY)
     for name in (PALI, HUBERT):
         assert dataclasses.asdict(configs.get(name)) == dataclasses.asdict(
@@ -174,9 +174,7 @@ def test_registry_holds_the_references_configs():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     for cfg in configs.REGISTRY.values():
         model_mod.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        model_mod.check_supported(configs.get(PALI).replace(
-            logit_softcap=30.0))
+    model_mod.check_supported(configs.get(PALI).replace(logit_softcap=30.0))
 
 
 @pytest.mark.parametrize("name", [PALI, HUBERT])

@@ -15,6 +15,7 @@ import repro_torch
 from repro_torch import bridge, configs
 from repro_torch.core import peft as peft_mod
 from repro_torch.launch import export as exporter
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import serve as launcher
 from repro_torch.launch import train as train_launcher
 from repro_torch.models.model import Model
@@ -40,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
               "configs.llama4_maverick_400b_a17b", "models.moe",
               "configs.recurrentgemma_9b", "configs.xlstm_350m",
               "models.recurrent", "models.xlstm", "configs.paligemma_3b",
-              "configs.hubert_xlarge"):
+              "configs.hubert_xlarge", "distrib.axes", "distrib.sharding",
+              "launch.mesh", "checkpoint.reshard", "optim.compression"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -84,6 +86,10 @@ ENTRY_POINTS = {
     "peft": lambda cfg: peft_mod.init(cfg, peft_mod.PEFTOptions()),
     "train_launcher": lambda cfg: train_launcher.main(["--reduced",
                                                        "--steps", "1"]),
+    # a mesh on CUDA refuses before it spawns a rank or joins a group
+    "train_launcher_mesh": lambda cfg: train_launcher.main(
+        ["--reduced", "--steps", "1", "--mesh", "1x1"]),
+    "mesh_group": lambda cfg: mesh_mod.init_group(0, 1, "cuda"),
     "train_loop": lambda cfg: TrainLoop(train_step=None, frozen={},
                                         stream=None),
     "export": lambda cfg: exporter.main(["--reduced"]),

@@ -1114,3 +1114,98 @@ def test_phase13_on_reduced_frontends(monkeypatch):
         cs.check_launches("13", dict(cs.encoder_launches(2, "ptv1"),
                                      flash_attention=1),
                           cs.encoder_launches(2, "ptv1"))
+
+
+# ---------------------------------------------------------------------------
+# phase 14: distribution on a one-rank mesh, run here on gloo at reduced
+# widths with the same functions and gates
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    import torch.distributed as dist
+    mesh = cs.dist_mesh("cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _reduced(name, **moe):
+    from repro_torch import configs
+    cfg = configs.reduced(configs.get(name), repeats=2)
+    if moe:
+        import dataclasses
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg
+
+
+def test_phase14a_sharded_logits_on_cpu(one_rank_mesh):
+    cfg = _reduced("smollm-360m")
+    err, plain, sharded, placed = cs.sharded_logits(
+        one_rank_mesh, cfg, torch.float32, "cpu", batch=(4, 16))
+    assert cs.sharded_logits_gate(err, 2e-5, plain, sharded, cfg.num_layers,
+                                  on_card=False) == []
+    # a mesh dim of size 1 holds every dim whole
+    assert err == 0.0 and placed == "(Replicate(), Replicate())"
+
+
+def test_phase14a_gate_names_each_failure():
+    want = {"flash_attention": 32, "aot_gather_add_multitask": 32,
+            "rms_norm": 0}
+    assert cs.sharded_logits_gate(0.0, 2e-2, want, dict(want), 32,
+                                  on_card=True) == []
+    fails = cs.sharded_logits_gate(0.5, 2e-2, want,
+                                   dict(want, flash_attention=31), 32, True)
+    assert len(fails) == 2 and "max err" in fails[0]
+    fails = cs.sharded_logits_gate(float("nan"), 2e-2, dict(want, rms_norm=1),
+                                   dict(want, rms_norm=1), 32, True)
+    assert len(fails) == 2 and "unsharded launches" in fails[1]
+
+
+def test_phase14b_e_train_mesh_and_reshard_on_cpu(one_rank_mesh, tmp_path):
+    argv = ["--arch", "smollm-360m", "--reduced", "--method", "aot",
+            "--rank", "8", "--steps", "3", "--seq", "32", "--batch", "4"]
+    runs = cs.train_mesh_vs_plain("1x1", argv, "cpu", tmp_path)
+    err, bitwise, fails = cs.train_gate(runs)
+    assert fails == [] and len(runs["mesh"][0]) == 3
+    assert err <= 2e-5
+    assert cs.reshard_round_trip(runs["mesh"][2], one_rank_mesh,
+                                 tmp_path / "reshard") == []
+
+
+def test_phase14b_gate():
+    t = {"w": torch.ones(3)}
+    same = {"mesh": ([1.0, 0.5], t, None), "plain": ([1.0, 0.5], t, None)}
+    assert cs.train_gate(same) == (0.0, True, [])
+    off = {"mesh": ([1.0, 0.5], {"w": torch.ones(3) + 1e-3}, None),
+           "plain": ([1.0, 0.5], t, None)}
+    err, bitwise, fails = cs.train_gate(off)
+    assert not bitwise and len(fails) == 1 and err > 1e-4
+    assert cs.train_gate({"mesh": ([], t, None), "plain": ([1.0], t, None)}
+                         )[2]
+
+
+def test_phase14c_expert_parallelism_on_cpu(one_rank_mesh):
+    cfg = _reduced("qwen3-moe-30b-a3b", num_experts=8, top_k=2,
+                   capacity_factor=8.0)
+    err, close, scale, finite, *dropped = cs.ep_vs_gspmd(
+        one_rank_mesh, cfg, torch.float32, "cpu", x_shape=(2, 16))
+    assert cs.ep_gate(err, close, finite, tuple(dropped)) == []
+    assert err <= 2e-5 < scale
+    assert len(cs.ep_gate(1.0, False, False, (0.0, 0.5))) == 3
+
+
+def test_phase14d_compressed_all_reduce_on_cpu(one_rank_mesh):
+    assert cs.compressed_vs_rounding("cpu") == []
+
+
+def test_phase3_softcap_cases_run_on_the_cpu():
+    """Phase 3's softcap line: every case runs (its CUDA-vs-CPU gate is
+    0 here, the same device twice), and the cap changes each output."""
+    gen = torch.Generator().manual_seed(0)
+    cases = cs.softcap_cases("cpu", gen)
+    assert set(cs.softcap_errors(cases).values()) == {0.0}
+    uncapped = cs.softcap_cases("cpu", torch.Generator().manual_seed(0),
+                                cap=0.0)
+    for name, (fn, xs) in cases.items():
+        off = uncapped[name][0](*uncapped[name][1])
+        assert float((fn(*xs) - off).abs().max()) > 1e-3, name

@@ -504,7 +504,7 @@ def test_launcher_trains_on_the_cpu(method, capsys, tmp_path):
                           "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "'step': 2" in out and "events: []" in out
-    assert "A16" in launcher.parser().format_help()
+    assert "--mesh" in launcher.parser().format_help()
 
 
 def test_bridge_round_trips(tiny_lm):
