@@ -165,7 +165,12 @@ Phases, each printing one line of results; any failure exits non-zero:
    (RESTORE_EXPECT), every request finish (F4: the twin's less the
    disconnected and quarantined), pools drain clean, the tokens before
    each crash be the twin's and each kernel launch 32 times per dispatch
-   or whole prefill; the tokens after a crash are reported;
+   or whole prefill; the tokens after a crash are reported; ROADMAP C4's
+   line (recorded, not gated): the n = 4 crash run and the same stream
+   served again uncrashed, each with a KVWatch, give the first differing
+   (rid, sample, tick) and that sample's first K/V row whose bits differ,
+   its layer and the path that wrote it in each run (the split walk, or
+   the token tile of 16 from its first position);
 6. cross-checks at full width with 2 layers, inputs drawn from a
    generator of their own (seed PHASE6_SEED; chip_seeds.py runs this phase
    at other seeds): one mixed tick, and a prefill plus three decode steps
@@ -197,7 +202,8 @@ Phases, each printing one line of results; any failure exits non-zero:
    of 32, reported only: the backbone is random); 7c 7a's fc and kron
    parameters fused into float32 tables (forward through the tables
    within 2e-5 of forward through the reparametrizations on 4 x 128
-   tokens), cast to bf16, stacked as two tasks and served as 8 requests
+   tokens; ROADMAP C5's line, recorded: the same fusion with GEMMs of the
+   forward's shapes, chunks of 512 vocabulary rows, and its error), cast to bf16, stacked as two tasks and served as 8 requests
    of phase 5's stream through the paged tick (every request finishes,
    the pool drains clean, the counts are the CPU replay's, the fused
    gather-add + norm and ragged attention launch 32 times per tick; per
@@ -359,6 +365,24 @@ Phases, each printing one line of results; any failure exits non-zero:
    factor 8), within 2e-2, and a finite gradient with respect to x; 14d
    all_reduce_compressed over NCCL bitwise compress_decompress. Each line
    carries the card's name and power limit.
+15. the dry run (no kernel; ``--phase15`` runs it alone): 15a
+   repro_torch.launch.dryrun in a process of its own per cell, no card,
+   pod1 (16 x 16 over a fake group of 256): smollm-360m's train_4k,
+   prefill_32k and decode_32k and qwen3-moe-30b-a3b's decode_32k, each
+   line argument and peak GB per rank, FLOPs, bytes, collectives by kind
+   and the three roofline terms; 15b smollm-360m at full width (32
+   layers, bf16, one fused AoT task) built as the dry run builds its
+   cells, a prefill at 4 x 4096 and a train step at 4 x 2048 (AoT fc
+   rank 64, attn_impl="chunked", remat on), each predicted on a 1 x 1
+   fake mesh and then run on the card from its specs made real: the
+   bytes the arguments take (the allocator's requested bytes) within 1% +
+   2 MiB of the prediction (gated), the call's peak beside the predicted
+   one, the ms (CUDA events, warmed up) beside the function's roofline
+   bound max(model FLOPs / 989e12, (argument + output bytes) / 3.35e12)
+   and beside the eager count's max(FLOPs / 989e12, bytes / 3.35e12)
+   (reported); 15c smollm-360m's float32 train step (attn_impl="ref",
+   AoT fc rank 64, 3 steps at 2 x 512) with remat on and off: losses and
+   trainable leaves bitwise (gated), both peaks and step ms reported.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -3225,14 +3249,91 @@ def tick_packing(events, tick):
     return [a["decode_rows"], a["prefills"]]
 
 
-def restore_run(engine, extra, path, drive, crash_at=None):
+class KVWatch:
+    """ROADMAP C4's recorder for one 5g stream: which path wrote each K/V
+    row of each sample (the ragged kernel's split walk for a slot's lone
+    row in a tick, else the token tile of 16 from its run's first
+    position), and a 64-bit hash of every layer's K and V row of each
+    sample as its latest token left them. A row a sample shares with its
+    parent (a fork's prompt) is found under the parent's key."""
+
+    def __init__(self):
+        self.writer, self.hashes, self.box = {}, {}, None
+        self.coef = None
+
+    def wrap(self, serve_step):
+        def step(tokens, token_rows, token_pos, *a, **kw):
+            rows, pos = np.asarray(token_rows), np.asarray(token_pos)
+            sched = self.box["sched"]
+            owner = dict(sched.running)     # decoding slots, then prefills
+            owner.update({pf.slot: pf.req for pf in sched._prefills})
+            for slot in np.unique(rows[pos >= 0]):
+                req = owner.get(int(slot))
+                if req is None:
+                    continue
+                p = np.sort(pos[(rows == slot) & (pos >= 0)])
+                rec = self.writer.setdefault(f"{req.rid}:{req.sample_idx}",
+                                             {})
+                for q in p:
+                    rec[int(q)] = "split walk" if len(p) == 1 else \
+                        f"tile@{int(p[0] + 16 * ((q - p[0]) // 16))}"
+            return serve_step(tokens, token_rows, token_pos, *a, **kw)
+        return step
+
+    def on_token(self, req):
+        pool = self.box["sched"].pool
+        key = f"{req.rid}:{req.sample_idx}"
+        n = max(self.writer.get(key, {0: 0})) + 1
+        k = pool.cache["k"]
+        L, bs = k.shape[0], k.shape[2]
+        if self.coef is None:
+            g = torch.Generator(device=DEV).manual_seed(4)
+            self.coef = torch.randint(1, 2 ** 40, (k[0, 0, 0].numel(),),
+                                      generator=g, device=DEV)
+        pages = torch.as_tensor(pool.block_tables[req.slot][:-(-n // bs)],
+                                device=DEV).long()
+        self.hashes[key] = torch.stack([
+            (pool.cache[name][:, pages].reshape(L, -1, self.coef.numel())
+             [:, :n].view(torch.int16).long() * self.coef).sum(-1)
+            for name in ("k", "v")])                    # (2, L, n)
+
+    def writer_of(self, key, pos):
+        rid = key.split(":")[0]
+        for k in [key] + sorted(x for x in self.writer
+                               if x.split(":")[0] == rid and x != key):
+            if pos in self.writer.get(k, {}):
+                return f"{self.writer[k][pos]} ({k})"
+        return "unknown"
+
+
+def kv_divergence(twin_watch, crash_watch, key):
+    """C4: the first K/V row (lowest position, then layer; K or V) of
+    sample ``key`` whose bits differ between the uncrashed and the
+    crashed run, with the path that wrote it in each; None if equal."""
+    a, b = twin_watch.hashes.get(key), crash_watch.hashes.get(key)
+    if a is None or b is None:
+        return {"key": key, "missing": [x is None for x in (a, b)]}
+    n = min(a.shape[2], b.shape[2])
+    diff = (a[:, :, :n] != b[:, :, :n]).any(0)        # (L, n)
+    cols = diff.any(0).nonzero()
+    if not len(cols):
+        return None
+    pos = int(cols[0])
+    layer = int(diff[:, pos].nonzero()[0])
+    return {"key": key, "position": pos, "layer": layer,
+            "uncrashed": twin_watch.writer_of(key, pos),
+            "crashed": crash_watch.writer_of(key, pos)}
+
+
+def restore_run(engine, extra, path, drive, crash_at=None, watch=None):
     """One 5g stream: BASE + ``extra`` on a scheduler with metrics and the
     trace on, journaling to ``path`` (emptied first); ``drive(sched,
     arrivals, make)`` serves it, ``make()`` giving each fresh incarnation.
     Records each sample's token ticks on one global clock (the ticks of
     earlier incarnations added), every incarnation's ticks and what
     restore re-admitted (and, with ``crash_at``, what the tick before the
-    crash packed). Returns the run and its counts."""
+    crash packed); a ``KVWatch`` ``watch`` records the K/V rows' writers
+    and bits. Returns the run and its counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
     from repro_torch.obs import ServeObservability
@@ -3245,6 +3346,8 @@ def restore_run(engine, extra, path, drive, crash_at=None):
     def on_token(req, tok):
         ticks_of.setdefault(f"{req.rid}:{req.sample_idx}", []).append(
             box["base"] + box["sched"].ticks)
+        if watch is not None:
+            watch.on_token(req)
 
     def make():
         if "sched" in box:
@@ -3262,10 +3365,18 @@ def restore_run(engine, extra, path, drive, crash_at=None):
         return s
     arrivals = launcher.make_arrivals(args, engine.model.cfg.vocab_size,
                                       args.tasks, on_token)
+    if watch is not None:
+        watch.box = box
+        engine.serve_step = watch.wrap(type(engine).serve_step.__get__(
+            engine))
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    extra_out = drive(make(), arrivals, make)
+    try:
+        extra_out = drive(make(), arrivals, make)
+    finally:
+        if watch is not None:
+            del engine.serve_step
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     sched = box["sched"]
@@ -3493,11 +3604,15 @@ def phase_restore(report, engine):
     for label, (extra, crash_at) in CRASH_RUNS.items():
         twin = twins[tuple(extra)]
         fresh_peak()
+        watch = KVWatch() if label == "sampled_n4" else None
         run = restore_run(engine, extra, out_dir / f"{label}.jsonl",
-                          serve_crashing(crash_at), crash_at)
+                          serve_crashing(crash_at), crash_at, watch)
         bad = restore_failures(label, run, twin, crash_at, layers)
         res[label] = restore_line(label, run, twin, bad, card,
                                   crash_at=crash_at)
+        if watch is not None:
+            res["c4"] = c4_line(engine, extra, out_dir, run, twin, watch,
+                                card)
         peaks.append(res[label]["peak_memory_gib"])
         launches[f"restore_{label}"] = run["launches"]
         if bad:
@@ -3538,6 +3653,28 @@ def phase_restore(report, engine):
     if failed:
         raise AssertionError(f"phase 5g failed: {failed}")
     return launches
+
+
+def c4_line(engine, extra, out_dir, run, twin, watch, card):
+    """ROADMAP C4: the crashed sampled stream against the same stream
+    served again uncrashed with a KVWatch: the first differing (rid,
+    sample, tick) and the first K/V row of that sample whose bits differ,
+    its layer and the path that wrote it in each run. Recorded, not
+    gated."""
+    twin_watch = KVWatch()
+    fresh_peak()
+    again = restore_run(engine, extra, out_dir / "c4_uncrashed.jsonl",
+                        serve_crashing(0), None, twin_watch)
+    got = sample_outs(run["sched"].finished)
+    div = first_divergence(got, twin, run["ticks_of"])
+    kv = None if div is None else kv_divergence(twin_watch, watch, div[0])
+    rerun_equal = sample_outs(again["sched"].finished) == twin
+    log("5g C4", first_divergence="none" if div is None else
+        f"rid {div[0].split(':')[0]} sample {div[0].split(':')[1]} tick "
+        f"{div[1]}", kv_row="none" if kv is None else kv,
+        uncrashed_rerun_equals_5f=rerun_equal, card=card)
+    return dict(first_divergence=div, kv_row=kv,
+                uncrashed_rerun_equals_5f=rerun_equal)
 
 
 def paged_generate(engine, prompts, steps, task_ids):
@@ -4803,8 +4940,23 @@ def fuse_and_serve(report, trained, backbone):
             tokens="x".join(map(str, FUSE_TOKENS)),
             max_abs_err=f"{err:.3e}", bitwise_share=f"{share:.4f}",
             tol=TOL[f32])
+        # ROADMAP C5: the same fusion with GEMMs of the forward's shapes
+        # (as many rows per chunk as the forward has tokens), recorded
+        chunk = FUSE_TOKENS[0] * FUSE_TOKENS[1]
+        same = aot_mod.fuse(bundle["params"]["aot"], cfg, bundle["opt"].aot,
+                            embed=backbone["embed"]["tok"], dtype=f32,
+                            vocab_chunk=chunk)
+        err_f, share_f = fused_vs_reparam(ref32, backbone, bundle,
+                                          peft_mod.make({"aot": same},
+                                                        fused_opt), toks)
+        del same
+        log(f"7c fuse/{label} C5", vocab_chunk_8192=f"{err:.3e}",
+            vocab_chunk_forward=chunk, max_abs_err_forward=f"{err_f:.3e}",
+            bitwise_share_forward=f"{share_f:.4f}")
         report.setdefault("fuse", {})[label] = dict(
-            fuse_s=fuse_s, max_abs_err=err, bitwise_share=share)
+            fuse_s=fuse_s, max_abs_err=err, bitwise_share=share,
+            forward_chunk=chunk, max_abs_err_forward=err_f,
+            bitwise_share_forward=share_f)
         if not err <= TOL[f32]:
             failed.append(f"fused {label} off by {err:.3e}")
         tables.append({"table": fused["table"].to(dt)})
@@ -7951,6 +8103,272 @@ def distrib_parts(report, mesh):
     return {"sharded_logits": sharded}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run on the card's host, its predictions on the card,
+# remat on the card
+# ---------------------------------------------------------------------------
+
+# 15a: the dry run's cells on the production mesh (pod1), each a process
+DRY_CELLS = (("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
+             ("smollm-360m", "decode_32k"),
+             ("qwen3-moe-30b-a3b", "decode_32k"))
+# 15b: smollm-360m at full width, one fused AoT task: (kind, batch, seq)
+DRY_CARD = {"prefill": ("prefill", 4, 4096), "train": ("train", 4, 2048)}
+DRY_TIMED = 3               # timed calls after one warm-up
+ARG_TOL = (0.01, 2 * 2 ** 20)   # predicted argument bytes: 1% + 2 MiB
+REMAT_BATCH = (2, 512)      # 15c's float32 train step, 3 steps
+# 15b's prediction: build_cell on a 1 x 1 mesh over a fake group of one
+DRY_PREDICT = """
+import json, sys
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_group, make_mesh
+kind, b, s = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+init_fake_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+rec = dryrun.run_cell("smollm-360m", kind, mesh=mesh, verbose=False,
+                      shape_override=ShapeSpec(kind, kind, s, b))
+print("JSON" + json.dumps(rec))
+"""
+
+
+def dry_procs():
+    """Start 15a's cells and 15b's predictions, each a process of its own
+    with no card; returns {name: Popen}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = ROOT / "chiprun_out" / "dryrun"
+    procs = {}
+    for arch, shape in DRY_CELLS:
+        procs[f"{arch} {shape}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out-dir", str(out)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, (kind, b, s) in DRY_CARD.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", DRY_PREDICT, kind, str(b), str(s)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    return procs
+
+
+def dry_wait(proc, timeout=300):
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"dry run failed (rc {proc.returncode}):\n"
+                             f"{out[-3000:]}")
+    return out
+
+
+def dry_cells_line(procs, card):
+    """15a: each cell's record: per-rank argument and peak GB, FLOPs and
+    bytes, collectives by kind, the three roofline terms."""
+    recs = {}
+    for arch, shape in DRY_CELLS:
+        dry_wait(procs[f"{arch} {shape}"])
+        rec = json.loads((ROOT / "chiprun_out" / "dryrun" /
+                          f"{arch}__{shape}__pod1.json").read_text())
+        m, r = rec["memory"], rec["roofline"]
+        log(f"15a dryrun/{arch}/{shape}", mesh="x".join(map(str,
+                                                          rec["mesh"])),
+            args_gb=f"{m['argument_bytes'] / 1e9:.3f}",
+            peak_gb=f"{m['peak_bytes'] / 1e9:.3f}", fits=rec["fits"],
+            flops=f"{rec['flops_per_device']:.4e}",
+            bytes=f"{rec['bytes_per_device']:.4e}",
+            collectives={k: int(v["count"])
+                         for k, v in rec["collectives"].items()},
+            compute_ms=f"{r['compute_s'] * 1e3:.3f}",
+            memory_ms=f"{r['memory_s'] * 1e3:.3f}",
+            collective_ms=f"{r['collective_s'] * 1e3:.3f}",
+            run_s=f"{rec['run_s']:.1f}", card=card)
+        recs[f"{arch}/{shape}"] = rec
+    return recs
+
+
+def requested_bytes() -> int:
+    """The bytes the caching allocator's live allocations asked for
+    (``memory_allocated`` counts whole blocks: a large block keeps a
+    remainder of up to 1 MiB that it does not split off)."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Median ms of ``fn()`` between CUDA events, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(iters):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return median(times)
+
+
+def dry_on_card(name, pred, card):
+    """15b: the cell ``name`` of DRY_CARD built as the dry run builds it,
+    its specs made real on the card: the bytes the arguments take (the
+    allocator's requested bytes; its blocks' ``memory_allocated`` gain
+    beside them) against the prediction (gated), the call's peak against
+    the predicted peak (reported), and its ms (reported) against two
+    bounds at the data sheet's rates: the roofline of the function,
+    max(model FLOPs / bf16 peak, (arguments read once + outputs written
+    once) / HBM rate), which no implementation changes, and the eager
+    count's, max(counted FLOPs / bf16 peak, counted bytes / HBM rate),
+    whose bytes are eager PyTorch's unfused traffic (the share of it is
+    how fast the eager ops move their own bytes, not closeness to the
+    card's roofline). Returns (record, failures)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, specs as sp
+    from repro_torch.roofline import HW_H100
+    kind, b, s = DRY_CARD[name]
+    fn, args, *_ = dryrun.build_cell(
+        "smollm-360m", kind, shape_override=ShapeSpec(kind, kind, s, b),
+        mesh=None, device=DEV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before, asked = torch.cuda.memory_allocated(), requested_bytes()
+    real = sp.materialize(args, DEV)
+    torch.cuda.synchronize()
+    got = requested_bytes() - asked
+    blocks = torch.cuda.memory_allocated() - before
+    want = pred["memory"]["argument_bytes"]
+    failures = []
+    if abs(got - want) > ARG_TOL[0] * want + ARG_TOL[1]:
+        failures.append(f"{name}: arguments take {got} bytes, predicted "
+                        f"{want}")
+    torch.cuda.reset_peak_memory_stats()
+    fn(*real)
+    torch.cuda.synchronize()
+    peak_blocks = torch.cuda.max_memory_allocated() - before
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"] - asked
+    out_bytes = pred["memory"]["output_bytes"]
+    ms = cuda_ms(lambda: fn(*real), DRY_TIMED)
+    flops_rate, hbm = HW_H100["peak_flops"], HW_H100["hbm_bw"]
+    model_ms = pred["roofline"]["model_flops_total"] / flops_rate * 1e3
+    least_ms = (want + out_bytes) / hbm * 1e3
+    bound = max(model_ms, least_ms)
+    eager = max(pred["flops_per_device"] / flops_rate,
+                pred["bytes_per_device"] / hbm) * 1e3
+    rec = dict(batch=b, seq=s, args_bytes=got, args_blocks=blocks,
+               args_predicted=want, out_bytes=out_bytes,
+               peak_bytes=peak, peak_blocks=peak_blocks,
+               peak_predicted=pred["memory"]["peak_bytes"],
+               ms=ms, bound_ms=bound,
+               bound_by="operations" if model_ms >= least_ms else "bytes",
+               roofline_share=bound / ms, model_ms=model_ms,
+               mfu=model_ms / ms, eager_bound_ms=eager,
+               eager_traffic_share=eager / ms,
+               flops=pred["flops_per_device"],
+               bytes=pred["bytes_per_device"])
+    log(f"15b dryrun vs card/{name}", arch="smollm-360m", layers=32,
+        dtype="bf16", batch=f"{b}x{s}", args_bytes=got,
+        args_predicted=want, args_ok=not failures, args_blocks=blocks,
+        out_bytes=out_bytes, peak_gb=f"{peak / 1e9:.3f}",
+        peak_blocks_gb=f"{peak_blocks / 1e9:.3f}",
+        peak_predicted_gb=f"{rec['peak_predicted'] / 1e9:.3f}",
+        peak_ratio=f"{peak / rec['peak_predicted']:.3f}", ms=f"{ms:.3f}",
+        bound_ms=f"{bound:.3f}", bound_by=rec["bound_by"],
+        roofline_share=f"{bound / ms:.4f}",
+        model_flops_ms=f"{model_ms:.3f}", mfu=f"{model_ms / ms:.4f}",
+        eager_bound_ms=f"{eager:.3f}",
+        eager_traffic_share=f"{eager / ms:.4f}", card=card)
+    del real
+    return rec, failures
+
+
+def remat_on_card(card):
+    """15c: smollm-360m's float32 train step (attn_impl="ref", AoT fc rank
+    64, 3 steps at REMAT_BATCH) with remat on and off: the losses and the
+    trainable leaves bitwise equal (gated); both peaks and both steps' ms
+    (CUDA events, the mean of steps 2 and 3) reported."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.core import aot as aot_mod
+    from repro_torch.core import peft as peft_mod
+    from repro_torch.models.model import Model, ModelOptions
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        split_train)
+    cfg = configs.get("smollm-360m")
+    b, s = REMAT_BATCH
+    popt = peft_mod.PEFTOptions(method="aot", aot=aot_mod.AoTOptions(
+        mode="fc", rank=64, dropout=0.0))
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    toks = torch.randint(0, cfg.vocab_size, (3, b, s + 1), generator=gen,
+                         device=DEV)
+    runs = {}
+    for remat in (True, False):
+        model = Model(cfg, ModelOptions(attn_impl="ref", remat=remat),
+                      device=DEV)
+        params = model.init(seed=0)
+        pp = peft_mod.init(cfg, popt, seed=1, device=DEV)
+        init_state, step = make_train_step(model, TrainConfig(peft=popt))
+        trainable, frozen = split_train(params, pp, "aot")
+        state = init_state(trainable)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, times = [], []
+        for t in toks:
+            a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            state, m = step(state, frozen, {"tokens": t[:, :-1],
+                                            "labels": t[:, 1:]}, None)
+            z.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(z))
+            losses.append(m["loss"])
+        runs[remat] = ([float(x) for x in losses],
+                       [x.detach() for x in T.leaves(state["trainable"])],
+                       torch.cuda.max_memory_allocated() - base,
+                       sum(times[1:]) / len(times[1:]))
+        del model, params, frozen, state
+    same = runs[True][0] == runs[False][0] and all(
+        torch.equal(x, y) for x, y in zip(runs[True][1], runs[False][1]))
+    log("15c remat", arch="smollm-360m", dtype="f32", impl="ref",
+        batch=f"{b}x{s}", steps=3, losses=[f"{x:.6f}" for x in runs[True][0]],
+        bitwise=same, peak_gb_on=f"{runs[True][2] / 1e9:.3f}",
+        peak_gb_off=f"{runs[False][2] / 1e9:.3f}",
+        step_ms_on=f"{runs[True][3]:.3f}",
+        step_ms_off=f"{runs[False][3]:.3f}", card=card)
+    rec = dict(bitwise=same, losses=runs[True][0],
+               peak_bytes={"on": runs[True][2], "off": runs[False][2]},
+               step_ms={"on": runs[True][3], "off": runs[False][3]})
+    return rec, [] if same else ["15c: remat on and off differ"]
+
+
+def phase_dryrun(report):
+    """Phase 15 (15a-15c); launches no kernel."""
+    t0 = time.perf_counter()
+    card = smi()
+    procs = dry_procs()
+    try:
+        out = {"card": card, "15a": dry_cells_line(procs, card)}
+        failures = []
+        for name in DRY_CARD:
+            pred = json.loads(dry_wait(procs[name]).split("JSON")[-1])
+            out[f"15b_{name}"], bad = dry_on_card(name, pred, card)
+            failures += bad
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["15c"], bad = remat_on_card(card)
+        failures += bad
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["seconds"] = time.perf_counter() - t0
+    report["dryrun"] = out
+    log("15 dryrun", seconds=f"{out['seconds']:.1f}", card=card)
+    if failures:
+        raise AssertionError(f"phase 15 failed: {failures}")
+    return {}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -7959,6 +8377,10 @@ def main() -> int:
     ap.add_argument("--phase14", action="store_true",
                     help="the build, parity and phase 14 alone (a first "
                          "check of the distribution code; prints no result)")
+    ap.add_argument("--phase15", action="store_true",
+                    help="phase 15 alone, which launches no kernel (a "
+                         "first check of the dry run on the card's host; "
+                         "prints no result)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: no CUDA device", file=sys.stderr)
@@ -7974,6 +8396,10 @@ def main() -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
     report = {"card": card, "parity": {}, "times": {}}
+    if args.phase15:
+        phase_dryrun(report)
+        print("[phase15] passed; no result")
+        return 0
     report["build_s"], report["redesigned"] = phase_build(KERNEL_SOURCES)
     gen = torch.Generator(device=DEV).manual_seed(0)
     phase_parity(gen, report)
@@ -8018,6 +8444,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_distrib(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_dryrun(report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]

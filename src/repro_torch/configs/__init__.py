@@ -14,7 +14,8 @@ batches) and hubert-xlarge (stub audio frames, an encoder), and the
 paper's own encoders roberta-large and deberta-xl (``PAPER_BACKBONES``);
 the encoders run the whole-sequence entry points (``Model.forward`` /
 ``logits`` / ``classify``) and train. ``REGISTRY`` holds the reference's
-twelve configs.
+twelve configs; ``ASSIGNED`` the reference's ten assigned ones, in its
+order (the dry run's cells).
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ MOE: List[ArchConfig] = [_qwen3moe, _llama4]
 RECURRENT: List[ArchConfig] = [_rgemma, _xlstm]
 FRONTENDS: List[ArchConfig] = [_pali, _hubert]
 PAPER_BACKBONES: List[ArchConfig] = [_roberta, _deberta]
+ASSIGNED: List[ArchConfig] = [_danube, _olmo, _smollm, _qwen, _hubert, _pali,
+                               _rgemma, _qwen3moe, _llama4, _xlstm]
 REGISTRY: Dict[str, ArchConfig] = {
     c.name: c for c in DECODERS + MOE + RECURRENT + FRONTENDS
     + PAPER_BACKBONES}

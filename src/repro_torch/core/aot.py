@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import generator
 from repro_torch.kernels.aot_bias import gather_index, take_rows
 from repro_torch.models.layers import dense_init
 
@@ -178,7 +179,7 @@ def random_fused(cfg, embed, seed: int = 0, *, rank: int = 8,
     ``seed``; they are not the reference's bits."""
     L, V, d = cfg.num_layers, cfg.vocab_size, cfg.d_model
     dev = embed.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     normal =lambda *shape: torch.randn(shape, generator=gen, device=dev) * scale
     w1, b1, w2, b2 = normal(L, d, rank), normal(L, rank), \
         normal(L, rank, d), normal(L, d)

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import aot as aot_mod
 from repro_torch.core.aot import AoTOptions
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models.layers import dense_init
 
 METHODS = ("ft", "none", "aot", "bitfit", "lora", "adapters", "ptv1", "ptv2")
@@ -65,7 +65,7 @@ def init(cfg, opt: PEFTOptions, seed: int = 0, device="cuda",
         raise ValueError(f"{cfg.name}: AoT P-Tuning needs discrete input "
                          f"ids ({cfg.aot_note}); choose another method")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     L, d = cfg.num_layers, cfg.d_model
     hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)

@@ -15,3 +15,13 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:       # "cuda" means the current device
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def generator(device, seed: int) -> torch.Generator:
+    """A ``torch.Generator`` seeded with ``seed`` for draws into tensors on
+    ``device``: on the device itself, or on the CPU for ``meta`` tensors,
+    which take no draw (a meta init allocates and draws nothing, and
+    gives the real init's shapes and dtypes)."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev
+                           ).manual_seed(seed)

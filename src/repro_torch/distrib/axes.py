@@ -128,6 +128,12 @@ def cache_axes_for(path: Sequence[str], shape: Tuple[int, ...]
     return (N, "cache_batch") + (N,) * (len(shape) - 2)
 
 
+def per_layer(names_fn):
+    """``names_fn`` for a per-layer leaf of the port's trees: the names of
+    the reference's stacked leaf ``(R, ...)`` without the layer axis."""
+    return lambda path, shape: names_fn(path, (1,) + tuple(shape))[1:]
+
+
 def path_strings(keypath) -> Tuple[str, ...]:
     """A key path of the port's trees (the dict keys and list indices that
     ``repro_torch.tree`` walks, as :func:`leaves_with_paths` gives them)

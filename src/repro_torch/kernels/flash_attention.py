@@ -62,17 +62,6 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, sm_scale=None,
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def kv_span(q_off: int, q_len: int, g: int):
-    """The KV heads ``[lo, hi)`` that query heads ``[q_off, q_off +
-    q_len)`` read (query head j reads KV head ``j // g``), or None when
-    that shard's heads do not map onto a contiguous KV span with one group
-    size (a shard of whole groups, or a part of one group)."""
-    lo, hi = q_off // g, (q_off + q_len - 1) // g + 1
-    if (q_off % g == 0 and q_len % g == 0) or hi - lo == 1:
-        return lo, hi
-    return None
-
-
 def _mask_bias(q_pos, kv_pos, *, causal, window, prefix_len,
                kv_valid_len=None):
     """(q, kv) additive float32 mask: 0 where query position i sees kv

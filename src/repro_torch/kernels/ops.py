@@ -40,8 +40,7 @@ from repro_torch.kernels.decode_attention import (
     ragged_paged_attention_kernel, ragged_paged_attention_plain)
 from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  flash_attention_kernel,
-                                                 flash_attention_plain,
-                                                 kv_span)
+                                                 flash_attention_plain)
 
 
 def _on_cpu(*xs) -> bool:
@@ -145,28 +144,7 @@ def _sharded_flash(q, k, v, kw):
     The output is a DTensor in q's layout."""
     mesh = _mesh_of(q, k, v)
     q, k, v = (shlib.as_dtensor(x, mesh) for x in (q, k, v))
-    b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
-    qp, kp = [], []
-    for m in range(mesh.ndim):
-        n, a, c = mesh.size(m), q.placements[m], k.placements[m]
-        if (a.is_shard(0) or c.is_shard(0)) and b % n == 0:
-            qp.append(Shard(0))
-            kp.append(Shard(0))
-        elif (a.is_shard(2) or c.is_shard(2)) and h % n == 0:
-            qp.append(Shard(2))
-            kp.append(Shard(2) if c.is_shard(2) and kvh % n == 0
-                      else Replicate())
-        else:
-            qp.append(Replicate())
-            kp.append(Replicate())
-    q_off, q_len = shlib.shard_range(qp, mesh, 2, h)
-    k_off, k_len = shlib.shard_range(kp, mesh, 2, kvh)
-    span = kv_span(q_off, q_len, h // kvh)
-    if span is None or span[0] < k_off or span[1] > k_off + k_len:
-        # query heads that split a group unevenly: heads whole
-        qp = [Replicate() if p.is_shard(2) else p for p in qp]
-        kp = [Replicate() if p.is_shard(2) else p for p in kp]
-        k_off, span = 0, (0, kvh)
+    qp, kp, span, k_off = shlib.shard_layout(q, k, mesh)
     ql = q.redistribute(mesh, qp).to_local()
     kl, vl = (x.redistribute(mesh, kp).to_local()[
         :, :, span[0] - k_off:span[1] - k_off] for x in (k, v))
@@ -283,11 +261,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
     reference's wrapper sends it to its chunked XLA path: counted in
     :func:`chunked_calls`, not as a launch; so does a ``softcap``, which the
     kernel does not take (the reference's wrapper sends it there too)."""
-    if prefix_len or softcap:   # plain PyTorch, on DTensors too
+    if prefix_len or softcap:   # plain PyTorch, on each rank's shards
         flash_attention.chunked += 1
-        return attention_chunked(q, k, v, causal=causal, window=window,
-                                 prefix_len=prefix_len, q_offset=q_offset,
-                                 softcap=softcap)
+        return shlib.attention_on_shards(
+            attention_chunked, q, k, v, causal=causal, window=window,
+            prefix_len=prefix_len, q_offset=q_offset, softcap=softcap)
     if _mesh_of(q, k, v) is not None:
         return _sharded_flash(q, k, v, dict(causal=causal, window=window,
                                             q_offset=q_offset))

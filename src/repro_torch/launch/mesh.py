@@ -8,7 +8,9 @@ process group at import.
 :func:`init_group` starts the process group: NCCL with one GPU per rank
 when the device is CUDA (refused when the host has fewer GPUs than
 ranks), gloo only for ``device="cpu"``. Nothing slides from one to the
-other.
+other. :func:`init_fake_group` starts a group of many ranks in one
+process with no device (the dry run's); its meshes take
+``device_type="cpu"``.
 """
 from __future__ import annotations
 
@@ -52,6 +54,28 @@ def init_group(rank: int, world: int, device="cuda", *,
             backend, init_method=init_method or "env://", rank=rank,
             world_size=world, timeout=timedelta(seconds=timeout_s))
     return dev
+
+
+def init_fake_group(world: int, rank: int = 0) -> None:
+    """A process group of ``world`` ranks held by this one process, as
+    ``rank``: PyTorch's ``fake`` backend, whose collectives return at once
+    and move nothing. The dry run builds its production meshes over it
+    (256 or 512 ranks) and runs on ``meta`` tensors, so no device is
+    touched. One process holds one group: a cell's fake group cannot
+    share the process with another group. The backend is registered by a
+    private module of PyTorch's test tree, imported here only."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise ImportError(
+            "the dry run's fake process group needs PyTorch's "
+            "torch.testing._internal.distributed.fake_pg (FakeStore), "
+            f"which this installation lacks: {e}") from e
+    if dist.is_initialized():
+        raise RuntimeError("this process already holds a process group; "
+                           "run each dry-run cell in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type=None):

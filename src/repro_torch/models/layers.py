@@ -14,17 +14,46 @@ softcap on every XLA attention path (``tanh(s / softcap) * softcap``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distrib.sharding import constrain
+from repro_torch.distrib.sharding import (constrain, matmul, reshape_tail,
+                                          split_last)
 from repro_torch.kernels.aot_bias import rms_norm_plain
 from repro_torch.kernels.decode_attention import (
     NEG_INF, ragged_paged_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: F401 (re-exported)
     _mask_bias, _online_chunk_scan, _sdpa_block, _softcap, attention_chunked)
+
+
+# the name being tagged by checkpoint_name, read in the same thread by the
+# selective remat policy (models.model.remat_policy)
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the ops run inside with ``name``: a selective remat policy keeps
+    their outputs when ``name`` is among ``ModelOptions.remat_save_names``,
+    and the backward's recompute does not run them again. The reference
+    tags a value (``jax.ad_checkpoint.checkpoint_name``) and XLA drops
+    what only fed it; an eager recompute runs every op before a saved one
+    all the same, so the port tags the ops that make the value."""
+    prev = tagged()
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = prev
+
+
+def tagged():
+    """The name :func:`checkpoint_name` is tagging now, or None."""
+    return getattr(_TAG, "name", None)
 
 
 def _trunc_normal(shape, std, generator, device, dtype):
@@ -49,6 +78,8 @@ def dense_init_sliced(shape, generator, device, dtype=torch.float32):
     values)."""
     std = 1.0 / math.sqrt(shape[0])
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:             # nothing to draw into
+        return out
     for i in range(shape[0]):
         out[i] = _trunc_normal(shape[1:], std, generator, device, dtype)
     return out
@@ -159,18 +190,18 @@ def apply_mlp(cfg, p, x, dtype):
     default)."""
     x = x.to(dtype)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = constrain(x @ p["wg"].to(dtype), "batch", "seq", "mlp")
-        u = constrain(x @ p["wu"].to(dtype), "batch", "seq", "mlp")
+        g = constrain(matmul(x, p["wg"].to(dtype)), "batch", "seq", "mlp")
+        u = constrain(matmul(x, p["wu"].to(dtype)), "batch", "seq", "mlp")
         act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(
             g, approximate="tanh")
-        return constrain((act * u) @ p["wd"].to(dtype), "batch", "seq",
+        return constrain(matmul(act * u, p["wd"].to(dtype)), "batch", "seq",
                          "embed")
     if cfg.mlp_type == "gelu":
-        z = constrain(x @ p["w1"].to(dtype) + p["b1"].to(dtype), "batch",
-                      "seq", "mlp")
+        z = constrain(matmul(x, p["w1"].to(dtype)) + p["b1"].to(dtype),
+                      "batch", "seq", "mlp")
         z = F.gelu(z, approximate="tanh")
-        return constrain(z @ p["w2"].to(dtype) + p["b2"].to(dtype), "batch",
-                         "seq", "embed")
+        return constrain(matmul(z, p["w2"].to(dtype)) + p["b2"].to(dtype),
+                         "batch", "seq", "embed")
     raise NotImplementedError(f"mlp {cfg.mlp_type!r} is not ported")
 
 
@@ -210,16 +241,16 @@ def attn_project_qkv(cfg, p, x, positions, dtype, sincos=None,
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = x.to(dtype)
-    q, k, v = (x @ p[w].to(dtype) for w in ("wq", "wk", "wv"))
+    q, k, v = (matmul(x, p[w].to(dtype)) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = (y + p[b_].to(dtype)
                    for y, b_ in zip((q, k, v), ("bq", "bk", "bv")))
     if peft_qkv is not None:
         q, k, v = (y if dy is None else y + dy.to(dtype)
                    for y, dy in zip((q, k, v), peft_qkv))
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    q = split_last(q, h, hd)
+    k = split_last(k, kvh, hd)
+    v = split_last(v, kvh, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
@@ -235,7 +266,7 @@ def attn_output(cfg, p, o, dtype, peft_bias=None):
     """o: (b, s, H, hd) -> (b, s, d); ``peft_bias`` (d,) is added after the
     output projection (BitFit's)."""
     b, s, h, hd = o.shape
-    out = o.reshape(b, s, h * hd).to(dtype) @ p["wo"].to(dtype)
+    out = matmul(reshape_tail(o, 2, h * hd).to(dtype), p["wo"].to(dtype))
     if peft_bias is not None:
         out = out + peft_bias.to(dtype)
     return constrain(out, "batch", "seq", "embed")
@@ -253,8 +284,9 @@ def attention_ref(q, k, v, *, causal, window=0, q_offset=0, prefix_len=0,
     bias = _mask_bias(q_offset + torch.arange(sq, device=q.device),
                       torch.arange(skv, device=q.device), causal=causal,
                       window=window, prefix_len=prefix_len)
-    o = _sdpa_block(q.reshape(b, sq, kvh, h // kvh, hd), k, v, bias, softcap)
-    return o.reshape(b, sq, h, hd)
+    o = _sdpa_block(reshape_tail(q, 2, kvh, h // kvh, hd), k, v, bias,
+                    softcap)
+    return reshape_tail(o, 2, h, hd)
 
 
 def attention_decode(q, k_cache, v_cache, cur_len, *, window=0, softcap=0.0):
@@ -266,7 +298,7 @@ def attention_decode(q, k_cache, v_cache, cur_len, *, window=0, softcap=0.0):
     in the reference, averages the whole cache."""
     b, _, h, hd = q.shape
     S, kvh = k_cache.shape[1], k_cache.shape[2]
-    q5 = q.reshape(b, 1, kvh, h // kvh, hd)
+    q5 = reshape_tail(q, 2, kvh, h // kvh, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", q5, k_cache).float() / math.sqrt(hd)
     s = _softcap(s, softcap)
     pos = torch.arange(S, device=q.device)
@@ -281,7 +313,7 @@ def attention_decode(q, k_cache, v_cache, cur_len, *, window=0, softcap=0.0):
     read = ok | (cl <= 0)[:, None]
     v = torch.where(read[:, :, None, None], v_cache, 0.0)
     out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
-    return out.reshape(b, 1, h, hd)
+    return reshape_tail(out, 2, h, hd)
 
 
 def paged_attention_decode(q, k_pages, v_pages, block_tables, cur_len, *,

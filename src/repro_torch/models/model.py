@@ -14,9 +14,27 @@ PyTorch (``layers.attention_ref`` or the blockwise
 ``layers.attention_chunked``, the reference's default, ``layers.apply_norm``,
 ``h + rows`` for AoT): the training paths, which also run what only
 training uses, AoT's fc / kron reparametrizations and full fine-tuning.
-P-Tuning v1 runs the whole-sequence entry points on all three. The
-serving entry points (``prefill``, ``decode_step``, ``mixed_step``) refuse
-``"ref"`` and ``"chunked"``.
+P-Tuning v1 runs the whole-sequence entry points on all three.
+``prefill`` and ``decode_step`` also run under ``"ref"`` and
+``"chunked"``, in plain PyTorch (``attention_chunked`` or
+``attention_ref``, then ``layers.attention_decode``), as the reference
+runs its serving entry points under any ``attn_impl``: the dry run
+(``launch.dryrun``) costs them so. ``mixed_step`` serves on the kernels
+only.
+
+Layer rematerialization (``ModelOptions.remat``; the reference turns it
+on by default, the port leaves it off: a training step here is bound by
+the host's launches, and the recompute runs every forward op twice, for
+memory no training path of the port runs short of; the dry run turns it
+on, as the reference's): while autograd records, the whole-sequence
+entry points run each remat unit (:func:`layer_units`: the reference's
+layer groups) under ``torch.utils.checkpoint``, so the backward keeps
+only each unit's input and runs the unit again; ``remat_save_names`` and
+``remat_policy_name`` keep what the reference's policies keep
+(:func:`remat_policy`). The reference's ``scan_layers`` and
+``unroll_scans`` tell XLA how to compile its layer scan and inner scans;
+an eager loop runs and counts every layer and step as it is, so they
+have no counterpart here.
 
 Counterpart of ``repro.models.model.Model``: attention stacks, pre-norm
 causal decoders (RMSNorm, SwiGLU, RoPE, tied embeddings: the
@@ -59,20 +77,28 @@ hd), an RG-LRU layer's ``{"conv", "h"}``, an mLSTM layer's ``{"conv",
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from repro_torch import tree as T
 from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MLSTM, BLOCK_RGLRU,
                                       BLOCK_SLSTM, ArchConfig)
 from repro_torch.core import aot as aot_mod
 from repro_torch.core.peft import lora_scale
-from repro_torch.device import resolve_device
-from repro_torch.distrib.sharding import constrain
+from repro_torch.device import generator, resolve_device
+from repro_torch.distrib import axes as axlib
+from repro_torch.distrib import sharding as shlib
+from repro_torch.distrib.sharding import constrain, write_rows
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -109,6 +135,46 @@ class ModelOptions:
     chunk_kv: int = 1024
     max_learned_pos: int = 0        # 0: from the config's shapes (max_pos)
     mlstm_chunk: int = 64           # mLSTM's chunk (xlstm.mlstm_chunkwise)
+    # layer rematerialization while autograd records (_remat_unit)
+    remat: bool = False
+    remat_save_names: Tuple[str, ...] = ()  # "attn_mix", "moe_out" kept
+    remat_policy_name: str = ""     # "" | "dots": keep products w/o batch
+
+
+def remat_policy(opts: ModelOptions):
+    """The selective remat policy of ``opts`` (None: recompute every op):
+    keep what ``checkpoint_name`` tags with one of ``remat_save_names``
+    and, under ``"dots"``, the outputs of products with no batch dimension
+    (``mm``, ``addmm``; a ``bmm`` is recomputed), as the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if opts.remat_policy_name not in ("", "dots"):
+        raise ValueError(f"remat_policy_name {opts.remat_policy_name!r}: "
+                         "'' or 'dots'")
+    names, dots = set(opts.remat_save_names), opts.remat_policy_name
+    if not names and not dots:
+        return None
+    keep = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        if L.tagged() in names or dots and op in keep:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def layer_units(cfg: ArchConfig):
+    """The (first, end) layers of each remat unit, the reference's layer
+    groups (``layer_plan``): ``pattern_repeats`` units of the pattern
+    (widened to ``lcm(len(pattern_unit), interleave)`` layers with MoE on
+    every ``interleave``-th layer), then the remainder as one unit."""
+    ulen = len(cfg.pattern_unit)
+    if cfg.moe is not None and cfg.moe.interleave > 1:
+        ulen = math.lcm(ulen, cfg.moe.interleave)
+    covered = cfg.pattern_repeats * len(cfg.pattern_unit)
+    units = [(lo, lo + ulen) for lo in range(0, covered, ulen)]
+    if cfg.pattern_remainder:
+        units.append((covered, cfg.num_layers))
+    return units
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -286,6 +352,7 @@ class Model:
         # blocks; attention-only stacks keep the stacked {"k", "v"}
         self.layered = bool(recurrent_kinds(cfg))
         self._routes = None         # the open record_routes() list, if any
+        self._in_remat = False      # inside a remat unit (_remat_unit)
 
     # ------------------------------------------------------------------
     def max_pos(self) -> int:
@@ -314,7 +381,7 @@ class Model:
         ``frontend.proj`` (frontend_dim, d), dense, drawn last; audio
         frames have no token table ``embed.tok`` (the reference's tree)."""
         cfg, dev, pdt = self.cfg, self.device, self.opts.param_dtype
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = generator(dev, seed)
         d, V = cfg.d_model, cfg.vocab_size
 
         dense = lambda *shape: L.dense_init(shape, gen, dev, pdt)
@@ -400,12 +467,38 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int):
         """A fresh contiguous cache (the stabilizers of m/sLSTM states at
-        -1e30, everything else zeros)."""
+        -1e30, everything else zeros). Under ``use_rules`` on a
+        ``DeviceMesh`` each leaf is a DTensor laid out by the cache's
+        logical names, and each rank allocates its shard only."""
+        mesh, rules = shlib._current()
+        if isinstance(mesh, DeviceMesh):
+            return self._cache_on_mesh(batch, max_len, mesh, rules)
         if self.layered:
             return self._layered_cache(batch, max_len, self.device)
         return {name: torch.zeros(shape, dtype=dt, device=self.device)
                 for name, (shape, dt) in
                 self.cache_specs(batch, max_len).items()}
+
+    def _cache_on_mesh(self, batch: int, max_len: int, mesh, rules):
+        """:meth:`init_cache` on ``mesh``: shapes from a cache on ``meta``,
+        each leaf's value from a fresh one-row cache on the CPU (every
+        fresh leaf holds one value)."""
+        if self.layered:
+            shapes = self._layered_cache(batch, max_len, "meta")
+            probe = self._layered_cache(1, 1, "cpu")
+            names = axlib.per_layer(axlib.cache_axes_for)
+        else:
+            shapes = {name: torch.empty(shape, dtype=dt, device="meta")
+                      for name, (shape, dt) in
+                      self.cache_specs(batch, max_len).items()}
+            probe = {name: torch.zeros(1) for name in shapes}
+            names = axlib.cache_axes_for
+        fills = {axlib.path_strings(p): float(x.reshape(-1)[0])
+                 for p, x in axlib.leaves_with_paths(probe)}
+        return axlib.map_with_path(
+            lambda path, x: shlib.full_on_mesh(
+                tuple(x.shape), fills[path], x.dtype, self.device,
+                names(path, tuple(x.shape)), mesh, rules), shapes)
 
     def _layered_cache(self, batch: int, max_len: int, device):
         """The per-layer cache of a stack with recurrent blocks on
@@ -475,7 +568,8 @@ class Model:
     def unembed(self, params, h):
         """h @ :meth:`head_weight` in the compute dtype (under a mesh, vocab
         takes the model axis)."""
-        logits = h.to(self.opts.compute_dtype) @ self.head_weight(params)
+        logits = shlib.matmul(h.to(self.opts.compute_dtype),
+                              self.head_weight(params))
         return constrain(logits, "batch", None, "vocab")
 
     # ------------------------------------------------------------------
@@ -503,11 +597,12 @@ class Model:
             f"{where}; the serving entry points serve {', '.join(SERVED)}, "
             "AoT as fused tables")
 
-    def _serving(self, entry: str) -> None:
+    def _serving(self, entry: str, kernels: bool = False) -> None:
         """Raise unless the serving entry point ``entry`` runs here: a
-        servable backbone (:func:`check_servable`) on the kernels."""
+        servable backbone (:func:`check_servable`), and with ``kernels``
+        (the mixed step) on the kernels."""
         check_servable(self.cfg)
-        if self.opts.attn_impl != "kernel":
+        if kernels and self.opts.attn_impl != "kernel":
             raise NotImplementedError(
                 f"{entry} runs the serving kernels only (attn_impl="
                 f"'kernel'); attn_impl={self.opts.attn_impl!r} runs the "
@@ -521,7 +616,7 @@ class Model:
             return None
         seeds = torch.randint(0, 2 ** 62, (self.cfg.num_layers,),
                               generator=rng, device=rng.device).tolist()
-        return [torch.Generator(device=self.device).manual_seed(s)
+        return [generator(self.device, s)
                 for s in seeds]
 
     def _aot_rows(self, peft, i, ids, task_ids, e_rows, gens):
@@ -534,8 +629,8 @@ class Model:
             self.opts.compute_dtype
         gen = gens[i] if gens is not None else None
         if ao.mode == "fc":
-            return aot_mod.rows_fc(aot_mod.layer_params(pp, i), e_rows, ao,
-                                   dt, gen)
+            return shlib.rowwise(lambda e, lp: aot_mod.rows_fc(
+                lp, e, ao, dt, gen), e_rows, aot_mod.layer_params(pp, i))
         if ao.mode == "kron":
             return aot_mod.rows_kron(aot_mod.layer_params(pp, i), ids, ao,
                                      dt, gen)
@@ -646,9 +741,13 @@ class Model:
         q, k, v = L.attn_project_qkv(cfg, lp["attn"], x, None, dt,
                                      sincos=sincos, peft_qkv=qkv)
         bias = pp["bitfit"]["attn_out"][i] if method == "bitfit" else None
-        out = L.attn_output(cfg, lp["attn"], attend(q, k, v), dt, bias)
-        if method == "adapters":
-            out = self._adapter(pp["adapters"]["attn"], i, out)
+        o = attend(q, k, v)
+        # the reference's "attn_mix": the block's attention output
+        with (L.checkpoint_name("attn_mix") if self._in_remat and not post
+              else contextlib.nullcontext()):
+            out = L.attn_output(cfg, lp["attn"], o, dt, bias)
+            if method == "adapters":
+                out = self._adapter(pp["adapters"]["attn"], i, out)
         if post:
             h = x = L.apply_norm(cfg, lp["ln1"], h + out)
         else:
@@ -831,7 +930,9 @@ class Model:
             aot = (ids.reshape(-1).contiguous(),
                    peft["task_ids"].to(torch.int32).repeat_interleave(s)
                    if "task_ids" in peft else None,
-                   None if e_rows is None else e_rows.reshape(b * s, -1),
+                   # E[ids] (b, s, d), laid out as h (AoT's fc rows)
+                   None if e_rows is None else constrain(
+                       e_rows, "batch", "seq", "embed"),
                    self._layer_generators(rng))
         impl = self.opts.attn_impl
         kw = dict(causal=cfg.causal, window=self.window(), q_offset=p)
@@ -839,18 +940,17 @@ class Model:
             kw["softcap"] = cfg.logit_softcap
         if cfg.prefix_lm_len or p1:     # the reference's arithmetic
             kw["prefix_len"] = cfg.prefix_lm_len + p1 + p
-        for i, lp in enumerate(params["layers"]):
-            kind = self.kinds[i]
+        def layer(i, h, aux):
+            lp, kind = params["layers"][i], self.kinds[i]
             if kind != BLOCK_ATTN:      # a fresh cache's state, or none
                 h, new = self._recurrent_block(
                     kind, lp, h, peft, i, aot,
                     None if cache is None else cache["layers"][i])
                 if cache is not None:
                     cache["layers"][i] = new
-                h = constrain(h, "batch", "seq", "embed")
-                continue
+                return constrain(h, "batch", "seq", "embed")
 
-            def attend(q, k, v, i=i):
+            def attend(q, k, v):
                 if p:
                     pre = peft["params"]["ptv2"]
                     k = torch.cat([pre["pk"][i].to(k.dtype).expand(
@@ -860,18 +960,80 @@ class Model:
                 if spans:
                     kc, vc = self.kv(cache, i)
                 for lo, hi, at in spans or ():
+                    if isinstance(kc, DTensor):     # on each rank's shards
+                        write_rows(kc, 1, at, k[:, lo:hi])
+                        write_rows(vc, 1, at, v[:, lo:hi])
+                        continue
                     kc[:, at:at + hi - lo] = k[:, lo:hi]
                     vc[:, at:at + hi - lo] = v[:, lo:hi]
-                if impl == "ref":
-                    return L.attention_ref(q, k, v, **kw)
+                if impl == "ref":       # on each rank's shards on a mesh
+                    return shlib.attention_on_shards(L.attention_ref, q, k,
+                                                     v, **kw)
                 if impl == "chunked":
-                    return L.attention_chunked(
-                        q, k, v, chunk_q=self.opts.chunk_q,
-                        chunk_kv=self.opts.chunk_kv, **kw)
+                    return shlib.attention_on_shards(
+                        functools.partial(L.attention_chunked,
+                                          chunk_q=self.opts.chunk_q,
+                                          chunk_kv=self.opts.chunk_kv),
+                        q, k, v, **kw)
                 return ops.flash_attention(q, k, v, **kw)
             h = self._block(lp, h, sincos, attend, peft, i, aot, aux)
-            h = constrain(h, "batch", "seq", "embed")
+            return constrain(h, "batch", "seq", "embed")
+
+        remat = (cache is None and self.opts.remat
+                 and self._records(h, params, peft))
+        for lo, hi in layer_units(cfg):
+            auxs = [None if aux is None else {} for _ in range(lo, hi)]
+            if remat:
+                h, auxs = self._remat_unit(layer, lo, hi, h, auxs, aot)
+            else:
+                for i in range(lo, hi):
+                    h = layer(i, h, auxs[i - lo])
+            for layer_aux in auxs:          # summed in layer order
+                for k, v in (layer_aux or {}).items():
+                    aux[k] = aux[k] + v if k in aux else v
         return L.apply_norm(cfg, params["final_norm"], h)[:, p1:], p
+
+    @staticmethod
+    def _records(*trees) -> bool:
+        """Whether autograd records: grad mode on and a tensor among
+        ``trees`` requiring grad."""
+        return torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in T.leaves(list(trees)))
+
+    def _remat_unit(self, layer, lo, hi, h, auxs, aot):
+        """Layers ``[lo, hi)`` (``layer(i, h, aux)``) on h under
+        ``torch.utils.checkpoint`` (non-reentrant): only h enters the
+        backward's saved tensors, and the unit's forward runs again in the
+        backward, keeping what :func:`remat_policy` keeps. The recompute
+        replays AoT's dropout generators from their states at the unit's
+        start and records no MoE routes, so it is the forward's, bit for
+        bit. Returns (h, the layers' aux dicts)."""
+        gens = aot[3][lo:hi] if aot is not None and aot[3] else []
+        states = [g.get_state() for g in gens]
+        runs = []
+
+        def body(h):
+            again = bool(runs)
+            runs.append(1)
+            for g, st in zip(gens, states):
+                g.set_state(st)
+            routes, self._routes = self._routes, (
+                None if again else self._routes)
+            self._in_remat = True
+            try:
+                out = [None if a is None else {} for a in auxs]
+                for i in range(lo, hi):
+                    h = layer(i, h, out[i - lo])
+                return h, out
+            finally:
+                self._routes, self._in_remat = routes, False
+
+        policy = remat_policy(self.opts)
+        kw = {} if policy is None else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, policy)}
+        return checkpoint(body, h, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
 
     def forward(self, params, tokens, peft=None, rng=None, *, patches=None,
                 frames=None, aot_ids=None):
@@ -928,7 +1090,9 @@ class Model:
         length (>= s, plus P-Tuning v2's prefix). Every layer attends
         through the flash attention kernel (causal, with the config's
         window; a config's bidirectional prefix, paligemma's, through
-        ``attention_chunked``) and writes its K/V into rows ``[0, p + s)``
+        ``attention_chunked``; under ``attn_impl="chunked"`` / ``"ref"``
+        the plain attention, norms and AoT rows of :meth:`forward`) and
+        writes its K/V into rows ``[0, p + s)``
         of a fresh ``init_cache(b, max_len)`` (p: the P-Tuning v2 prefix,
         else 0). ``patches``, ``frames``, ``aot_ids``: the front-end's
         inputs (:meth:`forward`). ``last_pos`` (an int) picks the position
@@ -965,8 +1129,11 @@ class Model:
         returns a new cache): contiguous at row ``pos`` (``pos % rows`` in
         a ring), paged into the page ``block_tables`` maps for depth
         ``pos``. Attention then runs the decode kernel (contiguous) or the
-        paged decode kernel over ``pos + 1`` positions (``min(pos + 1,
-        rows)`` in a ring: every resident row lies inside the window).
+        paged decode kernel (under ``attn_impl="chunked"`` / ``"ref"``, or
+        with a softcap, the plain ``layers`` walks) over ``pos + 1``
+        positions (``min(pos + 1, rows)`` in a ring: every resident row
+        lies inside the window). On a mesh the cache's leaves are DTensors
+        written on each rank's shards (``pos`` an int).
         RoPE takes ``pos`` as the position, as the reference does: after a
         P-Tuning v2 prefill (pos = s + p) the first decoded token sits p
         positions past the prompt's last. Returns (logits (b, 1, V),
@@ -1005,9 +1172,8 @@ class Model:
             # filled on the device: a host number uploaded here (or in each
             # layer's wrapper) would wait on the stream every step
             positions = torch.full((1,), int(pos), device=dev)  # every row's
-            cur = torch.full((b,), min(int(pos) + 1, rows) if ring
-                             else int(pos) + 1, dtype=torch.int32,
-                             device=dev)
+            depth = min(int(pos) + 1, rows) if ring else int(pos) + 1
+            cur = torch.full((b,), depth, dtype=torch.int32, device=dev)
             where = (slice(None), int(pos) % rows if ring else int(pos))
         sincos = (L.rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
                   if cfg.pos_type == "rope" else None)
@@ -1017,8 +1183,10 @@ class Model:
                 check_table_reach(np.arange(b), pos_t, block_tables.shape[1],
                                   bs)
             where = (block_tables.long()[where[0], pos_t // bs], pos_t % bs)
-        aot = (ids, peft.get("task_ids")) if method == "aot" else None
+        aot = ((ids, peft.get("task_ids"), None, None) if method == "aot"
+               else None)
         softcap = cfg.logit_softcap
+        plain = softcap or self.opts.attn_impl != "kernel"
         for i, lp in enumerate(params["layers"]):
             kind = self.kinds[i]
             if kind != BLOCK_ATTN:      # the state's step, stored back
@@ -1028,9 +1196,23 @@ class Model:
             kc, vc = self.kv(cache, i)
 
             def attend(q, k, v, kc=kc, vc=vc):
-                kc[where] = k[:, 0]
-                vc[where] = v[:, 0]
-                if softcap:     # the reference's XLA walks; no kernel
+                if isinstance(kc, DTensor):     # one depth, on the shards
+                    if not isinstance(where[1], int):
+                        raise NotImplementedError(
+                            "a cache on a mesh takes one int pos")
+                    write_rows(kc, 1, where[1], k)
+                    write_rows(vc, 1, where[1], v)
+                else:
+                    kc[where] = k[:, 0]
+                    vc[where] = v[:, 0]
+                if isinstance(kc, DTensor) and not any(
+                        p.is_shard(1) for p in kc.placements):
+                    # on each rank's rows and heads (a cache sharded along
+                    # its sequence stays with DTensor's reductions)
+                    return shlib.attention_on_shards(
+                        lambda q, k, v, q_offset: L.attention_decode(
+                            q, k, v, depth, softcap=softcap), q, kc, vc)
+                if plain:       # the reference's XLA walks; no kernel
                     return (L.paged_attention_decode(
                         q, kc, vc, block_tables, cur, softcap=softcap)
                         if block_tables is not None else
@@ -1101,7 +1283,7 @@ class Model:
         refuse_recurrent(cfg, "the unified mixed step")
         refuse_prefix_lm(cfg, "the unified mixed step")
         assert block_tables is not None, "mixed_step serves paged pools only"
-        self._serving("mixed_step")
+        self._serving("mixed_step", kernels=True)
         method = self._method(peft)
         if method == "ptv2":
             raise NotImplementedError(_PTV2_PAGED)

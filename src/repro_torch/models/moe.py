@@ -42,7 +42,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distrib import sharding as shlib
 from repro_torch.distrib.sharding import constrain
-from repro_torch.models.layers import dense_init, dense_init_sliced
+from repro_torch.models.layers import (checkpoint_name, dense_init,
+                                      dense_init_sliced)
 
 def moe_init(cfg, generator, device, dtype=torch.float32):
     """The MoE's parameters with the reference's tree and distributions:
@@ -101,8 +102,9 @@ def _shared(cfg, p, x, dtype):
         return None
     sp = p["shared"]
     xd = x.to(dtype)
-    return (F.silu(xd @ sp["wg"].to(dtype)) * (xd @ sp["wu"].to(dtype))
-            ) @ sp["wd"].to(dtype)
+    mm = shlib.matmul
+    return mm(F.silu(mm(xd, sp["wg"].to(dtype))) * mm(xd, sp["wu"].to(
+        dtype)), sp["wd"].to(dtype))
 
 
 def apply_moe(cfg, p, x, dtype, record=None
@@ -158,11 +160,11 @@ def apply_moe_gspmd(cfg, p, x, dtype, record=None
     slot = torch.where(keep, flat_e * C + pos_in_e,
                        torch.full_like(flat_e, E * C))
     tok_idx = (torch.arange(Tg * k, device=dev) // k).expand(G, Tg * k)
-    grp = torch.arange(G, device=dev)[:, None].expand(G, Tg * k)
-    slot_tok = torch.zeros(G, E * C + 1, dtype=torch.long, device=dev)
-    slot_tok[grp, slot] = tok_idx
-    slot_valid = torch.zeros(G, E * C + 1, dtype=dtype, device=dev)
-    slot_valid[grp, slot] = keep.to(dtype)
+    # each slot's token (slots are unique but for the dump slot, cut below)
+    slot_tok = torch.zeros(G, E * C + 1, dtype=torch.long,
+                           device=dev).scatter(1, slot, tok_idx)
+    slot_valid = torch.zeros(G, E * C + 1, dtype=dtype,
+                             device=dev).scatter(1, slot, keep.to(dtype))
     slot_tok, slot_valid = slot_tok[:, :E * C], slot_valid[:, :E * C]
 
     xs = xf.to(dtype).gather(1, slot_tok[..., None].expand(G, E * C, d))
@@ -333,12 +335,13 @@ def apply_moe_ep(cfg, p, x, dtype) -> Tuple[torch.Tensor, Dict[str,
     ys = torch.bmm(F.silu(g) * u, wd).reshape(E_loc * Ce, d)
     ys = torch.cat([ys, ys.new_zeros(1, d)])
     ret = a2a(ys[slot2])                                     # dump -> 0
-    rows = torch.cat([ret, ret.new_zeros(1, d)])[slot]       # dump -> 0
-    # each token's k rows, weighted and summed as the gather path sums
-    # them (the reference scatter-adds; on the card index_add's atomics
-    # would add in no fixed order)
-    out_l = torch.einsum("tkd,tk->td", rows.reshape(Tl, k, d),
-                         top_p.to(dtype))
+    with checkpoint_name("moe_out"):    # the combine, kept by that name
+        rows = torch.cat([ret, ret.new_zeros(1, d)])[slot]   # dump -> 0
+        # each token's k rows, weighted and summed as the gather path
+        # sums them (the reference scatter-adds; on the card index_add's
+        # atomics would add in no fixed order)
+        out_l = torch.einsum("tkd,tk->td", rows.reshape(Tl, k, d),
+                             top_p.to(dtype))
 
     # aux: local means, averaged over the model axis, then the data axes
     # (ce as the gather path's: the share of tokens routed to expert e)
@@ -354,16 +357,19 @@ def apply_moe_ep(cfg, p, x, dtype) -> Tuple[torch.Tensor, Dict[str,
         lb, zl, dropped = (_pmean(v, mesh.get_group(a), n)
                            for v in (lb, zl, dropped))
 
-    out = shlib.from_local(out_l.reshape(1, Tl, d), mesh, tok_pl,
-                           (G, T // G, d))
-    out = out.redistribute(mesh, rows_pl).to_local()        # the group's
-    out = shlib.from_local(out.reshape(b // G, s, d), mesh, rows_pl,
-                           (b, s, d))
-    out = constrain(out, "batch", "seq", "embed")
+    with checkpoint_name("moe_out"):
+        out = shlib.from_local(out_l.reshape(1, Tl, d), mesh, tok_pl,
+                               (G, T // G, d))
+        out = out.redistribute(mesh, rows_pl).to_local()    # the group's
+        out = shlib.from_local(out.reshape(b // G, s, d), mesh, rows_pl,
+                               (b, s, d))
+        out = constrain(out, "batch", "seq", "embed")
     shared = _shared(cfg, p, x, dtype)
     if shared is not None:
         out = out + shared
+    aux = {"moe_lb_loss": lb, "moe_z_loss": zl, "moe_dropped_frac": dropped}
     if not isinstance(x, DTensor):
         out = out.full_tensor()
-    aux = {"moe_lb_loss": lb, "moe_z_loss": zl, "moe_dropped_frac": dropped}
+    else:       # replicated DTensors, whose gradients come back local
+        aux = {k: shlib.as_dtensor(v, mesh) for k, v in aux.items()}
     return out, aux

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distrib.sharding import constrain
+from repro_torch.distrib.sharding import constrain, matmul
 from repro_torch.models.layers import dense_init
 
 _C_MAX = 8.0   # RG-LRU gate exponent scale (Griffin's c)
@@ -121,8 +121,8 @@ def apply_rglru(cfg, p, x, dtype, cache: Optional[dict] = None):
     the new state stored in ``dtype`` as the reference stores it."""
     H = cfg.num_heads
     xin = x.to(dtype)
-    gate = F.gelu(xin @ p["in_gate"].to(dtype), approximate="tanh")
-    xr = xin @ p["in_x"].to(dtype)
+    gate = F.gelu(matmul(xin, p["in_gate"].to(dtype)), approximate="tanh")
+    xr = matmul(xin, p["in_x"].to(dtype))
     xr = constrain(xr, "batch", "seq", "lru")
     gate = constrain(gate, "batch", "seq", "lru")
     xc, conv_state = _conv1d_causal(p["conv_w"], p["conv_b"], xr,
@@ -136,7 +136,7 @@ def apply_rglru(cfg, p, x, dtype, cache: Optional[dict] = None):
         h0 = cache["h"].float() if cache else None
         hs = rglru_scan(a, bterm, h0)
     y = hs.to(dtype) * gate
-    out = constrain(y @ p["out"].to(dtype), "batch", "seq", "embed")
+    out = constrain(matmul(y, p["out"].to(dtype)), "batch", "seq", "embed")
     return out, {"conv": conv_state, "h": hs[:, -1].to(dtype)}
 
 

@@ -21,7 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distrib.sharding import constrain
+from repro_torch.distrib.sharding import (by_rows, constrain, matmul,
+                                          pointwise, split_last)
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recurrent import _conv1d_causal
 
@@ -81,7 +82,7 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, state=None, chunk: int = 64):
     where that does not divide s (the reference's rule). Returns (h (b, s,
     H, hd) float32, state (C (b, H, hd, hd), n (b, H, hd), m (b, H)))."""
     b, s, H, hd = q.shape
-    f_log = F.logsigmoid(f_raw.float())
+    f_log = pointwise(F.logsigmoid, f_raw.float())
     i_log = i_raw.float()
     if state is None:
         state = _mlstm_state(b, H, hd, q.device)
@@ -113,7 +114,7 @@ def mlstm_recurrent(q, k, v, i_raw, f_raw, state=None):
     Cm, n, m = state if state is not None else _mlstm_state(b, H, hd,
                                                              q.device)
     scale = 1.0 / math.sqrt(hd)
-    f_log = F.logsigmoid(f_raw.float())
+    f_log = pointwise(F.logsigmoid, f_raw.float())
     i_log = i_raw.float()
     q, k, v = q.float(), k.float(), v.float()
     hs = []
@@ -167,7 +168,7 @@ def _group_norm(x, scale, H, eps=1e-6):
     statistics (biased variance), the result times ``scale`` in x's
     dtype."""
     b, s, di = x.shape
-    xh = x.reshape(b, s, H, di // H).float()
+    xh = split_last(x, H, di // H).float()
     mu = xh.mean(-1, keepdim=True)
     var = (xh - mu).square().mean(-1, keepdim=True)
     y = (xh - mu) * torch.rsqrt(var + eps)
@@ -184,26 +185,26 @@ def apply_mlstm_block(cfg, p, x, dtype, cache=None, chunk: int = 64):
     di = 2 * d
     hd = di // H
     xin = x.to(dtype)
-    up = xin @ p["up"].to(dtype)
+    up = matmul(xin, p["up"].to(dtype))
     x_up, z = up.chunk(2, -1)
     xc, conv_state = _conv1d_causal(p["conv_w"], p["conv_b"], x_up,
                                     cache["conv"] if cache else None)
     xc = F.silu(xc)
-    q = (xc @ p["wq"].to(dtype)).reshape(b, s, H, hd)
-    k = (xc @ p["wk"].to(dtype)).reshape(b, s, H, hd)
-    v = (x_up @ p["wv"].to(dtype)).reshape(b, s, H, hd)
+    q = split_last(matmul(xc, p["wq"].to(dtype)), H, hd)
+    k = split_last(matmul(xc, p["wk"].to(dtype)), H, hd)
+    v = split_last(matmul(x_up, p["wv"].to(dtype)), H, hd)
     i_raw = xc @ p["w_i"].to(dtype) + p["b_i"].to(dtype)        # (b, s, H)
-    f_raw = xc @ p["w_f"].to(dtype) + p["b_f"].to(dtype)
+    f_raw = matmul(xc, p["w_f"].to(dtype)) + p["b_f"].to(dtype)
     st = cache["state"] if cache else None
     if cache is not None and s == 1:
         h, st = mlstm_recurrent(q, k, v, i_raw, f_raw, st)
     else:
         h, st = mlstm_chunkwise(q, k, v, i_raw, f_raw, st, chunk=chunk)
-    o = torch.sigmoid((x_up @ p["w_o"].to(dtype) + p["b_o"].to(dtype))
+    o = torch.sigmoid((matmul(x_up, p["w_o"].to(dtype)) + p["b_o"].to(dtype))
                       .float()).to(dtype)
     y = _group_norm(h.reshape(b, s, di).to(dtype) * o, p["gn_scale"], H)
     y = y * F.silu(z)
-    out = constrain(y @ p["down"].to(dtype), "batch", "seq", "embed")
+    out = constrain(matmul(y, p["down"].to(dtype)), "batch", "seq", "embed")
     return out, {"conv": conv_state, "state": st}
 
 
@@ -251,15 +252,16 @@ def _rdot(r, h, H):
     """Block-diagonal recurrent matmul of h (b, d) float32 by r (H, hd,
     hd)."""
     b, d = h.shape
-    return torch.einsum("bhi,hij->bhj", h.reshape(b, H, d // H),
+    return torch.einsum("bhi,hij->bhj", split_last(h, H, d // H),
                         r).reshape(b, d)
 
 
-def _slstm_scan(p, x_z, x_i, x_f, x_o, H, state):
+def _slstm_scan(x_z, x_i, x_f, x_o, state, r, H):
     """The recurrence over x_* (b, s, d) float32 from ``state`` {"h", "c",
-    "n", "m"} (each (b, d) float32), one step per position. Returns (hs
-    (b, s, d), the state after the last step)."""
-    r = {g: p[f"r_{g}"].float() for g in "zifo"}
+    "n", "m"} (each (b, d) float32) with the recurrent weights ``r``
+    {"z", "i", "f", "o"}, one step per position. Returns (hs (b, s, d),
+    the state after the last step)."""
+    r = {g: w.float() for g, w in r.items()}
     h, c, n, m = state["h"], state["c"], state["n"], state["m"]
     hs = []
     for t in range(x_z.shape[1]):
@@ -267,7 +269,7 @@ def _slstm_scan(p, x_z, x_i, x_f, x_o, H, state):
         i_raw = x_i[:, t] + _rdot(r["i"], h, H)
         f_raw = x_f[:, t] + _rdot(r["f"], h, H)
         o = torch.sigmoid(x_o[:, t] + _rdot(r["o"], h, H))
-        f_log = F.logsigmoid(f_raw)
+        f_log = pointwise(F.logsigmoid, f_raw)
         m_new = torch.maximum(f_log + m, i_raw)
         fhat = torch.exp(f_log + m - m_new)
         ihat = torch.exp(i_raw - m_new)
@@ -291,16 +293,18 @@ def apply_slstm_block(cfg, p, x, dtype, cache=None):
     xc, conv_state = _conv1d_causal(p["conv_w"], p["conv_b"], xin,
                                     cache["conv"] if cache else None)
     xc = F.silu(xc)
-    proj = lambda inp, g: (inp @ p[f"w_{g}"].to(dtype)
+    proj = lambda inp, g: (matmul(inp, p[f"w_{g}"].to(dtype))
                            + p[f"b_{g}"].to(dtype)).to(f32)
     x_z, x_o = proj(xin, "z"), proj(xin, "o")
     x_i, x_f = proj(xc, "i"), proj(xc, "f")
     state = cache["state"] if cache else slstm_state(b, d, x.device)
-    hs, new_state = _slstm_scan(p, x_z, x_i, x_f, x_o, H, state)
+    r = {g: p[f"r_{g}"] for g in "zifo"}
+    hs, new_state = by_rows(lambda *a: _slstm_scan(*a, H), x_z, x_i, x_f,
+                            x_o, state, whole=(r,))
     y = _group_norm(hs.to(dtype), p["gn_scale"], H)
-    u1 = y @ p["up1"].to(dtype)
-    u2 = y @ p["up2"].to(dtype)
-    out = (F.gelu(u1, approximate="tanh") * u2) @ p["down"].to(dtype)
+    u1 = matmul(y, p["up1"].to(dtype))
+    u2 = matmul(y, p["up2"].to(dtype))
+    out = matmul(F.gelu(u1, approximate="tanh") * u2, p["down"].to(dtype))
     out = constrain(out, "batch", "seq", "embed")
     return out, {"conv": conv_state, "state": new_state}
 

@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.core import peft as peft_mod
-from repro_torch.distrib.sharding import constrain
+from repro_torch.distrib.sharding import constrain, matmul
 from repro_torch.optim import adamw, clip_by_global_norm
 from repro_torch.optim.schedules import constant
 
@@ -78,19 +78,23 @@ def merge_train(trainable, frozen):
 
 def _ce_piece(hc, w, lc, mc, z_loss: float):
     # vocab, not seq, takes the model axis (the reference's constraint)
-    logits = constrain(hc @ w, "batch", None, "vocab").float()  # (b, c, V)
+    logits = constrain(matmul(hc, w), "batch", None, "vocab").float()
     lse = torch.logsumexp(logits, dim=-1)
     if isinstance(logits, DTensor):
         # over vocab shards: each row's one gold logit among zeros, summed
-        # (exact in any order)
-        hit = torch.arange(logits.shape[-1], device=lc.device) == lc[..., None]
-        gold = torch.where(hit, logits, 0.0).sum(-1)
+        # (exact in any order); the prediction, argmax's first index of
+        # the largest logit, as a max then a min over the shards
+        ids = torch.arange(logits.shape[-1], device=lc.device)
+        gold = torch.where(ids == lc[..., None], logits, 0.0).sum(-1)
+        top = logits.amax(-1, keepdim=True)
+        pred = torch.where(logits == top, ids, logits.shape[-1]).amin(-1)
     else:
         gold = logits.gather(-1, lc[..., None].long())[..., 0]
+        pred = logits.argmax(-1)
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse.square()
-    pred_ok = (logits.argmax(-1) == lc).float()
+    pred_ok = (pred == lc).float()
     return (nll * mc).sum(), (pred_ok * mc).sum(), mc.sum()
 
 

@@ -22,7 +22,7 @@ from repro.optim import compression as jcomp
 from repro_torch import configs
 from repro_torch.distrib import axes as axlib
 from repro_torch.distrib import sharding as shlib
-from repro_torch.kernels.flash_attention import kv_span
+from repro_torch.distrib.sharding import kv_span
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.model import Model

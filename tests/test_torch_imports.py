@@ -42,7 +42,9 @@ def test_importing_the_port_loads_no_jax():
               "configs.recurrentgemma_9b", "configs.xlstm_350m",
               "models.recurrent", "models.xlstm", "configs.paligemma_3b",
               "configs.hubert_xlarge", "distrib.axes", "distrib.sharding",
-              "launch.mesh", "checkpoint.reshard", "optim.compression"):
+              "launch.mesh", "checkpoint.reshard", "optim.compression",
+              "launch.specs", "launch.dryrun", "roofline",
+              "roofline.analysis"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1209,3 +1209,28 @@ def test_phase3_softcap_cases_run_on_the_cpu():
     for name, (fn, xs) in cases.items():
         off = uncapped[name][0](*uncapped[name][1])
         assert float((fn(*xs) - off).abs().max()) > 1e-3, name
+
+
+def test_c4_watch_records_each_rows_writer(monkeypatch, tmp_path):
+    """ROADMAP C4's KVWatch on the replayed sampled_n4 crash run and the
+    same stream uncrashed: in the uncrashed run a forked sample's own
+    rows come from the split walk and its prompt rows from the parent's
+    chunk tiles; after the crash each restored sample re-prefills its
+    rows in tiles of 16 from position 0. With no model every row's bits
+    agree, so kv_divergence finds none."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    extra, crash_at = cs.CRASH_RUNS["sampled_n4"]
+    watches = []
+    for i, at in enumerate((crash_at, 0)):
+        w = cs.KVWatch()
+        cs.restore_run(FakeEngine(), extra, tmp_path / f"{i}.jsonl",
+                       cs.serve_crashing(at), at or None, w)
+        watches.append(w)
+    crash, twin = watches
+    assert len(twin.hashes) == len(crash.hashes) == 16
+    assert twin.writer_of("0:2", 0) == "tile@0 (0:0)"
+    assert twin.writer["0:2"][max(twin.writer["0:2"])] == "split walk"
+    assert min(twin.writer["0:2"]) > 0          # its prompt is the parent's
+    assert crash.writer_of("0:2", 40) == "tile@32 (0:2)"
+    assert cs.kv_divergence(twin, crash, "0:2") is None

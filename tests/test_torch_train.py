@@ -154,6 +154,11 @@ def test_fused_equals_on_the_fly_bitwise(tiny_lm, mode):
 
 
 def test_training_methods_run_only_under_ref(tiny_lm):
+    """AoT's fc reparametrization runs whole sequences under "ref" only;
+    the mixed step serves on the kernels only; prefill under "ref" serves
+    (the reference's serving entry points take any attn_impl, the dry run
+    costs them so) and refuses the training-only method, and its logits
+    and cache are the kernel path's within 2e-5."""
     cfg = tiny_lm[0]
     model, params = _port(tiny_lm, "kernel")
     opt = PP.PEFTOptions(method="aot", aot=PA.AoTOptions(mode="fc", rank=4))
@@ -166,9 +171,16 @@ def test_training_methods_run_only_under_ref(tiny_lm):
         ref.mixed_step(params, _tokens(cfg, 1, 2).T, torch.zeros(2).int(),
                        torch.arange(2).int(), cache,
                        block_tables=torch.ones(1, 2).int())
-    for peft in (pp, None):
-        with pytest.raises(NotImplementedError, match="serving kernels"):
-            ref.prefill(params, _tokens(cfg), peft, max_len=32)
+    with pytest.raises(NotImplementedError, match="runs only through"):
+        ref.prefill(params, _tokens(cfg), pp, max_len=32)
+    lg_r, cache_r, pos_r = ref.prefill(params, _tokens(cfg), None, max_len=32)
+    lg_k, cache_k, pos_k = model.prefill(params, _tokens(cfg), None,
+                                         max_len=32)
+    assert pos_r == pos_k
+    torch.testing.assert_close(lg_r, lg_k, atol=2e-5, rtol=0)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache_r[name], cache_k[name], atol=2e-5,
+                                   rtol=0)
     with pytest.raises(ValueError, match="attn_impl"):
         Model(cfg, ModelOptions(attn_impl="pallas"), device="cpu")
 
