@@ -10,7 +10,7 @@ Phases, each printing one line of results; any failure exits non-zero:
    nvcc for sm_90a, one nvcc each, in parallel; each redesigned kernel
    instance's registers and spill bytes (none may spill): flash_mma_kernel,
    decode_split_kernel (contiguous and paged), ragged_split_kernel (the
-   split walk and the token tile), aot_gather_add_kernel (both gather-adds
+   split walk and the run walk), aot_gather_add_kernel (both gather-adds
    with and without the fused norm, and the norm alone);
 3. parity: each kernel's public wrapper against its plain PyTorch version
    on the card at smollm-360m's shapes (both gather-adds bitwise, the
@@ -21,14 +21,14 @@ Phases, each printing one line of results; any failure exits non-zero:
    in float32 and 2e-2 in bfloat16), for both the
    16-byte-load and the one-element-load build where a kernel has both:
    ragged paged attention (every packing of packings(), among them runs
-   that the plan puts on the tensor cores: four chunks at unaligned
+   that the plan gives one cluster each: four chunks at unaligned
    offsets, runs of 1 and 5, a run across pages from position 27, a run
    ending at 1023, positions past the table, dead padding between runs; at
    pages of 16, 8 and 32, hd 60 / 64 / 128 and g 8, and at phase 10's
    heads (h32 kvh8 hd80, h16 kvh16 hd128, h40 kvh8 hd128, the last also
    llama4's) and phase 11's qwen3-moe (h32 kvh4 hd128, g 8), as
-   contiguous and paged decode are too; the decode_only packing
-   bitwise equal to paged decode with cur_len = pos + 1); flash attention
+   contiguous and paged decode are too; every packing bitwise equal to
+   paged decode with cur_len = pos + 1, ROADMAP C4); flash attention
    (causal, full, window; sq = skv
    in {1, 37, 100, 512, 577}, sq != skv either way, hd 32, 60, 96, 128,
    a strided q, a misaligned q, g 8; full mode at g = 1, the encoders' 16
@@ -68,8 +68,12 @@ Phases, each printing one line of results; any failure exits non-zero:
    outputs bitwise as zeros there do, kernel and plain version alike;
    and one slot's query rows after a prefix-cache hit packed warm (a
    chunk from the page-aligned hit) and cold (runs from 0, 200 and 8
-   before the hit), each within the tolerance, the rows not bitwise
-   equal to the warm packing's reported; and the attention softcap
+   before the hit), each within the tolerance and every row bitwise the
+   warm packing's; twelve positions of one slot of 800 (0, a tile's
+   edges, the cluster blocks' range edges, 799) as single tokens and
+   inside runs from p, p - 1, p - 15, p - 16, p - 40 and 0 beside dead
+   tokens and another slot's run, every row bitwise paged decode's with
+   cur_len = pos + 1 (ROADMAP C4); and the attention softcap
    (tanh(s / 30) * 30, no kernel takes it) through its plain paths on
    CUDA tensors (the whole-sequence oracle, attention_chunked, contiguous,
    paged and ragged decode at smollm's heads) against the same calls on
@@ -166,11 +170,11 @@ Phases, each printing one line of results; any failure exits non-zero:
    disconnected and quarantined), pools drain clean, the tokens before
    each crash be the twin's and each kernel launch 32 times per dispatch
    or whole prefill; the tokens after a crash are reported; ROADMAP C4's
-   line (recorded, not gated): the n = 4 crash run and the same stream
-   served again uncrashed, each with a KVWatch, give the first differing
-   (rid, sample, tick) and that sample's first K/V row whose bits differ,
-   its layer and the path that wrote it in each run (the split walk, or
-   the token tile of 16 from its first position);
+   gate: the n = 4 crash run and the same stream served again uncrashed,
+   each with a KVWatch, must agree on every sample's stream and every
+   K/V row bit for bit (a differing one is named with its layer and the
+   path that wrote it in each run: the split walk, or the run of 16 from
+   its first position);
 6. cross-checks at full width with 2 layers, inputs drawn from a
    generator of their own (seed PHASE6_SEED; chip_seeds.py runs this phase
    at other seeds): one mixed tick, and a prefill plus three decode steps
@@ -368,9 +372,11 @@ Phases, each printing one line of results; any failure exits non-zero:
 15. the dry run (no kernel; ``--phase15`` runs it alone): 15a
    repro_torch.launch.dryrun in a process of its own per cell, no card,
    pod1 (16 x 16 over a fake group of 256): smollm-360m's train_4k,
-   prefill_32k and decode_32k and qwen3-moe-30b-a3b's decode_32k, each
-   line argument and peak GB per rank, FLOPs, bytes, collectives by kind
-   and the three roofline terms; 15b smollm-360m at full width (32
+   prefill_32k and decode_32k and qwen3-moe-30b-a3b's decode_32k, and
+   pod2 (2 x 16 x 16 over 512): smollm-360m's train_4k, each line
+   argument and peak GB per rank, FLOPs, bytes, collectives by kind and
+   the three roofline terms; pod2's train_4k peak per rank at or under
+   pod1's (ROADMAP C15); 15b smollm-360m at full width (32
    layers, bf16, one fused AoT task) built as the dry run builds its
    cells, a prefill at 4 x 4096 and a train step at 4 x 2048 (AoT fc
    rank 64, attn_impl="chunked", remat on), each predicted on a 1 x 1
@@ -534,7 +540,7 @@ def packings():
     pos = list(range(768, 1024)) + [1023, 1000]             # depth 1024
     out["deep_1024"] = (rows, pos)
     # the ragged kernel's plan: runs of one slot at consecutive positions
-    # go onto the tensor cores in tiles of 16, other tokens walk alone.
+    # go to one cluster each in runs of 16, other tokens walk alone.
     # Four chunks of unequal lengths at token offsets 4, 41, 111, 120
     # after four decode tokens (the multi-prefill budget split), dead
     # padding to 263
@@ -655,7 +661,7 @@ def ptxas_kernels(out):
 
 
 # the tensor-core flash, the cluster decode (contiguous and paged), the
-# ragged (split walk and token tile) and the gather-add (with and without
+# ragged (split walk and run walk) and the gather-add (with and without
 # the fused norm, and the norm alone) kernels, by source: phase 2 lists each
 # of their instances' registers and spill bytes (none may spill)
 REDESIGNED = {"flash_mma_kernel": "flash_attention",
@@ -815,6 +821,7 @@ def phase_parity(gen, report):
     parity_decode_wide(gen, report)
     parity_stale_nan(gen, report)
     parity_warm_cold(report)
+    parity_run_vs_single(report)
     parity_frontends(gen, report)
     parity_softcap(gen, report)
 
@@ -841,8 +848,9 @@ def parity_ragged(gen, report):
     """Ragged attention against its plain version on every packing, in
     float32 and bf16, at every build of PARITY_VARIANTS and page size of
     PARITY_BS (the plan built by the wrapper from the indices); dead tokens
-    must be exact zeros; and the decode_only packing bitwise equal to paged
-    decode of the same tokens with cur_len = pos + 1."""
+    must be exact zeros; and every packing bitwise equal to paged decode of
+    the same tokens with cur_len = pos + 1 (ROADMAP C4: a token's row does
+    not depend on how the tick packed it)."""
     from repro_torch.kernels import decode_attention, ops
     for variant, (hd, shift, heads) in PARITY_VARIANTS.items():
         for bs in PARITY_BS:
@@ -861,19 +869,19 @@ def parity_ragged(gen, report):
                     what = f"ragged/{variant}/bs{bs}/{name}/{dtype}"
                     err = check_close(what, out, plain, dtype, report, p < 0)
                     rcases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
-                    if name == "decode_only":
-                        paged = ops.paged_decode_attention(
-                            q, k, v, bt[r.long()].contiguous(), p + 1)
-                        torch.cuda.synchronize()
-                        if not torch.equal(out, paged):
-                            raise AssertionError(
-                                f"{what}: not bitwise equal to paged decode "
-                                f"with cur_len = pos + 1 (max abs diff "
-                                f"{(out.float() - paged.float()).abs().max()})")
-                        bitwise += 1
+                    paged = ops.paged_decode_attention(
+                        q, k, v, bt[r.long()].contiguous(),
+                        torch.clamp(p + 1, min=0))
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, paged):
+                        raise AssertionError(
+                            f"{what}: not bitwise equal to paged decode "
+                            f"with cur_len = pos + 1 (max abs diff "
+                            f"{(out.float() - paged.float()).abs().max()})")
+                    bitwise += 1
             log("3 parity", kernel="ragged_paged_attention", variant=variant,
                 bs=bs, shapes=f"h{heads[0]} kvh{heads[1]} hd{hd} "
-                f"depth<=1024", bitwise_vs_paged=f"{bitwise}/2",
+                f"depth<=1024", bitwise_vs_paged=f"{bitwise}/{len(rcases)}",
                 max_abs_err=",".join(rcases))
 
 
@@ -1471,9 +1479,9 @@ def parity_stale_nan(gen, report):
 # of WARM_HIT positions (24 pages of 16), then WARM_TAIL queries (two
 # tiles of 16 and a one-token remainder); a cold prefill's second chunk
 # starts at COLD_SPLIT when the multi-prefill budget split cuts it there.
-# WARM_SWEEP adds hits where a tile's visible range crosses a multiple of
-# 256 positions (the token tile's kv split per block steps there), each
-# against a cold run from 0, one from 200 and one from 8 before the hit
+# WARM_SWEEP adds hits where a run's visible range crosses a multiple of
+# 256 positions (the cluster's blocks' range edges), each against a cold
+# run from 0, one from 200 and one from 8 before the hit
 WARM_HIT, WARM_TAIL, COLD_SPLIT = 384, 33, 200
 WARM_SWEEP = (384, 496, 752)
 
@@ -1484,11 +1492,10 @@ def parity_warm_cold(report, seed=3):
     warm chunk from the page-aligned hit and as cold runs from position
     0, COLD_SPLIT and hit - 8, at each hit of WARM_SWEEP. Each packing
     within TOL of its plain version; the rows of each cold packing not
-    bitwise equal to the warm one's are reported, with the smallest input
-    that has one (the token tile splits its own visible range over the
-    cluster's blocks, so a run's start can change a row's bits). Inputs
-    come from a generator of their own, so later phases draw what they
-    drew before."""
+    bitwise equal to the warm one's are counted and must be none (ROADMAP
+    C4), the smallest input that has one named if one does. Inputs come
+    from a generator of their own, so later phases draw what they drew
+    before."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -1524,8 +1531,97 @@ def parity_warm_cold(report, seed=3):
     report["parity"]["warm_cold/smallest"] = smallest and smallest[1]
     log("3 parity", kernel="ragged_paged_attention (warm / cold packings)",
         tail=WARM_TAIL, result="each packing within tolerance of its plain "
-        "version", rows_not_bitwise_vs_warm=lines,
+        "version", rows_not_bitwise_vs_warm=lines, required="0 each",
         smallest_input="none" if smallest is None else smallest[1])
+    if smallest is not None:
+        raise AssertionError(f"warm / cold packings part (ROADMAP C4): "
+                             f"{smallest[1]}")
+
+
+# phase 3's single-token-vs-run check over one slot of RUN_L positions:
+# RUN_POSITIONS take in 0, a tile's edges (63, 64), the cluster blocks'
+# range edges (the capacity of 1024 in 4 blocks of 256) and the last
+# position; each is held inside runs starting at the offsets of
+# RUN_STARTS before it (and at 0), ending RUN_PAST positions after it
+RUN_L = 800
+RUN_POSITIONS = (0, 63, 64, 100, 255, 256, 400, 511, 512, 767, 768, 799)
+RUN_STARTS = (0, 1, 15, 16, 40)
+RUN_PAST = 9
+
+
+def run_packing(p, start):
+    """(rows, pos, index of position p) of a tick that packs slot 0's run
+    start .. min(p + RUN_PAST, RUN_L - 1) after three dead tokens and slot
+    1's run of 20 at 100 .. 119, then two dead tokens and slot 2's lone
+    token at 500."""
+    end = min(p + RUN_PAST, RUN_L - 1)
+    rows = [0] * 3 + [1] * 20 + [0] * (end - start + 1) + [0, 0, 2]
+    pos = [-1] * 3 + list(range(100, 120)) + list(range(start, end + 1)) \
+        + [-1, -1, 500]
+    return rows, pos, 23 + p - start
+
+
+def parity_run_vs_single(report, seed=5):
+    """ROADMAP C4 on the card: each position of RUN_POSITIONS of one slot
+    holding RUN_L positions, as a single token and inside runs starting at
+    p, p - 1, p - 15, p - 16, p - 40 and 0 (run_packing: dead tokens and
+    another slot's run beside it), bitwise equal to paged decode of the
+    same token with cur_len = p + 1, in float32 and bf16; every other
+    token of each run packing too. Inputs come from a generator of their
+    own."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=DEV)
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bt, _, _ = ragged_inputs(gen, [0] * RUN_L,
+                                          list(range(RUN_L)), dtype)
+        k, v = k[0], v[0]
+        # the query rows of slots 1 and 2's tokens, after slot 0's
+        q_all = torch.cat([q, torch.randn(21, *q.shape[1:], generator=gen,
+                                          device=DEV).to(dtype)])
+        rows_all = [0] * RUN_L + [1] * 20 + [2]
+        pos_all = list(range(RUN_L)) + list(range(100, 120)) + [500]
+        want = ops.paged_decode_attention(
+            q_all, k, v, bt[i32(rows_all).long()].contiguous(),
+            i32(pos_all) + 1)
+        row_of = {(r, p): i for i, (r, p) in enumerate(zip(rows_all,
+                                                           pos_all))}
+        n_single, n_runs, bad = 0, 0, []
+        for p in RUN_POSITIONS:
+            one = ops.ragged_paged_attention(q[p:p + 1].contiguous(), k, v,
+                                             bt, i32([0]), i32([p]))
+            torch.cuda.synchronize()
+            if not torch.equal(one[0], want[p]):
+                bad.append(f"p{p}/single")
+            n_single += 1
+            for start in sorted({max(p - d, 0) for d in RUN_STARTS} | {0}):
+                rows, pos, at = run_packing(p, start)
+                idx = [row_of.get((r, x), 0) for r, x in zip(rows, pos)]
+                out = ops.ragged_paged_attention(
+                    q_all[idx].contiguous(), k, v, bt, i32(rows), i32(pos))
+                live = torch.tensor([x >= 0 for x in pos], device=DEV)
+                torch.cuda.synchronize()
+                if not torch.equal(out[at], want[p]):
+                    bad.append(f"p{p}/from{start}")
+                elif not torch.equal(out[live], want[[i for i, x in
+                                                       zip(idx, pos)
+                                                       if x >= 0]]) or \
+                        bool((out[~live] != 0).any()):
+                    bad.append(f"p{p}/from{start}/other rows")
+                n_runs += 1
+        key = str(dtype)[6:]
+        counts[key] = f"{n_single + n_runs - len(bad)}/{n_single + n_runs}"
+        report["parity"][f"run_vs_single/{key}"] = dict(
+            single=n_single, runs=n_runs, not_bitwise=bad)
+        if bad:
+            raise AssertionError(f"ROADMAP C4: rows that depend on their "
+                                 f"packing ({key}): {bad}")
+        del q, k, v, q_all
+    log("3 parity", kernel="ragged_paged_attention (single token vs runs)",
+        slot_positions=RUN_L, positions=",".join(map(str, RUN_POSITIONS)),
+        run_starts="p-{" + ",".join(map(str, RUN_STARTS)) + "} and 0",
+        bitwise_vs_paged_decode=counts, required="all")
 
 
 def flat(res):
@@ -3252,8 +3348,8 @@ def tick_packing(events, tick):
 class KVWatch:
     """ROADMAP C4's recorder for one 5g stream: which path wrote each K/V
     row of each sample (the ragged kernel's split walk for a slot's lone
-    row in a tick, else the token tile of 16 from its run's first
-    position), and a 64-bit hash of every layer's K and V row of each
+    row in a tick, else "tile@p", the run item of 16 from position p),
+    and a 64-bit hash of every layer's K and V row of each
     sample as its latest token left them. A row a sample shares with its
     parent (a fork's prompt) is found under the parent's key."""
 
@@ -3611,8 +3707,10 @@ def phase_restore(report, engine):
         res[label] = restore_line(label, run, twin, bad, card,
                                   crash_at=crash_at)
         if watch is not None:
-            res["c4"] = c4_line(engine, extra, out_dir, run, twin, watch,
-                                card)
+            res["c4"], bad_c4 = c4_line(engine, extra, out_dir, run, twin,
+                                        watch, card)
+            if bad_c4:
+                failed["c4"] = bad_c4
         peaks.append(res[label]["peak_memory_gib"])
         launches[f"restore_{label}"] = run["launches"]
         if bad:
@@ -3657,24 +3755,38 @@ def phase_restore(report, engine):
 
 def c4_line(engine, extra, out_dir, run, twin, watch, card):
     """ROADMAP C4: the crashed sampled stream against the same stream
-    served again uncrashed with a KVWatch: the first differing (rid,
-    sample, tick) and the first K/V row of that sample whose bits differ,
-    its layer and the path that wrote it in each run. Recorded, not
-    gated."""
+    served again uncrashed with a KVWatch: every sample's stream bitwise
+    the uncrashed one's (5f's), and every sample's K/V rows bitwise the
+    uncrashed run's (the first differing row, its layer and the path that
+    wrote it in each run are named if one is not). Returns (the record,
+    its failures)."""
     twin_watch = KVWatch()
     fresh_peak()
     again = restore_run(engine, extra, out_dir / "c4_uncrashed.jsonl",
                         serve_crashing(0), None, twin_watch)
     got = sample_outs(run["sched"].finished)
     div = first_divergence(got, twin, run["ticks_of"])
-    kv = None if div is None else kv_divergence(twin_watch, watch, div[0])
+    kv = {key: row for key in sorted(got)
+          if (row := kv_divergence(twin_watch, watch, key)) is not None}
     rerun_equal = sample_outs(again["sched"].finished) == twin
-    log("5g C4", first_divergence="none" if div is None else
+    equal = sum(got[k] == twin.get(k) for k in got)
+    log("5g C4", streams_bitwise=f"{equal}/{len(got)}",
+        first_divergence="none" if div is None else
         f"rid {div[0].split(':')[0]} sample {div[0].split(':')[1]} tick "
-        f"{div[1]}", kv_row="none" if kv is None else kv,
-        uncrashed_rerun_equals_5f=rerun_equal, card=card)
-    return dict(first_divergence=div, kv_row=kv,
-                uncrashed_rerun_equals_5f=rerun_equal)
+        f"{div[1]}", kv_rows_differ=kv or "none",
+        uncrashed_rerun_equals_5f=rerun_equal, required="all bitwise",
+        card=card)
+    bad = []
+    if div is not None or equal != len(twin) or len(got) != len(twin):
+        bad.append(f"C4: {equal}/{len(twin)} streams bitwise, first "
+                   f"divergence {div}")
+    if kv:
+        bad.append(f"C4: K/V rows differ: {kv}")
+    if not rerun_equal:
+        bad.append("C4: the uncrashed rerun differs from 5f's streams")
+    return dict(first_divergence=div, kv_rows=kv, streams_bitwise=equal,
+                streams=len(got),
+                uncrashed_rerun_equals_5f=rerun_equal), bad
 
 
 def paged_generate(engine, prompts, steps, task_ids):
@@ -8108,10 +8220,14 @@ def distrib_parts(report, mesh):
 # remat on the card
 # ---------------------------------------------------------------------------
 
-# 15a: the dry run's cells on the production mesh (pod1), each a process
-DRY_CELLS = (("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
-             ("smollm-360m", "decode_32k"),
-             ("qwen3-moe-30b-a3b", "decode_32k"))
+# 15a: the dry run's cells on a production mesh (pod1, or pod2: 2 x 16 x
+# 16 over 512 fake ranks), each a process; pod2's smollm-360m train_4k
+# peak per rank must not pass pod1's (ROADMAP C15)
+DRY_CELLS = (("smollm-360m", "train_4k", "pod1"),
+             ("smollm-360m", "prefill_32k", "pod1"),
+             ("smollm-360m", "decode_32k", "pod1"),
+             ("qwen3-moe-30b-a3b", "decode_32k", "pod1"),
+             ("smollm-360m", "train_4k", "pod2"))
 # 15b: smollm-360m at full width, one fused AoT task: (kind, batch, seq)
 DRY_CARD = {"prefill": ("prefill", 4, 4096), "train": ("train", 4, 2048)}
 DRY_TIMED = 3               # timed calls after one warm-up
@@ -8139,10 +8255,11 @@ def dry_procs():
                CUDA_VISIBLE_DEVICES="")
     out = ROOT / "chiprun_out" / "dryrun"
     procs = {}
-    for arch, shape in DRY_CELLS:
-        procs[f"{arch} {shape}"] = subprocess.Popen(
+    for arch, shape, pod in DRY_CELLS:
+        procs[f"{arch} {shape} {pod}"] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--out-dir", str(out)], env=env,
+             arch, "--shape", shape, "--out-dir", str(out)]
+            + (["--multi-pod"] if pod == "pod2" else []), env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, (kind, b, s) in DRY_CARD.items():
         procs[name] = subprocess.Popen(
@@ -8162,14 +8279,15 @@ def dry_wait(proc, timeout=300):
 
 def dry_cells_line(procs, card):
     """15a: each cell's record: per-rank argument and peak GB, FLOPs and
-    bytes, collectives by kind, the three roofline terms."""
+    bytes, collectives by kind, the three roofline terms. Returns (the
+    records, the failures of the pod2 <= pod1 peak gate)."""
     recs = {}
-    for arch, shape in DRY_CELLS:
-        dry_wait(procs[f"{arch} {shape}"])
+    for arch, shape, pod in DRY_CELLS:
+        dry_wait(procs[f"{arch} {shape} {pod}"])
         rec = json.loads((ROOT / "chiprun_out" / "dryrun" /
-                          f"{arch}__{shape}__pod1.json").read_text())
+                          f"{arch}__{shape}__{pod}.json").read_text())
         m, r = rec["memory"], rec["roofline"]
-        log(f"15a dryrun/{arch}/{shape}", mesh="x".join(map(str,
+        log(f"15a dryrun/{arch}/{shape}/{pod}", mesh="x".join(map(str,
                                                           rec["mesh"])),
             args_gb=f"{m['argument_bytes'] / 1e9:.3f}",
             peak_gb=f"{m['peak_bytes'] / 1e9:.3f}", fits=rec["fits"],
@@ -8181,8 +8299,15 @@ def dry_cells_line(procs, card):
             memory_ms=f"{r['memory_s'] * 1e3:.3f}",
             collective_ms=f"{r['collective_s'] * 1e3:.3f}",
             run_s=f"{rec['run_s']:.1f}", card=card)
-        recs[f"{arch}/{shape}"] = rec
-    return recs
+        recs[f"{arch}/{shape}" + ("/pod2" if pod == "pod2" else "")] = rec
+    peaks = [recs[k]["memory"]["peak_bytes"]
+             for k in ("smollm-360m/train_4k/pod2", "smollm-360m/train_4k")]
+    log("15a dryrun/C15", pod2_peak_gb=f"{peaks[0] / 1e9:.3f}",
+        pod1_peak_gb=f"{peaks[1] / 1e9:.3f}", required="pod2 <= pod1",
+        card=card)
+    bad = [] if peaks[0] <= peaks[1] else [
+        f"C15: pod2's train_4k peak {peaks[0]} passes pod1's {peaks[1]}"]
+    return recs, bad
 
 
 def requested_bytes() -> int:
@@ -8346,8 +8471,8 @@ def phase_dryrun(report):
     card = smi()
     procs = dry_procs()
     try:
-        out = {"card": card, "15a": dry_cells_line(procs, card)}
-        failures = []
+        out = {"card": card}
+        out["15a"], failures = dry_cells_line(procs, card)
         for name in DRY_CARD:
             pred = json.loads(dry_wait(procs[name]).split("JSON")[-1])
             out[f"15b_{name}"], bad = dry_on_card(name, pred, card)

@@ -14,8 +14,9 @@ rules are the reference's: a mesh axis is used once per tensor (the first
 dim to claim it wins), and a dim that the axis does not divide stays
 replicated (8 KV heads on a 16-way axis). A name mapped to a tuple
 ``("pod", "data")`` shards one tensor dim over both mesh dims, outer
-first. :func:`constrain` is a ``redistribute`` of a DTensor to the
-placements its names resolve to.
+first, or over the one dim "pod_data" of a mesh that lays them out as
+one (:func:`mesh_dims`). :func:`constrain` is a ``redistribute`` of a
+DTensor to the placements its names resolve to.
 """
 from __future__ import annotations
 
@@ -71,9 +72,26 @@ def _flat(ax: AxisVal) -> Tuple[str, ...]:
     return (ax,) if isinstance(ax, str) else tuple(ax)
 
 
+def _dims(sizes: Dict[str, int], ax: AxisVal) -> Tuple[str, ...]:
+    """The mesh dims a rule's axis value names: its own names, or, for a
+    tuple whose dims the mesh holds flattened into one
+    (``launch.mesh.pod_mesh``: ("pod", "data") as "pod_data"), that one
+    dim."""
+    flat = _flat(ax)
+    joined = "_".join(flat)
+    if len(flat) > 1 and flat[0] not in sizes and joined in sizes:
+        return (joined,)
+    return flat
+
+
+def mesh_dims(mesh, ax: AxisVal) -> Tuple[str, ...]:
+    """:func:`_dims` of ``mesh``'s axes."""
+    return _dims(mesh_axes(mesh), ax)
+
+
 def _axis_size(sizes: Dict[str, int], ax: AxisVal) -> int:
     n = 1
-    for a in _flat(ax):
+    for a in _dims(sizes, ax):
         n *= sizes[a]
     return n
 
@@ -94,7 +112,7 @@ def resolve(names: Sequence[Optional[str]],
     for i, name in enumerate(names):
         ax = rules.get(name) if name is not None else None
         if ax is not None:
-            flat = _flat(ax)
+            flat = _dims(sizes, ax)
             if any(a in used for a in flat):
                 ax = None           # a mesh axis appears once per tensor
             elif shape is not None and shape[i] % _axis_size(sizes, ax):
@@ -123,7 +141,7 @@ def placements_for(names: Sequence[Optional[str]],
     axes = list(sizes)
     out = [Replicate()] * len(axes)
     for dim, ax in enumerate(resolve(names, shape, mesh, rules)):
-        at = [axes.index(a) for a in _flat(ax)]
+        at = [axes.index(a) for a in _dims(sizes, ax)]
         if at != sorted(at):
             raise ValueError(f"axes {ax} of dim {dim} must follow the "
                              f"mesh's order {axes}")

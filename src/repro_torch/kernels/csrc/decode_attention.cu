@@ -19,7 +19,8 @@
 // smollm-360m), far under the card's ~295 flops per byte of bf16. So the
 // card has to keep enough loads in flight to pull 3.35 TB/s. A ragged
 // prefill chunk reads its slot's pages once per KV head too, if its tokens
-// share them: 16 tokens x g heads per K/V tile make a tensor-core product.
+// share them (the run walk below), and then does 4 hd flops per (query
+// head, visible position) on the CUDA cores.
 //
 // One split walk serves every single query token (split_walk): one (row or
 // token, KV head) walk is split over a thread-block cluster of `split`
@@ -63,40 +64,39 @@
 //   and float32 stages one K/V tile at a time.
 // Ragged lists (ragged_split_kernel) run one launch over a per-tick plan
 // that the host builds from its own copies of token_rows and token_pos:
-// items of (first token, count), one cluster per (item, KV head, group of
-// four query heads); the slot and first position are token_rows and
-// token_pos of the first token. A
-// single token (count 1) is the split walk of its slot's table to pos + 1:
-// bitwise a paged decode row with cur_len = pos + 1. A run of up to 16 tokens of one slot at
-// consecutive positions (a prefill chunk, cut into pieces of 16) is one
-// token tile (token_tile): each token walking its prefix alone read the
-// slot's pages once per token, 256 times at a 256-token chunk, with one
-// query row at a time on the CUDA cores. The tile reads them once:
-// - warp w owns query head 4 group + w of the item's 16 tokens, so each
-//   warp's 16 rows are one m16 tile of mma.sync.m16n8k16 (bf16 in, fp32
-//   sums) against the K/V tiles the four warps share; a single token would
-//   fill 1 of those 16 rows;
-// - S = Q K^T and P V take flash_mma_kernel's fragments (ldmatrix, P in
-//   three bf16 parts, a tile accumulator at hd <= 64), staged through the
-//   block table as above; the tile's visible positions (not the capacity)
-//   are cut into whole kv tiles shared evenly by the cluster's blocks, so
-//   no block idles at the barriers while another walks a chunk's prefix;
-// - the causal mask (kv position <= the row's own) runs only on kv tiles
-//   that cross the first token's position or the range's end; rows of
-//   missing tokens (a run shorter than 16) are zeros and never stored;
-// - each block leaves its partial in its own shared memory; after a
-//   cluster barrier every block merges a share of the output elements,
-//   reading the others' partials (distributed shared memory), and a second
-//   barrier keeps each partial alive until it has been read;
-// - a run of dead tokens (pos < 0), of any length, is one item: group 0's
-//   blocks share its zeros and return. Single tokens and float32 runs use
-//   group 0 only (at g > 4 group 1's clusters return at once: every tick
-//   of qwen3-moe-30b-a3b, h32 over kvh4 at hd 128, g = 8, launches them;
-//   one cluster taking both groups' tiles in turn spilled at hd 128).
-// float32 keeps every token on the split walk (mma.sync has no fp32 input
-// short of TF32, which would miss fp32's 2e-5 tolerance): a run's tokens
-// walk one after another in their cluster. No served path runs fp32
-// attention.
+// items of (first token, count), one cluster per (item, KV head); the slot
+// and first position are token_rows and token_pos of the first token. A
+// token's output row is a function of its slot's K/V, its position and
+// the pool's capacity and split alone, however the tick packed it: every
+// live token's row is the split walk's arithmetic over [0, pos + 1), so it
+// is bitwise a paged decode row with cur_len = pos + 1 (the reference's
+// per-token grid gives it; its prefix cache and compaction trust "equal
+// key => bitwise-equal page", and a restore re-prefills emitted tokens as
+// a chunk). A single token (count 1) is the split walk itself. A run of
+// up to 16 tokens of one slot at consecutive positions (a prefill chunk,
+// cut into pieces of 16) is a run walk (run_walk, bf16): each token
+// walking its prefix alone read the slot's pages once per token, 256
+// times at a 256-token chunk. The run walk stages its block's whole range
+// of the capacity, [r chunk, (r + 1) chunk) cut at the last token's
+// length, once for its tokens (the range is at most 4 tiles of 64 at hd
+// 128, 8 at hd 64: run_tiles), then walks each token over it with the
+// walk's own tile step (walk_tile: the same warps' positions, the same
+// fp32 sums on the CUDA cores, the same order), masked at the token's own
+// pos + 1; a tile past that end is not walked, as the walk never reaches
+// it, and V rows past it read as the zeros the walk stages there. Each
+// token's block partial stays in the block's shared memory; after a
+// cluster barrier every block merges a share of the run's output elements
+// from the cluster's partials (distributed shared memory) with the walk's
+// merge, and a second barrier keeps each partial alive until it has been
+// read. A run whose range would not fit in shared memory (a capacity past
+// 2048 / 4096 positions), and every float32 run, walks its tokens one
+// after another in its cluster (the walk, no staging shared). A run of
+// dead tokens (pos < 0), of any length, is one item: its blocks share its
+// zeros and return. A run's rows take no tensor cores: an mma tile sums
+// a row's products in another order than the walk, and the earlier token
+// tile of this kernel, which did, cut each run's own visible range over
+// the cluster, so a row's bits followed where its chunk began (ROADMAP
+// C4).
 //
 // C interface (ctypes): every pointer and the stream are void*; returns
 // cudaGetLastError() after the launch.
@@ -112,13 +112,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 using attn::kNeg;
-using attn::ldsm_x4;
-using attn::ldsm_x4_trans;
 using attn::load1;
-using attn::mma_bf16;
-using attn::quad_max;
-using attn::quad_sum;
-using attn::split3_bf16;
 using attn::store1;
 using bf16 = __nv_bfloat16;
 
@@ -126,13 +120,13 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kSplitTile = 64;   // kv positions per staged tile
 constexpr int kMaxSplit = 8;     // blocks per cluster (the portable most)
-constexpr int kTileRows = 16;    // tokens of a token tile (one m16 tile)
+constexpr int kRunTokens = 16;   // tokens of a run item at most (the plan's)
 constexpr int kPlanWidth = 2;    // ints per plan item
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block may have
 // Every kernel is declared with __launch_bounds__(kThreads, 1): without a
 // least number of blocks per SM, ptxas capped the paged and float32 walks
 // at 64-128 registers to raise their occupancy and spilled 16-64 bytes
-// each (shared memory holds a walk to 4 blocks an SM anyway); asking for 3
-// blocks (170 registers) made the bf16 token tile at hd 64 spill.
+// each (shared memory holds a walk to 4 blocks an SM anyway).
 
 // The wide walk (hd padded to 256, recurrentgemma's MQA heads: contiguous
 // decode only): its ring and merge slots together would pass the 227 KB a
@@ -161,12 +155,22 @@ __host__ __device__ inline size_t walk_smem_bytes(size_t elem, int hdp,
   return ring + q_p + (wide_walk(hdp) ? 0 : merge);
 }
 
-// The token tile (bf16): the same K/V ring, then the four warps' 16 q rows;
-// the block's partial (fp32 acc, m, l of 64 rows) reuses the ring and the
-// merge weights the q rows (the slot's page ids follow)
-__host__ __device__ inline size_t tile_smem_bytes(int hdp) {
+// whole tiles of a block's range of `chunk` positions
+__host__ __device__ constexpr int run_tiles(int chunk) {
+  return (chunk + kSplitTile - 1) / kSplitTile;
+}
+
+// The run walk (bf16): K and V of the block's whole range (run_tiles of
+// chunk), then the walk's q rows, probabilities and four warp partials,
+// then one block partial per token of the run; the slot's page ids follow
+__host__ __device__ inline size_t run_smem_bytes(int hdp, int G, int g,
+                                                 int chunk) {
   const size_t ld = hdp + 8;
-  return sizeof(bf16) * ld * (2 * 2 * kSplitTile + kWarps * kTileRows);
+  const size_t part = static_cast<size_t>(g) * (hdp + 2);
+  return sizeof(bf16) * 2 * static_cast<size_t>(run_tiles(chunk)) *
+             kSplitTile * ld +
+         sizeof(float) * (static_cast<size_t>(G) * (hdp + kWarps * 16) +
+                          (kWarps + kRunTokens) * part);
 }
 
 // the cluster barrier in two halves: arrive without waiting, wait later
@@ -260,6 +264,239 @@ __device__ __forceinline__ void stage_kv(T* ks, T* vs, const T* kb,
 // the cluster
 // ---------------------------------------------------------------------------
 
+// One warp's running state of a walk: for each of the G heads the running
+// max and sum, and this lane's channel pairs 64 c + 2 lane + {0, 1} of the
+// accumulator
+template <int HDP, int G>
+struct WalkState {
+  static constexpr int kC = HDP / 64;
+  float m[G], l[G], acc[G][kC][2];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      m[gi] = kNeg;
+      l[gi] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[gi][c][0] = acc[gi][c][1] = 0.0f;
+    }
+  }
+};
+
+// The token's G query heads of this KV head into q_s in fp32 (heads past g
+// and channels past hd as zeros)
+template <typename T, int HDP, int G>
+__device__ __forceinline__ void load_q(float* q_s, const T* q_row, int g,
+                                       int hd, int tid) {
+  for (int i = tid; i < G * HDP; i += kThreads) {
+    const int gi = i / HDP;
+    const int e = i % HDP;
+    q_s[i] = gi < g && e < hd ? load1(q_row + gi * hd + e) : 0.0f;
+  }
+}
+
+// One staged tile of kSplitTile positions from p0 (kt, vt: its K and V
+// rows) into the warp's state, positions from hi on masked: warp w takes
+// tile positions 16 w .. 16 w + 15, two lanes a position (half the 16-byte
+// chunks each, joined by one shuffle). MASK_V: the V rows from hi on may
+// hold data (a run's later positions), so they are read as the zeros that
+// the walk's own staging puts there.
+template <typename T, int HDP, int G, bool MASK_V>
+__device__ __forceinline__ void walk_tile(const T* kt, const T* vt,
+                                          const float* q_s, float* pws,
+                                          int p0, int hi, float scale,
+                                          WalkState<HDP, G>& st, int warp,
+                                          int lane) {
+  using L = attn::Tile<T, HDP>;
+  constexpr int kE = L::kVecE;            // elements per 16-byte chunk
+  constexpr int kLd = L::kLd;
+  constexpr int kC = HDP / 64;            // channel pairs per lane in P V
+  constexpr bool kWide = wide_walk(HDP);
+  const int pw = warp * 16 + (lane & 15);  // this lane's tile position
+  const int half = lane >> 4;              // ... and its half of the chunks
+
+  // ---- scores of position p0 + pw: this lane's half of the chunks, then
+  // the other half's by one shuffle
+  float s[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) s[gi] = 0.0f;
+#pragma unroll
+  for (int cc = 0; cc < HDP / kE / 2; ++cc) {
+    const int c = 2 * cc + half;
+    float kx[kE];
+    load_chunk(kt + pw * kLd + c * kE, kx);
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const float* qg = q_s + gi * HDP + c * kE;
+#pragma unroll
+      for (int x = 0; x < kE; x += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qg + x);
+        s[gi] = fmaf(qv.x, kx[x], s[gi]);
+        s[gi] = fmaf(qv.y, kx[x + 1], s[gi]);
+        s[gi] = fmaf(qv.z, kx[x + 2], s[gi]);
+        s[gi] = fmaf(qv.w, kx[x + 3], s[gi]);
+      }
+    }
+  }
+  // ---- online softmax over the warp's 16 positions (both halves hold
+  // the same values, so the reductions stay within 16 lanes); positions
+  // past hi get p = 0 (their V rows are zeros)
+  const bool valid = p0 + pw < hi;
+  float mx[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], 16);
+    // (__fmul_rn: never contracted into an fma, so every instance of the
+    // walk rounds alike and paged rows stay bitwise contiguous ones)
+    s[gi] = valid ? __fmul_rn(s[gi], scale) : kNeg;
+    mx[gi] = s[gi];
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      mx[gi] = fmaxf(mx[gi], __shfl_xor_sync(0xffffffffu, mx[gi], o));
+    }
+  }
+  float ps[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    const float m_new = fmaxf(st.m[gi], mx[gi]);
+    s[gi] = valid ? expf(s[gi] - m_new) : 0.0f;
+    ps[gi] = s[gi];
+    const float corr = expf(st.m[gi] - m_new);
+    st.m[gi] = m_new;
+    st.l[gi] = __fmul_rn(st.l[gi], corr);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      st.acc[gi][c][0] = __fmul_rn(st.acc[gi][c][0], corr);
+      st.acc[gi][c][1] = __fmul_rn(st.acc[gi][c][1], corr);
+    }
+    if (half == 0) pws[gi * 16 + (lane & 15)] = s[gi];
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      ps[gi] += __shfl_xor_sync(0xffffffffu, ps[gi], o);
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) st.l[gi] += ps[gi];
+  __syncwarp();
+  // ---- acc[gi][channels 64 c + 2 lane + {0, 1}] += p[gi][j] v[j], four
+  // positions at a time (kJv V rows in registers at once: four, or one
+  // in the wide walk, whose eight channel pairs a lane would hold 64
+  // registers of V)
+  constexpr int kJv = kWide ? 1 : 4;
+#pragma unroll
+  for (int j0 = 0; j0 < 16; j0 += 4) {
+#pragma unroll
+    for (int jv = 0; jv < 4; jv += kJv) {
+      float2 vv[kJv][kC];
+#pragma unroll
+      for (int j = 0; j < kJv; ++j) {
+        const int r = warp * 16 + j0 + jv + j;
+        const T* vr = vt + r * kLd + 2 * lane;
+        const bool v_ok = !MASK_V || p0 + r < hi;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          vv[j][c] = v_ok ? load_pair(vr + 64 * c) : make_float2(0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(pws + gi * 16 + j0);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int j = 0; j < kJv; ++j) {
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            st.acc[gi][c][0] =
+                fmaf(pj[jv + j], vv[j][c].x, st.acc[gi][c][0]);
+            st.acc[gi][c][1] =
+                fmaf(pj[jv + j], vv[j][c].y, st.acc[gi][c][1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// A warp's state into its share of the four warps' partials: w_m, w_l
+// (kWarps x g) and w_acc (kWarps x g x HDP)
+template <int HDP, int G>
+__device__ __forceinline__ void store_warp_partial(
+    const WalkState<HDP, G>& st, float* w_m, float* w_l, float* w_acc, int g,
+    int warp, int lane) {
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi < g) {
+      if (lane == 0) {
+        w_m[warp * g + gi] = st.m[gi];
+        w_l[warp * g + gi] = st.l[gi];
+      }
+      float* wa = w_acc + (warp * g + gi) * HDP + 2 * lane;
+#pragma unroll
+      for (int c = 0; c < WalkState<HDP, G>::kC; ++c) {
+        wa[64 * c] = st.acc[gi][c][0];
+        wa[64 * c + 1] = st.acc[gi][c][1];
+      }
+    }
+  }
+}
+
+// The four warps' partials -> the block's partial in `slot` (this block's
+// or another's shared memory): acc (g x HDP), then m (g), then l (g)
+template <int HDP>
+__device__ __forceinline__ void store_block_partial(float* slot,
+                                                    const float* w_m,
+                                                    const float* w_l,
+                                                    const float* w_acc, int g,
+                                                    int tid) {
+  for (int i = tid; i < g * HDP; i += kThreads) {
+    const int gi = i / HDP;
+    float mx = kNeg;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_m[w * g + gi]);
+    float sum = 0.0f, a = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(w_m[w * g + gi] - mx);
+      sum = fmaf(w_l[w * g + gi], f, sum);
+      a = fmaf(w_acc[w * g * HDP + i], f, a);
+    }
+    slot[i] = a;
+    if (i % HDP == 0) {
+      slot[g * HDP + gi] = mx;
+      slot[g * HDP + g + gi] = sum;
+    }
+  }
+}
+
+// Element (gi, e) of a row from the cluster's block partials, slot(r)
+// being block r's (acc, m, l)
+template <int HDP, typename Slot>
+__device__ __forceinline__ float merge_partials(Slot slot, int split, int g,
+                                                int gi, int e) {
+  float pm[kMaxSplit];
+  float mx = kNeg;
+#pragma unroll
+  for (int r = 0; r < kMaxSplit; ++r) {
+    pm[r] = r < split ? slot(r)[g * HDP + gi] : kNeg;
+    mx = fmaxf(mx, pm[r]);
+  }
+  float sum = 0.0f, a = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kMaxSplit; ++r) {
+    if (r < split) {
+      const float f = expf(pm[r] - mx);
+      sum = fmaf(slot(r)[g * HDP + g + gi], f, sum);
+      a = fmaf(slot(r)[gi * HDP + e], f, a);
+    }
+  }
+  return a / fmaxf(sum, 1e-30f);
+}
+
 // This block's share (rank r of `split`: positions [r chunk, (r + 1)
 // chunk), cut at n) of one walk; rank 0 writes the g heads to out_row.
 // q_row: the token's g query heads of this KV head (g * hd, contiguous);
@@ -275,9 +512,7 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
                                            int g, int hd, int split, int chunk,
                                            float scale) {
   using L = attn::Tile<T, HDP>;
-  constexpr int kE = L::kVecE;            // elements per 16-byte chunk
   constexpr int kLd = L::kLd;
-  constexpr int kC = HDP / 64;            // channel pairs per lane in P V
   constexpr bool kWide = wide_walk(HDP);
   constexpr int kStages = walk_stages(sizeof(T), HDP);
   static_assert(!kWide || sizeof(float) * (kWarps + kMaxSplit) * G *
@@ -325,30 +560,18 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
     stage_kv<T, HDP, VEC>(k_s, v_s, kb, vb, srows, lo, hi, hd, tid);
   }
   attn::cp_async_commit();
-  for (int i = tid; i < G * HDP; i += kThreads) {
-    const int gi = i / HDP;
-    const int e = i % HDP;
-    q_s[i] = gi < g && e < hd ? load1(q_row + gi * hd + e) : 0.0f;
-  }
+  load_q<T, HDP, G>(q_s, q_row, g, hd, tid);
 
-  float m[G], l[G], acc[G][kC][2];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m[gi] = kNeg;
-    l[gi] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[gi][c][0] = acc[gi][c][1] = 0.0f;
-  }
-  const int pw = warp * 16 + (lane & 15);  // this lane's tile position
-  const int half = lane >> 4;              // ... and its half of the chunks
+  WalkState<HDP, G> st;
+  st.init();
   float* pws = p_s + warp * G * 16;        // this warp's probabilities
 
   for (int t = 0; t < n_tiles; ++t) {
     if constexpr (kStages == 2) {
       if (t + 1 < n_tiles) {
         const int p1 = lo + (t + 1) * kSplitTile;
-        const int st = ((t + 1) & 1) * kSplitTile * kLd;
-        stage_kv<T, HDP, VEC>(k_s + st, v_s + st, kb, vb, srows, p1, hi, hd,
+        const int s1 = ((t + 1) & 1) * kSplitTile * kLd;
+        stage_kv<T, HDP, VEC>(k_s + s1, v_s + s1, kb, vb, srows, p1, hi, hd,
                               tid);
       }
       attn::cp_async_commit();
@@ -357,111 +580,10 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
       attn::cp_async_wait<0>();           // tile t has landed
     }
     __syncthreads();                      // (and q_s, on the first pass)
-    const int p0 = lo + t * kSplitTile;
-    const T* kt = k_s + (t % kStages) * kSplitTile * kLd;
-    const T* vt = v_s + (t % kStages) * kSplitTile * kLd;
-
-    // ---- scores of position p0 + pw: this lane's half of the chunks, then
-    // the other half's by one shuffle
-    float s[G];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) s[gi] = 0.0f;
-#pragma unroll
-    for (int cc = 0; cc < HDP / kE / 2; ++cc) {
-      const int c = 2 * cc + half;
-      float kx[kE];
-      load_chunk(kt + pw * kLd + c * kE, kx);
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        const float* qg = q_s + gi * HDP + c * kE;
-#pragma unroll
-        for (int x = 0; x < kE; x += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qg + x);
-          s[gi] = fmaf(qv.x, kx[x], s[gi]);
-          s[gi] = fmaf(qv.y, kx[x + 1], s[gi]);
-          s[gi] = fmaf(qv.z, kx[x + 2], s[gi]);
-          s[gi] = fmaf(qv.w, kx[x + 3], s[gi]);
-        }
-      }
-    }
-    // ---- online softmax over the warp's 16 positions (both halves hold
-    // the same values, so the reductions stay within 16 lanes); positions
-    // past hi get p = 0 (their V rows are zeros)
-    const bool valid = p0 + pw < hi;
-    float mx[G];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], 16);
-      // (__fmul_rn: never contracted into an fma, so every instance of the
-      // walk rounds alike and paged rows stay bitwise contiguous ones)
-      s[gi] = valid ? __fmul_rn(s[gi], scale) : kNeg;
-      mx[gi] = s[gi];
-    }
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        mx[gi] = fmaxf(mx[gi], __shfl_xor_sync(0xffffffffu, mx[gi], o));
-      }
-    }
-    float ps[G];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const float m_new = fmaxf(m[gi], mx[gi]);
-      s[gi] = valid ? expf(s[gi] - m_new) : 0.0f;
-      ps[gi] = s[gi];
-      const float corr = expf(m[gi] - m_new);
-      m[gi] = m_new;
-      l[gi] = __fmul_rn(l[gi], corr);
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        acc[gi][c][0] = __fmul_rn(acc[gi][c][0], corr);
-        acc[gi][c][1] = __fmul_rn(acc[gi][c][1], corr);
-      }
-      if (half == 0) pws[gi * 16 + (lane & 15)] = s[gi];
-    }
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-#pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        ps[gi] += __shfl_xor_sync(0xffffffffu, ps[gi], o);
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) l[gi] += ps[gi];
-    __syncwarp();
-    // ---- acc[gi][channels 64 c + 2 lane + {0, 1}] += p[gi][j] v[j], four
-    // positions at a time (kJv V rows in registers at once: four, or one
-    // in the wide walk, whose eight channel pairs a lane would hold 64
-    // registers of V)
-    constexpr int kJv = kWide ? 1 : 4;
-#pragma unroll
-    for (int j0 = 0; j0 < 16; j0 += 4) {
-#pragma unroll
-      for (int jv = 0; jv < 4; jv += kJv) {
-        float2 vv[kJv][kC];
-#pragma unroll
-        for (int j = 0; j < kJv; ++j) {
-          const T* vr = vt + (warp * 16 + j0 + jv + j) * kLd + 2 * lane;
-#pragma unroll
-          for (int c = 0; c < kC; ++c) vv[j][c] = load_pair(vr + 64 * c);
-        }
-#pragma unroll
-        for (int gi = 0; gi < G; ++gi) {
-          const float4 p4 =
-              *reinterpret_cast<const float4*>(pws + gi * 16 + j0);
-          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-          for (int j = 0; j < kJv; ++j) {
-#pragma unroll
-            for (int c = 0; c < kC; ++c) {
-              acc[gi][c][0] = fmaf(pj[jv + j], vv[j][c].x, acc[gi][c][0]);
-              acc[gi][c][1] = fmaf(pj[jv + j], vv[j][c].y, acc[gi][c][1]);
-            }
-          }
-        }
-      }
-    }
+    const int s0 = (t % kStages) * kSplitTile * kLd;
+    walk_tile<T, HDP, G, false>(k_s + s0, v_s + s0, q_s, pws,
+                                lo + t * kSplitTile, hi, scale, st, warp,
+                                lane);
     __syncthreads();                      // stage t % kStages is free again
     if constexpr (kStages == 1) {
       if (t + 1 < n_tiles) {
@@ -474,100 +596,61 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
   attn::cp_async_wait<0>();
   if constexpr (kWide) cluster_arrive();   // the ring is free
 
-  // ---- the four warps' partials -> the block's partial
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    if (gi < g) {
-      if (lane == 0) {
-        w_m[warp * g + gi] = m[gi];
-        w_l[warp * g + gi] = l[gi];
-      }
-      float* wa = w_acc + (warp * g + gi) * HDP + 2 * lane;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        wa[64 * c] = acc[gi][c][0];
-        wa[64 * c + 1] = acc[gi][c][1];
-      }
-    }
-  }
-  // every block of the cluster has started, so rank 0's shared memory may
-  // be written
+  // ---- the four warps' partials -> the block's partial, into its slot of
+  // rank 0's shared memory once every block of the cluster has started
+  store_warp_partial<HDP, G>(st, w_m, w_l, w_acc, g, warp, lane);
   cluster_wait();
   __syncthreads();
-  float* slot = cluster.map_shared_rank(parts, 0) + rank * part;
-  for (int i = tid; i < g * HDP; i += kThreads) {
-    const int gi = i / HDP;
-    float mx = kNeg;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_m[w * g + gi]);
-    float sum = 0.0f, a = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(w_m[w * g + gi] - mx);
-      sum = fmaf(w_l[w * g + gi], f, sum);
-      a = fmaf(w_acc[w * g * HDP + i], f, a);
-    }
-    slot[i] = a;
-    if (i % HDP == 0) {
-      slot[g * HDP + gi] = mx;
-      slot[g * HDP + g + gi] = sum;
-    }
-  }
+  store_block_partial<HDP>(cluster.map_shared_rank(parts, 0) + rank * part,
+                           w_m, w_l, w_acc, g, tid);
 
   // ---- the cluster's partials -> the row, by rank 0 from its own shared
   // memory, once every block's partial has landed there
   cluster.sync();
   if (rank != 0) return;
   for (int i = tid; i < g * hd; i += kThreads) {
-    const int gi = i / hd;
-    const int e = i % hd;
-    float pm[kMaxSplit];
-    float mx = kNeg;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      pm[r] = r < split ? parts[r * part + g * HDP + gi] : kNeg;
-      mx = fmaxf(mx, pm[r]);
-    }
-    float sum = 0.0f, a = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      if (r < split) {
-        const float f = expf(pm[r] - mx);
-        sum = fmaf(parts[r * part + g * HDP + g + gi], f, sum);
-        a = fmaf(parts[r * part + gi * HDP + e], f, a);
-      }
-    }
-    store1(out_row + i, a / fmaxf(sum, 1e-30f));
+    store1(out_row + i,
+           merge_partials<HDP>([&](int r) { return parts + r * part; },
+                               split, g, i / hd, i % hd));
   }
 }
 
 // ---------------------------------------------------------------------------
-// the token tile: up to 16 tokens of one slot at consecutive positions
-// p0 .. p0 + cnt - 1, four of their query heads, on the tensor cores (bf16)
+// the run walk: up to 16 tokens of one slot at consecutive positions
+// p0 .. p0 + cnt - 1 (bf16), each walked as a single token over K/V
+// staged once for all of them
 // ---------------------------------------------------------------------------
 
-// This block's share of one tile (rank r of `split`: the r-th run of whole
-// kv tiles of the visible range, cut evenly): warp w's rows are query head
-// heads0 + w (w < gw) of tokens t0 .. t0 + cnt - 1, row j seeing the kv
-// positions <= p0 + j below the capacity. q and out hold hq elements per
-// token. Every block of the cluster merges a share of the output elements.
-template <int HDP, bool VEC>
-__device__ __forceinline__ void token_tile(const bf16* __restrict__ q,
-                                           const bf16* __restrict__ kb,
-                                           const bf16* __restrict__ vb,
-                                           TableRows rows,
-                                           bf16* __restrict__ out, int t0,
-                                           int cnt, int p0, int heads0,
-                                           int gw, int64_t hq, int hd,
-                                           int cap, int split, float scale) {
+// This block's share of the run (rank r of `split`: positions [r chunk,
+// (r + 1) chunk) of the capacity, cut at each token's own pos + 1): the
+// range of the last token is staged whole (run_tiles(chunk) tiles at
+// most); token j's G heads then take the split walk's tile steps over its
+// own tiles of it, and its block partial stays in this block's shared
+// memory; after a cluster barrier every block merges a share of the run's
+// output elements from the cluster's partials with the walk's merge. q and
+// out hold hq elements per token; head0: this KV head's first query head's
+// offset in a token's row.
+template <int HDP, int G, bool VEC>
+__device__ __forceinline__ void run_walk(const bf16* __restrict__ q,
+                                         const bf16* __restrict__ kb,
+                                         const bf16* __restrict__ vb,
+                                         TableRows rows,
+                                         bf16* __restrict__ out, int t0,
+                                         int cnt, int p0, int64_t head0,
+                                         int64_t hq, int g, int hd, int cap,
+                                         int split, int chunk, float scale) {
   constexpr int kLd = attn::Tile<bf16, HDP>::kLd;
-  constexpr int kKc = HDP / 16;           // 16-channel steps of Q K^T
-  constexpr int kNc = HDP / 8;            // 8-channel output tiles of P V
-  constexpr int kNt = kSplitTile / 8;     // 8-position score tiles
-  constexpr int kRows = kWarps * kTileRows;
-  constexpr int kW = kMaxSplit + 1;       // merge weights per row, then 1/l
+  const int tiles = run_tiles(chunk);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // 2 x kSplitTile rows
-  bf16* v_s = k_s + 2 * kSplitTile * kLd;             // 2 x kSplitTile rows
-  bf16* q_s = v_s + 2 * kSplitTile * kLd;             // kRows rows
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // tiles x kSplitTile
+  bf16* v_s = k_s + tiles * kSplitTile * kLd;         // tiles x kSplitTile
+  float* q_s = reinterpret_cast<float*>(v_s + tiles * kSplitTile * kLd);
+  float* p_s = q_s + G * HDP;                         // kWarps x G x 16
+  float* w_acc = p_s + kWarps * G * 16;               // kWarps x g x HDP
+  float* w_m = w_acc + kWarps * g * HDP;              // kWarps x g
+  float* w_l = w_m + kWarps * g;                      // kWarps x g
+  float* parts = w_l + kWarps * g;                    // cnt x (acc, m, l)
+  const int part = g * (HDP + 2);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -575,255 +658,59 @@ __device__ __forceinline__ void token_tile(const bf16* __restrict__ q,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n = min(p0 + cnt, cap);       // the last token's visible count
-  // whole kv tiles of [0, n) per block: a block past the range waits at
-  // the cluster barriers for the others, holding its SM
-  const int per = ((n + kSplitTile - 1) / kSplitTile + split - 1) / split *
-                  kSplitTile;
-  const int lo = min(rank * per, n);
-  const int hi = min(lo + per, n);
-  const int n_tiles = (hi - lo + kSplitTile - 1) / kSplitTile;
+  const int lo = min(rank * chunk, n);
+  const int hi = min(lo + chunk, n);
   rows = rows.to_shared(
-      reinterpret_cast<int32_t*>(smem_raw + tile_smem_bytes(HDP)), n, tid);
+      reinterpret_cast<int32_t*>(smem_raw + run_smem_bytes(HDP, G, g,
+                                                           chunk)),
+      n, tid);
   __syncthreads();
-  if (n_tiles > 0) {
-    stage_kv<bf16, HDP, VEC>(k_s, v_s, kb, vb, rows, lo, hi, hd, tid);
+  for (int t = 0; t < (hi - lo + kSplitTile - 1) / kSplitTile; ++t) {
+    stage_kv<bf16, HDP, VEC>(k_s + t * kSplitTile * kLd,
+                             v_s + t * kSplitTile * kLd, kb, vb, rows,
+                             lo + t * kSplitTile, hi, hd, tid);
   }
   attn::cp_async_commit();
-  // q rows: warp w's row j is token t0 + j's query head heads0 + w; rows of
-  // missing tokens or heads, and the padding channels, are zeros
-  for (int i = tid; i < kRows * HDP; i += kThreads) {
-    const int r = i / HDP;
-    const int e = i % HDP;
-    const int w = r / kTileRows;
-    const int j = r % kTileRows;
-    q_s[r * kLd + e] =
-        w < gw && j < cnt && e < hd
-            ? q[(t0 + j) * hq + static_cast<int64_t>(heads0 + w) * hd + e]
-            : __float2bfloat16_rn(0.0f);
-  }
-  __syncthreads();
-
-  // ---- lane roles in the m16n8k16 fragments: rows (tokens) fg and fg + 8
-  // of the warp's 16, columns 2 ft and 2 ft + 1 of each 8-wide tile
-  const bool active = warp < gw;          // warp-uniform
-  const int fg = lane >> 2;
-  const int ft = lane & 3;
-  const int qp0 = p0 + fg;                // positions of the two rows
-  const int qp1 = qp0 + 8;
-  uint32_t qf[kKc][4];                    // Q's A fragments, kept
-#pragma unroll
-  for (int c = 0; c < kKc; ++c) {
-    if (active) {
-      ldsm_x4(q_s + (warp * 16 + (lane & 15)) * kLd + c * 16 + (lane >> 4) * 8,
-              qf[c]);
-    }
-  }
-  float acc[kNc][4];
-#pragma unroll
-  for (int nc = 0; nc < kNc; ++nc) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nc][e] = 0.0f;
-  }
-  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      const int st = ((t + 1) & 1) * kSplitTile * kLd;
-      stage_kv<bf16, HDP, VEC>(k_s + st, v_s + st, kb, vb, rows,
-                               lo + (t + 1) * kSplitTile, hi, hd, tid);
-    }
-    attn::cp_async_commit();
-    attn::cp_async_wait<1>();             // tile t has landed
-    __syncthreads();
-    const int k0 = lo + t * kSplitTile;
-    const bf16* kt = k_s + (t & 1) * kSplitTile * kLd;
-    const bf16* vt = v_s + (t & 1) * kSplitTile * kLd;
-    // flash_mma_kernel's step, written out here again: one device function
-    // shared by both made flash 9% slower on the card
-    if (active) {
-      // ---- S = Q K^T: 16 rows x 64 positions per warp
-      float s[kNt][4];
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-      }
-#pragma unroll
-      for (int c = 0; c < kKc; ++c) {
-#pragma unroll
-        for (int np = 0; np < kNt / 2; ++np) {
-          uint32_t kf[4];   // B fragments of position tiles 2 np, 2 np + 1
-          ldsm_x4(kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                      c * 16 + ((lane >> 3) & 1) * 8,
-                  kf);
-          mma_bf16(s[2 * np], qf[c], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[c], kf[2], kf[3]);
-        }
-      }
-      // ---- scale and, on a tile that crosses the first token's position
-      // or the range's end, mask (kv position <= the row's, below hi)
-      const bool edge = k0 + kSplitTile > hi || k0 + kSplitTile - 1 > p0;
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[nt][e] * scale;
-          if (edge) {
-            const int kpos = k0 + nt * 8 + 2 * ft + (e & 1);
-            const int qp = e < 2 ? qp0 : qp1;
-            x = kpos < hi && kpos <= qp ? x : kNeg;
-          }
-          s[nt][e] = x;
-        }
-      }
-      // ---- online softmax on the fragments: each row lives in one quad
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-      mx0 = quad_max(mx0);
-      mx1 = quad_max(mx1);
-      const float c0 = expf(m0 - mx0);
-      const float c1 = expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= c0;                           // each lane's share of the row sum
-      l1 *= c1;
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        s[nt][0] = expf(s[nt][0] - m0);
-        s[nt][1] = expf(s[nt][1] - m0);
-        s[nt][2] = expf(s[nt][2] - m1);
-        s[nt][3] = expf(s[nt][3] - m1);
-        l0 += s[nt][0] + s[nt][1];
-        l1 += s[nt][2] + s[nt][3];
-      }
-      // ---- acc = acc c + P V, P as three bf16 parts (flash_mma_kernel's
-      // step); at hd <= 64 the tile's products sum in an accumulator of
-      // their own, which joins acc with one rounding per element
-      constexpr bool kTileAcc = HDP <= 64;
-      float ta[kNc][4];
-      float (&pv)[kNc][4] = kTileAcc ? ta : acc;
-#pragma unroll
-      for (int nc = 0; nc < kNc; ++nc) {
-        pv[nc][0] = kTileAcc ? 0.0f : pv[nc][0] * c0;
-        pv[nc][1] = kTileAcc ? 0.0f : pv[nc][1] * c0;
-        pv[nc][2] = kTileAcc ? 0.0f : pv[nc][2] * c1;
-        pv[nc][3] = kTileAcc ? 0.0f : pv[nc][3] * c1;
-      }
-#pragma unroll
-      for (int j = 0; j < kNt / 2; ++j) {
-        uint32_t ph[4], pm[4], pl[4];
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const float* p2 = s[2 * j + x];
-          split3_bf16(p2[0], p2[1], ph[2 * x], pm[2 * x], pl[2 * x]);
-          split3_bf16(p2[2], p2[3], ph[2 * x + 1], pm[2 * x + 1],
-                      pl[2 * x + 1]);
-        }
-#pragma unroll
-        for (int cp = 0; cp < kNc / 2; ++cp) {
-          uint32_t vf[4];   // B fragments of channel tiles 2 cp, 2 cp + 1
-          ldsm_x4_trans(vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 kLd +
-                            cp * 16 + (lane >> 4) * 8,
-                        vf);
-          mma_bf16(pv[2 * cp], ph, vf[0], vf[1]);
-          mma_bf16(pv[2 * cp + 1], ph, vf[2], vf[3]);
-          mma_bf16(pv[2 * cp], pm, vf[0], vf[1]);
-          mma_bf16(pv[2 * cp + 1], pm, vf[2], vf[3]);
-          mma_bf16(pv[2 * cp], pl, vf[0], vf[1]);
-          mma_bf16(pv[2 * cp + 1], pl, vf[2], vf[3]);
-        }
-      }
-      if constexpr (kTileAcc) {
-#pragma unroll
-        for (int nc = 0; nc < kNc; ++nc) {
-          acc[nc][0] = fmaf(acc[nc][0], c0, ta[nc][0]);
-          acc[nc][1] = fmaf(acc[nc][1], c0, ta[nc][1]);
-          acc[nc][2] = fmaf(acc[nc][2], c1, ta[nc][2]);
-          acc[nc][3] = fmaf(acc[nc][3], c1, ta[nc][3]);
-        }
-      }
-    }
-    __syncthreads();                      // stage t & 1 is free again
-  }
   attn::cp_async_wait<0>();
-  __syncthreads();                        // the ring is free
-
-  // ---- the block's partial into its own shared memory (the ring): acc
-  // (kRows x HDP), m and l per row; an empty range leaves m = kNeg, l = 0
-  float* part = reinterpret_cast<float*>(smem_raw);
-  float* part_m = part + kRows * HDP;
-  float* part_l = part_m + kRows;
-  if (active) {
-    const int r0 = warp * 16 + fg;
-#pragma unroll
-    for (int nc = 0; nc < kNc; ++nc) {
-      const int ch = nc * 8 + 2 * ft;
-      part[r0 * HDP + ch] = acc[nc][0];
-      part[r0 * HDP + ch + 1] = acc[nc][1];
-      part[(r0 + 8) * HDP + ch] = acc[nc][2];
-      part[(r0 + 8) * HDP + ch + 1] = acc[nc][3];
+  float* pws = p_s + warp * G * 16;       // this warp's probabilities
+  for (int j = 0; j < cnt; ++j) {
+    // token j's own range in this block: the walk's lo and hi at its n
+    // (lo itself, or empty)
+    const int nj = min(p0 + j + 1, cap);
+    const int loj = min(rank * chunk, nj);
+    const int hij = min(loj + chunk, nj);
+    load_q<bf16, HDP, G>(q_s, q + (t0 + j) * hq + head0, g, hd, tid);
+    __syncthreads();                      // (the staged tiles, on j = 0)
+    WalkState<HDP, G> st;
+    st.init();
+    for (int t = 0; t < (hij - loj + kSplitTile - 1) / kSplitTile; ++t) {
+      walk_tile<bf16, HDP, G, true>(k_s + t * kSplitTile * kLd,
+                                    v_s + t * kSplitTile * kLd, q_s, pws,
+                                    loj + t * kSplitTile, hij, scale, st,
+                                    warp, lane);
+      __syncwarp();                       // pws read before it is rewritten
     }
-    const float s0 = quad_sum(l0);
-    const float s1 = quad_sum(l1);
-    if (ft == 0) {
-      part_m[r0] = m0;
-      part_m[r0 + 8] = m1;
-      part_l[r0] = s0;
-      part_l[r0 + 8] = s1;
-    }
+    store_warp_partial<HDP, G>(st, w_m, w_l, w_acc, g, warp, lane);
+    __syncthreads();
+    store_block_partial<HDP>(parts + j * part, w_m, w_l, w_acc, g, tid);
+    __syncthreads();                      // q_s and the warp partials free
   }
   cluster.sync();                         // every partial is in place
 
-  // ---- each row's weight per block and its denominator, into this block's
-  // q rows (read by this block only)
-  float* wts = reinterpret_cast<float*>(q_s);        // kRows x kW
-  if (tid < kRows) {
-    float pm[kMaxSplit];
-    float mx = kNeg;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      pm[r] = r < split ? *cluster.map_shared_rank(part_m + tid, r) : kNeg;
-      mx = fmaxf(mx, pm[r]);
-    }
-    float sum = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      if (r < split) {
-        const float f = expf(pm[r] - mx);
-        sum = fmaf(*cluster.map_shared_rank(part_l + tid, r), f, sum);
-        wts[tid * kW + r] = f;
-      }
-    }
-    wts[tid * kW + kMaxSplit] = fmaxf(sum, 1e-30f);
-  }
-  __syncthreads();
-  // ---- this block's share of the output: every split-th run of kThreads
-  // elements of the real rows
-  for (int i = rank * kThreads + tid; i < kRows * hd; i += split * kThreads) {
-    const int r = i / hd;
-    const int e = i % hd;
-    const int w = r / kTileRows;
-    const int j = r % kTileRows;
-    if (w >= gw || j >= cnt) continue;
-    const float* wr = wts + r * kW;
-    float a = 0.0f;
-#pragma unroll
-    for (int rr = 0; rr < kMaxSplit; ++rr) {
-      if (rr < split) {
-        a = fmaf(*cluster.map_shared_rank(part + r * HDP + e, rr), wr[rr], a);
-      }
-    }
-    out[(t0 + j) * hq + static_cast<int64_t>(heads0 + w) * hd + e] =
-        __float2bfloat16_rn(a / wr[kMaxSplit]);
+  // ---- this block's share of the run's output: every split-th run of
+  // kThreads elements
+  const int row = g * hd;
+  for (int i = rank * kThreads + tid; i < cnt * row; i += split * kThreads) {
+    const int j = i / row;
+    const int r = i % row;
+    out[(t0 + j) * hq + head0 + r] = __float2bfloat16_rn(merge_partials<HDP>(
+        [&](int rr) { return cluster.map_shared_rank(parts + j * part, rr); },
+        split, g, r / hd, r % hd));
   }
   cluster.sync();                         // no partial leaves while read
 }
 
+// ---------------------------------------------------------------------------
 // ---------------------------------------------------------------------------
 // kernels
 // ---------------------------------------------------------------------------
@@ -867,13 +754,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// A ragged list by its plan: cluster (item, kh, group) of `split` blocks.
-// An item whose first token is dead is a dead run and gives zeros; a
-// single token walks its slot's table to pos + 1; a bf16 run of 2-16
-// tokens is a token tile over query heads 4 group .. 4 group + 3 of KV
-// head kh (groups = ceil(g / 4)); a float32 run walks its tokens one by
-// one. Every decision is the same for every block of a cluster, so a
-// cluster returns or meets its barriers as one.
+// A ragged list by its plan: cluster (item, kh) of `split` blocks. An item
+// whose first token is dead is a dead run and gives zeros; a single token
+// walks its slot's table to pos + 1; a run of 2-16 tokens is a run walk
+// when `runs` (bf16, and the block's range fits in shared memory), else
+// its tokens walk one after another. Every decision is the same for every
+// block of a cluster, so a cluster returns or meets its barriers as one.
 template <typename T, bool VEC, int HDP, int G>
 __global__ void __launch_bounds__(kThreads, 1)
 ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -883,11 +769,10 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int32_t* __restrict__ token_pos,
                     const int32_t* __restrict__ plan, T* __restrict__ out,
                     int kvh, int g, int hd, int block_size, int npages,
-                    int groups, int split, int chunk, float scale) {
-  const int64_t id = blockIdx.x / split;            // (item, kh, group)
-  const int group = static_cast<int>(id % groups);
-  const int kh = static_cast<int>((id / groups) % kvh);
-  const int32_t* item = plan + id / groups / kvh * kPlanWidth;
+                    int split, int chunk, int runs, float scale) {
+  const int64_t id = blockIdx.x / split;            // (item, kh)
+  const int kh = static_cast<int>(id % kvh);
+  const int32_t* item = plan + id / kvh * kPlanWidth;
   const int t0 = item[0];
   const int cnt = item[1];
   const int p0 = token_pos[t0];
@@ -898,7 +783,6 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + kh * hd;
   const int64_t head0 = static_cast<int64_t>(kh) * g * hd;
   if (p0 < 0) {        // a dead run: zeros; every block returns, no barrier
-    if (group != 0) return;
     const int rank = static_cast<int>(cg::this_cluster().block_rank());
     for (int i = rank * kThreads + threadIdx.x; i < cnt * g * hd;
          i += split * kThreads) {
@@ -907,18 +791,16 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
   if constexpr (std::is_same<T, bf16>::value) {
-    if (cnt > 1) {
-      token_tile<HDP, VEC>(
+    if (cnt > 1 && runs) {
+      run_walk<HDP, G, VEC>(
           q, kb, vb,
           TableRows{
               block_tables + static_cast<int64_t>(token_rows[t0]) * npages,
               block_size, stride},
-          out, t0, cnt, p0, kh * g + kWarps * group,
-          min(kWarps, g - kWarps * group), hq, hd, cap, split, scale);
+          out, t0, cnt, p0, head0, hq, g, hd, cap, split, chunk, scale);
       return;
     }
   }
-  if (group != 0) return;
   for (int j = 0; j < cnt; ++j) {
     const int64_t t = t0 + j;
     if (j > 0) __syncthreads();
@@ -1017,6 +899,9 @@ struct Paged {
 template <typename T, bool VEC, int HDP, int G>
 struct Ragged {
   static constexpr bool kWide = false;
+  // Runs share their staged K/V (run_walk) in bf16 when the plan holds an
+  // item of more than one token (n_items < T) and the block's range fits
+  // in shared memory; the launch then takes the run walk's shared memory.
   static cudaError_t run(const void* q, const void* k_pages,
                          const void* v_pages, const void* block_tables,
                          const void* token_rows, const void* token_pos,
@@ -1024,22 +909,23 @@ struct Ragged {
                          int kvh, int g, int hd, int block_size, int npages,
                          int split, float scale, cudaStream_t stream) {
     if (n_items < 1 || n_items > T_) return cudaErrorInvalidValue;
-    constexpr bool kTiles = std::is_same<T, bf16>::value;
-    const int groups = kTiles ? (g + kWarps - 1) / kWarps : 1;
-    size_t smem = walk_smem_bytes(sizeof(T), HDP, G, g);
-    if (kTiles) smem = std::max(smem, tile_smem_bytes(HDP));
-    smem += sizeof(int32_t) * npages;         // the page ids of a walk
     const int cap = npages * block_size;
+    const int chunk = (cap + split - 1) / split;
+    const size_t ids = sizeof(int32_t) * npages;  // the page ids of a walk
+    size_t smem = walk_smem_bytes(sizeof(T), HDP, G, g) + ids;
+    const size_t run_smem = run_smem_bytes(HDP, G, g, chunk) + ids;
+    const int runs = std::is_same<T, bf16>::value && n_items < T_ &&
+                     run_smem <= kMaxSmem;
+    if (runs) smem = std::max(smem, run_smem);
     return launch_clusters(
-        ragged_split_kernel<T, VEC, HDP, G>,
-        int64_t{n_items} * kvh * groups * split, split, smem, stream,
-        static_cast<const T*>(q), static_cast<const T*>(k_pages),
-        static_cast<const T*>(v_pages),
+        ragged_split_kernel<T, VEC, HDP, G>, int64_t{n_items} * kvh * split,
+        split, smem, stream, static_cast<const T*>(q),
+        static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
         static_cast<const int32_t*>(block_tables),
         static_cast<const int32_t*>(token_rows),
         static_cast<const int32_t*>(token_pos),
         static_cast<const int32_t*>(plan), static_cast<T*>(out), kvh, g, hd,
-        block_size, npages, groups, split, (cap + split - 1) / split, scale);
+        block_size, npages, split, chunk, runs, scale);
   }
 };
 
@@ -1114,7 +1000,8 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages,
 // count) covering tokens 0 .. T - 1 once each in order: a dead first token
 // a run of dead tokens, count 1 a single token, else a run of count <= 16
 // live tokens of the first token's slot at consecutive positions; out like
-// q. split, bf16 and vec as above.
+// q. split, bf16 and vec as above. Each live token's row is bitwise the
+// paged decode row of its slot with cur_len = pos + 1, however packed.
 extern "C" int ragged_paged_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_tables,

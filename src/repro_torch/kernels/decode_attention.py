@@ -23,8 +23,11 @@ a paged row is bitwise the contiguous row over the same K/V. The ragged
 kernel follows a per-tick plan (:func:`ragged_plan`, built on the host from
 its own copies of the indices and uploaded with the tick's other arrays):
 a run of a slot's tokens at consecutive positions (a prefill chunk) goes in
-pieces of ``TILE_TOKENS`` onto the tensor cores as one tile that reads the
-slot's pages once; every other token walks alone. The plain versions below
+pieces of ``TILE_TOKENS`` to one cluster that stages the slot's pages once
+for them; every other token walks alone. Either way each live token's row
+is the split walk's arithmetic over its own positions, so it is bitwise
+the paged decode row with ``cur_len = pos + 1`` however the tick packed
+it (ROADMAP C4). The plain versions below
 gather each row's pages and apply a masked fp32 softmax, as the
 reference's XLA path (``layers.attention_decode``) does; they take no
 plan.
@@ -53,7 +56,7 @@ MAX_G_CONTIGUOUS = 16
 MAX_HD_CONTIGUOUS = 256
 SPLIT_POSITIONS = 256   # cache positions per block of a decode cluster
 MAX_SPLIT = 8           # blocks a cluster holds
-TILE_TOKENS = 16        # tokens of a ragged run per tensor-core tile
+TILE_TOKENS = 16        # tokens of a ragged run per cluster
 
 
 def round_kv_len(n: int, block_k: int = 256) -> int:
@@ -139,8 +142,8 @@ def ragged_plan(token_rows, token_pos) -> np.ndarray:
     once each, in order; the kernel reads an item's slot and positions
     from the indices. A run is tokens consecutive in the list, of one slot,
     at consecutive positions >= 0 (a prefill chunk builds one); it is cut
-    into items of at most ``TILE_TOKENS``, and an item of count > 1 is one
-    tensor-core tile. A live token in no longer run is an item of its own
+    into items of at most ``TILE_TOKENS``, and an item of count > 1 shares
+    its staged K/V. A live token in no longer run is an item of its own
     (count 1). Dead tokens (position < 0) next to each other form one item
     of any length, whose rows are zeros."""
     rows = np.asarray(token_rows, np.int64).reshape(-1)

@@ -214,7 +214,7 @@ def attention_chunked(q, k, v, *, causal, window=0, prefix_len=0,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-_FN = None
+_FNS = {}
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L,
              _I, _I, _I, ctypes.c_float, _I, _I, _P]
@@ -222,13 +222,13 @@ _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 
 def _lib():
     """The kernel's C entry point, built and loaded on first use."""
-    global _FN
-    if _FN is None:
+    fn = _FNS.get("flash_attention")
+    if fn is None:
         fn = _build.load("flash_attention").flash_attention
         fn.argtypes = _ARGTYPES
         fn.restype = _I
-        _FN = fn
-    return _FN
+        _FNS["flash_attention"] = fn
+    return fn
 
 
 def _vec(hd, *xs) -> int:

@@ -95,15 +95,28 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type=None):
 
 def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
     """(data 16, model 16), or (pod 2, data 16, model 16) with
-    ``multi_pod``: 256 or 512 ranks, asserted as the reference asserts
-    its device count."""
+    ``multi_pod``, pod and data as one mesh dim (:func:`pod_mesh`): 256 or
+    512 ranks, asserted as the reference asserts its device count."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = int(np.prod(shape))
     world = dist.get_world_size() if dist.is_initialized() else 1
     assert world == n, (f"mesh {shape} needs {n} ranks; the group has "
                         f"{world}")
-    return make_mesh(shape, axes, device_type)
+    if multi_pod:
+        return pod_mesh(*shape, device_type=device_type)
+    return make_mesh(shape, ("data", "model"), device_type)
+
+
+def pod_mesh(pods: int, data: int, model: int, device_type=None):
+    """The (pod, data, model) mesh with pod and data laid out as one mesh
+    dim, "pod_data" (pod-major, so each rank holds the rows the nested
+    split gives it), which the rules' ("pod", "data") resolve to
+    (``sharding.mesh_dims``). DTensor's ops take a tensor dim sharded over
+    one mesh dim; over two ([Shard(0), Shard(0)]) torch 2.11 refuses
+    some, and others laid the batch out over pod alone, so each rank
+    computed its data neighbours' rows (ROADMAP C15)."""
+    return make_mesh((pods * data, model), ("pod_data", "model"),
+                     device_type)
 
 
 def parse_mesh(text: str):

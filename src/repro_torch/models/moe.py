@@ -281,7 +281,7 @@ def apply_moe_ep(cfg, p, x, dtype) -> Tuple[torch.Tensor, Dict[str,
     # local expert bucket capacity
     Ce = max(8, -(-int(M * Cs / E_loc * 1.25) // 8) * 8)
     model_group = mesh.get_group(model_ax)
-    data_axes = (data_ax,) if isinstance(data_ax, str) else tuple(data_ax)
+    data_axes = shlib.mesh_dims(mesh, data_ax)
 
     # a group's rows lie on its data rank; its tokens split over model
     rows_pl = [Shard(0) if a in data_axes else Replicate() for a in axes]

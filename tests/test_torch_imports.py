@@ -44,7 +44,10 @@ def test_importing_the_port_loads_no_jax():
               "configs.hubert_xlarge", "distrib.axes", "distrib.sharding",
               "launch.mesh", "checkpoint.reshard", "optim.compression",
               "launch.specs", "launch.dryrun", "roofline",
-              "roofline.analysis"):
+              "roofline.analysis", "analysis", "analysis.base",
+              "analysis.callgraph", "analysis.catalog", "analysis.enums",
+              "analysis.lifecycle", "analysis.purity", "analysis.rng",
+              "analysis.runner", "analysis.__main__"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -73,6 +76,29 @@ def test_no_jax_or_reference_import_in_the_source():
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (
                 f"{path.relative_to(ROOT)} imports {name}")
+
+
+def test_the_linter_imports_the_standard_library_only():
+    """``repro_torch.analysis`` runs without torch, jax or the reference:
+    each of its modules imports the standard library and its own package
+    alone, and importing it in a fresh process loads no torch."""
+    pkg = ROOT / "src" / "repro_torch" / "analysis"
+    files = sorted(pkg.glob("*.py"))
+    assert len(files) >= 10
+    for path in files:
+        for name in _imports(path):
+            assert name == "__future__" or name.startswith(
+                "repro_torch.analysis") or name.split(".")[0] in \
+                sys.stdlib_module_names, f"{path.name} imports {name}"
+    code = ("import sys\n"
+            "import repro_torch.analysis.runner\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch', 'numpy')!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.fixture()
