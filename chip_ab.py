@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Phase 4's ragged attention (the chunk tick and the decode tick) and a
-contiguous decode of one source tree's kernels, on one card: one JSON
-line per call. To compare two trees, run each in turns in one call on the
-chip, e.g. a parent unpacked by ``git archive`` into ``build/parent`` and
-this tree unpacked into ``build/final``:
+"""Phase 4's decode-kernel cases of one source tree's kernels, on one card:
+ragged attention on the chunk tick, the decode tick and a chunk deep in a
+context (``deep_1024``) at smollm-360m's heads, the chunk and decode ticks
+at qwen3-moe's (h32 kvh4 hd128), and contiguous and paged decode at phase
+4's shapes; one JSON line of device ms per call. With ``stream`` after the
+label, also phase 5's greedy paged stream on the tree's own engine, its
+tokens as one digest (``chip_smoke.streams_digest``'s). To compare two
+trees, run each in turns in one call on the chip, e.g. a parent unpacked
+by ``git archive`` into ``build/parent`` and this tree unpacked into
+``build/final``:
 
     for t in parent final final parent; do
         python3 chip_ab.py build/$t $t || exit 1
     done
 
-Each tree's kernels are built into that tree's own ``build/kernels``.
+Each tree's kernels are built into that tree's own ``build/kernels``; each
+tree's own ``chip_smoke.py`` makes the inputs (the same seed).
 """
+import hashlib
 import json
 import sys
 
@@ -18,8 +25,23 @@ import numpy as np
 import torch
 
 
+def greedy_digest(cs) -> str:
+    """Phase 5's greedy paged stream (the launcher's own code, random
+    weights from seed 0) on ``cs``'s tree: its tokens by request id as 16
+    hex digits of a hash."""
+    from repro_torch.launch import serve as launcher
+    engine, _ = cs.build_engine()
+    args = launcher.parser().parse_args(cs.BASE + cs.GREEDY)
+    sched = launcher.serve(engine, args, launcher.make_arrivals(
+        args, engine.model.cfg.vocab_size, args.tasks))
+    text = json.dumps({str(r.rid): [int(t) for t in r.out]
+                       for r in sorted(sched.finished.values(),
+                                       key=lambda r: r.rid)})
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
 def main() -> int:
-    if len(sys.argv) != 3:
+    if len(sys.argv) not in (3, 4) or sys.argv[3:] not in ([], ["stream"]):
         print(__doc__, file=sys.stderr)
         return 2
     tree, label = sys.argv[1], sys.argv[2]
@@ -29,26 +51,52 @@ def main() -> int:
     sys.path[:0] = [tree, tree + "/src"]
     import chip_smoke as cs
     from repro_torch.kernels import _build, decode_attention, ops
-    _build.build(["decode_attention"])
+    stream = sys.argv[3:] == ["stream"]
+    _build.build(cs.KERNEL_SOURCES if stream else ["decode_attention"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt = torch.bfloat16
     pk = cs.packings()
     out = {}
-    for name in ("chunk256_decode", "decode_only"):
-        rows, pos = pk[name]
-        q, k, v, bt, r, p = cs.ragged_inputs(gen, rows, pos, dt, layers=32)
+    cases = [("chunk256_decode", cs.HD, (cs.H, cs.KVH)),
+             ("decode_only", cs.HD, (cs.H, cs.KVH)),
+             ("deep_1024", cs.HD, (cs.H, cs.KVH)),
+             ("moe/chunk256_decode", 128, cs.MOE_HEADS),
+             ("moe/decode_only", 128, cs.MOE_HEADS)]
+    for key, hd, heads in cases:
+        rows, pos = pk[key.split("/")[-1]]
+        q, k, v, bt, r, p = cs.ragged_inputs(gen, rows, pos, dt, layers=32,
+                                             hd=hd, heads=heads)
         plan = torch.from_numpy(decode_attention.ragged_plan(
             np.asarray(rows, np.int32), np.asarray(pos, np.int32))).to("cuda")
         kern = lambda i: ops.ragged_paged_attention(q, k[i % 32], v[i % 32],
                                                     bt, r, p, plan)
         plain = lambda i: decode_attention.ragged_paged_attention_plain(
             q, k[i % 32], v[i % 32], bt, r, p)
-        out[name] = round(cs.timed(kern, plain, 64, 16, tol=cs.TOL[dt])["ms"],
-                          5)
-    qd, kd, vd, cur = cs.decode_inputs(gen, cs.DECODE_LENS * 2, dt, cs.HD,
-                                       layers=32)
+        out[key] = round(cs.timed(kern, plain, 64, 16, tol=cs.TOL[dt])["ms"],
+                         5)
+        del q, k, v
+    # contiguous decode: 16 rows at depths 512-575 of S 1024 (phase 4)
+    qd, kd, vd, cur = cs.decode_inputs(gen, list(range(512, 576, 4)), dt,
+                                       cs.HD, layers=32)
     out["decode"] = round(cs.device_ms(
-        lambda i: ops.decode_attention(qd, kd[i % 32], vd[i % 32], cur), 64), 5)
+        lambda i: ops.decode_attention(qd, kd[i % 32], vd[i % 32], cur),
+        64), 5)
+    del qd, kd, vd
+    # paged decode: 8 slots of depths 17-1024, scrambled pages (phase 4)
+    q = torch.randn(cs.SLOTS, cs.H, cs.HD, generator=gen, device="cuda").to(dt)
+    kp = torch.randn(32, cs.NUM_BLOCKS, cs.BS, cs.KVH, cs.HD, generator=gen,
+                     device="cuda").to(dt)
+    vp = torch.randn_like(kp)
+    bt = (torch.randperm(cs.NUM_BLOCKS - 1, generator=gen, device="cuda")
+          + 1).view(cs.SLOTS, cs.NPAGES).to(torch.int32)
+    cur = torch.tensor([1024, 1000, 777, 576, 512, 300, 129, 17],
+                       dtype=torch.int32, device="cuda")
+    out["paged_decode"] = round(cs.device_ms(
+        lambda i: ops.paged_decode_attention(q, kp[i % 32], vp[i % 32], bt,
+                                             cur), 64), 5)
+    if stream:
+        del q, kp, vp
+        out["greedy_tokens_digest"] = greedy_digest(cs)
     print(label, json.dumps(out), flush=True)
     return 0
 

@@ -73,11 +73,17 @@ Phases, each printing one line of results; any failure exits non-zero:
    edges, the cluster blocks' range edges, 799) as single tokens and
    inside runs from p, p - 1, p - 15, p - 16, p - 40 and 0 beside dead
    tokens and another slot's run, every row bitwise paged decode's with
-   cur_len = pos + 1 (ROADMAP C4); and the attention softcap
+   cur_len = pos + 1 (ROADMAP C4); the edges of the run walk's schedule
+   (runs of 2, 3, 7, 13 and 16 tokens, a run across the 256 boundary of
+   the cluster's blocks, a run ending at 1023; the same runs in pools of
+   256 and 512 positions, where a block walks several groups in turn) at
+   every head layout, bitwise paged decode's too; and the attention softcap
    (tanh(s / 30) * 30, no kernel takes it) through its plain paths on
    CUDA tensors (the whole-sequence oracle, attention_chunked, contiguous,
    paged and ragged decode at smollm's heads) against the same calls on
-   the CPU, float32, within 2e-5;
+   the CPU, float32, within 2e-5, each side beside a float64 run and the
+   TF32 flags read at the line (ROADMAP C16; --softcap N repeats the
+   cases);
 4. kernel times at the serving paths' shapes (device time from
    torch.profiler), beside the plain version's, one PyTorch library call's
    where there is one, and the least time the card could take (bytes at
@@ -85,17 +91,22 @@ Phases, each printing one line of results; any failure exits non-zero:
    also beside the sequence they replace (the gather-add, then the norm as
    layers.apply_norm launches it), F.rms_norm alone, and host microseconds
    per wrapper call; flash also at one prompt of 512 (a whole-prompt
-   stream's prefill); the ragged kernel's plan (host microseconds per
-   tick, items); at the encoders' shapes, flash in full mode at g = 1
-   over (8, 384) and (1, 512) beside SDPA, and the plain-mode gather-adds
-   at T 3072, d 1024; at phase 10's, flash over (1, 6144) at danube's
-   heads with its window of 4096 beside SDPA with a bool mask, decode over
+   stream's prefill); the ragged kernel on the chunk tick, the decode tick
+   and a chunk at 768-1023 (deep_1024: every block of every cluster
+   walks), each the median of five traces, with its plan (host
+   microseconds per tick, items) and the longest chain of tile steps a
+   block takes (counted on the host from the plan); at the encoders'
+   shapes, flash in full mode at g = 1 over
+   (8, 384) and (1, 512) beside SDPA, and the plain-mode gather-adds at T
+   3072, d 1024; at phase 10's, flash over (1, 6144) at danube's heads
+   with its window of 4096 beside SDPA with a bool mask, decode over
    danube's full ring (b 4, S 4096) beside SDPA with a length mask, the
    fused multi-task gather-add at T 263, d 2560 and 5120; at phase 11's
    qwen3-moe heads (h32 kvh4 hd128, g 8), flash over (16, 512) causal and
    contiguous decode beside SDPA, paged decode and ragged attention on
-   the serving tick's packings, the fused multi-task gather-add at T 263
-   over qwen3-moe's and llama4's tables; at phase 12's recurrentgemma
+   the serving tick's packings and deep_1024, the fused multi-task
+   gather-add at T 263 over qwen3-moe's and llama4's tables; at phase
+   12's recurrentgemma
    heads (h16 kvh1 hd256), flash over 4 x 3072 with the window of 2048,
    causal and full beside SDPA, contiguous decode over the full 2048-row
    ring (b 4) beside SDPA, the fused gather-add at d 4096 (2 tasks of V
@@ -409,6 +420,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -540,7 +552,7 @@ def packings():
     pos = list(range(768, 1024)) + [1023, 1000]             # depth 1024
     out["deep_1024"] = (rows, pos)
     # the ragged kernel's plan: runs of one slot at consecutive positions
-    # go to one cluster each in runs of 16, other tokens walk alone.
+    # go to one cluster each in runs of 8, other tokens walk alone.
     # Four chunks of unequal lengths at token offsets 4, 41, 111, 120
     # after four decode tokens (the multi-prefill budget split), dead
     # padding to 263
@@ -583,12 +595,12 @@ def misaligned(x):
 
 
 def ragged_inputs(gen, rows, pos, dtype, layers=1, hd=HD, bs=BS,
-                  heads=(H, KVH)):
+                  heads=(H, KVH), max_len=MAX_LEN):
     """q (T, h, hd), K/V pools (layers, blocks, bs, kvh, hd) of SLOTS slots
-    of MAX_LEN positions in pages of bs, scrambled block tables, and the
+    of max_len positions in pages of bs, scrambled block tables, and the
     token indices, on the card."""
     dev, T, (h, kvh) = DEV, len(rows), heads
-    npages = MAX_LEN // bs
+    npages = max_len // bs
     blocks = SLOTS * npages + 1
     q = torch.randn(T, h, hd, generator=gen, device=dev).to(dtype)
     k = torch.randn(layers, blocks, bs, kvh, hd, generator=gen,
@@ -615,6 +627,74 @@ def ragged_bound(rows, pos, dtype, heads=(H, KVH), hd=HD):
     nbytes = 2 * T * h * hd * es + kv + 2 * T * 4 + SLOTS * NPAGES * 4
     flops = sum(p + 1 for p in pos if p >= 0) * h * hd * 4
     return bound(nbytes, flops, dtype)
+
+
+# phase 4's ragged packings: the chunk tick (a fresh prompt's 256 tokens at
+# positions 0-255 of slot 0 and 7 decode tokens), the decode tick, and a
+# chunk at 768-1023 (where every rank of every cluster walks 4 tiles a
+# token) with 2 decode tokens
+RAGGED_TIMED = ("chunk256_decode", "decode_only", "deep_1024")
+# traces of 64 calls each whose median is a ragged packing's phase 4 time
+# (one trace's reading of the chunk tick moved 0.0231-0.0256 ms between
+# whole runs)
+RAGGED_REPS = 5
+
+
+def run_width(hd: int, g: int) -> int:
+    """Tokens the bf16 run walk takes side by side at head_dim ``hd`` and
+    ``g`` query heads per KV head: ``run_width`` of
+    ``csrc/decode_attention.cu`` (whose bf16 ragged form pads g to 4 or 8
+    but keeps 3 exact) at the padded head_dim and heads, two where a
+    token's running state is 12 floats a lane (hd 64 at g 3), else one."""
+    hdp = 64 if hd <= 64 else 128
+    G = 3 if g == 3 else 4 if g <= 4 else 8
+    return 2 if G * (2 + 2 * (hdp // 64)) <= 12 else 1
+
+
+def ragged_chain(plan, token_pos, capacity: int, width: int) -> int:
+    """The longest chain of tile steps (64 kv positions each) that one block
+    of the ragged kernel takes on ``plan`` over a pool of ``capacity``
+    positions, counted on the host. Range r of a cluster is positions ``[r
+    c, (r + 1) c)`` of each token's ``pos + 1`` (c the cluster's chunk). A
+    single token: block r takes one step per tile of its range r. A run
+    walks groups of ``width`` tokens side by side, one step per tile of each
+    group's last token: when the run sees no position past the first range,
+    its groups are dealt to the cluster's blocks (group i to block i mod
+    split, each over the first range), else block r walks range r for every
+    group. Dead items take none."""
+    from repro_torch.kernels import decode_attention as da
+    pos = np.asarray(token_pos, np.int64).reshape(-1)
+    split = da.decode_split(capacity)
+    chunk = -(-capacity // split)
+    tiles = lambda n, r: -(-max(0, min(n - r * chunk, chunk)) // 64)
+    longest = 0
+    for first, count in np.asarray(plan).reshape(-1, 2):
+        if pos[first] < 0:
+            continue
+        ends = np.minimum(pos[first:first + count] + 1, capacity)
+        step = width if count > 1 else 1
+        lasts = [int(ends[min(j + step, count) - 1])
+                 for j in range(0, count, step)]
+        if count > 1 and lasts[-1] <= chunk:
+            blocks = [lasts[b::split] for b in range(split)]
+            steps = [sum(tiles(n, 0) for n in ns) for ns in blocks]
+        else:
+            steps = [sum(tiles(n, r) for n in lasts) for r in range(split)]
+        longest = max(longest, max(steps))
+    return longest
+
+
+def chains(rows, pos, hd, g):
+    """The longest chain of tile steps a block of the ragged kernel takes on
+    the packing's plan (``ragged_chain`` at the pool's capacity of MAX_LEN,
+    bf16)."""
+    from repro_torch.kernels import decode_attention as da
+    return dict(chain=ragged_chain(da.ragged_plan(rows, pos), pos, MAX_LEN,
+                                   run_width(hd, g)))
+
+
+def fmt_chain(r) -> str:
+    return f"longest chain {r['chain']} tile steps"
 
 
 def bound(nbytes, flops, dtype):
@@ -758,7 +838,7 @@ def check_fused(what, fused, plain_out, h, scale, report):
     return err
 
 
-def phase_parity(gen, report):
+def phase_parity(gen, report, softcap_calls=0):
     """Each kernel through its public wrapper (kernels.ops) against its
     plain version. Every kernel has a 16-byte-load build and a
     one-element-load build, picked by width and alignment; the "scalar"
@@ -816,6 +896,7 @@ def phase_parity(gen, report):
     parity_moe_gather(gen, report)
 
     parity_ragged(gen, report)
+    parity_run_edges(gen, report)
     parity_flash(gen, report)
     parity_decode(gen, report)
     parity_decode_wide(gen, report)
@@ -823,7 +904,7 @@ def phase_parity(gen, report):
     parity_warm_cold(report)
     parity_run_vs_single(report)
     parity_frontends(gen, report)
-    parity_softcap(gen, report)
+    parity_softcap(gen, report, softcap_calls)
 
 
 # ragged and paged parity builds: name -> (hd, data one element off a
@@ -883,6 +964,102 @@ def parity_ragged(gen, report):
                 bs=bs, shapes=f"h{heads[0]} kvh{heads[1]} hd{hd} "
                 f"depth<=1024", bitwise_vs_paged=f"{bitwise}/{len(rcases)}",
                 max_abs_err=",".join(rcases))
+
+
+def run_edge_packings():
+    """Packings at the edges of the run walk's schedule (items of 8 tokens
+    in groups side by side; a run inside the first range dealt over the
+    cluster's blocks): runs of 2, 3, 7, 13 and 16 tokens (odd items for
+    groups of two) between decode tokens and dead padding, one of them
+    across the 512 boundary of the cluster's blocks; a run across the 256
+    boundary, whose item holds tokens that see nothing of rank 1's range
+    beside tokens that do; a run ending at 1023, the table's last position
+    (every rank walks)."""
+    out = {}
+    rows, pos = [7, 0, 0], [3, 40, 41]
+    for slot, lo, n in ((1, 99, 3), (2, 300, 7), (3, 500, 13), (4, 600, 16)):
+        rows += [slot] * n + [5]
+        pos += list(range(lo, lo + n)) + [-1]
+    out["runs_2_3_7_13_16"] = (rows + [6], pos + [777])
+    out["run_across_256"] = ([1, 2] + [5] * 13 + [0],
+                             [17, -1] + list(range(250, 263)) + [900])
+    out["run_ends_1023_13"] = ([6] * 13 + [3, 4],
+                               list(range(1011, 1024)) + [255, 256])
+    return out
+
+
+def small_pool_packings():
+    """Run edges in pools of 256 and 512 positions a slot (clusters of 1 and
+    2 blocks of 256): every run's item inside the first range is dealt
+    over fewer blocks than it has groups, so a block walks two or more
+    groups of two in turn at g 3. Runs of 2, 3, 7, 13 and 16 tokens
+    between dead padding and decode tokens, one from position 0 and one
+    ending at the slot's last position; at 512 also a run across 256.
+    {name: (capacity, rows, pos)}."""
+    out = {}
+    for cap, runs in ((256, ((0, 40, 2), (1, 99, 3), (2, 0, 7),
+                             (3, 150, 13), (4, 240, 16))),
+                      (512, ((0, 40, 2), (1, 99, 3), (2, 0, 7),
+                             (3, 150, 13), (4, 240, 16), (5, 250, 13),
+                             (6, 499, 13)))):
+        rows, pos = [7], [3]
+        for slot, lo, n in runs:
+            rows += [slot] * n + [7]
+            pos += list(range(lo, lo + n)) + [-1]
+        out[f"pool{cap}_runs"] = (cap, rows + [6], pos + [100])
+    return out
+
+
+def parity_run_edges(gen, report):
+    """Ragged attention on run_edge_packings() (pools of MAX_LEN) and on
+    small_pool_packings() at every build of PARITY_VARIANTS (pages of 16;
+    at smollm's heads also 8 and 32), in float32 and bf16: within TOL of
+    the plain version, dead tokens exact zeros, and every row bitwise paged
+    decode's with cur_len = pos + 1 (ROADMAP C4)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    cases = {name: (MAX_LEN, rows, pos)
+             for name, (rows, pos) in run_edge_packings().items()}
+    cases.update(small_pool_packings())
+    n, worst, bad, by_pool = 0, 0.0, [], {}
+    for variant, (hd, shift, heads) in PARITY_VARIANTS.items():
+        for bs in (PARITY_BS if variant == "vec" else (16,)):
+            for name, (cap, rows, pos) in cases.items():
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, bt, r, p = ragged_inputs(gen, rows, pos, dtype,
+                                                      hd=hd, bs=bs,
+                                                      heads=heads,
+                                                      max_len=cap)
+                    k, v = k[0], v[0]
+                    if shift:
+                        k, v = misaligned(k), misaligned(v)
+                    out = ops.ragged_paged_attention(q, k, v, bt, r, p)
+                    what = (f"ragged run edges/{variant}/bs{bs}/{name}/"
+                            f"{dtype}")
+                    worst = max(worst, check_close(
+                        what, out, da.ragged_paged_attention_plain(
+                            q, k, v, bt, r, p), dtype, report, p < 0))
+                    paged = ops.paged_decode_attention(
+                        q, k, v, bt[r.long()].contiguous(),
+                        torch.clamp(p + 1, min=0))
+                    torch.cuda.synchronize()
+                    ok = torch.equal(out, paged)
+                    if not ok:
+                        bad.append(what)
+                    tally = by_pool.setdefault(cap, [0, 0])
+                    tally[0] += ok
+                    tally[1] += 1
+                    n += 1
+    report["parity"]["run_edges"] = dict(cases=n, not_bitwise=bad)
+    log("3 parity", kernel="ragged_paged_attention (run edges)",
+        packings=",".join(cases), variants=len(PARITY_VARIANTS),
+        bitwise_vs_paged=f"{n - len(bad)}/{n}",
+        by_pool_capacity=",".join(f"{c}:{a}/{b}"
+                                  for c, (a, b) in sorted(by_pool.items())),
+        max_abs_err=f"{worst:.2e}", required="all")
+    if bad:
+        raise AssertionError(f"ROADMAP C4: run-edge rows not bitwise paged "
+                             f"decode's: {bad}")
 
 
 def check_close(what, out, plain, dtype, report, zero_rows=None):
@@ -1631,17 +1808,22 @@ def flat(res):
     return torch.cat([x.float().flatten() for x in parts])
 
 
-def timed(kern, plain, iters, plain_iters, tol):
+def timed(kern, plain, iters, plain_iters, tol, reps=1):
     """A kernel's wrapper and its plain version on the same inputs: device
-    time per call (``ms``, profiler), wall time per call back to back
-    (``wall_ms``, CUDA events, host launch overhead included), their max
-    abs difference over every output, which must be within tol (0: bitwise
-    equal), and the share of output elements that differ at all
-    (``differ``: in bf16, one ulp of rounding apart for most)."""
-    res = dict(ms=device_ms(kern, iters),
+    time per call (``ms``, profiler; with ``reps`` > 1 the median of that
+    many traces of ``iters`` calls, each in ``ms_reps``), wall time per
+    call back to back (``wall_ms``, CUDA events, host launch overhead
+    included), their max abs difference over every output, which must be
+    within tol (0: bitwise equal), and the share of output elements that
+    differ at all (``differ``: in bf16, one ulp of rounding apart for
+    most)."""
+    ms_reps = [device_ms(kern, iters) for _ in range(reps)]
+    res = dict(ms=float(np.median(ms_reps)),
                plain_ms=device_ms(plain, plain_iters),
                wall_ms=wall_ms(kern, iters),
                plain_wall_ms=wall_ms(plain, plain_iters))
+    if reps > 1:
+        res["ms_reps"] = ms_reps
     a, b = flat(kern(0)), flat(plain(0))
     res["err"] = (a - b).abs().max().item()
     res["differ"] = (a != b).float().mean().item()
@@ -1654,7 +1836,10 @@ def timed(kern, plain, iters, plain_iters, tol):
 
 
 def fmt_times(r) -> str:
-    return (f"{r['ms']:.5f}ms(wall {r['wall_ms']:.4f}; plain "
+    reps = (f"median of {len(r['ms_reps'])}, "
+            f"{min(r['ms_reps']):.5f}-{max(r['ms_reps']):.5f}; "
+            if "ms_reps" in r else "")
+    return (f"{r['ms']:.5f}ms({reps}wall {r['wall_ms']:.4f}; plain "
             f"{r['plain_ms']:.4f}, wall {r['plain_wall_ms']:.4f}; bound "
             f"{r['bound_ms']:.5f}; err {r['err']:.2e}; differ "
             f"{r['differ']:.5f})")
@@ -1688,10 +1873,11 @@ def phase_times(gen, report):
     rows_out.insert(1, gather_row("aot_gather_add_multitask",
                                   "src/repro/kernels/aot_bias.py:56",
                                   res[263]))
-    # ---- ragged attention
+    # ---- ragged attention: the serving tick's chunk and decode ticks, and
+    # a chunk deep in a context (every block of every cluster walks)
     pk = packings()
     res = {}
-    for name in ("chunk256_decode", "decode_only"):
+    for name in RAGGED_TIMED:
         rows, pos = pk[name]
         q, k, v, bt, r, p = ragged_inputs(gen, rows, pos, dt, layers=32)
         # the plan, as the tick builds it on the host and uploads it
@@ -1706,12 +1892,14 @@ def phase_times(gen, report):
                                                     bt, r, p, plan)
         plain = lambda i: decode_attention.ragged_paged_attention_plain(
             q, k[i % 32], v[i % 32], bt, r, p)
-        res[name] = timed(kern, plain, 64, 16, tol=TOL[dt])
+        res[name] = timed(kern, plain, 64, 16, tol=TOL[dt],
+                          reps=RAGGED_REPS)
         res[name]["bound_ms"], res[name]["bound_by"] = ragged_bound(rows, pos,
                                                                     dt)
         res[name]["T"] = len(rows)
         res[name]["plan_host_us"] = plan_us
         res[name]["plan_items"] = int(plan_np.shape[0])
+        res[name].update(chains(rows, pos, HD, H // KVH))
         del q, k, v
     a = res["chunk256_decode"]
     rows_out.append({
@@ -1724,7 +1912,8 @@ def phase_times(gen, report):
     log("4 times", kernel="ragged_paged_attention",
         **{n: fmt_times(r) + f"[{r['bound_by']}, T{r['T']}, "
            f"{r['plan_items']} plan items, plan host "
-           f"{r['plan_host_us']:.1f}us]" for n, r in res.items()})
+           f"{r['plan_host_us']:.1f}us, {fmt_chain(r)}]"
+           for n, r in res.items()})
     report["times"]["ragged_paged_attention"] = res
     rows_out += times_prefill_decode(gen, report)
     enc = times_encoder(gen, report)
@@ -1992,9 +2181,9 @@ def times_moe(gen, report):
     keep("paged_decode_attention", "slots8_depth<=1024",
          "8 slots depths 17-1024", r)
     del kp, vp
-    # ---- ragged attention: the serving tick's packings
+    # ---- ragged attention: the serving tick's packings and a deep chunk
     pk = packings()
-    for name in ("chunk256_decode", "decode_only"):
+    for name in RAGGED_TIMED:
         rows, pos = pk[name]
         q, k, v, bt, rr, p = ragged_inputs(gen, rows, pos, dt, layers=ROTATE,
                                            hd=hd, heads=MOE_HEADS)
@@ -2004,11 +2193,13 @@ def times_moe(gen, report):
             q, k[i % ROTATE], v[i % ROTATE], bt, rr, p, plan),
             lambda i: da.ragged_paged_attention_plain(
                 q, k[i % ROTATE], v[i % ROTATE], bt, rr, p),
-            64, 16, tol=TOL[dt])
+            64, 16, tol=TOL[dt], reps=RAGGED_REPS)
         r["library_ms"] = None
         r["bound_ms"], r["bound_by"] = ragged_bound(rows, pos, dt,
                                                     heads=MOE_HEADS, hd=hd)
+        r.update(chains(rows, pos, hd, h // kvh))
         keep("ragged_paged_attention", name, f"{name} T{len(rows)}", r)
+        text[f"ragged_paged_attention/{name}"] += f"[{fmt_chain(r)}]"
         del q, k, v
     # ---- the fused multi-task gather-add at T 263
     for n_tasks, vocab, d in MOE_GATHERS:
@@ -2514,7 +2705,8 @@ def phase_main_path(report, engine, setup_s):
             tokens_per_s=f"{sched.tokens_emitted / sec:.1f}",
             all_tokens_per_s=f"{(sched.tokens_emitted + prompt_toks) / sec:.1f}",
             drain="clean" if not findings else findings,
-            launches=counts, finite="all reported rows")
+            launches=counts, finite="all reported rows",
+            tokens_digest=streams_digest(stream_outs(sched.finished)))
         if len(sched.finished) != len(arrivals) or findings:
             raise AssertionError(f"{label}: unfinished requests or leaks")
         check_launches(label, counts, {
@@ -2656,6 +2848,15 @@ def stream_ticks(sched, arrivals, before=None, until=None):
 
 def stream_outs(requests):
     return {r.rid: list(r.out) for r in requests.values()}
+
+
+def streams_digest(streams) -> str:
+    """16 hex digits of a hash of every request's tokens (by rid), so that
+    two runs' streams compare by one word of their log lines
+    (``chip_ab.py``'s ``stream`` digest is the same hash)."""
+    text = json.dumps({str(k): [int(t) for t in v]
+                       for k, v in sorted(streams.items())})
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def survivors_expected(twin_rids, disconnected, quarantined, shed):
@@ -3348,7 +3549,8 @@ def tick_packing(events, tick):
 class KVWatch:
     """ROADMAP C4's recorder for one 5g stream: which path wrote each K/V
     row of each sample (the ragged kernel's split walk for a slot's lone
-    row in a tick, else "tile@p", the run item of 16 from position p),
+    row in a tick, else "tile@p", the run item of the plan's TILE_TOKENS
+    from position p),
     and a 64-bit hash of every layer's K and V row of each
     sample as its latest token left them. A row a sample shares with its
     parent (a fork's prompt) is found under the parent's key."""
@@ -3359,6 +3561,7 @@ class KVWatch:
 
     def wrap(self, serve_step):
         def step(tokens, token_rows, token_pos, *a, **kw):
+            from repro_torch.kernels.decode_attention import TILE_TOKENS
             rows, pos = np.asarray(token_rows), np.asarray(token_pos)
             sched = self.box["sched"]
             owner = dict(sched.running)     # decoding slots, then prefills
@@ -3371,8 +3574,9 @@ class KVWatch:
                 rec = self.writer.setdefault(f"{req.rid}:{req.sample_idx}",
                                              {})
                 for q in p:
+                    start = p[0] + TILE_TOKENS * ((q - p[0]) // TILE_TOKENS)
                     rec[int(q)] = "split walk" if len(p) == 1 else \
-                        f"tile@{int(p[0] + 16 * ((q - p[0]) // 16))}"
+                        f"tile@{int(start)}"
             return serve_step(tokens, token_rows, token_pos, *a, **kw)
         return step
 
@@ -7382,17 +7586,90 @@ def softcap_errors(cases):
     return out
 
 
-def parity_softcap(gen, report):
+def tf32_flags():
+    """What PyTorch reads for a float32 product at this moment: TF32 in
+    cuBLAS and cuDNN, the matmul precision, and (torch 2.9 on) the
+    fp32_precision setting."""
+    m = torch.backends.cuda.matmul
+    return dict(matmul_allow_tf32=m.allow_tf32,
+                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                float32_matmul_precision=torch.get_float32_matmul_precision(),
+                matmul_fp32_precision=getattr(m, "fp32_precision", None))
+
+
+def softcap_sides(cases):
+    """Per case, the device's and the CPU's float32 outputs each against
+    the same call on float64 CPU copies (products in float64; scores still
+    rounded to float32 where the path casts them): which side departs."""
+    out = {}
+    for name, (fn, xs) in cases.items():
+        ref = fn(*(x.cpu().double() if x.is_floating_point() else x.cpu()
+                   for x in xs)).double()
+        out[name] = dict(
+            device=float((fn(*xs).cpu().double() - ref).abs().max()),
+            cpu=float((fn(*(x.cpu() for x in xs)).double() - ref)
+                      .abs().max()))
+    return out
+
+
+def parity_softcap(gen, report, repeats=0):
     """Phase 3's softcap line: the plain paths on CUDA tensors against
-    the CPU, float32, within TOL; no kernel mode exists for it."""
-    errs = softcap_errors(softcap_cases(DEV, gen))
+    the CPU, float32, within TOL; no kernel mode exists for it. Beside it,
+    each side against float64 and the TF32 flags read at the line; then
+    ``repeats`` more calls of the cases (--softcap N: softcap_repeats)."""
+    cases = softcap_cases(DEV, gen)
+    errs = softcap_errors(cases)
+    sides, flags = softcap_sides(cases), tf32_flags()
     report["parity"]["softcap"] = errs
+    report["parity"]["softcap_sides"] = dict(sides=sides, flags=flags)
     bad = {k: e for k, e in errs.items() if not e <= TOL[torch.float32]}
     log("3 parity", kernel="none (plain softcap paths)", cap=30.0,
         max_abs_err=max(errs.values()), cases=len(errs),
-        result="cuda vs cpu within 2e-5" if not bad else f"FAIL {bad}")
+        result="cuda vs cpu within 2e-5" if not bad else f"FAIL {bad}",
+        vs_float64=",".join(f"{k}:{v['device']:.2e}/{v['cpu']:.2e}"
+                            for k, v in sides.items()),
+        flags=flags)
+    if repeats:
+        softcap_repeats(cases, repeats, report)
     if bad:
         raise AssertionError(f"softcap on the card vs the CPU: {bad}")
+
+
+def softcap_repeats(cases, n, report):
+    """The softcap cases on fresh inputs (seeds 0 .. n - 1) and n times on
+    ``cases``' own inputs: each case's largest difference from the CPU,
+    how many calls passed TOL, the flags wherever one did; then the same
+    inputs with TF32 switched on for the products, to show its size.
+    Raises if any call passed TOL."""
+    worst, over = {}, []
+    for i in range(n):
+        for label, cs_ in (("fresh", softcap_cases(
+                DEV, torch.Generator(device=DEV).manual_seed(i))),
+                           ("same", cases)):
+            for name, e in softcap_errors(cs_).items():
+                key = f"{label}/{name}"
+                worst[key] = max(worst.get(key, 0.0), e)
+                if not e <= TOL[torch.float32]:
+                    over.append(dict(call=i, case=key, err=e,
+                                     sides=softcap_sides({name: cs_[name]}),
+                                     flags=tf32_flags()))
+    m = torch.backends.cuda.matmul
+    was, m.allow_tf32 = m.allow_tf32, True
+    try:
+        tf32 = softcap_errors(cases)
+    finally:
+        m.allow_tf32 = was
+    report["parity"]["softcap_repeats"] = dict(calls=n, worst=worst,
+                                               over=over, tf32_on=tf32)
+    log("3 parity", kernel="none (softcap repeats)", calls=n,
+        worst=",".join(f"{k}:{e:.2e}" for k, e in worst.items()),
+        over_tol=len(over), tf32_on=",".join(f"{k}:{e:.2e}"
+                                             for k, e in tf32.items()))
+    for o in over:
+        log("3 parity", softcap_over=o)
+    if over:
+        raise AssertionError(f"softcap repeats over {TOL[torch.float32]}: "
+                             f"{len(over)} calls")
 
 
 def parity_frontends(gen, report):
@@ -8502,6 +8779,10 @@ def main() -> int:
     ap.add_argument("--phase14", action="store_true",
                     help="the build, parity and phase 14 alone (a first "
                          "check of the distribution code; prints no result)")
+    ap.add_argument("--softcap", type=int, default=0, metavar="N",
+                    help="after phase 3's softcap line, its cases N more "
+                         "times (fresh and the same inputs) and once with "
+                         "TF32 on (a diagnosis; pair with --quick)")
     ap.add_argument("--phase15", action="store_true",
                     help="phase 15 alone, which launches no kernel (a "
                          "first check of the dry run on the card's host; "
@@ -8527,7 +8808,7 @@ def main() -> int:
         return 0
     report["build_s"], report["redesigned"] = phase_build(KERNEL_SOURCES)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    phase_parity(gen, report)
+    phase_parity(gen, report, args.softcap)
     if args.quick:
         print("[quick] stopped after parity; no result")
         return 0

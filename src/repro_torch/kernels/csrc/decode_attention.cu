@@ -18,9 +18,9 @@
 // per KV head and do about 4 g flops per kv element read (g = 3 for
 // smollm-360m), far under the card's ~295 flops per byte of bf16. So the
 // card has to keep enough loads in flight to pull 3.35 TB/s. A ragged
-// prefill chunk reads its slot's pages once per KV head too, if its tokens
-// share them (the run walk below), and then does 4 hd flops per (query
-// head, visible position) on the CUDA cores.
+// prefill chunk reads its slot's pages once per KV head and group of its
+// tokens (the run walk below; after the first from L2), and does 4 hd
+// flops per (query head, visible position) on the CUDA cores.
 //
 // One split walk serves every single query token (split_walk): one (row or
 // token, KV head) walk is split over a thread-block cluster of `split`
@@ -73,30 +73,44 @@
 // per-token grid gives it; its prefix cache and compaction trust "equal
 // key => bitwise-equal page", and a restore re-prefills emitted tokens as
 // a chunk). A single token (count 1) is the split walk itself. A run of
-// up to 16 tokens of one slot at consecutive positions (a prefill chunk,
-// cut into pieces of 16) is a run walk (run_walk, bf16): each token
-// walking its prefix alone read the slot's pages once per token, 256
-// times at a 256-token chunk. The run walk stages its block's whole range
-// of the capacity, [r chunk, (r + 1) chunk) cut at the last token's
-// length, once for its tokens (the range is at most 4 tiles of 64 at hd
-// 128, 8 at hd 64: run_tiles), then walks each token over it with the
-// walk's own tile step (walk_tile: the same warps' positions, the same
-// fp32 sums on the CUDA cores, the same order), masked at the token's own
-// pos + 1; a tile past that end is not walked, as the walk never reaches
-// it, and V rows past it read as the zeros the walk stages there. Each
-// token's block partial stays in the block's shared memory; after a
-// cluster barrier every block merges a share of the run's output elements
-// from the cluster's partials (distributed shared memory) with the walk's
-// merge, and a second barrier keeps each partial alive until it has been
-// read. A run whose range would not fit in shared memory (a capacity past
-// 2048 / 4096 positions), and every float32 run, walks its tokens one
-// after another in its cluster (the walk, no staging shared). A run of
-// dead tokens (pos < 0), of any length, is one item: its blocks share its
-// zeros and return. A run's rows take no tensor cores: an mma tile sums
-// a row's products in another order than the walk, and the earlier token
-// tile of this kernel, which did, cut each run's own visible range over
-// the cluster, so a row's bits followed where its chunk began (ROADMAP
-// C4).
+// up to kRunTokens (8) tokens of one slot at consecutive positions (a
+// prefill chunk, cut into pieces of 8) is a run walk (run_walk, bf16): its
+// tokens walk in groups side by side. A group's range of the capacity (its
+// last token's part of a cluster range [r chunk, (r + 1) chunk)) streams
+// through the split walk's ring once, and every staged tile is one step of
+// all the group's tokens (walk_tile_tokens: run_width tokens' states in
+// each warp's registers, 2 at smollm-360m's g 3, else 1; each K chunk and
+// V row read once for them; each token's sums exactly the single token's,
+// masked at its own pos + 1, V rows past it read as the walk's zeros).
+// What bounds a run on the card is latency and the cluster's slots, not
+// arithmetic or bytes (the chunk tick's 126 MFLOP take 1.9 us on the CUDA
+// cores): the earlier run walk staged a block's range once for 16 tokens
+// and walked them one after another on block 0 of the cluster while
+// blocks 1-3 waited at its barriers, 64 tile steps in a row at a
+// 256-token chunk (0.115 ms for smollm-360m's chunk tick on an H100 80GB
+// HBM3 at 700 W; this schedule: 4 steps a block, 0.0245 ms). A cluster
+// holds its blocks' SM slots while it lives, and the card places block r
+// of each cluster on SMs of its own, so work left on block 0 alone idles
+// most of the card.
+// So a run whose tokens all lie in the first range (a prompt's first
+// `chunk` positions, where the other ranges are empty and a row's cluster
+// merge adds exact zeros) deals its groups to the cluster's blocks, each
+// block walking the first range for its groups and writing their rows with
+// no barrier; a longer run keeps block r on range r and merges through the
+// cluster. Items run last to first (decode tokens and a chunk's deepest
+// tokens come last in a tick), the launch asks the card to place clusters
+// by load, a run's first q rows load while its page ids are fetched,
+// instances at hd 64 and few heads hold 168 registers so that an SM takes
+// three blocks, a single token's merge space holds `split` slots, not 8,
+// and the bf16 ragged form keeps g 3 exact (G 3, not 4). Every float32 run,
+// and an item longer than kRunTokens, walks its tokens one after another
+// in its cluster (the walk). A run of dead tokens (pos < 0), of any
+// length, is one item: its blocks share its zeros and return. A run's rows
+// take no tensor cores: an mma tile sums a row's products in another
+// order than the walk, and the earlier token tile of this kernel, which
+// did, cut each run's own visible range over the cluster, so a row's bits
+// followed where its chunk began (ROADMAP C4); every phase 3 gate between
+// the three decode kernels holds because they share one tile step.
 //
 // C interface (ctypes): every pointer and the stream are void*; returns
 // cudaGetLastError() after the launch.
@@ -120,7 +134,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kSplitTile = 64;   // kv positions per staged tile
 constexpr int kMaxSplit = 8;     // blocks per cluster (the portable most)
-constexpr int kRunTokens = 16;   // tokens of a run item at most (the plan's)
+constexpr int kRunTokens = 8;    // tokens of a run item at most (the plan's)
 constexpr int kPlanWidth = 2;    // ints per plan item
 constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block may have
 // Every kernel is declared with __launch_bounds__(kThreads, 1): without a
@@ -142,35 +156,48 @@ __host__ __device__ constexpr int walk_stages(size_t elem, int hdp) {
 // The split walk: K and V tiles (two stages each, or one: walk_stages),
 // then in fp32 the G q rows, each warp's probabilities (G x 16) and partial
 // (acc, m, l), and a slot per block of the cluster for the block partials
-// that rank 0 merges (in the ring for the wide walk); a paged walk's page
+// that rank 0 merges (in the ring for the wide walk; `slots` of them: the
+// most a cluster has, or the ragged launch's split); a paged walk's page
 // ids follow
 __host__ __device__ inline size_t walk_smem_bytes(size_t elem, int hdp,
-                                                  int G, int g) {
+                                                  int G, int g,
+                                                  int slots = kMaxSplit) {
   const size_t ld = hdp + 16 / elem;
   const size_t part = static_cast<size_t>(g) * (hdp + 2);
   const size_t ring = elem * 2 * walk_stages(elem, hdp) * kSplitTile * ld;
   const size_t q_p = sizeof(float) * static_cast<size_t>(G) *
                      (hdp + kWarps * 16);
-  const size_t merge = sizeof(float) * (kWarps + kMaxSplit) * part;
+  const size_t merge = sizeof(float) * (kWarps + slots) * part;
   return ring + q_p + (wide_walk(hdp) ? 0 : merge);
 }
 
-// whole tiles of a block's range of `chunk` positions
-__host__ __device__ constexpr int run_tiles(int chunk) {
-  return (chunk + kSplitTile - 1) / kSplitTile;
+// Tokens a run walk takes side by side, each with its WalkState in the
+// warp's registers: two where a state is 12 floats a lane (hd 64 at G 3,
+// smollm-360m's heads), else one: wider, the ragged kernel took 200-255
+// registers and spilled (G 4 at hd 64 took 206 registers for two; G 8 at
+// hd 128, 255 and 444 bytes of spills)
+__host__ __device__ constexpr int run_width(int hdp, int G) {
+  return G * (2 + 2 * (hdp / 64)) <= 12 ? 2 : 1;
 }
 
-// The run walk (bf16): K and V of the block's whole range (run_tiles of
-// chunk), then the walk's q rows, probabilities and four warp partials,
-// then one block partial per token of the run; the slot's page ids follow
-__host__ __device__ inline size_t run_smem_bytes(int hdp, int G, int g,
-                                                 int chunk) {
+// Least blocks an SM holds of a ragged instance (__launch_bounds__): 3
+// where hd is 64 and the heads few, whose walks fit 168 registers without
+// spilling and whose clusters then find a third slot an SM; else 1
+__host__ __device__ constexpr int ragged_min_blocks(int hdp, int G) {
+  return hdp == 64 && G <= 4 ? 3 : 1;
+}
+
+// The run walk (bf16): the split walk's ring of K and V tiles (two stages;
+// once a group's walk has ended, its tokens' warp partials), then in fp32
+// the q rows and each warp's probabilities of run_width tokens, then one
+// block partial per token of the run; the slot's page ids follow
+__host__ __device__ inline size_t run_smem_bytes(int hdp, int G, int g) {
+  const size_t width = run_width(hdp, G);
   const size_t ld = hdp + 8;
   const size_t part = static_cast<size_t>(g) * (hdp + 2);
-  return sizeof(bf16) * 2 * static_cast<size_t>(run_tiles(chunk)) *
-             kSplitTile * ld +
-         sizeof(float) * (static_cast<size_t>(G) * (hdp + kWarps * 16) +
-                          (kWarps + kRunTokens) * part);
+  return sizeof(bf16) * 2 * 2 * kSplitTile * ld +
+         sizeof(float) * (width * G * (hdp + kWarps * 16) +
+                          kRunTokens * part);
 }
 
 // the cluster barrier in two halves: arrive without waiting, wait later
@@ -247,6 +274,23 @@ struct TableRows {
   }
 };
 
+// A paged row's table whose page ids go to a place of the caller's choosing
+// in shared memory, whatever place the walk asks for: the ragged kernel's
+// split walk keeps them after a merge space of `split` slots, not of
+// kMaxSplit
+struct PlacedTableRows {
+  TableRows rows;
+  int32_t* ids;          // where the page ids go
+  static constexpr bool kPaged = true;
+  __device__ __forceinline__ int64_t operator()(int p) const {
+    return rows(p);
+  }
+  __device__ __forceinline__ PlacedTableRows to_shared(int32_t*, int n,
+                                                       int tid) const {
+    return PlacedTableRows{rows.to_shared(ids, n, tid), ids};
+  }
+};
+
 // K and V rows p0 .. p0 + kSplitTile - 1 into one stage of the ring (rows
 // from hi on as zeros)
 template <typename T, int HDP, bool VEC, typename Rows>
@@ -295,100 +339,20 @@ __device__ __forceinline__ void load_q(float* q_s, const T* q_row, int g,
   }
 }
 
-// One staged tile of kSplitTile positions from p0 (kt, vt: its K and V
-// rows) into the warp's state, positions from hi on masked: warp w takes
-// tile positions 16 w .. 16 w + 15, two lanes a position (half the 16-byte
-// chunks each, joined by one shuffle). MASK_V: the V rows from hi on may
-// hold data (a run's later positions), so they are read as the zeros that
-// the walk's own staging puts there.
-template <typename T, int HDP, int G, bool MASK_V>
-__device__ __forceinline__ void walk_tile(const T* kt, const T* vt,
-                                          const float* q_s, float* pws,
-                                          int p0, int hi, float scale,
-                                          WalkState<HDP, G>& st, int warp,
-                                          int lane) {
+// P V of one staged tile into K tokens' states: acc[gi][channels 64 c + 2
+// lane + {0, 1}] += p[gi][j] v[j], four positions at a time (kJv V rows in
+// registers at once: four, or one in the wide walk, whose eight channel
+// pairs a lane would hold 64 registers of V), each V row read once for
+// the K tokens. MASK: token k reads the V rows from hi[k] on as zeros.
+template <typename T, int HDP, int G, int K, bool MASK>
+__device__ __forceinline__ void walk_pv(const T* vt, const float* pws,
+                                        int p0, const int* hi,
+                                        WalkState<HDP, G>* st, int warp,
+                                        int lane) {
   using L = attn::Tile<T, HDP>;
-  constexpr int kE = L::kVecE;            // elements per 16-byte chunk
   constexpr int kLd = L::kLd;
-  constexpr int kC = HDP / 64;            // channel pairs per lane in P V
-  constexpr bool kWide = wide_walk(HDP);
-  const int pw = warp * 16 + (lane & 15);  // this lane's tile position
-  const int half = lane >> 4;              // ... and its half of the chunks
-
-  // ---- scores of position p0 + pw: this lane's half of the chunks, then
-  // the other half's by one shuffle
-  float s[G];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) s[gi] = 0.0f;
-#pragma unroll
-  for (int cc = 0; cc < HDP / kE / 2; ++cc) {
-    const int c = 2 * cc + half;
-    float kx[kE];
-    load_chunk(kt + pw * kLd + c * kE, kx);
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const float* qg = q_s + gi * HDP + c * kE;
-#pragma unroll
-      for (int x = 0; x < kE; x += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qg + x);
-        s[gi] = fmaf(qv.x, kx[x], s[gi]);
-        s[gi] = fmaf(qv.y, kx[x + 1], s[gi]);
-        s[gi] = fmaf(qv.z, kx[x + 2], s[gi]);
-        s[gi] = fmaf(qv.w, kx[x + 3], s[gi]);
-      }
-    }
-  }
-  // ---- online softmax over the warp's 16 positions (both halves hold
-  // the same values, so the reductions stay within 16 lanes); positions
-  // past hi get p = 0 (their V rows are zeros)
-  const bool valid = p0 + pw < hi;
-  float mx[G];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], 16);
-    // (__fmul_rn: never contracted into an fma, so every instance of the
-    // walk rounds alike and paged rows stay bitwise contiguous ones)
-    s[gi] = valid ? __fmul_rn(s[gi], scale) : kNeg;
-    mx[gi] = s[gi];
-  }
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      mx[gi] = fmaxf(mx[gi], __shfl_xor_sync(0xffffffffu, mx[gi], o));
-    }
-  }
-  float ps[G];
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    const float m_new = fmaxf(st.m[gi], mx[gi]);
-    s[gi] = valid ? expf(s[gi] - m_new) : 0.0f;
-    ps[gi] = s[gi];
-    const float corr = expf(st.m[gi] - m_new);
-    st.m[gi] = m_new;
-    st.l[gi] = __fmul_rn(st.l[gi], corr);
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      st.acc[gi][c][0] = __fmul_rn(st.acc[gi][c][0], corr);
-      st.acc[gi][c][1] = __fmul_rn(st.acc[gi][c][1], corr);
-    }
-    if (half == 0) pws[gi * 16 + (lane & 15)] = s[gi];
-  }
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      ps[gi] += __shfl_xor_sync(0xffffffffu, ps[gi], o);
-    }
-  }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) st.l[gi] += ps[gi];
-  __syncwarp();
-  // ---- acc[gi][channels 64 c + 2 lane + {0, 1}] += p[gi][j] v[j], four
-  // positions at a time (kJv V rows in registers at once: four, or one
-  // in the wide walk, whose eight channel pairs a lane would hold 64
-  // registers of V)
-  constexpr int kJv = kWide ? 1 : 4;
+  constexpr int kC = HDP / 64;
+  constexpr int kJv = wide_walk(HDP) ? 1 : 4;
 #pragma unroll
   for (int j0 = 0; j0 < 16; j0 += 4) {
 #pragma unroll
@@ -396,32 +360,169 @@ __device__ __forceinline__ void walk_tile(const T* kt, const T* vt,
       float2 vv[kJv][kC];
 #pragma unroll
       for (int j = 0; j < kJv; ++j) {
-        const int r = warp * 16 + j0 + jv + j;
-        const T* vr = vt + r * kLd + 2 * lane;
-        const bool v_ok = !MASK_V || p0 + r < hi;
+        const T* vr = vt + (warp * 16 + j0 + jv + j) * kLd + 2 * lane;
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          vv[j][c] = v_ok ? load_pair(vr + 64 * c) : make_float2(0.0f, 0.0f);
-        }
+        for (int c = 0; c < kC; ++c) vv[j][c] = load_pair(vr + 64 * c);
       }
 #pragma unroll
-      for (int gi = 0; gi < G; ++gi) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(pws + gi * 16 + j0);
-        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+      for (int k = 0; k < K; ++k) {
+        float2 vk[kJv][kC];
 #pragma unroll
         for (int j = 0; j < kJv; ++j) {
+          const bool v_ok = !MASK || p0 + warp * 16 + j0 + jv + j < hi[k];
 #pragma unroll
           for (int c = 0; c < kC; ++c) {
-            st.acc[gi][c][0] =
-                fmaf(pj[jv + j], vv[j][c].x, st.acc[gi][c][0]);
-            st.acc[gi][c][1] =
-                fmaf(pj[jv + j], vv[j][c].y, st.acc[gi][c][1]);
+            vk[j][c] = v_ok ? vv[j][c] : make_float2(0.0f, 0.0f);
+          }
+        }
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          const float4 p4 = *reinterpret_cast<const float4*>(
+              pws + (k * G + gi) * 16 + j0);
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int j = 0; j < kJv; ++j) {
+#pragma unroll
+            for (int c = 0; c < kC; ++c) {
+              st[k].acc[gi][c][0] =
+                  fmaf(pj[jv + j], vk[j][c].x, st[k].acc[gi][c][0]);
+              st[k].acc[gi][c][1] =
+                  fmaf(pj[jv + j], vk[j][c].y, st[k].acc[gi][c][1]);
+            }
           }
         }
       }
     }
   }
+}
+
+// One staged tile of kSplitTile positions from p0 (kt, vt: its K and V
+// rows) into the states of K query tokens side by side (q_s: their K x G
+// x HDP query rows; pws: the warp's K x G x 16 probabilities; token k's
+// positions from hi[k] on masked): warp w takes tile positions 16 w .. 16
+// w + 15, two lanes a position (half the 16-byte chunks each, joined by
+// one shuffle). Each K chunk and V row is read from shared memory once for
+// the K tokens, and every token's sums are the single token's, in its
+// order (K = 1: the split walk's step). MASK_V: the V rows from hi[k] on
+// may hold data (a run's later positions), so token k reads them as the
+// zeros that the walk's own staging puts there. A token whose positions
+// all lie past this tile (hi[k] <= p0) is left bitwise as it was: its
+// scores are masked, so m stays, corr is expf(0) = 1 and every p and V
+// term is 0.
+template <typename T, int HDP, int G, bool MASK_V, int K>
+__device__ __forceinline__ void walk_tile_tokens(const T* kt, const T* vt,
+                                                 const float* q_s, float* pws,
+                                                 int p0, const int* hi,
+                                                 float scale,
+                                                 WalkState<HDP, G>* st,
+                                                 int warp, int lane) {
+  using L = attn::Tile<T, HDP>;
+  constexpr int kE = L::kVecE;            // elements per 16-byte chunk
+  constexpr int kLd = L::kLd;
+  constexpr int kC = HDP / 64;            // channel pairs per lane in P V
+  const int pw = warp * 16 + (lane & 15);  // this lane's tile position
+  const int half = lane >> 4;              // ... and its half of the chunks
+
+  // ---- scores of position p0 + pw: this lane's half of the chunks, then
+  // the other half's by one shuffle
+  float s[K][G];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) s[k][gi] = 0.0f;
+  }
+#pragma unroll
+  for (int cc = 0; cc < HDP / kE / 2; ++cc) {
+    const int c = 2 * cc + half;
+    float kx[kE];
+    load_chunk(kt + pw * kLd + c * kE, kx);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float* qg = q_s + (k * G + gi) * HDP + c * kE;
+#pragma unroll
+        for (int x = 0; x < kE; x += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qg + x);
+          s[k][gi] = fmaf(qv.x, kx[x], s[k][gi]);
+          s[k][gi] = fmaf(qv.y, kx[x + 1], s[k][gi]);
+          s[k][gi] = fmaf(qv.z, kx[x + 2], s[k][gi]);
+          s[k][gi] = fmaf(qv.w, kx[x + 3], s[k][gi]);
+        }
+      }
+    }
+  }
+  // ---- online softmax over the warp's 16 positions (both halves hold
+  // the same values, so the reductions stay within 16 lanes); positions
+  // past hi[k] get p = 0 (their V rows are zeros)
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool valid = p0 + pw < hi[k];
+    float mx[G];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      s[k][gi] += __shfl_xor_sync(0xffffffffu, s[k][gi], 16);
+      // (__fmul_rn: never contracted into an fma, so every instance of the
+      // walk rounds alike and paged rows stay bitwise contiguous ones)
+      s[k][gi] = valid ? __fmul_rn(s[k][gi], scale) : kNeg;
+      mx[gi] = s[k][gi];
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        mx[gi] = fmaxf(mx[gi], __shfl_xor_sync(0xffffffffu, mx[gi], o));
+      }
+    }
+    float ps[G];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const float m_new = fmaxf(st[k].m[gi], mx[gi]);
+      s[k][gi] = valid ? expf(s[k][gi] - m_new) : 0.0f;
+      ps[gi] = s[k][gi];
+      const float corr = expf(st[k].m[gi] - m_new);
+      st[k].m[gi] = m_new;
+      st[k].l[gi] = __fmul_rn(st[k].l[gi], corr);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        st[k].acc[gi][c][0] = __fmul_rn(st[k].acc[gi][c][0], corr);
+        st[k].acc[gi][c][1] = __fmul_rn(st[k].acc[gi][c][1], corr);
+      }
+      if (half == 0) pws[(k * G + gi) * 16 + (lane & 15)] = s[k][gi];
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        ps[gi] += __shfl_xor_sync(0xffffffffu, ps[gi], o);
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) st[k].l[gi] += ps[gi];
+  }
+  __syncwarp();
+  // ---- P V: V rows masked only in a tile that holds some token's end
+  if constexpr (MASK_V) {
+    int hi_min = hi[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) hi_min = min(hi_min, hi[k]);
+    if (p0 + kSplitTile > hi_min) {
+      walk_pv<T, HDP, G, K, true>(vt, pws, p0, hi, st, warp, lane);
+      return;
+    }
+  }
+  walk_pv<T, HDP, G, K, false>(vt, pws, p0, hi, st, warp, lane);
+}
+
+// One staged tile into one token's state (the split walk's step)
+template <typename T, int HDP, int G, bool MASK_V>
+__device__ __forceinline__ void walk_tile(const T* kt, const T* vt,
+                                          const float* q_s, float* pws,
+                                          int p0, int hi, float scale,
+                                          WalkState<HDP, G>& st, int warp,
+                                          int lane) {
+  walk_tile_tokens<T, HDP, G, MASK_V, 1>(kt, vt, q_s, pws, p0, &hi, scale,
+                                         &st, warp, lane);
 }
 
 // A warp's state into its share of the four warps' partials: w_m, w_l
@@ -616,20 +717,33 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
 }
 
 // ---------------------------------------------------------------------------
-// the run walk: up to 16 tokens of one slot at consecutive positions
-// p0 .. p0 + cnt - 1 (bf16), each walked as a single token over K/V
-// staged once for all of them
+// the run walk: up to kRunTokens tokens of one slot at consecutive
+// positions p0 .. p0 + cnt - 1 (bf16), walked side by side over K/V
+// staged once for them
 // ---------------------------------------------------------------------------
 
-// This block's share of the run (rank r of `split`: positions [r chunk,
-// (r + 1) chunk) of the capacity, cut at each token's own pos + 1): the
-// range of the last token is staged whole (run_tiles(chunk) tiles at
-// most); token j's G heads then take the split walk's tile steps over its
-// own tiles of it, and its block partial stays in this block's shared
-// memory; after a cluster barrier every block merges a share of the run's
-// output elements from the cluster's partials with the walk's merge. q and
-// out hold hq elements per token; head0: this KV head's first query head's
-// offset in a token's row.
+// A run's tokens walk in groups of W = run_width side by side: a group's
+// range of the capacity (its last token's part of [r chunk, (r + 1)
+// chunk)) goes through the split walk's ring of two tiles, and each staged
+// tile is one step of all W tokens (walk_tile_tokens: each token's sums are
+// the single token's walk, masked at its own pos + 1); each token's four
+// warp partials then merge into its block partial. Which block of the
+// cluster takes which (range, group) is the schedule, not the arithmetic:
+// - when the run's last token sees no position past the first range (n <=
+//   chunk, as every token of a prompt's first `chunk` positions), every
+//   range but the first is empty for every token, and a row's cluster merge
+//   over the empty partials (m = kNeg, l = 0, acc = 0) adds exact zeros; so
+//   the groups are dealt to the cluster's blocks (group i to block i mod
+//   split), each walks the first range for its tokens and writes their rows
+//   itself, and no block waits on another (the card puts a cluster's
+//   blocks on as many SMs, and block 0 of every cluster on the same few:
+//   the first range's work on block 0 alone left most SMs idle).
+// - else block r walks range r for every group of the run, keeps each
+//   token's block partial in its shared memory, and after a cluster barrier
+//   every block merges a share of the run's output elements from the
+//   cluster's partials (distributed shared memory) over ranks 0 .. split - 1.
+// q and out hold hq elements per token; head0: this KV head's first query
+// head's offset in a token's row.
 template <int HDP, int G, bool VEC>
 __device__ __forceinline__ void run_walk(const bf16* __restrict__ q,
                                          const bf16* __restrict__ kb,
@@ -639,67 +753,151 @@ __device__ __forceinline__ void run_walk(const bf16* __restrict__ q,
                                          int cnt, int p0, int64_t head0,
                                          int64_t hq, int g, int hd, int cap,
                                          int split, int chunk, float scale) {
+  constexpr int W = run_width(HDP, G);
   constexpr int kLd = attn::Tile<bf16, HDP>::kLd;
-  const int tiles = run_tiles(chunk);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // tiles x kSplitTile
-  bf16* v_s = k_s + tiles * kSplitTile * kLd;         // tiles x kSplitTile
-  float* q_s = reinterpret_cast<float*>(v_s + tiles * kSplitTile * kLd);
-  float* p_s = q_s + G * HDP;                         // kWarps x G x 16
-  float* w_acc = p_s + kWarps * G * 16;               // kWarps x g x HDP
-  float* w_m = w_acc + kWarps * g * HDP;              // kWarps x g
-  float* w_l = w_m + kWarps * g;                      // kWarps x g
-  float* parts = w_l + kWarps * g;                    // cnt x (acc, m, l)
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);     // 2 x kSplitTile
+  bf16* v_s = k_s + 2 * kSplitTile * kLd;             // 2 x kSplitTile
+  float* q_s = reinterpret_cast<float*>(v_s + 2 * kSplitTile * kLd);
+  float* p_s = q_s + W * G * HDP;                     // kWarps x W x G x 16
   const int part = g * (HDP + 2);
+  float* parts = p_s + kWarps * W * G * 16;           // cnt x (acc, m, l)
+  // W x the four warp partials, over the ring once a group's walk has ended
+  float* w_part = reinterpret_cast<float*>(smem_raw);
+  static_assert(sizeof(float) * W * kWarps * G * (HDP + 2) <=
+                    sizeof(bf16) * 2 * 2 * kSplitTile * kLd,
+                "a group's warp partials fit in the ring");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
+  const int n = min(p0 + cnt, cap);       // the last token's visible count
+  const bool alone = n <= chunk;          // one range holds every position
+  const int groups = (cnt + W - 1) / W;
+  if (alone && rank >= groups) return;    // no group; no barrier follows
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n = min(p0 + cnt, cap);       // the last token's visible count
-  const int lo = min(rank * chunk, n);
-  const int hi = min(lo + chunk, n);
-  rows = rows.to_shared(
-      reinterpret_cast<int32_t*>(smem_raw + run_smem_bytes(HDP, G, g,
-                                                           chunk)),
-      n, tid);
-  __syncthreads();
-  for (int t = 0; t < (hi - lo + kSplitTile - 1) / kSplitTile; ++t) {
-    stage_kv<bf16, HDP, VEC>(k_s + t * kSplitTile * kLd,
-                             v_s + t * kSplitTile * kLd, kb, vb, rows,
-                             lo + t * kSplitTile, hi, hd, tid);
+  // the first pass's query rows (load_q's layout, one q_s block per
+  // token), fetched into registers while the page ids, which they do not
+  // need, are on their way, and stored beside them
+  constexpr int kQ = (W * G * HDP + kThreads - 1) / kThreads;
+  const int jf = alone ? rank * W : 0;
+  float qv[kQ];
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int i = tid + u * kThreads;
+    const int k = i / (G * HDP), gi = i / HDP % G, e = i % HDP;
+    qv[u] = i < W * G * HDP && jf + k < cnt && gi < g && e < hd
+                ? load1(q + (t0 + jf + k) * hq + head0 + gi * hd + e)
+                : 0.0f;
   }
-  attn::cp_async_commit();
-  attn::cp_async_wait<0>();
-  float* pws = p_s + warp * G * 16;       // this warp's probabilities
-  for (int j = 0; j < cnt; ++j) {
-    // token j's own range in this block: the walk's lo and hi at its n
-    // (lo itself, or empty)
-    const int nj = min(p0 + j + 1, cap);
-    const int loj = min(rank * chunk, nj);
-    const int hij = min(loj + chunk, nj);
-    load_q<bf16, HDP, G>(q_s, q + (t0 + j) * hq + head0, g, hd, tid);
-    __syncthreads();                      // (the staged tiles, on j = 0)
-    WalkState<HDP, G> st;
-    st.init();
-    for (int t = 0; t < (hij - loj + kSplitTile - 1) / kSplitTile; ++t) {
-      walk_tile<bf16, HDP, G, true>(k_s + t * kSplitTile * kLd,
-                                    v_s + t * kSplitTile * kLd, q_s, pws,
-                                    loj + t * kSplitTile, hij, scale, st,
-                                    warp, lane);
-      __syncwarp();                       // pws read before it is rewritten
+  const TableRows srows = rows.to_shared(
+      reinterpret_cast<int32_t*>(smem_raw + run_smem_bytes(HDP, G, g)), n,
+      tid);
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    if (tid + u * kThreads < W * G * HDP) q_s[tid + u * kThreads] = qv[u];
+  }
+  __syncthreads();
+  float* pws = p_s + warp * W * G * 16;   // this warp's probabilities
+
+  // tokens j0 .. j0 + w - 1 side by side over range rr: their block
+  // partials into slot[0 .. w - 1]; first: their q rows are in q_s already
+  auto pass = [&](int j0, int w, int rr, float* slot, bool first) {
+    const int lo = min(rr * chunk, n);
+    // token j0 + k's end in range rr: the walk's hi at its n (at most lo:
+    // empty); the tokens past w are empty
+    int hi[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int nk = min(p0 + j0 + k + 1, cap);
+      hi[k] = k < w ? min(min(rr * chunk, nk) + chunk, nk) : lo;
     }
-    store_warp_partial<HDP, G>(st, w_m, w_l, w_acc, g, warp, lane);
+    int hi_pass = lo;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (k == w - 1) hi_pass = hi[k];
+    }
+    const int n_tiles = (max(hi_pass, lo) - lo + kSplitTile - 1) /
+                        kSplitTile;
+    WalkState<HDP, G> st[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) st[k].init();
+    if (n_tiles > 0) {
+      stage_kv<bf16, HDP, VEC>(k_s, v_s, kb, vb, srows, lo, hi_pass, hd,
+                               tid);
+      attn::cp_async_commit();
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        if (k < w && !first) {
+          load_q<bf16, HDP, G>(q_s + k * G * HDP,
+                               q + (t0 + j0 + k) * hq + head0, g, hd, tid);
+        }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) {
+          const int s1 = ((t + 1) & 1) * kSplitTile * kLd;
+          stage_kv<bf16, HDP, VEC>(k_s + s1, v_s + s1, kb, vb, srows,
+                                   lo + (t + 1) * kSplitTile, hi_pass, hd,
+                                   tid);
+        }
+        attn::cp_async_commit();
+        attn::cp_async_wait<1>();         // tile t has landed
+        __syncthreads();                  // (and q_s, on the first tile)
+        const int s0 = (t & 1) * kSplitTile * kLd;
+        walk_tile_tokens<bf16, HDP, G, true, W>(
+            k_s + s0, v_s + s0, q_s, pws, lo + t * kSplitTile, hi, scale, st,
+            warp, lane);
+        __syncthreads();                  // stage t & 1 is free again
+      }
+      attn::cp_async_wait<0>();
+    }
+    // ---- each token's four warp partials -> its block partial (the ring
+    // is free: every tile has landed and been walked)
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (k < w) {
+        float* wp = w_part + k * kWarps * part;
+        store_warp_partial<HDP, G>(st[k], wp + kWarps * g * HDP,
+                                   wp + kWarps * g * (HDP + 1), wp, g, warp,
+                                   lane);
+      }
+    }
     __syncthreads();
-    store_block_partial<HDP>(parts + j * part, w_m, w_l, w_acc, g, tid);
-    __syncthreads();                      // q_s and the warp partials free
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (k < w) {
+        const float* wp = w_part + k * kWarps * part;
+        store_block_partial<HDP>(slot + k * part, wp + kWarps * g * HDP,
+                                 wp + kWarps * g * (HDP + 1), wp, g, tid);
+      }
+    }
+    __syncthreads();                      // the ring free again
+  };
+
+  const int row = g * hd;
+  if (alone) {    // this block's groups, each row merged from its partial
+    for (int gr = rank; gr < groups; gr += split) {
+      const int j0 = gr * W;
+      const int w = min(W, cnt - j0);
+      pass(j0, w, 0, parts, gr == rank);
+      for (int i = tid; i < w * row; i += kThreads) {
+        const int j = i / row;
+        const int r = i % row;
+        out[(t0 + j0 + j) * hq + head0 + r] = __float2bfloat16_rn(
+            merge_partials<HDP>([&](int) { return parts + j * part; }, 1, g,
+                                r / hd, r % hd));
+      }
+      __syncthreads();                    // the partials free again
+    }
+    return;
+  }
+  for (int j0 = 0; j0 < cnt; j0 += W) {
+    pass(j0, min(W, cnt - j0), rank, parts + j0 * part, j0 == 0);
   }
   cluster.sync();                         // every partial is in place
-
   // ---- this block's share of the run's output: every split-th run of
   // kThreads elements
-  const int row = g * hd;
   for (int i = rank * kThreads + tid; i < cnt * row; i += split * kThreads) {
     const int j = i / row;
     const int r = i % row;
@@ -756,12 +954,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // A ragged list by its plan: cluster (item, kh) of `split` blocks. An item
 // whose first token is dead is a dead run and gives zeros; a single token
-// walks its slot's table to pos + 1; a run of 2-16 tokens is a run walk
-// when `runs` (bf16, and the block's range fits in shared memory), else
-// its tokens walk one after another. Every decision is the same for every
-// block of a cluster, so a cluster returns or meets its barriers as one.
+// walks its slot's table to pos + 1; a run of 2 to kRunTokens tokens is a
+// run walk when `runs` (bf16), else (float32, or a longer item from a plan
+// not built by ragged_plan) its tokens walk one after another. Every
+// decision is the same for every block of a cluster, so a cluster returns
+// or meets its barriers as one.
 template <typename T, bool VEC, int HDP, int G>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, ragged_min_blocks(HDP, G))
 ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const int32_t* __restrict__ block_tables,
@@ -770,9 +969,13 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int32_t* __restrict__ plan, T* __restrict__ out,
                     int kvh, int g, int hd, int block_size, int npages,
                     int split, int chunk, int runs, float scale) {
+  // items run last to first: a tick packs its decode tokens after its
+  // chunks, and a chunk's last tokens see the most positions, so the
+  // longest items start first and the short ones fill in behind them
   const int64_t id = blockIdx.x / split;            // (item, kh)
   const int kh = static_cast<int>(id % kvh);
-  const int32_t* item = plan + id / kvh * kPlanWidth;
+  const int64_t n_items = gridDim.x / split / kvh;
+  const int32_t* item = plan + (n_items - 1 - id / kvh) * kPlanWidth;
   const int t0 = item[0];
   const int cnt = item[1];
   const int p0 = token_pos[t0];
@@ -791,7 +994,7 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
   if constexpr (std::is_same<T, bf16>::value) {
-    if (cnt > 1 && runs) {
+    if (cnt > 1 && cnt <= kRunTokens && runs) {
       run_walk<HDP, G, VEC>(
           q, kb, vb,
           TableRows{
@@ -801,13 +1004,19 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       return;
     }
   }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int32_t* ids = reinterpret_cast<int32_t*>(
+      smem_raw + walk_smem_bytes(sizeof(T), HDP, G, g, split));
   for (int j = 0; j < cnt; ++j) {
     const int64_t t = t0 + j;
     if (j > 0) __syncthreads();
     split_walk<T, VEC, HDP, G>(
         q + t * hq + head0, kb, vb,
-        TableRows{block_tables + static_cast<int64_t>(token_rows[t]) * npages,
-                  block_size, stride},
+        PlacedTableRows{
+            TableRows{
+                block_tables + static_cast<int64_t>(token_rows[t]) * npages,
+                block_size, stride},
+            ids},
         min(token_pos[t] + 1, cap), out + t * hq + head0, g, hd, split, chunk,
         scale);
   }
@@ -817,11 +1026,13 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-// `blocks` blocks in clusters of `split` (cudaLaunchKernelEx)
+// `blocks` blocks in clusters of `split` (cudaLaunchKernelEx). balance:
+// ask the card to place clusters by load rather than by its default
+// pattern (the ragged kernel's clusters live for very different times)
 template <typename... Params, typename... Args>
 cudaError_t launch_clusters(void (*kernel)(Params...), int64_t blocks,
                             int split, size_t smem, cudaStream_t stream,
-                            Args... args) {
+                            bool balance, Args... args) {
   if (split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   cudaError_t err = attn::allow_smem(kernel, smem);
@@ -831,13 +1042,16 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int64_t blocks,
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  attr[1].val.clusterSchedulingPolicyPreference =
+      cudaClusterSchedulingPolicyLoadBalancing;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = balance ? 2 : 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -855,7 +1069,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
       int64_t{b} * kvh * groups * split, split,
       walk_smem_bytes(sizeof(T), HDP, G, std::min(g, G)) +
           (PAGED ? sizeof(int32_t) * npages : 0),
-      stream,
+      stream, false,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(block_tables),
       static_cast<const int32_t*>(cur_len), static_cast<T*>(out), cap, kvh, g,
@@ -867,10 +1081,14 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 // width, the padded hd and the padded head count. kWide: whether the form
 // has instances at hd 256 (contiguous decode only; the paged and ragged
 // walks serve no such stack: the reference pages no recurrent or
-// sliding-window model).
+// sliding-window model). kExactG3: whether g 3 (smollm-360m) takes G 3
+// rather than 4 (the ragged form in bf16 only: each head's sums are the
+// same at any G, and the padded head cost a quarter of the run walk's
+// steps).
 template <typename T, bool VEC, int HDP, int G>
 struct Contiguous {
   static constexpr bool kWide = true;
+  static constexpr bool kExactG3 = false;
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* cur_len, void* out, int b, int S,
                          int kvh, int g, int hd, int split, float scale,
@@ -884,6 +1102,7 @@ struct Contiguous {
 template <typename T, bool VEC, int HDP, int G>
 struct Paged {
   static constexpr bool kWide = false;
+  static constexpr bool kExactG3 = false;
   static cudaError_t run(const void* q, const void* k_pages,
                          const void* v_pages, const void* block_tables,
                          const void* cur_len, void* out, int b, int kvh,
@@ -899,9 +1118,11 @@ struct Paged {
 template <typename T, bool VEC, int HDP, int G>
 struct Ragged {
   static constexpr bool kWide = false;
-  // Runs share their staged K/V (run_walk) in bf16 when the plan holds an
-  // item of more than one token (n_items < T) and the block's range fits
-  // in shared memory; the launch then takes the run walk's shared memory.
+  static constexpr bool kExactG3 = std::is_same<T, bf16>::value;
+  // Runs walk their tokens side by side (run_walk) in bf16 when the plan
+  // holds an item of more than one token (n_items < T); the launch then
+  // takes the run walk's shared memory too (its ring does not grow with
+  // the capacity).
   static cudaError_t run(const void* q, const void* k_pages,
                          const void* v_pages, const void* block_tables,
                          const void* token_rows, const void* token_pos,
@@ -912,14 +1133,14 @@ struct Ragged {
     const int cap = npages * block_size;
     const int chunk = (cap + split - 1) / split;
     const size_t ids = sizeof(int32_t) * npages;  // the page ids of a walk
-    size_t smem = walk_smem_bytes(sizeof(T), HDP, G, g) + ids;
-    const size_t run_smem = run_smem_bytes(HDP, G, g, chunk) + ids;
+    size_t smem = walk_smem_bytes(sizeof(T), HDP, G, g, split) + ids;
+    const size_t run_smem = run_smem_bytes(HDP, G, g) + ids;
     const int runs = std::is_same<T, bf16>::value && n_items < T_ &&
                      run_smem <= kMaxSmem;
     if (runs) smem = std::max(smem, run_smem);
     return launch_clusters(
         ragged_split_kernel<T, VEC, HDP, G>, int64_t{n_items} * kvh * split,
-        split, smem, stream, static_cast<const T*>(q),
+        split, smem, stream, true, static_cast<const T*>(q),
         static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
         static_cast<const int32_t*>(block_tables),
         static_cast<const int32_t*>(token_rows),
@@ -930,10 +1151,17 @@ struct Ragged {
 };
 
 // pick the element type, the load width, hd padded to 64, 128 or (kWide
-// forms) 256 and g to 4 or 8 (more than 8 heads: clusters of 8)
+// forms) 256 and g to 4 or 8 (3 kept exact by kExactG3 forms; more than 8
+// heads: clusters of 8)
 template <template <typename, bool, int, int> class F, typename T, int HDP,
           typename... Args>
 cudaError_t dispatch_g(int vec, int g, Args... args) {
+  if constexpr (F<T, true, HDP, 4>::kExactG3) {
+    if (g == 3) {
+      return vec ? F<T, true, HDP, 3>::run(args...)
+                 : F<T, false, HDP, 3>::run(args...);
+    }
+  }
   if (g <= 4) {
     return vec ? F<T, true, HDP, 4>::run(args...)
                : F<T, false, HDP, 4>::run(args...);

@@ -2,10 +2,11 @@
 
 ``decode_attention.ragged_plan`` cuts a packed token list into the items
 the CUDA kernel launches over: runs of one slot's tokens at consecutive
-positions (prefill chunks) in tiles of at most 16 for the tensor cores,
-every other live token alone, each run of dead padding as one item. These tests hold it
-to a plain loop over the tokens, on chip_smoke.py's packings, on random
-packings and on the ticks of a chunked stream; check that the tick
+positions (prefill chunks) in items of at most ``TILE_TOKENS`` (8),
+walked in groups side by side, every other live token alone, each run of
+dead padding as one item. These tests hold it to a plain loop over the
+tokens, on chip_smoke.py's packings, on random packings and on the ticks
+of a chunked stream; check that the tick
 uploads the plan with its other arrays (one upload, one download) and
 hands it through ``Model.mixed_step`` to the kernel's wrapper; and check
 the cluster split and the arguments the kernel wrappers pass to the C
@@ -13,6 +14,7 @@ entry points (no GPU: the entry point is replaced by a recorder).
 """
 import contextlib
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -37,10 +39,11 @@ def _chip_smoke():
     return mod
 
 
-PACKINGS = _chip_smoke().packings()
+CS = _chip_smoke()
+PACKINGS = CS.packings()
 
 
-def loop_plan(rows, pos, tile=16):
+def loop_plan(rows, pos, tile=da.TILE_TOKENS):
     """The plan by a plain walk over the tokens: a token continues the item
     before it when both are dead, or when both are live in one slot at
     consecutive positions and that item holds fewer than ``tile`` tokens."""
@@ -85,7 +88,7 @@ CASES.update({f"random_{s}": random_packing(s) for s in range(12)})
 
 
 def check_items(plan, rows, pos):
-    """Every token once, in order; live items of 1-16 tokens of their
+    """Every token once, in order; live items of 1-8 tokens of their
     first token's slot at consecutive positions; dead items all dead and
     never next to each other."""
     T = len(rows)
@@ -118,22 +121,117 @@ def test_plan_covers_every_token_once_in_valid_items(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plan_equals_the_token_loop(case):
-    """Runs are cut only where a run ends or at 16 tokens: the helper's
-    items are exactly the plain loop's."""
+    """Runs are cut only where a run ends or at TILE_TOKENS tokens: the
+    helper's items are exactly the plain loop's."""
     rows, pos = CASES[case]
     np.testing.assert_array_equal(da.ragged_plan(rows, pos),
                                   loop_plan(rows, pos))
 
 
-@pytest.mark.parametrize("n, counts", [(1, [1]), (2, [2]), (16, [16]),
-                                       (17, [16, 1]), (40, [16, 16, 8]),
-                                       (256, [16] * 16)])
+@pytest.mark.parametrize("n, counts", [(1, [1]), (2, [2]), (16, [8, 8]),
+                                       (17, [8, 8, 1]), (40, [8] * 5),
+                                       (256, [8] * 32)])
 def test_a_run_is_cut_at_16(n, counts):
+    """A run is cut every TILE_TOKENS (8) tokens (16, which the name keeps,
+    before the run walk took its tokens side by side)."""
     rows, pos = [3] * n, list(range(500, 500 + n))
     plan = da.ragged_plan(rows, pos)
     assert plan[:, 1].tolist() == counts
     assert [pos[f] for f in plan[:, 0]] == \
-        [500 + 16 * i for i in range(len(counts))]
+        [500 + 8 * i for i in range(len(counts))]
+
+
+@pytest.mark.parametrize("n, counts", [
+    (3, [3]), (7, [7]), (8, [8]), (9, [8, 1]), (13, [8, 5]), (15, [8, 7]),
+    (24, [8, 8, 8]), (25, [8, 8, 8, 1]), (1, [1])])
+def test_a_run_is_cut_at_the_tile_width(n, counts):
+    """Runs of lengths that are and are not a multiple of the item width
+    (TILE_TOKENS, 8), against the loop."""
+    rows, pos = [1] * n, list(range(250, 250 + n))
+    plan = da.ragged_plan(rows, pos)
+    assert plan[:, 1].tolist() == counts
+    np.testing.assert_array_equal(plan, loop_plan(rows, pos))
+
+
+def chain_loop(plan, pos, capacity, width, deal=True):
+    """The ragged kernel's deepest block by a plain walk over every (item,
+    block, token): a token at position p sees [0, p + 1) cut at the
+    capacity, range r the part in [r c, (r + 1) c); a group of ``width``
+    tokens side by side takes the tiles of its last token's part. Block r
+    walks range r for every group, but a run whose every token lies in
+    range 0 (with ``deal``: the kernel's schedule) gives group i to block i
+    mod split. ``deal`` False and ``width`` 1 is the schedule before, one
+    token after another on block r."""
+    split = da.decode_split(capacity)
+    c = -(-capacity // split)
+    tiles = lambda n, r: -(-min(max(n - r * c, 0), c) // 64)
+    worst = 0
+    for first, count in plan:
+        if pos[first] < 0:
+            continue
+        w = width if count > 1 else 1
+        ends = [min(pos[first + min(j + w, count) - 1] + 1, capacity)
+                for j in range(0, count, w)]
+        alone = count > 1 and deal and ends[-1] <= c
+        for b in range(split):
+            if alone:
+                steps = sum(tiles(n, 0) for i, n in enumerate(ends)
+                            if i % split == b)
+            else:
+                steps = sum(tiles(n, b) for n in ends)
+            worst = max(worst, steps)
+    return worst
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("capacity, width", [
+    (1024, 2), (1024, 1), (256, 2), (2048, 2), (200, 2), (512, 4)])
+def test_chain_equals_the_loop(case, capacity, width):
+    """chip_smoke's count of the longest chain, against the loop."""
+    rows, pos = CASES[case]
+    plan = da.ragged_plan(rows, pos)
+    assert CS.ragged_chain(plan, pos, capacity, width) == \
+        chain_loop(plan, pos, capacity, width)
+
+
+def test_chunk_tick_chain_drops_from_64_to_4():
+    """The phase-4 chunk tick at smollm-360m's capacity of 1024 (clusters
+    of 4 blocks of 256 positions): the deepest block walked 16 tokens x 4
+    tiles one after another in the earlier items of 16; in items of 8 whose
+    groups of two go to the cluster's four blocks it takes 4 steps (8 at
+    qwen3-moe's G 8, a token at a time)."""
+    rows, pos = PACKINGS["chunk256_decode"]
+    assert chain_loop(loop_plan(rows, pos, tile=16), pos, 1024, 1,
+                      deal=False) == 64
+    plan = da.ragged_plan(rows, pos)
+    assert CS.ragged_chain(plan, pos, 1024, CS.run_width(64, 3)) == 4
+    assert CS.ragged_chain(plan, pos, 1024, CS.run_width(128, 8)) == 8
+
+
+def cuda_run_width(hd, g):
+    """``run_width`` as csrc/decode_attention.cu states it, evaluated at the
+    bf16 ragged form's padded head_dim and heads (g 3 kept exact, else 4 or
+    8)."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/decode_attention.cu"
+           ).read_text()
+    m = re.search(r"constexpr int run_width\(int hdp, int G\) \{\s*"
+                  r"return ([^?;]+) \? 2 : 1;", src)
+    assert m, "run_width's formula not found in the CUDA source"
+    assert "static constexpr bool kExactG3 = std::is_same<T, bf16>::value;" \
+        in src
+    hdp = 64 if hd <= 64 else 128
+    G = 3 if g == 3 else 4 if g <= 4 else 8
+    return 2 if eval(m.group(1).replace("/", "//"), {},
+                     {"hdp": hdp, "G": G}) else 1
+
+
+@pytest.mark.parametrize("hd, g, want", [(64, 3, 2), (60, 3, 2), (64, 4, 1),
+                                         (60, 1, 1), (64, 8, 1), (128, 3, 1),
+                                         (80, 4, 1), (128, 5, 1),
+                                         (128, 8, 1), (128, 1, 1)])
+def test_run_width_by_heads(hd, g, want):
+    """chip_smoke's mirror of the CUDA run_width, and the CUDA formula."""
+    assert CS.run_width(hd, g) == want == cuda_run_width(hd, g)
 
 
 @pytest.mark.parametrize("rows, pos, want", [
@@ -153,11 +251,12 @@ def test_plan_of_an_empty_list():
 
 
 def test_chunk_tick_packing_has_23_items():
-    """The phase-4 chunk tick (256 prompt tokens and 7 decode tokens): 16
-    tiles of 16 and 7 single tokens, as the launch sizing in PERF.md
-    assumed."""
+    """The phase-4 chunk tick (256 prompt tokens and 7 decode tokens): 32
+    runs of 8 and 7 single tokens, 39 items (23 in the earlier items of 16,
+    which the name keeps), as the launch sizing in PERF.md assumes."""
     plan = da.ragged_plan(*PACKINGS["chunk256_decode"])
-    assert plan.shape[0] == 23 and (plan[:, 1] == 16).sum() == 16
+    assert plan.shape[0] == 39 and (plan[:, 1] == 8).sum() == 32
+    assert loop_plan(*PACKINGS["chunk256_decode"], tile=16).shape[0] == 23
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +309,8 @@ def test_chunked_stream_ticks_carry_their_plans(monkeypatch, engine,
                                                 max_prefills):
     """A chunked stream (prefill_chunk 8): every tick's plan is the loop's
     plan of its packed list; decode tokens walk alone, each prefill's
-    chunk of 2-8 tokens is one tile, the dead tail one item; every layer's
-    attention call gets the tick's plan."""
+    chunk of 2-8 tokens is one item, the dead tail one item; every
+    layer's attention call gets the tick's plan."""
     cfg = engine.model.cfg
     sched = ContinuousScheduler(engine, SchedulerConfig(
         num_slots=3, block_size=4, prefill_chunk=8,
@@ -230,6 +329,7 @@ def test_chunked_stream_ticks_carry_their_plans(monkeypatch, engine,
         assert all(p is tk["plan"] for p in tk["seen"])
         live = plan[tk["pos"][plan[:, 0]] >= 0]
         assert (live[:, 1] <= 8).all()          # no chunk past the budget
+        assert (live[:, 1] <= da.TILE_TOKENS).all()   # no item past 8
         multi += int((live[:, 1] > 1).sum() > 1)
     assert sched.drain_check() == []
     if max_prefills == 4:

@@ -1211,13 +1211,126 @@ def test_phase3_softcap_cases_run_on_the_cpu():
         assert float((fn(*xs) - off).abs().max()) > 1e-3, name
 
 
+def test_phase3_softcap_sides_against_float64_on_the_cpu():
+    """Phase 3's softcap diagnosis runs on every case: on the CPU both
+    sides are the same call, each a float32 rounding from the float64
+    one (under 1e-5), and the flags read TF32 off for products."""
+    cases = cs.softcap_cases("cpu", torch.Generator().manual_seed(0))
+    sides = cs.softcap_sides(cases)
+    assert set(sides) == set(cases)
+    for v in sides.values():
+        assert v["device"] == v["cpu"] and 0 < v["cpu"] < 1e-5
+    assert cs.tf32_flags()["matmul_allow_tf32"] is False
+
+
+EDGE_ITEMS = {
+    "runs_2_3_7_13_16": [1, 2, 3, 1, 7, 1, 8, 5, 1, 8, 8, 1, 1],
+    "run_across_256": [1, 1, 8, 5, 1],
+    "run_ends_1023_13": [8, 5, 1, 1]}
+
+
+def test_phase3_softcap_repeats_on_the_cpu():
+    """--softcap N's repeats run every case on fresh and on the same inputs
+    and once with TF32 on, restoring the flag; on the CPU nothing parts."""
+    cases = cs.softcap_cases("cpu", torch.Generator().manual_seed(0))
+    report = {"parity": {}}
+    dev, cs.DEV = cs.DEV, "cpu"
+    try:
+        cs.softcap_repeats(cases, 2, report)
+    finally:
+        cs.DEV = dev
+    got = report["parity"]["softcap_repeats"]
+    assert got["calls"] == 2 and got["over"] == []
+    assert len(got["worst"]) == 2 * len(cases)
+    assert set(got["tf32_on"]) == set(cases)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_ITEMS))
+def test_phase3_run_edges_cut_runs_off_the_width(name):
+    """Phase 3's run-edge packings: the plan's items (runs of 2, 3, 7, 13
+    and 16 leave items of odd lengths for groups of two; the run across
+    256 has an item at 250-257, whose first six tokens see nothing of rank
+    1's range), and the plain version runs on them, dead rows zero."""
+    from repro_torch.kernels import decode_attention as da
+    rows, pos = cs.run_edge_packings()[name]
+    plan = da.ragged_plan(rows, pos)
+    assert plan[:, 1].tolist() == EDGE_ITEMS[name]
+    if name == "run_across_256":
+        assert [pos[f] for f, n in plan if n > 1] == [250, 258]
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(len(rows), cs.H, cs.HD, generator=gen)
+    k = torch.randn(cs.SLOTS * cs.NPAGES + 1, cs.BS, cs.KVH, cs.HD,
+                    generator=gen)
+    bt = torch.arange(1, cs.SLOTS * cs.NPAGES + 1,
+                      dtype=torch.int32).view(cs.SLOTS, cs.NPAGES)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+    out = da.ragged_paged_attention_plain(q, k, k, bt, i32(rows), i32(pos))
+    assert out.shape == q.shape and bool(out.isfinite().all())
+    assert bool((out[i32(pos) < 0] == 0).all())
+
+
+SMALL_POOL_ITEMS = {
+    "pool256_runs": (256, [1, 2, 1, 3, 1, 7, 1, 8, 5, 1, 8, 8, 1, 1]),
+    "pool512_runs": (512, [1, 2, 1, 3, 1, 7, 1, 8, 5, 1, 8, 8, 1, 8, 5, 1,
+                           8, 5, 1, 1])}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_POOL_ITEMS))
+def test_phase3_small_pool_runs_walk_several_groups_a_block(name):
+    """Phase 3's run edges in pools of 256 and 512 positions: clusters of 1
+    and 2 blocks, so at g 3 (groups of two) an item of 8 inside the first
+    range gives a block 4 or 2 groups in turn; the plan's items, every
+    position inside the pool, and the plain version on them, dead rows
+    zero."""
+    from repro_torch.kernels import decode_attention as da
+    cap, rows, pos = cs.small_pool_packings()[name]
+    want_cap, items = SMALL_POOL_ITEMS[name]
+    assert cap == want_cap and max(pos) == cap - 1
+    plan = da.ragged_plan(rows, pos)
+    assert plan[:, 1].tolist() == items
+    split, w = da.decode_split(cap), cs.run_width(cs.HD, cs.H // cs.KVH)
+    groups = -(-8 // w)
+    assert (split, w) == ({256: 1, 512: 2}[cap], 2) and groups >= 2 * split
+    gen = torch.Generator().manual_seed(0)
+    npages = cap // cs.BS
+    q = torch.randn(len(rows), cs.H, cs.HD, generator=gen)
+    k = torch.randn(cs.SLOTS * npages + 1, cs.BS, cs.KVH, cs.HD,
+                    generator=gen)
+    bt = torch.arange(1, cs.SLOTS * npages + 1,
+                      dtype=torch.int32).view(cs.SLOTS, npages)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+    out = da.ragged_paged_attention_plain(q, k, k, bt, i32(rows), i32(pos))
+    assert out.shape == q.shape and bool(out.isfinite().all())
+    assert bool((out[i32(pos) < 0] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["chunk256_decode", "decode_only",
+                                  "deep_1024"])
+def test_phase4_chains_of_the_timed_packings(name):
+    """Phase 4's ragged lines name each packing's longest chain of tile
+    steps: 4 on the chunk tick at smollm's heads (groups of two dealt to
+    the cluster's blocks; 64 in the earlier items of 16, one token after
+    another), 4 on the decode tick (its tokens walk alone), 16 on deep_1024
+    (each block walks its range for 4 groups), twice that on the chunks at
+    qwen3-moe's (a token at a time)."""
+    assert name in cs.RAGGED_TIMED
+    rows, pos = cs.packings()[name]
+    c = cs.chains(rows, pos, cs.HD, cs.H // cs.KVH)
+    want = {"chunk256_decode": 4, "decode_only": 4, "deep_1024": 16}[name]
+    assert c == {"chain": want}
+    assert cs.fmt_chain(c) == f"longest chain {want} tile steps"
+    assert cs.chains(rows, pos, 128, 8)["chain"] == \
+        (4 if name == "decode_only" else 2 * want)
+
+
 def test_c4_watch_records_each_rows_writer(monkeypatch, tmp_path):
     """ROADMAP C4's KVWatch on the replayed sampled_n4 crash run and the
     same stream uncrashed: in the uncrashed run a forked sample's own
     rows come from the split walk and its prompt rows from the parent's
     chunk tiles; after the crash each restored sample re-prefills its
-    rows in tiles of 16 from position 0. With no model every row's bits
-    agree, so kv_divergence finds none."""
+    rows in runs of 8 (the plan's TILE_TOKENS) from position 0. With no
+    model every row's bits agree, so kv_divergence finds none."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(cs, "DEV", "cpu")
     extra, crash_at = cs.CRASH_RUNS["sampled_n4"]
@@ -1232,5 +1345,6 @@ def test_c4_watch_records_each_rows_writer(monkeypatch, tmp_path):
     assert twin.writer_of("0:2", 0) == "tile@0 (0:0)"
     assert twin.writer["0:2"][max(twin.writer["0:2"])] == "split walk"
     assert min(twin.writer["0:2"]) > 0          # its prompt is the parent's
-    assert crash.writer_of("0:2", 40) == "tile@32 (0:2)"
+    assert crash.writer_of("0:2", 40) == "tile@40 (0:2)"
+    assert crash.writer_of("0:2", 43) == "tile@40 (0:2)"
     assert cs.kv_divergence(twin, crash, "0:2") is None
