@@ -3,7 +3,9 @@
 ragged attention on the chunk tick, the decode tick and a chunk deep in a
 context (``deep_1024``) at smollm-360m's heads, the chunk and decode ticks
 at qwen3-moe's (h32 kvh4 hd128), and contiguous and paged decode at phase
-4's shapes; one JSON line of device ms per call. With ``stream`` after the
+4's shapes, and both over the same K/V at b 4 rows of 1024 at one or two
+KV heads (``b4_full/...``: [contiguous, paged]); one JSON line of device
+ms per call. With ``stream`` after the
 label, also phase 5's greedy paged stream on the tree's own engine, its
 tokens as one digest (``chip_smoke.streams_digest``'s). To compare two
 trees, run each in turns in one call on the chip, e.g. a parent unpacked
@@ -94,8 +96,24 @@ def main() -> int:
     out["paged_decode"] = round(cs.device_ms(
         lambda i: ops.paged_decode_attention(q, kp[i % 32], vp[i % 32], bt,
                                              cur), 64), 5)
+    del q, kp, vp
+    # contiguous and paged decode over the same K/V (pages of 16 scrambled,
+    # bitwise equal) at few walks: b 4 rows full at 1024, one or two KV
+    # heads (paligemma-3b's MQA at hd 256, g 8), 8 layers rotating
+    for hd, heads in ((64, (8, 1)), (128, (8, 1)), (256, (8, 1)),
+                      (256, (4, 1)), (256, (6, 2))):
+        q, k, v, cur = cs.decode_inputs(gen, [1024] * 4, dt, hd, layers=8,
+                                        heads=heads)
+        pools = [cs.paged_copy(gen, k[i], v[i], 16, False) for i in range(8)]
+        cont = lambda i: ops.decode_attention(q, k[i % 8], v[i % 8], cur)
+        paged = lambda i: ops.paged_decode_attention(q, *pools[i % 8], cur)
+        if not torch.equal(cont(0), paged(0)):
+            raise AssertionError(f"paged decode hd {hd} {heads} is not "
+                                 "bitwise contiguous decode")
+        out[f"b4_full/hd{hd}_h{heads[0]}_kvh{heads[1]}"] = [
+            round(cs.device_ms(fn, 64), 5) for fn in (cont, paged)]
+        del q, k, v, pools
     if stream:
-        del q, kp, vp
         out["greedy_tokens_digest"] = greedy_digest(cs)
     print(label, json.dumps(out), flush=True)
     return 0

@@ -9,9 +9,10 @@ Phases, each printing one line of results; any failure exits non-zero:
 2. build: every CUDA source under src/repro_torch/kernels/csrc compiled by
    nvcc for sm_90a, one nvcc each, in parallel; each redesigned kernel
    instance's registers and spill bytes (none may spill): flash_mma_kernel,
-   decode_split_kernel (contiguous and paged), ragged_split_kernel (the
-   split walk and the run walk), aot_gather_add_kernel (both gather-adds
-   with and without the fused norm, and the norm alone);
+   decode_split_kernel (contiguous and paged, the paged walk's eight hd 256
+   instances required), ragged_split_kernel (the split walk and the run
+   walk), aot_gather_add_kernel (both gather-adds with and without the
+   fused norm, and the norm alone);
 3. parity: each kernel's public wrapper against its plain PyTorch version
    on the card at smollm-360m's shapes (both gather-adds bitwise, the
    single-table one's NaN rows for ids outside [-V, V) included; fused
@@ -45,7 +46,10 @@ Phases, each printing one line of results; any failure exits non-zero:
    a misaligned cache, and hd 128 at g 16 and 12 (WIDE_VARIANTS); phase
    13's shapes: flash in full mode at hubert's h16 kvh16 hd80 (g 1) over
    8 x 512 and 577, contiguous decode at paligemma's h8 kvh1 hd256 (g 8)
-   over b 4, S 1024, the fused multi-task gather-add at d 2048 over 2
+   over b 4, S 1024, paged decode at hd 256 (g 8 and g 3) and hd 250 on
+   misaligned pages (PAGED_WIDE_VARIANTS) against its plain version at
+   pages of 16, 8, 32 and bitwise contiguous decode over the same K/V,
+   the fused multi-task gather-add at d 2048 over 2
    tasks of V 257216 (bitwise), the single-table gather-add's plain mode
    at d 1280 over V 504 (bitwise), and the route of a bidirectional
    prefix, layers.attention_chunked (plain PyTorch: the wrapper's one
@@ -113,7 +117,9 @@ Phases, each printing one line of results; any failure exits non-zero:
    256000) and the plain one at xlstm's d 1024 (4 tasks of V 50304); at
    phase 13's, flash in full mode at h16 kvh16 hd80 over 8 x 512 beside
    SDPA non-causal, contiguous decode at h8 kvh1 hd256 over b 4, S 1024
-   beside SDPA with a length mask, the fused gather-add at T 2048 over
+   beside SDPA with a length mask, paged decode at the same heads over b
+   4 full rows of 1024 and at 13a's paged leg (b 4 at depth 528 of 48
+   pages of 16), the fused gather-add at T 2048 over
    paligemma's tables (8 sets of h and ids rotating, so that h is read
    from HBM) beside F.rms_norm, the plain single-table one at T
    4096, d 1280; and (no kernel) attention_chunked at paligemma's prefill
@@ -296,7 +302,7 @@ Phases, each printing one line of results; any failure exits non-zero:
 11. the mixture-of-experts decoders at full width in bf16, random weights
    (seed 0), fabricated tables, each part's memory freed before the next,
    MoE routing recorded (Model.record_routes): 11a qwen3-moe-30b-a3b
-   (16 of 48 layers: 128 experts top-8, d_ff_expert 768, q/k norm, h32
+   (8 of 48 layers: 128 experts top-8, d_ff_expert 768, q/k norm, h32
    kvh4 hd128, V 151936, 2 tasks) on phase 5's paged chunked stream at its
    capacity factor 1.25 (every request finished, drained clean, exact
    launches, no decode-only tick dropping an assignment; the dropped
@@ -348,13 +354,18 @@ Phases, each printing one line of results; any failure exits non-zero:
    depth (18 layers, 2 fabricated tasks: 37.9 GB of tables), a static
    batch of 4 prompts of 256 stub patches (seeded, over sentinel ids)
    and 256 text tokens through Model.prefill(patches=) and 32 greedy
-   decode steps (exact launches: per prefill 18 fused multi-task
-   gather-adds and 18 attention_chunked calls for the bidirectional
-   prefix, no flash; per step 18 contiguous decodes at h8 kvh1 hd256 and
-   18 gather-adds; each task's rows alone equal to the mixed batch's or
-   diverging at a near tie; decode steps 0, 8 and 31 held to Model.logits
-   with the same patches by 7c's float32 rule; tokens/s, a step's host,
-   wall and device ms, peak memory reported); 13b hubert-xlarge at full
+   decode steps over a cache of 768 rows (exact launches: per prefill 18
+   fused multi-task gather-adds and 18 attention_chunked calls for the
+   bidirectional prefix, no flash; per step 18 contiguous decodes at h8
+   kvh1 hd256 and 18 gather-adds); then its paged leg, the same prefill
+   written into a PagedKVPool (48 pages of 16 a row) and 32 greedy
+   decode_step(block_tables=) steps (per step 18 paged decodes, 18
+   gather-adds, no contiguous decode; tokens equal and decode steps 0, 8
+   and 31's logits bitwise the contiguous leg's; the pool drained clean);
+   each task's rows alone equal to the mixed batch's or diverging at a
+   near tie; decode steps 0, 8 and 31 held to Model.logits with the same
+   patches by 7c's float32 rule; tokens/s, a step's host, wall and device
+   ms of each leg, peak memory reported); 13b hubert-xlarge at full
    depth (48 layers, 1024 learned positions) on seeded frames (8, 512):
    Model.logits for the backbone, unit-AoT (one fused table (48, 504,
    1280) indexed by seeded unit ids through the plain-mode gather-add),
@@ -400,6 +411,9 @@ Phases, each printing one line of results; any failure exits non-zero:
    (reported); 15c smollm-360m's float32 train step (attn_impl="ref",
    AoT fc rank 64, 3 steps at 2 x 512) with remat on and off: losses and
    trainable leaves bitwise (gated), both peaks and step ms reported.
+
+Each phase's seconds print as a ``[phase]`` line with the run's so far,
+and all of them on the ``[done]`` line.
 
 The last two lines are a JSON line of per-kernel numbers (``launches``:
 the count on the path each kernel serves; ``launches_by_path``: every
@@ -750,11 +764,21 @@ REDESIGNED = {"flash_mma_kernel": "flash_attention",
               "aot_gather_add_kernel": "aot_gather_add"}
 
 
+# paged decode's wide walk (paligemma-3b's hd 256): the instances of
+# decode_split_kernel<T, VEC, 256, G, PAGED = true> phase 2 must find, by
+# their mangled template arguments (float or bf16, the element or 16-byte
+# build, G 4 or 8)
+WIDE_PAGED = tuple(f"I{t}Lb{vec}ELi256ELi{g}ELb1EE"
+                   for t in ("f", "13__nv_bfloat16") for vec in (0, 1)
+                   for g in (4, 8))
+
+
 def redesigned(logs):
     """{kernel of REDESIGNED: ["<template arguments>:<registers>r/<spill
     bytes>s", ...]} from each source's ``-Xptxas -v`` output in ``logs``.
     Raises if an instance spills, or if a source compiled in this run (not
-    ``"cached"``) lacks its kernel."""
+    ``"cached"``) lacks its kernel, or decode_attention.cu lacks an
+    instance of WIDE_PAGED."""
     new, spilled = {}, []
     for out in logs.values():
         for fn, (r, sp) in ptxas_kernels(out).items():
@@ -766,6 +790,10 @@ def redesigned(logs):
                         spilled.append(fn)
     missing = [base for base, src in REDESIGNED.items()
                if logs.get(src, "cached") != "cached" and base not in new]
+    if logs.get("decode_attention", "cached") != "cached":
+        have = {i.split(":")[0] for i in new.get("decode_split_kernel", [])}
+        missing += [f"decode_split_kernel{a}" for a in WIDE_PAGED
+                    if a not in have]
     if spilled or missing:
         raise AssertionError(f"redesigned kernel instances spill {spilled} "
                              f"or are missing from ptxas's output {missing}")
@@ -900,6 +928,7 @@ def phase_parity(gen, report, softcap_calls=0):
     parity_flash(gen, report)
     parity_decode(gen, report)
     parity_decode_wide(gen, report)
+    parity_paged_wide(gen, report)
     parity_stale_nan(gen, report)
     parity_warm_cold(report)
     parity_run_vs_single(report)
@@ -1568,6 +1597,55 @@ def parity_decode_wide(gen, report):
         log("3 parity", kernel="decode_attention", variant=variant,
             shapes=f"h{heads[0]} kvh{heads[1]} hd{hd} S300-2048",
             max_abs_err=",".join(cases))
+
+
+# paged decode's wide walk (paligemma-3b's paged decode): name -> (hd,
+# data one element off a 16-byte boundary, (h, kvh)): hd 256 at paligemma's
+# MQA on the 16-byte build (G 8), at (6, 2) (G 4), and hd 250 on
+# misaligned data (the element-load build). Not in PARITY_VARIANTS, whose
+# builds the ragged kernel walks too: it takes no hd past 128
+PAGED_WIDE_VARIANTS = {"pali_hd256_g8": (PALI_HD, False, PALI_HEADS),
+                       "hd256_g3": (PALI_HD, False, (6, 2)),
+                       "scalar_misaligned_hd250_g8": (250, True,
+                                                      PALI_HEADS)}
+
+
+def parity_paged_wide(gen, report):
+    """Paged decode at hd 256 and 250 (PAGED_WIDE_VARIANTS), float32 and
+    bf16: against its plain version over 8 slots of PAGED_LENS at every
+    page size of PARITY_BS (scrambled pages), and bitwise contiguous
+    decode over the same K/V at every case of :func:`paged_vs_contiguous`
+    (S 300-2048, pages of 4-32)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    for variant, (hd, shift, heads) in PAGED_WIDE_VARIANTS.items():
+        cases, bitwise, kvh = [], 0, heads[1]
+        plens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=DEV)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(SLOTS, heads[0], hd, generator=gen,
+                            device=DEV).to(dtype)
+            for bs in PARITY_BS:
+                npages = MAX_LEN // bs
+                kp, vp = (torch.randn(SLOTS * npages + 1, bs, kvh, hd,
+                                      generator=gen, device=DEV).to(dtype)
+                          for _ in range(2))
+                if shift:
+                    kp, vp = misaligned(kp), misaligned(vp)
+                perm = torch.randperm(SLOTS * npages, generator=gen,
+                                      device=DEV) + 1
+                bt = perm.view(SLOTS, npages).to(torch.int32)
+                out = ops.paged_decode_attention(q, kp, vp, bt, plens)
+                plain = da.paged_decode_attention_plain(q, kp, vp, bt, plens)
+                err = check_close(f"paged_decode/{variant}/bs{bs}/{dtype}",
+                                  out, plain, dtype, report, plens <= 0)
+                cases.append(f"paged_bs{bs}/{str(dtype)[6:]}:{err:.2e}")
+            bitwise += paged_vs_contiguous(gen, dtype, hd, shift, heads)
+        log("3 parity", kernel="paged_decode_attention", variant=variant,
+            shapes=f"b8 h{heads[0]} kvh{kvh} hd{hd} S300-2048 bs4-32",
+            paged_bitwise_contiguous=f"{bitwise} cases",
+            max_abs_err=",".join(cases))
+        report["parity"].setdefault("paged_wide", {})[variant] = dict(
+            cases=cases, bitwise_contiguous=bitwise)
 
 
 def poison_past(pool, bt, depth, bs, fill):
@@ -3993,26 +4071,48 @@ def c4_line(engine, extra, out_dir, run, twin, watch, card):
                 uncrashed_rerun_equals_5f=rerun_equal), bad
 
 
+def paged_pool(model, cache, length, tokens, task_ids, max_len):
+    """A static batch's prefill moved into a ``PagedKVPool`` of ``max_len``
+    rows a slot (pages of BS): row r of the contiguous ``cache`` written
+    into slot r's pages with ``write_prefill`` (``length`` prompt
+    positions), each slot holding pages for ``tokens`` positions. Returns
+    (pool, its (b, pages) block tables on the device)."""
+    from repro_torch.serve.kv_pool import PagedKVPool
+    b = len(task_ids)
+    pool = PagedKVPool(model, b, max_len, block_size=BS)
+    for r in range(b):
+        slot = pool.alloc(int(task_ids[r]), pool.pages_needed(tokens))
+        assert slot == r, f"slot {slot} for row {r}"
+        pool.write_prefill(slot, {n: c[:, r:r + 1] for n, c in cache.items()},
+                           length)
+    return pool, torch.as_tensor(pool.block_tables, device=DEV)
+
+
+def drain_pool(pool, what):
+    """Free every slot of a static batch's pool; raises if the pool then
+    reports a leak."""
+    for r in range(pool.num_slots):
+        pool.free(r)
+    if pool.leak_report():
+        raise AssertionError(f"{what}: {pool.leak_report()}")
+
+
 def paged_generate(engine, prompts, steps, task_ids):
     """The static batch over a paged pool, through the port's entry points:
     ``Model.prefill``, ``PagedKVPool.write_prefill`` of each row into its
-    own pages, then greedy ``Model.decode_step(block_tables=)`` steps.
-    Returns (b, steps) tokens as ``ServeEngine.generate`` does."""
-    from repro_torch.serve.kv_pool import PagedKVPool
+    own pages (:func:`paged_pool`), then greedy ``Model.decode_step(
+    block_tables=)`` steps. Returns (b, steps) tokens as
+    ``ServeEngine.generate`` does."""
     model, dev = engine.model, engine.device
     b, s = prompts.shape
-    pool = PagedKVPool(model, b, engine.cfg.max_len, block_size=BS)
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     peft = engine._peft(torch.as_tensor(task_ids, dtype=torch.int32,
                                         device=dev))
     logits, cache, pos = model.prefill(engine.params, toks, peft,
                                        max_len=engine.cache_len)
-    for r in range(b):
-        slot = pool.alloc(int(task_ids[r]), pool.pages_needed(s + steps))
-        pool.write_prefill(slot, {n: c[:, r:r + 1] for n, c in cache.items()},
-                           s)
+    pool, bt = paged_pool(model, cache, s, s + steps, task_ids,
+                          engine.cfg.max_len)
     del cache
-    bt = torch.as_tensor(pool.block_tables, device=dev)
     tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
     out = []
     for i in range(steps):
@@ -4022,10 +4122,7 @@ def paged_generate(engine, prompts, steps, task_ids):
                                            device=dev),
             pool.cache, peft, block_tables=bt)
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-    for r in range(b):
-        pool.free(r)
-    if pool.leak_report():
-        raise AssertionError(f"paged static pool: {pool.leak_report()}")
+    drain_pool(pool, "paged static pool")
     return torch.cat(out, dim=1).cpu().numpy()
 
 
@@ -4312,7 +4409,7 @@ def profile_run(phase, fn, steps):
     """Device busy share, kernels per step and the top kernels and host
     ops of ``fn()`` under torch.profiler (CPU + CUDA), logged as one line
     of ``phase``."""
-    r = profile_of(fn, steps)
+    r = profile_of(fn, steps, host=True)
     top = lambda rows: ";".join(f"{k[:40]}:{t:.0f}ms" for t, k in rows[:5])
     log(phase, steps=steps, wall_ms=f"{r['wall_ms']:.0f}",
         device_busy_ms=f"{r['device_busy_ms']:.0f}",
@@ -4322,15 +4419,18 @@ def profile_run(phase, fn, steps):
     return r
 
 
-def profile_of(fn, steps):
-    """``fn()`` under torch.profiler (CPU + CUDA): wall ms, device busy ms
-    (the kernels' summed device time), kernels per step, the top kernels
-    and host ops."""
+def profile_of(fn, steps, host=False):
+    """``fn()`` under torch.profiler (CUDA; with ``host`` CPU too): wall
+    ms, device busy ms (the kernels' summed device time), kernels per step,
+    the top kernels and (with ``host``) host ops. The host's op records
+    are several per kernel, and reading them back took most of a
+    profiled run's seconds, so only the lines that print host ops ask for
+    them."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t1) * 1e3
@@ -6533,7 +6633,8 @@ def phase_decoders(report):
 # each task's table 0.62 GB a layer), 2 tasks; 11b: llama4 cut to one
 # interleave unit (a dense layer, then a MoE layer of 16.1 G parameters)
 MOE_PARTS = {
-    "qwen3moe": dict(arch="qwen3-moe-30b-a3b", layers=16, tasks=2,
+    # 8 of 48 layers: the depth the script's time limit leaves it
+    "qwen3moe": dict(arch="qwen3-moe-30b-a3b", layers=8, tasks=2,
                      requests=16, static=(16, 512, 64)),
     "llama4": dict(arch="llama4-maverick-400b-a17b", layers=2, tasks=2,
                    requests=8, static=(4, 512, 32)),
@@ -7188,27 +7289,34 @@ def block_host_ms():
             setattr(m, n, fn)
 
 
-def rec_step_times(model, params, logits, cache, pos, peft, steps=8):
-    """Greedy decode steps from a prefill's ``logits`` and ``cache``: per
-    step the host ms to enqueue it (no wait), the wall ms (each step
-    waited for), the device busy ms from a profiled run, kernels per step,
-    and the host ms inside each recurrent block kind (``block_host_ms``)
-    with its share of the steps' host time. Each step is followed by a
-    device wait here, so that a step's host time is its own."""
+def rec_step_times(model, params, logits, cache, pos, peft, steps=8,
+                   block_tables=None):
+    """Greedy decode steps from a prefill's ``logits`` and ``cache`` (the
+    paged pool with ``block_tables``; ``pos`` an int): per step the host ms
+    to enqueue it (no wait), the wall ms (each step waited for), the
+    device busy ms from a profiled run, kernels per step, and the host ms
+    inside each recurrent block kind (``block_host_ms``) with its share of
+    the steps' host time. Each step is followed by a device wait here, so
+    that a step's host time is its own."""
     b = logits.shape[0]
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     host, wall = [], []
+
+    def step(tok, p):
+        if block_tables is not None:        # paged decode takes per-row pos
+            p = torch.full((b,), p, dtype=torch.int32, device=DEV)
+        return model.decode_step(params, tok, p, cache, peft,
+                                 block_tables=block_tables)[0]
     with block_host_ms() as spent:
         for i in range(steps):
             t0 = time.perf_counter()
-            lg, cache = model.decode_step(params, tok, pos + i, cache, peft)
+            lg = step(tok, pos + i)
             host.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
             tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
-    prof = profile_of(lambda: [model.decode_step(
-        params, tok, pos + steps + i, cache, peft) for i in range(steps)],
-        steps)
+    prof = profile_of(lambda: [step(tok, pos + steps + i)
+                               for i in range(steps)], steps)
     total = sum(host)
     return dict(host_ms=median(host), wall_ms=median(wall),
                 device_busy_ms=prof["device_busy_ms"] / steps,
@@ -7537,6 +7645,7 @@ HUBERT_METHODS = ("none", "aot", "bitfit", "lora", "adapters", "ptv1",
 # phase 13's shapes (``frontends``)
 FRONT_PATH = {"aot_gather_add_multitask": "front_pali_prefill",
               "decode_attention": "front_pali_decode",
+              "paged_decode_attention": "front_pali_paged",
               "flash_attention": "front_hubert_none",
               "aot_gather_add": "front_hubert_aot"}
 
@@ -7749,7 +7858,9 @@ def times_frontends(gen, report):
     """The kernels at phase 13's new shapes, bf16: flash in full mode at
     hubert's heads (h16 kvh16 hd80, g 1) over its frames (8 x 512) beside
     SDPA non-causal; contiguous decode at paligemma's MQA (h8 kvh1 hd256,
-    g 8) over b 4, S 1024 beside SDPA with a length mask; the fused
+    g 8) over b 4, S 1024 beside SDPA with a length mask; paged decode at
+    the same heads over b 4 full rows of 1024 and at 13a's paged leg (b 4
+    at depth 528 of 48 pages of 16; no library call reads pages); the fused
     multi-task gather-add at d 2048 over 2 tasks of V 257216 at 13a's
     prefill (T 2048 = 4 x 512) beside the sequence it replaces and
     F.rms_norm; the single-table gather-add in its plain mode at d 1280
@@ -7805,6 +7916,36 @@ def times_frontends(gen, report):
     keep("decode_attention", "pali_b4_S1024",
          f"b4 h{h} kvh{kvh} hd{hd} S{MAX_LEN} (rows full)", r)
     del q, k, v, mask
+    # ---- paged decode at paligemma's MQA (the wide walk), pages of BS
+    # scrambled: (a) b 4 over 1024 positions, rows full, 8 layers of pages
+    # as the contiguous line above; (b) 13a's paged leg at its middle
+    # step, b 4 at depth 528 of a 768-row pool, 32 layers (past the L2)
+    for key, depth, cap, layers, what in (
+            ("pali_b4_S1024", MAX_LEN, MAX_LEN, 8, "rows full"),
+            ("pali_13a_depth528", 528, 768, ROTATE,
+             "13a's paged leg at its middle step")):
+        npages = cap // BS
+        q = torch.randn(4, h, hd, generator=gen, device=DEV).to(dt)
+        kp, vp = (torch.randn(layers, 4 * npages + 1, BS, kvh, hd,
+                              generator=gen, device=DEV).to(dt)
+                  for _ in range(2))
+        perm = torch.randperm(4 * npages, generator=gen, device=DEV) + 1
+        bt = perm.view(4, npages).to(torch.int32)
+        cur = torch.full((4,), depth, dtype=torch.int32, device=DEV)
+        layer = lambda i: (kp[i % layers], vp[i % layers])
+        r = timed(lambda i: ops.paged_decode_attention(q, *layer(i), bt, cur),
+                  lambda i: da.paged_decode_attention_plain(q, *layer(i), bt,
+                                                            cur),
+                  64, 16, tol=TOL[dt])
+        r["library_ms"] = None  # no one PyTorch call reads block tables
+        n_kv = 4 * depth
+        r["bound_ms"], r["bound_by"] = bound(
+            2 * 4 * h * hd * es + 2 * n_kv * kvh * hd * es
+            + 4 * (4 + 4 * -(-depth // BS)), 4 * hd * h * n_kv, dt)
+        keep("paged_decode_attention", key,
+             f"b4 h{h} kvh{kvh} hd{hd} depth {depth} of {npages} pages of "
+             f"{BS} ({what})", r)
+        del q, kp, vp
     # ---- the fused multi-task gather-add at 13a's prefill
     n_tasks, vocab, d = PALI_GATHER
     tables = torch.empty(n_tasks, vocab, d, dtype=dt, device=DEV)
@@ -7930,20 +8071,46 @@ def pali_logits_rule(model, params, tables, seq, s, lg_dec, task_ids,
     return res
 
 
+def paged_leg_failures(out, out_paged, lg_dec, lg_paged, steps):
+    """13a's paged leg against its contiguous leg: the greedy tokens
+    equal, and the logits of each decode step in ``steps`` bitwise equal
+    (the paged walk over a pool of the contiguous cache's capacity visits
+    the same ranges and tiles). Returns the failures found."""
+    bad = []
+    if not torch.equal(out_paged, out):
+        rows = torch.nonzero(out_paged != out)[:, 0].unique().tolist()
+        bad.append(f"paged tokens differ from contiguous in rows {rows}")
+    for k in steps:
+        got, want = lg_paged[1 + k], lg_dec[1 + k]
+        if not torch.equal(got, want):
+            bad.append(f"paged step {k} logits not bitwise contiguous: max "
+                       f"abs diff {(got - want).abs().max().item():.3e}")
+    return bad
+
+
 def pali_static(report):
     """13a: paligemma-3b at full depth (18 layers, bf16, random weights
     seed 0) with 2 fabricated tasks (37.9 GB of tables): a static batch of
     4 prompts of 256 patches and 256 text tokens through ``Model.prefill``
     (patches over the sentinel ids, bidirectional over the 256) then 32
-    greedy decode steps (MQA at hd 256, g 8). Gates: the prefill launches
-    18 fused multi-task gather-adds and sends 18 attentions to
-    ``attention_chunked`` (flash 0), each decode step 18 contiguous decodes
-    and 18 gather-adds; each task's rows served as a batch of their own
-    equal to the mixed batch's tokens or diverging at a near tie (phase
-    6's rule); decode steps PALI_CHECK_STEPS held to ``Model.logits`` with
-    the same patches by 7c's float32 rule. Reported: tokens/s, a step's
-    host, wall and device ms, peak memory."""
+    greedy decode steps (MQA at hd 256, g 8) over the contiguous cache,
+    and again over a ``PagedKVPool`` (the paged leg: each row of the same
+    prefill written into its pages with ``write_prefill``, then greedy
+    ``decode_step(block_tables=)``; pages of BS, the pool's capacity the
+    contiguous cache's rows, ``round_kv_len`` as ``ServeEngine`` rounds
+    them). Gates: the prefill launches 18 fused multi-task gather-adds and
+    sends 18 attentions to ``attention_chunked`` (flash 0), each contiguous
+    decode step 18 contiguous decodes and 18 gather-adds, each paged step
+    18 paged decodes, 18 gather-adds and no contiguous decode; the paged
+    leg's tokens equal the contiguous leg's and its logits at
+    PALI_CHECK_STEPS bitwise (:func:`paged_leg_failures`), and its pool
+    drains clean; each task's rows served as a batch of their own equal to
+    the mixed batch's tokens or diverging at a near tie (phase 6's rule);
+    decode steps PALI_CHECK_STEPS held to ``Model.logits`` with the same
+    patches by 7c's float32 rule. Reported: tokens/s, a step's host, wall
+    and device ms of each leg, peak memory."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import round_kv_len
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     counts, failures = {}, []
@@ -7957,7 +8124,9 @@ def pali_static(report):
     s = toks.shape[1]
     task_ids = (np.arange(b) % PALI["tasks"]).astype(np.int32)
     peft = tasks_peft(tables, torch.as_tensor(task_ids, device=DEV))
-    max_len = s + steps + 16          # rec_step_times' 16 steps after
+    # rec_step_times' 16 steps after, rounded as ServeEngine rounds its
+    # cache: the paged pool's capacity (pages of BS) is then the same
+    max_len = round_kv_len(s + steps + 16)
     L = cfg.num_layers
 
     def prefill(rows=slice(None), bundle=peft):
@@ -7968,22 +8137,39 @@ def pali_static(report):
     (logits, cache, pos), psec = counted("front_pali_prefill", counts,
                                          prefill)
     counts["front_pali_prefill"]["chunked"] = ops.chunked_calls()
+    pool, bt = paged_pool(model, cache, s, max_len, task_ids, max_len)
     (lg_dec, out), dsec = counted(
         "front_pali_decode", counts, lambda: greedy_decode(
             model, params, logits, cache, pos, peft, steps))
     counts["front_pali_decode"]["chunked"] = ops.chunked_calls()
+    (lg_pg, out_pg), pgsec = counted(
+        "front_pali_paged", counts, lambda: greedy_decode(
+            model, params, logits, pool.cache, pos, peft, steps,
+            block_tables=bt))
+    counts["front_pali_paged"]["chunked"] = ops.chunked_calls()
     for label, want in (
             ("front_pali_prefill", {"aot_gather_add_multitask": L,
                                     "chunked": L}),
             ("front_pali_decode", {"aot_gather_add_multitask": L * steps,
-                                   "decode_attention": L * steps})):
+                                   "decode_attention": L * steps}),
+            ("front_pali_paged", {"aot_gather_add_multitask": L * steps,
+                                  "paged_decode_attention": L * steps})):
         try:
             check_launches(label, counts[label], want)
         except AssertionError as e:
             failures.append(str(e))
+    paged_bad = paged_leg_failures(out, out_pg, lg_dec, lg_pg,
+                                   PALI_CHECK_STEPS)
+    failures += paged_bad
     times = rec_step_times(model, params, lg_dec[-1][:, None], cache,
                            pos + steps, peft)
-    del cache, logits
+    times_pg = rec_step_times(model, params, lg_pg[-1][:, None], pool.cache,
+                              pos + steps, peft, block_tables=bt)
+    try:
+        drain_pool(pool, "13a paged pool")
+    except AssertionError as e:
+        failures.append(str(e))
+    del cache, logits, pool, lg_pg
     # each task's rows alone against the mixed batch's tokens
     equal, ties, bad = 0, [], []
     for t in range(PALI["tasks"]):
@@ -8010,20 +8196,31 @@ def pali_static(report):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sec_all = time.perf_counter() - t0
     tps = b * steps / (psec + dsec)
+    tps_pg = b * steps / (psec + pgsec)
     log("13a paligemma", layers=L, tasks=PALI["tasks"],
         static=f"{b}x({cfg.frontend_len} patches + {s_text})+{steps}",
-        setup_s=f"{setup_s:.1f}", prefill_ms=f"{psec * 1e3:.1f}",
-        decode_ms=f"{dsec * 1e3:.1f}", tokens_per_s=f"{tps:.1f}",
-        mixed_vs_per_task=f"{equal}/{b} equal", near_ties=ties,
-        step_host_ms=f"{times['host_ms']:.2f}",
+        cache_rows=max_len, setup_s=f"{setup_s:.1f}",
+        prefill_ms=f"{psec * 1e3:.1f}", decode_ms=f"{dsec * 1e3:.1f}",
+        tokens_per_s=f"{tps:.1f}", mixed_vs_per_task=f"{equal}/{b} equal",
+        near_ties=ties, step_host_ms=f"{times['host_ms']:.2f}",
         step_wall_ms=f"{times['wall_ms']:.2f}",
         step_device_ms=f"{times['device_busy_ms']:.2f}",
+        paged=f"{max_len // BS} pages of {BS} a row",
+        paged_decode_ms=f"{pgsec * 1e3:.1f}",
+        paged_tokens_per_s=f"{tps_pg:.1f}",
+        paged_step_host_ms=f"{times_pg['host_ms']:.2f}",
+        paged_step_wall_ms=f"{times_pg['wall_ms']:.2f}",
+        paged_step_device_ms=f"{times_pg['device_busy_ms']:.2f}",
+        paged_vs_contiguous=(
+            f"tokens equal, logits bitwise at steps {list(PALI_CHECK_STEPS)}"
+            if not paged_bad else "differ"),
         decode_vs_logits=f32_text(gate), peak_memory_gib=f"{peak:.2f}",
         seconds=f"{sec_all:.1f}", launches=counts,
         failures=failures or "none")
     report["frontends"]["paligemma"] = dict(
         setup_s=setup_s, prefill_s=psec, decode_s=dsec, tokens_per_s=tps,
         mixed_equal=equal, near_ties=ties, divergences=bad, step=times,
+        paged=dict(decode_s=pgsec, tokens_per_s=tps_pg, step=times_pg),
         gate=gate, peak_memory_gib=peak, seconds=sec_all, launches=counts,
         failures=failures)
     del model, params, tables, peft
@@ -8801,58 +8998,56 @@ def main() -> int:
     log("1 device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
-    report = {"card": card, "parity": {}, "times": {}}
+    report = {"card": card, "parity": {}, "times": {}, "phase_seconds": {}}
+
+    def phase(name, fn, *a):
+        """fn(*a), its seconds kept and printed with the run's so far."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        report["phase_seconds"][name] = sec = time.perf_counter() - t0
+        log("phase", name=name, seconds=f"{sec:.1f}",
+            run_seconds=f"{time.perf_counter() - t_start:.1f}")
+        return out
     if args.phase15:
-        phase_dryrun(report)
+        phase("15 dryrun", phase_dryrun, report)
         print("[phase15] passed; no result")
         return 0
-    report["build_s"], report["redesigned"] = phase_build(KERNEL_SOURCES)
+    report["build_s"], report["redesigned"] = phase(
+        "2 build", phase_build, KERNEL_SOURCES)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    phase_parity(gen, report, args.softcap)
+    phase("3 parity", phase_parity, gen, report, args.softcap)
     if args.quick:
         print("[quick] stopped after parity; no result")
         return 0
     if args.phase14:
         print(f"[phase14] launches {phase_distrib(report)}; no result")
         return 0
-    kernels = phase_times(gen, report)
+    kernels = phase("4 times", phase_times, gen, report)
     engine, setup_s = build_engine()
-    launches = phase_main_path(report, engine, setup_s)
-    launches.update(phase_whole_prompt(report, engine))
-    launches.update(phase_static(report, engine))
-    launches.update(phase_peft(report, engine))
-    launches.update(phase_faults(report, engine))
-    launches.update(phase_shared(report, engine))
-    launches.update(phase_restore(report, engine))
-    launches.update(phase_overload(report, engine))
+    launches = phase("5 main path", phase_main_path, report, engine, setup_s)
+    for name, fn in (("5b whole prompt", phase_whole_prompt),
+                     ("5c static", phase_static), ("5d peft", phase_peft),
+                     ("5e faults", phase_faults),
+                     ("5f shared", phase_shared),
+                     ("5g restore", phase_restore),
+                     ("9c overload", phase_overload)):
+        launches.update(phase(name, fn, report, engine))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    trained, kept = phase_train(report)
+    trained, kept = phase("7 train", phase_train, report)
     launches.update(trained)
-    launches.update(phase_lifecycle(report, kept))
+    launches.update(phase("9ab lifecycle", phase_lifecycle, report, kept))
     del kept
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_encoders(report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_decoders(report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_moe(report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_recurrent(report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_frontends(report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_distrib(report))
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_dryrun(report))
+    for name, fn in (("8 encoders", phase_encoders),
+                     ("10 decoders", phase_decoders), ("11 moe", phase_moe),
+                     ("12 recurrent", phase_recurrent),
+                     ("13 frontends", phase_frontends),
+                     ("14 distrib", phase_distrib),
+                     ("15 dryrun", phase_dryrun)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(phase(name, fn, report))
     for row in kernels:     # each kernel's count on the path it serves
         row["launches"] = launches[MAIN_PATH[row["name"]]][row["name"]]
         row["launches_sampled"] = launches["paged_sampled"][row["name"]]
@@ -8876,14 +9071,15 @@ def main() -> int:
         if row["name"] in FRONT_PATH:       # phase 13's path
             row["frontends"]["launches"] = launches[FRONT_PATH[
                 row["name"]]][row["name"]]
-    phase_cross_check(report)
+    phase("6 cross-check", phase_cross_check, report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
-    print(f"[done] seconds={report['seconds']:.1f}")
+    print(f"[done] seconds={report['seconds']:.1f} phases=" + ",".join(
+        f"{k}:{v:.1f}" for k, v in report["phase_seconds"].items()))
     print(smi())
     print(json.dumps({"kernels": kernels}, separators=(",", ":")))
     print(json.dumps({"ok": True, "device": {

@@ -24,8 +24,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -split-compile 0: the device code's optimization passes on every core
+# (decode_attention.cu, the longest of the parallel builds, holds 68
+# kernel instances)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile", "0")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

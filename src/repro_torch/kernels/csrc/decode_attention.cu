@@ -35,8 +35,8 @@
 // - K/V tiles of 64 positions are staged in their own type with cp.async,
 //   double-buffered: eight threads cover a 128-byte row, one instruction
 //   four rows (a one-element build takes rows that are not 16-byte
-//   aligned); hd is padded with zeros to 64 or 128 (contiguous decode
-//   also 256: the wide walk below) in shared memory. Each
+//   aligned); hd is padded with zeros to 64 or 128 (contiguous and paged
+//   decode also 256: the wide walk below) in shared memory. Each
 //   staged row comes from its own address: position p of a contiguous row,
 //   or page table[p / block_size] of a paged one (any block size; a tile of
 //   64 spans pages, 4 of them at smollm's 16), so the paged walk visits the
@@ -57,11 +57,13 @@
 //   partial (m, l, acc) into a slot of rank 0's shared memory (distributed
 //   shared memory, remote stores that do not wait), and after one cluster
 //   barrier rank 0 merges the slots and writes the row: one launch, no
-//   global scratch, no counters. At hd 256 (the wide walk, contiguous
-//   decode only) the ring and the slots together would pass a block's 227
+//   global scratch, no counters. At hd 256 (the wide walk: contiguous
+//   decode at recurrentgemma-9b's and paligemma-3b's MQA, paged decode at
+//   paligemma's) the ring and the slots together would pass a block's 227
 //   KB, so the slots reuse the ring once every block's walk has ended (the
 //   blocks arrive at the cluster barrier after their walks, not before),
-//   and float32 stages one K/V tile at a time.
+//   and float32 stages one K/V tile at a time. A paged walk's page ids lie
+//   past the ring and the q rows, so no merge slot reaches them.
 // Ragged lists (ragged_split_kernel) run one launch over a per-tick plan
 // that the host builds from its own copies of token_rows and token_pos:
 // items of (first token, count), one cluster per (item, KV head); the slot
@@ -142,11 +144,15 @@ constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block may have
 // at 64-128 registers to raise their occupancy and spilled 16-64 bytes
 // each (shared memory holds a walk to 4 blocks an SM anyway).
 
-// The wide walk (hd padded to 256, recurrentgemma's MQA heads: contiguous
-// decode only): its ring and merge slots together would pass the 227 KB a
-// block may have (244 KB in bf16 at G 8), so the merge space reuses the
-// ring once the walk has ended, and float32 stages one K/V tile at a time
-// (two would be 266 KB alone)
+// The wide walk (hd padded to 256: recurrentgemma's and paligemma's MQA
+// heads; contiguous and paged decode, not the ragged walk): its ring and
+// merge slots together would pass the 227 KB a block may have (244 KB in
+// bf16 at G 8), so the merge space reuses the ring once the walk has
+// ended, and float32 stages one K/V tile at a time (two would be 266 KB
+// alone). Paged, the block then holds, at G 8: bf16 135,168 B of ring,
+// 10,240 of q and probabilities, 4 B a page id (256 B at 1024 positions in
+// pages of 16): about 145.7 KB; float32 133,120 + 10,240 + 256, about 143.6
+// KB
 __host__ __device__ constexpr bool wide_walk(int hdp) { return hdp > 128; }
 
 __host__ __device__ constexpr int walk_stages(size_t elem, int hdp) {
@@ -625,7 +631,10 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ q_row,
   T* v_s = k_s + kStages * kSplitTile * kLd;         // kStages x kSplitTile
   float* q_s = reinterpret_cast<float*>(v_s + kStages * kSplitTile * kLd);
   float* p_s = q_s + G * HDP;                        // kWarps x G x 16
-  // the merge space: after the probabilities, or (wide) over the ring
+  // the merge space: after the probabilities, or (wide) over the ring,
+  // whose bytes (the static_assert above) end before q_s: the page ids that
+  // a paged walk keeps at walk_smem_bytes (past q_s and p_s) are read by
+  // no merge slot, nor written by another block's remote partial store
   float* w_acc = kWide ? reinterpret_cast<float*>(smem_raw)
                        : p_s + kWarps * G * 16;      // kWarps x g x HDP
   float* w_m = w_acc + kWarps * g * HDP;             // kWarps x g
@@ -1079,12 +1088,13 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 
 // One launcher per form, each templated on the element type, the load
 // width, the padded hd and the padded head count. kWide: whether the form
-// has instances at hd 256 (contiguous decode only; the paged and ragged
-// walks serve no such stack: the reference pages no recurrent or
-// sliding-window model). kExactG3: whether g 3 (smollm-360m) takes G 3
-// rather than 4 (the ragged form in bf16 only: each head's sums are the
-// same at any G, and the padded head cost a quarter of the run walk's
-// steps).
+// has instances at hd 256 (contiguous decode: recurrentgemma-9b's and
+// paligemma-3b's MQA; paged decode: paligemma's, whose static batch the
+// paged pool serves; not the ragged walk, since the mixed step refuses a
+// bidirectional prefix and recurrent blocks). kExactG3: whether g 3
+// (smollm-360m) takes G 3 rather than 4 (the ragged form in bf16 only:
+// each head's sums are the same at any G, and the padded head cost a
+// quarter of the run walk's steps).
 template <typename T, bool VEC, int HDP, int G>
 struct Contiguous {
   static constexpr bool kWide = true;
@@ -1101,7 +1111,7 @@ struct Contiguous {
 
 template <typename T, bool VEC, int HDP, int G>
 struct Paged {
-  static constexpr bool kWide = false;
+  static constexpr bool kWide = true;
   static constexpr bool kExactG3 = false;
   static cudaError_t run(const void* q, const void* k_pages,
                          const void* v_pages, const void* block_tables,
@@ -1206,9 +1216,10 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
 }
 
 // q (b, kvh * g, hd); k_pages, v_pages (num_blocks, block_size, kvh, hd);
-// block_tables (b, npages) and cur_len (b,) int32; out like q. split:
-// blocks per cluster, as above over the capacity npages * block_size. bf16
-// and vec as above (vec: the page pointers 16-byte aligned).
+// block_tables (b, npages) and cur_len (b,) int32; out like q. hd <= 256;
+// g <= 8. split: blocks per cluster, as above over the capacity npages *
+// block_size. bf16 and vec as above (vec: the page pointers 16-byte
+// aligned).
 extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_tables,

@@ -49,8 +49,14 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-MAX_G = 8            # query heads per KV head the paged and ragged walks hold
-MAX_HD = 128         # the paged and ragged walks' largest head_dim
+# query heads per KV head the paged and ragged walks hold (paligemma-3b's
+# MQA, the widest paged config, has g 8)
+MAX_G = 8
+# the paged walk's largest head_dim: 256 (the wide walk, paligemma-3b's
+# MQA); the ragged walk has no wide instance (no stack with hd 256 runs the
+# mixed step: paligemma's prefix and recurrentgemma's blocks are refused)
+MAX_HD_PAGED = 256
+MAX_HD_RAGGED = 128
 # contiguous decode also takes recurrentgemma-9b's MQA: g up to 16 (in
 # clusters of 8 heads) and hd up to 256 (the wide walk)
 MAX_G_CONTIGUOUS = 16
@@ -195,7 +201,7 @@ def _lib(name: str):
     return fn
 
 
-def _check(q, k, v, ints, max_g=MAX_G, max_hd=MAX_HD):
+def _check(q, k, v, ints, max_g, max_hd):
     """The checks the three kernels share: same devices, types, q (n, h,
     hd) against K/V (..., kvh, hd) with at most ``max_g`` query heads per
     KV head and hd at most ``max_hd``, int32 index tensors, contiguity (the
@@ -246,14 +252,14 @@ def ragged_paged_attention_kernel(q, k_pages, v_pages, block_tables,
                                   token_rows, token_pos, plan=None):
     """Launch the ragged kernel on CUDA tensors (same device, contiguous; q
     and the pages both float32 or both bfloat16; indices int32; hd <=
-    ``MAX_HD``; h a multiple of kvh, at most ``MAX_G`` query heads per KV
-    head). ``plan``: the
+    ``MAX_HD_RAGGED``; h a multiple of kvh, at most ``MAX_G`` query heads
+    per KV head). ``plan``: the
     (n_items, 2) int32 :func:`ragged_plan` of these indices on the device;
     None builds it from host copies of them (:func:`plan_tensor`). Raises
     on anything the kernel does not take; never falls back."""
     ints = (("block_tables", block_tables), ("token_rows", token_rows),
             ("token_pos", token_pos))
-    T, h, hd, kvh = _check(q, k_pages, v_pages, ints)
+    T, h, hd, kvh = _check(q, k_pages, v_pages, ints, MAX_G, MAX_HD_RAGGED)
     if block_tables.dim() != 2 or block_tables.shape[1] < 1:
         raise ValueError(f"block_tables {tuple(block_tables.shape)} must be "
                          "(slots, npages >= 1)")
@@ -321,12 +327,14 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables,
                                   cur_len):
     """Launch the paged decode kernel on CUDA tensors: q (b, h, hd), pages
     (num_blocks, block_size, kvh, hd), block_tables (b, npages) and
-    cur_len (b,) int32, all contiguous; hd <= ``MAX_HD``, at most
-    ``MAX_G`` query heads per KV head. The cluster split is
-    ``decode_split(npages * block_size)``. Raises on anything the kernel
-    does not take; never falls back."""
+    cur_len (b,) int32, all contiguous; hd <= ``MAX_HD_PAGED`` (past 128
+    the wide walk, paligemma-3b's hd 256), at most ``MAX_G`` query heads
+    per KV head. The cluster split is ``decode_split(npages *
+    block_size)``, so a row is bitwise the contiguous row over a cache of
+    ``npages * block_size`` rows. Raises on anything the kernel does not
+    take; never falls back."""
     ints = (("block_tables", block_tables), ("cur_len", cur_len))
-    b, h, hd, kvh = _check(q, k_pages, v_pages, ints)
+    b, h, hd, kvh = _check(q, k_pages, v_pages, ints, MAX_G, MAX_HD_PAGED)
     if block_tables.dim() != 2 or block_tables.shape[0] != b or \
             block_tables.shape[1] < 1 or cur_len.shape != (b,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} must be "

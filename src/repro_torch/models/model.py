@@ -19,8 +19,9 @@ P-Tuning v1 runs the whole-sequence entry points on all three.
 ``"chunked"``, in plain PyTorch (``attention_chunked`` or
 ``attention_ref``, then ``layers.attention_decode``), as the reference
 runs its serving entry points under any ``attn_impl``: the dry run
-(``launch.dryrun``) costs them so. ``mixed_step`` serves on the kernels
-only.
+(``launch.dryrun``) costs them so. ``mixed_step`` runs under all three
+too: off ``"kernel"`` its ragged attention is the plain
+``layers.ragged_paged_attention_decode``.
 
 Layer rematerialization (``ModelOptions.remat``; the reference turns it
 on by default, the port leaves it off: a training step here is bound by
@@ -226,10 +227,12 @@ def check_supported(cfg: ArchConfig) -> None:
 def check_servable(cfg: ArchConfig) -> None:
     """Raise unless the serving entry points (``prefill``, ``decode_step``,
     ``mixed_step``, ``ServeEngine``) serve ``cfg``: a causal stack with
-    RoPE or no positions (xlstm-350m). An encoder (non-causal, learned
-    positions) runs the whole-sequence entry points only. The reference
-    asserts causality in its ``mixed_step`` but not in ``prefill`` /
-    ``decode_step``; the port refuses all three (ROADMAP C6)."""
+    RoPE or no positions (xlstm-350m), under any ``attn_impl``. An encoder
+    (non-causal, learned positions) runs the whole-sequence entry points
+    only. The reference asserts causality in its ``mixed_step`` but not in
+    ``prefill`` / ``decode_step``; the port refuses all three (ROADMAP
+    C6). A causal stack with a bidirectional prefix (paligemma-3b) is
+    servable: only the mixed step refuses it (:func:`refuse_prefix_lm`)."""
     check_supported(cfg)
     if not cfg.causal or cfg.pos_type not in ("rope", "none"):
         raise NotImplementedError(
@@ -239,15 +242,19 @@ def check_servable(cfg: ArchConfig) -> None:
 
 
 def refuse_prefix_lm(cfg: ArchConfig, what: str) -> None:
-    """Raise NotImplementedError for ``what`` (the paged pool, paged
-    decode, the mixed step) on a stack with a bidirectional prefix, in the
-    reference's words (its ``mixed_step`` asserts causal masking): bucket
-    padding and other requests' tokens would enter the prefix."""
+    """Raise NotImplementedError for ``what`` (the unified mixed step) on a
+    stack with a bidirectional prefix, in the reference's words (its
+    ``mixed_step`` asserts causal masking, and its continuous scheduler
+    refuses the prefix alike): a packed tick's other tokens and chunks
+    would enter the prefix. The paged pool and paged decode take such a
+    stack, as the reference's do: a static batch's prefill writes its
+    bidirectional K/V, and each decoded token attends causally past it."""
     if cfg.prefix_lm_len:
         raise NotImplementedError(
             f"{cfg.name}: {what} relies on causal masking, and a "
             f"bidirectional prefix ({cfg.prefix_lm_len} tokens) is not; "
-            "serve it with static batches over a contiguous cache")
+            "serve it with static batches (over a contiguous cache or a "
+            "paged pool)")
 
 
 def recurrent_kinds(cfg: ArchConfig):
@@ -543,10 +550,10 @@ class Model:
         """Shape and dtype of each paged pool leaf: a global
         (L, num_blocks, block_size, kvh, hd) K and V page pool shared by
         every request. Attention-only stacks: recurrent state has no paged
-        layout (the reference asserts the same)."""
+        layout (the reference asserts the same). A bidirectional prefix is
+        held as its prefill wrote it."""
         cfg = self.cfg
         refuse_recurrent(cfg, "the paged KV pool")
-        refuse_prefix_lm(cfg, "the paged KV pool")
         shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
                  cfg.head_dim)
         return {"k": (shape, self.opts.compute_dtype),
@@ -596,17 +603,6 @@ class Model:
             f"peft {method!r} runs only through forward / logits / classify"
             f"{where}; the serving entry points serve {', '.join(SERVED)}, "
             "AoT as fused tables")
-
-    def _serving(self, entry: str, kernels: bool = False) -> None:
-        """Raise unless the serving entry point ``entry`` runs here: a
-        servable backbone (:func:`check_servable`), and with ``kernels``
-        (the mixed step) on the kernels."""
-        check_servable(self.cfg)
-        if kernels and self.opts.attn_impl != "kernel":
-            raise NotImplementedError(
-                f"{entry} runs the serving kernels only (attn_impl="
-                f"'kernel'); attn_impl={self.opts.attn_impl!r} runs the "
-                "whole-sequence entry points")
 
     def _layer_generators(self, rng):
         """One dropout generator per layer, seeded by draws from the step's
@@ -1104,7 +1100,7 @@ class Model:
         reference keeps the padded tail there, which loses real rows:
         ROADMAP C7). Returns (logits (b, 1, V), cache, pos = s + p):
         BitFit's ``final`` bias is not added here, as in the reference."""
-        self._serving("prefill")
+        check_servable(self.cfg)
         cache = self.init_cache(tokens.shape[0], max_len)
         h, p = self._prompt(params, tokens, peft, cache, max_len=max_len,
                             real=None if last_pos is None
@@ -1124,6 +1120,8 @@ class Model:
         ``"task_ids"`` (b,) for stacked tasks; P-Tuning v2 takes the
         contiguous cache only. A sliding-window config takes the
         contiguous cache only (the reference's words, ``SWA_PAGED_DECODE``).
+        A bidirectional prefix (paligemma-3b) decodes over either: the
+        prefill wrote its K/V, and each new token attends causally.
 
         The new K/V is written into the cache IN PLACE (the reference
         returns a new cache): contiguous at row ``pos`` (``pos % rows`` in
@@ -1140,13 +1138,12 @@ class Model:
         cache). Paged positions on the CPU are held to the block table
         first (:func:`check_table_reach`)."""
         cfg = self.cfg
-        self._serving("decode_step")
+        check_servable(cfg)
         method = self._method(peft)
         if method == "ptv2" and block_tables is not None:
             raise NotImplementedError(_PTV2_PAGED)
         if block_tables is not None:
             refuse_recurrent(cfg, "paged decode")
-            refuse_prefix_lm(cfg, "paged decode")
         if self.window() and block_tables is not None:
             raise NotImplementedError(SWA_PAGED_DECODE)
         dev = self.device
@@ -1246,7 +1243,12 @@ class Model:
         logits to report; plan: the ragged attention kernel's plan of
         token_rows / token_pos (``kernels.decode_attention.ragged_plan``) on
         the card, which ``ServeEngine.serve_step`` uploads with the tick's
-        other arrays; None builds it here once, from host copies.
+        other arrays; None builds it here once, from host copies. Under
+        ``attn_impl="kernel"`` each layer attends through the ragged kernel;
+        under ``"chunked"`` / ``"ref"`` (whose norms and AoT rows are plain
+        PyTorch too), or with a softcap, through the plain
+        ``layers.ragged_paged_attention_decode`` walk on any device (no
+        plan), as the reference routes its ragged branch off ``"pallas"``.
 
         The KV pool is updated IN PLACE (the reference returns a new cache
         from ``.at[].set``): every token's K/V is written into its slot's
@@ -1283,7 +1285,7 @@ class Model:
         refuse_recurrent(cfg, "the unified mixed step")
         refuse_prefix_lm(cfg, "the unified mixed step")
         assert block_tables is not None, "mixed_step serves paged pools only"
-        self._serving("mixed_step", kernels=True)
+        check_servable(cfg)
         method = self._method(peft)
         if method == "ptv2":
             raise NotImplementedError(_PTV2_PAGED)
@@ -1302,17 +1304,19 @@ class Model:
                                                pos // bs_page], 0)
         row = page * bs_page + pos % bs_page      # pool row of each token
         kvh, hd = cfg.num_kv_heads, cfg.head_dim
-        if plan is None:
-            plan = ops.ragged_plan(token_rows, token_pos)
-        aot = (ids, peft.get("task_ids")) if method == "aot" else None
         softcap = cfg.logit_softcap
+        plain = softcap or self.opts.attn_impl != "kernel"
+        if plan is None and not plain:
+            plan = ops.ragged_plan(token_rows, token_pos)
+        aot = ((ids, peft.get("task_ids"), None, None) if method == "aot"
+               else None)
         for i, lp in enumerate(params["layers"]):
             kc, vc = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, kc=kc, vc=vc):
                 kc.view(-1, kvh, hd).index_copy_(0, row, k[:, 0].to(kc.dtype))
                 vc.view(-1, kvh, hd).index_copy_(0, row, v[:, 0].to(vc.dtype))
-                if softcap:     # the reference's XLA walk; no kernel
+                if plain:       # the reference's XLA walk; no kernel
                     return L.ragged_paged_attention_decode(
                         q, kc, vc, block_tables, token_rows, token_pos,
                         softcap=softcap)

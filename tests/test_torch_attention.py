@@ -8,7 +8,8 @@ float32 and 2e-2 in bfloat16 (``tests/test_kernels.py``): flash attention
 (causal, full and sliding window; sq equal to skv or not; GQA; queries
 from an offset, against the reference's XLA path, which takes that) and the
 contiguous and paged decode kernels (scalar and per-row lengths, lengths
-of 0, lengths that straddle pages). The port's oracles and its XLA-path
+of 0, lengths that straddle pages; paged also at paligemma-3b's hd 256,
+g 8). The port's oracles and its XLA-path
 layers are held to the reference's. The CUDA kernels are held to the same
 plain versions on the card by chip_smoke.py.
 """
@@ -30,7 +31,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels.decode_attention import (
     decode_attention_kernel as port_decode_kernel,
-    paged_decode_attention_kernel as port_paged_kernel)
+    paged_decode_attention_kernel as port_paged_kernel,
+    ragged_paged_attention_kernel as port_ragged_kernel)
 from repro_torch.kernels.flash_attention import \
     flash_attention_kernel as port_flash_kernel
 from repro_torch.models import layers as port_layers
@@ -217,6 +219,9 @@ def test_attention_decode_matches_reference_layer(rng, window, cur):
 # scrambled pages: row 0 empty, row 1 straddles a page edge, row 2 deep
 PAGED = {"h": 4, "kvh": 2, "hd": 16, "bs": 4, "nb": 24,
          "cur_len": [0, 6, 17, 20]}
+# paligemma-3b's MQA (h 8, kvh 1, hd 256: g 8), the paged walk's widest
+PALI_PAGED = {"h": 8, "kvh": 1, "hd": 256, "bs": 4, "nb": 24,
+              "cur_len": [0, 6, 17, 20]}
 
 
 def _paged_inputs(rng, dtype, h, kvh, hd, bs, nb, cur_len):
@@ -231,8 +236,23 @@ def _paged_inputs(rng, dtype, h, kvh, hd, bs, nb, cur_len):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_decode_plain_matches_pallas_kernel(rng, dtype):
+    _paged_against_reference(rng, dtype, PAGED)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_plain_at_paligemma_heads_matches_pallas_kernel(
+        rng, dtype):
+    """The paged walk at its widest (hd 256, g 8: paligemma-3b's paged
+    decode), small pages spanned by every length but 0."""
+    _paged_against_reference(rng, dtype, PALI_PAGED)
+
+
+def _paged_against_reference(rng, dtype, shapes):
+    """The plain paged decode (through ``ops`` on the CPU) against the
+    Pallas kernel in interpret mode and its oracle, the port's oracle
+    against the reference's, and the XLA-path layers."""
     (qj, qt), (kj, kt), (vj, vt), (btj, btt), (lj, lt) = _paged_inputs(
-        rng, dtype, **PAGED)
+        rng, dtype, **shapes)
     out = ops.paged_decode_attention(qt, kt, vt, btt, lt)
     assert out.dtype == qt.dtype and out.shape == qt.shape
     pallas = paged_decode_attention_kernel(qj, kj, vj, btj, lj,
@@ -293,10 +313,20 @@ BAD = {
     "paged_group_over_8": (port_paged_kernel,
                            (torch.zeros(2, 9, 8), _C4, _C4, _i32(2, 3),
                             _i32(2)), ValueError, "unsupported"),
-    "paged_hd_over_128": (port_paged_kernel,
-                          (torch.zeros(2, 1, 136), torch.zeros(2, 5, 1, 136),
-                           torch.zeros(2, 5, 1, 136), _i32(2, 3), _i32(2)),
+    "paged_hd_over_256": (port_paged_kernel,
+                          (torch.zeros(2, 1, 264), torch.zeros(2, 5, 1, 264),
+                           torch.zeros(2, 5, 1, 264), _i32(2, 3), _i32(2)),
                           ValueError, "unsupported"),
+    # hd 256 at g 8 passes every check but the device's (the wide walk)
+    "paged_hd_256_cpu": (port_paged_kernel,
+                         (torch.zeros(2, 8, 256), torch.zeros(2, 5, 1, 256),
+                          torch.zeros(2, 5, 1, 256), _i32(2, 3), _i32(2)),
+                         ValueError, "CUDA tensors"),
+    # the ragged walk keeps its own limit: hd 256 is refused there
+    "ragged_hd_over_128": (port_ragged_kernel,
+                           (torch.zeros(1, 8, 256), torch.zeros(3, 4, 1, 256),
+                            torch.zeros(3, 4, 1, 256), _i32(1, 2), _i32(1),
+                            _i32(1)), ValueError, "unsupported"),
     "flash_hd_over_256": (port_flash_kernel,
                           (torch.zeros(1, 4, 2, 264), torch.zeros(1, 4, 1, 264),
                            torch.zeros(1, 4, 1, 264)), ValueError,

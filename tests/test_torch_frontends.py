@@ -19,7 +19,9 @@ logits there: ROADMAP's copied behaviour), the static batch. P-Tuning v1
 on the kernel path (smollm, paligemma, hubert). The refusals in the
 reference's words, one train step per arch, the launcher, and ROADMAP
 C12: the reference's P-Tuning v1 decode is off its own logits, the port
-refuses it.
+refuses it. ROADMAP C17: the paged pool and paged decode on paligemma
+under every impl against the reference's, and the paged static batch
+(prefill, ``write_prefill``, paged decode) against the contiguous one.
 """
 import dataclasses
 
@@ -415,8 +417,12 @@ def test_paligemma_static_batch_matches_reference(pali_decode):
 def test_refusals_in_the_references_words():
     """AoT's fc / kron on hubert (its unit-AoT fused table is allowed), the
     serving engine on hubert (so no scheduler reaches audio frames), the
-    continuous scheduler on paligemma, the paged paths on the prefix-LM, and an
-    input that does not fit the front-end."""
+    continuous scheduler and the mixed step on paligemma (the reference's
+    own refusals of a bidirectional prefix), and an input that does not fit
+    the front-end. The paged pool and paged decode, which the reference
+    runs on the prefix-LM, serve it here too (ROADMAP C17): a decode step
+    over the pool is the contiguous step's (within 2e-5; the reference's
+    in ``test_c17_paged_decode_matches_reference``)."""
     _, jp, hcfg, _ = arch(HUBERT)
     for mode in ("fc", "kron"):
         with pytest.raises(ValueError, match="needs discrete input ids"):
@@ -446,15 +452,113 @@ def test_refusals_in_the_references_words():
                          torch.zeros(2, dtype=torch.int32),
                          torch.zeros(2, dtype=torch.int32), {},
                          block_tables=torch.zeros(1, 1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="causal masking"):
-        model.init_paged_cache(4, 4)
-    with pytest.raises(NotImplementedError, match="causal masking"):
-        model.decode_step(params, torch.zeros(1, 1, dtype=torch.long),
-                          torch.zeros(1, dtype=torch.int32), {},
-                          block_tables=torch.zeros(1, 1, dtype=torch.int32))
+    pool = model.init_paged_cache(4, 4)
+    assert pool["k"].shape == (cfg.num_layers, 4, 4, cfg.num_kv_heads,
+                               cfg.head_dim)
+    step = lambda cache, bt=None: np32(model.decode_step(
+        params, torch.ones(1, 1, dtype=torch.long),
+        torch.zeros(1, dtype=torch.int32), cache, block_tables=bt)[0])
+    np.testing.assert_allclose(
+        step(pool, torch.tensor([[2]], dtype=torch.int32)),
+        step(model.init_cache(1, 4)), **TOL)
     with pytest.raises(ValueError, match="patches"):
         model.forward(params, torch.zeros(1, 3, dtype=torch.long),
                       patches=torch.zeros(1, 4, cfg.frontend_dim))
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C17: the paged pool and paged decode on the prefix-LM
+# ---------------------------------------------------------------------------
+
+C17_TABLES = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+C17_STEPS = 8
+
+
+def _c17_decode(model, params, toks, paged, jax_side=False):
+    """ROADMAP C17's smallest input: ``C17_STEPS`` decode steps of two rows
+    from position 0 (per-row ``pos``; the given tokens), over
+    ``init_paged_cache(9, 4)`` with ``C17_TABLES`` when ``paged``, else a
+    contiguous cache of 16 rows (the tables' capacity). Returns the
+    logits (steps, b, V) as numpy."""
+    b = toks.shape[0]
+    arr = jnp.asarray if jax_side else torch.from_numpy
+    cache = model.init_paged_cache(9, 4) if paged else model.init_cache(b, 16)
+    bt = arr(C17_TABLES) if paged else None
+    out = []
+    for t in range(C17_STEPS):
+        pos = arr(np.full((b,), t, np.int32))
+        lg, cache = model.decode_step(params, arr(toks[:, t:t + 1]), pos,
+                                      cache, block_tables=bt)
+        out.append(np32(lg[:, 0]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+def test_c17_paged_decode_matches_reference(impl):
+    """Reduced paligemma-3b (prefix 4, h 4, kvh 1, hd 16), the ``arch``
+    weights: the port's paged decode on the kernels' plain versions and
+    under "ref" (whose decode walk "chunked" shares) within 2e-5 of the
+    reference's paged decode under "pallas" / "ref", and of the port's own
+    contiguous decode; the reference's paged decode is its contiguous one
+    within 2e-5 too (0.0 under "ref")."""
+    jcfg, jp, cfg, params = arch(PALI)
+    toks = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (2, C17_STEPS)).astype(np.int32)
+    jmodel = JModel(jcfg, JOpts(attn_impl=IMPLS[impl]))
+    model = Model(cfg, ModelOptions(attn_impl=impl), device="cpu")
+    want = _c17_decode(jmodel, jp, toks, True, jax_side=True)
+    got = _c17_decode(model, params, toks, True)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, _c17_decode(model, params, toks, False),
+                               **TOL)
+    np.testing.assert_allclose(
+        _c17_decode(jmodel, jp, toks, False, jax_side=True), want, **TOL)
+
+
+def test_paligemma_paged_static_batch_gives_contiguous_tokens(
+        pali_decode, kernel_checks):  # noqa: F811
+    """The static batch over the paged pool, through the port's entry
+    points (``prefill`` with the patches, each row written into a
+    ``PagedKVPool`` with ``write_prefill``, greedy ``decode_step(
+    block_tables=)``, every kernel's argument checks passed): the contiguous
+    batch's greedy tokens, logits within 2e-5, one paged decode per layer
+    and step and no contiguous one, and the pool drains clean."""
+    from repro_torch.serve.kv_pool import PagedKVPool
+    tasks, jb = pali_decode[:2]
+    _, _, cfg, params = arch(PALI)
+    model, pb = Model(cfg, device="cpu"), port_bundle(jb)
+    toks, kw = port_inputs(inputs(cfg, s=9, seed=11))
+    b, s, steps, bs, L = toks.shape[0], toks.shape[1], 6, 4, cfg.num_layers
+    max_len = 20                          # 5 pages of 4, the cache's rows
+
+    def greedy(cache, pos, lg, bt=None):
+        lgs, out = [np32(lg[:, -1])], []
+        for i in range(steps):
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out.append(tok)
+            lg, cache = model.decode_step(
+                params, tok, torch.full((b,), pos + i, dtype=torch.int32),
+                cache, pb, block_tables=bt)
+            lgs.append(np32(lg[:, -1]))
+        return np.stack(lgs), torch.cat(out, 1).numpy()
+
+    lg, cache, pos = model.prefill(params, toks, pb, max_len=max_len, **kw)
+    pool = PagedKVPool(model, b, max_len, block_size=bs)
+    for r in range(b):
+        slot = pool.alloc(int(TASK_IDS[r]), pool.pages_needed(s + steps))
+        pool.write_prefill(slot, {n: c[:, r:r + 1] for n, c in cache.items()},
+                           s)
+    bt = torch.as_tensor(pool.block_tables)
+    ops.reset_launches()
+    lg_p, tok_p = greedy(pool.cache, pos, lg, bt)
+    assert ops.launches()["paged_decode_attention"] == L * steps
+    assert ops.launches()["decode_attention"] == 0
+    lg_c, tok_c = greedy(cache, pos, lg)
+    np.testing.assert_array_equal(tok_p, tok_c)
+    np.testing.assert_allclose(lg_p, lg_c, **TOL)
+    for r in range(b):
+        pool.free(r)
+    assert pool.leak_report() == [] and pool.blocks_in_use() == 0
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,8 @@ greedy decode tokens must equal the reference's ``decode_step`` tokens. A
 live position past the block table is refused with ValueError by the tick
 (``ServeEngine.serve_step``), ``mixed_step`` and paged ``decode_step``,
 where the reference clamps the page index and overwrites a resident row.
+ROADMAP C18: ``mixed_step`` under "kernel", "chunked" and "ref" against the
+reference's under "pallas", "chunked" and "ref".
 """
 import jax
 import jax.numpy as jnp
@@ -104,6 +106,63 @@ def test_mixed_step_matches_reference(rng, lm, packing):
                                  block_tables=btt, logit_idx=lt)
     live = sorted({r for r, p in zip(rows, pos) if p >= 0})
     np.testing.assert_allclose(np32(lg)[live], np32(lg_j)[live], **TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(np32(cache[name])[:, 1:],
+                                   np32(cache_j[0]["b0"][name])[:, 1:], **TOL)
+
+
+# ROADMAP C18's smallest input: a 4-token tick over 3 slots of a float32
+# pool of 13 pages of 4 (tables 1..12), slot 0 decoding at 5, slot 1 a
+# chunk at 2-3, slot 2 its first token
+C18 = dict(rows=[0, 1, 1, 2], pos=[5, 2, 3, 0], tasks=[2, 0, 0, 1],
+           logit_idx=[0, 2, 3], num_blocks=13)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "chunked", "ref"])
+def test_c18_mixed_step_under_each_impl_matches_reference(rng, lm, impl,
+                                                          monkeypatch):
+    """The port's ``mixed_step`` under ``attn_impl`` (the kernels, here
+    counted and run by their plain versions, or the plain ragged walk with
+    the plain norms and rows, which launches nothing) against the
+    reference's under its counterpart ("pallas", "chunked", "ref") on
+    C18's input: logits and the written K/V within 2e-5."""
+    from repro.models.model import Model as JModel
+    from repro.models.model import ModelOptions as JOpts
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import ModelOptions
+    monkeypatch.setattr(ops, "_on_cpu", lambda *xs: False)
+    for fn in ops.WRAPPERS:
+        plain = getattr(ops, f"{fn.__name__}_plain")
+        if fn is ops.ragged_paged_attention:    # its plain one takes no plan
+            plain = lambda *a, plain=plain: plain(*a[:6])
+        monkeypatch.setattr(ops, f"{fn.__name__}_kernel", plain)
+    ops.reset_launches()
+    cfg, _, jparams, tasks, _, params, tables = lm
+    jmodel = JModel(cfg, JOpts(attn_impl={"kernel": "pallas"}.get(impl,
+                                                                   impl)))
+    model = Model(cfg, ModelOptions(attn_impl=impl), device="cpu")
+    shape = (cfg.num_layers, C18["num_blocks"], BS, cfg.num_kv_heads,
+             cfg.head_dim)
+    (kj, kt), (vj, vt) = both(rng.normal(size=shape)), both(
+        rng.normal(size=shape))
+    tokens = rng.integers(0, cfg.vocab_size, (4, 1)).astype(np.int32)
+    bt = np.arange(1, 13, dtype=np.int32).reshape(3, 4)
+    (tokj, tokt), (rj, rt), (pj, pt), (btj, btt), (tkj, tkt), (lj, lt) = [
+        both(np.asarray(a, np.int32)) for a in (
+            tokens, C18["rows"], C18["pos"], bt, C18["tasks"],
+            C18["logit_idx"])]
+    lg_j, cache_j = jmodel.mixed_step(
+        jparams, tokj, rj, pj, [{"b0": {"k": kj, "v": vj}}],
+        jax_peft(tasks, tkj), block_tables=btj, logit_idx=lj)
+    lg, cache = model.mixed_step(
+        params, tokt, rt, pt, {"k": kt.clone(), "v": vt.clone()},
+        port_tasks_peft(tables, tkt), block_tables=btt, logit_idx=lt)
+    L = cfg.num_layers if impl == "kernel" else 0
+    assert {k: v for k, v in ops.launches().items() if v} == (
+        {"aot_gather_add_multitask": L, "ragged_paged_attention": L}
+        if L else {})
+    ops.reset_launches()
+    np.testing.assert_allclose(np32(lg), np32(lg_j), **TOL)
     for name in ("k", "v"):
         np.testing.assert_allclose(np32(cache[name])[:, 1:],
                                    np32(cache_j[0]["b0"][name])[:, 1:], **TOL)

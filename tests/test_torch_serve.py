@@ -1,7 +1,8 @@
 """The port's serving stack against the JAX reference's: the paged KV pool's
 bookkeeping, the continuous scheduler's token streams (greedy and
 stochastic, on a workload that splits the multi-prefill budget and forces
-preempt-and-recompute), one dispatch per tick, and the launcher."""
+preempt-and-recompute; greedy under ``attn_impl="ref"``, ROADMAP C18), one
+dispatch per tick, and the launcher."""
 import numpy as np
 import pytest
 
@@ -111,6 +112,41 @@ def test_token_streams_equal_reference(engines, stochastic):
     sched.run()
     assert sched.preemptions == 0
     assert [r.out for r in roomy] == [r.out for r in reqs]
+
+
+def test_token_streams_under_ref_equal_reference(tiny_lm):
+    """ROADMAP C18: the continuous scheduler's greedy stream (the workload
+    above, ample pages) with both models under ``attn_impl="ref"``: each
+    tick's ``ServeEngine.serve_step`` runs the port's ``mixed_step`` on
+    its plain ragged walk, and every request's tokens equal the reference
+    engine's."""
+    from repro.models.model import Model as JModel
+    from repro.models.model import ModelOptions as JOpts
+    from repro_torch.models.model import Model, ModelOptions
+    cfg, _, jparams = tiny_lm
+    tasks = jax_tasks(cfg, jparams, 3)
+    jeng = JServeEngine(JModel(cfg, JOpts(attn_impl="ref")), jparams,
+                        JServeConfig(max_len=MAX_LEN), fused_tasks=tasks)
+    _, params = port_lm(tiny_lm)
+    eng = ServeEngine(Model(cfg, ModelOptions(attn_impl="ref"),
+                            device="cpu"), params,
+                      ServeConfig(max_len=MAX_LEN),
+                      fused_tasks=port_tables(tasks))
+    sched_kw = dict(SCHED, num_blocks=0)
+    jreqs = _workload(cfg, JRequest, JSampling, False)
+    jsched = JScheduler(jeng, JSchedulerConfig(kv_layout="paged",
+                                               bucket_min=8, **sched_kw))
+    for r in jreqs:
+        jsched.submit(r)
+    jsched.run()
+    reqs = _workload(cfg, Request, SamplingParams, False)
+    sched = ContinuousScheduler(eng, SchedulerConfig(**sched_kw))
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    assert sched.drain_check() == []
+    assert eng.dispatches == sched.ticks == jsched.ticks
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
 
 
 def test_launcher_demo_on_cpu():

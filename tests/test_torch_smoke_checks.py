@@ -47,22 +47,34 @@ def _ptxas(name, regs, spill):
             f"ptxas info    : Used {regs} registers, 380 bytes cmem[0]\n")
 
 
+# paged decode's wide walk at hd 256 (phase 2 requires every instance)
+WIDE = "".join(_ptxas(f"_ZN12_GLOBAL__N_119decode_split_kernel{a}EvPKT_",
+                      120, 0) for a in cs.WIDE_PAGED)
+
 LOGS = {
     "clean": ({"flash_attention": _ptxas(FLASH, 168, 0),
-               "decode_attention": _ptxas(DECODE, 72, 0)
+               "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
                + _ptxas(RAGGED, 168, 0)}, None),
     "spill": ({"flash_attention": _ptxas(FLASH, 255, 40),
-               "decode_attention": _ptxas(DECODE, 72, 0)
+               "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
                + _ptxas(RAGGED, 168, 0)}, "spill"),
     "spill_ragged": ({"flash_attention": _ptxas(FLASH, 168, 0),
-                      "decode_attention": _ptxas(DECODE, 72, 0)
+                      "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
                       + _ptxas(RAGGED, 128, 16)}, "spill"),
+    "spill_wide_paged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+                          "decode_attention": _ptxas(DECODE, 72, 0)
+                          + WIDE.replace("0 bytes spill", "8 bytes spill", 1)
+                          + _ptxas(RAGGED, 168, 0)}, "spill"),
     "missing": ({"flash_attention": _ptxas(FLASH, 168, 0),
                  "decode_attention": _ptxas("other_kernel", 40, 0)},
                 "missing"),
     "missing_ragged": ({"flash_attention": _ptxas(FLASH, 168, 0),
-                        "decode_attention": _ptxas(DECODE, 72, 0)},
+                        "decode_attention": _ptxas(DECODE, 72, 0) + WIDE},
                        "missing"),
+    "missing_wide_paged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+                            "decode_attention": _ptxas(DECODE, 72, 0)
+                            + _ptxas(RAGGED, 168, 0)},
+                           "missing.*Li256ELi4ELb1EE"),
     "cached": ({"flash_attention": "cached",
                 "decode_attention": "cached"}, None),
     "gather_norm": ({"flash_attention": "cached",
@@ -95,7 +107,8 @@ def test_phase2_refuses_spills_of_redesigned_kernels(case):
     else:
         assert new == {"flash_mma_kernel": ["ILi64ELb1EE:168r/0s"],
                        "decode_split_kernel":
-                           ["I13__nv_bfloat16Lb1ELi64ELi4ELb1EE:72r/0s"],
+                           ["I13__nv_bfloat16Lb1ELi64ELi4ELb1EE:72r/0s"]
+                           + [f"{a}:120r/0s" for a in cs.WIDE_PAGED],
                        "ragged_split_kernel":
                            ["I13__nv_bfloat16Lb1ELi64ELi4EE:168r/0s"]}
 
@@ -1051,11 +1064,14 @@ def test_phase11_on_reduced_moe_configs(monkeypatch):
 
 def test_phase13_on_reduced_frontends(monkeypatch):
     """Phase 13 on the CPU at reduced widths (paligemma-3b and
-    hubert-xlarge with 2 layers, a prefix of 4 patches, 4 x (4 + 12) + 5
-    steps, frames 2 x 24): every gate of 13a and 13b runs and passes, the
-    launches are exact (the prefix through attention_chunked, no flash in
-    paligemma's prefill; P-Tuning v1's on hubert likewise), and a stray
-    launch or a missing chunked call fails the launch arithmetic."""
+    hubert-xlarge with 2 layers, a prefix of 4 patches, 4 x (4 + 15) + 5
+    steps over a cache of 40 rows, the paged leg's pool 5 pages of 8 a
+    row, frames 2 x 24): every gate of 13a and 13b runs and passes (the
+    paged leg's tokens equal and its logits bitwise the contiguous leg's),
+    the launches are exact (the prefix through attention_chunked, no flash
+    in paligemma's prefill; paged decode alone in the paged leg; P-Tuning
+    v1's on hubert likewise), and a stray launch or a missing chunked call
+    fails the launch arithmetic."""
     from repro_torch import configs
     from repro_torch.kernels import aot_bias, ops
     from repro_torch.kernels import decode_attention as da
@@ -1075,12 +1091,15 @@ def test_phase13_on_reduced_frontends(monkeypatch):
              aot_bias.aot_gather_add_multitask_plain),
             ("rms_norm_kernel", aot_bias.rms_norm_plain),
             ("flash_attention_kernel", fa.flash_attention_plain),
-            ("decode_attention_kernel", da.decode_attention_plain)):
+            ("decode_attention_kernel", da.decode_attention_plain),
+            ("paged_decode_attention_kernel",
+             da.paged_decode_attention_plain)):
         monkeypatch.setattr(ops, name, fn)
     get = configs.get
     monkeypatch.setattr(configs, "get",
                         lambda name: configs.reduced(get(name), repeats=2))
-    monkeypatch.setattr(cs, "PALI", dict(cs.PALI, static=(4, 12, 5)))
+    monkeypatch.setattr(cs, "PALI", dict(cs.PALI, static=(4, 15, 5)))
+    monkeypatch.setattr(cs, "BS", 8)
     monkeypatch.setattr(cs, "PALI_CHECK_STEPS", (0, 2, 4))
     monkeypatch.setattr(cs, "HUBERT", dict(cs.HUBERT, frames=(2, 24),
                                            max_pos=64))
@@ -1102,6 +1121,10 @@ def test_phase13_on_reduced_frontends(monkeypatch):
         "aot_gather_add_multitask": 2, "chunked": 2}
     assert nonzero(launches["front_pali_decode"]) == {
         "aot_gather_add_multitask": 10, "decode_attention": 10}
+    assert nonzero(launches["front_pali_paged"]) == {
+        "aot_gather_add_multitask": 10, "paged_decode_attention": 10}
+    paged = front["paligemma"]["paged"]
+    assert paged["tokens_per_s"] > 0 and paged["step"]["host_ms"] > 0
     for label in cs.HUBERT_METHODS:
         assert nonzero(launches[f"front_hubert_{label}"]) == \
             cs.encoder_launches(2, label)
@@ -1114,6 +1137,26 @@ def test_phase13_on_reduced_frontends(monkeypatch):
         cs.check_launches("13", dict(cs.encoder_launches(2, "ptv1"),
                                      flash_attention=1),
                           cs.encoder_launches(2, "ptv1"))
+
+
+def test_phase13_paged_leg_gate_names_each_failure():
+    """13a's paged leg gate: nothing on equal tokens and bitwise logits at
+    the checked steps; a token that differs names its row, a logit that
+    differs at a checked step names the step, and one at an unchecked
+    step is not gated."""
+    out = torch.arange(12).reshape(3, 4)
+    lg = torch.randn(5, 3, 7, generator=torch.Generator().manual_seed(0))
+    assert cs.paged_leg_failures(out, out.clone(), lg, lg.clone(),
+                                 (0, 3)) == []
+    bad = out.clone()
+    bad[1, 2] += 1
+    (msg,) = cs.paged_leg_failures(out, bad, lg, lg.clone(), (0, 3))
+    assert "rows [1]" in msg
+    off = lg.clone()
+    off[4, 0, 0] += 1e-3            # decode step 3's logits
+    off[2, 0, 0] += 1.0             # step 1's: not a checked step
+    (msg,) = cs.paged_leg_failures(out, out.clone(), lg, off, (0, 3))
+    assert msg.startswith("paged step 3 logits not bitwise")
 
 
 # ---------------------------------------------------------------------------
@@ -1196,6 +1239,25 @@ def test_phase14c_expert_parallelism_on_cpu(one_rank_mesh):
 
 def test_phase14d_compressed_all_reduce_on_cpu(one_rank_mesh):
     assert cs.compressed_vs_rounding("cpu") == []
+
+
+def test_phase3_paged_wide_variants_on_the_cpu(monkeypatch):
+    """Phase 3's wide paged variants (hd 256 at g 8 and g 3, hd 250 on
+    misaligned data) on the CPU, where the wrappers run the plain
+    versions: every page size and every paged-vs-contiguous case runs, and
+    paged decode over a contiguous cache's pages is bitwise its
+    contiguous decode (the plain versions, at equal capacity)."""
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    report = {"parity": {}}
+    cs.parity_paged_wide(torch.Generator().manual_seed(0), report)
+    wide = report["parity"]["paged_wide"]
+    assert sorted(wide) == sorted(cs.PAGED_WIDE_VARIANTS)
+    for variant in wide.values():
+        assert len(variant["cases"]) == 2 * len(cs.PARITY_BS)
+        # S 1024, 1000, 2048, 300 at pages of 4, 8, 16, 32 that divide S
+        assert variant["bitwise_contiguous"] == 2 * (4 + 4 + 2 + 4 + 1)
+    assert not set(cs.PAGED_WIDE_VARIANTS) & set(cs.PARITY_VARIANTS)
 
 
 def test_phase3_softcap_cases_run_on_the_cpu():

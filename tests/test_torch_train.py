@@ -155,10 +155,11 @@ def test_fused_equals_on_the_fly_bitwise(tiny_lm, mode):
 
 def test_training_methods_run_only_under_ref(tiny_lm):
     """AoT's fc reparametrization runs whole sequences under "ref" only;
-    the mixed step serves on the kernels only; prefill under "ref" serves
-    (the reference's serving entry points take any attn_impl, the dry run
-    costs them so) and refuses the training-only method, and its logits
-    and cache are the kernel path's within 2e-5."""
+    the serving entry points run under "ref" too, as the reference's take
+    any attn_impl (the dry run costs them so): the mixed step's logits and
+    written pool are the kernel path's within 2e-5 (ROADMAP C18), and
+    prefill refuses the training-only method and gives the kernel path's
+    logits and cache within 2e-5."""
     cfg = tiny_lm[0]
     model, params = _port(tiny_lm, "kernel")
     opt = PP.PEFTOptions(method="aot", aot=PA.AoTOptions(mode="fc", rank=4))
@@ -166,11 +167,18 @@ def test_training_methods_run_only_under_ref(tiny_lm):
     with pytest.raises(NotImplementedError, match="attn_impl='ref'"):
         model.forward(params, _tokens(cfg), pp)
     ref, _ = _port(tiny_lm)
-    cache = ref.init_paged_cache(4, 8)
-    with pytest.raises(NotImplementedError, match="serving kernels"):
-        ref.mixed_step(params, _tokens(cfg, 1, 2).T, torch.zeros(2).int(),
-                       torch.arange(2).int(), cache,
-                       block_tables=torch.ones(1, 2).int())
+    tick = dict(token_rows=torch.zeros(2).int(),
+                token_pos=torch.arange(2).int(),
+                block_tables=torch.tensor([[1, 2]]).int())
+    caches = [m.init_paged_cache(4, 8) for m in (ref, model)]
+    lg_r, _ = ref.mixed_step(params, _tokens(cfg, 1, 2).T,
+                             cache=caches[0], **tick)
+    lg_k, _ = model.mixed_step(params, _tokens(cfg, 1, 2).T,
+                               cache=caches[1], **tick)
+    torch.testing.assert_close(lg_r, lg_k, atol=2e-5, rtol=0)
+    for name in ("k", "v"):
+        torch.testing.assert_close(caches[0][name], caches[1][name],
+                                   atol=2e-5, rtol=0)
     with pytest.raises(NotImplementedError, match="runs only through"):
         ref.prefill(params, _tokens(cfg), pp, max_len=32)
     lg_r, cache_r, pos_r = ref.prefill(params, _tokens(cfg), None, max_len=32)
