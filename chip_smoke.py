@@ -8,7 +8,8 @@ Phases, each printing one line of results; any failure exits non-zero:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every CUDA source under src/repro_torch/kernels/csrc compiled by
    nvcc for sm_90a, one nvcc each, in parallel; each redesigned kernel
-   instance's registers and spill bytes (none may spill): flash_mma_kernel,
+   instance's registers and spill bytes (none may spill): flash_wgmma_kernel
+   (every instance of FLASH_WGMMA required), flash_mma_kernel,
    decode_split_kernel (contiguous and paged, the paged walk's eight hd 256
    instances required), ragged_split_kernel (the split walk and the run
    walk), aot_gather_add_kernel (both gather-adds with and without the
@@ -40,7 +41,12 @@ Phases, each printing one line of results; any failure exits non-zero:
    hd128, h40 kvh8 hd128; phase 11's h32 kvh4 hd128 causal at 577 and
    4 x 512; phase 12's recurrentgemma, h16 kvh1 at hd 256 (the hd 256
    build) with its window of 2048 over 4 x 3072, causal and full, at 577,
-   hd 250 and misaligned, and hd 256 at g 1 and g 8); contiguous decode
+   hd 250 and misaligned, and hd 256 at g 1 and g 8; the wgmma build's
+   128-row query tiles and their edges, sq 127, 129 and 257 at b 8 (hd
+   64, 80 and 128), and the same lengths on 64-row tiles; hd 80 over 577
+   with a window of 100 and a q_offset of 37; g 16 at hd 256 with a
+   q_offset of 20; every flash build, wgmma_m128, wgmma_m64, mma and simt,
+   must run); contiguous decode
    at hd 256 with g 16 (two clusters of 8 heads), 8 and 3 over
    recurrentgemma's wrapped 2048-row ring and the split cases, hd 250 and
    a misaligned cache, and hd 128 at g 16 and 12 (WIDE_VARIANTS); phase
@@ -89,14 +95,16 @@ Phases, each printing one line of results; any failure exits non-zero:
    TF32 flags read at the line (ROADMAP C16; --softcap N repeats the
    cases);
 4. kernel times at the serving paths' shapes (device time from
-   torch.profiler), beside the plain version's, one PyTorch library call's
-   where there is one, and the least time the card could take (bytes at
-   3.35 TB/s, operations at the published peak); the fused gather-adds
+   torch.profiler; each flash row names the build it ran), beside the
+   plain version's, one PyTorch library call's where there is one, and
+   the least time the card could take (bytes at 3.35 TB/s, operations at
+   the published peak); the fused gather-adds
    also beside the sequence they replace (the gather-add, then the norm as
    layers.apply_norm launches it), F.rms_norm alone, and host microseconds
    per wrapper call; flash also at one prompt of 512 (a whole-prompt
-   stream's prefill); the ragged kernel on the chunk tick, the decode tick
-   and a chunk at 768-1023 (deep_1024: every block of every cluster
+   stream's prefill, with the wrapper's host microseconds per call); the
+   ragged kernel on the chunk tick, the decode tick and a chunk at
+   768-1023 (deep_1024: every block of every cluster
    walks), each the median of five traces, with its plan (host
    microseconds per tick, items) and the longest chain of tile steps a
    block takes (counted on the host from the plan); at the encoders'
@@ -411,6 +419,10 @@ Phases, each printing one line of results; any failure exits non-zero:
    (reported); 15c smollm-360m's float32 train step (attn_impl="ref",
    AoT fc rank 64, 3 steps at 2 x 512) with remat on and off: losses and
    trainable leaves bitwise (gated), both peaks and step ms reported.
+
+Every bf16 flash launch of phases 5c, 8 and 10 (FLASH_SERVED: the served
+paths' prefills and whole-sequence calls) must take the wgmma build; the
+``[phase]`` line of each prints the launches by build.
 
 Each phase's seconds print as a ``[phase]`` line with the run's so far,
 and all of them on the ``[done]`` line.
@@ -754,11 +766,13 @@ def ptxas_kernels(out):
     return kernels
 
 
-# the tensor-core flash, the cluster decode (contiguous and paged), the
-# ragged (split walk and run walk) and the gather-add (with and without
-# the fused norm, and the norm alone) kernels, by source: phase 2 lists each
-# of their instances' registers and spill bytes (none may spill)
-REDESIGNED = {"flash_mma_kernel": "flash_attention",
+# the tensor-core flash (wgmma, and mma.sync for rows off 16 bytes), the
+# cluster decode (contiguous and paged), the ragged (split walk and run
+# walk) and the gather-add (with and without the fused norm, and the norm
+# alone) kernels, by source: phase 2 lists each of their instances'
+# registers and spill bytes (none may spill)
+REDESIGNED = {"flash_wgmma_kernel": "flash_attention",
+              "flash_mma_kernel": "flash_attention",
               "decode_split_kernel": "decode_attention",
               "ragged_split_kernel": "decode_attention",
               "aot_gather_add_kernel": "aot_gather_add"}
@@ -773,12 +787,18 @@ WIDE_PAGED = tuple(f"I{t}Lb{vec}ELi256ELi{g}ELb1EE"
                    for g in (4, 8))
 
 
+# the wgmma flash's instances, by their mangled template arguments (hd 64,
+# 80, 128 with one or two consumer warpgroups; hd 256 with one)
+FLASH_WGMMA = tuple(f"ILi{hd}ELi{n}EE" for hd in (64, 80, 128)
+                    for n in (1, 2)) + ("ILi256ELi1EE",)
+
+
 def redesigned(logs):
     """{kernel of REDESIGNED: ["<template arguments>:<registers>r/<spill
     bytes>s", ...]} from each source's ``-Xptxas -v`` output in ``logs``.
     Raises if an instance spills, or if a source compiled in this run (not
     ``"cached"``) lacks its kernel, or decode_attention.cu lacks an
-    instance of WIDE_PAGED."""
+    instance of WIDE_PAGED, or flash_attention.cu one of FLASH_WGMMA."""
     new, spilled = {}, []
     for out in logs.values():
         for fn, (r, sp) in ptxas_kernels(out).items():
@@ -793,6 +813,10 @@ def redesigned(logs):
     if logs.get("decode_attention", "cached") != "cached":
         have = {i.split(":")[0] for i in new.get("decode_split_kernel", [])}
         missing += [f"decode_split_kernel{a}" for a in WIDE_PAGED
+                    if a not in have]
+    if logs.get("flash_attention", "cached") != "cached":
+        have = {i.split(":")[0] for i in new.get("flash_wgmma_kernel", [])}
+        missing += [f"flash_wgmma_kernel{a}" for a in FLASH_WGMMA
                     if a not in have]
     if spilled or missing:
         raise AssertionError(f"redesigned kernel instances spill {spilled} "
@@ -1276,9 +1300,11 @@ def parity_encoder_gather(gen, report):
 
 # flash parity cases: name -> (b, sq, skv, hd, causal, window, strided,
 # heads, misaligned); smollm's heads (15 over 5) unless a case names
-# others. The bf16 kernel's edges: query tiles of 64 (sq 100, 577), kv
-# tiles of 64 past either end, hd padded to 64 (hd 32, 60) or 128 (hd 96,
-# 128), the element-load build (hd 60, a misaligned q), a strided q
+# others. The bf16 kernels' edges: query tiles of 64 (sq 100, 577) and of
+# 128 (sq 127, 129, 257 at b 8, where the grid takes 128-row tiles), kv
+# tiles of 64 and 128 past either end, hd padded to 64 (hd 32, 60) or 128
+# (hd 96), hd 80 as it is, the element-load build (hd 60, a misaligned q),
+# a strided q
 FLASH_CASES = {
     "causal_1": (2, 1, 1, HD, True, 0, False),
     "causal_37": (2, 37, 37, HD, True, 0, False),
@@ -1352,13 +1378,26 @@ FLASH_CASES = {
                                    HUBERT_HEADS),
     "hubert_full_g1_hd80_577": (1, 577, 577, HUBERT_HD, False, 0, False,
                                 HUBERT_HEADS),
+    # the wgmma build's 128-row query tiles and their edges (8 rows of 32
+    # or 16 heads: a grid of 128-row tiles), and the same lengths at
+    # smollm's heads on 64-row tiles
+    "causal_127_b8": (8, 127, 127, HD, True, 0, False, MOE_HEADS),
+    "causal_129_b8": (8, 129, 129, HD, True, 0, False, MOE_HEADS),
+    "full_257_b8": (8, 257, 257, HD, False, 0, False, ENC_HEADS),
+    "causal_hd128_257_b8": (8, 257, 257, 128, True, 0, False, MOE_HEADS),
+    "window100_hd80_257_b8": (8, 257, 257, 80, True, 100, False,
+                              DANUBE_HEADS),
+    "full_hd80_129_b8": (8, 129, 129, 80, False, 0, False, HUBERT_HEADS),
+    "causal_127": (2, 127, 127, HD, True, 0, False),
+    "causal_129": (2, 129, 129, HD, True, 0, False),
+    "full_257": (1, 257, 257, HD, False, 0, False),
 }
 
 
 # queries from an offset (P-Tuning v2's prefill: sq prompt queries at
 # positions q_offset.. over the prefix and the prompt, skv = q_offset + sq):
-# name -> (b, sq, q_offset, window[, causal, heads]); causal with smollm's
-# heads unless a case says otherwise
+# name -> (b, sq, q_offset, window[, causal, heads, hd]); causal with
+# smollm's heads at hd 64 unless a case says otherwise
 FLASH_OFFSET_CASES = {
     "offset20_37": (2, 37, 20, 0),
     "offset37_100": (2, 100, 37, 0),
@@ -1367,6 +1406,11 @@ FLASH_OFFSET_CASES = {
     "offset37_window64_512": (1, 512, 37, 64),
     "offset37_window100_577": (1, 577, 37, 100),
     "full_g1_offset20_384": (2, 384, 20, 0, False, ENC_HEADS),  # encoder
+    # hd 80 over 577 with a window, and g 16 at hd 256 (wgmma builds)
+    "hd80_offset37_window100_577": (1, 577, 37, 100, True, DANUBE_HEADS,
+                                    80),
+    "hd256_g16_offset20_577": (1, 577, 20, 0, True, RGEMMA_HEADS,
+                               RGEMMA_HD),
 }
 
 
@@ -1386,9 +1430,39 @@ def flash_inputs(gen, b, sq, skv, hd, dtype, strided=False,
     return q, k, v
 
 
+def flash_builds():
+    """The flash kernel's launches by build so far (never reset)."""
+    from repro_torch.kernels import flash_attention
+    return dict(flash_attention.BUILDS)
+
+
+def builds_since(before):
+    """{build: launches} since the snapshot ``before`` of flash_builds()."""
+    return {k: v - before.get(k, 0) for k, v in flash_builds().items()
+            if v != before.get(k, 0)}
+
+
+# the phases whose served paths' bf16 flash launches must all take the
+# wgmma build: the static batches (5c), the encoders (8), the decoders (10)
+FLASH_SERVED = ("5c static", "8 encoders", "10 decoders")
+
+
+def check_flash_builds(label, before):
+    """Every bf16 flash launch since ``before`` went to the wgmma build
+    (float32 reference passes take the CUDA-core build, ``simt``), and
+    there was one. Returns the launches by build."""
+    got = builds_since(before)
+    wgmma = sum(v for k, v in got.items() if k.startswith("wgmma"))
+    if got.get("mma", 0) or wgmma == 0:
+        raise AssertionError(f"{label}: bf16 flash launches by build {got}"
+                             ": every one must take the wgmma build")
+    return got
+
+
 def parity_flash(gen, report):
     from repro_torch.kernels import flash_attention, ops
     cases = []
+    before = flash_builds()
     for name, (b, sq, skv, hd, causal, window, *shape) in \
             FLASH_CASES.items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1400,9 +1474,9 @@ def parity_flash(gen, report):
                               report)
             cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
     for name, (b, sq, off, window, *mode) in FLASH_OFFSET_CASES.items():
-        causal, heads = mode or (True, (H, KVH))
+        causal, heads, hd = mode + [True, (H, KVH), HD][len(mode):]
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(gen, b, sq, sq + off, HD, dtype,
+            q, k, v = flash_inputs(gen, b, sq, sq + off, hd, dtype,
                                    heads=heads)
             out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=off)
@@ -1411,13 +1485,21 @@ def parity_flash(gen, report):
             err = check_close(f"flash/{name}/{dtype}", out, plain, dtype,
                               report)
             cases.append(f"{name}/{str(dtype)[6:]}:{err:.2e}")
+    builds = builds_since(before)
+    report["parity"]["flash_builds"] = builds
+    missing = [k for k in ("wgmma_m128", "wgmma_m64", "mma", "simt")
+               if not builds.get(k)]
+    if missing:
+        raise AssertionError(f"flash parity never ran the builds {missing}"
+                             f" (launches by build {builds})")
     log("3 parity", kernel="flash_attention",
         shapes="h15 kvh5 hd32|60|64|96|128, h8 kvh1 hd64, h16 kvh16 hd64 "
         "(full); h32 kvh8 hd80 (window 4096 over 6144), h16 kvh16 hd128, "
         "h40 kvh8 hd128; h16 kvh1 hd250|256 (window 2048 over 4 x 3072), "
-        "h4 kvh4 / h8 kvh1 hd256, h16 kvh16 hd80 (full); sq 1-6144; "
-        "q_offset 20|37",
-        max_abs_err=",".join(cases))
+        "h4 kvh4 / h8 kvh1 hd256, h16 kvh16 hd80 (full); h32 kvh4 hd64|128 "
+        "and h16 kvh16 hd64|80 at b 8 (128-row tiles), sq 1-6144; "
+        "q_offset 20|37 (hd 64, 80, 256)",
+        builds=builds, max_abs_err=",".join(cases))
 
 
 DECODE_LENS = [0, 1, 33, 255, 256, 577, 1000, 1024]   # per row, S = 1024
@@ -1895,13 +1977,17 @@ def timed(kern, plain, iters, plain_iters, tol, reps=1):
     within tol (0: bitwise equal), and the share of output elements that
     differ at all (``differ``: in bf16, one ulp of rounding apart for
     most)."""
+    before = flash_builds()
     ms_reps = [device_ms(kern, iters) for _ in range(reps)]
+    builds = sorted(builds_since(before))
     res = dict(ms=float(np.median(ms_reps)),
                plain_ms=device_ms(plain, plain_iters),
                wall_ms=wall_ms(kern, iters),
                plain_wall_ms=wall_ms(plain, plain_iters))
     if reps > 1:
         res["ms_reps"] = ms_reps
+    if builds:                     # a flash call: the build that ran
+        res["build"] = "+".join(builds)
     a, b = flat(kern(0)), flat(plain(0))
     res["err"] = (a - b).abs().max().item()
     res["differ"] = (a != b).float().mean().item()
@@ -1920,7 +2006,8 @@ def fmt_times(r) -> str:
     return (f"{r['ms']:.5f}ms({reps}wall {r['wall_ms']:.4f}; plain "
             f"{r['plain_ms']:.4f}, wall {r['plain_wall_ms']:.4f}; bound "
             f"{r['bound_ms']:.5f}; err {r['err']:.2e}; differ "
-            f"{r['differ']:.5f})")
+            f"{r['differ']:.5f}" + (f"; build {r['build']}" if "build" in r
+                                    else "") + ")")
 
 
 def phase_times(gen, report):
@@ -2423,8 +2510,11 @@ def times_recurrent(gen, report):
 
 def _enc_row(r):
     """The numbers of one phase 4 timing that a kernels-line row carries."""
-    return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by")} | {"max_abs_err": r["err"]}
+    row = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by")} | {"max_abs_err": r["err"]}
+    if "build" in r:
+        row["build"] = r["build"]
+    return row
 
 
 def times_gather_norm(gen, h, call, plain_call, iters, sets=1):
@@ -2618,11 +2708,14 @@ def times_flash_one_prompt(gen, report):
     res["library_ms"] = device_ms(sdpa, 64)      # yardstick only
     res["bound_ms"], res["bound_by"] = bound(
         s * (2 * H + 2 * KVH) * HD * es, 4 * HD * H * s * (s + 1) // 2, dt)
+    # the wrapper's host time per call (checks, the tensor maps' encoding,
+    # the ctypes call): the one prompt's launch is shorter than it
+    res["host_us"] = host_us(kern)
     del qs
     report["times"]["flash_attention_one_prompt"] = res
     log("4 times", kernel="flash_attention", shape=f"b1 sq{s} causal",
         times=fmt_times(res) + f"[{res['bound_by']}; library "
-        f"{res['library_ms']:.5f}]")
+        f"{res['library_ms']:.5f}; host us {res['host_us']:.1f}]")
 
 
 def times_prefill_decode(gen, report):
@@ -2719,6 +2812,8 @@ def times_prefill_decode(gen, report):
                     "max_abs_err": r["err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": lib})
+        if "build" in r:
+            out[-1]["build"] = r["build"]
     return out
 
 
@@ -9001,9 +9096,16 @@ def main() -> int:
     report = {"card": card, "parity": {}, "times": {}, "phase_seconds": {}}
 
     def phase(name, fn, *a):
-        """fn(*a), its seconds kept and printed with the run's so far."""
+        """fn(*a), its seconds kept and printed with the run's so far; on
+        the served paths of FLASH_SERVED, every bf16 flash launch checked to
+        have taken the wgmma build."""
         t0 = time.perf_counter()
+        before = flash_builds()
         out = fn(*a)
+        if name in FLASH_SERVED:
+            got = check_flash_builds(name, before)
+            report.setdefault("flash_builds", {})[name] = got
+            log("phase", name=name, flash_launches_by_build=got)
         report["phase_seconds"][name] = sec = time.perf_counter() - t0
         log("phase", name=name, seconds=f"{sec:.1f}",
             run_seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -12,72 +12,89 @@
 // q_offset is P-Tuning v2's prefix length: its prefill attends over [prefix
 // | k], which the reference sends to XLA.
 //
-// Bound on an H100: at the prefill's shapes (512-token prompts, hd 64) the
-// work is 4 hd flops per visible (query head, kv) pair against each q, k, v
-// and out element moved once: a few hundred flops per byte, near the card's
-// bf16 ridge (~295 flops per byte), so the tensor cores' 989 TFLOP/s and
-// the 3.35 TB/s bound it about equally. Run on the CUDA cores in fp32 (67
-// TFLOP/s), as the first port of this kernel did, it was 56x over that
-// bound and 19x slower than one SDPA call.
+// Bound on an H100: 4 hd flops per visible (query head, kv) pair against
+// each q, k, v and out element moved once. At a 512-token prompt and hd 64
+// that is a few hundred flops per byte, near the card's bf16 ridge (~295),
+// so the tensor cores' 989 TFLOP/s and the 3.35 TB/s bound it about
+// equally; long prompts, windows of thousands and hd 256 are bound by the
+// products.
 //
-// bf16, on the tensor cores (flash_mma_kernel), FlashAttention-2's forward:
-// - one block of four warps per (tile of 64 query positions, query head,
-//   batch row); warp w owns query rows 16 w .. 16 w + 15 (at hd 256 two
-//   warps share them, 128 output columns each: ColSplit). The g query heads
-//   of one KV head are neighbouring blocks, so their re-reads of its K/V
-//   come from L2. The block index runs over heads, then rows, then query
-//   tiles from the last to the first: causally the heaviest tiles start
-//   first and the short ones fill the tail;
-// - q, k and v are read in their native (b, s, heads, hd) layouts through
-//   the strides the wrapper passes; hd is padded with zeros to 64, 128 or
-//   256 (one instance each) in shared memory, whose rows carry 16 bytes of
-//   padding so that ldmatrix reads them free of bank conflicts;
-// - K/V tiles of 64 positions are staged in bf16 with cp.async (16 bytes a
-//   thread) in a ring of three stages at hd <= 64 (63 KB: three blocks an
-//   SM, as many as their registers allow) and two at hd 128 and 256: the
-//   next tiles load while this one is multiplied. A second build takes element
-//   loads into the same layout where rows are not 16-byte aligned (hd % 8
-//   != 0, an odd stride or pointer);
-// - both products are mma.sync.m16n8k16 on bf16 with fp32 accumulators:
-//   Q's A fragments are loaded once with ldmatrix and kept in registers
-//   (at hd 256, recurrentgemma's, they are read again from the staged Q
-//   tile at each 16-channel step: the 16 x 256 accumulator fills the
-//   registers);
-//   S = Q K^T takes K's B fragments by ldmatrix; the online softmax runs on
-//   the S fragments in registers (row max and sum over the quad that holds
-//   a row, by shuffles; expf as the plain version takes it); P is split in
-//   registers into three bf16 parts (hi, mid, lo: about 24 bits together)
-//   fed straight back as the A operands of P V, with V's B fragments by
-//   ldmatrix.trans; at hd <= 64 a tile's P V sums in an accumulator of its
-//   own that joins the running one with one rounding per element;
+// bf16 with rows in whole 16-byte units (flash_wgmma_kernel), after
+// FlashAttention-3's forward:
+// - a work item is (tile of query positions, query head, batch row); the
+//   item index runs over heads, then rows, then query tiles from the last
+//   to the first, so the g query heads of one KV head are neighbours (their
+//   re-reads of its K/V come from L2) and causally the heaviest tiles start
+//   first. Blocks are persistent, one an SM, each walking items blockIdx.x,
+//   + gridDim.x, ...;
+// - a block is NWG consumer warpgroups of 64 query rows and a producer
+//   warpgroup: 128-row tiles (NWG 2) where they give every SM an item, else
+//   64-row tiles (NWG 1, twice the items), and always at hd 256
+//   (flash_attention.tile_rows picks);
+// - one thread of the producer loads each item's Q tile (two buffers where
+//   shared memory allows, so the next item's Q lands during this one), then
+//   the K and V tiles of its walk, by TMA: 4-d tensor maps over (hd, s,
+//   heads, b), built on the host per call from the wrapper's strides, read
+//   in boxes of 64 channels with 128-byte swizzle into a ring of 3-4 stages.
+//   A stage's K and V land on one mbarrier; its K and its V are released on
+//   two, as each is consumed;
+// - S = Q K^T is wgmma m64nNk16 with Q and K from shared memory, fp32 in
+//   registers; the online softmax runs on the accumulator fragments, whose
+//   rows each live in one quad (max and sum by shuffles, exponentials as
+//   ex2 of scores taken in log2 units). Only tiles that cross the
+//   diagonal, a window edge or the end of k apply the mask (q_offset moves
+//   the first two);
+// - P V is wgmma with P in registers: S's fragments already have the A
+//   operand's layout, so P is split in place into bf16 parts (kParts: hi =
+//   bf16(p), lo = bf16(p - hi), about 16 bits together), and V is read
+//   from shared memory as an MN-major B operand through the descriptor's
+//   transpose. At hd 64 a tile's P V sums in an accumulator of its own that
+//   joins the running one with one rounding per element;
+// - a warpgroup's turn t issues S of tile t and P V of tile t - 1, so that
+//   the softmax of tile t runs while the tensor cores do the P V of tile t
+//   - 1, and the two consumer warpgroups take turns to issue (named
+//   barriers): one's softmax runs while the other's products are in
+//   flight. The tiles a warpgroup sees are peeled into a first turn (S
+//   alone), the turns of both and a last (P V alone), so that every wgmma
+//   group is waited for where ptxas can see it;
+// - hd 64, 80, 128 and 256 each have an instance. Products run over hd's
+//   own 16-channel steps and output width (hd 80: five steps of Q K^T, P V
+//   at N = 80); shared memory holds whole 64-channel column blocks, the
+//   swizzle's width, so hd 80's second block is 48 channels of TMA's zero
+//   fill (filled without a read). At hd 256 one warpgroup owns all 256
+//   output columns, 128 registers a thread, and S is computed once;
 // - the walk runs from the first position any row's window reaches to the
-//   last the causal mask lets the tile's last row see: tiles that every row
-//   masks are never read, and only tiles that cross the diagonal, a window
-//   edge or the end of k apply the mask.
-// Numerics: the plain version is fp32. One bf16 P (2^-9 of itself) keeps
-// every output within bf16's 2e-2 of it, but puts 38% of them an ulp of
-// bf16 away from it (0.03% with three parts; chip_smoke.py phase 4 on an
-// H100), and a 2-layer full-width model's logits through the kernels then
-// miss the bf16 tolerance against the plain versions' at every seed that
-// chip_seeds.py tried. The three parts and the tile accumulator bring the
-// kernel back near fp32; they cost two more products per P V step, about
-// a third of the kernel's time. Neither removes greedy-token flips at near
-// ties, which the first port's fp32 kernel shows about as often.
-// fp32 keeps the first port's body on the CUDA cores (flash_simt_kernel):
-// mma.sync has no fp32 input short of TF32, which would miss fp32's 2e-5
-// tolerance. No served path runs fp32 attention.
-// What holds it back (chip_smoke.py phase 4 on an H100 80GB HBM3 at 700
-// W): with one bf16 P it took about 0.06 ms at (16, 512) causal against
-// SDPA's 0.036 and a bound of 0.0125, and that time barely moved with two
-// 16-row tiles a warp, 128 registers a thread, tiles of 32 positions or a
-// folded scale: stalls between the dependent phases of each tile (S, then
-// softmax, then P V), not one unit's rate, bound it. Left for later: wgmma
-// on 64-row warpgroup tiles with TMA staging and a producer warp, two
-// warpgroups overlapping one's softmax with the other's products, and a
-// persistent schedule over the tiles.
+//   last the causal mask lets the item's last row see: tiles that every
+//   row masks are never loaded, and a warpgroup skips (waits for and
+//   releases) the tiles that every one of its own rows masks.
+// Registers bound the design: ptxas gives a thread of a 384-thread block
+// 168 registers and does not raise that budget after setmaxnreg (the same
+// spills with and without it), so the kernel does without setmaxnreg, and
+// two warpgroups a block take K/V stages of 64 positions (S and P of two
+// tiles live at once); one warpgroup a block has 255 and takes 128.
+// What holds it back (a clock64 probe of the hd 64 walk on an H100): a
+// warpgroup's turn is mostly its own instruction stream, the softmax and
+// P's split, then the issue of the turn's wgmmas; the tensor cores idle
+// much of the time, and with two warpgroups an SM there are too few warps
+// to hide that latency (PERF.md, section 7).
+// Numerics: the plain version is fp32. One bf16 P (2^-9 of itself) kept
+// every output within bf16's 2e-2 of it but took a 2-layer full-width
+// model's logits outside the bf16 tolerance against the plain versions' at
+// 29 of 56 method-seed pairs (chip_seeds.py, seeds 0-7); P in parts brings
+// the kernel back near fp32 (PERF.md holds the measurement of two parts
+// against three).
+// Other bf16 rows (hd % 8 != 0, a stride or pointer off 16 bytes: no
+// served model) take flash_mma_kernel: mma.sync.m16n8k16, element loads
+// into padded shared rows, P in three parts. fp32 keeps the first port's
+// body on the CUDA cores (flash_simt_kernel): the tensor cores take no
+// fp32 short of TF32, which would miss fp32's 2e-5 tolerance. No served
+// path runs fp32 attention.
 //
 // C interface (ctypes): every pointer and the stream are void*; returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue when a
+// tensor map cannot be built.
+
+#include <cuda.h>
 
 #include "attention_common.cuh"
 
@@ -101,7 +118,8 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 with element loads (mma.sync), for rows that are not in whole
+// 16-byte units
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -146,7 +164,7 @@ size_t mma_smem_bytes() {
          (kBq + 2 * Stages<HDP>::k * kBk);
 }
 
-template <int HDP, bool VEC>
+template <int HDP>
 __global__ void __launch_bounds__(MmaThreads<HDP>::k)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -187,10 +205,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto stage_kv = [&](int t) {
     const int k0 = k_beg + t * kBk;
     const int st = t % kStages;
-    attn::stage_rows<bf16, HDP, kBk, kMmaThreads, VEC>(
+    attn::stage_rows<bf16, HDP, kBk, kMmaThreads, false>(
         k_s + st * kBk * kLd, attn::StridedRows<bf16>{kb + k0 * ks.s, ks.s},
         k_end - k0, hd, tid);
-    attn::stage_rows<bf16, HDP, kBk, kMmaThreads, VEC>(
+    attn::stage_rows<bf16, HDP, kBk, kMmaThreads, false>(
         v_s + st * kBk * kLd, attn::StridedRows<bf16>{vb + k0 * vs.s, vs.s},
         k_end - k0, hd, tid);
   };
@@ -212,7 +230,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
 
   if (n_tiles > 0) {
-    attn::stage_rows<bf16, HDP, kBq, kMmaThreads, VEC>(
+    attn::stage_rows<bf16, HDP, kBq, kMmaThreads, false>(
         q_s,
         attn::StridedRows<bf16>{q + bi * qs.b + q_lo * qs.s + head * qs.h,
                                 qs.s},
@@ -384,17 +402,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < kNc; ++n) {
     const int ch = col0 + n * 8 + 2 * ft;
     if (row0 < sq) {
-      store_pair<VEC>(ob + row0 * row_stride, ch, hd, acc[n][0] / d0,
+      store_pair<false>(ob + row0 * row_stride, ch, hd, acc[n][0] / d0,
                       acc[n][1] / d0);
     }
     if (row0 + 8 < sq) {
-      store_pair<VEC>(ob + (row0 + 8) * row_stride, ch, hd, acc[n][2] / d1,
+      store_pair<false>(ob + (row0 + 8) * row_stride, ch, hd, acc[n][2] / d1,
                       acc[n][3] / d1);
     }
   }
 }
 
-template <int HDP, bool VEC>
+template <int HDP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* out, Strides qs, Strides ks, Strides vs, int b,
                        int sq, int skv, int h, int kvh, int hd, int causal,
@@ -403,7 +421,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   const int64_t blocks = int64_t{(sq + kBq - 1) / kBq} * h * b;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const size_t smem = mma_smem_bytes<HDP>();
-  auto kernel = flash_mma_kernel<HDP, VEC>;
+  auto kernel = flash_mma_kernel<HDP>;
   cudaError_t err = attn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(blocks), MmaThreads<HDP>::k, smem,
@@ -411,6 +429,837 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, b, sq,
       skv, h, kvh, hd, causal, window, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Hopper's building blocks: mbarriers, TMA tile loads, wgmma
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+using attn::smem_addr;
+
+// A wait that has not ended after about this many cycles (some seconds)
+// traps: a lost arrival fails the launch instead of hanging the card.
+constexpr long long kWaitCycles = 1LL << 34;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transfers in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+// one box of a 4-d tensor map at coordinates (c0 innermost .. c3) into
+// shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 2^x, flushing results below 2^-126 to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers in place around wgmma's asynchronous reads and writes: the
+// compiler may not move their other uses across this point.
+template <int R>
+__device__ __forceinline__ void pin(float (&x)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void pin(uint32_t (&x)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(x[i][e]) :: "memory");
+  }
+}
+
+// End the basic block on a branch that depends on x: ptxas schedules
+// within a block, so whatever x is computed from is issued before the
+// instructions that follow (the branch is never taken: no arithmetic gives
+// this NaN's bits).
+__device__ __forceinline__ void issue_before_next(float x) {
+  if (__float_as_uint(x) == 0xffffffffu) asm volatile("trap;");
+}
+
+// Shared-memory matrix descriptor of a tile of 128-byte rows written by TMA
+// with 128-byte swizzle (its base 1024-byte aligned): 8-row groups 1024
+// bytes apart (SBO); `lbo` is the distance between 64-element column
+// blocks, which only an MN-major operand wider than 64 reads.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | uint64_t{1} << 62;
+}
+
+// wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators d (N / 2 a
+// thread); `acc` 0 overwrites d. ss: A (64 x 16) and B (N x 16) both
+// K-major in shared memory (ss0: d overwritten, never read). rs: A from
+// registers (the m16n8k16 A fragment of each warp's 16 rows), B (16 x N)
+// MN-major in shared memory.
+#define WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_R1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_R2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define WG_R3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_R5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_R6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_R7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_R8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define WG_R9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define WG_R10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define WG_R11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_R12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define WG_R13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define WG_R14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define WG_R15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define WG_ACC32 "{" WG_R0 ", " WG_R1 ", " WG_R2 ", " WG_R3 "}"
+#define WG_ACC40 "{" WG_R0 ", " WG_R1 ", " WG_R2 ", " WG_R3 ", " WG_R4 "}"
+#define WG_ACC64                                                            \
+  "{" WG_R0 ", " WG_R1 ", " WG_R2 ", " WG_R3 ", " WG_R4 ", " WG_R5 ", " \
+  WG_R6 ", " WG_R7 "}"
+#define WG_ACC128                                                           \
+  "{" WG_R0 ", " WG_R1 ", " WG_R2 ", " WG_R3 ", " WG_R4 ", " WG_R5 ", " \
+  WG_R6 ", " WG_R7 ", " WG_R8 ", " WG_R9 ", " WG_R10 ", " WG_R11 ", "   \
+  WG_R12 ", " WG_R13 ", " WG_R14 ", " WG_R15 "}"
+#define WG_F4(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define WG_F8(c, i) WG_F4(c, i), WG_F4(c, i + 4)
+#define WG_F32(c, i) \
+  WG_F8(c, i), WG_F8(c, i + 8), WG_F8(c, i + 16), WG_F8(c, i + 24)
+#define WG_SS(N, ACC, A, B, SC, ...)                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned.m64n" #N                      \
+               "k16.f32.bf16.bf16 " ACC ", " A ", " B ", p, 1, 1, 0, 0;\n}\n" \
+               : __VA_ARGS__                                               \
+               : "l"(a), "l"(b), "r"(acc))
+#define WG_RS(N, ACC, A, B, SC, ...)                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned.m64n" #N                      \
+               "k16.f32.bf16.bf16 " ACC ", " A ", " B ", p, 1, 1, 1;\n}\n" \
+               : __VA_ARGS__                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                 "r"(acc))
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+    WG_SS(64, WG_ACC32, "%32", "%33", "%34", WG_F32("+f", 0));
+  }
+  static __device__ __forceinline__ void ss0(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    const int acc = 0;
+    WG_SS(64, WG_ACC32, "%32", "%33", "%34", WG_F32("=f", 0));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    WG_RS(64, WG_ACC32, "{%32, %33, %34, %35}", "%36", "%37",
+          WG_F32("+f", 0));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  static __device__ __forceinline__ void rs(float (&d)[40],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    WG_RS(80, WG_ACC40, "{%40, %41, %42, %43}", "%44", "%45",
+          WG_F32("+f", 0), WG_F8("+f", 32));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int acc) {
+    WG_SS(128, WG_ACC64, "%64", "%65", "%66", WG_F32("+f", 0),
+          WG_F32("+f", 32));
+  }
+  static __device__ __forceinline__ void ss0(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    const int acc = 0;
+    WG_SS(128, WG_ACC64, "%64", "%65", "%66", WG_F32("=f", 0),
+          WG_F32("=f", 32));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    WG_RS(128, WG_ACC64, "{%64, %65, %66, %67}", "%68", "%69",
+          WG_F32("+f", 0), WG_F32("+f", 32));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    WG_RS(256, WG_ACC128, "{%128, %129, %130, %131}", "%132", "%133",
+          WG_F32("+f", 0), WG_F32("+f", 32), WG_F32("+f", 64),
+          WG_F32("+f", 96));
+  }
+};
+
+}  // namespace hop
+
+// ---------------------------------------------------------------------------
+// bf16 on wgmma, K/V staged by TMA: rows in whole 16-byte units
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;        // query rows of one consumer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tile of an instance: kv positions a stage, 64-channel column blocks
+// in shared memory, 16-channel steps of Q K^T (hd 80: five), and whether a
+// tile's P V sums in an accumulator of its own before it joins the running
+// one (hd 64). ptxas gives a thread of a 384-thread block 168 registers
+// (setmaxnreg does not raise that budget: measured, the same spills with
+// and without it), so with two consumer warpgroups a stage holds 64
+// positions (S and P 32 registers each, both live while the last tile's
+// P V runs), with one (255 registers) 128, and 64 at hd 256, where the 64 x
+// 256 output accumulator takes 128 registers and one warpgroup is all a
+// block holds.
+// Shared memory holds two Q tiles where it can with three K/V stages (the
+// next item's Q loads while this one runs; not at hd 256) and a ring of
+// kStages K and V tiles, as many as fit up to 4, so that TMA's latency
+// stays behind the walk.
+template <int HD, int NWG>
+struct WgTile {
+  static constexpr int kBk = NWG == 2 || HD > 128 ? 64 : 128;
+  static constexpr int kCb = (HD + 63) / 64;
+  static constexpr int kKs = HD / 16;
+  static constexpr bool kTileAcc = HD <= 64;
+  static constexpr int kRoom = 226 * 1024;
+  static constexpr int kQBytes = 128 * kCb * kWgRows * NWG;
+  static constexpr int kStageBytes = 2 * 128 * kCb * kBk;     // K and V
+  static constexpr int kQBufs =
+      2 * kQBytes + 3 * kStageBytes <= kRoom ? 2 : 1;
+  static constexpr int kFit = (kRoom - kQBufs * kQBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "a ring of two stages at least");
+};
+
+// P enters P V as this many bf16 parts: hi = bf16(p), lo = bf16(p - hi)
+// (3: split3_bf16's hi, mid, lo, about 24 bits; chip_seeds.py finds two
+// enough, PERF.md)
+constexpr int kParts = 2;
+static_assert(kParts == 2 || kParts == 3, "two or three parts of P");
+
+template <int HD, int NWG>
+constexpr size_t wgmma_smem_bytes() {
+  // 1024 bytes of slack to align the tiles for the 128-byte swizzle
+  using Tl = WgTile<HD, NWG>;
+  return 1024 + size_t{Tl::kQBytes} * Tl::kQBufs +
+         size_t{Tl::kStageBytes} * Tl::kStages;
+}
+
+// P's fragments for P V: 16-position step j of the tile is A's registers
+// {S chunk 2 j rows g / g + 8, S chunk 2 j + 1 rows g / g + 8}, each a bf16
+// pair, split into kParts parts (hi first)
+template <int NJ>
+__device__ __forceinline__ void split_p(const float* s,
+                                        uint32_t (&p)[kParts][NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = s[8 * j + 2 * r];
+      const float y = s[8 * j + 2 * r + 1];
+      if constexpr (kParts == 3) {
+        attn::split3_bf16(x, y, p[0][j][r], p[1][j][r], p[2][j][r]);
+      } else {
+        const uint32_t hi = attn::pack_bf16(x, y);
+        p[0][j][r] = hi;
+        p[1][j][r] = attn::pack_bf16(x - __uint_as_float(hi << 16),
+                                     y - __uint_as_float(hi & 0xffff0000u));
+      }
+    }
+  }
+}
+
+// Issue d (+)= P V over one tile, not waiting: 16-position step j takes P's
+// registers p[.][j] (every part) and V's rows 16 j .. 16 j + 15 (`v_addr`:
+// the tile's first column block, `block` bytes to the next); `overwrite`
+// starts d from 0
+template <int HD, int NJ>
+__device__ __forceinline__ void issue_pv(float (&d)[HD / 2],
+                                         const uint32_t (&p)[kParts][NJ][4],
+                                         uint32_t v_addr, uint32_t block,
+                                         bool overwrite) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      hop::Wgmma<HD>::rs(d, p[part][j],
+                         hop::desc_sw128(v_addr + j * 16 * 128, block),
+                         !overwrite || j > 0 || part > 0);
+    }
+  }
+  hop::wg_commit();
+}
+
+// The two consumer warpgroups take turns to issue their products (named
+// barriers 1 and 2, 256 threads: one warpgroup waits, the other arrives),
+// so that one's softmax runs while the other's products are in flight
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
+}
+
+// One work item of the persistent walk: (query tile, head, batch row) from
+// its index, and the kv range some row of its tile can see
+struct WgItem {
+  int head, bi, q_lo, kh, k_beg, n_tiles;
+};
+
+template <int ROWS, int BK>
+__device__ __forceinline__ WgItem wg_item(int id, int b, int sq, int skv,
+                                          int h, int kvh, int causal,
+                                          int window, int q_offset) {
+  WgItem w;
+  const int n_qt = (sq + ROWS - 1) / ROWS;
+  w.head = id % h;
+  w.bi = (id / h) % b;
+  w.q_lo = (n_qt - 1 - id / (h * b)) * ROWS;
+  w.kh = w.head / (h / kvh);
+  const int q_hi = min(w.q_lo + ROWS, sq) - 1;
+  const int k_end = causal ? min(skv, q_offset + q_hi + 1) : skv;
+  w.k_beg = window > 0 ? max(0, q_offset + w.q_lo - window + 1) : 0;
+  w.n_tiles = k_end > w.k_beg ? (k_end - w.k_beg + BK - 1) / BK : 0;
+  return w;
+}
+
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   bf16* __restrict__ out, int b, int sq, int skv, int h,
+                   int kvh, int hd, int causal, int window, int q_offset,
+                   float scale) {
+  using Tl = WgTile<HD, NWG>;
+  constexpr int kWgStages = Tl::kStages;
+  constexpr int kBkW = Tl::kBk;
+  constexpr int kCb = Tl::kCb;
+  constexpr int kQRows = kWgRows * NWG;
+  constexpr uint32_t kQBlock = kQRows * 128;   // bytes: one column block
+  constexpr uint32_t kKvBlock = kBkW * 128;
+  constexpr uint32_t kTile = kCb * kKvBlock;   // one K or V tile
+  constexpr int kNs = kBkW / 8;                // 8-position chunks of S
+  constexpr int kNj = kBkW / 16;               // 16-position steps of P V
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int kQBufs = Tl::kQBufs;
+  __shared__ __align__(8) uint64_t bars[4 + 3 * kWgStages];
+  uint64_t* q_full = bars;                     // one a Q buffer
+  uint64_t* q_empty = bars + 2;
+  uint64_t* kv_full = bars + 4;                // K and V of a stage landed
+  uint64_t* k_empty = kv_full + kWgStages;     // K of a stage consumed
+  uint64_t* v_empty = k_empty + kWgStages;     // V of a stage consumed
+  unsigned char* q_s =
+      smem_raw + ((1024 - (attn::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = q_s + kQBufs * kCb * kQBlock;
+  unsigned char* v_s = k_s + kWgStages * kTile;
+  const int items = (sq + kQRows - 1) / kQRows * h * b;
+  auto item = [&](int id) {
+    return wg_item<kQRows, kBkW>(id, b, sq, skv, h, kvh, causal, window,
+                                 q_offset);
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kQBufs; ++i) {
+      hop::mbar_init(&q_full[i], 1);
+      hop::mbar_init(&q_empty[i], 4 * NWG);   // one arrival a consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kWgStages; ++s) {
+      hop::mbar_init(&kv_full[s], 1);
+      hop::mbar_init(&k_empty[s], 4 * NWG);
+      hop::mbar_init(&v_empty[s], 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warpgroup-uniform in the compiler's eyes too
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
+  if (wg == NWG) {
+    // ================= producer: one thread issues every TMA load, items
+    // in the consumers' order, running ahead of them by the ring's depth
+    if (threadIdx.x % 128 == 0) {
+      int it = 0, ic = 0;      // kv tiles and items (with tiles) so far
+      for (int id = blockIdx.x; id < items; id += gridDim.x) {
+        const WgItem w = item(id);
+        if (w.n_tiles == 0) continue;
+        const int qb = ic % kQBufs;
+        if (ic >= kQBufs) {
+          hop::mbar_wait(&q_empty[qb], ((ic / kQBufs) + 1) & 1);
+        }
+        hop::mbar_expect_tx(&q_full[qb], kCb * kQBlock);
+#pragma unroll
+        for (int c = 0; c < kCb; ++c) {
+          hop::tma_load_4d(q_s + (qb * kCb + c) * kQBlock, &tm_q, &q_full[qb],
+                           64 * c, w.q_lo, w.head, w.bi);
+        }
+        ++ic;
+        for (int t = 0; t < w.n_tiles; ++t, ++it) {
+          const int st = it % kWgStages;
+          const uint32_t ph = ((it / kWgStages) + 1) & 1;   // the last round
+          const int k0 = w.k_beg + t * kBkW;
+          if (it >= kWgStages) {
+            hop::mbar_wait(&k_empty[st], ph);
+            hop::mbar_wait(&v_empty[st], ph);
+          }
+          hop::mbar_expect_tx(&kv_full[st], 2 * kTile);
+#pragma unroll
+          for (int c = 0; c < kCb; ++c) {
+            hop::tma_load_4d(k_s + st * kTile + c * kKvBlock, &tm_k,
+                             &kv_full[st], 64 * c, k0, w.kh, w.bi);
+            hop::tma_load_4d(v_s + st * kTile + c * kKvBlock, &tm_v,
+                             &kv_full[st], 64 * c, k0, w.kh, w.bi);
+          }
+        }
+      }
+    }
+  } else {
+    // ================= consumer warpgroup wg: rows q_lo + 64 wg .. + 63 of
+    // each item
+    const int tid = threadIdx.x % 128;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int fg = lane >> 2;              // rows fg and fg + 8 of the warp's
+    const int ft = lane & 3;               // 16; columns 2 ft, 2 ft + 1 of 8
+    const float sl = scale * kLog2e;       // scores in log2 units
+    const uint32_t q_base = attn::smem_addr(q_s) + wg * kWgRows * 128;
+    uint32_t q_addr = q_base;              // this item's Q buffer
+    if (NWG == 2 && wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    int it = 0, ic = 0;        // kv tiles and items (with tiles) so far
+
+    // the ring's stage of the item's tile t, and the parity of its round
+    auto stage = [&](int t) { return (it + t) % kWgStages; };
+    auto parity = [&](int t) -> uint32_t {
+      return ((it + t) / kWgStages) & 1;
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(bar);
+    };
+    auto turn_begin = [&] {
+      if constexpr (NWG == 2) turn_wait(wg);
+    };
+    auto turn_end = [&] {
+      if constexpr (NWG == 2) turn_pass(wg);
+    };
+
+    float acc[HD / 2];
+    float ta[Tl::kTileAcc ? HD / 2 : 1];   // a tile's P V (hd 64)
+    float s[kBkW / 2];                     // scores, then P, of one tile
+    uint32_t p[kParts][kNj][4];            // P of the tile whose P V is next
+    auto pin_pv = [&] {
+      hop::pin(acc);
+      if constexpr (Tl::kTileAcc) hop::pin(ta);
+#pragma unroll
+      for (int part = 0; part < kParts; ++part) hop::pin(p[part]);
+    };
+    // S = Q K^T of tile t: hd / 16 steps, both operands K-major
+    auto issue_s = [&](int t) {
+      const uint32_t k_addr = attn::smem_addr(k_s + stage(t) * kTile);
+#pragma unroll
+      for (int kc = 0; kc < Tl::kKs; ++kc) {
+        const uint32_t off = (kc % 4) * 32;   // inside the swizzle atom
+        const uint64_t a =
+            hop::desc_sw128(q_addr + (kc / 4) * kQBlock + off, 16);
+        const uint64_t b =
+            hop::desc_sw128(k_addr + (kc / 4) * kKvBlock + off, 16);
+        if (kc == 0) {
+          hop::Wgmma<kBkW>::ss0(s, a, b);
+        } else {
+          hop::Wgmma<kBkW>::ss(s, a, b, 1);
+        }
+      }
+      hop::wg_commit();
+    };
+    // acc (+)= P V of tile t; at hd 64 into ta, which joins acc later
+    auto issue_pv_of = [&](int t) {
+      const uint32_t v_addr = attn::smem_addr(v_s + stage(t) * kTile);
+      if constexpr (Tl::kTileAcc) {
+        issue_pv<HD>(ta, p, v_addr, kKvBlock, true);
+      } else {
+        issue_pv<HD>(acc, p, v_addr, kKvBlock, false);
+      }
+    };
+
+    for (int id = blockIdx.x; id < items; id += gridDim.x) {
+      const WgItem w = item(id);
+      const int n = w.n_tiles;
+      const int wq_lo = w.q_lo + kWgRows * wg;
+      const int row0 = wq_lo + warp * 16 + fg;
+      const int qp0 = q_offset + row0;
+      const int qp1 = qp0 + 8;
+      // the tiles some row of this warpgroup sees, [t_on, t_off]; the
+      // block's other tiles are waited for and released only
+      const int w_hi = min(wq_lo + kWgRows, sq) - 1;
+      const int w_end = causal ? min(skv, q_offset + w_hi + 1) : skv;
+      const int w_beg =
+          window > 0 ? max(0, q_offset + wq_lo - window + 1) : 0;
+      int t_on = n, t_off = n - 1;
+      if (wq_lo < sq && w_end > w_beg && n > 0) {
+        t_on = max(0, (w_beg - w.k_beg) / kBkW);
+        t_off = min(n - 1, (w_end - 1 - w.k_beg) / kBkW);
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+      float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+      float c0 = 1.0f, c1 = 1.0f;          // acc's scale before the next P V
+
+      // the kv positions each of the lane's two rows sees: [vlo, vhi)
+      const int vhi0 = causal ? min(skv, qp0 + 1) : skv;
+      const int vhi1 = causal ? min(skv, qp1 + 1) : skv;
+      const int vlo0 = window > 0 ? qp0 - window + 1 : -(1 << 30);
+      const int vlo1 = window > 0 ? qp1 - window + 1 : -(1 << 30);
+      // scale, mask (an edge tile only) and the online softmax of tile t on
+      // S's fragments (a row lives in one quad); P in place of the scores,
+      // (c0, c1) the factor the running sums take
+      auto softmax = [&](int t, float& c0n, float& c1n) {
+        const int k0 = w.k_beg + t * kBkW;
+        const bool edge = k0 + kBkW > skv ||
+                          (causal && k0 + kBkW - 1 > q_offset + wq_lo) ||
+                          (window > 0 && k0 <= q_offset + w_hi - window);
+        if (edge) {
+          // element (i, e) sits at kv position k0 + 2 ft + 8 i + (e & 1)
+          const int base = k0 + 2 * ft;
+          const int hi0 = vhi0 - base, hi1 = vhi1 - base;
+          const int lo0 = vlo0 - base, lo1 = vlo1 - base;
+#pragma unroll
+          for (int i = 0; i < kNs; ++i) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * i + (e & 1);
+              const bool ok = e < 2 ? (c < hi0) & (c >= lo0)
+                                    : (c < hi1) & (c >= lo1);
+              s[4 * i + e] = ok ? s[4 * i + e] * sl : kNeg;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kBkW / 2; ++i) s[i] *= sl;
+        }
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int i = 0; i < kNs; ++i) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+        mx0 = quad_max(mx0);
+        mx1 = quad_max(mx1);
+        c0n = hop::ex2(m0 - mx0);
+        c1n = hop::ex2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        l0 *= c0n;                         // each lane's share of the row sum
+        l1 *= c1n;
+#pragma unroll
+        for (int i = 0; i < kNs; ++i) {
+          s[4 * i] = hop::ex2(s[4 * i] - m0);
+          s[4 * i + 1] = hop::ex2(s[4 * i + 1] - m0);
+          s[4 * i + 2] = hop::ex2(s[4 * i + 2] - m1);
+          s[4 * i + 3] = hop::ex2(s[4 * i + 3] - m1);
+          l0 += s[4 * i] + s[4 * i + 1];
+          l1 += s[4 * i + 2] + s[4 * i + 3];
+        }
+      };
+      // acc's update around one tile's P V: scaled first, or at hd 64 the
+      // tile's own sum joined with one rounding per element
+      auto scale_acc = [&] {
+        if constexpr (!Tl::kTileAcc) {
+#pragma unroll
+          for (int i = 0; i < HD / 8; ++i) {
+            acc[4 * i] *= c0;
+            acc[4 * i + 1] *= c0;
+            acc[4 * i + 2] *= c1;
+            acc[4 * i + 3] *= c1;
+          }
+        }
+      };
+      auto join_acc = [&] {
+        if constexpr (Tl::kTileAcc) {
+#pragma unroll
+          for (int i = 0; i < HD / 8; ++i) {
+            acc[4 * i] = fmaf(acc[4 * i], c0, ta[4 * i]);
+            acc[4 * i + 1] = fmaf(acc[4 * i + 1], c0, ta[4 * i + 1]);
+            acc[4 * i + 2] = fmaf(acc[4 * i + 2], c1, ta[4 * i + 2]);
+            acc[4 * i + 3] = fmaf(acc[4 * i + 3], c1, ta[4 * i + 3]);
+          }
+        }
+      };
+      // a tile this warpgroup does not see: one turn, nothing issued
+      auto skip = [&](int t) {
+        hop::mbar_wait(&kv_full[stage(t)], parity(t));
+        turn_begin();
+        turn_end();
+        release(&k_empty[stage(t)]);
+        release(&v_empty[stage(t)]);
+      };
+
+      uint64_t* q_free = &q_empty[ic % kQBufs];
+      if (n > 0) {
+        hop::mbar_wait(&q_full[ic % kQBufs], (ic / kQBufs) & 1);
+        q_addr = q_base + (ic % kQBufs) * kCb * kQBlock;
+        if (t_on > t_off) release(q_free);           // Q is not needed
+      }
+      // n + 1 turns an item for every warpgroup: turn t issues S of tile t
+      // and P V of tile t - 1, so that the softmax of tile t overlaps the
+      // P V of tile t - 1
+      for (int t = 0; t < t_on; ++t) skip(t);
+      if (t_on <= t_off) {
+        // ---- turn t_on: S of the first tile alone
+        hop::mbar_wait(&kv_full[stage(t_on)], parity(t_on));
+        turn_begin();
+        hop::wg_fence();
+        issue_s(t_on);
+        turn_end();
+        hop::wg_wait_all();
+        hop::pin(s);
+        release(&k_empty[stage(t_on)]);
+        if (t_on == t_off) release(q_free);
+        softmax(t_on, c0, c1);
+        split_p<kNj>(s, p);
+        // ---- turns t_on + 1 .. t_off: S of tile t, P V of tile t - 1
+        for (int t = t_on + 1; t <= t_off; ++t) {
+          hop::mbar_wait(&kv_full[stage(t)], parity(t));   // V t - 1: before
+          scale_acc();
+          turn_begin();
+          pin_pv();
+          hop::wg_fence();
+          issue_s(t);
+          issue_pv_of(t - 1);
+          turn_end();
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          hop::pin(s);                      // S of tile t is in
+          release(&k_empty[stage(t)]);
+          if (t == t_off) release(q_free);
+          float c0n, c1n;
+          softmax(t, c0n, c1n);
+          // at hd 256 the softmax is issued before the wait, or ptxas sinks
+          // it past the wait and the long P V no longer hides it (measured
+          // faster at recurrentgemma's rows; slower at hd <= 128, where P V
+          // is short)
+          if constexpr (HD > 128) hop::issue_before_next(l0 + l1);
+          hop::wg_wait_all();
+          pin_pv();                         // P V of tile t - 1 is in
+          join_acc();
+          release(&v_empty[stage(t - 1)]);
+          split_p<kNj>(s, p);
+          c0 = c0n;
+          c1 = c1n;
+        }
+        // ---- turn t_off + 1: P V of the last tile alone
+        scale_acc();
+        turn_begin();
+        pin_pv();
+        hop::wg_fence();
+        issue_pv_of(t_off);
+        turn_end();
+        hop::wg_wait_all();
+        pin_pv();
+        join_acc();
+        release(&v_empty[stage(t_off)]);
+      } else {
+        turn_begin();                      // the (n + 1)-th turn
+        turn_end();
+      }
+      for (int t = t_off + 1; t < n; ++t) skip(t);
+      if (n > 0) {
+        it += n;
+        ++ic;
+      }
+
+      // ---- out = acc / l for the warpgroup's real rows
+      const float d0 = fmaxf(quad_sum(l0), 1e-30f);
+      const float d1 = fmaxf(quad_sum(l1), 1e-30f);
+      const int64_t row_stride = static_cast<int64_t>(h) * hd;
+      bf16* ob = out + (int64_t{w.bi} * sq) * row_stride +
+                 static_cast<int64_t>(w.head) * hd;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        const int ch = i * 8 + 2 * ft;
+        if (row0 < sq) {
+          store_pair<true>(ob + row0 * row_stride, ch, hd, acc[4 * i] / d0,
+                           acc[4 * i + 1] / d0);
+        }
+        if (row0 + 8 < sq) {
+          store_pair<true>(ob + (row0 + 8) * row_stride, ch, hd,
+                           acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
+        }
+      }
+    }
+    if (NWG == 2 && wg == 0) turn_wait(wg);   // warpgroup 1's last pass
+  }
+}
+
+// ---- tensor maps, built on the host per call
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (b, s, heads, hd) bf16 with element strides `st` (channel stride 1) as a
+// 4-d map over (hd, s, heads, b), read in boxes of 64 channels x `rows`
+// positions of one head, 128-byte swizzle; what lies past hd or s reads as
+// zeros. A dimension of size 1 is never stepped: its stride is set to a
+// valid one. Every stride in whole 16-byte units, as the wrapper's vec
+// build guarantees.
+bool encode_rows(CUtensorMap* map, const void* base, int b, int s, int heads,
+                 int hd, Strides st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(hd),
+                             static_cast<cuuint64_t>(s > 1 ? s : 1),
+                             static_cast<cuuint64_t>(heads),
+                             static_cast<cuuint64_t>(b)};
+  const int64_t elems[3] = {st.s, st.h, st.b};
+  cuuint64_t stride[3];
+  for (int i = 0; i < 3; ++i) {
+    const int64_t bytes = elems[i] * static_cast<int64_t>(sizeof(bf16));
+    stride[i] = dim[i + 1] == 1 && (bytes <= 0 || bytes % 16 != 0)
+                    ? 16
+                    : static_cast<cuuint64_t>(bytes);
+  }
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dim, stride, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int HD, int NWG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, Strides qs, Strides ks, Strides vs, int b,
+                         int sq, int skv, int h, int kvh, int hd, int causal,
+                         int window, int q_offset, float scale,
+                         cudaStream_t stream) {
+  constexpr int kQRows = kWgRows * NWG;
+  const int64_t items = int64_t{(sq + kQRows - 1) / kQRows} * h * b;
+  if (items > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  static int sms_of[kMaxDevices];       // SMs of each device, read once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int sms = sms_of[dev];
+  CUtensorMap tq, tk, tv;
+  if (!encode_rows(&tq, q, b, sq, h, hd, qs, kQRows) ||
+      !encode_rows(&tk, k, b, skv, kvh, hd, ks, WgTile<HD, NWG>::kBk) ||
+      !encode_rows(&tv, v, b, skv, kvh, hd, vs, WgTile<HD, NWG>::kBk)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = wgmma_smem_bytes<HD, NWG>();
+  auto kernel = flash_wgmma_kernel<HD, NWG>;
+  static bool smem_allowed[kMaxDevices];  // the opt-in, once a device
+  if (!smem_allowed[dev]) {
+    err = attn::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed[dev] = true;
+  }
+  // persistent: one block an SM walks items blockIdx.x, + gridDim.x, ...
+  const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
+  kernel<<<grid, 128 * (NWG + 1), smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), b, sq, skv, h, kvh, hd, causal,
+      window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -628,10 +1477,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // 1 and the given batch, sequence and head strides (elements); out (b, sq,
 // h, hd) contiguous. bf16 picks bf16 (1: tensor cores) or float32 (0: CUDA
 // cores) for all four. vec (bf16 only): 1 when hd % 8 == 0 and every
-// pointer and stride of q, k and v is in whole 16-byte units, for the
-// cp.async build; 0 takes element loads. q_offset (>= 0): query row i sits
-// at position q_offset + i. Requires h % kvh == 0, h / kvh <= 96 and hd <=
-// 128.
+// pointer and stride of q, k and v is in whole 16-byte units, for the TMA
+// and wgmma build; 0 takes element loads (mma.sync). rows (vec 1): query
+// positions a block, 128 (two consumer warpgroups) or 64 (one). q_offset
+// (>= 0): query row i sits at position q_offset + i. Requires h % kvh == 0,
+// h / kvh <= 96 and hd <= 256.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int b, int sq, int skv, int h,
                                int kvh, int hd, int64_t q_sb, int64_t q_ss,
@@ -639,20 +1489,34 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int64_t k_sh, int64_t v_sb, int64_t v_ss,
                                int64_t v_sh, int causal, int window,
                                int q_offset, float scale, int bf16, int vec,
-                               void* stream) {
+                               int rows, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bf16) {
+  if (bf16 && vec) {
+    if (rows != 64 && (rows != 128 || hd > 128)) return cudaErrorInvalidValue;
+    auto wg = [&](auto hdc) {
+      constexpr int HD = decltype(hdc)::value;
+      if constexpr (HD <= 128) {
+        if (rows == 128) {
+          return launch_wgmma<HD, 2>(q, k, v, out, qs, ks, vs, b, sq, skv, h,
+                                     kvh, hd, causal, window, q_offset, scale,
+                                     s);
+        }
+      }
+      return launch_wgmma<HD, 1>(q, k, v, out, qs, ks, vs, b, sq, skv, h, kvh,
+                                 hd, causal, window, q_offset, scale, s);
+    };
+    err = hd <= 64    ? wg(std::integral_constant<int, 64>{})
+          : hd <= 80  ? wg(std::integral_constant<int, 80>{})
+          : hd <= 128 ? wg(std::integral_constant<int, 128>{})
+                      : wg(std::integral_constant<int, 256>{});
+  } else if (bf16) {
     auto mma = [&](auto hdp) {
-      constexpr int HDP = decltype(hdp)::value;
-      return vec ? launch_mma<HDP, true>(q, k, v, out, qs, ks, vs, b, sq, skv,
-                                         h, kvh, hd, causal, window, q_offset,
-                                         scale, s)
-                 : launch_mma<HDP, false>(q, k, v, out, qs, ks, vs, b, sq,
-                                          skv, h, kvh, hd, causal, window,
-                                          q_offset, scale, s);
+      return launch_mma<decltype(hdp)::value>(q, k, v, out, qs, ks, vs, b, sq,
+                                              skv, h, kvh, hd, causal, window,
+                                              q_offset, scale, s);
     };
     err = hd <= 64    ? mma(std::integral_constant<int, 64>{})
           : hd <= 128 ? mma(std::integral_constant<int, 128>{})

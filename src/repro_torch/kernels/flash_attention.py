@@ -8,10 +8,12 @@ q (b, sq, h, hd) attends over k / v (b, skv, kvh, hd) with GQA (query head
 reference's top-left alignment, whatever sq and skv are) and ``kpos > qpos -
 window`` (``window > 0``). P-Tuning v2 attends with ``q_offset`` = its
 prefix length over ``[prefix | k]``. The CUDA kernel is
-``csrc/flash_attention.cu``: bf16 on the tensor cores (a cp.async build for
-rows in whole 16-byte units, an element-load build otherwise), float32 on
-the CUDA cores. The plain version below is the reference kernel's masked
-fp32 softmax in one piece.
+``csrc/flash_attention.cu``, in three builds (:data:`BUILDS` counts each
+one's launches): bf16 rows in whole 16-byte units run on wgmma with K/V
+staged by TMA (``wgmma_m128`` / ``wgmma_m64``: 128 or 64 query positions a
+block, :func:`tile_rows`), other bf16 rows on mma.sync with element loads
+(``mma``), float32 on the CUDA cores (``simt``). The plain version below is
+the reference kernel's masked fp32 softmax in one piece.
 
 Beside it, :func:`attention_chunked`: the reference's blockwise XLA
 attention (``repro.models.layers.attention_chunked``), plain PyTorch and
@@ -20,6 +22,7 @@ differentiable, where :func:`ops.flash_attention` sends a bidirectional
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -33,7 +36,8 @@ from repro_torch.kernels.decode_attention import NEG_INF
 
 NEG = -1e30          # the reference kernel's mask value
 MAX_G = 96           # query heads per KV head the kernel's tile can hold
-MAX_HD = 256         # hd padded to 64, 128 or 256 (recurrentgemma's)
+MAX_HD = 256         # recurrentgemma's; the bf16 builds take hd 64, 80 (danube,
+                     # hubert), 128 and 256 as they are, others padded up
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -217,7 +221,14 @@ def attention_chunked(q, k, v, *, causal, window=0, prefix_len=0,
 _FNS = {}
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L,
-             _I, _I, _I, ctypes.c_float, _I, _I, _P]
+             _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
+
+#: launches of the CUDA kernel by build since the module was loaded (never
+#: reset: a run reads the difference): ``wgmma_m128`` / ``wgmma_m64`` (bf16
+#: through TMA and wgmma, 128 or 64 query positions a block), ``mma`` (bf16
+#: with element loads, mma.sync), ``simt`` (float32)
+BUILDS: collections.Counter = collections.Counter()
+_SMS = {}
 
 
 def _lib():
@@ -232,15 +243,43 @@ def _lib():
 
 
 def _vec(hd, *xs) -> int:
-    """1 when the bf16 kernel may stage ``xs``' rows with 16-byte copies:
-    hd, every pointer and every batch, sequence and head stride in whole
-    16-byte units (8 bf16 elements; a dimension of size 1 is never
-    stepped, so its stride does not count)."""
+    """1 when the bf16 kernel may read ``xs``' rows by TMA (the wgmma
+    build): hd, every pointer and every batch, sequence and head stride in
+    whole 16-byte units (8 bf16 elements) and not 0 (a broadcast dimension
+    is no tensor map's; a dimension of size 1 is never stepped, so its
+    stride does not count)."""
     return int(hd % 8 == 0 and all(
         x.data_ptr() % 16 == 0 and all(
-            st % 8 == 0 or n == 1
+            (st % 8 == 0 and st > 0) or n == 1
             for st, n in zip(x.stride()[:3], x.shape[:3]))
         for x in xs))
+
+
+def tile_rows(b, sq, h, hd, sms) -> int:
+    """Query positions a work item of the bf16 TMA build takes: 128 (two
+    consumer warpgroups sharing each K/V tile) when 128-row tiles still
+    give each of the card's ``sms`` SMs an item, else 64, twice the items
+    (one prompt of 512 at 15 heads: 120, not 60); always 64 at hd > 128,
+    where a warpgroup's output accumulator leaves no registers for a
+    second."""
+    if hd > 128:
+        return 64
+    return 128 if -(-sq // 128) * h * b >= sms else 64
+
+
+def build_name(bf16: bool, vec: int, rows: int) -> str:
+    """The :data:`BUILDS` key of a launch."""
+    if not bf16:
+        return "simt"
+    return f"wgmma_m{rows}" if vec else "mma"
+
+
+def _sms(dev) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
@@ -281,13 +320,16 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, sm_scale=None,
     if out.numel() == 0:
         return out
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    bf16 = q.dtype == torch.bfloat16
+    vec = _vec(hd, q, k, v) if bf16 else 0
     with _on_device(dev):
+        rows = tile_rows(b, sq, h, hd, _sms(dev)) if vec else 64
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, sq, skv, h, kvh, hd, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], int(causal),
-                     int(window), int(q_offset), scale,
-                     int(q.dtype == torch.bfloat16), _vec(hd, q, k, v),
+                     int(window), int(q_offset), scale, int(bf16), vec, rows,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    BUILDS[build_name(bf16, vec, rows)] += 1
     return out

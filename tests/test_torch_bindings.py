@@ -135,6 +135,8 @@ VEC_CASES = {
                                   .as_strided((1, 9, 6, 64),
                                               (3, 384, 64, 1)),
                                   _bf16(1, 9, 2, 64)), 64, 1),
+    "broadcast_k_batch": ((_bf16(2, 9, 6, 64),
+                           _bf16(1, 9, 2, 64).expand(2, 9, 2, 64)), 64, 0),
 }
 
 
@@ -143,3 +145,31 @@ def test_flash_vec_build_choice(case):
     xs, hd, want = VEC_CASES[case]
     assert flash_attention._vec(hd, *xs) == want
 
+
+
+# ---------------------------------------------------------------------------
+# the flash kernel's wgmma build: query rows a block by grid size
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b, sq, h, hd, sms, want", [
+    (16, 512, 15, 64, 132, 128),     # smollm's static prefill: 960 tiles
+    (1, 512, 15, 64, 132, 64),       # one prompt: 60 tiles of 128 rows
+    (8, 384, 16, 64, 132, 128),      # the encoders' batch
+    (8, 512, 16, 80, 132, 128),      # hubert's frames
+    (1, 6144, 32, 80, 132, 128),     # danube's long prompt
+    (16, 512, 32, 128, 132, 128),    # qwen3-moe's static prefill
+    (4, 3072, 16, 256, 132, 64),     # hd 256: one warpgroup a block
+    (1, 128, 132, 64, 132, 128),     # exactly one 128-row tile an SM
+    (1, 128, 131, 64, 132, 64),      # one short
+    (1, 129, 66, 64, 132, 128),      # two tiles a head
+    (2, 127, 15, 64, 132, 64),
+])
+def test_flash_tile_rows(b, sq, h, hd, sms, want):
+    assert flash_attention.tile_rows(b, sq, h, hd, sms) == want
+
+
+@pytest.mark.parametrize("bf16, vec, rows, want", [
+    (True, 1, 128, "wgmma_m128"), (True, 1, 64, "wgmma_m64"),
+    (True, 0, 64, "mma"), (False, 0, 64, "simt")])
+def test_flash_build_name(bf16, vec, rows, want):
+    assert flash_attention.build_name(bf16, vec, rows) == want

@@ -1,16 +1,16 @@
 """The pure-Python gates of the port's card scripts, on the CPU: phase 2's
-check of the redesigned kernels' ptxas output (flash_mma_kernel,
-decode_split_kernel, ragged_split_kernel, aot_gather_add_kernel), phase
-6's comparison of kernel logits with the plain versions' (near ties),
-phase 6's swap of the kernel wrappers in ``ops`` for the plain versions,
-phases 5e-5g's gates and replayed schedules, and phase 7's gates (the
-loss drop, the frozen backbone, fused against reparametrized) and 7c's
-stream replayed, and phase 8's on a reduced encoder (the launch
+check of the redesigned kernels' ptxas output (flash_wgmma_kernel,
+flash_mma_kernel, decode_split_kernel, ragged_split_kernel,
+aot_gather_add_kernel), phase 6's comparison of kernel logits with the plain
+versions' (near ties), phase 6's swap of the kernel wrappers in ``ops`` for
+the plain versions, phases 5e-5g's gates and replayed schedules, and phase
+7's gates (the loss drop, the frozen backbone, fused against reparametrized)
+and 7c's stream replayed, and phase 8's on a reduced encoder (the launch
 arithmetic, the multi-task batch bitwise the single table, the served
 classifier's gate and its zeroed control), and phase 10's rule for a
 stream's tokens against its prompts served alone (the first difference a
-near tie) on a reduced sliding-window stream. The phases themselves need
-the card (chip_smoke.py)."""
+near tie) on a reduced sliding-window stream. The phases themselves need the
+card (chip_smoke.py)."""
 
 import importlib.util
 import inspect
@@ -31,7 +31,7 @@ def _load(name):
 
 cs = _load("chip_smoke")
 
-FLASH = "_ZN12_GLOBAL__N_116flash_mma_kernelILi64ELb1EEEvPKT_"
+FLASH = "_ZN12_GLOBAL__N_116flash_mma_kernelILi64EEEvPK13__nv_bfloat16"
 DECODE = ("_ZN12_GLOBAL__N_119decode_split_kernelI13__nv_bfloat16Lb1ELi64ELi4E"
           "Lb1EEEvv")
 RAGGED = ("_ZN12_GLOBAL__N_119ragged_split_kernelI13__nv_bfloat16Lb1ELi64ELi4E"
@@ -50,33 +50,52 @@ def _ptxas(name, regs, spill):
 # paged decode's wide walk at hd 256 (phase 2 requires every instance)
 WIDE = "".join(_ptxas(f"_ZN12_GLOBAL__N_119decode_split_kernel{a}EvPKT_",
                       120, 0) for a in cs.WIDE_PAGED)
+# the wgmma flash's instances (phase 2 requires every one)
+WGMMA = [f"_ZN12_GLOBAL__N_118flash_wgmma_kernel{a}Ev14CUtensorMap_st"
+         for a in cs.FLASH_WGMMA]
+FLASH_ALL = _ptxas(FLASH, 168, 0) + "".join(_ptxas(n, 168, 0) for n in WGMMA)
 
 LOGS = {
-    "clean": ({"flash_attention": _ptxas(FLASH, 168, 0),
+    "clean": ({"flash_attention": FLASH_ALL,
                "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
                + _ptxas(RAGGED, 168, 0)}, None),
-    "spill": ({"flash_attention": _ptxas(FLASH, 255, 40),
+    "spill": ({"flash_attention": _ptxas(FLASH, 255, 40)
+               + "".join(_ptxas(n, 168, 0) for n in WGMMA),
                "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
                + _ptxas(RAGGED, 168, 0)}, "spill"),
-    "spill_ragged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+    "spill_ragged": ({"flash_attention": FLASH_ALL,
                       "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
                       + _ptxas(RAGGED, 128, 16)}, "spill"),
-    "spill_wide_paged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+    "spill_wide_paged": ({"flash_attention": FLASH_ALL,
                           "decode_attention": _ptxas(DECODE, 72, 0)
                           + WIDE.replace("0 bytes spill", "8 bytes spill", 1)
                           + _ptxas(RAGGED, 168, 0)}, "spill"),
-    "missing": ({"flash_attention": _ptxas(FLASH, 168, 0),
+    "missing": ({"flash_attention": FLASH_ALL,
                  "decode_attention": _ptxas("other_kernel", 40, 0)},
                 "missing"),
-    "missing_ragged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+    "missing_ragged": ({"flash_attention": FLASH_ALL,
                         "decode_attention": _ptxas(DECODE, 72, 0) + WIDE},
                        "missing"),
-    "missing_wide_paged": ({"flash_attention": _ptxas(FLASH, 168, 0),
+    "missing_wide_paged": ({"flash_attention": FLASH_ALL,
                             "decode_attention": _ptxas(DECODE, 72, 0)
                             + _ptxas(RAGGED, 168, 0)},
                            "missing.*Li256ELi4ELb1EE"),
     "cached": ({"flash_attention": "cached",
                 "decode_attention": "cached"}, None),
+    "spill_wgmma": ({"flash_attention": _ptxas(FLASH, 168, 0)
+                     + "".join(_ptxas(n, 168, 24 if i == 3 else 0)
+                               for i, n in enumerate(WGMMA)),
+                     "decode_attention": "cached"}, "spill"),
+    "missing_wgmma": ({"flash_attention": _ptxas(FLASH, 168, 0),
+                       "decode_attention": "cached"},
+                      "missing.*flash_wgmma_kernelILi64ELi1EE"),
+    "missing_one_wgmma": ({"flash_attention": _ptxas(FLASH, 168, 0)
+                           + "".join(_ptxas(n, 168, 0) for n in WGMMA[:-1]),
+                           "decode_attention": "cached"},
+                          "missing.*flash_wgmma_kernelILi256ELi1EE"),
+    "cached_flash": ({"flash_attention": "cached",
+                      "decode_attention": _ptxas(DECODE, 72, 0) + WIDE
+                      + _ptxas(RAGGED, 168, 0)}, None),
     "gather_norm": ({"flash_attention": "cached",
                      "decode_attention": "cached",
                      "aot_gather_add": _ptxas(GATHER, 30, 0)}, None),
@@ -104,8 +123,14 @@ def test_phase2_refuses_spills_of_redesigned_kernels(case):
     elif case == "gather_norm":
         assert new == {"aot_gather_add_kernel":
                        ["I13__nv_bfloat16S1_Lb1ELb1ELNS_4ModeE1EE:30r/0s"]}
+    elif case == "cached_flash":
+        assert "flash_wgmma_kernel" not in new
+        assert new["ragged_split_kernel"] == [
+            "I13__nv_bfloat16Lb1ELi64ELi4EE:168r/0s"]
     else:
-        assert new == {"flash_mma_kernel": ["ILi64ELb1EE:168r/0s"],
+        assert new == {"flash_mma_kernel": ["ILi64EE:168r/0s"],
+                       "flash_wgmma_kernel": [f"{a}:168r/0s"
+                                              for a in cs.FLASH_WGMMA],
                        "decode_split_kernel":
                            ["I13__nv_bfloat16Lb1ELi64ELi4ELb1EE:72r/0s"]
                            + [f"{a}:120r/0s" for a in cs.WIDE_PAGED],
